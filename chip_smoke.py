@@ -10,16 +10,24 @@ Phases (each prints its seconds; any failure exits non-zero):
   2. build    — compile every kernel from ``src/repro_torch/kernels/csrc``
                 with nvcc (all sources at once) and print the build seconds.
   3. kernels  — on a real full-size feti-heat-2d factor (S=64, n=4225 ->
-                n_pad=4352, m=258 -> m_pad=384, bs=bm=128, f64): each kernel
-                against its plain torch version (max relative difference
-                <= 1e-11), timed with CUDA events (median) beside the plain
-                version, a one-call library yardstick (kernels/ref.py: one
-                full triangular solve, one batched product) and the card's
-                bound.
-  4. main     — ``repro_torch.launch.solve_feti.main(["--arch",
-                "feti-heat-2d", "--kernels", "--validate"])`` at full size:
-                exit 0 (converged, within 1e-6 of the global sparse solve)
-                with both kernels' launch counters > 0.
+                n_pad=4352, m=258 -> m_pad=384, bs=bm=128, f64) and its
+                packed form in the fill-mask layout, each of the five
+                kernels against its plain torch version (max relative
+                difference <= 1e-11), against its unfused or dense twin
+                (the packed TRSM against the dense one; a fused kernel
+                against TRSM then SYRK; <= 1e-11) and against the library
+                calls of kernels/ref.py (one full triangular solve on the
+                unpacked factor, one batched product; <= 1e-9). Each is
+                timed with CUDA events (median) beside its plain version,
+                its library call(s) and the card's bound.
+  4. main     — ``repro_torch.launch.solve_feti.main`` at full size, four
+                times: ``--kernels``, ``--storage packed --kernels``,
+                ``--fused`` and ``--storage packed --fused``, each with
+                ``--validate``. Each must exit 0 (converged, within 1e-6 of
+                the global sparse solve), launch every kernel of its path
+                and take a PCPG iteration count within one of the dense
+                run's; the packed ``--kernels`` run's peak device memory
+                must be at most half of the dense run's.
 
 Then one JSON line with the kernels' numbers and, last, the device line.
 The port imports no JAX and nothing of the ``repro`` package.
@@ -27,6 +35,7 @@ The port imports no JAX and nothing of the ``repro`` package.
 from __future__ import annotations
 
 import contextlib
+import gc
 import io
 import json
 import os
@@ -38,13 +47,43 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 ARCH = "feti-heat-2d"
-REL_TOL = 1e-11  # kernel vs plain version, f64: sums in another order
+REL_TOL = 1e-11  # kernel vs plain version or twin, f64: sums in another order
 LIB_TOL = 1e-9  # kernel vs the library call: another algorithm (full TRSM)
 # NVIDIA H100 SXM data sheet, dense: FP64 through the tensor cores (DMMA);
 # plain FP64 FMA peaks at half of it. Both assume the 700 W power limit.
 PEAK_FP64_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 REPS = 5
+
+# (name, launcher flags, the kernels its path must launch)
+MAIN_RUNS = (
+    ("dense --kernels", ["--kernels"], ("stepped_trsm", "stepped_syrk")),
+    ("packed --kernels", ["--storage", "packed", "--kernels"],
+     ("stepped_trsm_packed", "stepped_syrk")),
+    ("dense --fused", ["--fused"], ("stepped_trsm_syrk",)),
+    ("packed --fused", ["--storage", "packed", "--fused"],
+     ("stepped_trsm_syrk_packed",)),
+)
+# the main-path run whose launch count each kernel reports
+LAUNCHES_FROM = {"stepped_trsm": "dense --kernels",
+                 "stepped_syrk": "dense --kernels",
+                 "stepped_trsm_packed": "packed --kernels",
+                 "stepped_trsm_syrk": "dense --fused",
+                 "stepped_trsm_syrk_packed": "packed --fused"}
+F_KERNELS = ("stepped_syrk", "stepped_trsm_syrk", "stepped_trsm_syrk_packed")
+SOURCES = {
+    "stepped_trsm": ("src/repro_torch/kernels/csrc/stepped_trsm.cu",
+                     "src/repro/kernels/stepped_trsm.py:66"),
+    "stepped_syrk": ("src/repro_torch/kernels/csrc/stepped_syrk.cu",
+                     "src/repro/kernels/stepped_syrk.py:60"),
+    "stepped_trsm_packed": ("src/repro_torch/kernels/csrc/stepped_trsm.cu",
+                            "src/repro/kernels/stepped_trsm.py:136"),
+    "stepped_trsm_syrk": ("src/repro_torch/kernels/csrc/stepped_trsm_syrk.cu",
+                          "src/repro/kernels/stepped_trsm_syrk.py:145"),
+    "stepped_trsm_syrk_packed": (
+        "src/repro_torch/kernels/csrc/stepped_trsm_syrk.cu",
+        "src/repro/kernels/stepped_trsm_syrk.py:186"),
+}
 
 
 def phase(name):
@@ -81,8 +120,9 @@ def compare(got, want):
 
 
 def kernel_inputs(device):
-    """The stepped TRSM/SYRK operands the main path builds, from a real
-    full-size factorization (implicit mode: no assembly, no kernel)."""
+    """The stepped operands the main paths build, from a real full-size
+    factorization (implicit mode: no assembly, no kernel), and the same
+    factor packed in the fill-mask layout."""
     import torch
 
     from repro_torch.configs import get_config
@@ -90,6 +130,7 @@ def kernel_inputs(device):
     from repro_torch.fem import decompose_problem
     from repro_torch.feti import FetiConfig, preprocess_cluster
     from repro_torch.kernels import ops
+    from repro_torch.sparse import pack_factor
 
     fc = get_config(ARCH)
     t0 = time.perf_counter()
@@ -107,6 +148,7 @@ def kernel_inputs(device):
     bs, bm = env.block_size, env.rhs_block_size
     n_pad, m_pad = -(-env.n // bs) * bs, -(-env.m // bm) * bm
     S = st.S
+    packed = pack_factor(st.L, st.index)
     Bpp = torch.gather(st.Btp, 2, st.col_perm[:, None, :].expand_as(st.Btp))
     Lp = ops.pad_factor(st.L, n_pad)
     del st
@@ -114,32 +156,66 @@ def kernel_inputs(device):
     del Bpp
     starts_np = ops._start_blocks(env, bm, bs, m_pad, n_pad)
     starts = torch.as_tensor(starts_np, device=device)
-    Linv = ops.invert_diag_blocks(Lp, bs)
     torch.cuda.synchronize()
     return dict(S=S, env=env, bs=bs, bm=bm, n_pad=n_pad, m_pad=m_pad,
-                Lp=Lp, Bp=Bp, Linv=Linv, starts=starts, starts_np=starts_np)
+                Lp=Lp, Bp=Bp, Linv=ops.invert_diag_blocks(Lp, bs),
+                packed=packed, packed_ops=ops._packed_operands(packed, env),
+                starts=starts, starts_np=starts_np)
+
+
+def _packed_walk(x):
+    """FLOPs and factor bytes of the packed TRSM's walk on this run's
+    data: per stripe, rows k >= start, the stored off-diagonal slots with
+    block column >= start (2 r_k r_j w each) and the diagonal triangular
+    solve (r_k^2 w); w is the stripe's real column count, r_k a block's
+    real row count. The factor bytes count every slot some stripe walks,
+    once."""
+    env, index = x["env"], x["packed"].index
+    bs, n = x["bs"], env.n
+    rows = [min(bs, n - k * bs) for k in range(index.nb)]
+    flops = 0
+    walked = set()
+    for c, start in enumerate(int(s) for s in x["starts_np"]):
+        c0, c1 = env.col_block(c) if c < env.num_col_blocks else (0, 0)
+        w = c1 - c0
+        for k in range(start, index.nb):
+            flops += rows[k] * rows[k] * w
+            for j, t in index.row_slots(k):
+                if j >= start:
+                    flops += 2 * rows[k] * rows[j] * w
+                    walked.add(t)
+    return x["S"] * flops, 8 * x["S"] * len(walked) * bs * bs
 
 
 def bounds(x):
     """Least card time (ms) of each kernel's work on this run's inputs: the
     larger of its f64 operations over the FP64 peak and the bytes it must
     move (each input read once, each output written once) over the memory
-    rate. Operations come from the repo's FLOP model of the schedule."""
+    rate. Operations come from the repo's FLOP model of the schedule, or,
+    for the packed TRSM, from the stored slots it walks. A fused kernel
+    need not move Y: its bytes are factor + Linv + B + F."""
     S, bs, bm, n_pad, m_pad = x["S"], x["bs"], x["bm"], x["n_pad"], x["m_pad"]
     env, starts = x["env"], [int(s) for s in x["starts_np"]]
     nb = n_pad // bs
-    s0 = min(starts)
-    rows_from = nb - s0
-    trsm_bytes = 8 * S * (bs * bs * rows_from * (rows_from + 1) // 2  # L
-                          + bs * bs * rows_from  # Linv
-                          + sum((nb - s) * bs * bm for s in starts)  # B
-                          + n_pad * m_pad)  # Y
-    syrk_bytes = 8 * S * (sum((nb - s) * bs * bm for s in starts)  # Y
-                          + m_pad * m_pad)  # F
+    rows_from = nb - min(starts)
+    dense_L = 8 * S * bs * bs * rows_from * (rows_from + 1) // 2
+    linv = 8 * S * bs * bs * rows_from
+    B = 8 * S * sum((nb - s) * bs * bm for s in starts)
+    Y = 8 * S * n_pad * m_pad
+    F = 8 * S * m_pad * m_pad
+    trsm = S * env.flops_trsm_rhs_split()
+    syrk = S * env.flops_syrk_output_split()
+    packed_flops, packed_L = _packed_walk(x)
+    work = {
+        "stepped_trsm": (trsm, dense_L + linv + B + Y),
+        "stepped_syrk": (syrk, B + F),  # Y below each start, read once
+        "stepped_trsm_packed": (packed_flops, packed_L + linv + B + Y),
+        "stepped_trsm_syrk": (trsm + syrk, dense_L + linv + B + F),
+        "stepped_trsm_syrk_packed": (packed_flops + syrk,
+                                     packed_L + linv + B + F),
+    }
     out = {}
-    for name, flops, nbytes in (
-            ("stepped_trsm", S * env.flops_trsm_rhs_split(), trsm_bytes),
-            ("stepped_syrk", S * env.flops_syrk_output_split(), syrk_bytes)):
+    for name, (flops, nbytes) in work.items():
         t_ops = flops / PEAK_FP64_FLOPS * 1e3
         t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
         out[name] = dict(flops=flops, bytes=nbytes,
@@ -148,7 +224,14 @@ def bounds(x):
     return out
 
 
+def upper_tiles_zero(F, bm, m_pad):
+    return all(bool((F[:, i * bm:(i + 1) * bm, (i + 1) * bm:] == 0).all())
+               for i in range(m_pad // bm))
+
+
 def check_kernels(x):
+    """Hold each kernel against its plain version, its twin and the library
+    call(s), then time it. Returns the JSON rows (without launches)."""
     import torch
 
     from repro_torch.kernels import (
@@ -156,96 +239,136 @@ def check_kernels(x):
         stepped_syrk_kernel,
         stepped_syrk_plain,
         stepped_trsm_kernel,
+        stepped_trsm_packed_kernel,
+        stepped_trsm_packed_plain,
         stepped_trsm_plain,
+        stepped_trsm_syrk_kernel,
+        stepped_trsm_syrk_packed_kernel,
+        stepped_trsm_syrk_packed_plain,
+        stepped_trsm_syrk_plain,
     )
     from repro_torch.kernels.ref import syrk_ref, trsm_ref
 
-    bs, bm = x["bs"], x["bm"]
-    Linv, Lp, Bp, starts = x["Linv"], x["Lp"], x["Bp"], x["starts"]
-    print(f"[chip_smoke] shapes: S={x['S']} n_pad={x['n_pad']} "
-          f"m_pad={x['m_pad']} bs={bs} bm={bm} start_block={x['starts_np'].tolist()}",
+    bs, bm, n_pad, m_pad = x["bs"], x["bm"], x["n_pad"], x["m_pad"]
+    Bp, starts = x["Bp"], x["starts"]
+    dense = (x["Linv"], x["Lp"])
+    packed = x["packed_ops"]
+    index = x["packed"].index
+    print(f"[chip_smoke] shapes: S={x['S']} n_pad={n_pad} m_pad={m_pad} "
+          f"bs={bs} bm={bm} start_block={x['starts_np'].tolist()} packed "
+          f"blocks={index.n_blocks}/{index.nb * (index.nb + 1) // 2}",
           flush=True)
     bnd = bounds(x)
+    # the library yardsticks: one full triangular solve on the dense factor
+    # and on the unpacked packed one, one batched product
+    Lu = ops.pad_factor(x["packed"].unpack(), n_pad)
+    lib = {
+        "stepped_trsm": lambda: trsm_ref(x["Lp"], Bp),
+        "stepped_syrk": None,  # set once Y exists: syrk_ref(Y)
+        "stepped_trsm_packed": lambda: trsm_ref(Lu, Bp),
+        "stepped_trsm_syrk": lambda: syrk_ref(trsm_ref(x["Lp"], Bp)),
+        "stepped_trsm_syrk_packed": lambda: syrk_ref(trsm_ref(Lu, Bp)),
+    }
+    lib_names = {
+        "stepped_trsm": "torch.linalg.solve_triangular (full padded)",
+        "stepped_syrk": "bmm-based Y^T Y",
+        "stepped_trsm_packed": "torch.linalg.solve_triangular on the "
+                               "unpacked factor",
+        "stepped_trsm_syrk": "solve_triangular then Y^T Y",
+        "stepped_trsm_syrk_packed": "solve_triangular on the unpacked "
+                                    "factor then Y^T Y",
+    }
+    Y = stepped_trsm_kernel(*dense, Bp, starts, bs, bm)
+    torch.cuda.synchronize()
+    lib["stepped_syrk"] = lambda: syrk_ref(Y)
+    kernels = {
+        "stepped_trsm": (lambda: stepped_trsm_kernel(*dense, Bp, starts, bs, bm),
+                         lambda: stepped_trsm_plain(*dense, Bp, starts, bs, bm),
+                         None),
+        "stepped_syrk": (lambda: stepped_syrk_kernel(Y, starts, bs, bm),
+                         lambda: stepped_syrk_plain(Y, starts, bs, bm), None),
+        "stepped_trsm_packed": (
+            lambda: stepped_trsm_packed_kernel(*packed, Bp, starts, bs, bm),
+            lambda: stepped_trsm_packed_plain(*packed, Bp, starts, bs, bm),
+            lambda: Y),
+        "stepped_trsm_syrk": (
+            lambda: stepped_trsm_syrk_kernel(*dense, Bp, starts, bs, bm),
+            lambda: stepped_trsm_syrk_plain(*dense, Bp, starts, bs, bm),
+            lambda: stepped_syrk_kernel(Y, starts, bs, bm)),
+        "stepped_trsm_syrk_packed": (
+            lambda: stepped_trsm_syrk_packed_kernel(*packed, Bp, starts, bs,
+                                                    bm),
+            lambda: stepped_trsm_syrk_packed_plain(*packed, Bp, starts, bs, bm),
+            lambda: stepped_syrk_kernel(
+                stepped_trsm_packed_kernel(*packed, Bp, starts, bs, bm),
+                starts, bs, bm)),
+    }
     rows = []
-
-    Y = stepped_trsm_kernel(Linv, Lp, Bp, starts, bs, bm)
-    torch.cuda.synchronize()
-    Y_plain = stepped_trsm_plain(Linv, Lp, Bp, starts, bs, bm)
-    abs_err, rel_err = compare(Y, Y_plain)
-    _, lib_err = compare(Y, trsm_ref(Lp, Bp))
-    print(f"[chip_smoke] stepped_trsm: max|Y|={Y.abs().max().item():.3e} "
-          f"nonzeros={int((Y != 0).sum())} max|kernel-plain|={abs_err:.3e} "
-          f"rel={rel_err:.3e} rel vs library={lib_err:.3e}", flush=True)
-    if not (rel_err <= REL_TOL and lib_err <= LIB_TOL
-            and torch.isfinite(Y).all()):
-        raise SystemExit(f"stepped_trsm disagrees: rel {rel_err:.3e} to its "
-                         f"plain version, {lib_err:.3e} to the library")
-    del Y_plain
-    ms = cuda_ms(lambda: stepped_trsm_kernel(Linv, Lp, Bp, starts, bs, bm))
-    plain_ms = cuda_ms(lambda: stepped_trsm_plain(Linv, Lp, Bp, starts, bs, bm))
-    library_ms = cuda_ms(lambda: trsm_ref(Lp, Bp))
-    rows.append(dict(
-        name="stepped_trsm", route="cuda",
-        source="src/repro_torch/kernels/csrc/stepped_trsm.cu",
-        replaces="src/repro/kernels/stepped_trsm.py:66",
-        tpu_kernel="src/repro/kernels/stepped_trsm.py:stepped_trsm_pallas",
-        max_abs_err=abs_err, max_rel_err=rel_err, ms=ms, plain_ms=plain_ms,
-        library_ms=library_ms, bound_ms=bnd["stepped_trsm"]["bound_ms"],
-        bound_by=bnd["stepped_trsm"]["bound_by"]))
-
-    F = stepped_syrk_kernel(Y, starts, bs, bm)
-    torch.cuda.synchronize()
-    F_plain = stepped_syrk_plain(Y, starts, bs, bm)
-    abs_err, rel_err = compare(F, F_plain)
-    m_pad = x["m_pad"]
-    upper_zero = all(
-        bool((F[:, i * bm:(i + 1) * bm, (i + 1) * bm:] == 0).all())
-        for i in range(m_pad // bm))
-    _, lib_err = compare(ops._mirror_lower(F, bm, m_pad, m_pad), syrk_ref(Y))
-    print(f"[chip_smoke] stepped_syrk: max|F|={F.abs().max().item():.3e} "
-          f"max|kernel-plain|={abs_err:.3e} rel={rel_err:.3e} rel vs "
-          f"library={lib_err:.3e} upper tiles zero={upper_zero}", flush=True)
-    if not (rel_err <= REL_TOL and lib_err <= LIB_TOL and upper_zero
-            and torch.isfinite(F).all()):
-        raise SystemExit(f"stepped_syrk disagrees: rel {rel_err:.3e} to its "
-                         f"plain version, {lib_err:.3e} to the library, or "
-                         f"upper tiles nonzero")
-    del F_plain
-    ms = cuda_ms(lambda: stepped_syrk_kernel(Y, starts, bs, bm))
-    plain_ms = cuda_ms(lambda: stepped_syrk_plain(Y, starts, bs, bm))
-    library_ms = cuda_ms(lambda: syrk_ref(Y))
-    rows.append(dict(
-        name="stepped_syrk", route="cuda",
-        source="src/repro_torch/kernels/csrc/stepped_syrk.cu",
-        replaces="src/repro/kernels/stepped_syrk.py:60",
-        tpu_kernel="src/repro/kernels/stepped_syrk.py:stepped_syrk_pallas",
-        max_abs_err=abs_err, max_rel_err=rel_err, ms=ms, plain_ms=plain_ms,
-        library_ms=library_ms, bound_ms=bnd["stepped_syrk"]["bound_ms"],
-        bound_by=bnd["stepped_syrk"]["bound_by"]))
-    for r in rows:
-        b = bnd[r["name"]]
-        print(f"[chip_smoke] {r['name']}: {r['ms']:.3f} ms (plain "
-              f"{r['plain_ms']:.3f}, library {r['library_ms']:.3f}, bound "
-              f"{r['bound_ms']:.3f} by {r['bound_by']}: {b['flops']:.4e} f64 "
-              f"flop at {PEAK_FP64_FLOPS / 1e12:g} TFLOP/s, {b['bytes']:.4e} B "
-              f"at {PEAK_BYTES_PER_S / 1e12:g} TB/s)", flush=True)
+    for name, (kernel, plain, twin) in kernels.items():
+        got = kernel()
+        torch.cuda.synchronize()
+        abs_err, rel_err = compare(got, plain())
+        twin_err = compare(got, twin())[1] if twin is not None else 0.0
+        is_F = name in F_KERNELS
+        full = ops._mirror_lower(got, bm, m_pad, m_pad) if is_F else got
+        lib_err = compare(full, lib[name]())[1]
+        zero_ok = upper_tiles_zero(got, bm, m_pad) if is_F else True
+        print(f"[chip_smoke] {name}: max|out|={got.abs().max().item():.3e} "
+              f"max|kernel-plain|={abs_err:.3e} rel={rel_err:.3e} rel vs "
+              f"twin={twin_err:.3e} rel vs library={lib_err:.3e}"
+              + (f" upper tiles zero={zero_ok}" if is_F else ""), flush=True)
+        if not (rel_err <= REL_TOL and twin_err <= REL_TOL
+                and lib_err <= LIB_TOL and zero_ok
+                and bool(torch.isfinite(got).all())):
+            raise SystemExit(f"{name} disagrees: rel {rel_err:.3e} to its "
+                             f"plain version, {twin_err:.3e} to its twin, "
+                             f"{lib_err:.3e} to the library, upper tiles "
+                             f"zero={zero_ok}")
+        del got, full
+        ms = cuda_ms(kernel)
+        plain_ms = cuda_ms(plain)
+        library_ms = cuda_ms(lib[name])
+        source, replaces = SOURCES[name]
+        b = bnd[name]
+        rows.append(dict(
+            name=name, route="cuda", source=source, replaces=replaces,
+            max_abs_err=abs_err, max_rel_err=rel_err, twin_rel_err=twin_err,
+            library_rel_err=lib_err, ms=ms, plain_ms=plain_ms,
+            library_ms=library_ms, library_call=lib_names[name],
+            bound_ms=b["bound_ms"], bound_by=b["bound_by"]))
+        print(f"[chip_smoke] {name}: {ms:.3f} ms (plain {plain_ms:.3f}, "
+              f"library {library_ms:.3f}, bound {b['bound_ms']:.3f} by "
+              f"{b['bound_by']}: {b['flops']:.4e} f64 flop at "
+              f"{PEAK_FP64_FLOPS / 1e12:g} TFLOP/s, {b['bytes']:.4e} B at "
+              f"{PEAK_BYTES_PER_S / 1e12:g} TB/s)", flush=True)
     return rows
 
 
-def run_main_path():
-    """Drive the launcher at full size with the kernels; returns the launch
-    counts of this run and the launcher's output."""
-    from repro_torch.kernels import stepped_syrk_kernel, stepped_trsm_kernel
+def _counters():
+    from repro_torch import kernels
+
+    return {name: getattr(kernels, f"{name}_kernel") for name in SOURCES}
+
+
+def run_main_path(name, flags, path_kernels):
+    """Drive the launcher at full size; returns this run's launch counts,
+    iteration count and peak device memory."""
+    import torch
+
     from repro_torch.launch import solve_feti
 
-    argv = ["--arch", ARCH, "--kernels", "--validate"]
-    stepped_trsm_kernel.launches = 0
-    stepped_syrk_kernel.launches = 0
+    argv = ["--arch", ARCH, *flags, "--validate"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    counters = _counters()
+    for fn in counters.values():
+        fn.launches = 0
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         rc = solve_feti.main(argv)
-    launches = {"stepped_trsm": stepped_trsm_kernel.launches,
-                "stepped_syrk": stepped_syrk_kernel.launches}
+    launches = {k: fn.launches for k, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
     out = buf.getvalue()
     print(out, end="", flush=True)
     if rc != 0:
@@ -254,16 +377,21 @@ def run_main_path():
     m_err = re.search(r"rel err vs global solve: (\S+)", out)
     m_time = re.search(r"preprocess=(\S+)s solve=(\S+)s", out)
     if not (m_iters and m_err and m_time) or m_iters.group(3) != "True":
-        raise SystemExit("solve_feti did not report a converged, validated solve")
+        raise SystemExit(f"{name}: solve_feti did not report a converged, "
+                         f"validated solve")
     err = float(m_err.group(1))
     if not err <= 1e-6:
-        raise SystemExit(f"relative error {err:.3e} > 1e-6")
-    if min(launches.values()) < 1:
-        raise SystemExit(f"the main path did not launch every kernel: {launches}")
-    print(f"[chip_smoke] main path: iterations={m_iters.group(1)} "
+        raise SystemExit(f"{name}: relative error {err:.3e} > 1e-6")
+    missing = [k for k in path_kernels if launches[k] < 1]
+    if missing:
+        raise SystemExit(f"{name}: the path did not launch {missing}: "
+                         f"{launches}")
+    print(f"[chip_smoke] main path {name}: iterations={m_iters.group(1)} "
           f"rel_err={err:.3e} preprocess_s={m_time.group(1)} "
-          f"solve_s={m_time.group(2)} launches={launches}", flush=True)
-    return launches
+          f"solve_s={m_time.group(2)} peak_device_bytes={peak:,} "
+          f"launches={ {k: launches[k] for k in path_kernels} }", flush=True)
+    return dict(launches=launches, iterations=int(m_iters.group(1)),
+                peak=peak)
 
 
 def main() -> int:
@@ -307,15 +435,30 @@ def main() -> int:
     x = kernel_inputs(device)
     rows = check_kernels(x)
     del x
+    gc.collect()
     torch.cuda.empty_cache()
     done("kernels", t0)
 
     t0 = phase("main")
-    launches = run_main_path()
+    runs = {}
+    for name, flags, path_kernels in MAIN_RUNS:
+        runs[name] = run_main_path(name, flags, path_kernels)
+    base = runs["dense --kernels"]
+    for name, r in runs.items():
+        if abs(r["iterations"] - base["iterations"]) > 1:
+            raise SystemExit(f"{name}: {r['iterations']} iterations, the "
+                             f"dense run took {base['iterations']}")
+    ratio = runs["packed --kernels"]["peak"] / base["peak"]
+    print(f"[chip_smoke] peak device memory, packed / dense --kernels: "
+          f"{runs['packed --kernels']['peak']:,} / {base['peak']:,} = "
+          f"{ratio:.3f}", flush=True)
+    if ratio > 0.5:
+        raise SystemExit("the packed run's peak device memory is above half "
+                         "of the dense run's")
     done("main", t0)
 
     for r in rows:
-        r["launches"] = launches[r["name"]]
+        r["launches"] = runs[LAUNCHES_FROM[r["name"]]]["launches"][r["name"]]
     print(f"[chip_smoke] total {time.perf_counter() - t_all:.1f}s", flush=True)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

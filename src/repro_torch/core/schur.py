@@ -9,10 +9,14 @@ from the Cholesky factors ``L`` and the gluing blocks ``B̃ᵀ``:
 
   1. column-permute B̃ᵀ into the *stepped* shape (stepped.py),
   2. TRSM with RHS- or factor-splitting (trsm.py) — or the hand-written
-     stepped TRSM kernel,
+     stepped TRSM kernel (dense or packed factor),
   3. SYRK with input- or output-splitting (syrk.py) — or the hand-written
-     stepped SYRK kernel,
+     stepped SYRK kernel; with ``fused=True`` steps 2-3 are one
+     hand-written TRSM→SYRK kernel,
   4. permute the resulting SC back to the original multiplier order.
+
+The factor is a dense (S, n, n) stack or a packed
+:class:`~repro_torch.sparse.packed.PackedBlocks` stack (``storage``).
 """
 from __future__ import annotations
 
@@ -25,6 +29,11 @@ import torch
 from repro_torch.core import syrk as syrk_mod
 from repro_torch.core import trsm as trsm_mod
 from repro_torch.core.stepped import SteppedMeta
+from repro_torch.sparse.packed import (
+    PackedBlocks,
+    pack_factor,
+    packed_block_index_for,
+)
 
 __all__ = [
     "SchurAssemblyConfig",
@@ -36,6 +45,7 @@ __all__ = [
 
 TRSM_VARIANTS = ("dense", "rhs_split", "factor_split")
 SYRK_VARIANTS = ("dense", "input_split", "output_split")
+STORAGE_VARIANTS = ("dense", "packed")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,8 +62,15 @@ class SchurAssemblyConfig:
       use_kernels: dispatch every non-dense TRSM/SYRK variant to the
         hand-written stepped kernels (:mod:`repro_torch.kernels`); the
         counterpart of ``repro``'s ``use_pallas``.
-      fused: the fused TRSM→SYRK kernel — ROADMAP item B4, not ported.
-      storage: factor storage; only "dense" here ("packed" is ROADMAP A9).
+      fused: run TRSM→SYRK as ONE hand-written kernel
+        (``kernels/stepped_trsm_syrk.py``). Requires ``use_kernels``; the
+        ``trsm_variant``/``syrk_variant`` fields are then ignored (the
+        kernel's schedule is rhs-split × output-split by construction).
+      storage: factor storage, "dense" (an (S, n, n) stack) or "packed"
+        (a :class:`~repro_torch.sparse.packed.PackedBlocks`: the symbolic
+        fill mask is the layout). Packed storage is native for
+        ``factor_split`` and the kernels; the "dense"/"rhs_split" TRSM
+        variants unpack the factor transiently.
     """
 
     trsm_variant: str = "factor_split"
@@ -70,13 +87,11 @@ class SchurAssemblyConfig:
             raise ValueError(f"trsm_variant must be one of {TRSM_VARIANTS}")
         if self.syrk_variant not in SYRK_VARIANTS:
             raise ValueError(f"syrk_variant must be one of {SYRK_VARIANTS}")
-        if self.fused:
-            raise NotImplementedError(
-                "the fused TRSM→SYRK kernel is ROADMAP item B4")
-        if self.storage == "packed":
-            raise NotImplementedError("packed factor storage is ROADMAP item A9")
-        if self.storage != "dense":
-            raise ValueError(f"unknown storage {self.storage!r}")
+        if self.storage not in STORAGE_VARIANTS:
+            raise ValueError(f"storage must be one of {STORAGE_VARIANTS}")
+        if self.fused and not self.use_kernels:
+            raise ValueError("fused=True is the hand-written TRSM→SYRK "
+                             "kernel and requires use_kernels=True")
 
     @property
     def rhs_bs(self) -> int:
@@ -86,14 +101,38 @@ class SchurAssemblyConfig:
     def is_dense_baseline(self) -> bool:
         """True when no variant exploits the stepped order — the column
         permutation is then a mathematical no-op and is skipped."""
-        return self.trsm_variant == "dense" and self.syrk_variant == "dense"
+        return (self.trsm_variant == "dense" and self.syrk_variant == "dense"
+                and not self.fused)
+
+
+def _coerce_factor(L, meta, cfg, block_mask):
+    """Align the factor's representation with ``cfg.storage``: packed
+    configs pack a dense factor (index from the block mask, or the full
+    lower triangle without one); dense configs unpack a packed factor.
+    Callers that preprocess in the configured layout never pay it."""
+    packed = isinstance(L, PackedBlocks)
+    if cfg.storage == "packed" and not packed:
+        return pack_factor(L, packed_block_index_for(block_mask, meta.n,
+                                                     meta.block_size))
+    if cfg.storage == "dense" and packed:
+        return L.unpack()
+    return L
 
 
 def _trsm(L, Bp, meta, cfg, block_mask):
+    packed = isinstance(L, PackedBlocks)
     if cfg.use_kernels and cfg.trsm_variant != "dense":
         from repro_torch.kernels import ops as kops  # lazy: avoid import cycle
 
+        if packed:
+            return kops.stepped_trsm_packed(L, Bp, meta)
         return kops.stepped_trsm(L, Bp, meta)
+    if packed and cfg.trsm_variant == "factor_split":
+        # pruning is structural in packed storage: absent blocks don't exist
+        return trsm_mod.trsm_factor_split_packed(L, Bp, meta)
+    if packed:
+        # dense/rhs_split TRSM need the trailing subfactor as one array
+        L = L.unpack()
     if cfg.trsm_variant == "dense":
         return trsm_mod.trsm_dense(L, Bp)
     if cfg.trsm_variant == "rhs_split":
@@ -121,7 +160,8 @@ def make_assembler(
 ) -> Callable[[torch.Tensor, torch.Tensor], torch.Tensor]:
     """Build the assembler for one sparsity pattern.
 
-    Returns ``assemble(L, Bt) -> F`` where ``L`` is (S, n, n), ``Bt`` is
+    Returns ``assemble(L, Bt) -> F`` where ``L`` is an (S, n, n) factor
+    stack or a packed one (coerced to ``cfg.storage``), ``Bt`` is
     (S, n, m) in the ORIGINAL column order and ``F`` the (S, m, m) dense SCs
     in the original order; ``meta`` is shared by all S.
     """
@@ -129,21 +169,29 @@ def make_assembler(
         # dense TRSM + dense SYRK never look at the stepped metadata, and
         # F = (L⁻¹Bᵀ)ᵀL⁻¹Bᵀ is permutation-equivariant: skip the permute
         def assemble_dense(L, Bt):
-            return _syrk(_trsm(L, Bt, meta, cfg, block_mask), meta, cfg)
+            Lc = _coerce_factor(L, meta, cfg, block_mask)
+            return _syrk(_trsm(Lc, Bt, meta, cfg, block_mask), meta, cfg)
 
         return assemble_dense
 
     def assemble(L, Bt):
         perm = torch.as_tensor(meta.perm, device=Bt.device)
         inv = torch.as_tensor(meta.inv_perm, device=Bt.device)
-        Fp = _syrk(_trsm(L, Bt[:, :, perm], meta, cfg, block_mask), meta, cfg)
+        Bp = Bt[:, :, perm]
+        Lc = _coerce_factor(L, meta, cfg, block_mask)
+        if cfg.fused:
+            from repro_torch.kernels import ops as kops  # lazy: avoid import cycle
+
+            Fp = kops.stepped_trsm_syrk(Lc, Bp, meta)
+        else:
+            Fp = _syrk(_trsm(Lc, Bp, meta, cfg, block_mask), meta, cfg)
         # permute back: F[i, j] = Fp[inv[i], inv[j]]
         return Fp[:, inv][:, :, inv]
 
     return assemble
 
 
-def assemble_schur(L: torch.Tensor, Bt: torch.Tensor, meta: SteppedMeta,
+def assemble_schur(L, Bt: torch.Tensor, meta: SteppedMeta,
                    cfg: SchurAssemblyConfig,
                    block_mask: Optional[np.ndarray] = None) -> torch.Tensor:
     """One-shot convenience wrapper around :func:`make_assembler`."""
@@ -159,6 +207,13 @@ def schur_dense_baseline(L: torch.Tensor, Bt: torch.Tensor) -> torch.Tensor:
 def assembly_flops(meta: SteppedMeta, cfg: SchurAssemblyConfig) -> dict:
     """FLOP model of one subdomain's assembly under ``cfg`` (lower-triangle
     SYRK)."""
+    if cfg.fused:
+        # the fused kernel's schedule: per-stripe forward substitution with
+        # the stepped skip (= rhs_split flops) + output-tile contraction
+        # from each stripe's start (= output_split flops)
+        trsm = meta.flops_trsm_rhs_split()
+        syrk = meta.flops_syrk_output_split()
+        return {"trsm": trsm, "syrk": syrk, "total": trsm + syrk}
     trsm = {
         "dense": meta.flops_trsm_dense,
         "rhs_split": meta.flops_trsm_rhs_split,

@@ -11,7 +11,8 @@ Variants:
   * ``trsm_factor_split``  — factor blocking with optional pruning of
                              structurally-zero factor blocks (paper Fig. 3b).
 
-The packed-factor form ``trsm_factor_split_packed`` is ROADMAP item A9.
+``trsm_factor_split_packed`` runs the factor-split schedule on a packed
+factor (:mod:`repro_torch.sparse.packed`), where pruning is structural.
 """
 from __future__ import annotations
 
@@ -21,8 +22,14 @@ import numpy as np
 import torch
 
 from repro_torch.core.stepped import SteppedMeta
+from repro_torch.sparse.packed import PackedBlocks
 
-__all__ = ["trsm_dense", "trsm_rhs_split", "trsm_factor_split"]
+__all__ = [
+    "trsm_dense",
+    "trsm_rhs_split",
+    "trsm_factor_split",
+    "trsm_factor_split_packed",
+]
 
 
 def _solve_lower(L: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
@@ -90,4 +97,43 @@ def trsm_factor_split(L: torch.Tensor, B: torch.Tensor, meta: SteppedMeta,
                 continue
             i0, i1 = meta.row_block(i)
             Y[:, i0:i1, :w] -= L[:, i0:i1, r0:r1] @ Yk
+    return Y
+
+
+def trsm_factor_split_packed(L: PackedBlocks, B: torch.Tensor,
+                             meta: SteppedMeta) -> torch.Tensor:
+    """Factor splitting on a PACKED factor stack.
+
+    The blocked forward substitution of :func:`trsm_factor_split`, with the
+    factor blocks taken from the (S, n_blocks, bs, bs) value stack instead
+    of sliced out of a dense (S, n, n) one: blocks absent from the layout
+    do not exist, so pruning is inherent. Ragged last blocks are sliced out
+    of the identity-padded stored tiles.
+    """
+    if not isinstance(L, PackedBlocks):
+        raise TypeError("trsm_factor_split_packed expects a PackedBlocks "
+                        f"factor, got {type(L).__name__}")
+    index = L.index
+    vals = L.values
+    _check(B, meta)
+    if (index.bs, index.n) != (meta.block_size, meta.n):
+        raise ValueError(
+            f"packed index (n={index.n}, bs={index.bs}) does not match "
+            f"stepped meta (n={meta.n}, bs={meta.block_size})")
+    Y = B.clone()
+    n = meta.n
+    for k in range(meta.num_row_blocks):
+        r0, r1 = meta.row_block(k)
+        b = r1 - r0
+        w = int(meta.widths[k])
+        if w == 0:
+            continue
+        Lkk = vals[:, index.slot(k, k), :b, :b]
+        Yk = _solve_lower(Lkk, Y[:, r0:r1, :w])
+        Y[:, r0:r1, :w] = Yk
+        if r1 >= n:
+            continue
+        for i, s in index.col_slots(k):
+            i0, i1 = meta.row_block(i)
+            Y[:, i0:i1, :w] -= vals[:, s, : i1 - i0, :b] @ Yk
     return Y

@@ -1,7 +1,7 @@
 """Cluster preprocessing: numerical factorization + explicit SC assembly,
 batched over the subdomains of a cluster (paper §2.2 "preprocessing");
-counterpart of ``repro.feti.assembly`` for one device, dense factors and
-the dual stage only.
+counterpart of ``repro.feti.assembly`` for one device and the dual stage
+only, with dense or packed factors.
 
 All subdomains of the structured decomposition share one local topology,
 so they share the fill-reducing permutation, the symbolic block fill mask
@@ -14,12 +14,14 @@ stage graph are ROADMAP item A14, the Dirichlet stage A11, sharding A16).
 Host memory: the reference stacks five dense (S, n, n) host copies of K.
 Here each subdomain's K is moved to the device once, and the regularized,
 permuted stack is built there, in the one working stack the factorization
-then overwrites with L.
+then overwrites with L. With packed storage that stack is the packed
+(S, n_blocks, bs, bs) value stack: no dense (S, n, n) stack exists on the
+device at any point.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional
+from typing import Callable, Optional, Union
 
 import numpy as np
 import torch
@@ -41,6 +43,7 @@ from repro_torch.sparse import (
     PackedBlockIndex,
     PackedBlocks,
     block_cholesky,
+    block_cholesky_packed,
     block_pattern,
     block_symbolic_cholesky,
     matrix_pattern_from_elems,
@@ -79,7 +82,8 @@ class ClusterState:
     node_perm: np.ndarray  # fill-reducing row permutation (shared)
     index: PackedBlockIndex  # packed block layout derived from block_mask
     # device tensors, leading axis = subdomain:
-    L: torch.Tensor  # (S, n, n) Cholesky factors of the permuted K_reg
+    L: Union[torch.Tensor, PackedBlocks]  # factors of the permuted K_reg:
+    # (S, n, n) dense, or packed (S, n_blocks, bs, bs) per cfg.storage
     Btp: torch.Tensor  # (S, n, m_max) row-permuted B̃ᵀ (factor order)
     K: PackedBlocks  # packed permuted unregularized K (lumped preconditioner)
     F: Optional[torch.Tensor]  # (S, m_max, m_max) explicit SCs, or None
@@ -92,15 +96,26 @@ class ClusterState:
     prep: Optional[Callable] = None  # (Kp, Btp) -> (L, F); overwrites Kp
 
     @property
+    def _L_values(self) -> torch.Tensor:
+        return self.L.values if isinstance(self.L, PackedBlocks) else self.L
+
+    @property
     def S(self) -> int:
-        return self.L.shape[0]
+        return self._L_values.shape[0]
 
     @property
     def device(self) -> torch.device:
-        return self.L.device
+        return self._L_values.device
+
+    @property
+    def storage(self) -> str:
+        """Factor storage actually held ("dense" | "packed")."""
+        return "packed" if isinstance(self.L, PackedBlocks) else "dense"
 
     def device_bytes(self) -> dict:
-        """Device bytes of the persistent solution-phase stacks."""
+        """Device bytes of the persistent solution-phase stacks; ``dense_L``
+        is what a dense (S, n, n) factor stack would take (not in
+        ``total``)."""
         def nbytes(x):
             if x is None:
                 return 0
@@ -111,6 +126,8 @@ class ClusterState:
         out = {"L": nbytes(self.L), "K": nbytes(self.K),
                "Btp": nbytes(self.Btp), "F": nbytes(self.F)}
         out["total"] = sum(out.values())
+        n = self.index.n
+        out["dense_L"] = self.S * n * n * self.Btp.element_size()
         return out
 
 
@@ -144,10 +161,11 @@ def make_cluster_preprocessor(problem: FetiProblem, config=None):
     Returns ``(static, prep)``: ``static`` carries the host-side symbolic
     products (node permutation, block fill mask, stepped envelope, column
     permutations, packed index); ``prep(Kp_stack, Btp_stack) -> (L, F)``
-    factorizes the (S, n, n) regularized permuted stiffness stack IN PLACE
+    factorizes the regularized permuted stiffness stack IN PLACE
     (``Kp_stack`` becomes L) and, in explicit mode, assembles the SCs —
     callable again with new values of the same pattern (the paper's
-    symbolic/numeric split).
+    symbolic/numeric split). ``Kp_stack`` is an (S, n, n) tensor, or with
+    ``storage="packed"`` a :class:`PackedBlocks` in the static index.
     """
     fc = as_feti_config(config)
     cfg = fc.resolved_schur()
@@ -176,8 +194,11 @@ def make_cluster_preprocessor(problem: FetiProblem, config=None):
     cp = torch.as_tensor(col_perms, device=dev)
     icp = torch.as_tensor(inv_col_perms, device=dev)
 
-    def prep(Kp_stack: torch.Tensor, Btp_stack: torch.Tensor):
-        L = block_cholesky(Kp_stack, bs, mask=block_mask)
+    def prep(Kp_stack, Btp_stack: torch.Tensor):
+        if cfg.storage == "packed":
+            L = block_cholesky_packed(Kp_stack, index)
+        else:
+            L = block_cholesky(Kp_stack, bs, mask=block_mask)
         if not fc.explicit:
             return L, None
         return L, batched_assemble(L, Btp_stack, cp, icp, env, cfg, block_mask)
@@ -189,17 +210,45 @@ def make_cluster_preprocessor(problem: FetiProblem, config=None):
 
 
 def _device_stiffness(problem: FetiProblem, node_perm: np.ndarray,
-                      index: PackedBlockIndex, dev: torch.device):
-    """(S, n, n) regularized, permuted stiffness stack on ``dev`` and the
-    packed unregularized permuted K of the lumped preconditioner.
+                      index: PackedBlockIndex, dev: torch.device,
+                      packed: bool = False):
+    """The regularized, permuted stiffness stack on ``dev`` — (S, n, n), or
+    a :class:`PackedBlocks` when ``packed`` — and the packed unregularized
+    permuted K of the lumped preconditioner.
 
     Each K_i crosses to the device once; permutation, packing and the
     fixing-DOF shift happen there. The shift is added after packing, so the
     packed values are the unregularized ones exactly, and the regularized
-    entries are the reference's ``K_ff + ρ`` exactly.
+    entries are the reference's ``K_ff + ρ`` exactly. On the packed path
+    K_i is packed straight from its unpermuted upload by one gather (the
+    permutation folded into the gather positions), so no dense (S, n, n)
+    stack is built.
     """
     subs = problem.subdomains
     S, n = len(subs), subs[0].n
+    inv = np.argsort(node_perm)
+    pos = np.stack([inv[sd.fixing_dofs] for sd in subs])  # (S, k) factor order
+    rho = np.array([regularization_shift(sd.K) for sd in subs])
+    s_idx = torch.arange(S, device=dev)[:, None].expand(pos.shape)
+    rho_t = torch.as_tensor(rho, dtype=torch.float64, device=dev)[:, None]
+    if packed:
+        bs = index.bs
+        gather = torch.as_tensor(index.flat_gather(node_perm), device=dev)
+        flat = torch.zeros(n * n + 1, dtype=torch.float64, device=dev)
+        vals = torch.empty((S, index.n_blocks, bs, bs), dtype=torch.float64,
+                           device=dev)
+        for i, sd in enumerate(subs):
+            flat[: n * n].copy_(torch.as_tensor(sd.K, dtype=torch.float64)
+                                .reshape(-1))
+            vals[i] = flat[gather].view(index.n_blocks, bs, bs)
+        del flat, gather
+        K_packed = PackedBlocks(vals, index)
+        Kreg = vals.clone()
+        index.set_identity_pad(Kreg)
+        slot = torch.as_tensor(index.diag_slots[pos // bs], device=dev)
+        off = torch.as_tensor(pos % bs, device=dev)
+        Kreg[s_idx, slot, off, off] += rho_t
+        return PackedBlocks(Kreg, index), K_packed
     perm = torch.as_tensor(node_perm, device=dev)
     Kp = torch.empty((S, n, n), dtype=torch.float64, device=dev)
     for i, sd in enumerate(subs):
@@ -207,13 +256,8 @@ def _device_stiffness(problem: FetiProblem, node_perm: np.ndarray,
         Kp[i] = Ki[perm][:, perm]
         del Ki
     K_packed = PackedBlocks(index.pack(Kp), index)
-    inv = np.argsort(node_perm)
-    pos = np.stack([inv[sd.fixing_dofs] for sd in subs])  # (S, k) factor order
-    rho = np.array([regularization_shift(sd.K) for sd in subs])
-    s_idx = torch.arange(S, device=dev)[:, None].expand(pos.shape)
     pos_t = torch.as_tensor(pos, device=dev)
-    rho_t = torch.as_tensor(rho, dtype=torch.float64, device=dev)
-    Kp[s_idx, pos_t, pos_t] += rho_t[:, None]
+    Kp[s_idx, pos_t, pos_t] += rho_t
     return Kp, K_packed
 
 
@@ -223,8 +267,9 @@ def preprocess_cluster(problem: FetiProblem, config=None) -> ClusterState:
     configured device (``cuda`` unless ``FetiConfig(device="cpu")``).
 
     ``config`` is a :class:`~repro_torch.feti.config.FetiConfig` or
-    ``None`` (defaults). The unregularized K kept for the
-    lumped preconditioner is packed in the fill-mask layout.
+    ``None`` (defaults). The factors are stored as ``cfg.storage`` says;
+    the unregularized K kept for the lumped preconditioner is always
+    packed in the fill-mask layout.
     """
     fc = as_feti_config(config)
     static, prep = make_cluster_preprocessor(problem, fc)
@@ -233,7 +278,8 @@ def preprocess_cluster(problem: FetiProblem, config=None) -> ClusterState:
     index: PackedBlockIndex = static["index"]
     subs = problem.subdomains
 
-    Kp, K_packed = _device_stiffness(problem, node_perm, index, dev)
+    Kp, K_packed = _device_stiffness(problem, node_perm, index, dev,
+                                     packed=static["cfg"].storage == "packed")
     Btp = torch.as_tensor(np.stack([sd.Bt[node_perm] for sd in subs]),
                           dtype=torch.float64, device=dev)
     L, F = prep(Kp, Btp)

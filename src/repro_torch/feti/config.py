@@ -14,6 +14,7 @@ __all__ = ["FetiConfig", "as_feti_config"]
 _MODES = ("explicit", "implicit")
 _PRECONDITIONERS = ("lumped", "none")
 _ORDERINGS = ("nd", "rcm", "natural")
+_STORAGES = (None, "dense", "packed")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -28,6 +29,8 @@ class FetiConfig:
       preconditioner: ``"lumped"`` | ``"none"``; ``"dirichlet"`` is ROADMAP
         item A11.
       ordering: fill-reducing node ordering ("nd" | "rcm" | "natural").
+      storage: factor storage override ("dense" | "packed"); ``None``
+        defers to ``schur.storage``.
       dtype: storage dtype; float64 only (mixed precision is ROADMAP A13).
       device: where the stacks live and the work runs; ``None`` means
         ``cuda`` (see :func:`repro_torch.device.resolve_device`).
@@ -37,6 +40,7 @@ class FetiConfig:
     mode: str = "explicit"
     preconditioner: str = "lumped"
     ordering: str = "nd"
+    storage: Optional[str] = None
     dtype: torch.dtype = torch.float64
     device: Union[str, torch.device, None] = None
 
@@ -57,6 +61,9 @@ class FetiConfig:
                              f"{_PRECONDITIONERS}, got {self.preconditioner!r}")
         if self.ordering not in _ORDERINGS:
             raise ValueError(f"ordering must be one of {_ORDERINGS}")
+        if self.storage not in _STORAGES:
+            raise ValueError(f"storage must be one of {_STORAGES}, "
+                             f"got {self.storage!r}")
         if self.dtype != torch.float64:
             raise NotImplementedError(
                 "storage below float64 (mixed precision) is ROADMAP item A13")
@@ -66,7 +73,11 @@ class FetiConfig:
         return self.mode == "explicit"
 
     def resolved_schur(self) -> SchurAssemblyConfig:
-        return self.schur if self.schur is not None else SchurAssemblyConfig()
+        """The Schur config, with ``storage`` overriding its storage."""
+        cfg = self.schur if self.schur is not None else SchurAssemblyConfig()
+        if self.storage is not None and self.storage != cfg.storage:
+            cfg = dataclasses.replace(cfg, storage=self.storage)
+        return cfg
 
 
 def as_feti_config(config: Optional[FetiConfig]) -> FetiConfig:

@@ -1,6 +1,6 @@
 """The FETI dual operator F = B K⁺ Bᵀ and friends, batched over subdomains
-(counterpart of ``repro.feti.operator``, single right-hand side, dense
-factors).
+(counterpart of ``repro.feti.operator``, single right-hand side; dense or
+packed factors).
 
 Implicit application (paper eq. 11): SPMV + two TRSV + SPMV per subdomain.
 Explicit application (paper eq. 12): one dense GEMV per subdomain against
@@ -21,7 +21,11 @@ import dataclasses
 import numpy as np
 import torch
 
-from repro_torch.sparse.packed import PackedBlocks, packed_symm_matvec
+from repro_torch.sparse.packed import (
+    PackedBlocks,
+    packed_symm_matvec,
+    packed_tri_solve,
+)
 
 __all__ = [
     "DualMap",
@@ -112,9 +116,16 @@ def explicit_dual_apply(F: torch.Tensor, dm: DualMap, lam: torch.Tensor
     return local_dual_apply(lambda p: _matvec(F, p), dm, lam)
 
 
-def solve_with_factor(L: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Apply (L Lᵀ)⁻¹ to a subdomain-stacked (S, n) right-hand side, with a
-    dense (S, n, n) factor stack (packed factors are ROADMAP item A9)."""
+def solve_with_factor(L, b: torch.Tensor) -> torch.Tensor:
+    """Apply (L Lᵀ)⁻¹ to a subdomain-stacked (S, n) right-hand side.
+
+    The one forward/backward triangular-solve pair every consumer of the
+    factor shares (implicit dual operator, dual RHS, solution recovery).
+    ``L`` is a dense (S, n, n) stack or a packed
+    :class:`~repro_torch.sparse.packed.PackedBlocks` stack.
+    """
+    if isinstance(L, PackedBlocks):
+        return packed_tri_solve(L, packed_tri_solve(L, b), transpose=True)
     t = torch.linalg.solve_triangular(L, b.unsqueeze(-1), upper=False)
     return torch.linalg.solve_triangular(L.mT, t, upper=True).squeeze(-1)
 
@@ -126,7 +137,7 @@ def apply_stiffness(K, v: torch.Tensor) -> torch.Tensor:
     return _matvec(K, v)
 
 
-def implicit_dual_apply(L: torch.Tensor, Btp: torch.Tensor, dm: DualMap,
+def implicit_dual_apply(L, Btp: torch.Tensor, dm: DualMap,
                         lam: torch.Tensor) -> torch.Tensor:
     """q = Σᵢ scatter( B̃ᵢ L⁻ᵀL⁻¹ B̃ᵢᵀ gather(λ) )  (paper eq. 11)."""
     return local_dual_apply(
@@ -145,7 +156,7 @@ def lumped_preconditioner(K, Bt: torch.Tensor, dm: DualMap, w: torch.Tensor
         lambda p: _rmatvec(Bt, apply_stiffness(K, _matvec(Bt, p))), dm, w)
 
 
-def dual_rhs(L: torch.Tensor, Btp: torch.Tensor, fp: torch.Tensor,
+def dual_rhs(L, Btp: torch.Tensor, fp: torch.Tensor,
              dm: DualMap, c: torch.Tensor) -> torch.Tensor:
     """d = B K⁺ f − c (paper §2.1)."""
     return scatter_dual(_rmatvec(Btp, solve_with_factor(L, fp)), dm) - c

@@ -1,18 +1,23 @@
-"""Carry a decomposition from the JAX reference into the port.
+"""Carry a decomposition or a packed factor from the JAX reference into
+the port.
 
 :func:`from_reference_problem` builds the port's :class:`FetiProblem` from
 the reference's host arrays, so both packages can be fed the identical
-decomposition. It takes plain numpy arrays (never the reference's objects)
-and imports nothing of the reference.
+decomposition; :func:`from_reference_packed` builds a
+:class:`PackedBlocks` from a packed factor's values and block layout. Both
+take plain numpy arrays (never the reference's objects) and import nothing
+of the reference.
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from repro_torch.fem.decomposition import FetiProblem, SubdomainData
 from repro_torch.fem.meshgen import Mesh
+from repro_torch.sparse.packed import PackedBlockIndex, PackedBlocks
 
-__all__ = ["SUBDOMAIN_KEYS", "from_reference_problem"]
+__all__ = ["SUBDOMAIN_KEYS", "from_reference_problem", "from_reference_packed"]
 
 SUBDOMAIN_KEYS = ("K", "Bt", "f", "R", "lambda_ids", "m", "dof_gids",
                   "fixing_dofs", "b_rows", "b_vals")
@@ -62,3 +67,20 @@ def from_reference_problem(arrays: dict) -> FetiProblem:
         dirichlet_gids=np.asarray(arrays["dirichlet_gids"], dtype=np.int64),
         params=dict(arrays.get("params", {})),
     )
+
+
+def from_reference_packed(values: np.ndarray, mask: np.ndarray, n: int,
+                          bs: int) -> PackedBlocks:
+    """Port-side :class:`PackedBlocks` from a packed factor's host arrays.
+
+    ``values`` is the (..., n_blocks, bs, bs) value stack (the reference's
+    ``PackedBlocks.values`` as numpy), ``mask`` its (nb, nb) block mask
+    (the reference index's ``mask``), ``n`` and ``bs`` its size and block
+    size. The index is rebuilt from the mask, so its slot order is the
+    reference's: (row, col)-sorted, diagonal last in each row. The values
+    land on the CPU.
+    """
+    index = PackedBlockIndex.from_mask(mask, n, bs)
+    vals = torch.as_tensor(np.array(values, dtype=np.float64))
+    index.validate(vals)
+    return PackedBlocks(vals, index)

@@ -3,7 +3,7 @@ from __future__ import annotations
 
 import torch
 
-TILE = 32  # column tile of both kernels (TN / T in csrc/*.cu)
+TILE = 32  # column tile of every kernel (TN / T in csrc/*.cuh)
 MAX_BS = 128  # largest factor block the TRSM accumulator holds
 
 
@@ -22,6 +22,15 @@ def check_operands(name: str, **tensors: torch.Tensor) -> torch.device:
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"{name}: unsupported device {dev}")
     return dev
+
+
+def check_cuda_tiles(bs: int, bm: int) -> None:
+    """The TRSM kernels take bs a multiple of TILE up to MAX_BS and bm a
+    multiple of TILE."""
+    if bs % TILE or bs > MAX_BS or bm % TILE:
+        raise ValueError(f"the CUDA kernel takes bs a multiple of {TILE} up "
+                         f"to {MAX_BS} and bm a multiple of {TILE}; got "
+                         f"bs={bs}, bm={bm}")
 
 
 def stream_of(device: torch.device) -> int:

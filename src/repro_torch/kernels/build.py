@@ -1,10 +1,12 @@
 """Build and load the hand-written CUDA kernels of the port.
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
-for ``sm_90a`` into its own shared library, loaded with ``ctypes``. A build
-takes seconds (no PyTorch headers). Libraries land in ``build/repro_torch/``
-at the repository root, named by a hash of the source and the flags, so an
-edited source is rebuilt on first use and an unchanged one is reused.
+for ``sm_90a`` into its own shared library, loaded with ``ctypes``; the
+device code the kernels share lives in ``csrc/*.cuh``. A build takes
+seconds (no PyTorch headers). Libraries land in ``build/repro_torch/`` at
+the repository root, named by a hash of the source, every shared header
+and the flags, so an edited source or header is rebuilt on first use and
+an unchanged one is reused.
 """
 from __future__ import annotations
 
@@ -17,9 +19,9 @@ import threading
 import time
 from pathlib import Path
 
-__all__ = ["KERNELS", "NVCC_FLAGS", "build", "load", "build_dir"]
+__all__ = ["KERNELS", "NVCC_FLAGS", "build", "load", "function", "build_dir"]
 
-KERNELS = ("stepped_trsm", "stepped_syrk")
+KERNELS = ("stepped_trsm", "stepped_syrk", "stepped_trsm_syrk")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 CSRC = Path(__file__).resolve().with_name("csrc")
@@ -42,8 +44,11 @@ def _nvcc() -> str:
 
 
 def _library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()
     return build_dir() / f"{name}-{digest[:16]}.so"
 
 
@@ -87,3 +92,15 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(_library_path(name)))
             _LIBS[name] = lib
         return lib
+
+
+def function(name: str, symbol: str, n_ptr: int, n_int: int):
+    """The C function ``symbol`` of kernel library ``name``, typed as every
+    launcher of the port is: ``n_ptr`` pointers, ``n_int`` ints, then the
+    stream; returns an int CUDA error code."""
+    fn = getattr(load(name), symbol)
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn

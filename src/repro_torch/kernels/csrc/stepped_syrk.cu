@@ -12,7 +12,7 @@
 // at 3.35 TB/s), so operations and bytes bound it about equally; the
 // caller's TRSM does over ten times its work.
 //
-// What the design does about it:
+// What the design does about it (the device code is stepped_syrk.cuh):
 //   * Only the lower tiles (i, j <= i) of the bm x bm tile grid are
 //     launched (blockIdx.x enumerates them); the upper tiles are never
 //     touched and keep the zeros the wrapper allocated, which the mirror
@@ -28,62 +28,25 @@
 // Layout: row-major, Y (S, n, m), F (S, m, m), start_block (m / bm,) int32.
 // n is padded to a bs multiple, m to a bm multiple, bm a multiple of 32.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "stepped_syrk.cuh"
 
 namespace {
 
-constexpr int T = 32;         // output sub-tile edge
-constexpr int KC = 32;        // rows of Y per shared-memory chunk
-constexpr int THREADS = 256;  // 32 output rows x 8 column groups
-constexpr int CPT = T / 8;    // outputs per thread
+using namespace stepped;
 
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(SYRK_THREADS)
 stepped_syrk_kernel(const double* __restrict__ Y,
                     const int* __restrict__ start_block,
                     double* __restrict__ F, int n, int m, int bs, int bm) {
-  __shared__ double Yi[KC][T + 1];  // chunk of the row stripe's columns
-  __shared__ double Yj[KC][T];      // chunk of the column stripe's columns
-
-  // lower tile (ti, tj), tj <= ti, from the linear index ti*(ti+1)/2 + tj
-  const int t = blockIdx.x;
-  int ti = 0;
-  while ((ti + 1) * (ti + 2) / 2 <= t) ++ti;
-  const int tj = t - ti * (ti + 1) / 2;
+  __shared__ double smem[SYRK_SMEM_BYTES / sizeof(double)];
+  int ti, tj;
+  lower_tile(blockIdx.x, ti, tj);
   const int subs = bm / T;
   const int r0 = ti * bm + (blockIdx.y / subs) * T;  // F rows = Y columns
   const int c0 = tj * bm + (blockIdx.y % subs) * T;  // F columns
   const int64_t s = blockIdx.z;
-  const double* Ys = Y + s * (int64_t)n * m;
-
-  const int tid = threadIdx.x;
-  const int tx = tid % 8, ty = tid / 8;
-  double acc[CPT];
-#pragma unroll
-  for (int c = 0; c < CPT; ++c) acc[c] = 0.0;
-
-  for (int k0 = start_block[ti] * bs; k0 < n; k0 += KC) {
-    for (int idx = tid; idx < KC * T; idx += THREADS) {
-      const int q = idx / T, c = idx % T;
-      const bool in = k0 + q < n;
-      const int64_t row = (int64_t)(k0 + q) * m;
-      Yi[q][c] = in ? Ys[row + r0 + c] : 0.0;
-      Yj[q][c] = in ? Ys[row + c0 + c] : 0.0;
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int q = 0; q < KC; ++q) {
-      const double a = Yi[q][ty];
-#pragma unroll
-      for (int c = 0; c < CPT; ++c) acc[c] += a * Yj[q][tx + 8 * c];
-    }
-    __syncthreads();
-  }
-
-  double* Fs = F + s * (int64_t)m * m;
-#pragma unroll
-  for (int c = 0; c < CPT; ++c)
-    Fs[(int64_t)(r0 + ty) * m + c0 + tx + 8 * c] = acc[c];
+  syrk_subtile<LoadInput>(Y + s * (int64_t)n * m, F + s * (int64_t)m * m, n,
+                          m, start_block[ti] * bs, r0, c0, smem);
 }
 
 }  // namespace
@@ -94,7 +57,7 @@ extern "C" int stepped_syrk_f64(const void* Y, const void* start_block,
   const int nc = m / bm;
   const int subs = bm / T;
   dim3 grid(nc * (nc + 1) / 2, subs * subs, S);
-  stepped_syrk_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+  stepped_syrk_kernel<<<grid, SYRK_THREADS, 0, (cudaStream_t)stream>>>(
       (const double*)Y, (const int*)start_block, (double*)F, n, m, bs, bm);
   return (int)cudaGetLastError();
 }

@@ -1,12 +1,12 @@
-"""Wrappers around the stepped kernels (counterpart of the dense half of
+"""Wrappers around the stepped kernels (counterpart of
 ``repro.kernels.ops``).
 
 Handles everything the kernels require to stay simple: padding to block
 multiples (identity-padded factor diagonal), per-stripe start-block
 metadata derived from the stepped pivots, pre-inversion of the factor's
-diagonal blocks, and the mirror of SYRK's lower block triangle. Every
-function takes a leading subdomain axis S; one shared (envelope)
-``SteppedMeta`` describes all S.
+diagonal blocks (for a packed factor, its diagonal slots), and the mirror
+of SYRK's lower block triangle. Every function takes a leading subdomain
+axis S; one shared (envelope) ``SteppedMeta`` describes all S.
 """
 from __future__ import annotations
 
@@ -15,12 +15,23 @@ import torch
 
 from repro_torch.core.stepped import SteppedMeta
 from repro_torch.kernels.stepped_syrk import stepped_syrk_kernel
-from repro_torch.kernels.stepped_trsm import stepped_trsm_kernel
+from repro_torch.kernels.stepped_trsm import (
+    stepped_trsm_kernel,
+    stepped_trsm_packed_kernel,
+)
+from repro_torch.kernels.stepped_trsm_syrk import (
+    stepped_trsm_syrk_kernel,
+    stepped_trsm_syrk_packed_kernel,
+)
+from repro_torch.sparse.packed import PackedBlocks
 
 __all__ = [
     "stepped_trsm",
+    "stepped_trsm_packed",
     "stepped_syrk",
+    "stepped_trsm_syrk",
     "invert_diag_blocks",
+    "invert_packed_diag",
     "pad_factor",
 ]
 
@@ -55,9 +66,23 @@ def invert_diag_blocks(L: torch.Tensor, bs: int) -> torch.Tensor:
     S, n, _ = L.shape
     nb = n // bs
     blocks = L.reshape(S, nb, bs, nb, bs)
-    diag = torch.diagonal(blocks, dim1=1, dim2=3).permute(0, 3, 1, 2)
-    eye = torch.eye(bs, dtype=L.dtype, device=L.device).expand(S, nb, bs, bs)
-    return torch.linalg.solve_triangular(diag, eye, upper=False).contiguous()
+    return _invert_lower(torch.diagonal(blocks, dim1=1, dim2=3).permute(0, 3, 1, 2))
+
+
+def invert_packed_diag(L: PackedBlocks) -> torch.Tensor:
+    """(S, nb, bs, bs) inverses of a packed factor's diagonal slots, which
+    are identity-padded by construction (``pack_factor`` /
+    ``block_cholesky_packed``), hence always invertible."""
+    index = L.index
+    slots = torch.as_tensor(index.diag_slots, dtype=torch.long,
+                            device=L.values.device)
+    return _invert_lower(L.values[:, slots])
+
+
+def _invert_lower(diag: torch.Tensor) -> torch.Tensor:
+    eye = torch.eye(diag.shape[-1], dtype=diag.dtype, device=diag.device)
+    return torch.linalg.solve_triangular(diag, eye.expand(diag.shape),
+                                         upper=False).contiguous()
 
 
 def _start_blocks(meta: SteppedMeta, bm: int, bs: int, m_pad: int,
@@ -80,19 +105,51 @@ def _padded_sizes(meta: SteppedMeta):
     return bs, bm, -(-meta.n // bs) * bs, -(-meta.m // bm) * bm
 
 
+def _starts(meta: SteppedMeta, device) -> torch.Tensor:
+    bs, bm, n_pad, m_pad = _padded_sizes(meta)
+    return torch.as_tensor(_start_blocks(meta, bm, bs, m_pad, n_pad),
+                           device=device)
+
+
+def _packed_operands(L: PackedBlocks, meta: SteppedMeta):
+    """(Linv, values, rowptr, colidx) of a packed factor built at the
+    meta's block size."""
+    index = L.index
+    if (index.bs, index.n) != (meta.block_size, meta.n):
+        raise ValueError(
+            f"packed index (n={index.n}, bs={index.bs}) does not match "
+            f"stepped meta (n={meta.n}, bs={meta.block_size})")
+    dev = L.values.device
+    return (invert_packed_diag(L), L.values,
+            torch.as_tensor(index.rowptr, device=dev),
+            torch.as_tensor(index.cols, device=dev))
+
+
 def stepped_trsm(L: torch.Tensor, B: torch.Tensor, meta: SteppedMeta
                  ) -> torch.Tensor:
     """Stepped TRSM with :func:`repro_torch.core.trsm.trsm_rhs_split`'s
     semantics: L (S, n, n), B (S, n, m) already in stepped column order."""
     bs, bm, n_pad, m_pad = _padded_sizes(meta)
-    n, m = meta.n, meta.m
     Lp = pad_factor(L, n_pad)
-    Bp = _pad_to(B, n_pad, m_pad)
-    starts = torch.as_tensor(_start_blocks(meta, bm, bs, m_pad, n_pad),
-                             device=L.device)
-    Linv = invert_diag_blocks(Lp, bs)
-    Y = stepped_trsm_kernel(Linv, Lp, Bp, starts, bs=bs, bm=bm)
-    return Y[:, :n, :m]
+    Y = stepped_trsm_kernel(invert_diag_blocks(Lp, bs), Lp,
+                            _pad_to(B, n_pad, m_pad), _starts(meta, L.device),
+                            bs=bs, bm=bm)
+    return Y[:, :meta.n, :meta.m]
+
+
+def stepped_trsm_packed(L: PackedBlocks, B: torch.Tensor, meta: SteppedMeta
+                        ) -> torch.Tensor:
+    """Stepped TRSM against a packed factor stack (``L.values`` is
+    (S, n_blocks, bs, bs), its index built at ``meta``'s block size): only
+    the stored blocks reach the kernel, never a dense (S, n, n) factor."""
+    if not isinstance(L, PackedBlocks):
+        raise TypeError("stepped_trsm_packed expects a PackedBlocks factor, "
+                        f"got {type(L).__name__}")
+    bs, bm, n_pad, m_pad = _padded_sizes(meta)
+    Y = stepped_trsm_packed_kernel(*_packed_operands(L, meta),
+                                   _pad_to(B, n_pad, m_pad),
+                                   _starts(meta, B.device), bs=bs, bm=bm)
+    return Y[:, :meta.n, :meta.m]
 
 
 def _mirror_lower(Fl: torch.Tensor, bm: int, m_pad: int, m: int
@@ -110,8 +167,24 @@ def stepped_syrk(Y: torch.Tensor, meta: SteppedMeta) -> torch.Tensor:
     """Stepped SYRK: full symmetric F = YᵀY per subdomain (lower block
     triangle from the kernel, strict-lower tiles mirrored here)."""
     bs, bm, n_pad, m_pad = _padded_sizes(meta)
-    Yp = _pad_to(Y, n_pad, m_pad)
-    starts = torch.as_tensor(_start_blocks(meta, bm, bs, m_pad, n_pad),
-                             device=Y.device)
-    Fl = stepped_syrk_kernel(Yp, starts, bs=bs, bm=bm)
+    Fl = stepped_syrk_kernel(_pad_to(Y, n_pad, m_pad), _starts(meta, Y.device),
+                             bs=bs, bm=bm)
+    return _mirror_lower(Fl, bm, m_pad, meta.m)
+
+
+def stepped_trsm_syrk(L, B: torch.Tensor, meta: SteppedMeta) -> torch.Tensor:
+    """Fused TRSM→SYRK: the full symmetric F = (L⁻¹B)ᵀ(L⁻¹B) per subdomain
+    from one kernel launch. ``L`` is a dense (S, n, n) factor stack or a
+    :class:`~repro_torch.sparse.packed.PackedBlocks`; dispatches
+    accordingly."""
+    bs, bm, n_pad, m_pad = _padded_sizes(meta)
+    Bp = _pad_to(B, n_pad, m_pad)
+    starts = _starts(meta, B.device)
+    if isinstance(L, PackedBlocks):
+        Fl = stepped_trsm_syrk_packed_kernel(*_packed_operands(L, meta), Bp,
+                                             starts, bs=bs, bm=bm)
+    else:
+        Lp = pad_factor(L, n_pad)
+        Fl = stepped_trsm_syrk_kernel(invert_diag_blocks(Lp, bs), Lp, Bp,
+                                      starts, bs=bs, bm=bm)
     return _mirror_lower(Fl, bm, m_pad, meta.m)

@@ -12,8 +12,6 @@ transposed strict-lower part to the whole tile array.
 """
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from repro_torch.kernels import build
@@ -34,15 +32,6 @@ def stepped_syrk_plain(Y: torch.Tensor, start_block: torch.Tensor, bs: int,
         Yi = Y[:, k0:, i * bm:(i + 1) * bm]
         F[:, i * bm:(i + 1) * bm, :(i + 1) * bm] = Yi.mT @ Y[:, k0:, :(i + 1) * bm]
     return F
-
-
-def _library():
-    lib = build.load("stepped_syrk")
-    fn = lib.stepped_syrk_f64
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return fn
 
 
 def stepped_syrk_kernel(Y: torch.Tensor, start_block: torch.Tensor, bs: int,
@@ -69,7 +58,7 @@ def stepped_syrk_kernel(Y: torch.Tensor, start_block: torch.Tensor, bs: int,
     if bm % TILE:
         raise ValueError(f"the CUDA kernel takes bm a multiple of {TILE}; "
                          f"got bm={bm}")
-    fn = _library()
+    fn = build.function("stepped_syrk", "stepped_syrk_f64", 3, 5)
     starts = start_block.to(device=dev, dtype=torch.int32).contiguous()
     F = torch.zeros((S, m, m), dtype=Y.dtype, device=dev)
     with torch.cuda.device(dev):

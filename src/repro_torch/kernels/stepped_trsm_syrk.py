@@ -1,0 +1,129 @@
+"""Fused stepped TRSM→SYRK: the hand-written CUDA kernels and their plain
+versions.
+
+Computes the lower block triangle of ``F = (L⁻¹B)ᵀ(L⁻¹B)`` over
+``bm × bm`` tiles in one launch, batched over subdomains, against a dense
+or a packed factor. The CUDA kernels (``csrc/stepped_trsm_syrk.cu``)
+replace the TPU kernels
+``repro/kernels/stepped_trsm_syrk.py::stepped_trsm_syrk_pallas`` and
+``::stepped_trsm_syrk_packed_pallas``; the source note says why the CUDA
+version is one cooperative launch with a grid-wide barrier between its
+TRSM and SYRK phases, where the TPU relies on its sequential grid.
+
+Each wrapper launches its kernel for CUDA tensors (or raises) and runs its
+plain version — the stepped TRSM's then the stepped SYRK's schedule — for
+CPU tensors. Upper tiles come out as exact zeros either way, as
+``ops._mirror_lower`` needs.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels._launch import check_cuda_tiles, stream_of
+from repro_torch.kernels.stepped_syrk import stepped_syrk_plain
+from repro_torch.kernels.stepped_trsm import (
+    check_dense_operands,
+    check_packed_operands,
+    int32_on,
+    stepped_trsm_packed_plain,
+    stepped_trsm_plain,
+)
+
+__all__ = [
+    "stepped_trsm_syrk_kernel",
+    "stepped_trsm_syrk_plain",
+    "stepped_trsm_syrk_packed_kernel",
+    "stepped_trsm_syrk_packed_plain",
+]
+
+
+def stepped_trsm_syrk_plain(Linv: torch.Tensor, L: torch.Tensor,
+                            B: torch.Tensor, start_block: torch.Tensor,
+                            bs: int, bm: int) -> torch.Tensor:
+    """Every stripe solved into Y (:func:`stepped_trsm_plain`), then the
+    lower tiles contracted from it (:func:`stepped_syrk_plain`)."""
+    Y = stepped_trsm_plain(Linv, L, B, start_block, bs, bm)
+    return stepped_syrk_plain(Y, start_block, bs, bm)
+
+
+def stepped_trsm_syrk_packed_plain(Linv: torch.Tensor, values: torch.Tensor,
+                                   rowptr: torch.Tensor, colidx: torch.Tensor,
+                                   B: torch.Tensor, start_block: torch.Tensor,
+                                   bs: int, bm: int) -> torch.Tensor:
+    """:func:`stepped_trsm_syrk_plain` with the packed forward
+    substitution (:func:`stepped_trsm_packed_plain`)."""
+    Y = stepped_trsm_packed_plain(Linv, values, rowptr, colidx, B,
+                                  start_block, bs, bm)
+    return stepped_syrk_plain(Y, start_block, bs, bm)
+
+
+def _outputs(B: torch.Tensor):
+    """The Y scratch (written whole by the TRSM phase) and the zeroed F."""
+    S, n, m = B.shape
+    return torch.empty_like(B), B.new_zeros((S, m, m))
+
+
+def stepped_trsm_syrk_kernel(Linv: torch.Tensor, L: torch.Tensor,
+                             B: torch.Tensor, start_block: torch.Tensor,
+                             bs: int, bm: int) -> torch.Tensor:
+    """Lower block triangle of ``(L_s⁻¹ B_s)ᵀ (L_s⁻¹ B_s)`` per subdomain.
+
+    Operands as :func:`repro_torch.kernels.stepped_trsm.stepped_trsm_kernel`;
+    returns (S, m, m) with exact zeros in the upper tiles. CUDA tensors
+    launch the kernel (bs a multiple of 32 up to 128, bm a multiple of 32);
+    CPU tensors run the plain version.
+    ``stepped_trsm_syrk_kernel.launches`` counts launches.
+    """
+    dev = check_dense_operands(Linv, L, B, start_block, bs, bm)
+    if dev.type == "cpu":
+        return stepped_trsm_syrk_plain(Linv, L, B, start_block, bs, bm)
+    check_cuda_tiles(bs, bm)
+    fn = build.function("stepped_trsm_syrk", "stepped_trsm_syrk_f64", 6, 5)
+    S, n, m = B.shape
+    (starts,) = int32_on(dev, start_block)
+    Y, F = _outputs(B)
+    with torch.cuda.device(dev):
+        err = fn(Linv.data_ptr(), L.data_ptr(), B.data_ptr(),
+                 starts.data_ptr(), Y.data_ptr(), F.data_ptr(), S, n, m, bs,
+                 bm, stream_of(dev))
+    if err:
+        raise RuntimeError(f"stepped_trsm_syrk kernel launch failed: CUDA "
+                           f"error {err}")
+    stepped_trsm_syrk_kernel.launches += 1
+    return F
+
+
+def stepped_trsm_syrk_packed_kernel(Linv: torch.Tensor, values: torch.Tensor,
+                                    rowptr: torch.Tensor, colidx: torch.Tensor,
+                                    B: torch.Tensor, start_block: torch.Tensor,
+                                    bs: int, bm: int) -> torch.Tensor:
+    """:func:`stepped_trsm_syrk_kernel` against a packed factor stack,
+    operands as
+    :func:`repro_torch.kernels.stepped_trsm.stepped_trsm_packed_kernel`.
+    ``stepped_trsm_syrk_packed_kernel.launches`` counts launches."""
+    dev = check_packed_operands(Linv, values, rowptr, colidx, B, start_block,
+                                bs, bm)
+    if dev.type == "cpu":
+        return stepped_trsm_syrk_packed_plain(Linv, values, rowptr, colidx, B,
+                                              start_block, bs, bm)
+    check_cuda_tiles(bs, bm)
+    fn = build.function("stepped_trsm_syrk", "stepped_trsm_syrk_packed_f64",
+                        8, 6)
+    S, n, m = B.shape
+    starts, rp, ci = int32_on(dev, start_block, rowptr, colidx)
+    Y, F = _outputs(B)
+    with torch.cuda.device(dev):
+        err = fn(Linv.data_ptr(), values.data_ptr(), rp.data_ptr(),
+                 ci.data_ptr(), B.data_ptr(), starts.data_ptr(), Y.data_ptr(),
+                 F.data_ptr(), S, n, m, bs, bm, values.shape[1],
+                 stream_of(dev))
+    if err:
+        raise RuntimeError(f"stepped_trsm_syrk_packed kernel launch failed: "
+                           f"CUDA error {err}")
+    stepped_trsm_syrk_packed_kernel.launches += 1
+    return F
+
+
+stepped_trsm_syrk_kernel.launches = 0
+stepped_trsm_syrk_packed_kernel.launches = 0

@@ -4,15 +4,18 @@
 Runs preprocess (factorization + sparsity-utilizing SC assembly) and the
 PCPG solve for a registered FETI architecture on the card (``--device
 cuda``, the default; it fails when CUDA is absent) or on the CPU
-(``--device cpu``), reports stage timings and the iteration count, and
-with ``--validate`` checks the solution against the undecomposed global
-sparse solve.
+(``--device cpu``), reports stage timings, the iteration count and the
+device bytes of the factor and operator stacks, and with ``--validate``
+checks the solution against the undecomposed global sparse solve.
 
 ``--kernels`` sets ``SchurAssemblyConfig(use_kernels=True)``: the
 architecture's TRSM/SYRK variants are replaced by the hand-written stepped
-TRSM and SYRK kernels (their plain torch versions on the CPU). It is the
-port's way to the reference's Pallas pair; the reference reaches its
-kernels through ``--fused``, whose fused kernel is ROADMAP item B4.
+TRSM and SYRK kernels (their plain torch versions on the CPU), the port's
+counterpart of the reference's Pallas pair (``use_pallas``). ``--fused``
+assembles with the hand-written fused TRSM→SYRK kernel instead, as the
+reference's ``--fused`` does with its Pallas one. ``--storage packed``
+computes and keeps the factors in the packed fill-mask layout; with
+``--kernels`` the TRSM is then the packed stepped TRSM kernel.
 """
 from __future__ import annotations
 
@@ -35,6 +38,12 @@ def main(argv=None) -> int:
     p.add_argument("--kernels", action="store_true",
                    help="assemble with the hand-written stepped TRSM/SYRK "
                         "kernels (SchurAssemblyConfig.use_kernels)")
+    p.add_argument("--fused", action="store_true",
+                   help="assemble with the hand-written fused TRSM→SYRK "
+                        "kernel (use_kernels=True, fused=True)")
+    p.add_argument("--storage", choices=("dense", "packed"), default=None,
+                   help="factor storage (default: the Schur config's, "
+                        "dense)")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                    help="where the stacks live and the work runs; cuda "
                         "fails when CUDA is not available")
@@ -58,20 +67,27 @@ def main(argv=None) -> int:
           f"subdomains x {prob.subdomains[0].n} DOFs, {prob.n_lambda} "
           f"multipliers, m_max={prob.m_max}, device={device}")
 
-    cfg = SchurAssemblyConfig(
-        trsm_variant=fc.trsm_variant, syrk_variant=fc.syrk_variant,
-        block_size=fc.block_size, rhs_block_size=fc.rhs_block_size,
-        use_kernels=args.kernels,
-    )
+    if args.fused:
+        cfg = SchurAssemblyConfig(
+            block_size=fc.block_size, rhs_block_size=fc.rhs_block_size,
+            use_kernels=True, fused=True)
+    else:
+        cfg = SchurAssemblyConfig(
+            trsm_variant=fc.trsm_variant, syrk_variant=fc.syrk_variant,
+            block_size=fc.block_size, rhs_block_size=fc.rhs_block_size,
+            use_kernels=args.kernels)
     config = FetiConfig(schur=cfg, mode=args.mode,
-                        preconditioner=args.precond, device=device)
+                        preconditioner=args.precond, storage=args.storage,
+                        device=device)
     solver = FetiSolver(prob, config)
     sol = solver.solve(tol=args.tol)
 
-    by = solver.state.device_bytes()
-    print(f"[feti] device bytes: L={by['L']:,} K={by['K']:,} "
-          f"Btp={by['Btp']:,} F={by['F']:,}")
-    print(f"[feti] mode={args.mode} kernels={args.kernels} "
+    st = solver.state
+    by = st.device_bytes()
+    print(f"[feti] storage={st.storage} device bytes: L={by['L']:,} "
+          f"K={by['K']:,} Btp={by['Btp']:,} F={by['F']:,} (dense L would be "
+          f"{by['dense_L']:,})")
+    print(f"[feti] mode={args.mode} kernels={cfg.use_kernels} fused={cfg.fused} "
           f"iters={sol.iterations} residual={sol.residual:.2e} "
           f"converged={sol.converged}")
     print(f"[feti] preprocess={sol.timings['preprocess_s']:.2f}s "

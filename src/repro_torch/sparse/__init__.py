@@ -1,6 +1,7 @@
 """Sparse substrate: fill-reducing orderings, symbolic block factorization
 (block fill mask), the batched blocked numerical Cholesky, and the packed
-block layout of the lumped preconditioner's stiffness."""
+block layout (the fill mask as storage) with its Cholesky and triangular
+solves."""
 from repro_torch.sparse.cholesky import block_cholesky
 from repro_torch.sparse.ordering import (
     nested_dissection_order,
@@ -10,7 +11,11 @@ from repro_torch.sparse.ordering import (
 from repro_torch.sparse.packed import (
     PackedBlockIndex,
     PackedBlocks,
+    block_cholesky_packed,
+    pack_factor,
+    packed_block_index_for,
     packed_symm_matvec,
+    packed_tri_solve,
 )
 from repro_torch.sparse.symbolic import (
     block_pattern,
@@ -22,11 +27,15 @@ __all__ = [
     "PackedBlockIndex",
     "PackedBlocks",
     "block_cholesky",
+    "block_cholesky_packed",
     "block_pattern",
     "block_symbolic_cholesky",
     "matrix_pattern_from_elems",
     "nested_dissection_order",
     "node_ordering",
+    "pack_factor",
+    "packed_block_index_for",
     "packed_symm_matvec",
+    "packed_tri_solve",
     "rcm_order",
 ]

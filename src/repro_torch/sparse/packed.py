@@ -1,12 +1,13 @@
 """Packed block-sparse storage: the symbolic fill mask AS the layout
-(counterpart of ``repro.sparse.packed``; the lumped-preconditioner subset).
+(counterpart of ``repro.sparse.packed``).
 
 A matrix lives as a stacked ``(..., n_blocks, bs, bs)`` value tensor plus a
 static host-side block index, so memory is O(nnz_blocks · bs²) instead of
-O(n²) per subdomain. This slice stores only the unregularized stiffness K
-of the lumped preconditioner this way (the reference always packs it);
-packed factors, ``block_cholesky_packed`` and ``packed_tri_solve`` are
-ROADMAP item A9.
+O(n²) per subdomain. The unregularized stiffness K of the lumped
+preconditioner is always stored this way; with
+``SchurAssemblyConfig(storage="packed")`` the Cholesky factors are too,
+computed in the layout by :func:`block_cholesky_packed` and applied by
+:func:`packed_tri_solve`, so no dense (S, n, n) stack is ever built.
 
 Layout invariants (as in the reference):
 
@@ -21,11 +22,20 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+from typing import Optional
 
 import numpy as np
 import torch
 
-__all__ = ["PackedBlockIndex", "PackedBlocks", "packed_symm_matvec"]
+__all__ = [
+    "PackedBlockIndex",
+    "PackedBlocks",
+    "pack_factor",
+    "block_cholesky_packed",
+    "packed_tri_solve",
+    "packed_symm_matvec",
+    "packed_block_index_for",
+]
 
 
 class PackedBlockIndex:
@@ -61,11 +71,18 @@ class PackedBlockIndex:
         table[rows, cols] = np.arange(len(rows), dtype=np.int32)
         self.slot_table = table
         self.mask = mask
+        self._device_cache: dict = {}
 
     @classmethod
     def from_mask(cls, mask: np.ndarray, n: int, bs: int) -> "PackedBlockIndex":
         """Index from a symbolic block fill mask (block_symbolic_cholesky)."""
         return cls(mask, n, bs)
+
+    @classmethod
+    def full(cls, n: int, bs: int) -> "PackedBlockIndex":
+        """All lower-triangular blocks present (no sparsity information)."""
+        nb = -(-n // bs)
+        return cls(np.tril(np.ones((nb, nb), dtype=bool)), n, bs)
 
     @property
     def n_blocks(self) -> int:
@@ -80,6 +97,46 @@ class PackedBlockIndex:
         """(nb,) slot of each diagonal block (last slot of its row)."""
         return self.rowptr[1:] - 1
 
+    def slot(self, i: int, j: int) -> int:
+        """Slot of block (i, j); raises KeyError when structurally absent."""
+        s = int(self.slot_table[i, j])
+        if s < 0:
+            raise KeyError(f"block ({i},{j}) not in packed layout")
+        return s
+
+    def row_slots(self, k: int) -> list[tuple[int, int]]:
+        """[(j, slot)] of the strictly-subdiagonal blocks in row k (j < k)."""
+        lo, hi = int(self.rowptr[k]), int(self.rowptr[k + 1]) - 1
+        return [(int(self.cols[t]), t) for t in range(lo, hi)]
+
+    def col_slots(self, k: int) -> list[tuple[int, int]]:
+        """[(i, slot)] of the strictly-subdiagonal blocks in column k (i > k)."""
+        col = self.slot_table[k + 1:, k]
+        return [(k + 1 + i, int(s)) for i, s in enumerate(col) if s >= 0]
+
+    def packed_nbytes(self, dtype_bytes: int = 8) -> int:
+        """Device bytes of ONE packed matrix's value array."""
+        return self.n_blocks * self.bs * self.bs * dtype_bytes
+
+    def dense_nbytes(self, dtype_bytes: int = 8) -> int:
+        """Device bytes of the dense (n, n) array this layout replaces."""
+        return self.n * self.n * dtype_bytes
+
+    def validate(self, values) -> None:
+        """Shape-check a value array (batched or not) against this index."""
+        shape = tuple(values.shape)
+        if len(shape) < 3 or shape[-3:] != (self.n_blocks, self.bs, self.bs):
+            raise ValueError(
+                f"values shape {shape} does not end in "
+                f"({self.n_blocks}, {self.bs}, {self.bs})")
+
+    def _blocks(self):
+        """(slot, row range, column range) of every stored block, trimmed
+        to the unpadded n."""
+        bs, n = self.bs, self.n
+        for t, (i, j) in enumerate(zip(self.rows.tolist(), self.cols.tolist())):
+            yield t, (i * bs, min((i + 1) * bs, n)), (j * bs, min((j + 1) * bs, n))
+
     def pack(self, A: torch.Tensor, diag_identity_pad: bool = False
              ) -> torch.Tensor:
         """Gather the stored blocks of dense ``A`` (..., n, n) into
@@ -93,17 +150,68 @@ class PackedBlockIndex:
         if tuple(A.shape[-2:]) != (self.n, self.n):
             raise ValueError(f"expected (..., {self.n}, {self.n}), "
                              f"got {tuple(A.shape)}")
-        bs, n = self.bs, self.n
-        out = A.new_zeros(lead + (self.n_blocks, bs, bs))
-        for t, (i, j) in enumerate(zip(self.rows.tolist(), self.cols.tolist())):
-            i0, i1 = i * bs, min((i + 1) * bs, n)
-            j0, j1 = j * bs, min((j + 1) * bs, n)
+        out = A.new_zeros(lead + (self.n_blocks, self.bs, self.bs))
+        for t, (i0, i1), (j0, j1) in self._blocks():
             out[..., t, : i1 - i0, : j1 - j0] = A[..., i0:i1, j0:j1]
-        pad = self.n_pad - n
-        if pad and diag_identity_pad:
-            idx = torch.arange(bs - pad, bs, device=A.device)
-            out[..., int(self.diag_slots[-1]), idx, idx] = 1.0
+        if diag_identity_pad:
+            self.set_identity_pad(out)
         return out
+
+    def set_identity_pad(self, values: torch.Tensor) -> None:
+        """Put 1s on the padded tail of the last diagonal block, in place."""
+        pad = self.n_pad - self.n
+        if pad:
+            idx = torch.arange(self.bs - pad, self.bs, device=values.device)
+            values[..., int(self.diag_slots[-1]), idx, idx] = 1.0
+
+    def flat_gather(self, perm: np.ndarray) -> np.ndarray:
+        """(n_blocks·bs·bs,) int64 positions that pack ``A[perm][:, perm]``
+        straight from a flattened (n·n,) ``A`` with one zero appended.
+
+        ``values.view(-1) = A_ext[flat_gather(perm)]`` with
+        ``A_ext = cat([A.reshape(-1), [0]])``: padded entries point at the
+        appended zero. The permutation costs no copy of A.
+        """
+        n, bs = self.n, self.bs
+        p_pad = np.concatenate([np.asarray(perm, dtype=np.int64),
+                                np.full(self.n_pad - n, -1)])
+        r = p_pad[(self.rows[:, None].astype(np.int64) * bs + np.arange(bs))]
+        c = p_pad[(self.cols[:, None].astype(np.int64) * bs + np.arange(bs))]
+        flat = r[:, :, None] * n + c[:, None, :]
+        flat[(r[:, :, None] < 0) | (c[:, None, :] < 0)] = n * n
+        return flat.reshape(-1)
+
+    def unpack(self, values: torch.Tensor) -> torch.Tensor:
+        """Scatter (..., n_blocks, bs, bs) values back to dense (..., n, n).
+
+        Unstored blocks come back as exact zeros; the padded tail
+        (including any identity diagonal padding) is trimmed away.
+        """
+        self.validate(values)
+        lead = values.shape[:-3]
+        out = values.new_zeros(lead + (self.n, self.n))
+        for t, (i0, i1), (j0, j1) in self._blocks():
+            out[..., i0:i1, j0:j1] = values[..., t, : i1 - i0, : j1 - j0]
+        return out
+
+    def device_plan(self, device: torch.device) -> dict:
+        """Index tensors of the batched packed algorithms on ``device``,
+        built once per device: each row's strictly-lower block columns, the
+        slots' coordinates and the matvec's segment-sum plan."""
+        key = str(device)
+        plan = self._device_cache.get(key)
+        if plan is None:
+            as_t = lambda a: torch.as_tensor(  # noqa: E731
+                np.asarray(a, dtype=np.int64), device=device)
+            plan = {
+                "row_cols": [as_t(self.cols[self.rowptr[k]:self.rowptr[k + 1] - 1])
+                             for k in range(self.nb)],
+                "rows": as_t(self.rows),
+                "cols": as_t(self.cols),
+                "matvec_gather": as_t(self._matvec_gather),
+            }
+            self._device_cache[key] = plan
+        return plan
 
     @functools.cached_property
     def _matvec_gather(self) -> np.ndarray:
@@ -147,6 +255,114 @@ class PackedBlocks:
     def nbytes(self) -> int:
         return self.values.numel() * self.values.element_size()
 
+    def unpack(self) -> torch.Tensor:
+        return self.index.unpack(self.values)
+
+
+def pack_factor(L: torch.Tensor, index: PackedBlockIndex) -> PackedBlocks:
+    """Pack a dense lower-triangular factor (..., n, n) into the layout,
+    identity-padding the diagonal tail so every diagonal block stays
+    triangular-invertible."""
+    return PackedBlocks(index.pack(L, diag_identity_pad=True), index)
+
+
+def _solve_lower_right(Lkk: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
+    """Solve X Lkkᵀ = W for X (i.e. X = W Lkk⁻ᵀ), batched."""
+    return torch.linalg.solve_triangular(Lkk.mT, W, upper=True, left=False)
+
+
+def block_cholesky_packed(K, index: PackedBlockIndex) -> PackedBlocks:
+    """Cholesky factors of an SPD stack, computed AND stored in packed form.
+
+    Args:
+      K: (S, n, n) dense SPD stack (packed first, identity-padded), or a
+        :class:`PackedBlocks` of it whose (S, n_blocks, bs, bs) values are
+        factorized IN PLACE — the preprocessor packs K straight from the
+        host, so no dense stack ever exists.
+      index: the layout; its mask must contain the symbolic fill.
+
+    The numerical twin of :func:`repro_torch.sparse.cholesky.block_cholesky`
+    with ``mask=index.mask``, batched over S: per block column k, one
+    ``cholesky_ex`` of the diagonal slot, one solve of every stored panel
+    slot below it, and one batched update of the target slots (i, j <= i).
+    Within one k step the targets are distinct, so the indexed update is
+    deterministic. Raises ``ValueError`` if a diagonal block is not
+    positive definite.
+    """
+    if isinstance(K, PackedBlocks):
+        if K.index is not index:
+            raise ValueError("K is packed with another index")
+        vals = K.values
+    else:
+        vals = index.pack(K, diag_identity_pad=True)
+    index.validate(vals)
+    if vals.dim() != 4:
+        raise ValueError(f"expected an (S, n_blocks, bs, bs) stack, got "
+                         f"{tuple(vals.shape)}")
+    dev = vals.device
+    infos = []
+    for k in range(index.nb):
+        dk = int(index.diag_slots[k])
+        Lkk, info = torch.linalg.cholesky_ex(vals[:, dk])
+        infos.append(info)
+        vals[:, dk] = Lkk
+        below = index.col_slots(k)
+        if not below:
+            continue
+        slots = torch.as_tensor([s for _, s in below], device=dev)
+        panels = _solve_lower_right(Lkk[:, None], vals[:, slots])
+        vals[:, slots] = panels
+        # symbolic fill guarantees (i, j) is stored: i, j share column k
+        a, b = np.tril_indices(len(below))
+        targets = [index.slot(below[x][0], below[y][0]) for x, y in zip(a, b)]
+        a_t = torch.as_tensor(a, device=dev)
+        b_t = torch.as_tensor(b, device=dev)
+        t_t = torch.as_tensor(targets, device=dev)
+        vals[:, t_t] -= panels[:, a_t] @ panels[:, b_t].mT
+    if bool(torch.stack(infos).ne(0).any()):
+        raise ValueError("block_cholesky_packed: a diagonal block is not "
+                         "positive definite")
+    return PackedBlocks(vals, index)
+
+
+def packed_tri_solve(pb: PackedBlocks, b: torch.Tensor,
+                     transpose: bool = False) -> torch.Tensor:
+    """Solve ``L_s x_s = b_s`` (or ``L_sᵀ x_s = b_s``) for a packed factor
+    stack, ``b`` (S, n) -> (S, n).
+
+    Forward: block rows in order, each row's stored blocks in one product
+    (its slots are contiguous, so the values are read in place). Transpose:
+    block rows in reverse; once ``x_k`` is solved, row k's stored blocks
+    push ``L_kjᵀ x_k`` into the pending ``x_j`` (distinct j, so the indexed
+    update is deterministic) — the values are again read in place.
+    """
+    index = pb.index
+    vals = pb.values
+    S = b.shape[0]
+    n, bs, nb = index.n, index.bs, index.nb
+    plan = index.device_plan(b.device)
+    x = b.new_zeros(S, nb, bs)
+    x.view(S, -1)[:, :n] = b
+    ks = range(nb - 1, -1, -1) if transpose else range(nb)
+    for k in ks:
+        t0, t1 = int(index.rowptr[k]), int(index.rowptr[k + 1]) - 1
+        cols = plan["row_cols"][k]
+        Lkk = vals[:, t1]
+        if not transpose:
+            acc = x[:, k]
+            if t1 > t0:
+                acc = acc - torch.einsum("stab,stb->sa", vals[:, t0:t1],
+                                         x[:, cols])
+            x[:, k] = torch.linalg.solve_triangular(
+                Lkk, acc.unsqueeze(-1), upper=False).squeeze(-1)
+            continue
+        xk = torch.linalg.solve_triangular(
+            Lkk.mT, x[:, k].unsqueeze(-1), upper=True).squeeze(-1)
+        x[:, k] = xk
+        if t1 > t0:
+            x[:, cols] -= torch.einsum("stab,sa->stb", vals[:, t0:t1], xk)
+    return x.reshape(S, -1)[:, :n]
+
 
 def packed_symm_matvec(pb: PackedBlocks, v: torch.Tensor) -> torch.Tensor:
     """``A_s @ v_s`` for a stack of symmetric matrices stored as their packed
@@ -162,12 +378,20 @@ def packed_symm_matvec(pb: PackedBlocks, v: torch.Tensor) -> torch.Tensor:
     index = pb.index
     S = v.shape[0]
     n, bs, nb = index.n, index.bs, index.nb
+    plan = index.device_plan(v.device)
     vb = torch.nn.functional.pad(v, (0, index.n_pad - n)).reshape(S, nb, bs)
-    rows = torch.as_tensor(index.rows, dtype=torch.long, device=v.device)
-    cols = torch.as_tensor(index.cols, dtype=torch.long, device=v.device)
-    lower = torch.einsum("sbij,sbj->sbi", pb.values, vb[:, cols])
-    upper = torch.einsum("sbji,sbj->sbi", pb.values, vb[:, rows])
+    lower = torch.einsum("sbij,sbj->sbi", pb.values, vb[:, plan["cols"]])
+    upper = torch.einsum("sbji,sbj->sbi", pb.values, vb[:, plan["rows"]])
     contrib = torch.cat([lower, upper, lower.new_zeros(S, 1, bs)], dim=1)
-    gather = torch.as_tensor(index._matvec_gather, device=v.device)
-    out = contrib[:, gather].sum(dim=2)  # (S, nb, bs)
+    out = contrib[:, plan["matvec_gather"]].sum(dim=2)  # (S, nb, bs)
     return out.reshape(S, -1)[:, :n]
+
+
+def packed_block_index_for(mask: Optional[np.ndarray], n: int, bs: int
+                           ) -> PackedBlockIndex:
+    """Index from a fill mask, or the full lower triangle when no symbolic
+    information is available (packed storage then still works — it is just
+    not smaller than dense)."""
+    if mask is None:
+        return PackedBlockIndex.full(n, bs)
+    return PackedBlockIndex.from_mask(mask, n, bs)

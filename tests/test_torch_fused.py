@@ -1,0 +1,248 @@
+"""The port's fused TRSM→SYRK (dense and packed factor) against the
+reference, and the new kernels against their plain versions on the card.
+
+On the CPU the wrappers run their plain versions. The reference's fused
+Pallas kernels cannot run on the installed jax (ROADMAP C1), so the fused
+result is held against the reference's UNFUSED Pallas pair in interpret
+mode — stepped TRSM (or packed stepped TRSM) then stepped SYRK — which
+computes the same F; tolerance 1e-12 relative to its scale. The ``cuda``
+cases hold the packed TRSM (B3) and both fused kernels (B4, B5) against
+their plain versions and their unfused or dense twins on the card; they
+need no JAX, so the card's machine runs them with
+``python -m pytest --noconftest -m cuda tests/test_torch_fused.py``.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.core import (  # noqa: E402
+    SchurAssemblyConfig,
+    assemble_schur,
+    assembly_flops,
+    build_stepped_meta,
+    schur_dense_baseline,
+)
+from repro_torch.kernels import (  # noqa: E402
+    ops,
+    stepped_syrk_kernel,
+    stepped_trsm_kernel,
+    stepped_trsm_packed_kernel,
+    stepped_trsm_packed_plain,
+    stepped_trsm_syrk_kernel,
+    stepped_trsm_syrk_packed_kernel,
+    stepped_trsm_syrk_packed_plain,
+    stepped_trsm_syrk_plain,
+)
+from repro_torch.launch import solve_feti  # noqa: E402
+from repro_torch.sparse import PackedBlockIndex, pack_factor  # noqa: E402
+
+pytestmark = pytest.mark.torch_port
+
+TOL = 1e-12
+
+
+def _close(got, want, tol=TOL):
+    want = np.asarray(want)
+    np.testing.assert_allclose(np.asarray(got), want, rtol=0,
+                               atol=tol * max(np.abs(want).max(), 1.0))
+
+
+def _masked_factor(n, bs, S, rng):
+    """(S, n, n) nonsingular lower factors that are zero outside a random
+    block mask (about 40% of the strictly-lower blocks present), and the
+    mask."""
+    nb = -(-n // bs)
+    mask = np.tril(rng.random((nb, nb)) < 0.4)
+    np.fill_diagonal(mask, True)
+    L = np.zeros((S, n, n))
+    scale = 0.5 / np.sqrt(bs * nb)
+    for i, j in zip(*np.nonzero(mask)):
+        r0, r1 = i * bs, min((i + 1) * bs, n)
+        c0, c1 = j * bs, min((j + 1) * bs, n)
+        blk = rng.standard_normal((S, r1 - r0, c1 - c0)) * scale
+        if i == j:
+            blk = np.tril(blk) + np.eye(r1 - r0) * (1.0 + rng.random(r1 - r0))
+        L[:, r0:r1, c0:c1] = blk
+    return L, mask
+
+
+def _stepped_rhs(n, m, rng, empty=0):
+    """B̃ᵀ-like (n, m): ±1 near a random anchor row per column, the last
+    ``empty`` columns zero."""
+    Bt = np.zeros((n, m))
+    for j in range(m - empty):
+        a = int(rng.integers(0, n))
+        for r in np.unique(np.clip(a + rng.integers(0, 5, size=2), 0, n - 1)):
+            Bt[r, j] = rng.choice([-1.0, 1.0])
+    return Bt
+
+
+def _case(n, m, bs, bm, S, empty, seed, device="cpu"):
+    """(dense L, packed L, stepped B, meta) on ``device``."""
+    rng = np.random.default_rng(seed)
+    L, mask = _masked_factor(n, bs, S, rng)
+    Bt = _stepped_rhs(n, m, rng, empty)
+    meta = build_stepped_meta(Bt != 0, block_size=bs, rhs_block_size=bm)
+    B = np.broadcast_to(Bt[:, meta.perm], (S, n, m)).copy()
+    Lt = torch.from_numpy(L).to(device)
+    packed = pack_factor(Lt, PackedBlockIndex.from_mask(mask, n, bs))
+    assert packed.index.n_blocks < packed.index.nb * (packed.index.nb + 1) // 2
+    return Lt, packed, torch.from_numpy(B).to(device), meta
+
+
+CPU_CASES = [
+    # n, m, bs, bm, S, empty columns
+    (61, 30, 8, 8, 2, 0),  # ragged n: 61 -> 64, m 30 -> 32
+    (64, 40, 16, 8, 2, 8),  # the last stripe is all padding: start = nb
+]
+
+
+@pytest.mark.parametrize("storage", ["dense", "packed"])
+@pytest.mark.parametrize("n,m,bs,bm,S,empty", CPU_CASES)
+def test_plain_fused_matches_reference_unfused(n, m, bs, bm, S, empty,
+                                               storage):
+    pytest.importorskip("jax")
+    import jax.numpy as jnp
+    from repro.core import build_stepped_meta as ref_meta
+    from repro.kernels import ops as ref_ops
+    from repro.sparse import packed as ref_packed
+
+    L, pb, B, meta = _case(n, m, bs, bm, S, empty, seed=n + m)
+    fac = pb if storage == "packed" else L
+    launches = (stepped_trsm_syrk_kernel.launches,
+                stepped_trsm_syrk_packed_kernel.launches)
+    got = ops.stepped_trsm_syrk(fac, B, meta)
+    assert (stepped_trsm_syrk_kernel.launches,
+            stepped_trsm_syrk_packed_kernel.launches) == launches  # CPU: plain
+    # the unfused twin, through the port's stepped TRSM and SYRK
+    trsm = ops.stepped_trsm_packed if storage == "packed" else ops.stepped_trsm
+    np.testing.assert_array_equal(
+        got.numpy(), ops.stepped_syrk(trsm(fac, B, meta), meta).numpy())
+    rmeta = ref_meta(B[0].numpy() != 0, block_size=bs, rhs_block_size=bm,
+                     presorted=True)
+    ref_index = ref_packed.PackedBlockIndex.from_mask(pb.index.mask, n, bs)
+    for s in range(S):
+        if storage == "packed":
+            Y = ref_ops.stepped_trsm_packed(
+                ref_packed.PackedBlocks(jnp.asarray(pb.values[s].numpy()),
+                                        ref_index),
+                jnp.asarray(B[s].numpy()), rmeta, interpret=True)
+        else:
+            Y = ref_ops.stepped_trsm(jnp.asarray(L[s].numpy()),
+                                     jnp.asarray(B[s].numpy()), rmeta,
+                                     interpret=True)
+        _close(got[s].numpy(), ref_ops.stepped_syrk(Y, rmeta, interpret=True))
+    _close(got.numpy(), schur_dense_baseline(L, B).numpy())
+
+
+def test_fused_upper_tiles_are_zero():
+    L, pb, B, meta = _case(61, 30, 8, 8, 2, 0, seed=1)
+    bs, bm, n_pad, m_pad = ops._padded_sizes(meta)
+    Bp = ops._pad_to(B, n_pad, m_pad)
+    starts = ops._starts(meta, B.device)
+    Lp = ops.pad_factor(L, n_pad)
+    for Fl in (stepped_trsm_syrk_kernel(ops.invert_diag_blocks(Lp, bs), Lp, Bp,
+                                        starts, bs, bm),
+               stepped_trsm_syrk_packed_kernel(*ops._packed_operands(pb, meta),
+                                               Bp, starts, bs, bm)):
+        for i in range(m_pad // bm):
+            assert torch.all(Fl[:, i * bm:(i + 1) * bm, (i + 1) * bm:] == 0)
+            assert torch.any(Fl[:, i * bm:(i + 1) * bm, :(i + 1) * bm] != 0)
+
+
+def test_fused_config():
+    pytest.importorskip("jax")
+    from repro.core import SchurAssemblyConfig as RefConfig
+    from repro.core import assembly_flops as ref_assembly_flops
+    from repro.core import build_stepped_meta as ref_meta
+
+    with pytest.raises(ValueError, match="use_kernels"):
+        SchurAssemblyConfig(fused=True)
+    cfg = SchurAssemblyConfig(trsm_variant="dense", syrk_variant="dense",
+                              block_size=8, use_kernels=True, fused=True)
+    assert not cfg.is_dense_baseline
+    L, pb, B, _ = _case(61, 30, 8, 8, 2, 0, seed=2)
+    # B's columns are already stepped: the metadata's permutation is the
+    # identity, so assemble_schur's own permutation keeps them in place
+    meta = build_stepped_meta(B[0].numpy() != 0, block_size=8, rhs_block_size=8)
+    rmeta = ref_meta(B[0].numpy() != 0, block_size=8, rhs_block_size=8)
+    ref_cfg = RefConfig(trsm_variant="dense", syrk_variant="dense",
+                        block_size=8, use_pallas=True, fused=True,
+                        storage="dense")
+    assert assembly_flops(meta, cfg) == ref_assembly_flops(rmeta, ref_cfg)
+    # the fused assembly in the original column order, both storages
+    base = schur_dense_baseline(L, B).numpy()
+    for fac, storage in ((L, "dense"), (pb, "packed"), (L, "packed")):
+        c = SchurAssemblyConfig(block_size=8, use_kernels=True, fused=True,
+                                storage=storage)
+        _close(assemble_schur(fac, B, meta, c, block_mask=pb.index.mask)
+               .numpy(), base)
+
+
+@pytest.mark.parametrize("extra", [
+    ["--storage", "packed", "--kernels"],
+    ["--fused"],
+    ["--storage", "packed", "--fused", "--mode", "implicit"],
+])
+def test_launcher_cpu_smoke_packed_and_fused(extra, capsys):
+    rc = solve_feti.main(["--arch", "feti-heat-2d", "--smoke", "--device",
+                          "cpu", "--validate", *extra])
+    out = capsys.readouterr().out
+    assert rc == 0, out
+    assert "converged=True" in out and "rel err vs global solve" in out
+    storage = "packed" if "packed" in extra else "dense"
+    assert f"storage={storage} device bytes" in out
+    assert "dense L would be" in out
+    assert ("fused=True" in out) == ("--fused" in extra)
+
+
+CUDA_CASES = [
+    # n, m, bs, bm, S, empty columns
+    (300, 100, 64, 32, 3, 0),  # ragged: n 300 -> 320, m 100 -> 128
+    (256, 96, 128, 32, 2, 32),  # last stripe all padding: start_block = nb
+    (520, 258, 128, 128, 2, 0),  # the full-size bs/bm, 3 stripes
+]
+
+
+def _rel(got, want):
+    return (got - want).abs().max().item() / max(want.abs().max().item(),
+                                                 1e-300)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["B3", "B4", "B5"])
+@pytest.mark.parametrize("n,m,bs,bm,S,empty", CUDA_CASES)
+def test_cuda_kernels_match_plain_and_twin(n, m, bs, bm, S, empty, kernel):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda")
+    L, pb, B, meta = _case(n, m, bs, bm, S, empty, seed=n + bs, device=dev)
+    _, _, n_pad, m_pad = ops._padded_sizes(meta)
+    Bp = ops._pad_to(B, n_pad, m_pad)
+    starts = ops._starts(meta, dev)
+    Lp = ops.pad_factor(L, n_pad)
+    dense = (ops.invert_diag_blocks(Lp, bs), Lp)
+    packed = ops._packed_operands(pb, meta)
+    wrapper, plain, operands = {
+        "B3": (stepped_trsm_packed_kernel, stepped_trsm_packed_plain, packed),
+        "B4": (stepped_trsm_syrk_kernel, stepped_trsm_syrk_plain, dense),
+        "B5": (stepped_trsm_syrk_packed_kernel, stepped_trsm_syrk_packed_plain,
+               packed),
+    }[kernel]
+    before = wrapper.launches
+    got = wrapper(*operands, Bp, starts, bs, bm)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    assert torch.isfinite(got).all()
+    assert _rel(got, plain(*operands, Bp, starts, bs, bm)) <= 1e-11
+    # the unfused or dense twin, through the other kernels
+    if kernel == "B3":
+        twin = stepped_trsm_kernel(*dense, Bp, starts, bs, bm)
+    else:
+        trsm = (stepped_trsm_kernel(*dense, Bp, starts, bs, bm) if kernel == "B4"
+                else stepped_trsm_packed_kernel(*packed, Bp, starts, bs, bm))
+        twin = stepped_syrk_kernel(trsm, starts, bs, bm)
+        for i in range(m_pad // bm):
+            assert torch.all(got[:, i * bm:(i + 1) * bm, (i + 1) * bm:] == 0)
+    assert _rel(got, twin) <= 1e-11

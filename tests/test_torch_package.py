@@ -33,8 +33,9 @@ def test_port_imports_neither_jax_nor_reference():
            if root in FORBIDDEN]
     assert not bad, bad
     # the kernels are real sources, shipped beside the package
-    assert sorted(p.name for p in (PORT / "kernels" / "csrc").glob("*.cu")) == [
-        "stepped_syrk.cu", "stepped_trsm.cu"]
+    assert sorted(p.name for p in (PORT / "kernels" / "csrc").glob("*.cu*")) == [
+        "stepped_syrk.cu", "stepped_syrk.cuh", "stepped_trsm.cu",
+        "stepped_trsm.cuh", "stepped_trsm_syrk.cu"]
 
 
 def test_entry_points_require_cuda_unless_cpu(monkeypatch):
@@ -76,10 +77,9 @@ def test_unported_paths_name_their_roadmap_item():
     from repro_torch.fem import decompose_problem
     from repro_torch.feti import FetiSolver
 
-    with pytest.raises(NotImplementedError, match="B4"):
-        SchurAssemblyConfig(fused=True)
-    with pytest.raises(NotImplementedError, match="A9"):
-        SchurAssemblyConfig(storage="packed")
+    # packed storage (A9) and the fused kernels (B4, B5) are ported
+    assert SchurAssemblyConfig(storage="packed", use_kernels=True,
+                               fused=True).fused
     with pytest.raises(NotImplementedError, match="A10"):
         decompose_problem("elasticity", 2, (2, 2), (2, 2))
     prob = decompose_problem("heat", 2, (2, 2), (2, 2))

@@ -8,7 +8,11 @@ Phases (each prints its seconds; any failure exits non-zero):
   1. device   — require CUDA; print the card's name and
                 ``nvidia-smi --query-gpu=name,power.limit``.
   2. build    — compile every kernel from ``src/repro_torch/kernels/csrc``
-                with nvcc (all sources at once) and print the build seconds.
+                with nvcc (all sources at once), print the build seconds
+                and each kernel's ptxas registers, spills and static shared
+                memory (marked cached when no build ran), and fail unless the SASS of the stepped SYRK and of
+                the fused kernels (``cuobjdump -sass``) holds DMMA, the FP64
+                tensor-core instruction.
   3. kernels  — on a real full-size feti-heat-2d factor (S=64, n=4225 ->
                 n_pad=4352, m=258 -> m_pad=384, bs=bm=128, f64) and its
                 packed form in the fill-mask layout, each of the five
@@ -19,7 +23,10 @@ Phases (each prints its seconds; any failure exits non-zero):
                 calls of kernels/ref.py (one full triangular solve on the
                 unpacked factor, one batched product; <= 1e-9). Each is
                 timed with CUDA events (median) beside its plain version,
-                its library call(s) and the card's bound.
+                its library call(s) and the card's bound, with its useful
+                TFLOP/s and share of the bound; each fused kernel also
+                beside its unfused pair run back to back (B1 then B2, B3
+                then B2).
   4. main     — ``repro_torch.launch.solve_feti.main`` at full size, four
                 times: ``--kernels``, ``--storage packed --kernels``,
                 ``--fused`` and ``--storage packed --fused``, each with
@@ -71,6 +78,16 @@ LAUNCHES_FROM = {"stepped_trsm": "dense --kernels",
                  "stepped_trsm_syrk": "dense --fused",
                  "stepped_trsm_syrk_packed": "packed --fused"}
 F_KERNELS = ("stepped_syrk", "stepped_trsm_syrk", "stepped_trsm_syrk_packed")
+# (library, a substring of the mangled kernel name) of each kernel
+INSTANCES = {
+    "stepped_trsm": ("stepped_trsm", "DenseFactor"),
+    "stepped_trsm_packed": ("stepped_trsm", "PackedFactor"),
+    "stepped_syrk": ("stepped_syrk", "stepped_syrk_kernel"),
+    "stepped_trsm_syrk": ("stepped_trsm_syrk", "DenseFactor"),
+    "stepped_trsm_syrk_packed": ("stepped_trsm_syrk", "PackedFactor"),
+}
+# the libraries whose SASS must run on the FP64 tensor cores
+DMMA_LIBS = ("stepped_syrk", "stepped_trsm_syrk")
 SOURCES = {
     "stepped_trsm": ("src/repro_torch/kernels/csrc/stepped_trsm.cu",
                      "src/repro/kernels/stepped_trsm.py:66"),
@@ -156,11 +173,14 @@ def kernel_inputs(device):
     del Bpp
     starts_np = ops._start_blocks(env, bm, bs, m_pad, n_pad)
     starts = torch.as_tensor(starts_np, device=device)
+    # the fused kernels' item lists, as ops.stepped_trsm_syrk builds them
+    orders = (ops._fused_order(env, S, device),
+              ops._fused_order(env, S, device, packed.index))
     torch.cuda.synchronize()
     return dict(S=S, env=env, bs=bs, bm=bm, n_pad=n_pad, m_pad=m_pad,
                 Lp=Lp, Bp=Bp, Linv=ops.invert_diag_blocks(Lp, bs),
                 packed=packed, packed_ops=ops._packed_operands(packed, env),
-                starts=starts, starts_np=starts_np)
+                starts=starts, starts_np=starts_np, orders=orders)
 
 
 def _packed_walk(x):
@@ -185,6 +205,44 @@ def _packed_walk(x):
                     flops += 2 * rows[k] * rows[j] * w
                     walked.add(t)
     return x["S"] * flops, 8 * x["S"] * len(walked) * bs * bs
+
+
+def ptxas_report(build, built):
+    """{kernel: {registers, spill_stores, spill_loads, static_smem,
+    ptxas_cached}} from the nvcc logs (``-Xptxas -v``); ``ptxas_cached``
+    when the library was not in ``built``, the builds of this run, so its
+    log is an earlier build's."""
+    per_lib = {}
+    for lib in {lib for lib, _ in INSTANCES.values()}:
+        log = build._library_path(lib).with_suffix(".log")
+        per_lib[lib] = re.split(r"Compiling entry function",
+                                log.read_text())[1:]
+    out = {}
+    for name, (lib, tag) in INSTANCES.items():
+        block = next(b for b in per_lib[lib] if tag in b.split("'")[1])
+        regs = re.search(r"Used (\d+) registers", block)
+        # one line per function: the kernel and any function it calls
+        spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                            r"loads", block)
+        smem = re.search(r"(\d+) bytes smem", block)
+        out[name] = dict(registers=int(regs.group(1)),
+                         spill_stores=sum(int(a) for a, _ in spills),
+                         spill_loads=sum(int(b) for _, b in spills),
+                         static_smem=int(smem.group(1)) if smem else 0,
+                         ptxas_cached=lib not in built)
+    return out
+
+
+def dmma_counts(build):
+    """DMMA instructions in the SASS of each library of DMMA_LIBS."""
+    cuobjdump = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
+    counts = {}
+    for lib in DMMA_LIBS:
+        sass = subprocess.run(
+            [cuobjdump, "-sass", str(build._library_path(lib))],
+            capture_output=True, text=True, check=True, timeout=120).stdout
+        counts[lib] = len(re.findall(r"\bDMMA\b", sass))
+    return counts
 
 
 def bounds(x):
@@ -229,7 +287,7 @@ def upper_tiles_zero(F, bm, m_pad):
                for i in range(m_pad // bm))
 
 
-def check_kernels(x):
+def check_kernels(x, ptxas):
     """Hold each kernel against its plain version, its twin and the library
     call(s), then time it. Returns the JSON rows (without launches)."""
     import torch
@@ -253,6 +311,7 @@ def check_kernels(x):
     Bp, starts = x["Bp"], x["starts"]
     dense = (x["Linv"], x["Lp"])
     packed = x["packed_ops"]
+    order, packed_order = x["orders"]
     index = x["packed"].index
     print(f"[chip_smoke] shapes: S={x['S']} n_pad={n_pad} m_pad={m_pad} "
           f"bs={bs} bm={bm} start_block={x['starts_np'].tolist()} packed "
@@ -292,16 +351,25 @@ def check_kernels(x):
             lambda: stepped_trsm_packed_plain(*packed, Bp, starts, bs, bm),
             lambda: Y),
         "stepped_trsm_syrk": (
-            lambda: stepped_trsm_syrk_kernel(*dense, Bp, starts, bs, bm),
+            lambda: stepped_trsm_syrk_kernel(*dense, Bp, starts, bs, bm,
+                                             order=order),
             lambda: stepped_trsm_syrk_plain(*dense, Bp, starts, bs, bm),
             lambda: stepped_syrk_kernel(Y, starts, bs, bm)),
         "stepped_trsm_syrk_packed": (
             lambda: stepped_trsm_syrk_packed_kernel(*packed, Bp, starts, bs,
-                                                    bm),
+                                                    bm, order=packed_order),
             lambda: stepped_trsm_syrk_packed_plain(*packed, Bp, starts, bs, bm),
             lambda: stepped_syrk_kernel(
                 stepped_trsm_packed_kernel(*packed, Bp, starts, bs, bm),
                 starts, bs, bm)),
+    }
+    # the fused kernels' yardstick: their unfused pair, back to back
+    pairs = {
+        "stepped_trsm_syrk": lambda: stepped_syrk_kernel(
+            stepped_trsm_kernel(*dense, Bp, starts, bs, bm), starts, bs, bm),
+        "stepped_trsm_syrk_packed": lambda: stepped_syrk_kernel(
+            stepped_trsm_packed_kernel(*packed, Bp, starts, bs, bm), starts,
+            bs, bm),
     }
     rows = []
     for name, (kernel, plain, twin) in kernels.items():
@@ -328,19 +396,29 @@ def check_kernels(x):
         ms = cuda_ms(kernel)
         plain_ms = cuda_ms(plain)
         library_ms = cuda_ms(lib[name])
+        pair_ms = cuda_ms(pairs[name]) if name in pairs else None
         source, replaces = SOURCES[name]
         b = bnd[name]
+        tflops = b["flops"] / ms / 1e9
         rows.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             max_abs_err=abs_err, max_rel_err=rel_err, twin_rel_err=twin_err,
             library_rel_err=lib_err, ms=ms, plain_ms=plain_ms,
             library_ms=library_ms, library_call=lib_names[name],
-            bound_ms=b["bound_ms"], bound_by=b["bound_by"]))
+            bound_ms=b["bound_ms"], bound_by=b["bound_by"], tflops=tflops,
+            bound_share=b["bound_ms"] / ms, unfused_pair_ms=pair_ms,
+            **ptxas[name]))
         print(f"[chip_smoke] {name}: {ms:.3f} ms (plain {plain_ms:.3f}, "
               f"library {library_ms:.3f}, bound {b['bound_ms']:.3f} by "
               f"{b['bound_by']}: {b['flops']:.4e} f64 flop at "
               f"{PEAK_FP64_FLOPS / 1e12:g} TFLOP/s, {b['bytes']:.4e} B at "
               f"{PEAK_BYTES_PER_S / 1e12:g} TB/s)", flush=True)
+        print(f"[chip_smoke] {name}: {tflops:.2f} useful TFLOP/s, "
+              f"{100 * b['bound_ms'] / ms:.1f}% of the bound, "
+              f"{library_ms / ms:.2f}x the library call's speed"
+              + (f"; unfused pair back to back {pair_ms:.3f} ms "
+                 f"({pair_ms / ms:.2f}x the fused time)"
+                 if pair_ms is not None else ""), flush=True)
     return rows
 
 
@@ -429,11 +507,22 @@ def main() -> int:
             print(f"[chip_smoke] nvcc {name}:\n{log.read_text().strip()}")
     print(f"[chip_smoke] built {sorted(secs)} in "
           f"{max(secs.values(), default=0.0):.1f}s", flush=True)
+    ptxas = ptxas_report(build, secs)
+    for name, r in ptxas.items():
+        print(f"[chip_smoke] ptxas {name}: {r['registers']} registers, "
+              f"{r['spill_stores']} B spill stores, {r['spill_loads']} B "
+              f"spill loads, {r['static_smem']} B static shared memory"
+              + (" (cached: an earlier build's log)" if r["ptxas_cached"]
+                 else ""), flush=True)
+    dmma = dmma_counts(build)
+    print(f"[chip_smoke] DMMA instructions in the SASS: {dmma}", flush=True)
+    if not all(dmma.values()):
+        raise SystemExit(f"no DMMA in the SASS of {dmma}")
     done("build", t0)
 
     t0 = phase("kernels")
     x = kernel_inputs(device)
-    rows = check_kernels(x)
+    rows = check_kernels(x, ptxas)
     del x
     gc.collect()
     torch.cuda.empty_cache()

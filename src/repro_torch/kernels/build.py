@@ -4,13 +4,14 @@ Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
 for ``sm_90a`` into its own shared library, loaded with ``ctypes``; the
 device code the kernels share lives in ``csrc/*.cuh``. A build takes
 seconds (no PyTorch headers). Libraries land in ``build/repro_torch/`` at
-the repository root, named by a hash of the source, every shared header
-and the flags, so an edited source or header is rebuilt on first use and
-an unchanged one is reused.
+the repository root, named by a hash of the source, every shared header,
+the flags and the compiler's version, so an edited source or header, or
+another toolkit, is rebuilt on first use and an unchanged one is reused.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -43,11 +44,18 @@ def _nvcc() -> str:
     return nvcc
 
 
+@functools.lru_cache(maxsize=1)
+def _nvcc_version() -> bytes:
+    return subprocess.run([_nvcc(), "--version"], capture_output=True,
+                          check=True, timeout=60).stdout
+
+
 def _library_path(name: str) -> Path:
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         h.update(header.name.encode() + header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(_nvcc_version())
     digest = h.hexdigest()
     return build_dir() / f"{name}-{digest[:16]}.so"
 

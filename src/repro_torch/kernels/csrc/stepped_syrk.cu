@@ -5,28 +5,40 @@
 // _syrk_kernel), the TPU kernel of paper §3.3.
 //
 // What bounds it: the useful work is SteppedMeta.flops_syrk_output_split()
-// per subdomain, times S (about 0.02 TFLOP on feti-heat-2d's 64 subdomains),
-// against the card's FP64 peak: 67 TFLOP/s through the FP64 tensor cores,
-// 34 TFLOP/s through plain FP64 FMA (NVIDIA H100 SXM data sheet). It must
-// also read Y below each stripe's start once (~0.9 GB at full size, ~0.3 ms
-// at 3.35 TB/s), so operations and bytes bound it about equally; the
-// caller's TRSM does over ten times its work.
+// per subdomain, times S (about 0.011 TFLOP on feti-heat-2d's 64
+// subdomains), 0.17 ms at the FP64 tensor cores' 67 TFLOP/s (NVIDIA H100
+// SXM data sheet; plain FP64 FMA peaks at half that). It must also read Y
+// below each stripe's start once (~0.5 GB at full size, ~0.16 ms at
+// 3.35 TB/s), so operations and bytes bound it about equally; the
+// caller's TRSM does over ten times its work. At 245 registers a thread
+// the 128 x 128 sub-tile runs one block (8 warps) a SM. Per 16-row chunk
+// its shared-memory traffic (32 KB copied in, 96 KB of fragments loaded)
+// and its 256 m16n8k8 products take about the same 1,000 SM clocks, and
+// the 384 blocks at full size are three uneven waves; it runs near 30% of
+// the bound (PERF.md).
 //
 // What the design does about it (the device code is stepped_syrk.cuh):
 //   * Only the lower tiles (i, j <= i) of the bm x bm tile grid are
-//     launched (blockIdx.x enumerates them); the upper tiles are never
-//     touched and keep the zeros the wrapper allocated, which the mirror
-//     step relies on.
+//     launched; the upper tiles are never touched and keep the zeros the
+//     wrapper allocated, which the mirror step relies on.
 //   * Tile (i, j) reduces over factor rows from stripe i's start block
 //     only (paper's k-dimension reduction): pivots are sorted, so stripe
 //     i's columns of Y are zero above it.
-//   * Each block computes a 32 x 32 sub-tile of one tile (16 per 128-wide
-//     tile, 6144 blocks at full size), streaming 32-row chunks of the two
-//     Y column panels through shared memory; each thread keeps 4 outputs.
-//   * Plain f64 FMA, no DMMA, no TMA: a simple kernel that is right.
+//   * Each block computes one 128 x 128 sub-tile of one tile (clipped to
+//     the tile when bm is smaller) on the FP64 tensor cores (mma.sync
+//     m16n8k8, 8 warps of 64 x 32), streaming 16-row chunks of the two Y
+//     column panels through a 3-stage cp.async ring. A warp loads 8 + 4
+//     fragments for every 16 products, so shared memory keeps up with the
+//     tensor cores; the price is registers (one block a SM).
+//   * Blocks are numbered tile-major, so the tiles of the first stripes,
+//     which reduce over the most rows, start first (start blocks are
+//     non-decreasing); the sub-tiles of one tile are neighbours and share
+//     their panels in L2.
 //
-// Layout: row-major, Y (S, n, m), F (S, m, m), start_block (m / bm,) int32.
-// n is padded to a bs multiple, m to a bm multiple, bm a multiple of 32.
+// Layout: row-major, Y (S, n, m), F (S, m, m), start_block (m / bm,) int32,
+// every array 16-byte aligned (the wrapper checks). n is padded to a bs
+// multiple (any bs: the last 16-row chunk is clipped to n), m to a bm
+// multiple, bm a multiple of 32.
 
 #include "stepped_syrk.cuh"
 
@@ -34,19 +46,30 @@ namespace {
 
 using namespace stepped;
 
+// 128 x 128 sub-tiles on 8 warps of 64 x 32 measured faster than 64 x 64
+// sub-tiles on 8 warps of 32 x 16 (PERF.md)
+constexpr int SUB = 128, WARP_M = 64, WARP_N = 32;
+constexpr size_t SMEM = syrk_smem_bytes<SUB>();
+
 __global__ void __launch_bounds__(SYRK_THREADS)
 stepped_syrk_kernel(const double* __restrict__ Y,
                     const int* __restrict__ start_block,
-                    double* __restrict__ F, int n, int m, int bs, int bm) {
-  __shared__ double smem[SYRK_SMEM_BYTES / sizeof(double)];
+                    double* __restrict__ F, int S, int n, int m, int bs,
+                    int bm) {
+  extern __shared__ __align__(16) double smem[];
+  const int subs = (bm + SUB - 1) / SUB, per_tile = subs * subs;
+  const int64_t per_row = (int64_t)S * per_tile;
   int ti, tj;
-  lower_tile(blockIdx.x, ti, tj);
-  const int subs = bm / T;
-  const int r0 = ti * bm + (blockIdx.y / subs) * T;  // F rows = Y columns
-  const int c0 = tj * bm + (blockIdx.y % subs) * T;  // F columns
-  const int64_t s = blockIdx.z;
-  syrk_subtile<LoadInput>(Y + s * (int64_t)n * m, F + s * (int64_t)m * m, n,
-                          m, start_block[ti] * bs, r0, c0, smem);
+  lower_tile((int)(blockIdx.x / per_row), ti, tj);
+  const int rem = (int)(blockIdx.x % per_row);
+  const int64_t s = rem / per_tile;
+  const int sub = rem % per_tile;
+  const int r0 = ti * bm + (sub / subs) * SUB;  // F rows = Y columns
+  const int c0 = tj * bm + (sub % subs) * SUB;  // F columns
+  syrk_tile<LoadInput, SUB, WARP_M, WARP_N>(
+      Y + s * (int64_t)n * m, F + s * (int64_t)m * m, n, m,
+      min(start_block[ti], n / bs) * bs, r0, c0, (ti + 1) * bm,
+      (tj + 1) * bm, smem);
 }
 
 }  // namespace
@@ -54,10 +77,12 @@ stepped_syrk_kernel(const double* __restrict__ Y,
 extern "C" int stepped_syrk_f64(const void* Y, const void* start_block,
                                 void* F, int S, int n, int m, int bs, int bm,
                                 void* stream) {
-  const int nc = m / bm;
-  const int subs = bm / T;
-  dim3 grid(nc * (nc + 1) / 2, subs * subs, S);
-  stepped_syrk_kernel<<<grid, SYRK_THREADS, 0, (cudaStream_t)stream>>>(
-      (const double*)Y, (const int*)start_block, (double*)F, n, m, bs, bm);
+  cudaError_t err = dmma::set_smem(stepped_syrk_kernel, SMEM);
+  if (err != cudaSuccess) return (int)err;
+  const int nc = m / bm, subs = (bm + SUB - 1) / SUB;
+  const int64_t blocks = (int64_t)nc * (nc + 1) / 2 * subs * subs * S;
+  stepped_syrk_kernel<<<(unsigned)blocks, SYRK_THREADS, SMEM,
+                        (cudaStream_t)stream>>>(
+      (const double*)Y, (const int*)start_block, (double*)F, S, n, m, bs, bm);
   return (int)cudaGetLastError();
 }

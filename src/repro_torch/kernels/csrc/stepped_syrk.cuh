@@ -2,35 +2,50 @@
 // (stepped_syrk.cu) and the fused TRSM->SYRK kernels
 // (stepped_trsm_syrk.cu). Sm_90a, f64.
 //
-// syrk_subtile() computes one 32 x 32 sub-tile of F = Y^T Y for one
-// subdomain: rows r0.. (columns of Y in the row stripe), columns c0..,
-// reducing over Y rows from k_begin (the row stripe's start block, times
-// bs) to n. It streams 32-row chunks of the two Y column panels through
-// shared memory; each thread keeps 4 outputs. The Load policy reads Y:
-// the stepped SYRK reads an input, the fused kernels read a scratch that
-// other blocks of the same launch wrote, and must bypass L1.
+// syrk_tile<Load, TM, WM, WN, NTHREADS>() computes one TM x TM sub-tile of
+// F = Y^T Y for one subdomain: rows r0.. (columns of Y), columns c0..,
+// clipped to row_end / col_end (the bm x bm tile it belongs to), reducing
+// over Y rows from k_begin (the row stripe's start block, times bs) to n.
+// Ys and Fs are 16-byte aligned and m is even: every copy and store moves
+// 16 bytes. The products run on the FP64 tensor cores (dmma_f64.cuh): each
+// of the block's NTHREADS / 32 warps owns a WM x WN warp tile of m16n8k8
+// fragments. 16-row chunks of the two Y column panels stream through a
+// 3-stage cp.async ring, each panel stored k-major exactly as it lies in Y
+// (leading dimension TM + 4); the last chunk is clipped to n. A diagonal
+// sub-tile (r0 == c0) copies its one panel once. The Load policy picks the
+// copy: the stepped SYRK reads an input (.ca), the fused kernels read a
+// scratch that other blocks of the same launch wrote and must bypass L1
+// (.cg); neither uses the read-only path.
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "dmma_f64.cuh"
+
 namespace stepped {
 
-constexpr int T = 32;          // output sub-tile edge
-constexpr int SKC = 32;        // rows of Y per shared-memory chunk
-constexpr int SYRK_THREADS = 256;  // 32 output rows x 8 column groups
-constexpr int SYRK_CPT = T / 8;    // outputs per thread
+constexpr int SKC = 16;            // rows of Y per staged chunk
+constexpr int SYRK_STAGES = 3;
+constexpr int SYRK_THREADS = 256;  // 8 warps (the stepped SYRK's block)
 
-constexpr size_t SYRK_SMEM_BYTES = sizeof(double) * (SKC * (T + 1) + SKC * T);
+template <int TM>
+constexpr size_t syrk_smem_bytes() {
+  return sizeof(double) * SYRK_STAGES * 2 * SKC * (TM + 4);
+}
 
 struct LoadInput {
-  __device__ static __forceinline__ double load(const double* p) { return *p; }
+  __device__ static __forceinline__ void copy16(void* dst, const void* src,
+                                                bool valid) {
+    dmma::cp_async_ca(dst, src, valid);
+  }
 };
 
 // cache-global: served by L2, never by a possibly stale L1 line
 struct LoadFromL2 {
-  __device__ static __forceinline__ double load(const double* p) {
-    return __ldcg(p);
+  __device__ static __forceinline__ void copy16(void* dst, const void* src,
+                                                bool valid) {
+    dmma::cp_async_cg(dst, src, valid);
   }
 };
 
@@ -41,40 +56,66 @@ __device__ __forceinline__ void lower_tile(int t, int& ti, int& tj) {
   tj = t - ti * (ti + 1) / 2;
 }
 
-// Ys (n, m) and Fs (m, m) of one subdomain; smem holds SYRK_SMEM_BYTES.
-template <class Load>
-__device__ __forceinline__ void syrk_subtile(const double* Ys, double* Fs,
-                                             int n, int m, int k_begin,
-                                             int r0, int c0, double* smem) {
-  double (*Yi)[T + 1] = reinterpret_cast<double (*)[T + 1]>(smem);
-  double (*Yj)[T] = reinterpret_cast<double (*)[T]>(smem + SKC * (T + 1));
-  const int tid = threadIdx.x;
-  const int tx = tid % 8, ty = tid / 8;
-  double acc[SYRK_CPT];
-#pragma unroll
-  for (int c = 0; c < SYRK_CPT; ++c) acc[c] = 0.0;
+// Ys (n, m) and Fs (m, m) of one subdomain; smem (16-byte aligned) holds
+// syrk_smem_bytes<TM>(). Uniform over the block.
+template <class Load, int TM, int WM, int WN, int NTHREADS = SYRK_THREADS>
+__device__ __forceinline__ void syrk_tile(const double* Ys, double* Fs,
+                                          int n, int m, int k_begin, int r0,
+                                          int c0, int row_end, int col_end,
+                                          double* smem) {
+  constexpr int LD = TM + 4;
+  constexpr int PANEL = SKC * LD;
+  constexpr int WARPS_N = TM / WN;
+  static_assert(LD % 16 == 4, "conflict-free fragments");
+  static_assert((TM / WM) * WARPS_N == NTHREADS / 32, "a warp tile a warp");
+  constexpr int MI = WM / 8, NJ = WN / 8;
 
-  for (int k0 = k_begin; k0 < n; k0 += SKC) {
-    for (int idx = tid; idx < SKC * T; idx += SYRK_THREADS) {
-      const int q = idx / T, c = idx % T;
-      const bool in = k0 + q < n;
-      const int64_t row = (int64_t)(k0 + q) * m;
-      Yi[q][c] = in ? Load::load(Ys + row + r0 + c) : 0.0;
-      Yj[q][c] = in ? Load::load(Ys + row + c0 + c) : 0.0;
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int q = 0; q < SKC; ++q) {
-      const double a = Yi[q][ty];
+  const int tid = threadIdx.x, warp = tid / 32;
+  const int g = dmma::lane_g(), t = dmma::lane_t();
+  const int wm0 = (warp / WARPS_N) * WM, wn0 = (warp % WARPS_N) * WN;
+  const bool diag = r0 == c0;
+
+  double acc[MI][NJ][2];
+  dmma::zero(acc);
+  dmma::pipeline<SYRK_STAGES>(
+      (n - k_begin + SKC - 1) / SKC,
+      [&](int c, int stage) {
+        double* Pi = smem + stage * 2 * PANEL;
+        const int k0 = k_begin + c * SKC;
+        for (int idx = tid; idx < SKC * (TM / 2); idx += NTHREADS) {
+          const int q = idx / (TM / 2), c2 = 2 * (idx % (TM / 2));
+          // rows past n (the last chunk when bs is no multiple of SKC) are
+          // zero-filled
+          const bool in_k = k0 + q < n;
+          const double* row = Ys + (int64_t)(in_k ? k0 + q : 0) * m;
+          const bool in_i = in_k && r0 + c2 < row_end;
+          const bool in_j = in_k && c0 + c2 < col_end;
+          Load::copy16(Pi + q * LD + c2, in_i ? row + r0 + c2 : Ys, in_i);
+          if (!diag)
+            Load::copy16(Pi + PANEL + q * LD + c2, in_j ? row + c0 + c2 : Ys,
+                         in_j);
+        }
+      },
+      [&](int, int stage) {
+        const double* Pi = smem + stage * 2 * PANEL;
+        const double* Pj = diag ? Pi : Pi + PANEL;
+        // A(r, k) = Y[k][r0 + r]: k-major, like B(k, c) = Y[k][c0 + c]
+        dmma::warp_mma<MI, NJ, SKC, 1, LD, LD, false>(acc, Pi + wm0,
+                                                      Pj + wn0);
+      });
+
 #pragma unroll
-      for (int c = 0; c < SYRK_CPT; ++c) acc[c] += a * Yj[q][tx + 8 * c];
+  for (int i = 0; i < MI; ++i) {
+    const int r = r0 + wm0 + 8 * i + g;
+    if (r >= row_end) continue;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const int c = c0 + wn0 + 8 * j + 2 * t;
+      if (c < col_end)
+        *reinterpret_cast<double2*>(Fs + (int64_t)r * m + c) =
+            make_double2(acc[i][j][0], acc[i][j][1]);
     }
-    __syncthreads();
   }
-
-#pragma unroll
-  for (int c = 0; c < SYRK_CPT; ++c)
-    Fs[(int64_t)(r0 + ty) * m + c0 + tx + 8 * c] = acc[c];
 }
 
 }  // namespace stepped

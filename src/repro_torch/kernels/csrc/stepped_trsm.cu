@@ -9,14 +9,17 @@
 //     _trsm_packed_kernel), the same TRSM against a packed factor whose
 //     inner loop walks only the stored blocks of each row.
 //
-// What bounds them: the f64 operations. The dense kernel's useful work is
-// SteppedMeta.flops_trsm_rhs_split() per subdomain, times S (about 0.18
-// TFLOP on feti-heat-2d's 64 subdomains of 4225 DOFs); the packed one does
-// only the stored tiles' share of it (142 of 595 lower blocks there). Both
-// run against the card's FP64 peak: 67 TFLOP/s through the FP64 tensor
-// cores (DMMA), 34 TFLOP/s through plain FP64 FMA (NVIDIA H100 SXM data
-// sheet). The factor they read is at most half of a padded (S, n, n) stack
-// (~5 GB dense, ~1.2 GB packed), 0.4-1.5 ms at 3.35 TB/s.
+// What bounds them: the card's least time for the work is the f64
+// operations (dense: SteppedMeta.flops_trsm_rhs_split() per subdomain,
+// times S, about 0.18 TFLOP on feti-heat-2d's 64 subdomains of 4225 DOFs,
+// 2.7 ms at the FP64 tensor cores' 67 TFLOP/s) or, packed, the bytes of
+// the stored factor tiles (142 of 595 lower blocks there; ~2.5 GB with B,
+// Linv and Y, 0.75 ms at 3.35 TB/s). What bounds this design is shared
+// memory: per 16-deep chunk a block copies 20 KB into it and its 4 warps
+// load 32 KB of fragments from it, ~410 SM clocks at 128 B a clock, for
+// 64 m16n8k8 products that the tensor cores finish in 256. So the kernels
+// can reach at most about 60% of the FP64 peak; they reach about a third
+// (PERF.md). Every warp loads the whole B operand (the solved Y rows).
 //
 // What the design does about it (the device code is stepped_trsm.cuh):
 //   * Every block owns TN = 32 right-hand-side columns of one subdomain and
@@ -26,15 +29,24 @@
 //     stripe's start is a valid lower bound for all of its columns.
 //   * Narrow column tiles give S * m_pad / 32 independent blocks (768 at
 //     full size) instead of the TPU grid's S * m_pad / 128 = 192, enough
-//     to fill 132 SMs. The blocks of one subdomain run side by side and
-//     read the same factor tiles, so the factor streams from L2.
+//     to fill 132 SMs. Blocks are numbered column-tile-major, so the
+//     tiles of the first stripes, which start highest and cost the most,
+//     are dispatched first (start blocks are non-decreasing), and the
+//     blocks in flight for one subdomain read the same factor tiles,
+//     which then stream from L2.
 //   * The diagonal step multiplies by the pre-inverted diagonal block, as
-//     on the TPU, so all arithmetic is GEMM-shaped.
+//     on the TPU, so all arithmetic is GEMM-shaped and runs on the FP64
+//     tensor cores (mma.sync m16n8k8, dmma_f64.cuh), with every operand
+//     staged through a 3-stage cp.async ring (TRSM_SMEM_BYTES = 112 KB:
+//     two blocks of 4 warps a SM). Four 32 x 32 warp tiles load a third
+//     fewer fragments than eight 16 x 32 ones, and at 128 threads a block
+//     ptxas may use up to 255 registers, so nothing spills.
 //   * One template over the factor accessor: the packed kernel is the dense
-//     one with the tile walk replaced by the CSR walk over stored slots,
-//     skipping slots left of the stripe's start (exact: Y is zero there).
-//   * Plain f64 FMA, no DMMA, no TMA, no pipelining: a simple kernel that
-//     is right. Those are the next steps toward the 67 TFLOP/s bound.
+//     one with the tile walk replaced by the CSR walk over stored slots
+//     from the first one at or right of the stripe's start (exact: Y is
+//     zero left of it).
+//   * Each block still solves its rows one after another: a barrier per
+//     16-deep chunk, and the pipeline drains at each diagonal step.
 //
 // Layout: row-major, Linv (S, nb, bs, bs), L (S, n, n) or values
 // (S, n_blocks, bs, bs) with rowptr (nb + 1,) and colidx (n_blocks,)
@@ -55,22 +67,22 @@ stepped_trsm_kernel(Factor fac, const double* __restrict__ Linv,
                     const double* __restrict__ B,
                     const int* __restrict__ start_block,
                     double* __restrict__ Y, int n, int m, int bs, int bm) {
-  extern __shared__ double smem[];
-  const int col0 = blockIdx.x * TN;
+  extern __shared__ __align__(16) double smem[];
+  const int S = gridDim.x / (m / TN);
+  const int col0 = (int)(blockIdx.x / S) * TN;
   const int start = min(start_block[col0 / bm], n / bs);
-  solve_column_tile(fac, Linv, B, Y, (int64_t)blockIdx.y, col0, start, n, m,
-                    bs, smem);
+  solve_column_tile(fac, Linv, B, Y, (int64_t)(blockIdx.x % S), col0, start,
+                    n, m, bs, smem);
 }
 
 template <class Factor>
 int launch(Factor fac, const void* Linv, const void* B,
            const void* start_block, void* Y, int S, int n, int m, int bs,
            int bm, void* stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      stepped_trsm_kernel<Factor>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)TRSM_SMEM_BYTES);
+  cudaError_t err = dmma::set_smem(stepped_trsm_kernel<Factor>,
+                                   TRSM_SMEM_BYTES);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid(m / TN, S);
+  const unsigned grid = (unsigned)(m / TN) * S;
   stepped_trsm_kernel<Factor>
       <<<grid, THREADS, TRSM_SMEM_BYTES, (cudaStream_t)stream>>>(
           fac, (const double*)Linv, (const double*)B,

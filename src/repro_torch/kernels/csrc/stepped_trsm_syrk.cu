@@ -13,40 +13,64 @@
 //
 // What bounds them: the f64 operations of the TRSM half (see
 // stepped_trsm.cu), about ten times those of the SYRK half; the bytes that
-// must move are the factor, Linv, B and F (Y need not leave the chip).
+// must move are the factor, Linv, B and F (Y need not leave the chip). Both
+// halves run on the FP64 tensor cores (stepped_trsm.cuh, stepped_syrk.cuh).
+// Beyond the arithmetic, what decides the time is balance: one TRSM item
+// (a 32-column tile) of the stripe that starts at block 0 costs
+// sum_{k<nb} (k + 1) tile products (595 at nb = 34), one of a stripe that
+// starts near the end a few, and the start-0 items set the critical path.
+// Even balanced, fusion saves little here: Y still goes through device
+// memory, and a SYRK tile can only start once its stripes are solved, so
+// the SYRK half overlaps no more than the TRSM half's tail. On the dense
+// factor the kernel's TRSM items alone run about 20% slower than the
+// stepped TRSM's blocks on the same items, for a reason not found yet (not
+// registers, residency or item order; PERF.md); on the packed one they
+// match.
 //
 // The TPU kernel runs its (nc, nc) grid sequentially in row-major order:
 // program (c, 0) solves stripe c into a persistent VMEM scratch and every
 // later program (c, j <= c) reads stripes c and j from it. CUDA blocks run
-// in no order, so readiness has to be explicit. Chosen: ONE cooperative
-// launch (cudaLaunchCooperativeKernel) of a persistent grid, no larger than
-// what is co-resident, with one grid-wide barrier between the phases:
-//   1. TRSM phase: the blocks stride over the (subdomain, 32-column tile)
-//      items and run stepped_trsm.cuh's forward substitution into a
-//      global Y scratch (S, n, m), exactly as the stepped TRSM does;
-//   2. grid.sync() — every Y tile is written and visible (the barrier
-//      orders memory);
-//   3. SYRK phase: the blocks stride over the (subdomain, lower tile,
-//      32 x 32 sub-tile) items and run stepped_syrk.cuh's sub-tile
-//      product, reading the scratch with ld.global.cg (L2, never a stale
-//      L1 line; never the read-only path, which assumes the data does not
-//      change during the launch).
-// Why this over per-stripe ready flags with an atomic ticket: no block
-// ever spins on another, so no schedule can deadlock (the cooperative
-// launch refuses a grid that cannot be co-resident instead of hanging),
-// there is nothing to zero before a launch, and both phases reuse the
-// unfused kernels' device code, so the fused result equals the stepped
-// TRSM -> stepped SYRK pair's. The cost is that no SYRK tile starts before
-// the last TRSM tile ends; per-stripe flags would overlap them, a later
-// optimization.
+// in no order, so work order and readiness are explicit:
+//   * A persistent grid, no larger than what is co-resident, draws items
+//     from one host-built list (kernels/schedule.py) through one atomicAdd
+//     ticket: first every TRSM item (subdomain, 32-column tile) in
+//     non-increasing cost, then every SYRK item (subdomain, lower tile,
+//     64 x 64 sub-tile), those reducing over the most rows first. A block
+//     that drew a cheap item draws again at once, so the heavy items
+//     spread over all SMs instead of a fixed stride's share.
+//   * A TRSM item runs stepped_trsm.cuh's forward substitution into a
+//     global Y scratch (S, n, m), then publishes its column tile: every
+//     thread fences, the block meets at a barrier, and one thread stores
+//     the tile's ready flag with st.release.gpu.
+//   * A SYRK item waits only for the column tiles it reads (its rows and
+//     its columns of Y): one thread spins on their flags with
+//     ld.acquire.gpu, then the block meets at a barrier and copies Y with
+//     cp.async.cg (L2, never a stale L1 line, never the read-only path).
+//     SYRK tiles of the early-finishing stripes run while the start-0
+//     stripe is still being solved.
+// The wrapper's launcher zeroes the ticket and the flags with
+// cudaMemsetAsync on the same stream before every launch.
+//
+// Why no schedule can deadlock: a block waits only inside a SYRK item, and
+// only for TRSM items. Tickets are handed out in increasing order and every
+// TRSM item precedes every SYRK item in the list, so each TRSM item a
+// waiting block needs was drawn before its own ticket, by a block that was
+// running when it drew it. TRSM items never wait, so that block finishes
+// the item and sets the flag. (The argument needs no co-residency; the
+// grid is sized to what is co-resident only so that no block idles behind
+// the queue.)
 //
 // Upper tiles (j > i) are never written: the wrapper allocates F as zeros,
-// which the mirror step relies on. Plain f64 FMA, no DMMA, no TMA.
+// which the mirror step relies on.
 //
-// Layout: as stepped_trsm.cu, plus the scratch Y (S, n, m) and the output
-// F (S, m, m); bs a multiple of 32 up to 128, bm a multiple of 32.
-
-#include <cooperative_groups.h>
+// Layout: as stepped_trsm.cu, plus the scratch Y (S, n, m), the output
+// F (S, m, m), the item list (n_items,) int32 and the sync words
+// (1 + S * m / 32,) int32; bs a multiple of 32 up to 128, bm a multiple
+// of 32. Item codes: a TRSM item is s * (m / 32) + column tile, a SYRK
+// item is S * (m / 32) + (s * lower tiles + tile) * sub-tiles + sub-tile.
+// The launcher takes only the whole list: an n_items other than its own
+// count of every item (a list built for another FUSED_TILE, say) is
+// refused with cudaErrorInvalidValue.
 
 #include "stepped_syrk.cuh"
 #include "stepped_trsm.cuh"
@@ -55,85 +79,128 @@ namespace {
 
 using namespace stepped;
 
-constexpr size_t SMEM_BYTES =
-    TRSM_SMEM_BYTES > SYRK_SMEM_BYTES ? TRSM_SMEM_BYTES : SYRK_SMEM_BYTES;
-static_assert(THREADS == SYRK_THREADS, "both phases run on the same block");
+constexpr int FUSED_TILE = 64;  // SYRK sub-tile edge: 4 warps of 32 x 32
+constexpr size_t SMEM_BYTES = TRSM_SMEM_BYTES > syrk_smem_bytes<FUSED_TILE>()
+                                  ? TRSM_SMEM_BYTES
+                                  : syrk_smem_bytes<FUSED_TILE>();
+
+__device__ __forceinline__ void store_release(int* p, int v) {
+  asm volatile("st.release.gpu.global.s32 [%0], %1;\n" ::"l"(p), "r"(v)
+               : "memory");
+}
+
+__device__ __forceinline__ int load_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.s32 %0, [%1];\n"
+               : "=r"(v)
+               : "l"(p)
+               : "memory");
+  return v;
+}
 
 template <class Factor>
 __global__ void __launch_bounds__(THREADS)
 stepped_trsm_syrk_kernel(Factor fac, const double* __restrict__ Linv,
                          const double* __restrict__ B,
-                         const int* __restrict__ start_block, double* Y,
-                         double* __restrict__ F, int S, int n, int m, int bs,
-                         int bm) {
-  extern __shared__ double smem[];
+                         const int* __restrict__ start_block,
+                         const int* __restrict__ order, int n_items,
+                         int* sync, double* Y, double* __restrict__ F, int S,
+                         int n, int m, int bs, int bm) {
+  extern __shared__ __align__(16) double smem[];
+  __shared__ int item_s;
+  int* ticket = sync;
+  int* ready = sync + 1;  // one flag per (subdomain, column tile)
   const int nb = n / bs;
-
-  // 1. TRSM phase: Y = L^{-1} B, one 32-column tile per item
   const int col_tiles = m / TN;
-  const int64_t trsm_items = (int64_t)S * col_tiles;
-  for (int64_t it = blockIdx.x; it < trsm_items; it += gridDim.x) {
-    const int64_t s = it / col_tiles;
-    const int col0 = (int)(it % col_tiles) * TN;
-    const int start = min(start_block[col0 / bm], nb);
-    solve_column_tile(fac, Linv, B, Y, s, col0, start, n, m, bs, smem);
-  }
+  const int trsm_items = S * col_tiles;
 
-  // 2. every stripe of Y is solved and visible to every block
-  cooperative_groups::this_grid().sync();
+  for (;;) {
+    if (threadIdx.x == 0) {
+      const int t = atomicAdd(ticket, 1);
+      item_s = t < n_items ? order[t] : -1;
+    }
+    __syncthreads();
+    const int item = item_s;
+    __syncthreads();  // item_s is rewritten only after every thread read it
+    if (item < 0) break;
 
-  // 3. SYRK phase: lower tiles (i, j <= i) of Y^T Y, one sub-tile per item
-  const int nc = m / bm, subs = bm / T;
-  const int per_tile = subs * subs;
-  const int per_sub = nc * (nc + 1) / 2 * per_tile;
-  const int64_t syrk_items = (int64_t)S * per_sub;
-  for (int64_t it = blockIdx.x; it < syrk_items; it += gridDim.x) {
-    const int64_t s = it / per_sub;
-    const int rem = (int)(it % per_sub);
+    if (item < trsm_items) {
+      const int64_t s = item / col_tiles;
+      const int col0 = (item % col_tiles) * TN;
+      const int start = min(start_block[col0 / bm], nb);
+      solve_column_tile(fac, Linv, B, Y, s, col0, start, n, m, bs, smem);
+      __threadfence();
+      __syncthreads();
+      if (threadIdx.x == 0) store_release(ready + item, 1);
+      continue;
+    }
+
+    // decoded here, not above the loop: nothing of it is live in a TRSM item
+    const int subs = (bm + FUSED_TILE - 1) / FUSED_TILE;
+    const int per_tile = subs * subs;
+    const int per_sub = (m / bm) * (m / bm + 1) / 2 * per_tile;
+    const int code = item - trsm_items;
+    const int64_t s = code / per_sub;
+    const int rem = code % per_sub;
     int ti, tj;
     lower_tile(rem / per_tile, ti, tj);
     const int sub = rem % per_tile;
-    const int r0 = ti * bm + (sub / subs) * T;
-    const int c0 = tj * bm + (sub % subs) * T;
-    syrk_subtile<LoadFromL2>(Y + s * (int64_t)n * m, F + s * (int64_t)m * m,
-                             n, m, min(start_block[ti], nb) * bs, r0, c0,
-                             smem);
+    const int r0 = ti * bm + (sub / subs) * FUSED_TILE;
+    const int c0 = tj * bm + (sub % subs) * FUSED_TILE;
+    const int row_end = min(r0 + FUSED_TILE, (ti + 1) * bm);
+    const int col_end = min(c0 + FUSED_TILE, (tj + 1) * bm);
+    if (threadIdx.x == 0) {
+      const int* flags = ready + s * col_tiles;
+      for (int c = r0 / TN; c < row_end / TN; ++c)
+        while (!load_acquire(flags + c)) __nanosleep(128);
+      for (int c = c0 / TN; c < col_end / TN; ++c)
+        while (!load_acquire(flags + c)) __nanosleep(128);
+    }
+    __syncthreads();
+    syrk_tile<LoadFromL2, FUSED_TILE, 32, 32, THREADS>(
+        Y + s * (int64_t)n * m, F + s * (int64_t)m * m, n, m,
+        min(start_block[ti], nb) * bs, r0, c0, row_end, col_end, smem);
   }
+}
+
+// Blocks of `kernel` that fit on the card at once (the persistent grid).
+template <class Kernel>
+cudaError_t resident_blocks(Kernel* kernel, int* blocks) {
+  cudaError_t err = dmma::set_smem(kernel, SMEM_BYTES);
+  if (err != cudaSuccess) return err;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      THREADS, SMEM_BYTES);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorLaunchOutOfResources;
+  *blocks = per_sm * sms;
+  return cudaSuccess;
 }
 
 template <class Factor>
 int launch(Factor fac, const void* Linv, const void* B,
-           const void* start_block, void* Y, void* F, int S, int n, int m,
-           int bs, int bm, void* stream) {
+           const void* start_block, const void* order, int n_items,
+           void* sync, void* Y, void* F, int S, int n, int m, int bs, int bm,
+           void* stream) {
+  const int nc = m / bm, subs = (bm + FUSED_TILE - 1) / FUSED_TILE;
+  const int trsm_items = S * (m / TN);
+  if (n_items != trsm_items + S * (nc * (nc + 1) / 2) * subs * subs)
+    return (int)cudaErrorInvalidValue;
   auto kernel = stepped_trsm_syrk_kernel<Factor>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_BYTES);
+  int resident = 0;
+  cudaError_t err = resident_blocks(kernel, &resident);
   if (err != cudaSuccess) return (int)err;
-  int dev = 0, sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const int grid = n_items < resident ? n_items : resident;
+  err = cudaMemsetAsync(sync, 0, sizeof(int) * (1 + trsm_items),
+                        (cudaStream_t)stream);
   if (err != cudaSuccess) return (int)err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                      THREADS, SMEM_BYTES);
-  if (err != cudaSuccess) return (int)err;
-  if (per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
-  const int nc = m / bm, subs = bm / T;
-  const int64_t trsm_items = (int64_t)S * (m / TN);
-  const int64_t syrk_items = (int64_t)S * (nc * (nc + 1) / 2) * subs * subs;
-  const int64_t items = trsm_items > syrk_items ? trsm_items : syrk_items;
-  const int64_t resident = (int64_t)per_sm * sms;
-  const int grid = (int)(items < resident ? items : resident);
-
-  const double* linv = (const double*)Linv;
-  const double* b = (const double*)B;
-  const int* starts = (const int*)start_block;
-  double* y = (double*)Y;
-  double* f = (double*)F;
-  void* args[] = {&fac, &linv, &b, &starts, &y, &f, &S, &n, &m, &bs, &bm};
-  err = cudaLaunchCooperativeKernel((const void*)kernel, dim3(grid),
-                                    dim3(THREADS), args, SMEM_BYTES,
-                                    (cudaStream_t)stream);
-  if (err != cudaSuccess) return (int)err;
+  kernel<<<grid, THREADS, SMEM_BYTES, (cudaStream_t)stream>>>(
+      fac, (const double*)Linv, (const double*)B, (const int*)start_block,
+      (const int*)order, n_items, (int*)sync, (double*)Y, (double*)F, S, n,
+      m, bs, bm);
   return (int)cudaGetLastError();
 }
 
@@ -141,17 +208,20 @@ int launch(Factor fac, const void* Linv, const void* B,
 
 extern "C" int stepped_trsm_syrk_f64(const void* Linv, const void* L,
                                      const void* B, const void* start_block,
-                                     void* Y, void* F, int S, int n, int m,
-                                     int bs, int bm, void* stream) {
-  return launch(DenseFactor{(const double*)L, n}, Linv, B, start_block, Y, F,
-                S, n, m, bs, bm, stream);
+                                     const void* order, void* sync, void* Y,
+                                     void* F, int S, int n, int m, int bs,
+                                     int bm, int n_items, void* stream) {
+  return launch(DenseFactor{(const double*)L, n}, Linv, B, start_block, order,
+                n_items, sync, Y, F, S, n, m, bs, bm, stream);
 }
 
 extern "C" int stepped_trsm_syrk_packed_f64(
     const void* Linv, const void* values, const void* rowptr,
-    const void* colidx, const void* B, const void* start_block, void* Y,
-    void* F, int S, int n, int m, int bs, int bm, int n_blocks, void* stream) {
+    const void* colidx, const void* B, const void* start_block,
+    const void* order, void* sync, void* Y, void* F, int S, int n, int m,
+    int bs, int bm, int n_blocks, int n_items, void* stream) {
   return launch(PackedFactor{(const double*)values, (const int*)rowptr,
                              (const int*)colidx, n_blocks},
-                Linv, B, start_block, Y, F, S, n, m, bs, bm, stream);
+                Linv, B, start_block, order, n_items, sync, Y, F, S, n, m, bs,
+                bm, stream);
 }

@@ -3,9 +3,10 @@
 
 Handles everything the kernels require to stay simple: padding to block
 multiples (identity-padded factor diagonal), per-stripe start-block
-metadata derived from the stepped pivots, pre-inversion of the factor's
-diagonal blocks (for a packed factor, its diagonal slots), and the mirror
-of SYRK's lower block triangle. Every function takes a leading subdomain
+metadata derived from the stepped pivots (and from it, on the host, the
+fused kernels' item list, cached per plan and device), pre-inversion of
+the factor's diagonal blocks (for a packed factor, its diagonal slots),
+and the mirror of SYRK's lower block triangle. Every function takes a leading subdomain
 axis S; one shared (envelope) ``SteppedMeta`` describes all S.
 """
 from __future__ import annotations
@@ -14,6 +15,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.stepped import SteppedMeta
+from repro_torch.kernels.schedule import fused_work_order_on
 from repro_torch.kernels.stepped_syrk import stepped_syrk_kernel
 from repro_torch.kernels.stepped_trsm import (
     stepped_trsm_kernel,
@@ -111,6 +113,17 @@ def _starts(meta: SteppedMeta, device) -> torch.Tensor:
                            device=device)
 
 
+def _fused_order(meta: SteppedMeta, S: int, device, index=None
+                 ) -> torch.Tensor:
+    """The fused kernels' item list on ``device`` from the host start
+    blocks (and a packed factor's block ``index``), cached per plan."""
+    bs, bm, n_pad, m_pad = _padded_sizes(meta)
+    csr = () if index is None else (index.rowptr, index.cols)
+    return fused_work_order_on(device,
+                               _start_blocks(meta, bm, bs, m_pad, n_pad), S,
+                               n_pad // bs, m_pad, bm, *csr)
+
+
 def _packed_operands(L: PackedBlocks, meta: SteppedMeta):
     """(Linv, values, rowptr, colidx) of a packed factor built at the
     meta's block size."""
@@ -181,10 +194,14 @@ def stepped_trsm_syrk(L, B: torch.Tensor, meta: SteppedMeta) -> torch.Tensor:
     Bp = _pad_to(B, n_pad, m_pad)
     starts = _starts(meta, B.device)
     if isinstance(L, PackedBlocks):
-        Fl = stepped_trsm_syrk_packed_kernel(*_packed_operands(L, meta), Bp,
-                                             starts, bs=bs, bm=bm)
+        operands = _packed_operands(L, meta)
+        order = _fused_order(meta, B.shape[0], B.device, L.index)
+        Fl = stepped_trsm_syrk_packed_kernel(*operands, Bp, starts, bs=bs,
+                                             bm=bm, order=order)
     else:
         Lp = pad_factor(L, n_pad)
         Fl = stepped_trsm_syrk_kernel(invert_diag_blocks(Lp, bs), Lp, Bp,
-                                      starts, bs=bs, bm=bm)
+                                      starts, bs=bs, bm=bm,
+                                      order=_fused_order(meta, B.shape[0],
+                                                         B.device))
     return _mirror_lower(Fl, bm, m_pad, meta.m)

@@ -42,8 +42,8 @@ def stepped_syrk_kernel(Y: torch.Tensor, start_block: torch.Tensor, bs: int,
       Y: (S, n, m) stepped TRSM solutions, n a multiple of bs, m of bm.
       start_block: (m // bm,) int first contributing row block per stripe.
 
-    CUDA tensors launch the kernel (bm a multiple of 32); CPU tensors run
-    the plain version. Only float64 is accepted.
+    CUDA tensors launch the kernel (bm a multiple of 32, Y 16-byte
+    aligned); CPU tensors run the plain version. Only float64 is accepted.
     ``stepped_syrk_kernel.launches`` counts launches.
     """
     dev = check_operands("stepped_syrk", Y=Y)

@@ -202,6 +202,8 @@ CUDA_CASES = [
     (300, 100, 64, 32, 3, 0),  # ragged: n 300 -> 320, m 100 -> 128
     (256, 96, 128, 32, 2, 32),  # last stripe all padding: start_block = nb
     (520, 258, 128, 128, 2, 0),  # the full-size bs/bm, 3 stripes
+    (600, 200, 64, 96, 3, 10),  # uneven starts, the last stripe empty
+    (520, 258, 128, 128, 256, 0),  # items many times the resident grid
 ]
 
 
@@ -224,14 +226,16 @@ def test_cuda_kernels_match_plain_and_twin(n, m, bs, bm, S, empty, kernel):
     Lp = ops.pad_factor(L, n_pad)
     dense = (ops.invert_diag_blocks(Lp, bs), Lp)
     packed = ops._packed_operands(pb, meta)
-    wrapper, plain, operands = {
-        "B3": (stepped_trsm_packed_kernel, stepped_trsm_packed_plain, packed),
-        "B4": (stepped_trsm_syrk_kernel, stepped_trsm_syrk_plain, dense),
+    wrapper, plain, operands, extra = {
+        "B3": (stepped_trsm_packed_kernel, stepped_trsm_packed_plain, packed,
+               {}),
+        "B4": (stepped_trsm_syrk_kernel, stepped_trsm_syrk_plain, dense,
+               {"order": ops._fused_order(meta, S, dev)}),
         "B5": (stepped_trsm_syrk_packed_kernel, stepped_trsm_syrk_packed_plain,
-               packed),
+               packed, {"order": ops._fused_order(meta, S, dev, pb.index)}),
     }[kernel]
     before = wrapper.launches
-    got = wrapper(*operands, Bp, starts, bs, bm)
+    got = wrapper(*operands, Bp, starts, bs, bm, **extra)
     torch.cuda.synchronize()
     assert wrapper.launches == before + 1
     assert torch.isfinite(got).all()
@@ -246,3 +250,61 @@ def test_cuda_kernels_match_plain_and_twin(n, m, bs, bm, S, empty, kernel):
         for i in range(m_pad // bm):
             assert torch.all(got[:, i * bm:(i + 1) * bm, (i + 1) * bm:] == 0)
     assert _rel(got, twin) <= 1e-11
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["B4", "B5"])
+def test_cuda_fused_back_to_back_launches_are_bit_identical(kernel):
+    """The ticket and the ready flags are reset before every launch: a
+    second launch on the same inputs gives the same F, bit for bit (each
+    output element is summed in a fixed order, whatever block computes
+    it)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda")
+    L, pb, B, meta = _case(520, 258, 128, 128, 64, 0, seed=9, device=dev)
+    _, _, n_pad, m_pad = ops._padded_sizes(meta)
+    Bp = ops._pad_to(B, n_pad, m_pad)
+    starts = ops._starts(meta, dev)
+    if kernel == "B4":
+        Lp = ops.pad_factor(L, n_pad)
+        wrapper, operands = (stepped_trsm_syrk_kernel,
+                             (ops.invert_diag_blocks(Lp, 128), Lp))
+        order = ops._fused_order(meta, 64, dev)
+    else:
+        wrapper, operands = (stepped_trsm_syrk_packed_kernel,
+                             ops._packed_operands(pb, meta))
+        order = ops._fused_order(meta, 64, dev, pb.index)
+    first = wrapper(*operands, Bp, starts, 128, 128, order=order)
+    second = wrapper(*operands, Bp, starts, 128, 128, order=order)
+    torch.cuda.synchronize()
+    assert torch.isfinite(first).all()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["B4", "B5"])
+def test_cuda_fused_refuses_a_wrong_item_list(kernel):
+    """A CUDA launch needs the item list of its own plan: none, one of
+    another length or another dtype is refused before the launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda")
+    L, pb, B, meta = _case(300, 100, 64, 32, 2, 0, seed=5, device=dev)
+    _, _, n_pad, m_pad = ops._padded_sizes(meta)
+    Bp = ops._pad_to(B, n_pad, m_pad)
+    starts = ops._starts(meta, dev)
+    if kernel == "B4":
+        Lp = ops.pad_factor(L, n_pad)
+        wrapper, operands = (stepped_trsm_syrk_kernel,
+                             (ops.invert_diag_blocks(Lp, 64), Lp))
+    else:
+        wrapper, operands = (stepped_trsm_syrk_packed_kernel,
+                             ops._packed_operands(pb, meta))
+    order = ops._fused_order(meta, 2, dev, pb.index if kernel == "B5" else None)
+    before = wrapper.launches
+    for bad in (None, order[1:], order.long()):
+        with pytest.raises(ValueError, match="item list|order must be"):
+            wrapper(*operands, Bp, starts, 64, 32, order=bad)
+    assert wrapper.launches == before
+

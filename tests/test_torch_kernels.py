@@ -169,6 +169,8 @@ CUDA_CASES = [
     (300, 100, 64, 32, 3, 0),  # n padded 300 -> 320, m padded 100 -> 128
     (256, 96, 128, 32, 2, 32),  # last stripe all empty: start_block = nb
     (520, 258, 128, 128, 2, 0),  # the full-size bs/bm, 3 stripes
+    (600, 200, 64, 96, 3, 10),  # uneven starts, the last stripe empty
+    (520, 258, 128, 128, 256, 0),  # items many times the resident grid
 ]
 
 
@@ -200,3 +202,46 @@ def test_cuda_kernels_match_plain(n, m, bs, bm, S, empty):
         assert torch.all(F[:, i * bm:(i + 1) * bm, (i + 1) * bm:] == 0)
     with pytest.raises(ValueError, match="multiple of 32"):
         stepped_syrk_kernel(Y, starts.repeat_interleave(bm // 16), bs, 16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bs", [8, 24, 40])
+def test_cuda_syrk_any_block_size(bs):
+    """The stepped SYRK streams Y in 16-row chunks; a bs that is no
+    multiple of 16 clips the last chunk to n."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.default_rng(bs)
+    S, bm, nb = 3, 32, 7
+    n, m = nb * bs, 3 * bm
+    starts = torch.tensor([0, 2, 5], dtype=torch.int32)
+    Y = torch.from_numpy(rng.standard_normal((S, n, m)))
+    for c, st in enumerate(starts.tolist()):  # zero above each start
+        Y[:, :st * bs, c * bm:(c + 1) * bm] = 0
+    dev = torch.device("cuda")
+    got = stepped_syrk_kernel(Y.to(dev), starts.to(dev), bs, bm).cpu()
+    want = stepped_syrk_plain(Y, starts, bs, bm)
+    assert (got - want).abs().max().item() <= 1e-11 * want.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_cuda_wrappers_refuse_misaligned_operands():
+    """The kernels move operands in 16-byte copies: a contiguous view that
+    starts 8 bytes into its storage is refused before any launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda")
+    S, n, m, bs, bm = 1, 64, 32, 32, 32
+    buf = torch.zeros(S * n * m + 1, dtype=torch.float64, device=dev)
+    Y = buf[1:].view(S, n, m)
+    assert Y.is_contiguous() and Y.data_ptr() % 16 == 8
+    starts = torch.zeros(1, dtype=torch.int32, device=dev)
+    before = stepped_syrk_kernel.launches
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        stepped_syrk_kernel(Y, starts, bs, bm)
+    L = torch.eye(n, dtype=torch.float64, device=dev)[None].contiguous()
+    Linv = ops.invert_diag_blocks(L, bs)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        stepped_trsm_kernel(Linv, L, Y, starts, bs, bm)
+    assert stepped_syrk_kernel.launches == before
+

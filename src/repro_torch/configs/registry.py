@@ -16,12 +16,17 @@ __all__ = ["register", "get_config", "get_smoke_config", "list_archs",
 _FULL: Dict[str, Callable] = {}
 _SMOKE: Dict[str, Callable] = {}
 
-ARCH_MODULES = ["feti_heat_2d"]
+ARCH_MODULES = ["feti_heat_2d", "feti_heat_3d", "feti_elasticity_2d",
+                "feti_elasticity_3d"]
 
 
 @dataclasses.dataclass(frozen=True)
 class FetiArchConfig:
-    """The paper's own 'architecture': a structured FETI problem."""
+    """The paper's own 'architecture': a structured FETI problem.
+
+    ``problem`` selects the workload: scalar "heat" (1 DOF/node, kernel
+    dim 1) or vector "elasticity" (2-3 DOFs/node, rigid-body kernel dim
+    3/6)."""
 
     name: str
     dim: int

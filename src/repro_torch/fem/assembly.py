@@ -1,10 +1,15 @@
 """P1 finite-element assembly for the scalar heat-transfer (Laplace)
-problem, in numpy (counterpart of ``repro.fem.assembly``, heat only).
+problem and vector-valued linear elasticity, in numpy (counterpart of
+``repro.fem.assembly``).
 
 Element stiffness is vectorized over elements; the dense scatter builds
 the per-subdomain matrices, the scipy CSR path is the reference oracle for
-validating the FETI solve against an undecomposed global solve. Vector
-elasticity is ROADMAP item A10.
+validating the FETI solve against an undecomposed global solve.
+
+Vector problems use node-blocked DOF numbering: DOF ``node * d + c`` is
+component ``c`` of ``node`` (d = 2 or 3 components per node). The scatter
+assemblers are index-generic, so both problems share them through
+:func:`element_dofs`.
 """
 from __future__ import annotations
 
@@ -15,7 +20,11 @@ import scipy.sparse as sps
 
 __all__ = [
     "p1_element_stiffness",
+    "p1_elasticity_stiffness",
+    "elasticity_matrix",
+    "element_dofs",
     "load_vector",
+    "elasticity_load_vector",
     "assemble_dense",
     "assemble_scipy_csr",
 ]
@@ -52,6 +61,77 @@ def p1_element_stiffness(coords, elems, kappa: float = 1.0) -> np.ndarray:
     return kappa * vol[:, None, None] * np.einsum("eid,ejd->eij", G, G)
 
 
+def elasticity_matrix(dim: int, lam: float = 1.0, mu: float = 1.0
+                      ) -> np.ndarray:
+    """Isotropic elasticity matrix C in Voigt notation (Lamé parameters).
+
+    2D is plane strain (3 strain components: εxx, εyy, γxy); 3D has the
+    full 6 (εxx, εyy, εzz, γxy, γyz, γxz). Shear rows use engineering
+    strain, so the shear diagonal is μ.
+    """
+    if dim == 2:
+        C = [[lam + 2 * mu, lam, 0.0],
+             [lam, lam + 2 * mu, 0.0],
+             [0.0, 0.0, mu]]
+    elif dim == 3:
+        C = [[lam + 2 * mu, lam, lam, 0, 0, 0],
+             [lam, lam + 2 * mu, lam, 0, 0, 0],
+             [lam, lam, lam + 2 * mu, 0, 0, 0],
+             [0, 0, 0, mu, 0, 0],
+             [0, 0, 0, 0, mu, 0],
+             [0, 0, 0, 0, 0, mu]]
+    else:
+        raise ValueError("elasticity supports dim 2 or 3")
+    return np.asarray(C, dtype=np.float64)
+
+
+# (strain row, displacement component, gradient axis) of every nonzero of
+# the P1 strain-displacement matrix, per node: εxx = ∂x ux, ..., and each
+# engineering shear strain sums the two cross derivatives
+_STRAIN_TERMS = {
+    2: ((0, 0, 0), (1, 1, 1), (2, 0, 1), (2, 1, 0)),
+    3: ((0, 0, 0), (1, 1, 1), (2, 2, 2),
+        (3, 0, 1), (3, 1, 0), (4, 1, 2), (4, 2, 1), (5, 0, 2), (5, 2, 0)),
+}
+
+
+def _strain_displacement(G: np.ndarray) -> np.ndarray:
+    """Element strain-displacement matrices B: (ne, n_strain, (d+1)*d).
+
+    Node-blocked column order (node-major, component-minor), matching
+    :func:`element_dofs`. Constant per element for P1.
+    """
+    ne, d1, d = G.shape
+    B = np.zeros((ne, 3 if d == 2 else 6, d1 * d), dtype=G.dtype)
+    for a in range(d1):
+        for row, comp, axis in _STRAIN_TERMS[d]:
+            B[:, row, d * a + comp] = G[:, a, axis]
+    return B
+
+
+def p1_elasticity_stiffness(coords, elems, lam: float = 1.0,
+                            mu: float = 1.0) -> np.ndarray:
+    """Per-element P1 linear-elasticity stiffness ``Ke = vol * Bᵀ C B``.
+
+    Returns (n_elems, (d+1)*d, (d+1)*d) in node-blocked DOF order; scatter
+    with ``element_dofs(elems, d)`` through the same assemblers as heat.
+    """
+    G, vol = _p1_gradients(coords, elems)
+    C = elasticity_matrix(G.shape[2], lam, mu)
+    B = _strain_displacement(G)
+    return vol[:, None, None] * np.einsum("esi,st,etj->eij", B, C, B)
+
+
+def element_dofs(elems, ndof_per_node: int) -> np.ndarray:
+    """Expand node connectivity (ne, d+1) to DOF connectivity
+    (ne, (d+1)*ndpn) in node-blocked order (DOF = node*ndpn + c)."""
+    elems = np.asarray(elems)
+    if ndof_per_node == 1:
+        return elems
+    return (elems[:, :, None] * ndof_per_node
+            + np.arange(ndof_per_node)).reshape(elems.shape[0], -1)
+
+
 def load_vector(coords, elems, n_nodes: int, source: float = 1.0) -> np.ndarray:
     """Consistent P1 load vector for a constant source term."""
     elems = np.asarray(elems)
@@ -64,8 +144,23 @@ def load_vector(coords, elems, n_nodes: int, source: float = 1.0) -> np.ndarray:
     return f
 
 
+def elasticity_load_vector(coords, elems, n_nodes: int, body_force
+                           ) -> np.ndarray:
+    """Consistent P1 load for a constant body force (d components).
+
+    Returns the (n_nodes * d,) node-blocked DOF load vector.
+    """
+    comps = [load_vector(coords, elems, n_nodes, source=float(b))
+             for b in body_force]
+    return np.stack(comps, axis=1).reshape(n_nodes * len(comps))
+
+
 def assemble_dense(n_dofs: int, elems, Ke) -> np.ndarray:
-    """Scatter per-element stiffness into a dense (n, n) matrix."""
+    """Scatter per-element stiffness into a dense (n, n) matrix.
+
+    ``elems`` is any per-element index array (node connectivity for scalar
+    problems, :func:`element_dofs` output for vector problems).
+    """
     elems = np.asarray(elems)
     Ke = np.asarray(Ke)
     d1 = elems.shape[1]

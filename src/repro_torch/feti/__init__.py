@@ -4,7 +4,13 @@ operator in implicit and explicit form, the natural-coarse-space projector,
 PCPG, and the end-to-end solver. :class:`FetiConfig` is the front door."""
 from repro_torch.feti.assembly import ClusterState, preprocess_cluster
 from repro_torch.feti.config import FetiConfig, as_feti_config
+from repro_torch.feti.dirichlet import (
+    BoundaryInteriorSplit,
+    assemble_dirichlet_schur,
+    boundary_interior_split,
+)
 from repro_torch.feti.operator import (
+    dirichlet_preconditioner,
     dual_rhs,
     explicit_dual_apply,
     implicit_dual_apply,
@@ -15,6 +21,7 @@ from repro_torch.feti.projector import CoarseProblem, build_coarse_problem
 from repro_torch.feti.solver import FetiSolution, FetiSolver
 
 __all__ = [
+    "BoundaryInteriorSplit",
     "ClusterState",
     "CoarseProblem",
     "FetiConfig",
@@ -22,7 +29,10 @@ __all__ = [
     "FetiSolver",
     "PCPGResult",
     "as_feti_config",
+    "assemble_dirichlet_schur",
+    "boundary_interior_split",
     "build_coarse_problem",
+    "dirichlet_preconditioner",
     "dual_rhs",
     "explicit_dual_apply",
     "implicit_dual_apply",

@@ -1,22 +1,29 @@
 """Cluster preprocessing: numerical factorization + explicit SC assembly,
 batched over the subdomains of a cluster (paper §2.2 "preprocessing");
-counterpart of ``repro.feti.assembly`` for one device and the dual stage
-only, with dense or packed factors.
+counterpart of ``repro.feti.assembly`` for one device, with dense or
+packed factors, the dual stage and, for the Dirichlet preconditioner, the
+primal boundary stage S_b = K_bb − K_bi K_ii⁻¹ K_ib.
 
 All subdomains of the structured decomposition share one local topology,
 so they share the fill-reducing permutation, the symbolic block fill mask
 and the (envelope) stepped metadata: the whole cluster runs through one
 batched factorization and one batched assembly with a leading subdomain
-axis. The reference plans its stages through a stage graph; an explicit
-config has one dual stage, resolved directly here (the autotuner and the
-stage graph are ROADMAP item A14, the Dirichlet stage A11, sharding A16).
+axis. The reference plans its stages through a stage graph; here each
+stage takes the configured Schur config and resolves its symbolic
+products directly (the autotuner and the stage graph are ROADMAP item
+A14, sharding A16). When the boundary/interior split aligns with the row
+ordering the interior factorization is shared: the dual rows are ordered
+``split.dperm``, so the dual factor's leading (n_i, n_i) principal block IS
+the Cholesky factor of the unregularized K_ii, and the Dirichlet stage
+reuses it instead of factorizing its own copy.
 
 Host memory: the reference stacks five dense (S, n, n) host copies of K.
 Here each subdomain's K is moved to the device once, and the regularized,
 permuted stack is built there, in the one working stack the factorization
-then overwrites with L. With packed storage that stack is the packed
-(S, n_blocks, bs, bs) value stack: no dense (S, n, n) stack exists on the
-device at any point.
+then overwrites with L; the Dirichlet stage's K_ib, K_bb (and, unshared,
+K_ii) are cut from the same upload. With packed storage the working
+stacks are packed (n_blocks, bs, bs) value stacks: no dense (S, n, n) or
+(S, n_i, n_i) stack exists on the device at any point.
 """
 from __future__ import annotations
 
@@ -37,6 +44,7 @@ from repro_torch.device import resolve_device
 from repro_torch.fem.decomposition import FetiProblem
 from repro_torch.fem.meshgen import structured_mesh
 from repro_torch.fem.regularization import regularization_shift
+from repro_torch.feti import dirichlet as dirlib
 from repro_torch.feti.config import as_feti_config
 from repro_torch.feti.operator import DualMap, dual_map
 from repro_torch.sparse import (
@@ -48,6 +56,7 @@ from repro_torch.sparse import (
     block_symbolic_cholesky,
     matrix_pattern_from_elems,
     node_ordering,
+    pack_factor,
 )
 
 __all__ = ["ClusterState", "preprocess_cluster", "make_cluster_preprocessor",
@@ -93,7 +102,14 @@ class ClusterState:
     col_perm: torch.Tensor  # (S, m_max) stepped column perm per subdomain
     inv_col_perm: torch.Tensor  # (S, m_max)
     R: torch.Tensor  # (S, n, k) orthonormal kernel bases, original DOF order
-    prep: Optional[Callable] = None  # (Kp, Btp) -> (L, F); overwrites Kp
+    prep: Optional[Callable] = None  # (Kp, Btp[, blocks]) -> (L, F, Sb)
+    # the Dirichlet stage (preconditioner="dirichlet"), else None/False:
+    split: Optional[dirlib.BoundaryInteriorSplit] = None
+    Sb: Optional[torch.Tensor] = None  # (S, n_b, n_b) own-boundary S_b
+    Btb: Optional[torch.Tensor] = None  # (S, n_b, m_max) B̃ᵀ[boundary]
+    shared_factor: bool = False  # S_b reused the dual factor's interior
+    dirichlet_env: Optional[SteppedMeta] = None  # K_ib's stepped metadata
+    dirichlet_mask: Optional[np.ndarray] = None  # interior block fill mask
 
     @property
     def _L_values(self) -> torch.Tensor:
@@ -124,7 +140,8 @@ class ClusterState:
             return x.numel() * x.element_size()
 
         out = {"L": nbytes(self.L), "K": nbytes(self.K),
-               "Btp": nbytes(self.Btp), "F": nbytes(self.F)}
+               "Btp": nbytes(self.Btp), "F": nbytes(self.F),
+               "Sb": nbytes(self.Sb), "Btb": nbytes(self.Btb)}
         out["total"] = sum(out.values())
         n = self.index.n
         out["dense_L"] = self.S * n * n * self.Btp.element_size()
@@ -154,18 +171,37 @@ def batched_assemble(
     return torch.gather(Fp, 2, icp[:, None, :].expand(S, m, m))
 
 
+def _share_valid(problem: FetiProblem,
+                 split: dirlib.BoundaryInteriorSplit) -> bool:
+    """The interior-factor dedup is valid iff every subdomain's fixing
+    DOFs lie on the (union) boundary: the fixing-DOF regularization then
+    only shifts boundary diagonal entries, so the dual factor's leading
+    (n_i, n_i) principal block is the Cholesky factor of the UNREGULARIZED
+    K_ii, exactly what the Dirichlet stage eliminates against."""
+    bset = np.zeros(split.n, dtype=bool)
+    bset[split.boundary] = True
+    return all(bool(bset[sd.fixing_dofs].all())
+               for sd in problem.subdomains)
+
+
 def make_cluster_preprocessor(problem: FetiProblem, config=None):
     """Host symbolic phase + the numeric preprocessing function for one
     decomposition.
 
     Returns ``(static, prep)``: ``static`` carries the host-side symbolic
     products (node permutation, block fill mask, stepped envelope, column
-    permutations, packed index); ``prep(Kp_stack, Btp_stack) -> (L, F)``
-    factorizes the regularized permuted stiffness stack IN PLACE
-    (``Kp_stack`` becomes L) and, in explicit mode, assembles the SCs —
-    callable again with new values of the same pattern (the paper's
-    symbolic/numeric split). ``Kp_stack`` is an (S, n, n) tensor, or with
-    ``storage="packed"`` a :class:`PackedBlocks` in the static index.
+    permutations, packed index and, with the Dirichlet preconditioner, the
+    split, the sharing decision, K_ib's stepped metadata and the interior
+    fill mask and index); ``prep(Kp_stack, Btp_stack, blocks=None) ->
+    (L, F, Sb)`` factorizes the regularized permuted stiffness stack IN
+    PLACE (``Kp_stack`` becomes L), in explicit mode assembles the SCs, and
+    given the Dirichlet stage's :class:`~repro_torch.feti.dirichlet.
+    DirichletBlocks` assembles the own-boundary S_b stack (its K_ii, when
+    unshared, is factorized in place too); F and Sb are ``None`` when not
+    computed. It is callable again with new values of the same pattern
+    (the paper's symbolic/numeric split). ``Kp_stack`` is an (S, n, n)
+    tensor, or with ``storage="packed"`` a :class:`PackedBlocks` in the
+    static index.
     """
     fc = as_feti_config(config)
     cfg = fc.resolved_schur()
@@ -179,10 +215,30 @@ def make_cluster_preprocessor(problem: FetiProblem, config=None):
     nperm = node_ordering(node_shape, fc.ordering)
     lmesh = structured_mesh(problem.elems_per_sub)
     npat0 = matrix_pattern_from_elems(n // ndpn, lmesh.elems)
-    kpat0 = expand_node_pattern(npat0, ndpn)
-    node_perm = expand_node_perm(nperm, ndpn)
+    kpat0 = expand_node_pattern(npat0, ndpn)  # original DOF order
+    fill_perm = expand_node_perm(nperm, ndpn)
+
+    # ---- Dirichlet stage: the split and the factor-sharing decision ----
+    split = None
+    share = False
+    if fc.dirichlet:
+        split = dirlib.boundary_interior_split(problem, dof_perm=fill_perm)
+        if fc.share_factor is not False and split.n_i > 0:
+            ok = _share_valid(problem, split)
+            if fc.share_factor is True and not ok:
+                raise ValueError(
+                    "share_factor=True, but some subdomain's fixing DOFs "
+                    "are interior — the regularization would perturb the "
+                    "shared interior factor. Use share_factor='auto'.")
+            share = ok
+
+    # factor row order: the boundary/interior layout when sharing (the
+    # interior keeps its fill-reducing elimination order, so the leading
+    # principal block of L is the interior factor), else the fill order
+    node_perm = split.dperm if share else fill_perm
     kpat = kpat0[node_perm][:, node_perm]
     bs, rbs = cfg.block_size, cfg.rhs_bs
+    packed = cfg.storage == "packed"
     # regularization only touches the diagonal: the pattern is unchanged
     block_mask = block_symbolic_cholesky(block_pattern(kpat, bs))
     metas = [build_stepped_meta(sd.Bt[node_perm] != 0, block_size=bs,
@@ -194,27 +250,60 @@ def make_cluster_preprocessor(problem: FetiProblem, config=None):
     cp = torch.as_tensor(col_perms, device=dev)
     icp = torch.as_tensor(inv_col_perms, device=dev)
 
-    def prep(Kp_stack, Btp_stack: torch.Tensor):
-        if cfg.storage == "packed":
+    # without the autotuner the Dirichlet stage takes the dual stage's
+    # config, as the reference does when it is not planning
+    meta_ib = mask_ii = index_ii = d_assemble = Zb = None
+    if fc.dirichlet:
+        meta_ib, mask_ii = dirlib.dirichlet_symbolic(problem, split, bs, rbs,
+                                                     kpat=kpat0)
+        if packed and split.n_i > 0:
+            index_ii = PackedBlockIndex.from_mask(mask_ii, split.n_i, bs)
+        d_assemble = dirlib.make_dirichlet_assembler(
+            split, meta_ib, mask_ii, cfg, shared=share)
+        Zb = torch.as_tensor(dirlib.own_boundary_masks(problem, split),
+                             dtype=torch.float64, device=dev)
+    ni = split.n_i if split is not None else 0
+
+    def _interior_factor(L):
+        """The dual factor's leading (n_i, n_i) principal block: a view of
+        a dense stack; a packed one is densified for the cut and packed in
+        the interior layout, a transient dense (S, n, n) stack as in the
+        reference (avoiding it is ROADMAP A11's follow-up)."""
+        if isinstance(L, PackedBlocks):
+            return pack_factor(L.unpack()[:, :ni, :ni], index_ii)
+        return L[:, :ni, :ni]
+
+    def prep(Kp_stack, Btp_stack: torch.Tensor,
+             blocks: Optional[dirlib.DirichletBlocks] = None):
+        if packed:
             L = block_cholesky_packed(Kp_stack, index)
         else:
             L = block_cholesky(Kp_stack, bs, mask=block_mask)
-        if not fc.explicit:
-            return L, None
-        return L, batched_assemble(L, Btp_stack, cp, icp, env, cfg, block_mask)
+        F = (batched_assemble(L, Btp_stack, cp, icp, env, cfg, block_mask)
+             if fc.explicit else None)
+        Sb = None
+        if blocks is not None:
+            A_ii = _interior_factor(L) if share else blocks.Kii
+            Sb = dirlib.restrict_own_boundary(
+                d_assemble(A_ii, blocks.Kib, blocks.Kbb), Zb)
+        return L, F, Sb
 
     static = dict(node_perm=node_perm, block_mask=block_mask, env=env,
                   col_perm=cp, inv_col_perm=icp, cfg=cfg, index=index,
-                  device=dev)
+                  device=dev, split=split, share=share,
+                  dirichlet_env=meta_ib, dirichlet_mask=mask_ii,
+                  dirichlet_index=index_ii)
     return static, prep
 
 
 def _device_stiffness(problem: FetiProblem, node_perm: np.ndarray,
                       index: PackedBlockIndex, dev: torch.device,
-                      packed: bool = False):
+                      packed: bool = False,
+                      blocks: Optional[dirlib.DirichletBlocks] = None):
     """The regularized, permuted stiffness stack on ``dev`` — (S, n, n), or
     a :class:`PackedBlocks` when ``packed`` — and the packed unregularized
-    permuted K of the lumped preconditioner.
+    permuted K of the lumped preconditioner; ``blocks`` (the Dirichlet
+    stage's inputs) are cut from the same uploads.
 
     Each K_i crosses to the device once; permutation, packing and the
     fixing-DOF shift happen there. The shift is added after packing, so the
@@ -231,34 +320,39 @@ def _device_stiffness(problem: FetiProblem, node_perm: np.ndarray,
     rho = np.array([regularization_shift(sd.K) for sd in subs])
     s_idx = torch.arange(S, device=dev)[:, None].expand(pos.shape)
     rho_t = torch.as_tensor(rho, dtype=torch.float64, device=dev)[:, None]
+    # each K_i lands in one flat buffer with a zero appended (the padding
+    # target of the packing gathers)
+    flat = torch.zeros(n * n + 1, dtype=torch.float64, device=dev)
     if packed:
         bs = index.bs
         gather = torch.as_tensor(index.flat_gather(node_perm), device=dev)
-        flat = torch.zeros(n * n + 1, dtype=torch.float64, device=dev)
-        vals = torch.empty((S, index.n_blocks, bs, bs), dtype=torch.float64,
-                           device=dev)
-        for i, sd in enumerate(subs):
-            flat[: n * n].copy_(torch.as_tensor(sd.K, dtype=torch.float64)
-                                .reshape(-1))
-            vals[i] = flat[gather].view(index.n_blocks, bs, bs)
-        del flat, gather
-        K_packed = PackedBlocks(vals, index)
-        Kreg = vals.clone()
+        out = torch.empty((S, index.n_blocks, bs, bs), dtype=torch.float64,
+                          device=dev)
+    else:
+        perm = torch.as_tensor(node_perm, device=dev)
+        out = torch.empty((S, n, n), dtype=torch.float64, device=dev)
+    for i, sd in enumerate(subs):
+        flat[: n * n].copy_(torch.as_tensor(sd.K, dtype=torch.float64)
+                            .reshape(-1))
+        if packed:
+            out[i] = flat[gather].view(index.n_blocks, bs, bs)
+        else:
+            out[i] = flat[: n * n].view(n, n)[perm][:, perm]
+        if blocks is not None:
+            blocks.add(i, flat)
+    del flat
+    if packed:
+        K_packed = PackedBlocks(out, index)
+        Kreg = out.clone()
         index.set_identity_pad(Kreg)
         slot = torch.as_tensor(index.diag_slots[pos // bs], device=dev)
         off = torch.as_tensor(pos % bs, device=dev)
         Kreg[s_idx, slot, off, off] += rho_t
         return PackedBlocks(Kreg, index), K_packed
-    perm = torch.as_tensor(node_perm, device=dev)
-    Kp = torch.empty((S, n, n), dtype=torch.float64, device=dev)
-    for i, sd in enumerate(subs):
-        Ki = torch.as_tensor(sd.K, dtype=torch.float64).to(dev)
-        Kp[i] = Ki[perm][:, perm]
-        del Ki
-    K_packed = PackedBlocks(index.pack(Kp), index)
+    K_packed = PackedBlocks(index.pack(out), index)
     pos_t = torch.as_tensor(pos, device=dev)
-    Kp[s_idx, pos_t, pos_t] += rho_t
-    return Kp, K_packed
+    out[s_idx, pos_t, pos_t] += rho_t
+    return out, K_packed
 
 
 def preprocess_cluster(problem: FetiProblem, config=None) -> ClusterState:
@@ -270,19 +364,37 @@ def preprocess_cluster(problem: FetiProblem, config=None) -> ClusterState:
     ``None`` (defaults). The factors are stored as ``cfg.storage`` says;
     the unregularized K kept for the lumped preconditioner is always
     packed in the fill-mask layout.
+
+    ``preconditioner="dirichlet"`` also assembles the per-subdomain primal
+    boundary Schur complements S_b = K_bb − K_bi K_ii⁻¹ K_ib
+    (:mod:`repro_torch.feti.dirichlet`) through the same assembly config;
+    the state then carries ``Sb``, the boundary-row slice ``Btb``, the
+    split and ``shared_factor``: whether the stage reused the dual factor's
+    interior principal block instead of factorizing K_ii itself.
     """
     fc = as_feti_config(config)
     static, prep = make_cluster_preprocessor(problem, fc)
     dev = static["device"]
     node_perm = static["node_perm"]
     index: PackedBlockIndex = static["index"]
+    split = static["split"]
+    share = static["share"]
     subs = problem.subdomains
 
+    blocks = Btb = None
+    if split is not None:
+        blocks = dirlib.DirichletBlocks(split, len(subs), dev,
+                                        interior=not share,
+                                        index_ii=static["dirichlet_index"])
+        Btb = torch.as_tensor(np.stack([sd.Bt[split.boundary] for sd in subs]),
+                              dtype=torch.float64, device=dev)
     Kp, K_packed = _device_stiffness(problem, node_perm, index, dev,
-                                     packed=static["cfg"].storage == "packed")
+                                     packed=static["cfg"].storage == "packed",
+                                     blocks=blocks)
     Btp = torch.as_tensor(np.stack([sd.Bt[node_perm] for sd in subs]),
                           dtype=torch.float64, device=dev)
-    L, F = prep(Kp, Btp)
+    L, F, Sb = prep(Kp, Btp, blocks)
+    del blocks
 
     f = np.stack([sd.f for sd in subs])
     lam = np.stack([sd.lambda_ids for sd in subs])
@@ -309,4 +421,10 @@ def preprocess_cluster(problem: FetiProblem, config=None) -> ClusterState:
         inv_col_perm=static["inv_col_perm"],
         R=to_dev(R),
         prep=prep,
+        split=split,
+        Sb=Sb,
+        Btb=Btb,
+        shared_factor=share,
+        dirichlet_env=static["dirichlet_env"],
+        dirichlet_mask=static["dirichlet_mask"],
     )

@@ -12,9 +12,10 @@ from repro_torch.core.schur import SchurAssemblyConfig
 __all__ = ["FetiConfig", "as_feti_config"]
 
 _MODES = ("explicit", "implicit")
-_PRECONDITIONERS = ("lumped", "none")
+_PRECONDITIONERS = ("lumped", "dirichlet", "none")
 _ORDERINGS = ("nd", "rcm", "natural")
 _STORAGES = (None, "dense", "packed")
+_SHARE = ("auto", True, False)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -26,14 +27,22 @@ class FetiConfig:
         ``"auto"`` (the autotuner and stage graph) is ROADMAP item A14.
       mode: ``"explicit"`` assembles the dual operators F̃ up front
         (paper eq. 12); ``"implicit"`` applies them factor-backed (eq. 11).
-      preconditioner: ``"lumped"`` | ``"none"``; ``"dirichlet"`` is ROADMAP
-        item A11.
+      preconditioner: ``"lumped"`` | ``"dirichlet"`` | ``"none"``.
+        ``"dirichlet"`` adds the primal boundary-Schur stage S_b to
+        preprocessing (:mod:`repro_torch.feti.dirichlet`), assembled with
+        the dual stage's Schur config.
       ordering: fill-reducing node ordering ("nd" | "rcm" | "natural").
       storage: factor storage override ("dense" | "packed"); ``None``
         defers to ``schur.storage``.
       dtype: storage dtype; float64 only (mixed precision is ROADMAP A13).
       device: where the stacks live and the work runs; ``None`` means
         ``cuda`` (see :func:`repro_torch.device.resolve_device`).
+      share_factor: dedupe the interior factorization between the dual
+        and Dirichlet stages. ``"auto"`` shares whenever valid (every
+        subdomain's fixing DOFs lie on the boundary, so the regularization
+        cannot perturb the shared interior factor); ``True`` requires it
+        (preprocessing raises if invalid); ``False`` keeps the two
+        factorizations apart.
     """
 
     schur: Optional[SchurAssemblyConfig] = None
@@ -43,6 +52,7 @@ class FetiConfig:
     storage: Optional[str] = None
     dtype: torch.dtype = torch.float64
     device: Union[str, torch.device, None] = None
+    share_factor: Union[str, bool] = "auto"
 
     def __post_init__(self):
         if self.schur == "auto":
@@ -53,9 +63,6 @@ class FetiConfig:
             raise TypeError("schur must be a SchurAssemblyConfig or None")
         if self.mode not in _MODES:
             raise ValueError(f"mode must be one of {_MODES}, got {self.mode!r}")
-        if self.preconditioner == "dirichlet":
-            raise NotImplementedError(
-                "the Dirichlet preconditioner is ROADMAP item A11")
         if self.preconditioner not in _PRECONDITIONERS:
             raise ValueError(f"preconditioner must be one of "
                              f"{_PRECONDITIONERS}, got {self.preconditioner!r}")
@@ -64,6 +71,9 @@ class FetiConfig:
         if self.storage not in _STORAGES:
             raise ValueError(f"storage must be one of {_STORAGES}, "
                              f"got {self.storage!r}")
+        if self.share_factor not in _SHARE:
+            raise ValueError(f"share_factor must be one of {_SHARE}, "
+                             f"got {self.share_factor!r}")
         if self.dtype != torch.float64:
             raise NotImplementedError(
                 "storage below float64 (mixed precision) is ROADMAP item A13")
@@ -71,6 +81,11 @@ class FetiConfig:
     @property
     def explicit(self) -> bool:
         return self.mode == "explicit"
+
+    @property
+    def dirichlet(self) -> bool:
+        """Whether preprocessing assembles the Dirichlet stage."""
+        return self.preconditioner == "dirichlet"
 
     def resolved_schur(self) -> SchurAssemblyConfig:
         """The Schur config, with ``storage`` overriding its storage."""

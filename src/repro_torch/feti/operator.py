@@ -36,6 +36,7 @@ __all__ = [
     "explicit_dual_apply",
     "implicit_dual_apply",
     "lumped_preconditioner",
+    "dirichlet_preconditioner",
     "dual_rhs",
     "solve_with_factor",
     "apply_stiffness",
@@ -154,6 +155,20 @@ def lumped_preconditioner(K, Bt: torch.Tensor, dm: DualMap, w: torch.Tensor
     """
     return local_dual_apply(
         lambda p: _rmatvec(Bt, apply_stiffness(K, _matvec(Bt, p))), dm, w)
+
+
+def dirichlet_preconditioner(Sb: torch.Tensor, Btb: torch.Tensor,
+                             dm: DualMap, w: torch.Tensor) -> torch.Tensor:
+    """Dirichlet FETI preconditioner: M⁻¹ = Σᵢ B̃ᵢ S_b,i B̃ᵢᵀ with the
+    primal boundary Schur complement S_b = K_bb − K_bi K_ii⁻¹ K_ib
+    (:mod:`repro_torch.feti.dirichlet`).
+
+    ``Sb`` is the dense (S, n_b, n_b) stack, ``Btb`` the boundary-row slice
+    of B̃ᵀ, (S, n_b, m_max): B̃ᵀ has no interior rows by construction of
+    the split, so the restriction loses nothing.
+    """
+    return local_dual_apply(
+        lambda p: _rmatvec(Btb, _matvec(Sb, _matvec(Btb, p))), dm, w)
 
 
 def dual_rhs(L, Btp: torch.Tensor, fp: torch.Tensor,

@@ -26,6 +26,7 @@ from repro_torch.fem.decomposition import FetiProblem
 from repro_torch.feti.assembly import ClusterState, preprocess_cluster
 from repro_torch.feti.config import as_feti_config
 from repro_torch.feti.operator import (
+    dirichlet_preconditioner,
     dual_rhs,
     explicit_dual_apply,
     gather_local,
@@ -111,10 +112,20 @@ class FetiSolver:
             apply_F = partial(explicit_dual_apply, st.F, st.dual)
         else:
             apply_F = partial(implicit_dual_apply, st.L, st.Btp, st.dual)
-        # K is packed in factor row order, so it pairs with Btp (the product
-        # B̃ K B̃ᵀ is invariant to the shared row permutation)
-        precond = (partial(lumped_preconditioner, st.K, st.Btp, st.dual)
-                   if self.preconditioner == "lumped" else None)
+        if self.preconditioner == "lumped":
+            # K is packed in factor row order, so it pairs with Btp (the
+            # product B̃ K B̃ᵀ is invariant to the shared row permutation)
+            precond = partial(lumped_preconditioner, st.K, st.Btp, st.dual)
+        elif self.preconditioner == "dirichlet":
+            if st.Sb is None:
+                raise ValueError(
+                    "state was preprocessed without the dirichlet stage; "
+                    "construct the solver with preconditioner='dirichlet' "
+                    "before preprocess()")
+            precond = partial(dirichlet_preconditioner, st.Sb, st.Btb,
+                              st.dual)
+        else:
+            precond = None
         c = torch.as_tensor(prob.c, dtype=torch.float64, device=st.device)
         self._ops = _SolutionOps(coarse=coarse, apply_F=apply_F,
                                  precond=precond, c=c)

@@ -28,10 +28,19 @@ def from_reference_problem(arrays: dict) -> FetiProblem:
 
     ``arrays`` holds ``subdomains`` — a list of dicts with the keys of
     :data:`SUBDOMAIN_KEYS` (``node_gids``/``fixing_node`` optional; heat
-    has node ids = DOF ids and the fixing node = the fixing DOF) — and
-    ``c``, ``n_lambda``, ``dirichlet_gids``, ``coords``, ``elems``, ``dim``,
-    ``sub_grid``, ``elems_per_sub`` and optionally ``params``.
+    has node ids = DOF ids and the fixing node = the fixing DOF; an
+    elasticity decomposition must carry both) — and ``c``, ``n_lambda``,
+    ``dirichlet_gids``, ``coords``, ``elems``, ``dim``, ``sub_grid``,
+    ``elems_per_sub`` and optionally ``params``, ``problem`` (default
+    ``"heat"``) and ``ndof_per_node`` (default 1). The kernel dimension is
+    the width of ``R``.
     """
+    problem = arrays.get("problem", "heat")
+    ndpn = int(arrays.get("ndof_per_node", 1))
+    if ndpn > 1 and any("node_gids" not in sd or "fixing_node" not in sd
+                        for sd in arrays["subdomains"]):
+        raise KeyError("a vector decomposition needs node_gids and "
+                       "fixing_node for every subdomain")
     subs = []
     for i, sd in enumerate(arrays["subdomains"]):
         missing = [k for k in SUBDOMAIN_KEYS if k not in sd]
@@ -65,6 +74,9 @@ def from_reference_problem(arrays: dict) -> FetiProblem:
         global_mesh=Mesh(dim=coords.shape[1], coords=coords,
                          elems=np.asarray(arrays["elems"], dtype=np.int64)),
         dirichlet_gids=np.asarray(arrays["dirichlet_gids"], dtype=np.int64),
+        problem=problem,
+        ndof_per_node=ndpn,
+        kernel_dim=subs[0].R.shape[1],
         params=dict(arrays.get("params", {})),
     )
 

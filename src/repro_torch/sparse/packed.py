@@ -164,21 +164,26 @@ class PackedBlockIndex:
             idx = torch.arange(self.bs - pad, self.bs, device=values.device)
             values[..., int(self.diag_slots[-1]), idx, idx] = 1.0
 
-    def flat_gather(self, perm: np.ndarray) -> np.ndarray:
+    def flat_gather(self, perm: np.ndarray, n_src: Optional[int] = None
+                    ) -> np.ndarray:
         """(n_blocks·bs·bs,) int64 positions that pack ``A[perm][:, perm]``
-        straight from a flattened (n·n,) ``A`` with one zero appended.
+        straight from a flattened (n_src·n_src,) ``A`` with one zero
+        appended.
 
         ``values.view(-1) = A_ext[flat_gather(perm)]`` with
         ``A_ext = cat([A.reshape(-1), [0]])``: padded entries point at the
-        appended zero. The permutation costs no copy of A.
+        appended zero. The permutation costs no copy of A. ``perm`` has
+        ``n`` entries; ``n_src`` (default ``n``) is A's size, larger when
+        ``perm`` selects a principal submatrix of A.
         """
         n, bs = self.n, self.bs
+        n_src = n if n_src is None else n_src
         p_pad = np.concatenate([np.asarray(perm, dtype=np.int64),
                                 np.full(self.n_pad - n, -1)])
         r = p_pad[(self.rows[:, None].astype(np.int64) * bs + np.arange(bs))]
         c = p_pad[(self.cols[:, None].astype(np.int64) * bs + np.arange(bs))]
-        flat = r[:, :, None] * n + c[:, None, :]
-        flat[(r[:, :, None] < 0) | (c[:, None, :] < 0)] = n * n
+        flat = r[:, :, None] * n_src + c[:, None, :]
+        flat[(r[:, :, None] < 0) | (c[:, None, :] < 0)] = n_src * n_src
         return flat.reshape(-1)
 
     def unpack(self, values: torch.Tensor) -> torch.Tensor:

@@ -28,6 +28,11 @@ def _imported_roots(path):
 def test_port_imports_neither_jax_nor_reference():
     sources = sorted(PORT.rglob("*.py"))
     assert len(sources) > 20
+    # the walk reaches every module, the elasticity and Dirichlet ones too
+    names = {str(p.relative_to(PORT)) for p in sources}
+    assert {"feti/dirichlet.py", "fem/assembly.py",
+            "configs/feti_elasticity_2d.py", "configs/feti_elasticity_3d.py",
+            "configs/feti_heat_3d.py"} <= names
     bad = [f"{p.relative_to(PORT)}:{line} imports {root}"
            for p in sources for root, line in _imported_roots(p)
            if root in FORBIDDEN]
@@ -61,7 +66,6 @@ def test_entry_points_require_cuda_unless_cpu(monkeypatch):
 
 
 @pytest.mark.parametrize("kwargs,item", [
-    (dict(preconditioner="dirichlet"), "A11"),
     (dict(dtype=torch.float32), "A13"),
     (dict(schur="auto"), "A14"),
 ])
@@ -77,11 +81,14 @@ def test_unported_paths_name_their_roadmap_item():
     from repro_torch.fem import decompose_problem
     from repro_torch.feti import FetiSolver
 
-    # packed storage (A9) and the fused kernels (B4, B5) are ported
+    from repro_torch.feti import FetiConfig
+
+    # packed storage (A9), the fused kernels (B4, B5), elasticity (A10) and
+    # the Dirichlet preconditioner (A11) are ported
     assert SchurAssemblyConfig(storage="packed", use_kernels=True,
                                fused=True).fused
-    with pytest.raises(NotImplementedError, match="A10"):
-        decompose_problem("elasticity", 2, (2, 2), (2, 2))
+    assert decompose_problem("elasticity", 2, (2, 2), (2, 2)).kernel_dim == 3
+    assert FetiConfig(preconditioner="dirichlet").dirichlet
     prob = decompose_problem("heat", 2, (2, 2), (2, 2))
     with pytest.raises(NotImplementedError, match="A12"):
         FetiSolver(prob).solve_many(None)

@@ -22,12 +22,24 @@ Phases (each prints its seconds; any failure exits non-zero):
                 (the packed TRSM against the dense one; a fused kernel
                 against TRSM then SYRK; <= 1e-11) and against the library
                 calls of kernels/ref.py (one full triangular solve on the
-                unpacked factor, one batched product; <= 1e-9). Each is
+                dense factor, one batched product; <= 1e-9). Each is
                 timed with CUDA events (median) beside its plain version,
                 its library call(s) and the card's bound, with its useful
                 TFLOP/s and share of the bound; each fused kernel also
                 beside its unfused pair run back to back (B1 then B2, B3
-                then B2).
+                then B2). Then the f32 kernels (B1, B2, B3 at f32) on the
+                same operands rounded to f32 (diagonal blocks inverted at
+                f32), each against its f32 plain version and against the
+                f64 kernel on the same f32 operands (<= 1e-4 relative) and
+                the f32 library call (<= 1e-3), timed beside their bound at
+                4-byte words and the FP32 FFMA peak. TF32 is off for every
+                product (printed).
+     small blocks — the same factor and right-hand side at bs = bm = 16
+                (SMALL_BS; the stepped metadata rebuilt at that size, the
+                factor packed in its nonzero 16 x 16 blocks): B1, B3, B4, B5
+                at f64 and B1, B3 at f32 against their plain versions
+                (1e-11, 1e-4), their twins and the library calls, with
+                times (ROADMAP C4). One checker serves all three phases.
   4. dirichlet — the same five checks and timings on the Dirichlet stage's
                 operands of the full-size feti-heat-3d configuration (S=64
                 subdomains of 16^3 elements: the interior factor, n_i=3375
@@ -36,7 +48,8 @@ Phases (each prints its seconds; any failure exits non-zero):
                 stepped order, padded columns exact zeros), and S_b =
                 K_bb - K_bi K_ii^-1 K_ib from the stage's assembler through
                 the kernels (unfused and fused) against the plain variants
-                (<= 1e-11).
+                (<= 1e-11); then B1, B2, B3 at f32 on these operands, as in
+                the kernels phase.
   5. main     — ``repro_torch.launch.solve_feti.main``, each run with
                 ``--validate``: feti-heat-2d at full size four times
                 (``--kernels``, ``--storage packed --kernels``, ``--fused``,
@@ -63,13 +76,30 @@ Phases (each prints its seconds; any failure exits non-zero):
                 path takes a PCPG iteration count within one of the first;
                 the packed heat-2d ``--kernels`` run's peak device memory
                 must be at most half of the dense run's; Dirichlet must take
-                fewer iterations than lumped on feti-elasticity-3d.
+                fewer iterations than lumped on feti-elasticity-3d. Then the
+                smoke configurations (bs = bm = 8) of feti-heat-2d,
+                feti-elasticity-2d and feti-elasticity-3d ``--kernels``, and
+                the mixed-precision paths: feti-heat-2d ``--kernels --dtype
+                f32`` dense and packed (defect-correction outers) and
+                ``--mode implicit --dtype f32`` (refined implicit, no
+                assembly kernel), each within 1e-8 of the oracle;
+                feti-elasticity-3d ``--kernels --precond dirichlet --dtype
+                f32`` within 1e-6 (printed); feti-heat-2d ``--smoke
+                --kernels --dtype bf16 --tol 1e-6`` within 1e-2 (its outers
+                stop short of the launcher's own bar, so its exit code is
+                not held). Each launches exactly the f32 kernels its flags
+                name, every launch held against its f32 plain version
+                (1e-4), its PCPG iterations summed over the outers are held
+                to a bar (ITER_BAR), and the f32 factor and F stacks must
+                take exactly half of the f64 runs' bytes. Each configuration's scipy
+                oracle is solved once and reused across its paths.
 
-Then one JSON line with the kernels' numbers (each row: the heat-2d
-phase's, ``launches`` summed over the main paths beside
-``launches_per_path``, the main paths' checks under ``path_checks``, and
-the Dirichlet phase's under ``dirichlet_heat_3d``) and, last, the device
-line.
+Then one JSON line with the kernels' numbers, one row per kernel and
+dtype (the f32 ones named ``*_f32``; each row: the heat-2d phase's,
+``launches`` summed over the main paths beside ``launches_per_path``, the
+main paths' checks under ``path_checks``, the Dirichlet phase's under
+``dirichlet_heat_3d`` and the small-block phase's under ``bs16``) and,
+last, the device line.
 The port imports no JAX and nothing of the ``repro`` package.
 """
 from __future__ import annotations
@@ -90,11 +120,18 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 ARCH = "feti-heat-2d"
 REL_TOL = 1e-11  # kernel vs plain version or twin, f64: sums in another order
 LIB_TOL = 1e-9  # kernel vs the library call: another algorithm (full TRSM)
+# f32 kernel (FFMA) vs its f32 plain version (cuBLAS SGEMM, TF32 off) or the
+# f64 kernel on the same f32 operands: f32 sums in another order
+F32_TOL = 1e-4
+F32_LIB_TOL = 1e-3  # f32 kernel vs the f32 library call (a full TRSM)
 # NVIDIA H100 SXM data sheet, dense: FP64 through the tensor cores (DMMA);
-# plain FP64 FMA peaks at half of it. Both assume the 700 W power limit.
+# plain FP64 FMA peaks at half of it; FP32 outside the tensor cores (FFMA,
+# what the f32 kernels run on) at the same 67. All at the 700 W power limit.
 PEAK_FP64_FLOPS = 67e12
+PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 REPS = 5
+SMALL_BS = 16  # the small-block phase's bs = bm (ROADMAP C4)
 
 # feti-heat-3d's validated depth (full: 4,4,4), registered under its own
 # architecture name: the width stays the configuration's
@@ -103,6 +140,17 @@ HEAT3D_CUT = "feti-heat-3d-cut"
 
 KERNEL_NAMES = ("stepped_trsm", "stepped_syrk", "stepped_trsm_packed",
                 "stepped_trsm_syrk", "stepped_trsm_syrk_packed")
+# the kernels built at f32 (the fused ones are f64 only: ROADMAP A13b)
+F32_NAMES = ("stepped_trsm", "stepped_syrk", "stepped_trsm_packed")
+
+
+def kernel_key(name, dtype):
+    """A kernel's name in the launch counts and the JSON rows: the f64
+    kernel under its own name, the f32 one with ``_f32``."""
+    return name if dtype == "f64" else f"{name}_{dtype}"
+
+
+KERNEL_KEYS = KERNEL_NAMES + tuple(kernel_key(n, "f32") for n in F32_NAMES)
 
 # (name, arch, launcher flags, the launches its path must make: every
 # kernel not named must not launch)
@@ -130,7 +178,57 @@ MAIN_RUNS = (
     ("heat-3d dense --kernels dirichlet", HEAT3D_CUT,
      ["--kernels", "--precond", "dirichlet"],
      dict(stepped_trsm=2, stepped_syrk=2)),
+    # the smoke configurations' bs = bm = 8 through the f64 kernels (C4)
+    ("heat-2d smoke --kernels", ARCH, ["--smoke", "--kernels"],
+     dict(stepped_trsm=1, stepped_syrk=1)),
+    ("elasticity-2d smoke --kernels", "feti-elasticity-2d",
+     ["--smoke", "--kernels"], dict(stepped_trsm=1, stepped_syrk=1)),
+    ("elasticity-3d smoke --kernels", "feti-elasticity-3d",
+     ["--smoke", "--kernels"], dict(stepped_trsm=1, stepped_syrk=1)),
+    # mixed precision: f32 stacks through the f32 kernels, f64 accuracy by
+    # refinement (explicit: defect-correction outers); bf16 storage at bs 8
+    ("heat-2d dense --kernels f32", ARCH, ["--kernels", "--dtype", "f32"],
+     dict(stepped_trsm_f32=1, stepped_syrk_f32=1)),
+    ("heat-2d packed --kernels f32", ARCH,
+     ["--storage", "packed", "--kernels", "--dtype", "f32"],
+     dict(stepped_trsm_packed_f32=1, stepped_syrk_f32=1)),
+    ("heat-2d implicit f32", ARCH, ["--mode", "implicit", "--dtype", "f32"],
+     dict()),
+    ("elasticity-3d dense --kernels dirichlet f32", "feti-elasticity-3d",
+     ["--kernels", "--precond", "dirichlet", "--dtype", "f32"],
+     dict(stepped_trsm_f32=2, stepped_syrk_f32=2)),
+    ("heat-2d smoke --kernels bf16", ARCH,
+     ["--smoke", "--kernels", "--dtype", "bf16", "--tol", "1e-6"],
+     dict(stepped_trsm_f32=1, stepped_syrk_f32=1)),
 )
+# each run's bar on the relative error of u against the scipy oracle (the
+# launcher's 1e-6 where not named); the bf16 run is held to its own bar
+# only (its outers stop short of the launcher's, as the reference's do)
+ERR_BAR = {
+    "heat-2d dense --kernels f32": 1e-8,
+    "heat-2d packed --kernels f32": 1e-8,
+    "heat-2d implicit f32": 1e-8,
+    "elasticity-3d dense --kernels dirichlet f32": 1e-6,
+    "heat-2d smoke --kernels bf16": 1e-2,
+}
+LOOSE = ("heat-2d smoke --kernels bf16",)
+# each mixed-precision run's bar on its PCPG iterations summed over the
+# defect-correction outers: the counts measured on the card (NVIDIA H100
+# 80GB HBM3, 700 W) with a small margin. The explicit f32 heat-2d runs take
+# 2,174 because one outer stalls and runs to max_iter = 2000, held back by
+# the f32 factor's error (ROADMAP C6): their bar holds that stall and no
+# second one
+ITER_BAR = {
+    "heat-2d dense --kernels f32": 2200,
+    "heat-2d packed --kernels f32": 2200,
+    "heat-2d implicit f32": 160,
+    "elasticity-3d dense --kernels dirichlet f32": 340,
+    "heat-2d smoke --kernels bf16": 32,
+}
+# (f32 run, its f64 twin): the f32 factor and F stacks take exactly half
+# the twin's bytes
+HALF_BYTES = (("heat-2d dense --kernels f32", "heat-2d dense --kernels"),
+              ("heat-2d packed --kernels f32", "heat-2d packed --kernels"))
 # runs whose iteration counts must agree within one: the same
 # configuration and preconditioner
 SAME_SOLVE = (
@@ -142,13 +240,23 @@ SAME_SOLVE = (
      "elasticity-3d dense --fused dirichlet"),
 )
 F_KERNELS = ("stepped_syrk", "stepped_trsm_syrk", "stepped_trsm_syrk_packed")
-# (library, a substring of the mangled kernel name) of each kernel
+FUSED = F_KERNELS[1:]  # timed beside their unfused pair (their f64 twin)
+# (library, a substring of the mangled kernel name) of each kernel: the
+# TRSM instances with 16-deep chunks, which every bs the main paths use but
+# the smoke configurations' 8 runs
 INSTANCES = {
-    "stepped_trsm": ("stepped_trsm", "DenseFactor"),
-    "stepped_trsm_packed": ("stepped_trsm", "PackedFactor"),
-    "stepped_syrk": ("stepped_syrk", "stepped_syrk_kernel"),
-    "stepped_trsm_syrk": ("stepped_trsm_syrk", "DenseFactor"),
-    "stepped_trsm_syrk_packed": ("stepped_trsm_syrk", "PackedFactor"),
+    "stepped_trsm": ("stepped_trsm", "IdLi16EN7stepped11DenseFactorIdEE"),
+    "stepped_trsm_packed": ("stepped_trsm",
+                            "IdLi16EN7stepped12PackedFactorIdEE"),
+    "stepped_syrk": ("stepped_syrk", "stepped_syrk_kernelIdE"),
+    "stepped_trsm_syrk": ("stepped_trsm_syrk",
+                          "ILi16EN7stepped11DenseFactorIdEE"),
+    "stepped_trsm_syrk_packed": ("stepped_trsm_syrk",
+                                 "ILi16EN7stepped12PackedFactorIdEE"),
+    "stepped_trsm_f32": ("stepped_trsm", "IfLi16EN7stepped11DenseFactorIfEE"),
+    "stepped_trsm_packed_f32": ("stepped_trsm",
+                                "IfLi16EN7stepped12PackedFactorIfEE"),
+    "stepped_syrk_f32": ("stepped_syrk", "stepped_syrk_kernelIfE"),
 }
 # the libraries whose SASS must run on the FP64 tensor cores
 DMMA_LIBS = ("stepped_syrk", "stepped_trsm_syrk")
@@ -165,6 +273,7 @@ SOURCES = {
         "src/repro_torch/kernels/csrc/stepped_trsm_syrk.cu",
         "src/repro/kernels/stepped_trsm_syrk.py:186"),
 }
+SOURCES.update({kernel_key(n, "f32"): SOURCES[n] for n in F32_NAMES})
 
 
 def phase(name):
@@ -251,9 +360,40 @@ def kernel_inputs(device):
           f"{time.perf_counter() - t1:.2f}s", flush=True)
     packed = pack_factor(st.L, st.index)
     Bpp = torch.gather(st.Btp, 2, st.col_perm[:, None, :].expand_as(st.Btp))
-    S, env, L = st.S, st.env, st.L
+    S, env, L, Btp = st.S, st.env, st.L, st.Btp
+    patterns = [sd.Bt[st.node_perm] != 0 for sd in prob.subdomains]
     del st
-    return stepped_inputs(S, env, L, packed, Bpp, device)
+    x = stepped_inputs(S, env, L, packed, Bpp, device)
+    x.update(Btp=Btp, patterns=patterns)
+    return x
+
+
+def small_block_inputs(x, device, bs=SMALL_BS):
+    """The heat-2d phase's operands at bs = bm = ``bs``: the same factor
+    and right-hand side, the stepped metadata rebuilt at that block size
+    (each subdomain's column order, their envelope) and the factor packed
+    in the layout of its nonzero blocks at that size."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import build_stepped_meta, shared_envelope
+    from repro_torch.kernels import ops
+    from repro_torch.sparse import PackedBlockIndex, pack_factor
+
+    metas = [build_stepped_meta(p, block_size=bs, rhs_block_size=bs)
+             for p in x["patterns"]]
+    env = shared_envelope(metas)
+    cp = torch.as_tensor(np.stack([me.perm for me in metas]), device=device)
+    Btp = x["Btp"]
+    B = torch.gather(Btp, 2, cp[:, None, :].expand_as(Btp))
+    S, n = x["S"], env.n
+    L = x["Lp"][:, :n, :n]
+    nb = -(-n // bs)
+    Lb = ops.pad_factor(L, nb * bs).view(S, nb, bs, nb, bs)
+    mask = (Lb != 0).any(dim=4).any(dim=2).any(dim=0).cpu().numpy()
+    del Lb
+    packed = pack_factor(L, PackedBlockIndex.from_mask(mask, n, bs))
+    return stepped_inputs(S, env, L, packed, B, device)
 
 
 def dirichlet_inputs(device):
@@ -300,13 +440,13 @@ def dirichlet_inputs(device):
     return x
 
 
-def _packed_walk(x):
+def _packed_walk(x, word=8):
     """FLOPs and factor bytes of the packed TRSM's walk on this run's
     data: per stripe, rows k >= start, the stored off-diagonal slots with
     block column >= start (2 r_k r_j w each) and the diagonal triangular
     solve (r_k^2 w); w is the stripe's real column count, r_k a block's
     real row count. The factor bytes count every slot some stripe walks,
-    once."""
+    once, at ``word`` bytes an element."""
     env, index = x["env"], x["packed"].index
     bs, n = x["bs"], env.n
     rows = [min(bs, n - k * bs) for k in range(index.nb)]
@@ -321,7 +461,7 @@ def _packed_walk(x):
                 if j >= start:
                     flops += 2 * rows[k] * rows[j] * w
                     walked.add(t)
-    return x["S"] * flops, 8 * x["S"] * len(walked) * bs * bs
+    return x["S"] * flops, word * x["S"] * len(walked) * bs * bs
 
 
 def ptxas_report(build, built):
@@ -362,25 +502,27 @@ def dmma_counts(build):
     return counts
 
 
-def bounds(x):
+def bounds(x, word=8, peak=PEAK_FP64_FLOPS):
     """Least card time (ms) of each kernel's work on this run's inputs: the
-    larger of its f64 operations over the FP64 peak and the bytes it must
-    move (each input read once, each output written once) over the memory
-    rate. Operations come from the repo's FLOP model of the schedule, or,
-    for the packed TRSM, from the stored slots it walks. A fused kernel
-    need not move Y: its bytes are factor + Linv + B + F."""
+    larger of its operations over the peak of their type (``peak``: FP64
+    tensor cores, or FP32 FFMA for the f32 kernels) and the bytes it must
+    move (each input read once, each output written once, ``word`` bytes an
+    element) over the memory rate. Operations come from the repo's FLOP
+    model of the schedule, or, for the packed TRSM, from the stored slots it
+    walks. A fused kernel need not move Y: its bytes are factor + Linv + B +
+    F."""
     S, bs, bm, n_pad, m_pad = x["S"], x["bs"], x["bm"], x["n_pad"], x["m_pad"]
     env, starts = x["env"], [int(s) for s in x["starts_np"]]
     nb = n_pad // bs
     rows_from = nb - min(starts)
-    dense_L = 8 * S * bs * bs * rows_from * (rows_from + 1) // 2
-    linv = 8 * S * bs * bs * rows_from
-    B = 8 * S * sum((nb - s) * bs * bm for s in starts)
-    Y = 8 * S * n_pad * m_pad
-    F = 8 * S * m_pad * m_pad
+    dense_L = word * S * bs * bs * rows_from * (rows_from + 1) // 2
+    linv = word * S * bs * bs * rows_from
+    B = word * S * sum((nb - s) * bs * bm for s in starts)
+    Y = word * S * n_pad * m_pad
+    F = word * S * m_pad * m_pad
     trsm = S * env.flops_trsm_rhs_split()
     syrk = S * env.flops_syrk_output_split()
-    packed_flops, packed_L = _packed_walk(x)
+    packed_flops, packed_L = _packed_walk(x, word)
     work = {
         "stepped_trsm": (trsm, dense_L + linv + B + Y),
         "stepped_syrk": (syrk, B + F),  # Y below each start, read once
@@ -391,7 +533,7 @@ def bounds(x):
     }
     out = {}
     for name, (flops, nbytes) in work.items():
-        t_ops = flops / PEAK_FP64_FLOPS * 1e3
+        t_ops = flops / peak * 1e3
         t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
         out[name] = dict(flops=flops, bytes=nbytes,
                          bound_ms=max(t_ops, t_bytes),
@@ -404,137 +546,148 @@ def upper_tiles_zero(F, bm, m_pad):
                for i in range(m_pad // bm))
 
 
-def check_kernels(x, ptxas, label):
-    """Hold each kernel against its plain version, its twin and the library
-    call(s), then time it. Returns the JSON rows (without launches)."""
+def check_kernels(x, names, dtype, label, ptxas=None, plain_reps=REPS):
+    """Hold each named kernel at ``dtype`` on ``x``'s operands (for "f32"
+    rounded to f32, the diagonal blocks inverted at f32 as the f32 pipeline
+    does) against its plain version at that dtype, its twin and the library
+    call(s), then time it beside them and its bound. An f64 kernel's twin
+    is its dense or unfused counterpart (the packed TRSM against the dense
+    one; a fused kernel against TRSM then SYRK, which is also timed as its
+    yardstick); an f32 kernel's, the f64 kernel on the same f32 operands.
+    Returns the JSON rows (without launches), with ``ptxas``'s figures
+    where given."""
     import torch
 
-    from repro_torch.kernels import (
-        ops,
-        stepped_syrk_kernel,
-        stepped_syrk_plain,
-        stepped_trsm_kernel,
-        stepped_trsm_packed_kernel,
-        stepped_trsm_packed_plain,
-        stepped_trsm_plain,
-        stepped_trsm_syrk_kernel,
-        stepped_trsm_syrk_packed_kernel,
-        stepped_trsm_syrk_packed_plain,
-        stepped_trsm_syrk_plain,
-    )
+    from repro_torch import kernels as K
+    from repro_torch.kernels import ops
     from repro_torch.kernels.ref import syrk_ref, trsm_ref
 
+    f32 = dtype == "f32"
+    t = torch.float32 if f32 else torch.float64
     bs, bm, n_pad, m_pad = x["bs"], x["bm"], x["n_pad"], x["m_pad"]
-    Bp, starts = x["Bp"], x["starts"]
-    dense = (x["Linv"], x["Lp"])
-    packed = x["packed_ops"]
+    Lp = x["Lp"].to(t)
+    dense = (ops.invert_diag_blocks(Lp, bs), Lp) if f32 else (x["Linv"], Lp)
+    packed = (ops._packed_operands(x["packed"].to(t), x["env"]) if f32
+              else x["packed_ops"])
+    Bp, starts = x["Bp"].to(t), x["starts"]
     order, packed_order = x["orders"]
+    tol, lib_tol = (F32_TOL, F32_LIB_TOL) if f32 else (REL_TOL, LIB_TOL)
+    peak = PEAK_FP32_FLOPS if f32 else PEAK_FP64_FLOPS
+    bnd = bounds(x, word=4 if f32 else 8, peak=peak)
     index = x["packed"].index
-    print(f"[chip_smoke] {label} shapes: S={x['S']} n={x['env'].n} "
+    print(f"[chip_smoke] {label} {dtype} shapes: S={x['S']} n={x['env'].n} "
           f"n_pad={n_pad} m={x['env'].m} m_pad={m_pad} "
           f"bs={bs} bm={bm} start_block={x['starts_np'].tolist()} packed "
           f"blocks={index.n_blocks}/{index.nb * (index.nb + 1) // 2}",
           flush=True)
-    bnd = bounds(x)
-    # the library yardsticks: one full triangular solve on the dense factor
-    # and on the unpacked packed one, one batched product
-    Lu = ops.pad_factor(x["packed"].unpack(), n_pad)
-    lib = {
-        "stepped_trsm": lambda: trsm_ref(x["Lp"], Bp),
-        "stepped_syrk": None,  # set once Y exists: syrk_ref(Y)
-        "stepped_trsm_packed": lambda: trsm_ref(Lu, Bp),
-        "stepped_trsm_syrk": lambda: syrk_ref(trsm_ref(x["Lp"], Bp)),
-        "stepped_trsm_syrk_packed": lambda: syrk_ref(trsm_ref(Lu, Bp)),
+
+    def trsm():
+        return K.stepped_trsm_kernel(*dense, Bp, starts, bs, bm)
+
+    def trsm_packed():
+        return K.stepped_trsm_packed_kernel(*packed, Bp, starts, bs, bm)
+
+    def syrk(Z):
+        return K.stepped_syrk_kernel(Z, starts, bs, bm)
+
+    def wide(operands):  # the same values at f64
+        return [a.double() if a.is_floating_point() else a for a in operands]
+
+    Y = trsm()
+    torch.cuda.synchronize()
+    # name: (kernel, plain version, library call, twin, what the twin is);
+    # the library yardsticks are one full triangular solve on the dense
+    # (= the unpacked) factor and one batched product
+    runs = {
+        "stepped_trsm": (
+            trsm, lambda: K.stepped_trsm_plain(*dense, Bp, starts, bs, bm),
+            lambda: trsm_ref(Lp, Bp),
+            (lambda: K.stepped_trsm_kernel(*wide(dense), Bp.double(), starts,
+                                           bs, bm)) if f32 else None),
+        "stepped_syrk": (
+            lambda: syrk(Y), lambda: K.stepped_syrk_plain(Y, starts, bs, bm),
+            lambda: syrk_ref(Y),
+            (lambda: syrk(Y.double())) if f32 else None),
+        "stepped_trsm_packed": (
+            trsm_packed,
+            lambda: K.stepped_trsm_packed_plain(*packed, Bp, starts, bs, bm),
+            lambda: trsm_ref(Lp, Bp),
+            (lambda: K.stepped_trsm_packed_kernel(*wide(packed), Bp.double(),
+                                                  starts, bs, bm))
+            if f32 else (lambda: Y)),
+        "stepped_trsm_syrk": (
+            lambda: K.stepped_trsm_syrk_kernel(*dense, Bp, starts, bs, bm,
+                                               order=order),
+            lambda: K.stepped_trsm_syrk_plain(*dense, Bp, starts, bs, bm),
+            lambda: syrk_ref(trsm_ref(Lp, Bp)), lambda: syrk(trsm())),
+        "stepped_trsm_syrk_packed": (
+            lambda: K.stepped_trsm_syrk_packed_kernel(
+                *packed, Bp, starts, bs, bm, order=packed_order),
+            lambda: K.stepped_trsm_syrk_packed_plain(*packed, Bp, starts, bs,
+                                                     bm),
+            lambda: syrk_ref(trsm_ref(Lp, Bp)), lambda: syrk(trsm_packed())),
+    }
+    twin_names = {
+        "stepped_trsm_packed": "the dense TRSM kernel",
+        "stepped_trsm_syrk": "the TRSM then SYRK kernels",
+        "stepped_trsm_syrk_packed": "the packed TRSM then SYRK kernels",
     }
     lib_names = {
         "stepped_trsm": "torch.linalg.solve_triangular (full padded)",
         "stepped_syrk": "bmm-based Y^T Y",
-        "stepped_trsm_packed": "torch.linalg.solve_triangular on the "
-                               "unpacked factor",
+        "stepped_trsm_packed": "torch.linalg.solve_triangular on the dense "
+                               "factor (the unpacked one)",
         "stepped_trsm_syrk": "solve_triangular then Y^T Y",
-        "stepped_trsm_syrk_packed": "solve_triangular on the unpacked "
-                                    "factor then Y^T Y",
-    }
-    Y = stepped_trsm_kernel(*dense, Bp, starts, bs, bm)
-    torch.cuda.synchronize()
-    lib["stepped_syrk"] = lambda: syrk_ref(Y)
-    kernels = {
-        "stepped_trsm": (lambda: stepped_trsm_kernel(*dense, Bp, starts, bs, bm),
-                         lambda: stepped_trsm_plain(*dense, Bp, starts, bs, bm),
-                         None),
-        "stepped_syrk": (lambda: stepped_syrk_kernel(Y, starts, bs, bm),
-                         lambda: stepped_syrk_plain(Y, starts, bs, bm), None),
-        "stepped_trsm_packed": (
-            lambda: stepped_trsm_packed_kernel(*packed, Bp, starts, bs, bm),
-            lambda: stepped_trsm_packed_plain(*packed, Bp, starts, bs, bm),
-            lambda: Y),
-        "stepped_trsm_syrk": (
-            lambda: stepped_trsm_syrk_kernel(*dense, Bp, starts, bs, bm,
-                                             order=order),
-            lambda: stepped_trsm_syrk_plain(*dense, Bp, starts, bs, bm),
-            lambda: stepped_syrk_kernel(Y, starts, bs, bm)),
-        "stepped_trsm_syrk_packed": (
-            lambda: stepped_trsm_syrk_packed_kernel(*packed, Bp, starts, bs,
-                                                    bm, order=packed_order),
-            lambda: stepped_trsm_syrk_packed_plain(*packed, Bp, starts, bs, bm),
-            lambda: stepped_syrk_kernel(
-                stepped_trsm_packed_kernel(*packed, Bp, starts, bs, bm),
-                starts, bs, bm)),
-    }
-    # the fused kernels' yardstick: their unfused pair, back to back
-    pairs = {
-        "stepped_trsm_syrk": lambda: stepped_syrk_kernel(
-            stepped_trsm_kernel(*dense, Bp, starts, bs, bm), starts, bs, bm),
-        "stepped_trsm_syrk_packed": lambda: stepped_syrk_kernel(
-            stepped_trsm_packed_kernel(*packed, Bp, starts, bs, bm), starts,
-            bs, bm),
+        "stepped_trsm_syrk_packed": "solve_triangular on the dense factor "
+                                    "then Y^T Y",
     }
     rows = []
-    for name, (kernel, plain, twin) in kernels.items():
+    for name in names:
+        kernel, plain, lib, twin = runs[name]
+        key = kernel_key(name, dtype)
         got = kernel()
         torch.cuda.synchronize()
         abs_err, rel_err = compare(got, plain())
-        twin_err = compare(got, twin())[1] if twin is not None else 0.0
+        twin_err = compare(got.to(torch.float64), twin())[1] if twin else 0.0
         is_F = name in F_KERNELS
         full = ops._mirror_lower(got, bm, m_pad, m_pad) if is_F else got
-        lib_err = compare(full, lib[name]())[1]
+        lib_err = compare(full, lib())[1]
         zero_ok = upper_tiles_zero(got, bm, m_pad) if is_F else True
-        print(f"[chip_smoke] {label} {name}: "
+        print(f"[chip_smoke] {label} {key}: "
               f"max|out|={got.abs().max().item():.3e} "
               f"max|kernel-plain|={abs_err:.3e} rel={rel_err:.3e} rel vs "
               f"twin={twin_err:.3e} rel vs library={lib_err:.3e}"
               + (f" upper tiles zero={zero_ok}" if is_F else ""), flush=True)
-        if not (rel_err <= REL_TOL and twin_err <= REL_TOL
-                and lib_err <= LIB_TOL and zero_ok
-                and bool(torch.isfinite(got).all())):
-            raise SystemExit(f"{label} {name} disagrees: rel {rel_err:.3e} "
-                             f"to its "
-                             f"plain version, {twin_err:.3e} to its twin, "
+        if not (rel_err <= tol and twin_err <= tol and lib_err <= lib_tol
+                and zero_ok and bool(torch.isfinite(got).all())):
+            raise SystemExit(f"{label} {key} disagrees: rel {rel_err:.3e} to "
+                             f"its plain version, {twin_err:.3e} to its twin, "
                              f"{lib_err:.3e} to the library, upper tiles "
                              f"zero={zero_ok}")
         del got, full
         ms = cuda_ms(kernel)
-        plain_ms = cuda_ms(plain)
-        library_ms = cuda_ms(lib[name])
-        pair_ms = cuda_ms(pairs[name]) if name in pairs else None
+        plain_ms = cuda_ms(plain, reps=plain_reps)
+        library_ms = cuda_ms(lib)
+        pair_ms = cuda_ms(twin) if name in FUSED else None
         source, replaces = SOURCES[name]
         b = bnd[name]
         tflops = b["flops"] / ms / 1e9
         rows.append(dict(
-            name=name, route="cuda", source=source, replaces=replaces,
+            name=key, route="cuda", source=source, replaces=replaces,
             max_abs_err=abs_err, max_rel_err=rel_err, twin_rel_err=twin_err,
+            twin=("the f64 kernel on the same f32 operands" if f32
+                  else twin_names.get(name)),
             library_rel_err=lib_err, ms=ms, plain_ms=plain_ms,
             library_ms=library_ms, library_call=lib_names[name],
             bound_ms=b["bound_ms"], bound_by=b["bound_by"], tflops=tflops,
-            bound_share=b["bound_ms"] / ms, unfused_pair_ms=pair_ms,
-            **ptxas[name]))
-        print(f"[chip_smoke] {label} {name}: {ms:.3f} ms (plain "
-              f"{plain_ms:.3f}, "
-              f"library {library_ms:.3f}, bound {b['bound_ms']:.3f} by "
-              f"{b['bound_by']}: {b['flops']:.4e} f64 flop at "
-              f"{PEAK_FP64_FLOPS / 1e12:g} TFLOP/s, {b['bytes']:.4e} B at "
-              f"{PEAK_BYTES_PER_S / 1e12:g} TB/s)", flush=True)
-        print(f"[chip_smoke] {label} {name}: {tflops:.2f} useful TFLOP/s, "
+            bound_share=b["bound_ms"] / ms, unfused_pair_ms=pair_ms, bs=bs,
+            bm=bm, **(ptxas or {}).get(key, {})))
+        print(f"[chip_smoke] {label} {key}: {ms:.3f} ms (plain "
+              f"{plain_ms:.3f}, library {library_ms:.3f}, bound "
+              f"{b['bound_ms']:.3f} by {b['bound_by']}: {b['flops']:.4e} "
+              f"{dtype} flop at {peak / 1e12:g} TFLOP/s, {b['bytes']:.4e} B "
+              f"at {PEAK_BYTES_PER_S / 1e12:g} TB/s)", flush=True)
+        print(f"[chip_smoke] {label} {key}: {tflops:.2f} useful TFLOP/s, "
               f"{100 * b['bound_ms'] / ms:.1f}% of the bound, "
               f"{library_ms / ms:.2f}x the library call's speed"
               + (f"; unfused pair back to back {pair_ms:.3f} ms "
@@ -579,10 +732,47 @@ def check_dirichlet_sb(x):
                          f"{bad}")
 
 
+def cache_oracles():
+    """Solve each configuration's scipy oracle once: the launcher's
+    ``--validate`` asks for it on every path, and the paths of one
+    configuration share the problem."""
+    from repro_torch.fem.decomposition import FetiProblem
+
+    solve = FetiProblem.reference_solution
+    cache = {}
+
+    def cached(self):
+        key = (self.problem, self.dim, tuple(self.sub_grid),
+               tuple(self.elems_per_sub), repr(sorted(self.params.items())))
+        if key not in cache:
+            cache[key] = solve(self)
+        return cache[key].copy()
+
+    FetiProblem.reference_solution = cached
+
+
 def _counters():
     from repro_torch import kernels
 
     return {name: getattr(kernels, f"{name}_kernel") for name in KERNEL_NAMES}
+
+
+def reset_counts():
+    from repro_torch.kernels._launch import reset_launches
+
+    for fn in _counters().values():
+        reset_launches(fn)
+
+
+def launch_counts():
+    """{kernel key: launches} since the last :func:`reset_counts`, one key
+    per kernel and dtype (KERNEL_KEYS)."""
+    out = {}
+    for name, fn in _counters().items():
+        for dtype, count in fn.launches_by_dtype.items():
+            if kernel_key(name, dtype) in KERNEL_KEYS:
+                out[kernel_key(name, dtype)] = count
+    return out
 
 
 @contextlib.contextmanager
@@ -590,8 +780,9 @@ def checked_launches():
     """Within the block, every wrapper ``ops`` calls launches its kernel as
     before and then, once the launch has finished, its output is held
     against the kernel's plain version on the very same operands (the
-    plain versions launch nothing, so the counts stay the path's own).
-    Yields a dict: ``records``, one per launch (kernel, padded shape
+    plain versions launch nothing, so the counts stay the path's own), at
+    REL_TOL for an f64 launch and F32_TOL for an f32 one.
+    Yields a dict: ``records``, one per launch (kernel key, padded shape
     (S, n_pad, m_pad), errors, pass); ``check_s``, the checks' own
     seconds; ``peak``, the device peak outside the checks (each check
     resets the peak counter once its operands are freed)."""
@@ -615,10 +806,12 @@ def checked_launches():
             B = args[-2]  # the right-hand side (or Y): (S, n_pad, m_pad)
             zero_ok = (upper_tiles_zero(out, kw["bm"], B.shape[2])
                        if name in F_KERNELS else True)
-            ok = (rel_err <= REL_TOL and zero_ok
+            f32 = out.dtype == torch.float32
+            ok = (rel_err <= (F32_TOL if f32 else REL_TOL) and zero_ok
                   and bool(torch.isfinite(out).all()))
             state["records"].append(dict(
-                kernel=name, shape=list(B.shape), max_abs_err=abs_err,
+                kernel=kernel_key(name, "f32" if f32 else "f64"),
+                shape=list(B.shape), max_abs_err=abs_err,
                 max_rel_err=rel_err, ok=ok))
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
@@ -641,8 +834,10 @@ def checked_launches():
 def run_main_path(name, arch, flags, expected):
     """Drive the launcher with ``--validate``, every kernel launch checked
     against its plain version (:func:`checked_launches`); returns this
-    run's launch counts, checks, iteration count, peak device memory and
-    sharing decision."""
+    run's launch counts (per kernel and dtype), checks, iteration count,
+    relative error, stack bytes, peak device memory and sharing decision.
+    A run in LOOSE is held to its ERR_BAR only (the launcher's exit code
+    also reflects its 1e-6 bar and convergence)."""
     import torch
 
     from repro_torch.launch import solve_feti
@@ -651,13 +846,13 @@ def run_main_path(name, arch, flags, expected):
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    counters = _counters()
-    for fn in counters.values():
-        fn.launches = 0
+    reset_counts()
     buf = io.StringIO()
+    t0 = time.perf_counter()
     with checked_launches() as checks, contextlib.redirect_stdout(buf):
         rc = solve_feti.main(argv)
-    launches = {k: fn.launches for k, fn in counters.items()}
+    seconds = time.perf_counter() - t0
+    launches = launch_counts()
     peak = checks["peak"]
     out = buf.getvalue()
     print(out, end="", flush=True)
@@ -666,7 +861,8 @@ def run_main_path(name, arch, flags, expected):
               f"(S, n_pad, m_pad)={tuple(r['shape'])}: max|kernel-plain|="
               f"{r['max_abs_err']:.3e} rel={r['max_rel_err']:.3e}"
               + ("" if r["ok"] else " FAILED"), flush=True)
-    if rc != 0:
+    loose = name in LOOSE
+    if rc != 0 and not loose:
         raise SystemExit(f"solve_feti {' '.join(argv)} exited {rc}")
     bad = [r for r in checks["records"] if not r["ok"]]
     if bad:
@@ -677,13 +873,23 @@ def run_main_path(name, arch, flags, expected):
     m_err = re.search(r"rel err vs global solve: (\S+)", out)
     m_time = re.search(r"preprocess=(\S+)s solve=(\S+)s", out)
     m_shared = re.search(r"shared_factor=(\w+)", out)
-    if not (m_iters and m_err and m_time) or m_iters.group(3) != "True":
+    m_dtype = re.search(r"dtype: storage=(\w+) compute=(\w+) solve=(\w+) "
+                        r"refine=(\d+) refine_outer=(\d+)", out)
+    m_bytes = re.search(r"device bytes: L=(\S+) K=(\S+) Btp=(\S+) F=(\S+) "
+                        r"Kreg=(\S+) ", out)
+    if not (m_iters and m_err and m_time and m_dtype and m_bytes) or (
+            m_iters.group(3) != "True" and not loose):
         raise SystemExit(f"{name}: solve_feti did not report a converged, "
                          f"validated solve")
     err = float(m_err.group(1))
-    if not err <= 1e-6:
-        raise SystemExit(f"{name}: relative error {err:.3e} > 1e-6")
-    want = {k: expected.get(k, 0) for k in KERNEL_NAMES}
+    bar = ERR_BAR.get(name, 1e-6)
+    if not err <= bar:
+        raise SystemExit(f"{name}: relative error {err:.3e} > {bar:g}")
+    iterations = int(m_iters.group(1))
+    if not iterations <= ITER_BAR.get(name, iterations):
+        raise SystemExit(f"{name}: {iterations} PCPG iterations > "
+                         f"{ITER_BAR[name]}")
+    want = {k: expected.get(k, 0) for k in KERNEL_KEYS}
     if launches != want:
         raise SystemExit(f"{name}: launched {launches}, the path must "
                          f"launch {want}")
@@ -695,16 +901,51 @@ def run_main_path(name, arch, flags, expected):
     shared = m_shared.group(1) if m_shared else "n/a (lumped)"
     # the launcher's preprocess seconds include the launch checks
     prep = float(m_time.group(1)) - checks["check_s"]
-    print(f"[chip_smoke] main path {name}: iterations={m_iters.group(1)} "
-          f"converged=True rel_err={err:.3e} "
+    stack = dict(zip(("L", "K", "Btp", "F", "Kreg"),
+                     (int(v.replace(",", "")) for v in m_bytes.groups())))
+    dtypes = dict(zip(("storage", "compute", "solve", "refine",
+                       "refine_outer"), m_dtype.groups()))
+    print(f"[chip_smoke] main path {name}: iterations={iterations} "
+          f"(bar {ITER_BAR.get(name, 'none')}) "
+          f"converged={m_iters.group(3)} rel_err={err:.3e} (bar {bar:g}) "
+          f"dtypes={dtypes} "
           f"preprocess_s={prep:.2f} (launcher {m_time.group(1)} less "
           f"{checks['check_s']:.2f} of launch checks) "
           f"solve_s={m_time.group(2)} "
-          f"peak_device_bytes={peak:,} shared_factor={shared} "
-          f"launches={ {k: v for k, v in launches.items() if v} }",
-          flush=True)
-    return dict(launches=launches, iterations=int(m_iters.group(1)),
-                peak=peak, checks=checks["records"])
+          f"peak_device_bytes={peak:,} stack_bytes={stack} "
+          f"shared_factor={shared} "
+          f"launches={ {k: v for k, v in launches.items() if v} } "
+          f"run_s={seconds:.1f}", flush=True)
+    return dict(launches=launches, iterations=iterations,
+                peak=peak, checks=checks["records"], err=err, bytes=stack,
+                dtypes=dtypes)
+
+
+def kernel_rows(rows, d_rows, small, runs):
+    """Complete the heat-2d phase's rows for the JSON line, in place: each
+    row's launches summed over the main paths (and per path), the main
+    paths' launch checks, the Dirichlet phase's numbers and the small-block
+    phase's."""
+    keep = ("ms", "plain_ms", "library_ms", "library_call", "bound_ms",
+            "bound_by", "tflops", "bound_share", "max_abs_err", "max_rel_err",
+            "twin_rel_err", "twin", "library_rel_err", "unfused_pair_ms")
+    if [r["name"] for r in rows] != [d["name"] for d in d_rows]:
+        raise SystemExit("the kernel and Dirichlet phases checked different "
+                         "kernels")
+    for r, d in zip(rows, d_rows):
+        per_path = {name: run["launches"][r["name"]]
+                    for name, run in runs.items() if run["launches"][r["name"]]}
+        r["launches"] = sum(per_path.values())
+        r["launches_per_path"] = per_path
+        r["path_checks"] = {
+            name: [dict(shape=c["shape"], max_abs_err=c["max_abs_err"],
+                        max_rel_err=c["max_rel_err"])
+                   for c in run["checks"] if c["kernel"] == r["name"]]
+            for name, run in runs.items() if name in per_path}
+        r["dirichlet_heat_3d"] = {k: d[k] for k in keep}
+        r[f"bs{SMALL_BS}"] = next(
+            ({k: q[k] for k in keep + ("bs", "bm")}
+             for q in small if q["name"] == r["name"]), None)
 
 
 def register_heat3d_cut():
@@ -770,17 +1011,44 @@ def main() -> int:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
 
+    # every f32 product, the kernels' plain versions and the library
+    # yardsticks included, in full f32 (TF32 keeps a 10-bit mantissa)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(f"[chip_smoke] torch.backends.cuda.matmul.allow_tf32="
+          f"{torch.backends.cuda.matmul.allow_tf32} "
+          f"torch.backends.cudnn.allow_tf32="
+          f"{torch.backends.cudnn.allow_tf32}", flush=True)
+
     t0 = phase("kernels")
     x = kernel_inputs(device)
-    rows = check_kernels(x, ptxas, "heat-2d dual")
+    rows = check_kernels(x, KERNEL_NAMES, "f64", "heat-2d dual", ptxas)
+    done("kernels f64", t0)
+    t1 = time.perf_counter()
+    rows += check_kernels(x, F32_NAMES, "f32", "heat-2d dual", ptxas)
+    free()
+    done("kernels f32", t1)
+
+    t1 = phase("small blocks")
+    x16 = small_block_inputs(x, device)
     del x
     free()
+    label = f"heat-2d dual bs={SMALL_BS}"
+    small = check_kernels(x16, ("stepped_trsm", "stepped_trsm_packed",
+                                "stepped_trsm_syrk", "stepped_trsm_syrk_packed"),
+                          "f64", label, plain_reps=2)
+    small += check_kernels(x16, ("stepped_trsm", "stepped_trsm_packed"), "f32",
+                           label, plain_reps=2)
+    del x16
+    free()
+    done("small blocks", t1)
     done("kernels", t0)
 
     t0 = phase("dirichlet")
     x = dirichlet_inputs(device)
-    d_rows = check_kernels(x, ptxas, "heat-3d dirichlet")
+    d_rows = check_kernels(x, KERNEL_NAMES, "f64", "heat-3d dirichlet")
     check_dirichlet_sb(x)
+    d_rows += check_kernels(x, F32_NAMES, "f32", "heat-3d dirichlet")
     print(f"[chip_smoke] dirichlet phase peak device bytes "
           f"{torch.cuda.max_memory_allocated():,}", flush=True)
     del x
@@ -789,6 +1057,7 @@ def main() -> int:
 
     t0 = phase("main")
     register_heat3d_cut()
+    cache_oracles()
     runs = {}
     for name, arch, flags, expected in MAIN_RUNS:
         runs[name] = run_main_path(name, arch, flags, expected)
@@ -812,22 +1081,23 @@ def main() -> int:
     if not dirichlet < lumped:
         raise SystemExit("Dirichlet took no fewer iterations than lumped on "
                          "feti-elasticity-3d")
+    for f32_run, f64_run in HALF_BYTES:
+        a, b = runs[f32_run]["bytes"], runs[f64_run]["bytes"]
+        print(f"[chip_smoke] stack bytes {f32_run} / {f64_run}: L "
+              f"{a['L']:,} / {b['L']:,}, F {a['F']:,} / {b['F']:,}, "
+              f"K {a['K']:,} / {b['K']:,}, the f64 Kreg of refinement "
+              f"{a['Kreg']:,}", flush=True)
+        if not (2 * a["L"] == b["L"] and 2 * a["F"] == b["F"]):
+            raise SystemExit(f"{f32_run}: the f32 factor and F stacks are "
+                             f"not half of {f64_run}'s")
+    print(f"[chip_smoke] feti-elasticity-3d f32 Dirichlet rel err "
+          f"{runs['elasticity-3d dense --kernels dirichlet f32']['err']:.3e}"
+          f" (f64: "
+          f"{runs['elasticity-3d packed --kernels dirichlet']['err']:.3e})",
+          flush=True)
     done("main", t0)
 
-    keep = ("ms", "plain_ms", "library_ms", "library_call", "bound_ms",
-            "bound_by", "tflops", "bound_share", "max_abs_err", "max_rel_err",
-            "twin_rel_err", "library_rel_err", "unfused_pair_ms")
-    for r, d in zip(rows, d_rows):
-        per_path = {name: run["launches"][r["name"]]
-                    for name, run in runs.items() if run["launches"][r["name"]]}
-        r["launches"] = sum(per_path.values())
-        r["launches_per_path"] = per_path
-        r["path_checks"] = {
-            name: [dict(shape=c["shape"], max_abs_err=c["max_abs_err"],
-                        max_rel_err=c["max_rel_err"])
-                   for c in run["checks"] if c["kernel"] == r["name"]]
-            for name, run in runs.items() if name in per_path}
-        r["dirichlet_heat_3d"] = {k: d[k] for k in keep}
+    kernel_rows(rows, d_rows, small, runs)
     print(f"[chip_smoke] total {time.perf_counter() - t_all:.1f}s", flush=True)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -4,7 +4,9 @@ operators) in domain decomposition methods — the port's core:
   * stepped-shape analysis and metadata: :mod:`repro_torch.core.stepped`
     (host numpy);
   * TRSM / SYRK variants batched over subdomains: :mod:`.trsm`, :mod:`.syrk`;
-  * the assembly pipeline and its config: :mod:`.schur`.
+  * the assembly pipeline and its config: :mod:`.schur`;
+  * the precision axis (storage, compute and solve dtypes):
+    :mod:`.precision`.
 """
 from repro_torch.core.schur import (
     SchurAssemblyConfig,

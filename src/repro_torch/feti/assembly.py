@@ -24,6 +24,15 @@ then overwrites with L; the Dirichlet stage's K_ib, K_bb (and, unshared,
 K_ii) are cut from the same upload. With packed storage the working
 stacks are packed (n_blocks, bs, bs) value stacks: no dense (S, n, n) or
 (S, n_i, n_i) stack exists on the device at any point.
+
+Precision (``FetiConfig.dtype``): each subdomain's K is cut, permuted and
+regularized at f64 as it reaches the device and rounded to the storage
+dtype as it lands in the working stack, which is held at the compute dtype
+(the storage dtype, f32 for bf16); the prep's persistent outputs (L, F̃,
+S_b) are rounded back to the storage dtype, as the reference's compiled
+prep does. With refinement the f64 regularized K_reg is kept, packed in
+the factor's fill-mask layout whatever the factor storage: the one f64
+stack below f64.
 """
 from __future__ import annotations
 
@@ -40,6 +49,7 @@ from repro_torch.core import (
     make_assembler,
     shared_envelope,
 )
+from repro_torch.core.precision import compute_dtype
 from repro_torch.device import resolve_device
 from repro_torch.fem.decomposition import FetiProblem
 from repro_torch.fem.meshgen import structured_mesh
@@ -96,13 +106,16 @@ class ClusterState:
     Btp: torch.Tensor  # (S, n, m_max) row-permuted B̃ᵀ (factor order)
     K: PackedBlocks  # packed permuted unregularized K (lumped preconditioner)
     F: Optional[torch.Tensor]  # (S, m_max, m_max) explicit SCs, or None
-    f: torch.Tensor  # (S, n) loads (original node order)
-    fp: torch.Tensor  # (S, n) loads (factor order)
+    f: torch.Tensor  # (S, n) loads (original node order), solve dtype
+    fp: torch.Tensor  # (S, n) loads (factor order), solve dtype
     dual: DualMap  # multiplier ids + the deterministic scatter slots
     col_perm: torch.Tensor  # (S, m_max) stepped column perm per subdomain
     inv_col_perm: torch.Tensor  # (S, m_max)
     R: torch.Tensor  # (S, n, k) orthonormal kernel bases, original DOF order
     prep: Optional[Callable] = None  # (Kp, Btp[, blocks]) -> (L, F, Sb)
+    # refinement (reduced storage dtype with refine > 0), else None / 0:
+    Kreg: Optional[PackedBlocks] = None  # f64 regularized K, factor order
+    refine_steps: int = 0
     # the Dirichlet stage (preconditioner="dirichlet"), else None/False:
     split: Optional[dirlib.BoundaryInteriorSplit] = None
     Sb: Optional[torch.Tensor] = None  # (S, n_b, n_b) own-boundary S_b
@@ -141,7 +154,8 @@ class ClusterState:
 
         out = {"L": nbytes(self.L), "K": nbytes(self.K),
                "Btp": nbytes(self.Btp), "F": nbytes(self.F),
-               "Sb": nbytes(self.Sb), "Btb": nbytes(self.Btb)}
+               "Sb": nbytes(self.Sb), "Btb": nbytes(self.Btb),
+               "Kreg": nbytes(self.Kreg)}
         out["total"] = sum(out.values())
         n = self.index.n
         out["dense_L"] = self.S * n * n * self.Btp.element_size()
@@ -261,7 +275,7 @@ def make_cluster_preprocessor(problem: FetiProblem, config=None):
         d_assemble = dirlib.make_dirichlet_assembler(
             split, meta_ib, mask_ii, cfg, shared=share)
         Zb = torch.as_tensor(dirlib.own_boundary_masks(problem, split),
-                             dtype=torch.float64, device=dev)
+                             dtype=fc.compute_dtype, device=dev)
     ni = split.n_i if split is not None else 0
 
     def _interior_factor(L):
@@ -299,60 +313,70 @@ def make_cluster_preprocessor(problem: FetiProblem, config=None):
 def _device_stiffness(problem: FetiProblem, node_perm: np.ndarray,
                       index: PackedBlockIndex, dev: torch.device,
                       packed: bool = False,
-                      blocks: Optional[dirlib.DirichletBlocks] = None):
+                      blocks: Optional[dirlib.DirichletBlocks] = None,
+                      keep_reg: bool = False,
+                      storage: torch.dtype = torch.float64):
     """The regularized, permuted stiffness stack on ``dev`` — (S, n, n), or
     a :class:`PackedBlocks` when ``packed`` — and the packed unregularized
     permuted K of the lumped preconditioner; ``blocks`` (the Dirichlet
-    stage's inputs) are cut from the same uploads.
+    stage's inputs) are cut from the same uploads. With ``keep_reg`` also
+    returns the regularized stack packed at f64 (the K_reg of refinement),
+    else ``None``.
 
     Each K_i crosses to the device once; permutation, packing and the
-    fixing-DOF shift happen there. The shift is added after packing, so the
-    packed values are the unregularized ones exactly, and the regularized
-    entries are the reference's ``K_ff + ρ`` exactly. On the packed path
-    K_i is packed straight from its unpermuted upload by one gather (the
-    permutation folded into the gather positions), so no dense (S, n, n)
-    stack is built.
+    fixing-DOF shift happen there at f64, one subdomain at a time, and each
+    result is rounded to ``storage`` as it lands in its stack: the
+    unregularized K at ``storage``, the working stack at the dtype the
+    factorization runs in (f32 for bf16). So the only (S, ...) f64 stack
+    built below f64 is the packed K_reg. The shift is added after packing,
+    so the packed values are the unregularized ones exactly, and the
+    regularized entries are the reference's ``K_ff + ρ`` exactly. Every
+    packed stack is one gather from K_i's unpermuted upload (the
+    permutation folded into the gather positions), so the packed path
+    builds no dense (n, n) matrix.
     """
     subs = problem.subdomains
-    S, n = len(subs), subs[0].n
+    S, n, bs = len(subs), subs[0].n, index.bs
     inv = np.argsort(node_perm)
     pos = np.stack([inv[sd.fixing_dofs] for sd in subs])  # (S, k) factor order
-    rho = np.array([regularization_shift(sd.K) for sd in subs])
-    s_idx = torch.arange(S, device=dev)[:, None].expand(pos.shape)
-    rho_t = torch.as_tensor(rho, dtype=torch.float64, device=dev)[:, None]
+    rho = torch.as_tensor([regularization_shift(sd.K) for sd in subs],
+                          dtype=torch.float64, device=dev)
+    slot = torch.as_tensor(index.diag_slots[pos // bs], device=dev)
+    off = torch.as_tensor(pos % bs, device=dev)
+    pos_t = torch.as_tensor(pos, device=dev)
+    gather = torch.as_tensor(index.flat_gather(node_perm), device=dev)
+    perm = torch.as_tensor(node_perm, device=dev)
+    vshape = (S, index.n_blocks, bs, bs)
+    work = torch.empty(vshape if packed else (S, n, n),
+                       dtype=compute_dtype(storage), device=dev)
+    K_packed = torch.empty(vshape, dtype=storage, device=dev)
+    Kreg = (torch.empty(vshape, dtype=torch.float64, device=dev)
+            if keep_reg else None)
     # each K_i lands in one flat buffer with a zero appended (the padding
     # target of the packing gathers)
     flat = torch.zeros(n * n + 1, dtype=torch.float64, device=dev)
-    if packed:
-        bs = index.bs
-        gather = torch.as_tensor(index.flat_gather(node_perm), device=dev)
-        out = torch.empty((S, index.n_blocks, bs, bs), dtype=torch.float64,
-                          device=dev)
-    else:
-        perm = torch.as_tensor(node_perm, device=dev)
-        out = torch.empty((S, n, n), dtype=torch.float64, device=dev)
     for i, sd in enumerate(subs):
         flat[: n * n].copy_(torch.as_tensor(sd.K, dtype=torch.float64)
                             .reshape(-1))
-        if packed:
-            out[i] = flat[gather].view(index.n_blocks, bs, bs)
-        else:
-            out[i] = flat[: n * n].view(n, n)[perm][:, perm]
         if blocks is not None:
             blocks.add(i, flat)
+        Kb = flat[gather].view(index.n_blocks, bs, bs)  # unregularized
+        K_packed[i] = Kb
+        if packed or keep_reg:
+            index.set_identity_pad(Kb)
+            Kb[slot[i], off[i], off[i]] += rho[i]
+            if keep_reg:
+                Kreg[i] = Kb
+        if packed:
+            work[i] = Kb.to(storage)
+        else:
+            Ki = flat[: n * n].view(n, n)[perm][:, perm]
+            Ki[pos_t[i], pos_t[i]] += rho[i]
+            work[i] = Ki.to(storage)
     del flat
-    if packed:
-        K_packed = PackedBlocks(out, index)
-        Kreg = out.clone()
-        index.set_identity_pad(Kreg)
-        slot = torch.as_tensor(index.diag_slots[pos // bs], device=dev)
-        off = torch.as_tensor(pos % bs, device=dev)
-        Kreg[s_idx, slot, off, off] += rho_t
-        return PackedBlocks(Kreg, index), K_packed
-    K_packed = PackedBlocks(index.pack(out), index)
-    pos_t = torch.as_tensor(pos, device=dev)
-    out[s_idx, pos_t, pos_t] += rho_t
-    return out, K_packed
+    return (PackedBlocks(work, index) if packed else work,
+            PackedBlocks(K_packed, index),
+            PackedBlocks(Kreg, index) if keep_reg else None)
 
 
 def preprocess_cluster(problem: FetiProblem, config=None) -> ClusterState:
@@ -371,9 +395,16 @@ def preprocess_cluster(problem: FetiProblem, config=None) -> ClusterState:
     the state then carries ``Sb``, the boundary-row slice ``Btb``, the
     split and ``shared_factor``: whether the stage reused the dual factor's
     interior principal block instead of factorizing K_ii itself.
+
+    Below f64 (``FetiConfig.dtype``) the stacks L, F, Sb, K, Btp and Btb
+    are at the storage dtype, computed at the compute dtype; f, fp and R
+    carry the solve dtype; with refinement ``Kreg`` holds the f64
+    regularized K (packed) and ``refine_steps`` the steps.
     """
     fc = as_feti_config(config)
     static, prep = make_cluster_preprocessor(problem, fc)
+    sdt, cdt, vdt = fc.storage_dtype, fc.compute_dtype, fc.solve_dtype
+    refine = fc.resolved_refine()
     dev = static["device"]
     node_perm = static["node_perm"]
     index: PackedBlockIndex = static["index"]
@@ -385,23 +416,32 @@ def preprocess_cluster(problem: FetiProblem, config=None) -> ClusterState:
     if split is not None:
         blocks = dirlib.DirichletBlocks(split, len(subs), dev,
                                         interior=not share,
-                                        index_ii=static["dirichlet_index"])
+                                        index_ii=static["dirichlet_index"],
+                                        storage=sdt)
         Btb = torch.as_tensor(np.stack([sd.Bt[split.boundary] for sd in subs]),
-                              dtype=torch.float64, device=dev)
-    Kp, K_packed = _device_stiffness(problem, node_perm, index, dev,
-                                     packed=static["cfg"].storage == "packed",
-                                     blocks=blocks)
+                              dtype=sdt, device=dev)
+    # the working stack and the Dirichlet blocks hold what the storage dtype
+    # holds, at the dtype the math runs in
+    Kp, K_packed, Kreg = _device_stiffness(
+        problem, node_perm, index, dev,
+        packed=static["cfg"].storage == "packed", blocks=blocks,
+        keep_reg=refine > 0, storage=sdt)
     Btp = torch.as_tensor(np.stack([sd.Bt[node_perm] for sd in subs]),
-                          dtype=torch.float64, device=dev)
-    L, F, Sb = prep(Kp, Btp, blocks)
-    del blocks
+                          dtype=sdt, device=dev)
+    L, F, Sb = prep(Kp, Btp.to(cdt), blocks)
+    del blocks, Kp
+    # the persistent outputs at the storage dtype (no copy when it is the
+    # compute dtype)
+    L = L.to(sdt)
+    F = None if F is None else F.to(sdt)
+    Sb = None if Sb is None else Sb.to(sdt)
 
     f = np.stack([sd.f for sd in subs])
     lam = np.stack([sd.lambda_ids for sd in subs])
     R = np.stack([sd.R for sd in subs])  # (S, n, k) original order
 
     def to_dev(x):
-        return torch.as_tensor(x, dtype=torch.float64, device=dev)
+        return torch.as_tensor(x, dtype=vdt, device=dev)
 
     return ClusterState(
         problem=problem,
@@ -421,6 +461,8 @@ def preprocess_cluster(problem: FetiProblem, config=None) -> ClusterState:
         inv_col_perm=static["inv_col_perm"],
         R=to_dev(R),
         prep=prep,
+        Kreg=Kreg,
+        refine_steps=refine,
         split=split,
         Sb=Sb,
         Btb=Btb,

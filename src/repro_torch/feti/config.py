@@ -3,10 +3,11 @@
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Union
+from typing import Any, Optional, Union
 
 import torch
 
+from repro_torch.core import precision
 from repro_torch.core.schur import SchurAssemblyConfig
 
 __all__ = ["FetiConfig", "as_feti_config"]
@@ -34,7 +35,17 @@ class FetiConfig:
       ordering: fill-reducing node ordering ("nd" | "rcm" | "natural").
       storage: factor storage override ("dense" | "packed"); ``None``
         defers to ``schur.storage``.
-      dtype: storage dtype; float64 only (mixed precision is ROADMAP A13).
+      dtype: storage dtype of the numeric stacks: ``torch.float64`` (the
+        default), ``torch.float32``/``"f32"``, or ``torch.bfloat16``/
+        ``"bf16"`` (storage only: the prep runs at f32 and rounds its
+        outputs). Reduced precision halves (f32) or quarters (bf16) the
+        factor, F̃ and S_b stacks; f64 accuracy comes back through
+        ``refine``. The fused kernels take f64 only (f32 is ROADMAP A13b).
+      refine: iterative-refinement steps around the interior solves when
+        the storage dtype is reduced (and, in explicit mode, f64
+        defect-correction outer iterations against the reduced-precision
+        F̃). ``None`` resolves to 0 for f64 and 2 otherwise; 0 disables
+        recovery. Ignored (kept 0) for f64 stacks.
       device: where the stacks live and the work runs; ``None`` means
         ``cuda`` (see :func:`repro_torch.device.resolve_device`).
       share_factor: dedupe the interior factorization between the dual
@@ -50,7 +61,8 @@ class FetiConfig:
     preconditioner: str = "lumped"
     ordering: str = "nd"
     storage: Optional[str] = None
-    dtype: torch.dtype = torch.float64
+    dtype: Any = torch.float64
+    refine: Optional[int] = None
     device: Union[str, torch.device, None] = None
     share_factor: Union[str, bool] = "auto"
 
@@ -74,9 +86,20 @@ class FetiConfig:
         if self.share_factor not in _SHARE:
             raise ValueError(f"share_factor must be one of {_SHARE}, "
                              f"got {self.share_factor!r}")
-        if self.dtype != torch.float64:
+        precision.canonical_dtype(self.dtype)  # raises on unsupported dtypes
+        if self.refine is not None and (
+                not isinstance(self.refine, int) or self.refine < 0):
+            raise ValueError(f"refine must be None or a non-negative int, "
+                             f"got {self.refine!r}")
+        if self.storage_dtype == torch.bfloat16 and self.resolved_refine() == 0:
+            raise ValueError(
+                "bf16 storage needs refine >= 1: without refinement the PCPG "
+                "vectors would be bf16, and torch (like the reference) has no "
+                "bf16 QR for the coarse problem")
+        if self.reduced and self.schur is not None and self.schur.fused:
             raise NotImplementedError(
-                "storage below float64 (mixed precision) is ROADMAP item A13")
+                "the fused TRSM→SYRK kernels below float64 are ROADMAP item "
+                "A13b; use use_kernels=True, fused=False at this dtype")
 
     @property
     def explicit(self) -> bool:
@@ -86,6 +109,43 @@ class FetiConfig:
     def dirichlet(self) -> bool:
         """Whether preprocessing assembles the Dirichlet stage."""
         return self.preconditioner == "dirichlet"
+
+    # -- the precision axis -------------------------------------------------
+
+    @property
+    def storage_dtype(self) -> torch.dtype:
+        """Torch dtype of the stored stacks (the reference's ``dtype_np``)."""
+        return precision.canonical_dtype(self.dtype)
+
+    @property
+    def dtype_name(self) -> str:
+        """Short name of the storage dtype: "f64" | "f32" | "bf16"."""
+        return precision.dtype_name(self.dtype)
+
+    @property
+    def compute_dtype(self) -> torch.dtype:
+        """Dtype of the factorization, TRSM and SYRK (bf16 runs at f32)."""
+        return precision.compute_dtype(self.dtype)
+
+    @property
+    def reduced(self) -> bool:
+        """True when the stacks are stored below f64."""
+        return self.storage_dtype != torch.float64
+
+    def resolved_refine(self) -> int:
+        """Refinement steps with the dtype's default applied (f64: 0;
+        reduced: 2 unless overridden)."""
+        if not self.reduced:
+            return 0
+        if self.refine is None:
+            return precision.default_refine_steps(self.dtype)
+        return self.refine
+
+    @property
+    def solve_dtype(self) -> torch.dtype:
+        """Dtype of the PCPG vectors, loads and kernel bases: f64 whenever
+        refinement recovers f64 accuracy, else the storage dtype."""
+        return precision.solve_dtype(self.dtype, self.resolved_refine())
 
     def resolved_schur(self) -> SchurAssemblyConfig:
         """The Schur config, with ``storage`` overriding its storage."""

@@ -44,6 +44,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import SchurAssemblyConfig, build_stepped_meta, make_assembler
+from repro_torch.core.precision import canonical_dtype, compute_dtype
 from repro_torch.core.stepped import SteppedMeta
 from repro_torch.device import resolve_device
 from repro_torch.fem.decomposition import FetiProblem
@@ -217,18 +218,24 @@ class DirichletBlocks:
     the interior factor is not shared, K_ii — dense (S, n_i, n_i), or
     packed straight from the upload in ``index_ii``'s layout (one gather,
     identity-padded), so the packed path builds no dense interior stack.
+
+    ``storage`` is the stacks' storage dtype (default f64): each cut is
+    rounded to it as it lands, in a stack held at the dtype its math runs
+    in (:func:`~repro_torch.core.precision.compute_dtype`; f32 for bf16).
     """
 
     def __init__(self, split: BoundaryInteriorSplit, S: int,
                  device: torch.device, interior: bool = False,
-                 index_ii: Optional[PackedBlockIndex] = None):
+                 index_ii: Optional[PackedBlockIndex] = None,
+                 storage: torch.dtype = torch.float64):
         ni, nb = split.n_i, split.n_b
         self.n = split.n
+        self._storage = storage
         self._int = torch.as_tensor(split.interior, device=device)
         self._bnd = torch.as_tensor(split.boundary, device=device)
-        f64 = dict(dtype=torch.float64, device=device)
-        self.Kib = torch.empty((S, ni, nb), **f64)
-        self.Kbb = torch.empty((S, nb, nb), **f64)
+        at = dict(dtype=compute_dtype(storage), device=device)
+        self.Kib = torch.empty((S, ni, nb), **at)
+        self.Kbb = torch.empty((S, nb, nb), **at)
         self.Kii = None
         self._gather = None
         if interior and index_ii is not None:
@@ -236,25 +243,25 @@ class DirichletBlocks:
                 index_ii.flat_gather(split.interior, split.n), device=device)
             bs = index_ii.bs
             self.Kii = PackedBlocks(
-                torch.empty((S, index_ii.n_blocks, bs, bs), **f64), index_ii)
+                torch.empty((S, index_ii.n_blocks, bs, bs), **at), index_ii)
         elif interior:
-            self.Kii = torch.empty((S, ni, ni), **f64)
+            self.Kii = torch.empty((S, ni, ni), **at)
 
     def add(self, i: int, flat: torch.Tensor) -> None:
-        """Cut subdomain ``i``'s blocks from its K on the device, given
+        """Cut subdomain ``i``'s blocks from its f64 K on the device, given
         flattened (n·n,) with one zero appended."""
-        n = self.n
+        n, sdt = self.n, self._storage
         Ki = flat[: n * n].view(n, n)
         rows = Ki[self._int]
-        self.Kib[i] = rows[:, self._bnd]
-        self.Kbb[i] = Ki[self._bnd][:, self._bnd]
+        self.Kib[i] = rows[:, self._bnd].to(sdt)
+        self.Kbb[i] = Ki[self._bnd][:, self._bnd].to(sdt)
         if isinstance(self.Kii, PackedBlocks):
             index = self.Kii.index
             vals = self.Kii.values
-            vals[i] = flat[self._gather].view(vals.shape[1:])
+            vals[i] = flat[self._gather].view(vals.shape[1:]).to(sdt)
             index.set_identity_pad(vals[i])
         elif self.Kii is not None:
-            self.Kii[i] = rows[:, self._int]
+            self.Kii[i] = rows[:, self._int].to(sdt)
 
     def upload(self, problem: FetiProblem) -> "DirichletBlocks":
         """Fill every subdomain's blocks from its host K, one upload each:
@@ -312,6 +319,7 @@ def assemble_dirichlet_schur(
     ordering: str = "nd",
     restrict: bool = True,
     device=None,
+    dtype=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, BoundaryInteriorSplit]:
     """One-shot convenience: (S_b stack, boundary B̃ᵀ stack, split), from
     the unregularized K with its own interior factorization.
@@ -320,10 +328,14 @@ def assemble_dirichlet_schur(
     :func:`repro_torch.feti.assembly.preprocess_cluster` threads the same
     pieces through its preprocessing. ``restrict=False`` skips the
     own-boundary restriction and returns the shared union Schur
-    complement. ``device`` defaults to ``cuda``.
+    complement. ``device`` defaults to ``cuda``. ``dtype`` is the storage
+    dtype (default f64): K is rounded to it, the stage runs at its compute
+    dtype (f32 for bf16) and S_b and B̃ᵀ come back at it.
     """
     cfg = cfg or SchurAssemblyConfig()
     dev = resolve_device(device)
+    sdt = canonical_dtype(torch.float64 if dtype is None else dtype)
+    cdt = compute_dtype(sdt)
     split = boundary_interior_split(problem, ordering=ordering)
     meta_ib, mask_ii = dirichlet_symbolic(problem, split, cfg.block_size,
                                           cfg.rhs_bs)
@@ -331,13 +343,13 @@ def assemble_dirichlet_schur(
                 if cfg.storage == "packed" else None)
     subs = problem.subdomains
     blocks = DirichletBlocks(split, len(subs), dev, interior=True,
-                             index_ii=index_ii).upload(problem)
+                             index_ii=index_ii, storage=sdt).upload(problem)
     assemble = make_dirichlet_assembler(split, meta_ib, mask_ii, cfg)
     Sb = assemble(blocks.Kii, blocks.Kib, blocks.Kbb)
     if restrict:
         Z = torch.as_tensor(own_boundary_masks(problem, split),
-                            dtype=torch.float64, device=dev)
+                            dtype=cdt, device=dev)
         Sb = restrict_own_boundary(Sb, Z)
     Btb = torch.as_tensor(np.stack([sd.Bt[split.boundary] for sd in subs]),
-                          dtype=torch.float64, device=dev)
-    return Sb, Btb, split
+                          dtype=sdt, device=dev)
+    return Sb.to(sdt), Btb, split

@@ -1,6 +1,6 @@
 """The FETI dual operator F = B K⁺ Bᵀ and friends, batched over subdomains
 (counterpart of ``repro.feti.operator``, single right-hand side; dense or
-packed factors).
+packed factors; f64 or reduced-precision stacks with iterative refinement).
 
 Implicit application (paper eq. 11): SPMV + two TRSV + SPMV per subdomain.
 Explicit application (paper eq. 12): one dense GEMV per subdomain against
@@ -21,6 +21,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.core.precision import compute_dtype
 from repro_torch.sparse.packed import (
     PackedBlocks,
     packed_symm_matvec,
@@ -40,6 +41,9 @@ __all__ = [
     "dual_rhs",
     "solve_with_factor",
     "apply_stiffness",
+    "solve_with_factor_refined",
+    "implicit_dual_apply_refined",
+    "dual_rhs_refined",
 ]
 
 
@@ -117,14 +121,28 @@ def explicit_dual_apply(F: torch.Tensor, dm: DualMap, lam: torch.Tensor
     return local_dual_apply(lambda p: _matvec(F, p), dm, lam)
 
 
+def _factor_dtype(L) -> torch.dtype:
+    return L.values.dtype if isinstance(L, PackedBlocks) else L.dtype
+
+
 def solve_with_factor(L, b: torch.Tensor) -> torch.Tensor:
     """Apply (L Lᵀ)⁻¹ to a subdomain-stacked (S, n) right-hand side.
 
     The one forward/backward triangular-solve pair every consumer of the
     factor shares (implicit dual operator, dual RHS, solution recovery).
     ``L`` is a dense (S, n, n) stack or a packed
-    :class:`~repro_torch.sparse.packed.PackedBlocks` stack.
+    :class:`~repro_torch.sparse.packed.PackedBlocks` stack, of ``b``'s
+    dtype. A bf16 factor (storage only: torch has no bf16 triangular solve)
+    is solved at f32 from a transient f32 copy, and the result is rounded
+    back to bf16.
     """
+    fd = _factor_dtype(L)
+    if b.dtype != fd:
+        raise TypeError(f"solve_with_factor: the right-hand side is "
+                        f"{b.dtype}, the factor {fd}; cast explicitly")
+    cd = compute_dtype(fd)
+    if cd != fd:
+        return solve_with_factor(L.to(cd), b.to(cd)).to(fd)
     if isinstance(L, PackedBlocks):
         return packed_tri_solve(L, packed_tri_solve(L, b), transpose=True)
     t = torch.linalg.solve_triangular(L, b.unsqueeze(-1), upper=False)
@@ -175,3 +193,47 @@ def dual_rhs(L, Btp: torch.Tensor, fp: torch.Tensor,
              dm: DualMap, c: torch.Tensor) -> torch.Tensor:
     """d = B K⁺ f − c (paper §2.1)."""
     return scatter_dual(_rmatvec(Btp, solve_with_factor(L, fp)), dm) - c
+
+
+# iterative refinement around reduced-precision factors: the factor stacks
+# (and F̃) stay at the storage dtype, but the solve needs f64-accurate
+# interior solves. Solve at the factor's dtype, take the true residual
+# against the f64 regularized stiffness K_reg (the matrix the factor
+# approximates; packed, applied by the deterministic gather of
+# packed_symm_matvec), correct; each step contracts the error by about
+# kappa(K_reg) eps. torch does not promote mixed dtypes as jnp does, so every
+# crossing between the f64 vectors and a reduced stack is an explicit cast.
+
+def solve_with_factor_refined(L, Kreg: PackedBlocks, b: torch.Tensor,
+                              steps: int) -> torch.Tensor:
+    """f64-accurate K_reg⁻¹ b through a reduced-precision factor ``L`` of
+    K_reg, by ``steps`` rounds of iterative refinement. ``Kreg`` is the f64
+    regularized stiffness stack in factor row order (packed); ``b``, the
+    result and the residuals carry the solve dtype (f64)."""
+    fd = _factor_dtype(L)
+    x = solve_with_factor(L, b.to(fd)).to(b.dtype)
+    for _ in range(steps):
+        r = b - apply_stiffness(Kreg, x)
+        x = x + solve_with_factor(L, r.to(fd)).to(b.dtype)
+    return x
+
+
+def implicit_dual_apply_refined(L, Kreg: PackedBlocks, Bt: torch.Tensor,
+                                dm: DualMap, steps: int, lam: torch.Tensor
+                                ) -> torch.Tensor:
+    """Eq. 11 with a refined interior solve: an f64-accurate F application
+    through a reduced-precision factor. ``Bt`` is B̃ᵀ (factor row order) at
+    λ's dtype: B̃ᵀ holds exact ±1/0 entries, so the caller casts the stored
+    stack once, exactly."""
+    return local_dual_apply(
+        lambda p: _rmatvec(Bt, solve_with_factor_refined(
+            L, Kreg, _matvec(Bt, p), steps)), dm, lam)
+
+
+def dual_rhs_refined(L, Kreg: PackedBlocks, Bt: torch.Tensor,
+                     fp: torch.Tensor, dm: DualMap, steps: int,
+                     c: torch.Tensor) -> torch.Tensor:
+    """d = B K⁺ f − c with the refined (f64-accurate) interior solve; ``Bt``
+    at ``fp``'s dtype, as in :func:`implicit_dual_apply_refined`."""
+    t = solve_with_factor_refined(L, Kreg, fp, steps)
+    return scatter_dual(_rmatvec(Bt, t), dm) - c

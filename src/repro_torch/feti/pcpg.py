@@ -10,38 +10,61 @@ from __future__ import annotations
 
 import dataclasses
 import warnings
-from typing import Callable, Optional
+from typing import Callable, List, Optional
 
 import torch
 
-__all__ = ["PCPGResult", "pcpg", "tol_floor"]
+from repro_torch.core.precision import dtype_name, tol_floor
+
+__all__ = ["PCPGResult", "pcpg", "TolClampState", "reset_tol_clamp_warnings"]
 
 
-def tol_floor(dtype: torch.dtype, factor: float = 50.0) -> float:
-    """The smallest relative tolerance worth asking of an operator in
-    ``dtype``: ``factor * eps`` (f64: ~1.1e-14)."""
-    return factor * torch.finfo(dtype).eps
+class TolClampState:
+    """Warn-once state of the tolerance clamp, one per call site, so whether
+    a solve warns does not depend on which other solve ran first;
+    :func:`reset_tol_clamp_warnings` rearms it."""
+
+    def __init__(self):
+        self.warned: set = set()
+
+    def reset(self) -> None:
+        self.warned.clear()
 
 
-def _clamp_tol(tol: float, dtype: torch.dtype) -> float:
+_CLAMP_STATE_PCPG = TolClampState()
+
+
+def reset_tol_clamp_warnings() -> None:
+    """Rearm the once-per-dtype tolerance-clamp ``RuntimeWarning``."""
+    _CLAMP_STATE_PCPG.reset()
+
+
+def _clamp_tol(tol: float, dtype, state: TolClampState) -> float:
     """Clamp a requested relative tolerance to what ``dtype`` residual
-    arithmetic can attain, warning when the clamp engages; f64 requests
-    above ~1.1e-14 pass through untouched."""
+    arithmetic can attain (:func:`repro_torch.core.precision.tol_floor`),
+    warning once per dtype per ``state`` when the clamp engages; f64
+    requests above ~1.1e-14 pass through untouched."""
     floor = tol_floor(dtype)
     if tol >= floor:
         return tol
-    warnings.warn(f"PCPG tol={tol:g} is below the attainable floor {floor:g} "
-                  f"for {dtype} residual arithmetic; clamping.",
-                  RuntimeWarning, stacklevel=3)
+    name = dtype_name(dtype)
+    if name not in state.warned:
+        state.warned.add(name)
+        warnings.warn(
+            f"PCPG tol={tol:g} is below the attainable floor {floor:g} for "
+            f"{name} residual arithmetic; clamping. Use refinement "
+            f"(FetiConfig.refine) for f64 accuracy on reduced-precision "
+            f"operators.", RuntimeWarning, stacklevel=3)
     return floor
 
 
 def _safe_denom(x: torch.Tensor) -> torch.Tensor:
     """Sign-preserving denominator guard: |x| floored at the dtype's
-    smallest normal (unchanged for every normal value)."""
+    smallest normal (unchanged for every normal value), so an f32 p·Fp or
+    ζ that flushed to zero never divides."""
     tiny = torch.finfo(x.dtype).tiny
-    return torch.where(x.abs() < tiny,
-                       torch.where(x < 0, -tiny, tiny).to(x.dtype), x)
+    floor = torch.full_like(x, tiny)  # at x's dtype: f64's tiny is no f32
+    return torch.where(x.abs() < tiny, torch.where(x < 0, -floor, floor), x)
 
 
 @dataclasses.dataclass
@@ -50,6 +73,9 @@ class PCPGResult:
     iterations: int
     residual: float  # final ||P r||
     converged: bool
+    # per-iteration ||P r|| (iteration k at index k) when history was
+    # requested, else None
+    residual_history: Optional[List[float]] = None
 
 
 def pcpg(
@@ -60,17 +86,24 @@ def pcpg(
     precondition: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
     tol: float = 1e-9,
     max_iter: int = 500,
+    history: bool = False,
 ) -> PCPGResult:
     """Solve P F λ = P d on the affine space λ⁰ + Ker(Gᵀ).
 
     Iterates:  w = P r;  z = P M⁻¹ w;  standard CG update with (z·w) inner
     products. Without a preconditioner z = w (M = I). Stops when
-    ‖w‖ ≤ tol·‖w⁰‖ or after ``max_iter`` iterations.
+    ‖w‖ ≤ tol·‖w⁰‖ or after ``max_iter`` iterations; ``tol`` is first
+    clamped to the floor of ``d``'s dtype.
+
+    ``history=True`` records ‖P r‖ after every iteration (the host value
+    the stopping test reads anyway), so ``residual_history[iterations - 1]
+    == residual``; the recurrence is the same operations, and ``lam`` is
+    bit-identical to the ``history=False`` run.
     """
     if precondition is None:
         def precondition(x):
             return x
-    tol = _clamp_tol(tol, d.dtype)
+    tol = _clamp_tol(tol, d.dtype, _CLAMP_STATE_PCPG)
 
     lam = lam0
     r = d - apply_F(lam0)
@@ -79,6 +112,7 @@ def pcpg(
     zeta = torch.dot(p, w)
     w_norm = float(torch.linalg.norm(w))
     atol = tol * max(w_norm, 1e-30)
+    trace = [] if history else None
     k = 0
     while k < max_iter and w_norm > atol:
         Fp = apply_F(p)
@@ -92,6 +126,8 @@ def pcpg(
         p = z + beta * p
         zeta = zeta_new
         w_norm = float(torch.linalg.norm(w))  # the iteration's one host read
+        if trace is not None:
+            trace.append(w_norm)
         k += 1
     return PCPGResult(lam=lam, iterations=k, residual=w_norm,
-                      converged=w_norm <= atol)
+                      converged=w_norm <= atol, residual_history=trace)

@@ -17,7 +17,7 @@ import torch
 from repro_torch.feti.operator import DualMap
 
 __all__ = ["CoarseProblem", "build_coarse_problem", "coarse_g_e",
-           "coarse_e", "coarse_factor"]
+           "coarse_e", "coarse_factor", "coarse_floor_factor"]
 
 
 def coarse_g_e(Bt: torch.Tensor, f: torch.Tensor, R: torch.Tensor,
@@ -42,22 +42,30 @@ def coarse_e(f: torch.Tensor, R: torch.Tensor) -> torch.Tensor:
     return torch.einsum("sn,snk->sk", f, R).reshape(S * k)
 
 
+def coarse_floor_factor(dtype: torch.dtype) -> float:
+    """The rank floor of :func:`coarse_factor`, relative to the mean
+    squared column norm: max(1e-12, (1e3·eps)²). It must sit above the
+    dtype's squared rank-detection scale: f64 takes exactly 1e-12
+    (eps²·1e6 ≈ 4.9e-26), f32 ≈ 1.4e-8, where QR noise on dependent
+    columns lands near eps·‖G‖."""
+    return max(1e-12, (torch.finfo(dtype).eps * 1e3) ** 2)
+
+
 def coarse_factor(G: torch.Tensor) -> torch.Tensor:
     """Lower-triangular L with L Lᵀ = GᵀG, as Rᵀ of the QR of G.
 
     Row signs are normalized so the diagonal is positive. Degenerate
     pivots (zero or eps-sized diagonals of a rank-deficient G) are clamped
-    to the reference's floor, sqrt(1e-12 · ‖G‖²_F / ncols) for f64, keeping
-    the coarse solve bounded; healthy pivots pass through unchanged. Fewer
-    rows than columns are zero-padded.
+    to sqrt(:func:`coarse_floor_factor` · ‖G‖²_F / ncols), keeping the
+    coarse solve bounded; healthy pivots pass through unchanged. Fewer rows
+    than columns are zero-padded.
     """
     n_rows, ncols = G.shape
     if n_rows < ncols:
         G = torch.cat([G, G.new_zeros((ncols - n_rows, ncols))])
     Rq = torch.linalg.qr(G, mode="r").R
     diag = torch.diagonal(Rq)
-    floor_fac = max(1e-12, (torch.finfo(G.dtype).eps * 1e3) ** 2)
-    floor2 = floor_fac * torch.sum(G * G) / ncols
+    floor2 = coarse_floor_factor(G.dtype) * torch.sum(G * G) / ncols
     floor2 = torch.where(floor2 == 0.0, torch.ones_like(floor2), floor2)
     sign_d = torch.where(diag < 0, -1.0, 1.0).to(diag.dtype)
     safe = torch.where(diag * diag < floor2, torch.sqrt(floor2) * sign_d, diag)

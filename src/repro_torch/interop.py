@@ -1,12 +1,14 @@
 """Carry a decomposition or a packed factor from the JAX reference into
-the port.
+the port, at a chosen dtype.
 
 :func:`from_reference_problem` builds the port's :class:`FetiProblem` from
 the reference's host arrays, so both packages can be fed the identical
 decomposition; :func:`from_reference_packed` builds a
 :class:`PackedBlocks` from a packed factor's values and block layout. Both
 take plain numpy arrays (never the reference's objects) and import nothing
-of the reference.
+of the reference. A problem's host arrays are f64 (the pipeline rounds them
+to its storage dtype itself); a packed factor is carried at ``dtype``, so
+both packages' f32 factors can be compared on identical values.
 """
 from __future__ import annotations
 
@@ -82,7 +84,8 @@ def from_reference_problem(arrays: dict) -> FetiProblem:
 
 
 def from_reference_packed(values: np.ndarray, mask: np.ndarray, n: int,
-                          bs: int) -> PackedBlocks:
+                          bs: int, dtype: torch.dtype = torch.float64
+                          ) -> PackedBlocks:
     """Port-side :class:`PackedBlocks` from a packed factor's host arrays.
 
     ``values`` is the (..., n_blocks, bs, bs) value stack (the reference's
@@ -90,9 +93,9 @@ def from_reference_packed(values: np.ndarray, mask: np.ndarray, n: int,
     (the reference index's ``mask``), ``n`` and ``bs`` its size and block
     size. The index is rebuilt from the mask, so its slot order is the
     reference's: (row, col)-sorted, diagonal last in each row. The values
-    land on the CPU.
+    land on the CPU at ``dtype`` (an f32 stack carried at f32 is exact).
     """
     index = PackedBlockIndex.from_mask(mask, n, bs)
-    vals = torch.as_tensor(np.array(values, dtype=np.float64))
+    vals = torch.as_tensor(np.array(values, dtype=np.float64)).to(dtype)
     index.validate(vals)
     return PackedBlocks(vals, index)

@@ -1,15 +1,16 @@
 // Device half of the stepped SYRK, shared by the stepped SYRK kernel
 // (stepped_syrk.cu) and the fused TRSM->SYRK kernels
-// (stepped_trsm_syrk.cu). Sm_90a, f64.
+// (stepped_trsm_syrk.cu). Sm_90a; scalar type T = double or float.
 //
-// syrk_tile<Load, TM, WM, WN, NTHREADS>() computes one TM x TM sub-tile of
+// syrk_tile<T, Load, TM, WM, WN, NTHREADS>() computes one TM x TM sub-tile of
 // F = Y^T Y for one subdomain: rows r0.. (columns of Y), columns c0..,
 // clipped to row_end / col_end (the bm x bm tile it belongs to), reducing
 // over Y rows from k_begin (the row stripe's start block, times bs) to n.
-// Ys and Fs are 16-byte aligned and m is even: every copy and store moves
-// 16 bytes. The products run on the FP64 tensor cores (dmma_f64.cuh): each
-// of the block's NTHREADS / 32 warps owns a WM x WN warp tile of m16n8k8
-// fragments. 16-row chunks of the two Y column panels stream through a
+// Ys and Fs are 16-byte aligned and m and the tile bounds are multiples of
+// 8: every copy moves 16 bytes, every store two elements. The products run
+// on the FP64 tensor cores (dmma_f64.cuh) at f64 and on FFMA, accumulating
+// in f32 (ffma_f32.cuh), at f32: each of the block's NTHREADS / 32 warps
+// owns a WM x WN warp tile in the m16n8k8 fragment layout. 16-row chunks of the two Y column panels stream through a
 // 3-stage cp.async ring, each panel stored k-major exactly as it lies in Y
 // (leading dimension TM + 4); the last chunk is clipped to n. A diagonal
 // sub-tile (r0 == c0) copies its one panel once. The Load policy picks the
@@ -22,6 +23,7 @@
 #include <stdint.h>
 
 #include "dmma_f64.cuh"
+#include "ffma_f32.cuh"
 
 namespace stepped {
 
@@ -29,9 +31,9 @@ constexpr int SKC = 16;            // rows of Y per staged chunk
 constexpr int SYRK_STAGES = 3;
 constexpr int SYRK_THREADS = 256;  // 8 warps (the stepped SYRK's block)
 
-template <int TM>
+template <class T, int TM>
 constexpr size_t syrk_smem_bytes() {
-  return sizeof(double) * SYRK_STAGES * 2 * SKC * (TM + 4);
+  return sizeof(T) * SYRK_STAGES * 2 * SKC * (TM + 4);
 }
 
 struct LoadInput {
@@ -57,12 +59,14 @@ __device__ __forceinline__ void lower_tile(int t, int& ti, int& tj) {
 }
 
 // Ys (n, m) and Fs (m, m) of one subdomain; smem (16-byte aligned) holds
-// syrk_smem_bytes<TM>(). Uniform over the block.
-template <class Load, int TM, int WM, int WN, int NTHREADS = SYRK_THREADS>
-__device__ __forceinline__ void syrk_tile(const double* Ys, double* Fs,
-                                          int n, int m, int k_begin, int r0,
-                                          int c0, int row_end, int col_end,
-                                          double* smem) {
+// syrk_smem_bytes<T, TM>(). Uniform over the block.
+template <class T, class Load, int TM, int WM, int WN,
+          int NTHREADS = SYRK_THREADS>
+__device__ __forceinline__ void syrk_tile(const T* Ys, T* Fs, int n, int m,
+                                          int k_begin, int r0, int c0,
+                                          int row_end, int col_end, T* smem) {
+  using P = typename tile::Pair<T>::type;
+  constexpr int V = tile::VEC<T>;
   constexpr int LD = TM + 4;
   constexpr int PANEL = SKC * LD;
   constexpr int WARPS_N = TM / WN;
@@ -75,19 +79,19 @@ __device__ __forceinline__ void syrk_tile(const double* Ys, double* Fs,
   const int wm0 = (warp / WARPS_N) * WM, wn0 = (warp % WARPS_N) * WN;
   const bool diag = r0 == c0;
 
-  double acc[MI][NJ][2];
-  dmma::zero(acc);
+  T acc[MI][NJ][2];
+  tile::zero(acc);
   dmma::pipeline<SYRK_STAGES>(
       (n - k_begin + SKC - 1) / SKC,
       [&](int c, int stage) {
-        double* Pi = smem + stage * 2 * PANEL;
+        T* Pi = smem + stage * 2 * PANEL;
         const int k0 = k_begin + c * SKC;
-        for (int idx = tid; idx < SKC * (TM / 2); idx += NTHREADS) {
-          const int q = idx / (TM / 2), c2 = 2 * (idx % (TM / 2));
+        for (int idx = tid; idx < SKC * (TM / V); idx += NTHREADS) {
+          const int q = idx / (TM / V), c2 = V * (idx % (TM / V));
           // rows past n (the last chunk when bs is no multiple of SKC) are
           // zero-filled
           const bool in_k = k0 + q < n;
-          const double* row = Ys + (int64_t)(in_k ? k0 + q : 0) * m;
+          const T* row = Ys + (int64_t)(in_k ? k0 + q : 0) * m;
           const bool in_i = in_k && r0 + c2 < row_end;
           const bool in_j = in_k && c0 + c2 < col_end;
           Load::copy16(Pi + q * LD + c2, in_i ? row + r0 + c2 : Ys, in_i);
@@ -97,11 +101,10 @@ __device__ __forceinline__ void syrk_tile(const double* Ys, double* Fs,
         }
       },
       [&](int, int stage) {
-        const double* Pi = smem + stage * 2 * PANEL;
-        const double* Pj = diag ? Pi : Pi + PANEL;
+        const T* Pi = smem + stage * 2 * PANEL;
+        const T* Pj = diag ? Pi : Pi + PANEL;
         // A(r, k) = Y[k][r0 + r]: k-major, like B(k, c) = Y[k][c0 + c]
-        dmma::warp_mma<MI, NJ, SKC, 1, LD, LD, false>(acc, Pi + wm0,
-                                                      Pj + wn0);
+        tile::mma<MI, NJ, SKC, 1, LD, LD, false>(acc, Pi + wm0, Pj + wn0);
       });
 
 #pragma unroll
@@ -112,8 +115,8 @@ __device__ __forceinline__ void syrk_tile(const double* Ys, double* Fs,
     for (int j = 0; j < NJ; ++j) {
       const int c = c0 + wn0 + 8 * j + 2 * t;
       if (c < col_end)
-        *reinterpret_cast<double2*>(Fs + (int64_t)r * m + c) =
-            make_double2(acc[i][j][0], acc[i][j][1]);
+        *reinterpret_cast<P*>(Fs + (int64_t)r * m + c) =
+            tile::pair<T>(acc[i][j][0], acc[i][j][1]);
     }
   }
 }

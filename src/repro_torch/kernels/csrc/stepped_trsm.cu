@@ -1,15 +1,18 @@
-// Stepped TRSM for Hopper (sm_90a), f64: Y = L^{-1} B for a stepped B,
-// batched over subdomains, against a dense or a packed factor.
+// Stepped TRSM for Hopper (sm_90a), f64 and f32: Y = L^{-1} B for a
+// stepped B, batched over subdomains, against a dense or a packed factor.
 //
 // Replaces:
-//   * stepped_trsm_f64: repro/kernels/stepped_trsm.py::stepped_trsm_pallas
-//     (body _trsm_kernel), the TPU kernel of paper §3.2;
-//   * stepped_trsm_packed_f64:
+//   * stepped_trsm_f64, stepped_trsm_f32:
+//     repro/kernels/stepped_trsm.py::stepped_trsm_pallas (body
+//     _trsm_kernel), the TPU kernel of paper §3.2, at f64 and at f32 (the
+//     TPU kernel accumulates f32 and bf16 inputs in f32; bf16 storage runs
+//     its prep at f32, so these two cover every dtype it takes);
+//   * stepped_trsm_packed_f64, stepped_trsm_packed_f32:
 //     repro/kernels/stepped_trsm.py::stepped_trsm_packed_pallas (body
 //     _trsm_packed_kernel), the same TRSM against a packed factor whose
 //     inner loop walks only the stored blocks of each row.
 //
-// What bounds them: the card's least time for the work is the f64
+// What bounds them (f64): the card's least time for the work is the f64
 // operations (dense: SteppedMeta.flops_trsm_rhs_split() per subdomain,
 // times S, about 0.18 TFLOP on feti-heat-2d's 64 subdomains of 4225 DOFs,
 // 2.7 ms at the FP64 tensor cores' 67 TFLOP/s) or, packed, the bytes of
@@ -37,8 +40,8 @@
 //   * The diagonal step multiplies by the pre-inverted diagonal block, as
 //     on the TPU, so all arithmetic is GEMM-shaped and runs on the FP64
 //     tensor cores (mma.sync m16n8k8, dmma_f64.cuh), with every operand
-//     staged through a 3-stage cp.async ring (TRSM_SMEM_BYTES = 112 KB:
-//     two blocks of 4 warps a SM). Four 32 x 32 warp tiles load a third
+//     staged through a 3-stage cp.async ring (112 KB of shared memory at
+//     f64, 56 KB at f32: two blocks of 4 warps a SM at f64). Four 32 x 32 warp tiles load a third
 //     fewer fragments than eight 16 x 32 ones, and at 128 threads a block
 //     ptxas may use up to 255 registers, so nothing spills.
 //   * One template over the factor accessor: the packed kernel is the dense
@@ -47,13 +50,22 @@
 //     zero left of it).
 //   * Each block still solves its rows one after another: a barrier per
 //     16-deep chunk, and the pipeline drains at each diagonal step.
+//   * f32: the same schedule with the products on FFMA, accumulating in
+//     f32 (ffma_f32.cuh), as the TPU kernel does; its bound is the f32
+//     operations at the FFMA peak (67 TFLOP/s), so per chunk the warps'
+//     4 + 4 shared loads for every 32 FFMA bound it well below that.
+//   * Block sizes below 32 (the smoke configurations' bs = 8): the same
+//     4-warp block with 8-deep chunks when 16 does not divide bs; the warps
+//     whose rows lie past bs idle. Column tiles past m (bm < 32) are
+//     clipped. Simple and right, not fast.
 //
 // Layout: row-major, Linv (S, nb, bs, bs), L (S, n, n) or values
 // (S, n_blocks, bs, bs) with rowptr (nb + 1,) and colidx (n_blocks,)
 // int32, B and Y (S, n, m), start_block (m / bm,) int32 shared by all
 // subdomains. n and m are padded to bs and bm multiples; bs is a multiple
-// of 32 up to 128, bm a multiple of 32. Rows above a stripe's start come
-// out exactly zero.
+// of 8 up to 128, bm a multiple of 8. Rows above a stripe's start come
+// out exactly zero. A launcher returns cudaErrorInvalidValue for any other
+// bs or bm.
 
 #include "stepped_trsm.cuh"
 
@@ -61,50 +73,67 @@ namespace {
 
 using namespace stepped;
 
-template <class Factor>
+template <class T, int KC, class Factor>
 __global__ void __launch_bounds__(THREADS)
-stepped_trsm_kernel(Factor fac, const double* __restrict__ Linv,
-                    const double* __restrict__ B,
-                    const int* __restrict__ start_block,
-                    double* __restrict__ Y, int n, int m, int bs, int bm) {
-  extern __shared__ __align__(16) double smem[];
-  const int S = gridDim.x / (m / TN);
+stepped_trsm_kernel(Factor fac, const T* __restrict__ Linv,
+                    const T* __restrict__ B,
+                    const int* __restrict__ start_block, T* __restrict__ Y,
+                    int S, int n, int m, int bs, int bm) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
   const int col0 = (int)(blockIdx.x / S) * TN;
   const int start = min(start_block[col0 / bm], n / bs);
-  solve_column_tile(fac, Linv, B, Y, (int64_t)(blockIdx.x % S), col0, start,
-                    n, m, bs, smem);
+  solve_column_tile<T, KC>(fac, Linv, B, Y, (int64_t)(blockIdx.x % S), col0,
+                           start, n, m, bs, reinterpret_cast<T*>(smem_raw));
 }
 
-template <class Factor>
+template <class T, int KC, class Factor>
+int launch_kc(Factor fac, const T* Linv, const T* B, const int* start_block,
+              T* Y, int S, int n, int m, int bs, int bm, cudaStream_t stream) {
+  auto kernel = stepped_trsm_kernel<T, KC, Factor>;
+  cudaError_t err = dmma::set_smem(kernel, trsm_smem_bytes<T>());
+  if (err != cudaSuccess) return (int)err;
+  const unsigned grid = (unsigned)((m + TN - 1) / TN) * S;
+  kernel<<<grid, THREADS, trsm_smem_bytes<T>(), stream>>>(
+      fac, Linv, B, start_block, Y, S, n, m, bs, bm);
+  return (int)cudaGetLastError();
+}
+
+template <class T, class Factor>
 int launch(Factor fac, const void* Linv, const void* B,
            const void* start_block, void* Y, int S, int n, int m, int bs,
            int bm, void* stream) {
-  cudaError_t err = dmma::set_smem(stepped_trsm_kernel<Factor>,
-                                   TRSM_SMEM_BYTES);
-  if (err != cudaSuccess) return (int)err;
-  const unsigned grid = (unsigned)(m / TN) * S;
-  stepped_trsm_kernel<Factor>
-      <<<grid, THREADS, TRSM_SMEM_BYTES, (cudaStream_t)stream>>>(
-          fac, (const double*)Linv, (const double*)B,
-          (const int*)start_block, (double*)Y, n, m, bs, bm);
-  return (int)cudaGetLastError();
+  if (bs % MIN_BS || bs > MAX_BS || bs < MIN_BS || bm % MIN_BS || bm < 1 ||
+      n % bs || m % bm)
+    return (int)cudaErrorInvalidValue;
+  const T* inv = (const T*)Linv;
+  const T* rhs = (const T*)B;
+  const int* starts = (const int*)start_block;
+  // chunks 16 deep where they divide bs, else 8 (bs a multiple of 8)
+  return bs % KC_MAX
+             ? launch_kc<T, 8>(fac, inv, rhs, starts, (T*)Y, S, n, m, bs, bm,
+                               (cudaStream_t)stream)
+             : launch_kc<T, KC_MAX>(fac, inv, rhs, starts, (T*)Y, S, n, m,
+                                    bs, bm, (cudaStream_t)stream);
 }
 
 }  // namespace
 
-extern "C" int stepped_trsm_f64(const void* Linv, const void* L, const void* B,
-                                const void* start_block, void* Y, int S, int n,
-                                int m, int bs, int bm, void* stream) {
-  return launch(DenseFactor{(const double*)L, n}, Linv, B, start_block, Y, S,
-                n, m, bs, bm, stream);
-}
+#define STEPPED_TRSM_ENTRY(T, SUFFIX)                                         \
+  extern "C" int stepped_trsm_##SUFFIX(                                      \
+      const void* Linv, const void* L, const void* B,                        \
+      const void* start_block, void* Y, int S, int n, int m, int bs, int bm, \
+      void* stream) {                                                        \
+    return launch<T>(DenseFactor<T>{(const T*)L, n}, Linv, B, start_block,   \
+                     Y, S, n, m, bs, bm, stream);                            \
+  }                                                                          \
+  extern "C" int stepped_trsm_packed_##SUFFIX(                               \
+      const void* Linv, const void* values, const void* rowptr,              \
+      const void* colidx, const void* B, const void* start_block, void* Y,   \
+      int S, int n, int m, int bs, int bm, int n_blocks, void* stream) {     \
+    return launch<T>(PackedFactor<T>{(const T*)values, (const int*)rowptr,   \
+                                     (const int*)colidx, n_blocks},          \
+                     Linv, B, start_block, Y, S, n, m, bs, bm, stream);      \
+  }
 
-extern "C" int stepped_trsm_packed_f64(const void* Linv, const void* values,
-                                       const void* rowptr, const void* colidx,
-                                       const void* B, const void* start_block,
-                                       void* Y, int S, int n, int m, int bs,
-                                       int bm, int n_blocks, void* stream) {
-  return launch(PackedFactor{(const double*)values, (const int*)rowptr,
-                             (const int*)colidx, n_blocks},
-                Linv, B, start_block, Y, S, n, m, bs, bm, stream);
-}
+STEPPED_TRSM_ENTRY(double, f64)
+STEPPED_TRSM_ENTRY(float, f32)

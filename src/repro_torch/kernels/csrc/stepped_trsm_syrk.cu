@@ -63,14 +63,24 @@
 // Upper tiles (j > i) are never written: the wrapper allocates F as zeros,
 // which the mirror step relies on.
 //
+// Small blocks (bs, bm in {8, 16, ...}): a TRSM item keeps its 32-column
+// tile, which may span several stripes; it solves from the first one's
+// start (stepped_trsm.cuh says why that is exact) and is clipped at m. A
+// SYRK item waits for every column tile its rows and columns touch, so a
+// tile narrower than 32 waits for the one it lies in.
+//
+// f64 only: the f32 fused kernels are ROADMAP A13b (the wrappers refuse
+// f32).
+//
 // Layout: as stepped_trsm.cu, plus the scratch Y (S, n, m), the output
 // F (S, m, m), the item list (n_items,) int32 and the sync words
-// (1 + S * m / 32,) int32; bs a multiple of 32 up to 128, bm a multiple
-// of 32. Item codes: a TRSM item is s * (m / 32) + column tile, a SYRK
-// item is S * (m / 32) + (s * lower tiles + tile) * sub-tiles + sub-tile.
-// The launcher takes only the whole list: an n_items other than its own
-// count of every item (a list built for another FUSED_TILE, say) is
-// refused with cudaErrorInvalidValue.
+// (1 + S * ceil(m / 32),) int32; bs a multiple of 8 up to 128, bm a
+// multiple of 8. Item codes: a TRSM item is s * ceil(m / 32) + column
+// tile, a SYRK item is S * ceil(m / 32) + (s * lower tiles + tile) *
+// sub-tiles + sub-tile. The launcher takes only the whole list: an n_items
+// other than its own count of every item (a list built for another
+// FUSED_TILE, say) is refused with cudaErrorInvalidValue, as are bs and bm
+// the TRSM core does not take.
 
 #include "stepped_syrk.cuh"
 #include "stepped_trsm.cuh"
@@ -80,9 +90,10 @@ namespace {
 using namespace stepped;
 
 constexpr int FUSED_TILE = 64;  // SYRK sub-tile edge: 4 warps of 32 x 32
-constexpr size_t SMEM_BYTES = TRSM_SMEM_BYTES > syrk_smem_bytes<FUSED_TILE>()
-                                  ? TRSM_SMEM_BYTES
-                                  : syrk_smem_bytes<FUSED_TILE>();
+constexpr size_t SMEM_BYTES =
+    trsm_smem_bytes<double>() > syrk_smem_bytes<double, FUSED_TILE>()
+        ? trsm_smem_bytes<double>()
+        : syrk_smem_bytes<double, FUSED_TILE>();
 
 __device__ __forceinline__ void store_release(int* p, int v) {
   asm volatile("st.release.gpu.global.s32 [%0], %1;\n" ::"l"(p), "r"(v)
@@ -98,7 +109,7 @@ __device__ __forceinline__ int load_acquire(const int* p) {
   return v;
 }
 
-template <class Factor>
+template <int KC, class Factor>
 __global__ void __launch_bounds__(THREADS)
 stepped_trsm_syrk_kernel(Factor fac, const double* __restrict__ Linv,
                          const double* __restrict__ B,
@@ -111,7 +122,7 @@ stepped_trsm_syrk_kernel(Factor fac, const double* __restrict__ Linv,
   int* ticket = sync;
   int* ready = sync + 1;  // one flag per (subdomain, column tile)
   const int nb = n / bs;
-  const int col_tiles = m / TN;
+  const int col_tiles = (m + TN - 1) / TN;
   const int trsm_items = S * col_tiles;
 
   for (;;) {
@@ -128,7 +139,8 @@ stepped_trsm_syrk_kernel(Factor fac, const double* __restrict__ Linv,
       const int64_t s = item / col_tiles;
       const int col0 = (item % col_tiles) * TN;
       const int start = min(start_block[col0 / bm], nb);
-      solve_column_tile(fac, Linv, B, Y, s, col0, start, n, m, bs, smem);
+      solve_column_tile<double, KC>(fac, Linv, B, Y, s, col0, start, n, m,
+                                    bs, smem);
       __threadfence();
       __syncthreads();
       if (threadIdx.x == 0) store_release(ready + item, 1);
@@ -151,13 +163,13 @@ stepped_trsm_syrk_kernel(Factor fac, const double* __restrict__ Linv,
     const int col_end = min(c0 + FUSED_TILE, (tj + 1) * bm);
     if (threadIdx.x == 0) {
       const int* flags = ready + s * col_tiles;
-      for (int c = r0 / TN; c < row_end / TN; ++c)
+      for (int c = r0 / TN; c < (row_end + TN - 1) / TN; ++c)
         while (!load_acquire(flags + c)) __nanosleep(128);
-      for (int c = c0 / TN; c < col_end / TN; ++c)
+      for (int c = c0 / TN; c < (col_end + TN - 1) / TN; ++c)
         while (!load_acquire(flags + c)) __nanosleep(128);
     }
     __syncthreads();
-    syrk_tile<LoadFromL2, FUSED_TILE, 32, 32, THREADS>(
+    syrk_tile<double, LoadFromL2, FUSED_TILE, 32, 32, THREADS>(
         Y + s * (int64_t)n * m, F + s * (int64_t)m * m, n, m,
         min(start_block[ti], nb) * bs, r0, c0, row_end, col_end, smem);
   }
@@ -180,20 +192,17 @@ cudaError_t resident_blocks(Kernel* kernel, int* blocks) {
   return cudaSuccess;
 }
 
-template <class Factor>
-int launch(Factor fac, const void* Linv, const void* B,
-           const void* start_block, const void* order, int n_items,
-           void* sync, void* Y, void* F, int S, int n, int m, int bs, int bm,
-           void* stream) {
-  const int nc = m / bm, subs = (bm + FUSED_TILE - 1) / FUSED_TILE;
-  const int trsm_items = S * (m / TN);
-  if (n_items != trsm_items + S * (nc * (nc + 1) / 2) * subs * subs)
-    return (int)cudaErrorInvalidValue;
-  auto kernel = stepped_trsm_syrk_kernel<Factor>;
+template <int KC, class Factor>
+int launch_kc(Factor fac, const void* Linv, const void* B,
+              const void* start_block, const void* order, int n_items,
+              void* sync, void* Y, void* F, int S, int n, int m, int bs,
+              int bm, void* stream) {
+  auto kernel = stepped_trsm_syrk_kernel<KC, Factor>;
   int resident = 0;
   cudaError_t err = resident_blocks(kernel, &resident);
   if (err != cudaSuccess) return (int)err;
   const int grid = n_items < resident ? n_items : resident;
+  const int trsm_items = S * ((m + TN - 1) / TN);
   err = cudaMemsetAsync(sync, 0, sizeof(int) * (1 + trsm_items),
                         (cudaStream_t)stream);
   if (err != cudaSuccess) return (int)err;
@@ -204,6 +213,25 @@ int launch(Factor fac, const void* Linv, const void* B,
   return (int)cudaGetLastError();
 }
 
+template <class Factor>
+int launch(Factor fac, const void* Linv, const void* B,
+           const void* start_block, const void* order, int n_items,
+           void* sync, void* Y, void* F, int S, int n, int m, int bs, int bm,
+           void* stream) {
+  if (bs % MIN_BS || bs > MAX_BS || bs < MIN_BS || bm % MIN_BS || bm < 1 ||
+      n % bs || m % bm)
+    return (int)cudaErrorInvalidValue;
+  const int nc = m / bm, subs = (bm + FUSED_TILE - 1) / FUSED_TILE;
+  const int trsm_items = S * ((m + TN - 1) / TN);
+  if (n_items != trsm_items + S * (nc * (nc + 1) / 2) * subs * subs)
+    return (int)cudaErrorInvalidValue;
+  return bs % KC_MAX
+             ? launch_kc<8>(fac, Linv, B, start_block, order, n_items, sync,
+                            Y, F, S, n, m, bs, bm, stream)
+             : launch_kc<KC_MAX>(fac, Linv, B, start_block, order, n_items,
+                                 sync, Y, F, S, n, m, bs, bm, stream);
+}
+
 }  // namespace
 
 extern "C" int stepped_trsm_syrk_f64(const void* Linv, const void* L,
@@ -211,8 +239,9 @@ extern "C" int stepped_trsm_syrk_f64(const void* Linv, const void* L,
                                      const void* order, void* sync, void* Y,
                                      void* F, int S, int n, int m, int bs,
                                      int bm, int n_items, void* stream) {
-  return launch(DenseFactor{(const double*)L, n}, Linv, B, start_block, order,
-                n_items, sync, Y, F, S, n, m, bs, bm, stream);
+  return launch(DenseFactor<double>{(const double*)L, n}, Linv, B,
+                start_block, order, n_items, sync, Y, F, S, n, m, bs, bm,
+                stream);
 }
 
 extern "C" int stepped_trsm_syrk_packed_f64(
@@ -220,8 +249,9 @@ extern "C" int stepped_trsm_syrk_packed_f64(
     const void* colidx, const void* B, const void* start_block,
     const void* order, void* sync, void* Y, void* F, int S, int n, int m,
     int bs, int bm, int n_blocks, int n_items, void* stream) {
-  return launch(PackedFactor{(const double*)values, (const int*)rowptr,
-                             (const int*)colidx, n_blocks},
+  return launch(PackedFactor<double>{(const double*)values,
+                                     (const int*)rowptr, (const int*)colidx,
+                                     n_blocks},
                 Linv, B, start_block, order, n_items, sync, Y, F, S, n, m, bs,
                 bm, stream);
 }

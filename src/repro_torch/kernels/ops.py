@@ -7,7 +7,10 @@ metadata derived from the stepped pivots (and from it, on the host, the
 fused kernels' item list, cached per plan and device), pre-inversion of
 the factor's diagonal blocks (for a packed factor, its diagonal slots),
 and the mirror of SYRK's lower block triangle. Every function takes a leading subdomain
-axis S; one shared (envelope) ``SteppedMeta`` describes all S.
+axis S; one shared (envelope) ``SteppedMeta`` describes all S. Operands
+keep their dtype (float64, or float32 for reduced-precision stacks, whose
+diagonal blocks are then inverted at f32 as the reference does), and the
+wrappers pick the kernel of that dtype.
 """
 from __future__ import annotations
 

@@ -7,7 +7,8 @@ once per plan and cached, and uploaded once per plan and device
 (:func:`fused_work_order_on`, which ``kernels/ops.py`` calls beside the
 start blocks and hands to the wrapper):
 
-* every TRSM item — one 32-column tile of one subdomain, code
+* every TRSM item — one 32-column tile of one subdomain (``col_tiles =
+  ceil(m / 32)``; the last tile is clipped at m), code
   ``s * col_tiles + tile`` — in non-increasing cost (a stable sort, so
   the tiles of one subdomain stay neighbours);
 * then every SYRK item — one 64 × 64 sub-tile of one lower ``bm × bm``
@@ -36,7 +37,7 @@ __all__ = ["trsm_stripe_costs", "fused_item_count", "fused_work_order",
 def fused_item_count(S: int, m: int, bm: int) -> int:
     """Items of a fused launch: every TRSM item, then every SYRK item."""
     nc, subs = m // bm, -(-bm // FUSED_SYRK_TILE)
-    return S * (m // TILE) + S * nc * (nc + 1) // 2 * subs * subs
+    return S * -(-m // TILE) + S * nc * (nc + 1) // 2 * subs * subs
 
 
 def trsm_stripe_costs(starts, nb: int, rowptr=None, colidx=None) -> np.ndarray:
@@ -57,7 +58,7 @@ def trsm_stripe_costs(starts, nb: int, rowptr=None, colidx=None) -> np.ndarray:
 @functools.lru_cache(maxsize=32)
 def _order(starts: tuple, S: int, nb: int, m: int, bm: int,
            rowptr: tuple | None, colidx: tuple | None) -> np.ndarray:
-    col_tiles = m // TILE
+    col_tiles = -(-m // TILE)
     nc = m // bm
     subs = -(-bm // FUSED_SYRK_TILE)
     stripe_cost = trsm_stripe_costs(starts, nb, rowptr, colidx)

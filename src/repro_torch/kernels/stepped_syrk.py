@@ -3,7 +3,8 @@
 Computes the lower block triangle of ``F = Yᵀ Y`` over ``bm × bm`` tiles,
 batched over subdomains (paper §3.3). The CUDA kernel
 (``csrc/stepped_syrk.cu``) replaces the TPU kernel
-``repro/kernels/stepped_syrk.py::stepped_syrk_pallas``.
+``repro/kernels/stepped_syrk.py::stepped_syrk_pallas``, at float64 and at
+float32 (accumulating in f32, as the TPU kernel does).
 
 :func:`stepped_syrk_kernel` launches the kernel for CUDA tensors (or
 raises) and runs :func:`stepped_syrk_plain` for CPU tensors. Upper tiles
@@ -15,7 +16,14 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels._launch import TILE, check_operands, stream_of
+from repro_torch.kernels._launch import (
+    MIN_BS,
+    SUFFIX,
+    check_operands,
+    count_launch,
+    counted,
+    stream_of,
+)
 
 __all__ = ["stepped_syrk_kernel", "stepped_syrk_plain"]
 
@@ -34,6 +42,7 @@ def stepped_syrk_plain(Y: torch.Tensor, start_block: torch.Tensor, bs: int,
     return F
 
 
+@counted
 def stepped_syrk_kernel(Y: torch.Tensor, start_block: torch.Tensor, bs: int,
                         bm: int) -> torch.Tensor:
     """Lower block triangle of ``Y_sᵀ Y_s`` per subdomain.
@@ -42,9 +51,10 @@ def stepped_syrk_kernel(Y: torch.Tensor, start_block: torch.Tensor, bs: int,
       Y: (S, n, m) stepped TRSM solutions, n a multiple of bs, m of bm.
       start_block: (m // bm,) int first contributing row block per stripe.
 
-    CUDA tensors launch the kernel (bm a multiple of 32, Y 16-byte
-    aligned); CPU tensors run the plain version. Only float64 is accepted.
-    ``stepped_syrk_kernel.launches`` counts launches.
+    Y is float64 or float32. CUDA tensors launch the kernel of its dtype
+    (bm a multiple of 8, Y 16-byte aligned); CPU tensors run the plain
+    version. ``stepped_syrk_kernel.launches`` counts launches,
+    ``.launches_by_dtype`` them per dtype.
     """
     dev = check_operands("stepped_syrk", Y=Y)
     S, n, m = Y.shape
@@ -55,10 +65,11 @@ def stepped_syrk_kernel(Y: torch.Tensor, start_block: torch.Tensor, bs: int,
                          f"{(m // bm,)}")
     if dev.type == "cpu":
         return stepped_syrk_plain(Y, start_block, bs, bm)
-    if bm % TILE:
-        raise ValueError(f"the CUDA kernel takes bm a multiple of {TILE}; "
+    if bm % MIN_BS:
+        raise ValueError(f"the CUDA kernel takes bm a multiple of {MIN_BS}; "
                          f"got bm={bm}")
-    fn = build.function("stepped_syrk", "stepped_syrk_f64", 3, 5)
+    fn = build.function("stepped_syrk", f"stepped_syrk_{SUFFIX[Y.dtype]}", 3,
+                        5)
     starts = start_block.to(device=dev, dtype=torch.int32).contiguous()
     F = torch.zeros((S, m, m), dtype=Y.dtype, device=dev)
     with torch.cuda.device(dev):
@@ -66,8 +77,5 @@ def stepped_syrk_kernel(Y: torch.Tensor, start_block: torch.Tensor, bs: int,
                  bm, stream_of(dev))
     if err:
         raise RuntimeError(f"stepped_syrk kernel launch failed: CUDA error {err}")
-    stepped_syrk_kernel.launches += 1
+    count_launch(stepped_syrk_kernel, Y.dtype)
     return F
-
-
-stepped_syrk_kernel.launches = 0

@@ -4,8 +4,10 @@ Solves ``L Y = B`` for a stepped B, batched over subdomains (paper §3.2),
 against a dense factor or a packed one (:mod:`repro_torch.sparse.packed`).
 The CUDA kernels (``csrc/stepped_trsm.cu``) replace the TPU kernels
 ``repro/kernels/stepped_trsm.py::stepped_trsm_pallas`` and
-``::stepped_trsm_packed_pallas``; the source note says what bounds them on
-the card and what the design does about that.
+``::stepped_trsm_packed_pallas``, at float64 and at float32 (the TPU kernels
+accumulate sub-f64 inputs in f32; bf16 storage runs its prep at f32); the
+source note says what bounds them on the card and what the design does
+about that.
 
 :func:`stepped_trsm_kernel` and :func:`stepped_trsm_packed_kernel` are the
 wrappers the pipeline calls: for CUDA tensors they launch the kernel (or
@@ -17,7 +19,14 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels._launch import check_cuda_tiles, check_operands, stream_of
+from repro_torch.kernels._launch import (
+    SUFFIX,
+    check_cuda_tiles,
+    check_operands,
+    count_launch,
+    counted,
+    stream_of,
+)
 
 __all__ = [
     "stepped_trsm_kernel",
@@ -128,6 +137,7 @@ def int32_on(dev: torch.device, *tensors: torch.Tensor):
     return [t.to(device=dev, dtype=torch.int32).contiguous() for t in tensors]
 
 
+@counted
 def stepped_trsm_kernel(Linv: torch.Tensor, L: torch.Tensor, B: torch.Tensor,
                         start_block: torch.Tensor, bs: int, bm: int
                         ) -> torch.Tensor:
@@ -139,15 +149,18 @@ def stepped_trsm_kernel(Linv: torch.Tensor, L: torch.Tensor, B: torch.Tensor,
       B: (S, n, m) stepped right-hand sides, m a multiple of bm.
       start_block: (m // bm,) int first factor block of each stripe.
 
-    CUDA tensors launch the kernel, which takes bs a multiple of 32 up to
-    128 and bm a multiple of 32; CPU tensors run the plain version. Only
-    float64 is accepted. ``stepped_trsm_kernel.launches`` counts launches.
+    Operands are float64 or float32, all of one dtype (f32 kernels
+    accumulate in f32). CUDA tensors launch the kernel of their dtype,
+    which takes bs a multiple of 8 up to 128 and bm a multiple of 8; CPU
+    tensors run the plain version. ``stepped_trsm_kernel.launches`` counts
+    launches, ``.launches_by_dtype`` them per dtype.
     """
     dev = check_dense_operands(Linv, L, B, start_block, bs, bm)
     if dev.type == "cpu":
         return stepped_trsm_plain(Linv, L, B, start_block, bs, bm)
     check_cuda_tiles(bs, bm)
-    fn = build.function("stepped_trsm", "stepped_trsm_f64", 5, 5)
+    fn = build.function("stepped_trsm", f"stepped_trsm_{SUFFIX[B.dtype]}", 5,
+                        5)
     S, n, m = B.shape
     (starts,) = int32_on(dev, start_block)
     Y = torch.empty_like(B)
@@ -157,10 +170,11 @@ def stepped_trsm_kernel(Linv: torch.Tensor, L: torch.Tensor, B: torch.Tensor,
                  stream_of(dev))
     if err:
         raise RuntimeError(f"stepped_trsm kernel launch failed: CUDA error {err}")
-    stepped_trsm_kernel.launches += 1
+    count_launch(stepped_trsm_kernel, B.dtype)
     return Y
 
 
+@counted
 def stepped_trsm_packed_kernel(Linv: torch.Tensor, values: torch.Tensor,
                                rowptr: torch.Tensor, colidx: torch.Tensor,
                                B: torch.Tensor, start_block: torch.Tensor,
@@ -176,9 +190,10 @@ def stepped_trsm_packed_kernel(Linv: torch.Tensor, values: torch.Tensor,
       B: (S, n, m) stepped right-hand sides, padded to bs / bm multiples.
       start_block: (m // bm,) int first factor block of each stripe.
 
-    CUDA tensors launch the kernel (same tile limits as
-    :func:`stepped_trsm_kernel`); CPU tensors run the plain version.
-    ``stepped_trsm_packed_kernel.launches`` counts launches.
+    CUDA tensors launch the kernel of their dtype (same dtypes and tile
+    limits as :func:`stepped_trsm_kernel`); CPU tensors run the plain
+    version. ``stepped_trsm_packed_kernel.launches`` counts launches,
+    ``.launches_by_dtype`` them per dtype.
     """
     dev = check_packed_operands(Linv, values, rowptr, colidx, B, start_block,
                                 bs, bm)
@@ -186,7 +201,8 @@ def stepped_trsm_packed_kernel(Linv: torch.Tensor, values: torch.Tensor,
         return stepped_trsm_packed_plain(Linv, values, rowptr, colidx, B,
                                          start_block, bs, bm)
     check_cuda_tiles(bs, bm)
-    fn = build.function("stepped_trsm", "stepped_trsm_packed_f64", 7, 6)
+    fn = build.function("stepped_trsm",
+                        f"stepped_trsm_packed_{SUFFIX[B.dtype]}", 7, 6)
     S, n, m = B.shape
     starts, rp, ci = int32_on(dev, start_block, rowptr, colidx)
     Y = torch.empty_like(B)
@@ -197,9 +213,5 @@ def stepped_trsm_packed_kernel(Linv: torch.Tensor, values: torch.Tensor,
     if err:
         raise RuntimeError(f"stepped_trsm_packed kernel launch failed: CUDA "
                            f"error {err}")
-    stepped_trsm_packed_kernel.launches += 1
+    count_launch(stepped_trsm_packed_kernel, B.dtype)
     return Y
-
-
-stepped_trsm_kernel.launches = 0
-stepped_trsm_packed_kernel.launches = 0

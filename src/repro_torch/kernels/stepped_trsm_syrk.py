@@ -17,14 +17,22 @@ values beside the start blocks and caches it with the plan
 Each wrapper launches its kernel for CUDA tensors (or raises) and runs its
 plain version — the stepped TRSM's then the stepped SYRK's schedule — for
 CPU tensors. Upper tiles come out as exact zeros either way, as
-``ops._mirror_lower`` needs.
+``ops._mirror_lower`` needs. The kernels are float64 only: float32 operands
+raise ``NotImplementedError`` on every device (the f32 fused kernels are
+ROADMAP item A13b), and never run the f64 kernel or a plain version.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels._launch import TILE, check_cuda_tiles, stream_of
+from repro_torch.kernels._launch import (
+    TILE,
+    check_cuda_tiles,
+    count_launch,
+    counted,
+    stream_of,
+)
 from repro_torch.kernels.schedule import fused_item_count
 from repro_torch.kernels.stepped_syrk import stepped_syrk_plain
 from repro_torch.kernels.stepped_trsm import (
@@ -69,8 +77,15 @@ def _outputs(B: torch.Tensor):
     zeroes them)."""
     S, n, m = B.shape
     return (torch.empty_like(B), B.new_zeros((S, m, m)),
-            torch.empty(1 + S * (m // TILE), dtype=torch.int32,
+            torch.empty(1 + S * -(-m // TILE), dtype=torch.int32,
                         device=B.device))
+
+
+def _refuse_f32(name: str, B: torch.Tensor) -> None:
+    if B.dtype == torch.float32:
+        raise NotImplementedError(
+            f"{name}: the f32 fused TRSM→SYRK kernel is ROADMAP item A13b; "
+            "use the unfused kernels (use_kernels=True, fused=False) at f32")
 
 
 def _check_order(order, B: torch.Tensor, bm: int) -> None:
@@ -88,6 +103,7 @@ def _check_order(order, B: torch.Tensor, bm: int) -> None:
                          f"{tuple(order.shape)} on {order.device}")
 
 
+@counted
 def stepped_trsm_syrk_kernel(Linv: torch.Tensor, L: torch.Tensor,
                              B: torch.Tensor, start_block: torch.Tensor,
                              bs: int, bm: int,
@@ -97,12 +113,14 @@ def stepped_trsm_syrk_kernel(Linv: torch.Tensor, L: torch.Tensor,
 
     Operands as :func:`repro_torch.kernels.stepped_trsm.stepped_trsm_kernel`;
     returns (S, m, m) with exact zeros in the upper tiles. CUDA tensors
-    launch the kernel (bs a multiple of 32 up to 128, bm a multiple of 32)
+    launch the kernel (bs a multiple of 8 up to 128, bm a multiple of 8)
     and need ``order``, its item list
     (:func:`repro_torch.kernels.schedule.fused_work_order_on` of the same
     start blocks); CPU tensors run the plain version, which needs no list.
+    Float64 only (float32 raises, naming ROADMAP A13b).
     ``stepped_trsm_syrk_kernel.launches`` counts launches.
     """
+    _refuse_f32("stepped_trsm_syrk", B)
     dev = check_dense_operands(Linv, L, B, start_block, bs, bm)
     if dev.type == "cpu":
         return stepped_trsm_syrk_plain(Linv, L, B, start_block, bs, bm)
@@ -120,10 +138,11 @@ def stepped_trsm_syrk_kernel(Linv: torch.Tensor, L: torch.Tensor,
     if err:
         raise RuntimeError(f"stepped_trsm_syrk kernel launch failed: CUDA "
                            f"error {err}")
-    stepped_trsm_syrk_kernel.launches += 1
+    count_launch(stepped_trsm_syrk_kernel, B.dtype)
     return F
 
 
+@counted
 def stepped_trsm_syrk_packed_kernel(Linv: torch.Tensor, values: torch.Tensor,
                                     rowptr: torch.Tensor, colidx: torch.Tensor,
                                     B: torch.Tensor, start_block: torch.Tensor,
@@ -134,7 +153,9 @@ def stepped_trsm_syrk_packed_kernel(Linv: torch.Tensor, values: torch.Tensor,
     operands as
     :func:`repro_torch.kernels.stepped_trsm.stepped_trsm_packed_kernel`;
     on CUDA ``order`` is the item list built with the CSR index too.
+    Float64 only (float32 raises, naming ROADMAP A13b).
     ``stepped_trsm_syrk_packed_kernel.launches`` counts launches."""
+    _refuse_f32("stepped_trsm_syrk_packed", B)
     dev = check_packed_operands(Linv, values, rowptr, colidx, B, start_block,
                                 bs, bm)
     if dev.type == "cpu":
@@ -156,9 +177,5 @@ def stepped_trsm_syrk_packed_kernel(Linv: torch.Tensor, values: torch.Tensor,
     if err:
         raise RuntimeError(f"stepped_trsm_syrk_packed kernel launch failed: "
                            f"CUDA error {err}")
-    stepped_trsm_syrk_packed_kernel.launches += 1
+    count_launch(stepped_trsm_syrk_packed_kernel, B.dtype)
     return F
-
-
-stepped_trsm_syrk_kernel.launches = 0
-stepped_trsm_syrk_packed_kernel.launches = 0

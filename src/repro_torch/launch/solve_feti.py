@@ -17,6 +17,14 @@ reference's ``--fused`` does with its Pallas one. ``--storage packed``
 computes and keeps the factors in the packed fill-mask layout; with
 ``--kernels`` the TRSM is then the packed stepped TRSM kernel.
 
+``--dtype f32`` or ``bf16`` stores the factor, F̃ and S_b stacks at that
+dtype and computes them at f32 (the f32 kernels with ``--kernels``; the
+fused kernels are f64 only, ROADMAP A13b); ``--refine`` sets the
+interior-solve refinement steps (default 2 below f64), which with
+explicit mode also runs f64 defect-correction outers. The launcher prints
+the storage, compute and solve dtypes, the outers taken and the stacks'
+bytes.
+
 ``--precond dirichlet`` assembles the primal boundary Schur complements
 S_b = K_bb − K_bi K_ii⁻¹ K_ib as a second stage through the same config
 (so the same kernels run it, on new shapes) and preconditions PCPG with
@@ -58,6 +66,15 @@ def main(argv=None) -> int:
     p.add_argument("--storage", choices=("dense", "packed"), default=None,
                    help="factor storage (default: the Schur config's, "
                         "dense)")
+    p.add_argument("--dtype", choices=("f64", "f32", "bf16"), default="f64",
+                   help="storage dtype of the device stacks: f64, f32 (half "
+                        "the bytes; f64 accuracy recovered by iterative "
+                        "refinement and defect-correction outers) or bf16 "
+                        "(storage only: computed at f32)")
+    p.add_argument("--refine", type=int, default=None, metavar="STEPS",
+                   help="interior-solve refinement steps (default: 0 for "
+                        "f64, 2 below; 0 disables refinement and solves at "
+                        "the storage dtype)")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                    help="where the stacks live and the work runs; cuda "
                         "fails when CUDA is not available")
@@ -95,15 +112,18 @@ def main(argv=None) -> int:
             use_kernels=args.kernels)
     config = FetiConfig(schur=cfg, mode=args.mode,
                         preconditioner=args.precond, storage=args.storage,
-                        device=device)
+                        dtype=args.dtype, refine=args.refine, device=device)
     solver = FetiSolver(prob, config)
     sol = solver.solve(tol=args.tol)
 
     st = solver.state
     by = st.device_bytes()
+    print(f"[feti] dtype: storage={sol.storage_dtype} "
+          f"compute={sol.compute_dtype} solve={sol.solve_dtype} "
+          f"refine={st.refine_steps} refine_outer={sol.refine_outer}")
     print(f"[feti] storage={st.storage} device bytes: L={by['L']:,} "
-          f"K={by['K']:,} Btp={by['Btp']:,} F={by['F']:,} (dense L would be "
-          f"{by['dense_L']:,})")
+          f"K={by['K']:,} Btp={by['Btp']:,} F={by['F']:,} Kreg={by['Kreg']:,} "
+          f"(dense L would be {by['dense_L']:,})")
     if st.Sb is not None:
         sp, env = st.split, st.dirichlet_env
         print(f"[feti] precond=dirichlet: boundary/interior split "

@@ -260,6 +260,13 @@ class PackedBlocks:
     def nbytes(self) -> int:
         return self.values.numel() * self.values.element_size()
 
+    def to(self, dtype: torch.dtype) -> "PackedBlocks":
+        """The same matrices with values at ``dtype`` (``self`` when they
+        already are)."""
+        if self.values.dtype == dtype:
+            return self
+        return PackedBlocks(self.values.to(dtype), self.index)
+
     def unpack(self) -> torch.Tensor:
         return self.index.unpack(self.values)
 

@@ -1,0 +1,125 @@
+"""Where the stall of the f32 defect-correction outers comes from (ROADMAP
+C6): the port's f32 F̃ beside f32 F̃ stacks that carry only the
+factorization's, only the assembly's or only the final rounding's error,
+and the f32 explicit solve run once with each.
+
+    PYTHONPATH=src python tests/f32_stall_check.py [--arch feti-heat-2d]
+        [--smoke] [--device cpu] [--tol 1e-9]
+
+Preprocesses the configuration through the kernel path (explicit, dense
+storage) at f64, then at f32, and builds four f32 F̃ stacks: the f32
+state's own; one assembled at f64 from the f32 factor (the factorization's
+error alone); one assembled at f32 from the f64 factor rounded to f32 (the
+assembly's error alone); and fl32(F̃64). It prints each one's distance
+from F̃64 over max|F̃64| and its asymmetry, then solves at f32 with each in
+the state's place, the residual history on, and prints for each solve the
+total iterations, the outers and every PCPG run (the first, then one per
+outer): its iterations, its last and least ‖P r‖ over its starting one,
+and whether it reached its target. A stall that comes and goes with F̃'s
+error names the step that causes it. Runs on the card unless ``--device
+cpu``; at full size it needs the card.
+"""
+from __future__ import annotations
+
+import argparse
+import sys
+
+
+def main(argv=None) -> int:
+    import torch
+
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.core import SchurAssemblyConfig
+    from repro_torch.fem import decompose_problem
+    from repro_torch.feti import FetiConfig, FetiSolver
+    from repro_torch.feti import solver as solver_mod
+    from repro_torch.feti.assembly import batched_assemble
+
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--arch", default="feti-heat-2d")
+    p.add_argument("--smoke", action="store_true")
+    p.add_argument("--device", default=None)
+    p.add_argument("--tol", type=float, default=1e-9)
+    args = p.parse_args(argv)
+
+    fc = (get_smoke_config if args.smoke else get_config)(args.arch)
+    prob = decompose_problem(fc.problem, fc.dim, fc.sub_grid,
+                             fc.elems_per_sub)
+    cfg = SchurAssemblyConfig(block_size=fc.block_size,
+                              rhs_block_size=fc.rhs_block_size,
+                              use_kernels=True)
+
+    def solver(dtype):
+        s = FetiSolver(prob, FetiConfig(schur=cfg, mode="explicit",
+                                        dtype=dtype, device=args.device))
+        s.preprocess()
+        return s
+
+    s64 = solver("f64")
+    sol64 = s64.solve(tol=args.tol)
+    st64 = s64.state
+    F64, L64 = st64.F, st64.L
+    s32 = solver("f32")
+    st = s32.state
+
+    def assemble(L, dtype):
+        # the f32 state's assembly (its kernels at L's dtype) on another
+        # factor
+        return batched_assemble(L, st.Btp.to(dtype), st.col_perm,
+                                st.inv_col_perm, st.env, st.cfg,
+                                st.block_mask)
+
+    # F̃ candidates at f32: the port's own; from its f32 factor, assembled
+    # at f64 (the factorization's error alone); from fl32(L64), assembled
+    # at f32 (the assembly's error alone); fl32(F̃64) (rounding alone)
+    Fs = {"port F32": st.F,
+          "f64 assembly of L32": assemble(st.L.double(), torch.float64),
+          "f32 assembly of fl32(L64)": assemble(L64.float(), torch.float32),
+          "fl32(F64)": F64}
+    Fs = {k: v.to(torch.float32) for k, v in Fs.items()}
+    del s64, st64, L64
+    scale = F64.abs().max().item()
+
+    def rel(a, b):
+        return (a.double() - b.double()).abs().max().item() / scale
+
+    print(f"[c6] {fc.name}: S={prob.n_subdomains} n={prob.subdomains[0].n} "
+          f"m_max={prob.m_max} bs={fc.block_size}; f64 solve "
+          f"{sol64.iterations} iterations")
+    for label, F in Fs.items():
+        print(f"[c6] F̃ {label}: max|F - F64| / max|F64| = {rel(F, F64):.3e}, "
+              f"asymmetry max|F - F^T| / max|F64| = {rel(F, F.mT):.3e}")
+
+    runs = []
+    pcpg = solver_mod.pcpg
+
+    def recording(apply_F, project, d, lam0, **kw):
+        w0 = float(torch.linalg.norm(project(d - apply_F(lam0))))
+        res = pcpg(apply_F, project, d, lam0, **kw)
+        h = res.residual_history or [w0]
+        runs.append((res.iterations, h[-1] / w0, min(h) / w0, res.converged))
+        return res
+
+    solver_mod.pcpg = recording
+    try:
+        for label, F in Fs.items():
+            s32.state.F = F
+            s32._ops = None
+            runs.clear()
+            sol = s32.solve(tol=args.tol, history=True)
+            err = (abs(sol.u_global - sol64.u_global).max()
+                   / abs(sol64.u_global).max())
+            print(f"[c6] f32 solve with {label}: {sol.iterations} iterations, "
+                  f"{sol.refine_outer} outers, converged={sol.converged}, "
+                  f"max|u - u64| / max|u64| = {err:.3e}")
+            for i, (its, last, least, ok) in enumerate(runs):
+                print(f"[c6]   run {i} ({'first' if i == 0 else 'outer'}): "
+                      f"{its} iterations, last/start {last:.3e}, least/start "
+                      f"{least:.3e}, reached target={ok}")
+    finally:
+        solver_mod.pcpg = pcpg
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -19,7 +19,10 @@ rounding paths of the variants have drifted 0.1–0.2 decades apart by the
 end: the port's iteration 58 ends 0.07–0.08 decades above the bar on the
 dense paths and 0.05–0.10 below it on the packed ones (the reference stops
 at 59 on every variant), while at 1e-10 every variant of both packages
-stops at 63.
+stops at 63. That split is rounding (ROADMAP C5, folded into C3):
+``test_packed_split_at_1e9_is_rounding`` holds the packed path's operators
+to rounding of the dense ones and the per-iteration ‖P r‖ records of both
+packages within the drift the reference's own variants show.
 """
 import numpy as np
 import pytest
@@ -251,3 +254,56 @@ def test_elasticity_3d_depth_gap_follows_the_reference():
         assert abs(counts["port", pc] - counts["reference", pc]) <= 1, counts
     for package in ("reference", "port"):
         assert counts[package, "dirichlet"] < counts[package, "lumped"], counts
+
+
+def test_packed_split_at_1e9_is_rounding():
+    """ROADMAP C5, diagnosed with the per-iteration ‖P r‖ records
+    (``history=True``) of the 3-D smoke lumped solve at 1e-9.
+
+    The packed path's operators are the dense path's up to rounding: the
+    factor to 1e-16, F̃ and the dual right-hand side to 1e-15 relative.
+    Every record starts equal; they part by 1e-12 relative near iteration
+    12 and by 1e-2 near iteration 24, the port's and the reference's alike,
+    and end 0.1–0.23 decades apart, the reference's dense and packed
+    variants among them. The port's packed record lands its 58th iteration
+    just under the bar, the others just over: in explicit mode the packed
+    F̃ alone tips it (with the dense right-hand side it stops at 58 too).
+    """
+    ref = ref_decompose("elasticity", 3, (2, 2, 1), (2, 2, 2))
+    prob = _carry(ref)
+    tol = 1e-9
+    hist, solvers, counts = {}, {}, {}
+    for storage in ("dense", "packed"):
+        want = RefSolver(ref, RefFetiConfig(
+            schur=RefConfig(block_size=8, rhs_block_size=8, storage=storage),
+            plan_cache=False)).solve(tol=tol, history=True)
+        hist["reference", storage] = np.asarray(want.residual_history)
+        solver = FetiSolver(prob, FetiConfig(
+            schur=SchurAssemblyConfig(block_size=8, rhs_block_size=8,
+                                      use_kernels=True),
+            storage=storage, device="cpu"))
+        got = solver.solve(tol=tol, history=True)
+        hist["port", storage] = np.asarray(got.residual_history)
+        solvers[storage] = solver
+        counts["reference", storage] = want.iterations
+        counts["port", storage] = got.iterations
+    dense, packed = (solvers[k].state for k in ("dense", "packed"))
+    ops = {k: solvers[k]._solution_ops() for k in solvers}
+    _close(packed.L.unpack().numpy(), dense.L.numpy(), rtol=1e-15)
+    _close(packed.F.numpy(), dense.F.numpy(), rtol=1e-14)
+    _close(ops["packed"].dual_rhs(packed.fp).numpy(),
+           ops["dense"].dual_rhs(dense.fp).numpy(), rtol=1e-14)
+
+    def gap(a, b):
+        n = min(len(hist[a]), len(hist[b]))
+        return np.abs(np.log10(hist[a][:n] / hist[b][:n])).max()
+
+    first = [h[0] for h in hist.values()]
+    _close(np.asarray(first), np.full(4, first[0]), rtol=1e-12)
+    own = gap(("reference", "dense"), ("reference", "packed"))
+    assert own >= 0.1  # the reference's variants drift apart too
+    for a in hist:
+        for b in hist:
+            assert gap(a, b) <= 0.3, (a, b, gap(a, b))
+    assert set(counts.values()) <= {58, 59}, counts
+    assert counts["reference", "dense"] == counts["port", "dense"] == 59

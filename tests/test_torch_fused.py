@@ -204,6 +204,12 @@ CUDA_CASES = [
     (520, 258, 128, 128, 2, 0),  # the full-size bs/bm, 3 stripes
     (600, 200, 64, 96, 3, 10),  # uneven starts, the last stripe empty
     (520, 258, 128, 128, 256, 0),  # items many times the resident grid
+    # the small blocks of the smoke configurations: 8-deep chunks, TRSM
+    # items spanning several stripes, SYRK tiles narrower than a TRSM item
+    (61, 30, 8, 8, 2, 0),  # n 61 -> 64, m 30 -> 32
+    (200, 90, 8, 8, 3, 10),  # m 90 -> 96: the last 32-column item clipped
+    (250, 75, 16, 16, 2, 5),  # bs 16: 16-deep chunks
+    (130, 44, 24, 8, 2, 4),  # bs 24: 8-deep chunks
 ]
 
 

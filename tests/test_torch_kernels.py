@@ -154,7 +154,9 @@ def test_wrappers_check_operands():
     B = torch.from_numpy(Bp)
     starts = torch.zeros(4, dtype=torch.int32)
     with pytest.raises(TypeError, match="float64"):
-        stepped_trsm_kernel(Linv.float(), L.float(), B.float(), starts, 16, 8)
+        stepped_trsm_kernel(Linv.half(), L.half(), B.half(), starts, 16, 8)
+    with pytest.raises(TypeError, match="several dtypes"):
+        stepped_trsm_kernel(Linv.float(), L, B, starts, 16, 8)
     with pytest.raises(ValueError, match="padded"):
         stepped_trsm_kernel(Linv, L, B[:, :, :30].contiguous(), starts, 16, 8)
     with pytest.raises(ValueError, match="contiguous"):
@@ -171,6 +173,13 @@ CUDA_CASES = [
     (520, 258, 128, 128, 2, 0),  # the full-size bs/bm, 3 stripes
     (600, 200, 64, 96, 3, 10),  # uneven starts, the last stripe empty
     (520, 258, 128, 128, 256, 0),  # items many times the resident grid
+    # the small blocks of the smoke configurations: 8-deep chunks, column
+    # tiles spanning several stripes and clipped at m
+    (61, 30, 8, 8, 2, 0),  # n 61 -> 64, m 30 -> 32
+    (200, 90, 8, 8, 3, 10),  # m 90 -> 96: the last 32-column tile clipped
+    (250, 75, 16, 16, 2, 5),  # m 75 -> 80, bs 16: 16-deep chunks
+    (130, 44, 24, 8, 2, 4),  # bs 24: 8-deep chunks, 5 stripes in a tile
+    (300, 100, 40, 24, 3, 0),  # bs 40 > 32: a second warp owns rows
 ]
 
 
@@ -200,8 +209,8 @@ def test_cuda_kernels_match_plain(n, m, bs, bm, S, empty):
         assert (got - want).abs().max().item() <= 1e-11 * scale
     for i in range(m_pad // bm):
         assert torch.all(F[:, i * bm:(i + 1) * bm, (i + 1) * bm:] == 0)
-    with pytest.raises(ValueError, match="multiple of 32"):
-        stepped_syrk_kernel(Y, starts.repeat_interleave(bm // 16), bs, 16)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        stepped_syrk_kernel(Y, starts.repeat_interleave(bm // 4), bs, 4)
 
 
 @pytest.mark.cuda
@@ -245,3 +254,66 @@ def test_cuda_wrappers_refuse_misaligned_operands():
         stepped_trsm_kernel(Linv, L, Y, starts, bs, bm)
     assert stepped_syrk_kernel.launches == before
 
+
+
+F32_TOL = 1e-4  # f32 kernel vs its f32 plain version: sums in another order
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,m,bs,bm,S,empty", CUDA_CASES)
+def test_cuda_f32_kernels_match_plain(n, m, bs, bm, S, empty):
+    """The f32 stepped TRSM, packed TRSM and stepped SYRK against their f32
+    plain versions (FFMA against cuBLAS SGEMM with TF32 off) and against
+    the f64 kernels on the same f32 operands; each counts an f32 launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.kernels import (
+        stepped_trsm_packed_kernel,
+        stepped_trsm_packed_plain,
+    )
+    from repro_torch.sparse import PackedBlockIndex, pack_factor
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    Ls, Bp, meta = _case(n, m, bs, bm, S, empty, seed=n + 1)
+    dev = torch.device("cuda")
+    n_pad, m_pad = -(-n // bs) * bs, -(-m // bm) * bm
+    L32 = torch.from_numpy(Ls).float().to(dev)
+    Lp = ops.pad_factor(L32, n_pad)
+    B = ops._pad_to(torch.from_numpy(Bp).float().to(dev), n_pad, m_pad)
+    starts = torch.as_tensor(ops._start_blocks(meta, bm, bs, m_pad, n_pad),
+                             device=dev)
+    Linv = ops.invert_diag_blocks(Lp, bs)
+    nb = n_pad // bs
+    # every block that is nonzero in some subdomain
+    mask = (Lp.reshape(S, nb, bs, nb, bs).abs().sum(dim=(0, 2, 4)) > 0
+            ).cpu().numpy()
+    packed = pack_factor(L32, PackedBlockIndex.from_mask(mask, n, bs))
+    pops = (Linv, packed.values, torch.as_tensor(packed.index.rowptr,
+                                                 device=dev),
+            torch.as_tensor(packed.index.cols, device=dev))
+    counts = {k: dict(w.launches_by_dtype) for k, w in (
+        ("trsm", stepped_trsm_kernel), ("packed", stepped_trsm_packed_kernel),
+        ("syrk", stepped_syrk_kernel))}
+    Y = stepped_trsm_kernel(Linv, Lp, B, starts, bs, bm)
+    Yp = stepped_trsm_packed_kernel(*pops, B, starts, bs, bm)
+    F = stepped_syrk_kernel(Y, starts, bs, bm)
+    torch.cuda.synchronize()
+    for key, w in (("trsm", stepped_trsm_kernel),
+                   ("packed", stepped_trsm_packed_kernel),
+                   ("syrk", stepped_syrk_kernel)):
+        assert w.launches_by_dtype["f32"] == counts[key]["f32"] + 1
+        assert w.launches_by_dtype["f64"] == counts[key]["f64"]
+    assert Y.dtype == Yp.dtype == F.dtype == torch.float32
+    Y_plain = stepped_trsm_plain(Linv, Lp, B, starts, bs, bm)
+    d = lambda t: t.double()  # noqa: E731
+    Y64 = stepped_trsm_kernel(d(Linv), d(Lp), d(B), starts, bs, bm)
+    for got, want in ((Y, Y_plain),
+                      (Yp, stepped_trsm_packed_plain(*pops, B, starts, bs,
+                                                     bm)),
+                      (F, stepped_syrk_plain(Y, starts, bs, bm)),
+                      (d(Y), Y64), (d(Yp), Y64),
+                      (d(F), stepped_syrk_kernel(d(Y), starts, bs, bm))):
+        scale = want.abs().max().item()
+        assert (d(got) - d(want)).abs().max().item() <= F32_TOL * scale
+    for i in range(m_pad // bm):
+        assert torch.all(F[:, i * bm:(i + 1) * bm, (i + 1) * bm:] == 0)

@@ -27,19 +27,20 @@ Phases (each prints its seconds; any failure exits non-zero):
                 its library call(s) and the card's bound, with its useful
                 TFLOP/s and share of the bound; each fused kernel also
                 beside its unfused pair run back to back (B1 then B2, B3
-                then B2). Then the f32 kernels (B1, B2, B3 at f32) on the
+                then B2). Then the f32 kernels (all five at f32) on the
                 same operands rounded to f32 (diagonal blocks inverted at
                 f32), each against its f32 plain version and against the
                 f64 kernel on the same f32 operands (<= 1e-4 relative) and
                 the f32 library call (<= 1e-3), timed beside their bound at
-                4-byte words and the FP32 FFMA peak. TF32 is off for every
+                4-byte words and the FP32 FFMA peak (the f32 fused kernels
+                also beside their unfused f32 pair). TF32 is off for every
                 product (printed).
      small blocks — the same factor and right-hand side at bs = bm = 16
                 (SMALL_BS; the stepped metadata rebuilt at that size, the
                 factor packed in its nonzero 16 x 16 blocks): B1, B3, B4, B5
-                at f64 and B1, B3 at f32 against their plain versions
-                (1e-11, 1e-4), their twins and the library calls, with
-                times (ROADMAP C4). One checker serves all three phases.
+                at f64 and at f32 against their plain versions (1e-11,
+                1e-4), their twins and the library calls, with times
+                (ROADMAP C4). One checker serves all three phases.
   4. dirichlet — the same five checks and timings on the Dirichlet stage's
                 operands of the full-size feti-heat-3d configuration (S=64
                 subdomains of 16^3 elements: the interior factor, n_i=3375
@@ -48,8 +49,8 @@ Phases (each prints its seconds; any failure exits non-zero):
                 stepped order, padded columns exact zeros), and S_b =
                 K_bb - K_bi K_ii^-1 K_ib from the stage's assembler through
                 the kernels (unfused and fused) against the plain variants
-                (<= 1e-11); then B1, B2, B3 at f32 on these operands, as in
-                the kernels phase.
+                (<= 1e-11); then the five kernels at f32 on these operands,
+                as in the kernels phase.
   5. main     — ``repro_torch.launch.solve_feti.main``, each run with
                 ``--validate``: feti-heat-2d at full size four times
                 (``--kernels``, ``--storage packed --kernels``, ``--fused``,
@@ -80,19 +81,29 @@ Phases (each prints its seconds; any failure exits non-zero):
                 smoke configurations (bs = bm = 8) of feti-heat-2d,
                 feti-elasticity-2d and feti-elasticity-3d ``--kernels``, and
                 the mixed-precision paths: feti-heat-2d ``--kernels --dtype
-                f32`` dense and packed (defect-correction outers) and
-                ``--mode implicit --dtype f32`` (refined implicit, no
-                assembly kernel), each within 1e-8 of the oracle;
-                feti-elasticity-3d ``--kernels --precond dirichlet --dtype
-                f32`` within 1e-6 (printed); feti-heat-2d ``--smoke
-                --kernels --dtype bf16 --tol 1e-6`` within 1e-2 (its outers
-                stop short of the launcher's own bar, so its exit code is
-                not held). Each launches exactly the f32 kernels its flags
-                name, every launch held against its f32 plain version
+                f32`` and ``--fused --dtype f32``, dense and packed
+                (defect-correction outers), and ``--mode implicit --dtype
+                f32`` (refined implicit, no assembly kernel), each within
+                1e-8 of the oracle; feti-elasticity-3d ``--kernels`` and
+                ``--fused --precond dirichlet --dtype f32`` within 1e-6
+                (printed); feti-heat-2d ``--smoke --kernels`` and
+                ``--fused --dtype bf16 --tol 1e-6`` within 1e-2 (their
+                outers stop short of the launcher's own bar, so their exit
+                code is not held). Each launches exactly the f32 kernels its
+                flags name, every launch held against its f32 plain version
                 (1e-4), its PCPG iterations summed over the outers are held
-                to a bar (ITER_BAR), and the f32 factor and F stacks must
-                take exactly half of the f64 runs' bytes. Each configuration's scipy
-                oracle is solved once and reused across its paths.
+                to a bar (ITER_BAR), the f32 factor and F stacks must take
+                exactly half of the f64 runs' bytes, and the f32 dense
+                ``--kernels`` peak must stay within 10% of F32_PEAK's. Last,
+                the multi-RHS paths (``--n-rhs 8``, a load sweep through
+                ``FetiSolver.solve_many``): feti-heat-2d ``--kernels`` at
+                f64, every column within 1e-6 of its oracle, and
+                ``--storage packed --fused --dtype f32`` (block
+                defect-correction outers), every column within 1e-8 (each
+                column's error over its own oracle's largest entry); their
+                per-column iterations held to ITER_BAR. Each
+                configuration's scipy oracle is solved once and reused
+                across its paths (a sweep's columns are multiples of it).
 
 Then one JSON line with the kernels' numbers, one row per kernel and
 dtype (the f32 ones named ``*_f32``; each row: the heat-2d phase's,
@@ -137,11 +148,12 @@ SMALL_BS = 16  # the small-block phase's bs = bm (ROADMAP C4)
 # architecture name: the width stays the configuration's
 HEAT3D_SUB_GRID = (3, 3, 3)
 HEAT3D_CUT = "feti-heat-3d-cut"
+N_RHS = 8  # load cases of the multi-RHS main paths
 
 KERNEL_NAMES = ("stepped_trsm", "stepped_syrk", "stepped_trsm_packed",
                 "stepped_trsm_syrk", "stepped_trsm_syrk_packed")
-# the kernels built at f32 (the fused ones are f64 only: ROADMAP A13b)
-F32_NAMES = ("stepped_trsm", "stepped_syrk", "stepped_trsm_packed")
+# every kernel is built at f32 too
+F32_NAMES = KERNEL_NAMES
 
 
 def kernel_key(name, dtype):
@@ -200,6 +212,26 @@ MAIN_RUNS = (
     ("heat-2d smoke --kernels bf16", ARCH,
      ["--smoke", "--kernels", "--dtype", "bf16", "--tol", "1e-6"],
      dict(stepped_trsm_f32=1, stepped_syrk_f32=1)),
+    # the f32 fused kernels on their main paths (bf16 storage runs them
+    # from its f32 compute stacks)
+    ("heat-2d dense --fused f32", ARCH, ["--fused", "--dtype", "f32"],
+     dict(stepped_trsm_syrk_f32=1)),
+    ("heat-2d packed --fused f32", ARCH,
+     ["--storage", "packed", "--fused", "--dtype", "f32"],
+     dict(stepped_trsm_syrk_packed_f32=1)),
+    ("elasticity-3d dense --fused dirichlet f32", "feti-elasticity-3d",
+     ["--fused", "--precond", "dirichlet", "--dtype", "f32"],
+     dict(stepped_trsm_syrk_f32=2)),
+    ("heat-2d smoke --fused bf16", ARCH,
+     ["--smoke", "--fused", "--dtype", "bf16", "--tol", "1e-6"],
+     dict(stepped_trsm_syrk_f32=1)),
+    # multi-RHS: a load sweep of 8 cases through solve_many
+    ("heat-2d dense --kernels --n-rhs 8", ARCH,
+     ["--kernels", "--n-rhs", str(N_RHS)],
+     dict(stepped_trsm=1, stepped_syrk=1)),
+    ("heat-2d packed --fused --n-rhs 8 f32", ARCH,
+     ["--storage", "packed", "--fused", "--n-rhs", str(N_RHS), "--dtype",
+      "f32"], dict(stepped_trsm_syrk_packed_f32=1)),
 )
 # each run's bar on the relative error of u against the scipy oracle (the
 # launcher's 1e-6 where not named); the bf16 run is held to its own bar
@@ -210,25 +242,43 @@ ERR_BAR = {
     "heat-2d implicit f32": 1e-8,
     "elasticity-3d dense --kernels dirichlet f32": 1e-6,
     "heat-2d smoke --kernels bf16": 1e-2,
+    "heat-2d dense --fused f32": 1e-8,
+    "heat-2d packed --fused f32": 1e-8,
+    "elasticity-3d dense --fused dirichlet f32": 1e-6,
+    "heat-2d smoke --fused bf16": 1e-2,
+    "heat-2d packed --fused --n-rhs 8 f32": 1e-8,
 }
-LOOSE = ("heat-2d smoke --kernels bf16",)
+LOOSE = ("heat-2d smoke --kernels bf16", "heat-2d smoke --fused bf16")
 # each mixed-precision run's bar on its PCPG iterations summed over the
-# defect-correction outers: the counts measured on the card (NVIDIA H100
-# 80GB HBM3, 700 W) with a small margin. The explicit f32 heat-2d runs take
-# 2,174 because one outer stalls and runs to max_iter = 2000, held back by
-# the f32 factor's error (ROADMAP C6): their bar holds that stall and no
-# second one
+# defect-correction outers (a multi-RHS run: its most iterated column): the
+# counts measured on the card (NVIDIA H100 80GB HBM3, 700 W) with a small
+# margin. The explicit f32 heat-2d runs took 2,174 while the f32 factor
+# stalled an outer (ROADMAP C6); with the factor at the reference's accuracy
+# they take 194 in one outer
 ITER_BAR = {
-    "heat-2d dense --kernels f32": 2200,
-    "heat-2d packed --kernels f32": 2200,
+    "heat-2d dense --kernels f32": 215,
+    "heat-2d packed --kernels f32": 215,
     "heat-2d implicit f32": 160,
     "elasticity-3d dense --kernels dirichlet f32": 340,
     "heat-2d smoke --kernels bf16": 32,
+    "heat-2d dense --fused f32": 215,
+    "heat-2d packed --fused f32": 215,
+    "elasticity-3d dense --fused dirichlet f32": 340,
+    "heat-2d smoke --fused bf16": 32,
+    "heat-2d dense --kernels --n-rhs 8": 160,
+    "heat-2d packed --fused --n-rhs 8 f32": 215,
 }
+# the f32 dense --kernels run's peak device bytes may exceed its peak before
+# the f32 factorization took its steps at f64 (measured on the card, NVIDIA
+# H100 80GB HBM3, 700 W) by at most 10%: those steps take only (S, bs, bs)
+# transients
+F32_PEAK = ("heat-2d dense --kernels f32", 13_074_707_968, 1.10)
 # (f32 run, its f64 twin): the f32 factor and F stacks take exactly half
 # the twin's bytes
 HALF_BYTES = (("heat-2d dense --kernels f32", "heat-2d dense --kernels"),
-              ("heat-2d packed --kernels f32", "heat-2d packed --kernels"))
+              ("heat-2d packed --kernels f32", "heat-2d packed --kernels"),
+              ("heat-2d dense --fused f32", "heat-2d dense --fused"),
+              ("heat-2d packed --fused f32", "heat-2d packed --fused"))
 # runs whose iteration counts must agree within one: the same
 # configuration and preconditioner
 SAME_SOLVE = (
@@ -240,7 +290,7 @@ SAME_SOLVE = (
      "elasticity-3d dense --fused dirichlet"),
 )
 F_KERNELS = ("stepped_syrk", "stepped_trsm_syrk", "stepped_trsm_syrk_packed")
-FUSED = F_KERNELS[1:]  # timed beside their unfused pair (their f64 twin)
+FUSED = F_KERNELS[1:]  # timed beside their unfused pair at their dtype
 # (library, a substring of the mangled kernel name) of each kernel: the
 # TRSM instances with 16-deep chunks, which every bs the main paths use but
 # the smoke configurations' 8 runs
@@ -250,13 +300,17 @@ INSTANCES = {
                             "IdLi16EN7stepped12PackedFactorIdEE"),
     "stepped_syrk": ("stepped_syrk", "stepped_syrk_kernelIdE"),
     "stepped_trsm_syrk": ("stepped_trsm_syrk",
-                          "ILi16EN7stepped11DenseFactorIdEE"),
+                          "IdLi16EN7stepped11DenseFactorIdEE"),
     "stepped_trsm_syrk_packed": ("stepped_trsm_syrk",
-                                 "ILi16EN7stepped12PackedFactorIdEE"),
+                                 "IdLi16EN7stepped12PackedFactorIdEE"),
     "stepped_trsm_f32": ("stepped_trsm", "IfLi16EN7stepped11DenseFactorIfEE"),
     "stepped_trsm_packed_f32": ("stepped_trsm",
                                 "IfLi16EN7stepped12PackedFactorIfEE"),
     "stepped_syrk_f32": ("stepped_syrk", "stepped_syrk_kernelIfE"),
+    "stepped_trsm_syrk_f32": ("stepped_trsm_syrk",
+                              "IfLi16EN7stepped11DenseFactorIfEE"),
+    "stepped_trsm_syrk_packed_f32": ("stepped_trsm_syrk",
+                                     "IfLi16EN7stepped12PackedFactorIfEE"),
 }
 # the libraries whose SASS must run on the FP64 tensor cores
 DMMA_LIBS = ("stepped_syrk", "stepped_trsm_syrk")
@@ -595,9 +649,9 @@ def check_kernels(x, names, dtype, label, ptxas=None, plain_reps=REPS):
 
     Y = trsm()
     torch.cuda.synchronize()
-    # name: (kernel, plain version, library call, twin, what the twin is);
-    # the library yardsticks are one full triangular solve on the dense
-    # (= the unpacked) factor and one batched product
+    # name: (kernel, plain version, library call, twin); the library
+    # yardsticks are one full triangular solve on the dense (= the
+    # unpacked) factor and one batched product
     runs = {
         "stepped_trsm": (
             trsm, lambda: K.stepped_trsm_plain(*dense, Bp, starts, bs, bm),
@@ -619,14 +673,25 @@ def check_kernels(x, names, dtype, label, ptxas=None, plain_reps=REPS):
             lambda: K.stepped_trsm_syrk_kernel(*dense, Bp, starts, bs, bm,
                                                order=order),
             lambda: K.stepped_trsm_syrk_plain(*dense, Bp, starts, bs, bm),
-            lambda: syrk_ref(trsm_ref(Lp, Bp)), lambda: syrk(trsm())),
+            lambda: syrk_ref(trsm_ref(Lp, Bp)),
+            (lambda: K.stepped_trsm_syrk_kernel(*wide(dense), Bp.double(),
+                                                starts, bs, bm, order=order))
+            if f32 else (lambda: syrk(trsm()))),
         "stepped_trsm_syrk_packed": (
             lambda: K.stepped_trsm_syrk_packed_kernel(
                 *packed, Bp, starts, bs, bm, order=packed_order),
             lambda: K.stepped_trsm_syrk_packed_plain(*packed, Bp, starts, bs,
                                                      bm),
-            lambda: syrk_ref(trsm_ref(Lp, Bp)), lambda: syrk(trsm_packed())),
+            lambda: syrk_ref(trsm_ref(Lp, Bp)),
+            (lambda: K.stepped_trsm_syrk_packed_kernel(
+                *wide(packed), Bp.double(), starts, bs, bm,
+                order=packed_order))
+            if f32 else (lambda: syrk(trsm_packed()))),
     }
+    # the fused kernels' yardstick: their unfused pair at their dtype, run
+    # back to back
+    pairs = {"stepped_trsm_syrk": lambda: syrk(trsm()),
+             "stepped_trsm_syrk_packed": lambda: syrk(trsm_packed())}
     twin_names = {
         "stepped_trsm_packed": "the dense TRSM kernel",
         "stepped_trsm_syrk": "the TRSM then SYRK kernels",
@@ -668,7 +733,7 @@ def check_kernels(x, names, dtype, label, ptxas=None, plain_reps=REPS):
         ms = cuda_ms(kernel)
         plain_ms = cuda_ms(plain, reps=plain_reps)
         library_ms = cuda_ms(lib)
-        pair_ms = cuda_ms(twin) if name in FUSED else None
+        pair_ms = cuda_ms(pairs[name]) if name in FUSED else None
         source, replaces = SOURCES[name]
         b = bnd[name]
         tflops = b["flops"] / ms / 1e9
@@ -735,20 +800,37 @@ def check_dirichlet_sb(x):
 def cache_oracles():
     """Solve each configuration's scipy oracle once: the launcher's
     ``--validate`` asks for it on every path, and the paths of one
-    configuration share the problem."""
+    configuration share the problem. A load sweep's oracles (each case a
+    multiple of the problem's own load, as ``--n-rhs`` makes them) are
+    built from it: the solution of s·f is s times f's."""
+    import numpy as np
+
     from repro_torch.fem.decomposition import FetiProblem
 
     solve = FetiProblem.reference_solution
+    solve_all = FetiProblem.reference_solutions
     cache = {}
 
-    def cached(self):
+    def cached(self, loads=None):
+        if loads is not None:
+            return solve(self, loads)
         key = (self.problem, self.dim, tuple(self.sub_grid),
                tuple(self.elems_per_sub), repr(sorted(self.params.items())))
         if key not in cache:
             cache[key] = solve(self)
         return cache[key].copy()
 
+    def cached_all(self, cases):
+        base = self.load_stack()
+        top = np.argmax(np.abs(base))
+        scales = [c.flat[top] / base.flat[top] for c in cases]
+        if not all(np.allclose(c, s * base, rtol=1e-15, atol=0)
+                   for c, s in zip(cases, scales)):
+            return solve_all(self, cases)
+        return np.stack([s * cached(self) for s in scales])
+
     FetiProblem.reference_solution = cached
+    FetiProblem.reference_solutions = cached_all
 
 
 def _counters():
@@ -869,9 +951,14 @@ def run_main_path(name, arch, flags, expected):
         raise SystemExit(f"{name}: kernel launches disagree with their plain "
                          f"versions (rel > {REL_TOL:g}, nonzero upper tiles "
                          f"or non-finite): {bad}")
-    m_iters = re.search(r"iters=(\d+) residual=(\S+) converged=(\w+)", out)
-    m_err = re.search(r"rel err vs global solve: (\S+)", out)
-    m_time = re.search(r"preprocess=(\S+)s solve=(\S+)s", out)
+    # a multi-RHS run prints every column's iterations, the most iterated
+    # column's count is held to the bar, and its error is the worst column's
+    m_iters = (re.search(r"iters=\[([\d ]+)\] block_iters=\d+ "
+                         r"residual=(\S+) converged=(\w+)", out)
+               or re.search(r"iters=(\d+) residual=(\S+) converged=(\w+)",
+                            out))
+    m_err = re.search(r"rel err vs global solves?: (\S+)", out)
+    m_time = re.search(r"preprocess=(\S+)s solve(?:_many)?=(\S+)s", out)
     m_shared = re.search(r"shared_factor=(\w+)", out)
     m_dtype = re.search(r"dtype: storage=(\w+) compute=(\w+) solve=(\w+) "
                         r"refine=(\d+) refine_outer=(\d+)", out)
@@ -885,7 +972,8 @@ def run_main_path(name, arch, flags, expected):
     bar = ERR_BAR.get(name, 1e-6)
     if not err <= bar:
         raise SystemExit(f"{name}: relative error {err:.3e} > {bar:g}")
-    iterations = int(m_iters.group(1))
+    columns = [int(i) for i in m_iters.group(1).split()]
+    iterations = max(columns)
     if not iterations <= ITER_BAR.get(name, iterations):
         raise SystemExit(f"{name}: {iterations} PCPG iterations > "
                          f"{ITER_BAR[name]}")
@@ -906,7 +994,8 @@ def run_main_path(name, arch, flags, expected):
     dtypes = dict(zip(("storage", "compute", "solve", "refine",
                        "refine_outer"), m_dtype.groups()))
     print(f"[chip_smoke] main path {name}: iterations={iterations} "
-          f"(bar {ITER_BAR.get(name, 'none')}) "
+          + (f"(per column {columns}) " if len(columns) > 1 else "")
+          + f"(bar {ITER_BAR.get(name, 'none')}) "
           f"converged={m_iters.group(3)} rel_err={err:.3e} (bar {bar:g}) "
           f"dtypes={dtypes} "
           f"preprocess_s={prep:.2f} (launcher {m_time.group(1)} less "
@@ -916,7 +1005,7 @@ def run_main_path(name, arch, flags, expected):
           f"shared_factor={shared} "
           f"launches={ {k: v for k, v in launches.items() if v} } "
           f"run_s={seconds:.1f}", flush=True)
-    return dict(launches=launches, iterations=iterations,
+    return dict(launches=launches, iterations=iterations, columns=columns,
                 peak=peak, checks=checks["records"], err=err, bytes=stack,
                 dtypes=dtypes)
 
@@ -1034,11 +1123,10 @@ def main() -> int:
     del x
     free()
     label = f"heat-2d dual bs={SMALL_BS}"
-    small = check_kernels(x16, ("stepped_trsm", "stepped_trsm_packed",
-                                "stepped_trsm_syrk", "stepped_trsm_syrk_packed"),
-                          "f64", label, plain_reps=2)
-    small += check_kernels(x16, ("stepped_trsm", "stepped_trsm_packed"), "f32",
-                           label, plain_reps=2)
+    small_names = ("stepped_trsm", "stepped_trsm_packed", "stepped_trsm_syrk",
+                   "stepped_trsm_syrk_packed")
+    small = check_kernels(x16, small_names, "f64", label, plain_reps=2)
+    small += check_kernels(x16, small_names, "f32", label, plain_reps=2)
     del x16
     free()
     done("small blocks", t1)
@@ -1090,6 +1178,14 @@ def main() -> int:
         if not (2 * a["L"] == b["L"] and 2 * a["F"] == b["F"]):
             raise SystemExit(f"{f32_run}: the f32 factor and F stacks are "
                              f"not half of {f64_run}'s")
+    name, before, most = F32_PEAK
+    print(f"[chip_smoke] peak device bytes {name}: {runs[name]['peak']:,} "
+          f"(before the f64 factorization steps: {before:,}; ratio "
+          f"{runs[name]['peak'] / before:.4f})",
+          flush=True)
+    if runs[name]["peak"] > most * before:
+        raise SystemExit(f"{name}: peak device bytes above {most:g} x "
+                         f"{before:,}")
     print(f"[chip_smoke] feti-elasticity-3d f32 Dirichlet rel err "
           f"{runs['elasticity-3d dense --kernels dirichlet f32']['err']:.3e}"
           f" (f64: "

@@ -111,6 +111,50 @@ class FetiProblem:
         return (self.dirichlet_gids[:, None] * ndpn
                 + np.arange(ndpn)).reshape(-1)
 
+    # ---- multi-RHS load cases (solver inputs) ----
+    def load_stack(self) -> np.ndarray:
+        """The problem's own per-subdomain loads as one (S, n) stack."""
+        return np.stack([sd.f for sd in self.subdomains])
+
+    def load_cases(self, n_rhs: int, kind: str = "sweep",
+                   seed: int = 0) -> np.ndarray:
+        """(n_rhs, S, n) stacked load cases for the multi-RHS solve.
+
+        ``kind="sweep"`` scales the assembled body load by 1, 2, … (the
+        solutions are the scaled base solution); ``kind="random"`` draws
+        i.i.d. normal per-DOF loads scaled to the base load's magnitude;
+        ``kind="mixed"`` keeps the base load as column 0, a zero load
+        (converged at iteration 0) as column 1 and random columns after.
+        Every case is a legal FETI load: the global problem's right-hand
+        side is :meth:`global_load` of it. The same cases as the
+        reference's for the same ``seed`` (numpy's generator).
+        """
+        base = self.load_stack()
+        if kind == "sweep":
+            scales = 1.0 + np.arange(n_rhs, dtype=float)
+            return scales[:, None, None] * base[None]
+        rng = np.random.default_rng(seed)
+        norm = np.abs(base).max()
+        rand = rng.standard_normal((n_rhs,) + base.shape) * norm
+        if kind == "random":
+            return rand
+        if kind == "mixed":
+            cases = rand
+            cases[0] = base
+            if n_rhs > 1:
+                cases[1] = 0.0
+            return cases
+        raise ValueError(f"unknown load-case kind {kind!r}")
+
+    def global_load(self, loads: np.ndarray) -> np.ndarray:
+        """Assemble one (S, n) per-subdomain load stack into the
+        (n_global_dofs,) global right-hand side: interface DOFs sum their
+        subdomain copies."""
+        f = np.zeros(self.n_global_dofs)
+        for i, sd in enumerate(self.subdomains):
+            np.add.at(f, sd.dof_gids, loads[i])
+        return f
+
     def _global_system(self):
         """Assembled global (K csr, f, free-DOF ids) with Dirichlet BC."""
         mesh = self.global_mesh
@@ -133,16 +177,33 @@ class FetiProblem:
         free = np.setdiff1d(np.arange(nd), self.dirichlet_dofs)
         return K, f, free
 
-    def reference_solution(self) -> np.ndarray:
+    def reference_solution(self, loads: np.ndarray = None) -> np.ndarray:
         """Direct sparse solve of the undecomposed global system with the
         Dirichlet condition (the validation oracle). Returns the
-        (n_global_dofs,) solution in node-blocked DOF order."""
+        (n_global_dofs,) solution in node-blocked DOF order. ``loads``
+        (an (S, n) per-subdomain stack) replaces the problem's own body
+        load with its :meth:`global_load`."""
         import scipy.sparse.linalg as spla
 
         K, f, free = self._global_system()
+        if loads is not None:
+            f = self.global_load(loads)
         u = np.zeros(self.n_global_dofs)
         u[free] = spla.spsolve(K[free][:, free].tocsc(), f[free])
         return u
+
+    def reference_solutions(self, cases: np.ndarray) -> np.ndarray:
+        """Per-column oracle for an (n_rhs, S, n) load-case stack: one
+        sparse factorization, every column solved against it. Returns
+        (n_rhs, n_global_dofs) in node-blocked DOF order."""
+        import scipy.sparse.linalg as spla
+
+        K, _, free = self._global_system()
+        F = np.stack([self.global_load(c)[free] for c in cases], axis=1)
+        solve = spla.factorized(K[free][:, free].tocsc())
+        U = np.zeros((len(cases), self.n_global_dofs))
+        U[:, free] = np.stack([solve(F[:, j]) for j in range(F.shape[1])])
+        return U
 
 
 def _fixing_dofs(problem: str, dim: int, lshape: tuple, lstrides: list,

@@ -16,17 +16,24 @@ from repro_torch.feti.operator import (
     implicit_dual_apply,
     lumped_preconditioner,
 )
-from repro_torch.feti.pcpg import PCPGResult, pcpg
+from repro_torch.feti.pcpg import PCPGManyResult, PCPGResult, pcpg, pcpg_many
 from repro_torch.feti.projector import CoarseProblem, build_coarse_problem
-from repro_torch.feti.solver import FetiSolution, FetiSolver
+from repro_torch.feti.solver import (
+    FetiManySolution,
+    FetiSolution,
+    FetiSolver,
+    solve_many,
+)
 
 __all__ = [
     "BoundaryInteriorSplit",
     "ClusterState",
     "CoarseProblem",
     "FetiConfig",
+    "FetiManySolution",
     "FetiSolution",
     "FetiSolver",
+    "PCPGManyResult",
     "PCPGResult",
     "as_feti_config",
     "assemble_dirichlet_schur",
@@ -38,5 +45,7 @@ __all__ = [
     "implicit_dual_apply",
     "lumped_preconditioner",
     "pcpg",
+    "pcpg_many",
     "preprocess_cluster",
+    "solve_many",
 ]

@@ -40,7 +40,8 @@ class FetiConfig:
         ``"bf16"`` (storage only: the prep runs at f32 and rounds its
         outputs). Reduced precision halves (f32) or quarters (bf16) the
         factor, F̃ and S_b stacks; f64 accuracy comes back through
-        ``refine``. The fused kernels take f64 only (f32 is ROADMAP A13b).
+        ``refine``. Every kernel, the fused ones too, runs at f32 for
+        f32 and bf16 storage.
       refine: iterative-refinement steps around the interior solves when
         the storage dtype is reduced (and, in explicit mode, f64
         defect-correction outer iterations against the reduced-precision
@@ -96,10 +97,6 @@ class FetiConfig:
                 "bf16 storage needs refine >= 1: without refinement the PCPG "
                 "vectors would be bf16, and torch (like the reference) has no "
                 "bf16 QR for the coarse problem")
-        if self.reduced and self.schur is not None and self.schur.fused:
-            raise NotImplementedError(
-                "the fused TRSM→SYRK kernels below float64 are ROADMAP item "
-                "A13b; use use_kernels=True, fused=False at this dtype")
 
     @property
     def explicit(self) -> bool:

@@ -1,6 +1,11 @@
 """The FETI dual operator F = B K⁺ Bᵀ and friends, batched over subdomains
-(counterpart of ``repro.feti.operator``, single right-hand side; dense or
-packed factors; f64 or reduced-precision stacks with iterative refinement).
+(counterpart of ``repro.feti.operator``; dense or packed factors; f64 or
+reduced-precision stacks with iterative refinement).
+
+Every operator is rank-generic over a trailing column axis: an
+(n_lambda,) dual vector goes through per-subdomain GEMVs, an
+(n_lambda, n_rhs) stack of them (the reference's ``*_many`` operators)
+through GEMMs that read each stored stack once for all columns.
 
 Implicit application (paper eq. 11): SPMV + two TRSV + SPMV per subdomain.
 Explicit application (paper eq. 12): one dense GEMV per subdomain against
@@ -31,6 +36,7 @@ from repro_torch.sparse.packed import (
 __all__ = [
     "DualMap",
     "dual_map",
+    "batched_apply",
     "gather_local",
     "scatter_dual",
     "local_dual_apply",
@@ -88,14 +94,18 @@ def dual_map(lambda_ids: np.ndarray, n_lambda: int,
 
 
 def gather_local(lam: torch.Tensor, dm: DualMap) -> torch.Tensor:
-    """(n_lambda,) dual vector -> (S, m_max) local blocks (pad id reads 0)."""
-    lam_ext = torch.cat([lam, lam.new_zeros(1)])
+    """(n_lambda,) dual vector -> (S, m_max) local blocks (pad id reads 0).
+    Rank-generic: an (n_lambda, n_rhs) stack gathers to (S, m_max, n_rhs)."""
+    lam_ext = torch.cat([lam, lam.new_zeros((1,) + lam.shape[1:])])
     return lam_ext[dm.lambda_ids]
 
 
 def scatter_dual(vals: torch.Tensor, dm: DualMap) -> torch.Tensor:
-    """(S, m_max) local blocks -> (n_lambda,) additive dual assembly."""
-    flat = torch.cat([vals.reshape(-1), vals.new_zeros(1)])
+    """(S, m_max) local blocks -> (n_lambda,) additive dual assembly.
+    Rank-generic: (S, m_max, n_rhs) scatters to (n_lambda, n_rhs), each
+    column by the same two-copy gather."""
+    cols = vals.shape[2:]
+    flat = torch.cat([vals.reshape((-1,) + cols), vals.new_zeros((1,) + cols)])
     return flat[dm.first] + flat[dm.second]
 
 
@@ -105,20 +115,26 @@ def local_dual_apply(apply_local, dm: DualMap, lam: torch.Tensor
     return scatter_dual(apply_local(gather_local(lam, dm)), dm)
 
 
-def _matvec(A: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """Batched ``A_s x_s``: (S, a, b) · (S, b) -> (S, a)."""
-    return (A @ x.unsqueeze(-1)).squeeze(-1)
+def batched_apply(A: torch.Tensor, x: torch.Tensor,
+                  transpose: bool = False) -> torch.Tensor:
+    """Batched ``A_s x_s`` (``A_sᵀ x_s`` with ``transpose``): (S, a, b) on
+    an (S, b) vector stack, one GEMV per subdomain, or on an (S, b, n_rhs)
+    column block, one GEMM."""
+    A = A.mT if transpose else A
+    if x.dim() == 2:
+        return (A @ x.unsqueeze(-1)).squeeze(-1)
+    return A @ x
 
 
-def _rmatvec(A: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """Batched ``A_sᵀ x_s``: (S, a, b) · (S, a) -> (S, b)."""
-    return (A.mT @ x.unsqueeze(-1)).squeeze(-1)
+def _minus_c(q: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """q − c, ``c`` (n_lambda,) broadcast over q's columns."""
+    return q - (c if q.dim() == 1 else c[:, None])
 
 
 def explicit_dual_apply(F: torch.Tensor, dm: DualMap, lam: torch.Tensor
                         ) -> torch.Tensor:
     """q = Σᵢ B̃ᵢᵀ-scatter( F̃ᵢ · gather(λ) )   (paper eq. 12)."""
-    return local_dual_apply(lambda p: _matvec(F, p), dm, lam)
+    return local_dual_apply(lambda p: batched_apply(F, p), dm, lam)
 
 
 def _factor_dtype(L) -> torch.dtype:
@@ -126,7 +142,8 @@ def _factor_dtype(L) -> torch.dtype:
 
 
 def solve_with_factor(L, b: torch.Tensor) -> torch.Tensor:
-    """Apply (L Lᵀ)⁻¹ to a subdomain-stacked (S, n) right-hand side.
+    """Apply (L Lᵀ)⁻¹ to a subdomain-stacked (S, n) right-hand side or an
+    (S, n, n_rhs) column block of them.
 
     The one forward/backward triangular-solve pair every consumer of the
     factor shares (implicit dual operator, dual RHS, solution recovery).
@@ -145,22 +162,26 @@ def solve_with_factor(L, b: torch.Tensor) -> torch.Tensor:
         return solve_with_factor(L.to(cd), b.to(cd)).to(fd)
     if isinstance(L, PackedBlocks):
         return packed_tri_solve(L, packed_tri_solve(L, b), transpose=True)
-    t = torch.linalg.solve_triangular(L, b.unsqueeze(-1), upper=False)
-    return torch.linalg.solve_triangular(L.mT, t, upper=True).squeeze(-1)
+    x = b.unsqueeze(-1) if b.dim() == 2 else b
+    t = torch.linalg.solve_triangular(L, x, upper=False)
+    x = torch.linalg.solve_triangular(L.mT, t, upper=True)
+    return x.squeeze(-1) if b.dim() == 2 else x
 
 
 def apply_stiffness(K, v: torch.Tensor) -> torch.Tensor:
     """Batched ``Kᵢ vᵢ`` for a stiffness stack stored dense or packed."""
     if isinstance(K, PackedBlocks):
         return packed_symm_matvec(K, v)
-    return _matvec(K, v)
+    return batched_apply(K, v)
 
 
 def implicit_dual_apply(L, Btp: torch.Tensor, dm: DualMap,
                         lam: torch.Tensor) -> torch.Tensor:
     """q = Σᵢ scatter( B̃ᵢ L⁻ᵀL⁻¹ B̃ᵢᵀ gather(λ) )  (paper eq. 11)."""
     return local_dual_apply(
-        lambda p: _rmatvec(Btp, solve_with_factor(L, _matvec(Btp, p))), dm, lam)
+        lambda p: batched_apply(
+            Btp, solve_with_factor(L, batched_apply(Btp, p)), transpose=True),
+        dm, lam)
 
 
 def lumped_preconditioner(K, Bt: torch.Tensor, dm: DualMap, w: torch.Tensor
@@ -172,7 +193,8 @@ def lumped_preconditioner(K, Bt: torch.Tensor, dm: DualMap, w: torch.Tensor
     row order.
     """
     return local_dual_apply(
-        lambda p: _rmatvec(Bt, apply_stiffness(K, _matvec(Bt, p))), dm, w)
+        lambda p: batched_apply(Bt, apply_stiffness(K, batched_apply(Bt, p)),
+                                transpose=True), dm, w)
 
 
 def dirichlet_preconditioner(Sb: torch.Tensor, Btb: torch.Tensor,
@@ -186,13 +208,16 @@ def dirichlet_preconditioner(Sb: torch.Tensor, Btb: torch.Tensor,
     the split, so the restriction loses nothing.
     """
     return local_dual_apply(
-        lambda p: _rmatvec(Btb, _matvec(Sb, _matvec(Btb, p))), dm, w)
+        lambda p: batched_apply(Btb, batched_apply(Sb, batched_apply(Btb, p)),
+                                transpose=True), dm, w)
 
 
 def dual_rhs(L, Btp: torch.Tensor, fp: torch.Tensor,
              dm: DualMap, c: torch.Tensor) -> torch.Tensor:
-    """d = B K⁺ f − c (paper §2.1)."""
-    return scatter_dual(_rmatvec(Btp, solve_with_factor(L, fp)), dm) - c
+    """d = B K⁺ f − c (paper §2.1); an (S, n, n_rhs) load stack ``fp``
+    gives D = B K⁺ F − c1ᵀ."""
+    t = solve_with_factor(L, fp)
+    return _minus_c(scatter_dual(batched_apply(Btp, t, transpose=True), dm), c)
 
 
 # iterative refinement around reduced-precision factors: the factor stacks
@@ -226,8 +251,8 @@ def implicit_dual_apply_refined(L, Kreg: PackedBlocks, Bt: torch.Tensor,
     λ's dtype: B̃ᵀ holds exact ±1/0 entries, so the caller casts the stored
     stack once, exactly."""
     return local_dual_apply(
-        lambda p: _rmatvec(Bt, solve_with_factor_refined(
-            L, Kreg, _matvec(Bt, p), steps)), dm, lam)
+        lambda p: batched_apply(Bt, solve_with_factor_refined(
+            L, Kreg, batched_apply(Bt, p), steps), transpose=True), dm, lam)
 
 
 def dual_rhs_refined(L, Kreg: PackedBlocks, Bt: torch.Tensor,
@@ -236,4 +261,4 @@ def dual_rhs_refined(L, Kreg: PackedBlocks, Bt: torch.Tensor,
     """d = B K⁺ f − c with the refined (f64-accurate) interior solve; ``Bt``
     at ``fp``'s dtype, as in :func:`implicit_dual_apply_refined`."""
     t = solve_with_factor_refined(L, Kreg, fp, steps)
-    return scatter_dual(_rmatvec(Bt, t), dm) - c
+    return _minus_c(scatter_dual(batched_apply(Bt, t, transpose=True), dm), c)

@@ -3,8 +3,8 @@ counterpart of ``repro.feti.pcpg.pcpg``.
 
 The reference's ``lax.while_loop`` becomes a Python loop. Its stopping
 test needs ‖w‖ on the host, so each iteration makes exactly one device →
-host read (the norm) and no other synchronization; every other quantity
-stays on the device. The block multi-RHS ``pcpg_many`` is ROADMAP item A12.
+host read (the norm, or in the block ``pcpg_many`` the per-column norms)
+and no other synchronization; every other quantity stays on the device.
 """
 from __future__ import annotations
 
@@ -12,11 +12,13 @@ import dataclasses
 import warnings
 from typing import Callable, List, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.core.precision import dtype_name, tol_floor
 
-__all__ = ["PCPGResult", "pcpg", "TolClampState", "reset_tol_clamp_warnings"]
+__all__ = ["PCPGResult", "PCPGManyResult", "pcpg", "pcpg_many",
+           "TolClampState", "reset_tol_clamp_warnings"]
 
 
 class TolClampState:
@@ -32,11 +34,14 @@ class TolClampState:
 
 
 _CLAMP_STATE_PCPG = TolClampState()
+_CLAMP_STATE_PCPG_MANY = TolClampState()
 
 
 def reset_tol_clamp_warnings() -> None:
-    """Rearm the once-per-dtype tolerance-clamp ``RuntimeWarning``."""
+    """Rearm the once-per-dtype tolerance-clamp ``RuntimeWarning`` at both
+    call sites (:func:`pcpg` and :func:`pcpg_many`)."""
     _CLAMP_STATE_PCPG.reset()
+    _CLAMP_STATE_PCPG_MANY.reset()
 
 
 def _clamp_tol(tol: float, dtype, state: TolClampState) -> float:
@@ -76,6 +81,18 @@ class PCPGResult:
     # per-iteration ||P r|| (iteration k at index k) when history was
     # requested, else None
     residual_history: Optional[List[float]] = None
+
+
+@dataclasses.dataclass
+class PCPGManyResult:
+    lam: torch.Tensor  # (n_lambda, n_rhs) multiplier stack
+    iterations: np.ndarray  # (n_rhs,) per-column iteration counts
+    residual: np.ndarray  # (n_rhs,) final per-column ||P r||
+    converged: np.ndarray  # (n_rhs,) bool
+    block_iterations: int  # loop trips run (the most of ``iterations``)
+    # (block_iterations, n_rhs) per-trip ||P r|| per column when history was
+    # requested (frozen columns repeat their converged value), else None
+    residual_history: Optional[np.ndarray] = None
 
 
 def pcpg(
@@ -131,3 +148,89 @@ def pcpg(
         k += 1
     return PCPGResult(lam=lam, iterations=k, residual=w_norm,
                       converged=w_norm <= atol, residual_history=trace)
+
+
+def pcpg_many(
+    apply_F: Callable[[torch.Tensor], torch.Tensor],
+    project: Callable[[torch.Tensor], torch.Tensor],
+    D: torch.Tensor,
+    Lam0: torch.Tensor,
+    precondition: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
+    tol: float = 1e-9,
+    max_iter: int = 500,
+    history: bool = False,
+) -> PCPGManyResult:
+    """Block PCPG over an (n_lambda, n_rhs) multiplier stack with
+    per-column stopping.
+
+    Each column runs :func:`pcpg`'s iteration on its own (d_j, λ⁰_j): inner
+    products, step lengths and stopping tests are per column (reductions
+    over the λ axis only), so no column's trajectory depends on its
+    neighbours'. The operators see the whole stack at once, so the stored
+    stacks are read once a block iteration for every column.
+
+    A converged column is frozen in place: its step lengths are zero (on a
+    safe denominator, so nothing non-finite leaks), its λ, r and p stop
+    changing and its residual and count keep their converged values. The
+    loop ends when every column is frozen or after ``max_iter`` trips;
+    columns converged at the start (a zero load) never iterate. Each trip
+    reads the per-column ‖P r‖ to the host once. ``history=True`` records
+    them after every trip (column j's curve is
+    ``residual_history[:iterations[j], j]``); ``lam`` is bit-identical to
+    the ``history=False`` run.
+    """
+    if precondition is None:
+        def precondition(x):
+            return x
+    tol = _clamp_tol(tol, D.dtype, _CLAMP_STATE_PCPG_MANY)
+
+    def col_dot(a, b):
+        return (a * b).sum(dim=0)  # (n_rhs,) per-column inner products
+
+    def col_norm(a):
+        return (a * a).sum(dim=0).sqrt()
+
+    one = torch.ones((), dtype=D.dtype, device=D.device)
+    zero = torch.zeros((), dtype=D.dtype, device=D.device)
+    Lam = Lam0
+    R = D - apply_F(Lam0)
+    W = project(R)
+    Pm = project(precondition(W))
+    zeta = col_dot(Pm, W)
+    w_norm = col_norm(W)
+    w_host = w_norm.cpu().numpy()
+    atol = tol * np.maximum(w_host, 1e-30)
+    active_host = w_host > atol
+    active = torch.as_tensor(active_host, device=D.device)
+    iters = np.zeros(D.shape[1], dtype=np.int64)
+    trace = [] if history else None
+    k = 0
+    while k < max_iter and active_host.any():
+        FP = apply_F(Pm)
+        gamma = torch.where(
+            active, zeta / _safe_denom(torch.where(active, col_dot(Pm, FP),
+                                                   one)), zero)
+        Lam = Lam + gamma * Pm
+        R = R - gamma * FP
+        # a frozen column's R is unchanged, and so are its W, Z and ζ
+        W = project(R)
+        Z = project(precondition(W))
+        zeta_new = col_dot(Z, W)
+        beta = torch.where(
+            active, zeta_new / _safe_denom(torch.where(active, zeta, one)),
+            zero)
+        Pm = torch.where(active, Z + beta * Pm, Pm)
+        zeta = torch.where(active, zeta_new, zeta)
+        w_norm = torch.where(active, col_norm(W), w_norm)
+        iters += active_host
+        w_host = w_norm.cpu().numpy()  # the trip's one host read
+        active_host = active_host & (w_host > atol)
+        active = torch.as_tensor(active_host, device=D.device)
+        if trace is not None:
+            trace.append(w_host)
+        k += 1
+    return PCPGManyResult(
+        lam=Lam, iterations=iters, residual=w_host,
+        converged=w_host <= atol, block_iterations=k,
+        residual_history=(np.stack(trace) if trace else
+                          np.zeros((0, D.shape[1]))) if history else None)

@@ -37,9 +37,12 @@ def coarse_g_e(Bt: torch.Tensor, f: torch.Tensor, R: torch.Tensor,
 
 
 def coarse_e(f: torch.Tensor, R: torch.Tensor) -> torch.Tensor:
-    """e = Rᵀf for one (S, n) load stack."""
+    """e = Rᵀf for one (S, n) load stack → (S·k,), or for an (S, n, n_rhs)
+    load-case stack → (S·k, n_rhs); subdomain-major rows matching G's
+    column order."""
     S, _, k = R.shape
-    return torch.einsum("sn,snk->sk", f, R).reshape(S * k)
+    return torch.einsum("sn...,snk->sk...", f, R).reshape((S * k,)
+                                                          + f.shape[2:])
 
 
 def coarse_floor_factor(dtype: torch.dtype) -> float:
@@ -81,22 +84,33 @@ class CoarseProblem:
     GtG_chol: torch.Tensor  # (S·k, S·k) lower factor of GᵀG (QR-derived)
     e: torch.Tensor  # (S·k,) = Rᵀf, subdomain-major
 
+    # every method is rank-generic over a trailing column axis: an
+    # (n_lambda, n_rhs) multiplier stack or an (S·k, n_rhs) e-stack goes
+    # through the same products, one column per right-hand side
+
     def solve_coarse(self, b: torch.Tensor) -> torch.Tensor:
-        """(GᵀG)⁻¹ b via the cached triangular factor."""
-        t = torch.linalg.solve_triangular(self.GtG_chol, b[:, None], upper=False)
-        return torch.linalg.solve_triangular(
-            self.GtG_chol.T, t, upper=True)[:, 0]
+        """(GᵀG)⁻¹ b via the cached triangular factor; ``b`` is (S·k,) or
+        (S·k, n_rhs)."""
+        vector = b.dim() == 1
+        t = torch.linalg.solve_triangular(
+            self.GtG_chol, b[:, None] if vector else b, upper=False)
+        x = torch.linalg.solve_triangular(self.GtG_chol.T, t, upper=True)
+        return x[:, 0] if vector else x
 
     def project(self, x: torch.Tensor) -> torch.Tensor:
         """P x = x − G (GᵀG)⁻¹ Gᵀ x."""
         return x - self.G @ self.solve_coarse(self.G.T @ x)
 
-    def lambda0(self) -> torch.Tensor:
-        """Feasible start: λ⁰ = G(GᵀG)⁻¹e satisfies Gᵀλ⁰ = e."""
-        return self.G @ self.solve_coarse(self.e)
+    def lambda0(self, e: torch.Tensor = None) -> torch.Tensor:
+        """Feasible start: λ⁰ = G(GᵀG)⁻¹e satisfies Gᵀλ⁰ = e. ``e``
+        replaces the problem's own load moment: an (S·k,) vector or an
+        (S·k, n_rhs) stack of them for other load cases
+        (:func:`coarse_e`)."""
+        return self.G @ self.solve_coarse(self.e if e is None else e)
 
     def alpha(self, Flam_minus_d: torch.Tensor) -> torch.Tensor:
-        """α = (GᵀG)⁻¹Gᵀ(Fλ − d): (S·k,), reshape to (S, k) per subdomain."""
+        """α = (GᵀG)⁻¹Gᵀ(Fλ − d): (S·k,) (or (S·k, n_rhs)), reshape to
+        (S, k) per subdomain."""
         return self.solve_coarse(self.G.T @ Flam_minus_d)
 
 

@@ -1,5 +1,6 @@
 """End-to-end FETI solver (paper §2 + §5); counterpart of
-``repro.feti.solver`` for one device and a single load case, at f64 or with
+``repro.feti.solver`` for one device, one load case (``solve``) or a batch
+of them through the block PCPG (``solve_many``), at f64 or with
 reduced-precision stacks (f32, bf16) and refinement.
 
 Stages exactly as the paper defines them:
@@ -19,7 +20,8 @@ P F δ = P r for a correction.
 
 Timings are host wall clock (``time.perf_counter``) around work that ends
 in a device synchronization, so they measure the device work, not its
-enqueue. Multi-RHS solves are ROADMAP item A12, telemetry A15.
+enqueue. Telemetry (``report``) is ROADMAP item A15; the sharded multi-RHS
+batch A16.
 """
 from __future__ import annotations
 
@@ -37,6 +39,7 @@ from repro_torch.fem.decomposition import FetiProblem
 from repro_torch.feti.assembly import ClusterState, preprocess_cluster
 from repro_torch.feti.config import as_feti_config
 from repro_torch.feti.operator import (
+    batched_apply,
     dirichlet_preconditioner,
     dual_rhs,
     dual_rhs_refined,
@@ -48,10 +51,14 @@ from repro_torch.feti.operator import (
     solve_with_factor,
     solve_with_factor_refined,
 )
-from repro_torch.feti.pcpg import PCPGResult, pcpg
-from repro_torch.feti.projector import CoarseProblem, build_coarse_problem
+from repro_torch.feti.pcpg import PCPGManyResult, PCPGResult, pcpg, pcpg_many
+from repro_torch.feti.projector import (
+    CoarseProblem,
+    build_coarse_problem,
+    coarse_e,
+)
 
-__all__ = ["FetiSolver", "FetiSolution"]
+__all__ = ["FetiSolver", "FetiSolution", "FetiManySolution", "solve_many"]
 
 # defect-correction outer iterations (explicit mode on a reduced-precision
 # F̃): each outer solves P F δ = P r to the storage dtype's floor and
@@ -80,16 +87,44 @@ class FetiSolution:
 
 
 @dataclasses.dataclass
+class FetiManySolution:
+    """A batch of load-case solutions from :meth:`FetiSolver.solve_many`;
+    every array has the load case first."""
+
+    u: np.ndarray  # (n_rhs, S, n) subdomain solutions, original DOF order
+    u_global: np.ndarray  # (n_rhs, n_global_dofs)
+    lam: np.ndarray  # (n_rhs, n_lambda)
+    alpha: np.ndarray  # (n_rhs, S, k)
+    iterations: np.ndarray  # (n_rhs,) per-column PCPG iterations (summed
+    # over the defect-correction outers)
+    residuals: np.ndarray  # (n_rhs,) per-column final ||P r||
+    converged: np.ndarray  # (n_rhs,) bool
+    block_iterations: int  # block-PCPG trips, summed over the outers
+    n_rhs: int  # load cases solved
+    timings: dict
+    refine_outer: int = 0  # defect-correction outer iterations performed
+    # (n_rhs, block_iterations) ‖P r‖ per trip and column (converged
+    # columns repeat their frozen value); only from solve_many(history=True)
+    residual_history: Optional[np.ndarray] = None
+    storage_dtype: str = "f64"
+    compute_dtype: str = "f64"
+    solve_dtype: str = "f64"
+
+
+@dataclasses.dataclass
 class _SolutionOps:
-    """Load-independent solution-phase machinery, built once per state."""
+    """Load-independent solution-phase machinery, built once per state and
+    shared by :meth:`FetiSolver.solve` and :meth:`FetiSolver.solve_many`.
+    Every member takes a vector or a column stack of them (the operators
+    are rank-generic)."""
 
     coarse: CoarseProblem
-    apply_F: Callable  # (n_lambda,) -> (n_lambda,): the operator PCPG runs
+    apply_F: Callable  # (n_lambda[, r]) -> same: the operator PCPG runs
     # (the reduced-precision F̃ under mixed-precision explicit mode)
     apply_F_exact: Callable  # f64-accurate application (the refined
     # implicit one) for outer residuals and α; apply_F when not refining
     precond: Optional[Callable]
-    dual_rhs: Callable  # fp (S, n) -> d (n_lambda,)
+    dual_rhs: Callable  # fp (S, n[, r]) -> d (n_lambda[, r])
     Bt: torch.Tensor  # (S, n, m_max) B̃ᵀ in factor row order, solve dtype
 
 
@@ -189,33 +224,64 @@ class FetiSolver:
                 apply_F = _fast(apply_F)
             if precond is not None:
                 precond = _fast(precond)
-        self._ops = _SolutionOps(coarse=coarse, apply_F=apply_F,
-                                 apply_F_exact=apply_F_exact, precond=precond,
-                                 dual_rhs=lambda fp: rhs(fp=fp), Bt=Bt)
+        self._ops = _SolutionOps(
+            coarse=coarse, apply_F=apply_F, apply_F_exact=apply_F_exact,
+            precond=precond, dual_rhs=lambda fp: rhs(fp=fp), Bt=Bt)
         return self._ops
 
-    def _recover_u(self, up: torch.Tensor, alpha_flat: torch.Tensor):
-        """Factor-order K⁺(f − Bᵀλ) + kernel correction, back to original
-        DOF order, averaged onto the global mesh (host numpy)."""
+    def _load_stacks(self, loads: np.ndarray):
+        """Host (S, n, ...) loads in original DOF order -> device (f, fp)
+        at the solve dtype, fp in factor row order."""
+        st = self.state
+        f = torch.as_tensor(np.asarray(loads), dtype=self.config.solve_dtype,
+                            device=st.device)
+        return f, f[:, torch.as_tensor(st.node_perm, device=st.device)]
+
+    def _recover(self, ops: _SolutionOps, lam: torch.Tensor,
+                   d: torch.Tensor, fp: torch.Tensor):
+        """α (paper eq. 7) and u = K⁺(f − Bᵀλ) + Rα (eq. 5), back to
+        original DOF order and averaged onto the global mesh (host numpy).
+        An (n_lambda, n_rhs) ``lam`` recovers that many stacked columns,
+        the load case leading."""
         st = self.state
         prob = self.problem
+        alpha_flat = ops.coarse.alpha(ops.apply_F_exact(lam) - d)  # (S·k,..)
+        rhs = fp - batched_apply(ops.Bt, gather_local(lam, st.dual))
+        if st.refine_steps > 0:
+            up = solve_with_factor_refined(st.L, st.Kreg, rhs,
+                                           st.refine_steps)
+        else:
+            up = solve_with_factor(st.L, rhs)
+        n_cols = lam.shape[1] if lam.dim() == 2 else None
         k = st.R.shape[2]
         inv_perm = np.argsort(st.node_perm)
-        alpha = alpha_flat.cpu().numpy().reshape(st.S, k)
-        u = (up.cpu().numpy()[:, inv_perm]
-             + np.einsum("snk,sk->sn", st.R.cpu().numpy(), alpha))
+        R = st.R.cpu().numpy()
+        if n_cols is None:
+            alpha = alpha_flat.cpu().numpy().reshape(st.S, k)
+            u = up.cpu().numpy()[:, inv_perm] + np.einsum("snk,sk->sn", R,
+                                                          alpha)
+        else:
+            alpha = alpha_flat.cpu().numpy().reshape(st.S, k, n_cols)
+            u = (up.cpu().numpy()[:, inv_perm]
+                 + np.einsum("snk,skr->snr", R, alpha))
+            u = np.moveaxis(u, -1, 0)  # (n_rhs, S, n)
+            alpha = np.moveaxis(alpha, -1, 0)  # (n_rhs, S, k)
         nn = prob.n_global_dofs
-        acc = np.zeros(nn)
+        lead = () if n_cols is None else (n_cols,)
+        acc = np.zeros(lead + (nn,))
         cnt = np.zeros(nn)
         for i, sd in enumerate(prob.subdomains):
-            np.add.at(acc, sd.dof_gids, u[i])
+            np.add.at(acc, (..., sd.dof_gids), u[..., i, :])
             np.add.at(cnt, sd.dof_gids, 1.0)
         return u, alpha, acc / np.maximum(cnt, 1.0)
 
     # ---- solution (paper §2.2) ----
     def solve(self, tol: float = 1e-9, max_iter: int = 2000,
+              loads: Optional[np.ndarray] = None,
               history: bool = False) -> FetiSolution:
-        """One PCPG solve of the problem's own load.
+        """One PCPG solve of the problem's own load, or of ``loads`` (a
+        host (S, n) stack in original DOF order), the one-case form of
+        :meth:`solve_many`.
 
         ``history=True`` records the per-iteration ‖P r‖ on
         ``FetiSolution.residual_history``, concatenated across
@@ -230,8 +296,13 @@ class FetiSolver:
         fc = self.config
 
         t0 = time.perf_counter()
-        lam0 = coarse.lambda0()
-        d = ops.dual_rhs(st.fp)
+        if loads is None:
+            fp = st.fp
+            lam0 = coarse.lambda0()
+        else:
+            f, fp = self._load_stacks(loads)
+            lam0 = coarse.lambda0(coarse_e(f, st.R))
+        d = ops.dual_rhs(fp)
         _sync(st.device)
         self.timings["rhs_setup_s"] = time.perf_counter() - t0
 
@@ -275,17 +346,8 @@ class FetiSolver:
         _sync(st.device)
         self.timings["solve_s"] = time.perf_counter() - t0
 
-        # ---- recover α and u (paper eqs. 5, 7) ----
         t0 = time.perf_counter()
-        alpha_flat = coarse.alpha(ops.apply_F_exact(lam) - d)  # (S·k,)
-        rhs = st.fp - (ops.Bt @ gather_local(lam, st.dual).unsqueeze(-1)
-                       ).squeeze(-1)
-        if st.refine_steps > 0:
-            up = solve_with_factor_refined(st.L, st.Kreg, rhs,
-                                           st.refine_steps)
-        else:
-            up = solve_with_factor(st.L, rhs)
-        u, alpha, u_global = self._recover_u(up, alpha_flat)
+        u, alpha, u_global = self._recover(ops, lam, d, fp)
         self.timings["recover_s"] = time.perf_counter() - t0
 
         return FetiSolution(
@@ -298,8 +360,135 @@ class FetiSolver:
             solve_dtype=dtype_name(fc.solve_dtype),
         )
 
-    def solve_many(self, *args, **kwargs):
-        raise NotImplementedError("multi-RHS solves are ROADMAP item A12")
+    def solve_many(self, loads, tol: float = 1e-9, max_iter: int = 2000,
+                   history: bool = False) -> FetiManySolution:
+        """Solve a batch of load cases against the preprocessed state.
+
+        Preprocessing (factorization, F̃, S_b) is paid once; the batch runs
+        through one block PCPG (:func:`repro_torch.feti.pcpg.pcpg_many`)
+        whose operator applications read the stored stacks once a block
+        iteration for every column, and each column stops on its own.
+        Below f64 in explicit mode the block runs the reduced F̃ to that
+        dtype's floor, then block defect-correction outers recover f64
+        accuracy as in :meth:`solve`.
+
+        ``loads``: (n_rhs, S, n) host stack of per-subdomain loads in
+        original DOF order (one (S, n) case is promoted to a batch of one).
+        A batch of one goes through :meth:`solve`. ``history=True`` records
+        every column's ‖P r‖ per block trip, without changing ``lam``.
+        """
+        if self.state is None:
+            self.preprocess()
+        st = self.state
+        prob = self.problem
+        fc = self.config
+        loads = np.asarray(loads)
+        if loads.ndim == 2:
+            loads = loads[None]
+        S, n = st.S, prob.subdomains[0].n
+        if loads.ndim != 3 or loads.shape[1:] != (S, n):
+            raise ValueError(f"loads must be (n_rhs, {S}, {n}) (or one "
+                             f"(S, n) case), got {loads.shape}")
+        n_rhs = loads.shape[0]
+        dtypes = dict(storage_dtype=fc.dtype_name,
+                      compute_dtype=dtype_name(fc.compute_dtype),
+                      solve_dtype=dtype_name(fc.solve_dtype))
+
+        if n_rhs == 1:
+            sol = self.solve(tol=tol, max_iter=max_iter, loads=loads[0],
+                             history=history)
+            self.timings["solve_many_s"] = self.timings["solve_s"]
+            self.timings["per_solve_s"] = self.timings["solve_s"]
+            return FetiManySolution(
+                u=sol.u[None], u_global=sol.u_global[None],
+                lam=sol.lam[None], alpha=sol.alpha[None],
+                iterations=np.asarray([sol.iterations]),
+                residuals=np.asarray([sol.residual]),
+                converged=np.asarray([sol.converged]),
+                block_iterations=sol.iterations, n_rhs=1,
+                timings=dict(self.timings), refine_outer=sol.refine_outer,
+                residual_history=(None if sol.residual_history is None
+                                  else sol.residual_history[None]),
+                **dtypes)
+
+        ops = self._solution_ops()
+        coarse = ops.coarse
+        t0 = time.perf_counter()
+        # column-stacked device layout: (S, n, n_rhs), the case last
+        F, Fp = self._load_stacks(loads.transpose(1, 2, 0))
+        D = ops.dual_rhs(Fp)
+        Lam0 = coarse.lambda0(coarse_e(F, st.R))
+        _sync(st.device)
+        self.timings["rhs_setup_s"] = time.perf_counter() - t0
+
+        mixed = st.refine_steps > 0 and self.mode == "explicit"
+        inner_tol = max(tol, tol_floor(fc.storage_dtype)) if mixed else tol
+
+        def run(rhs, start):
+            return pcpg_many(ops.apply_F, coarse.project, rhs, start,
+                             precondition=ops.precond, tol=inner_tol,
+                             max_iter=max_iter, history=history)
+
+        t0 = time.perf_counter()
+        res: PCPGManyResult = run(D, Lam0)
+        Lam = res.lam
+        iters = res.iterations.copy()
+        residuals, converged = res.residual, res.converged
+        block_iters = res.block_iterations
+        hist_rows = [res.residual_history] if history else []
+        n_outer = 0
+        if mixed:
+            # block defect correction (see solve()): columns already at
+            # their target freeze at iteration 0 of a correction solve
+            def col_norms(W):
+                return torch.linalg.norm(W, dim=0).cpu().numpy()
+
+            W0n = col_norms(coarse.project(D - ops.apply_F(Lam0)))
+            targets = tol * np.maximum(W0n, 1e-300)
+            R = D - ops.apply_F_exact(Lam)
+            Wn = col_norms(coarse.project(R))
+            prev = np.full_like(Wn, np.inf)
+            while (np.any(Wn > targets) and n_outer < _MAX_OUTER
+                   and np.all(Wn <= np.maximum(0.5 * prev, targets))):
+                prev = Wn
+                cres = run(R, torch.zeros_like(Lam))
+                Lam = Lam + cres.lam
+                if history:
+                    hist_rows.append(cres.residual_history)
+                iters += cres.iterations
+                block_iters += cres.block_iterations
+                n_outer += 1
+                R = D - ops.apply_F_exact(Lam)
+                Wn = col_norms(coarse.project(R))
+            residuals = Wn
+            converged = Wn <= targets
+        _sync(st.device)
+        t_solve = time.perf_counter() - t0
+        self.timings["solve_many_s"] = t_solve
+        self.timings["per_solve_s"] = t_solve / n_rhs
+
+        t0 = time.perf_counter()
+        u, alpha, u_global = self._recover(ops, Lam, D, Fp)
+        self.timings["recover_s"] = time.perf_counter() - t0
+
+        return FetiManySolution(
+            u=u, u_global=u_global, lam=Lam.cpu().numpy().T, alpha=alpha,
+            iterations=iters, residuals=residuals, converged=converged,
+            block_iterations=block_iters, n_rhs=n_rhs,
+            timings=dict(self.timings), refine_outer=n_outer,
+            residual_history=(np.ascontiguousarray(
+                np.concatenate(hist_rows).T) if history else None),
+            **dtypes)
 
     def report(self):
         raise NotImplementedError("telemetry (repro.obs) is ROADMAP item A15")
+
+
+def solve_many(problem: FetiProblem, loads, config=None, *,
+               tol: float = 1e-9, max_iter: int = 2000) -> FetiManySolution:
+    """Preprocess once and block-solve a batch of load cases: exactly
+    ``FetiSolver(problem, config).solve_many(loads, ...)``. Callers that
+    stream several batches against one preprocessing hold a
+    :class:`FetiSolver` instead."""
+    return FetiSolver(problem, config).solve_many(
+        loads, tol=tol, max_iter=max_iter)

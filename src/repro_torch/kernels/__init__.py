@@ -3,10 +3,10 @@
 Each kernel lives in ``csrc/<name>.cu`` (CUDA C++ for sm_90a, plain C
 interface, built by :mod:`repro_torch.kernels.build` and loaded with
 ctypes; shared device code in ``csrc/*.cuh``) and has a plain torch
-version beside its wrapper. The stepped TRSM (dense and packed) and the
-stepped SYRK are built at float64 and float32, the fused kernels at
-float64; a wrapper launches the kernel of its operands' dtype and counts
-launches per dtype. Nothing here compiles or loads a kernel at import
+version beside its wrapper. Every kernel (the stepped TRSM, dense and
+packed, the stepped SYRK and the fused TRSM→SYRK, dense and packed) is
+built at float64 and float32; a wrapper launches the kernel of its
+operands' dtype and counts launches per dtype. Nothing here compiles or loads a kernel at import
 time."""
 from repro_torch.kernels.stepped_syrk import stepped_syrk_kernel, stepped_syrk_plain
 from repro_torch.kernels.stepped_trsm import (

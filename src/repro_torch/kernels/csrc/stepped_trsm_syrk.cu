@@ -1,20 +1,26 @@
-// Fused stepped TRSM -> SYRK for Hopper (sm_90a), f64: the lower block
-// triangle of F = (L^{-1} B)^T (L^{-1} B) in one launch, batched over
+// Fused stepped TRSM -> SYRK for Hopper (sm_90a), f64 and f32: the lower
+// block triangle of F = (L^{-1} B)^T (L^{-1} B) in one launch, batched over
 // subdomains, against a dense or a packed factor.
 //
 // Replaces:
-//   * stepped_trsm_syrk_f64:
+//   * stepped_trsm_syrk_f64, stepped_trsm_syrk_f32:
 //     repro/kernels/stepped_trsm_syrk.py::stepped_trsm_syrk_pallas (body
-//     _fused_kernel);
-//   * stepped_trsm_syrk_packed_f64:
+//     _fused_kernel), at f64 and at f32 (the TPU kernel accumulates f32 and
+//     bf16 inputs in f32 and keeps its output and Y at the input dtype;
+//     bf16 storage runs its prep at f32, so these two cover every dtype it
+//     takes);
+//   * stepped_trsm_syrk_packed_f64, stepped_trsm_syrk_packed_f32:
 //     repro/kernels/stepped_trsm_syrk.py::stepped_trsm_syrk_packed_pallas
 //     (body _fused_packed_kernel), the same with the packed factor's
 //     forward substitution.
 //
-// What bounds them: the f64 operations of the TRSM half (see
-// stepped_trsm.cu), about ten times those of the SYRK half; the bytes that
-// must move are the factor, Linv, B and F (Y need not leave the chip). Both
-// halves run on the FP64 tensor cores (stepped_trsm.cuh, stepped_syrk.cuh).
+// What bounds them: the operations of the TRSM half (see stepped_trsm.cu),
+// about ten times those of the SYRK half; the bytes that must move are the
+// factor, Linv, B and F (Y need not leave the chip). At f64 both halves run
+// on the FP64 tensor cores (stepped_trsm.cuh, stepped_syrk.cuh); at f32 on
+// FFMA, accumulating in f32 (ffma_f32.cuh), the same device code templated
+// on the scalar type T: the f32 bound is the f32 operations at the FFMA
+// peak.
 // Beyond the arithmetic, what decides the time is balance: one TRSM item
 // (a 32-column tile) of the stripe that starts at block 0 costs
 // sum_{k<nb} (k + 1) tile products (595 at nb = 34), one of a stripe that
@@ -69,13 +75,14 @@
 // SYRK item waits for every column tile its rows and columns touch, so a
 // tile narrower than 32 waits for the one it lies in.
 //
-// f64 only: the f32 fused kernels are ROADMAP A13b (the wrappers refuse
-// f32).
+// f32: Y and F are f32 (sizeof(T) sizes the Y scratch the wrapper
+// allocates and every shared-memory stage); the sync words stay int32
+// beside them, 4-byte words in their own allocation.
 //
 // Layout: as stepped_trsm.cu, plus the scratch Y (S, n, m), the output
-// F (S, m, m), the item list (n_items,) int32 and the sync words
-// (1 + S * ceil(m / 32),) int32; bs a multiple of 8 up to 128, bm a
-// multiple of 8. Item codes: a TRSM item is s * ceil(m / 32) + column
+// F (S, m, m), both of the operands' type, the item list (n_items,) int32
+// and the sync words (1 + S * ceil(m / 32),) int32; bs a multiple of 8 up
+// to 128, bm a multiple of 8. Item codes: a TRSM item is s * ceil(m / 32) + column
 // tile, a SYRK item is S * ceil(m / 32) + (s * lower tiles + tile) *
 // sub-tiles + sub-tile. The launcher takes only the whole list: an n_items
 // other than its own count of every item (a list built for another
@@ -90,10 +97,15 @@ namespace {
 using namespace stepped;
 
 constexpr int FUSED_TILE = 64;  // SYRK sub-tile edge: 4 warps of 32 x 32
-constexpr size_t SMEM_BYTES =
-    trsm_smem_bytes<double>() > syrk_smem_bytes<double, FUSED_TILE>()
-        ? trsm_smem_bytes<double>()
-        : syrk_smem_bytes<double, FUSED_TILE>();
+
+// the larger of the two halves' shared memory (the TRSM half's, 112 KB at
+// f64 and 56 KB at f32)
+template <class T>
+constexpr size_t fused_smem_bytes() {
+  return trsm_smem_bytes<T>() > syrk_smem_bytes<T, FUSED_TILE>()
+             ? trsm_smem_bytes<T>()
+             : syrk_smem_bytes<T, FUSED_TILE>();
+}
 
 __device__ __forceinline__ void store_release(int* p, int v) {
   asm volatile("st.release.gpu.global.s32 [%0], %1;\n" ::"l"(p), "r"(v)
@@ -109,15 +121,16 @@ __device__ __forceinline__ int load_acquire(const int* p) {
   return v;
 }
 
-template <int KC, class Factor>
+template <class T, int KC, class Factor>
 __global__ void __launch_bounds__(THREADS)
-stepped_trsm_syrk_kernel(Factor fac, const double* __restrict__ Linv,
-                         const double* __restrict__ B,
+stepped_trsm_syrk_kernel(Factor fac, const T* __restrict__ Linv,
+                         const T* __restrict__ B,
                          const int* __restrict__ start_block,
                          const int* __restrict__ order, int n_items,
-                         int* sync, double* Y, double* __restrict__ F, int S,
-                         int n, int m, int bs, int bm) {
-  extern __shared__ __align__(16) double smem[];
+                         int* sync, T* Y, T* __restrict__ F, int S, int n,
+                         int m, int bs, int bm) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* smem = reinterpret_cast<T*>(smem_raw);
   __shared__ int item_s;
   int* ticket = sync;
   int* ready = sync + 1;  // one flag per (subdomain, column tile)
@@ -139,8 +152,8 @@ stepped_trsm_syrk_kernel(Factor fac, const double* __restrict__ Linv,
       const int64_t s = item / col_tiles;
       const int col0 = (item % col_tiles) * TN;
       const int start = min(start_block[col0 / bm], nb);
-      solve_column_tile<double, KC>(fac, Linv, B, Y, s, col0, start, n, m,
-                                    bs, smem);
+      solve_column_tile<T, KC>(fac, Linv, B, Y, s, col0, start, n, m, bs,
+                               smem);
       __threadfence();
       __syncthreads();
       if (threadIdx.x == 0) store_release(ready + item, 1);
@@ -169,51 +182,52 @@ stepped_trsm_syrk_kernel(Factor fac, const double* __restrict__ Linv,
         while (!load_acquire(flags + c)) __nanosleep(128);
     }
     __syncthreads();
-    syrk_tile<double, LoadFromL2, FUSED_TILE, 32, 32, THREADS>(
+    syrk_tile<T, LoadFromL2, FUSED_TILE, 32, 32, THREADS>(
         Y + s * (int64_t)n * m, F + s * (int64_t)m * m, n, m,
         min(start_block[ti], nb) * bs, r0, c0, row_end, col_end, smem);
   }
 }
 
-// Blocks of `kernel` that fit on the card at once (the persistent grid).
+// Blocks of `kernel` that fit on the card at once (the persistent grid),
+// each with `smem` bytes of dynamic shared memory.
 template <class Kernel>
-cudaError_t resident_blocks(Kernel* kernel, int* blocks) {
-  cudaError_t err = dmma::set_smem(kernel, SMEM_BYTES);
+cudaError_t resident_blocks(Kernel* kernel, size_t smem, int* blocks) {
+  cudaError_t err = dmma::set_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   int dev = 0, sms = 0, per_sm = 0;
   if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                      THREADS, SMEM_BYTES);
+                                                      THREADS, smem);
   if (err != cudaSuccess) return err;
   if (per_sm < 1) return cudaErrorLaunchOutOfResources;
   *blocks = per_sm * sms;
   return cudaSuccess;
 }
 
-template <int KC, class Factor>
+template <class T, int KC, class Factor>
 int launch_kc(Factor fac, const void* Linv, const void* B,
               const void* start_block, const void* order, int n_items,
               void* sync, void* Y, void* F, int S, int n, int m, int bs,
               int bm, void* stream) {
-  auto kernel = stepped_trsm_syrk_kernel<KC, Factor>;
+  auto kernel = stepped_trsm_syrk_kernel<T, KC, Factor>;
+  constexpr size_t smem = fused_smem_bytes<T>();
   int resident = 0;
-  cudaError_t err = resident_blocks(kernel, &resident);
+  cudaError_t err = resident_blocks(kernel, smem, &resident);
   if (err != cudaSuccess) return (int)err;
   const int grid = n_items < resident ? n_items : resident;
   const int trsm_items = S * ((m + TN - 1) / TN);
   err = cudaMemsetAsync(sync, 0, sizeof(int) * (1 + trsm_items),
                         (cudaStream_t)stream);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<grid, THREADS, SMEM_BYTES, (cudaStream_t)stream>>>(
-      fac, (const double*)Linv, (const double*)B, (const int*)start_block,
-      (const int*)order, n_items, (int*)sync, (double*)Y, (double*)F, S, n,
-      m, bs, bm);
+  kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
+      fac, (const T*)Linv, (const T*)B, (const int*)start_block,
+      (const int*)order, n_items, (int*)sync, (T*)Y, (T*)F, S, n, m, bs, bm);
   return (int)cudaGetLastError();
 }
 
-template <class Factor>
+template <class T, class Factor>
 int launch(Factor fac, const void* Linv, const void* B,
            const void* start_block, const void* order, int n_items,
            void* sync, void* Y, void* F, int S, int n, int m, int bs, int bm,
@@ -226,32 +240,33 @@ int launch(Factor fac, const void* Linv, const void* B,
   if (n_items != trsm_items + S * (nc * (nc + 1) / 2) * subs * subs)
     return (int)cudaErrorInvalidValue;
   return bs % KC_MAX
-             ? launch_kc<8>(fac, Linv, B, start_block, order, n_items, sync,
-                            Y, F, S, n, m, bs, bm, stream)
-             : launch_kc<KC_MAX>(fac, Linv, B, start_block, order, n_items,
-                                 sync, Y, F, S, n, m, bs, bm, stream);
+             ? launch_kc<T, 8>(fac, Linv, B, start_block, order, n_items,
+                               sync, Y, F, S, n, m, bs, bm, stream)
+             : launch_kc<T, KC_MAX>(fac, Linv, B, start_block, order, n_items,
+                                    sync, Y, F, S, n, m, bs, bm, stream);
 }
 
 }  // namespace
 
-extern "C" int stepped_trsm_syrk_f64(const void* Linv, const void* L,
-                                     const void* B, const void* start_block,
-                                     const void* order, void* sync, void* Y,
-                                     void* F, int S, int n, int m, int bs,
-                                     int bm, int n_items, void* stream) {
-  return launch(DenseFactor<double>{(const double*)L, n}, Linv, B,
-                start_block, order, n_items, sync, Y, F, S, n, m, bs, bm,
-                stream);
-}
+#define STEPPED_TRSM_SYRK_ENTRY(T, SUFFIX)                                    \
+  extern "C" int stepped_trsm_syrk_##SUFFIX(                                 \
+      const void* Linv, const void* L, const void* B,                        \
+      const void* start_block, const void* order, void* sync, void* Y,       \
+      void* F, int S, int n, int m, int bs, int bm, int n_items,             \
+      void* stream) {                                                        \
+    return launch<T>(DenseFactor<T>{(const T*)L, n}, Linv, B, start_block,   \
+                     order, n_items, sync, Y, F, S, n, m, bs, bm, stream);   \
+  }                                                                          \
+  extern "C" int stepped_trsm_syrk_packed_##SUFFIX(                          \
+      const void* Linv, const void* values, const void* rowptr,              \
+      const void* colidx, const void* B, const void* start_block,            \
+      const void* order, void* sync, void* Y, void* F, int S, int n, int m,  \
+      int bs, int bm, int n_blocks, int n_items, void* stream) {             \
+    return launch<T>(PackedFactor<T>{(const T*)values, (const int*)rowptr,   \
+                                     (const int*)colidx, n_blocks},          \
+                     Linv, B, start_block, order, n_items, sync, Y, F, S, n, \
+                     m, bs, bm, stream);                                     \
+  }
 
-extern "C" int stepped_trsm_syrk_packed_f64(
-    const void* Linv, const void* values, const void* rowptr,
-    const void* colidx, const void* B, const void* start_block,
-    const void* order, void* sync, void* Y, void* F, int S, int n, int m,
-    int bs, int bm, int n_blocks, int n_items, void* stream) {
-  return launch(PackedFactor<double>{(const double*)values,
-                                     (const int*)rowptr, (const int*)colidx,
-                                     n_blocks},
-                Linv, B, start_block, order, n_items, sync, Y, F, S, n, m, bs,
-                bm, stream);
-}
+STEPPED_TRSM_SYRK_ENTRY(double, f64)
+STEPPED_TRSM_SYRK_ENTRY(float, f32)

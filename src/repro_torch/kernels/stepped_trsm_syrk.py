@@ -17,9 +17,10 @@ values beside the start blocks and caches it with the plan
 Each wrapper launches its kernel for CUDA tensors (or raises) and runs its
 plain version — the stepped TRSM's then the stepped SYRK's schedule — for
 CPU tensors. Upper tiles come out as exact zeros either way, as
-``ops._mirror_lower`` needs. The kernels are float64 only: float32 operands
-raise ``NotImplementedError`` on every device (the f32 fused kernels are
-ROADMAP item A13b), and never run the f64 kernel or a plain version.
+``ops._mirror_lower`` needs. The kernels are built at float64 and at
+float32 (products on FFMA, accumulating in f32, as the TPU kernel
+accumulates sub-f64 inputs; bf16 storage runs its prep at f32): a wrapper
+launches the kernel of its operands' dtype and counts launches per dtype.
 """
 from __future__ import annotations
 
@@ -27,6 +28,7 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels._launch import (
+    SUFFIX,
     TILE,
     check_cuda_tiles,
     count_launch,
@@ -81,13 +83,6 @@ def _outputs(B: torch.Tensor):
                         device=B.device))
 
 
-def _refuse_f32(name: str, B: torch.Tensor) -> None:
-    if B.dtype == torch.float32:
-        raise NotImplementedError(
-            f"{name}: the f32 fused TRSM→SYRK kernel is ROADMAP item A13b; "
-            "use the unfused kernels (use_kernels=True, fused=False) at f32")
-
-
 def _check_order(order, B: torch.Tensor, bm: int) -> None:
     """The item list a CUDA launch needs: int32 on B's device, every item
     once (the launcher refuses another length)."""
@@ -117,16 +112,18 @@ def stepped_trsm_syrk_kernel(Linv: torch.Tensor, L: torch.Tensor,
     and need ``order``, its item list
     (:func:`repro_torch.kernels.schedule.fused_work_order_on` of the same
     start blocks); CPU tensors run the plain version, which needs no list.
-    Float64 only (float32 raises, naming ROADMAP A13b).
-    ``stepped_trsm_syrk_kernel.launches`` counts launches.
+    Operands are float64 or float32, all of one dtype (the f32 kernel
+    accumulates in f32, and Y and F are f32).
+    ``stepped_trsm_syrk_kernel.launches`` counts launches,
+    ``.launches_by_dtype`` them per dtype.
     """
-    _refuse_f32("stepped_trsm_syrk", B)
     dev = check_dense_operands(Linv, L, B, start_block, bs, bm)
     if dev.type == "cpu":
         return stepped_trsm_syrk_plain(Linv, L, B, start_block, bs, bm)
     check_cuda_tiles(bs, bm)
     _check_order(order, B, bm)
-    fn = build.function("stepped_trsm_syrk", "stepped_trsm_syrk_f64", 8, 6)
+    fn = build.function("stepped_trsm_syrk",
+                        f"stepped_trsm_syrk_{SUFFIX[B.dtype]}", 8, 6)
     S, n, m = B.shape
     (starts,) = int32_on(dev, start_block)
     Y, F, sync = _outputs(B)
@@ -153,9 +150,9 @@ def stepped_trsm_syrk_packed_kernel(Linv: torch.Tensor, values: torch.Tensor,
     operands as
     :func:`repro_torch.kernels.stepped_trsm.stepped_trsm_packed_kernel`;
     on CUDA ``order`` is the item list built with the CSR index too.
-    Float64 only (float32 raises, naming ROADMAP A13b).
-    ``stepped_trsm_syrk_packed_kernel.launches`` counts launches."""
-    _refuse_f32("stepped_trsm_syrk_packed", B)
+    Float64 or float32, as :func:`stepped_trsm_syrk_kernel`.
+    ``stepped_trsm_syrk_packed_kernel.launches`` counts launches,
+    ``.launches_by_dtype`` them per dtype."""
     dev = check_packed_operands(Linv, values, rowptr, colidx, B, start_block,
                                 bs, bm)
     if dev.type == "cpu":
@@ -163,8 +160,8 @@ def stepped_trsm_syrk_packed_kernel(Linv: torch.Tensor, values: torch.Tensor,
                                               start_block, bs, bm)
     check_cuda_tiles(bs, bm)
     _check_order(order, B, bm)
-    fn = build.function("stepped_trsm_syrk", "stepped_trsm_syrk_packed_f64",
-                        10, 7)
+    fn = build.function("stepped_trsm_syrk",
+                        f"stepped_trsm_syrk_packed_{SUFFIX[B.dtype]}", 10, 7)
     S, n, m = B.shape
     starts, rp, ci = int32_on(dev, start_block, rowptr, colidx)
     Y, F, sync = _outputs(B)

@@ -12,6 +12,17 @@ The reference builds L functionally (``.at[].set``) beside the working
 matrix. Here ONE working stack is updated in place and becomes L: at full
 size each (S, n, n) f64 stack is ~9 GB, and a second one would double the
 device footprint of the factorization.
+
+Below f64 (an f32 working stack) each step runs at f64 on the f32-stored
+blocks it reads and rounds what it writes: the diagonal block's Cholesky,
+the panel solve and every trailing block product and subtraction. torch's
+f32 LAPACK/BLAS calls round differently from XLA's, and in f32 alone the
+factor lands ~6x further from the f64 factor than the reference's does
+(enough to stall the f32 defect-correction outers at full size); the
+per-step f64 arithmetic brings it to the reference's distance. The f64
+transients are (S, bs, bs) blocks and (S, ·, bs) panels, never an
+(S, n, n) stack. At f64 the upcasts are no-ops and the arithmetic is
+unchanged.
 """
 from __future__ import annotations
 
@@ -26,6 +37,15 @@ __all__ = ["block_cholesky"]
 def _solve_lower_right(Lkk: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
     """Solve X Lkkᵀ = W for X (i.e. X = W Lkk⁻ᵀ), batched."""
     return torch.linalg.solve_triangular(Lkk.mT, W, upper=True, left=False)
+
+
+def _subtract(target: torch.Tensor, update: torch.Tensor) -> None:
+    """``target -= update`` in place; an f32 target is updated at f64 and
+    rounded once (``update`` is f64 there)."""
+    if target.dtype == update.dtype:
+        target -= update
+    else:
+        target.copy_(target.to(update.dtype) - update)
 
 
 def block_cholesky(K: torch.Tensor, block_size: int,
@@ -56,24 +76,28 @@ def block_cholesky(K: torch.Tensor, block_size: int,
             raise ValueError(f"mask shape {mask.shape} != ({nb},{nb})")
 
     W = K
+    f64 = torch.float64  # every step's arithmetic (a no-op cast at f64)
     infos = []
     for k in range(nb):
         k0, k1 = blk(k)
-        Lkk, info = torch.linalg.cholesky_ex(W[:, k0:k1, k0:k1])
+        Lkk, info = torch.linalg.cholesky_ex(W[:, k0:k1, k0:k1].to(f64))
         infos.append(info)
         W[:, k0:k1, k0:k1] = Lkk
         if k1 >= n:
             break
         if mask is None:
-            panel = _solve_lower_right(Lkk, W[:, k1:, k0:k1])
+            # no main path runs this branch; its trailing update stays at
+            # the working dtype (an f64 (S, n, n) transient is too large)
+            panel = _solve_lower_right(Lkk, W[:, k1:, k0:k1].to(f64))
             W[:, k1:, k0:k1] = panel
+            panel = W[:, k1:, k0:k1]
             W[:, k1:, k1:] -= panel @ panel.mT
             continue
         below = [i for i in range(k + 1, nb) if mask[i, k]]
         panels = {}
         for i in below:
             i0, i1 = blk(i)
-            Lik = _solve_lower_right(Lkk, W[:, i0:i1, k0:k1])
+            Lik = _solve_lower_right(Lkk, W[:, i0:i1, k0:k1].to(f64))
             W[:, i0:i1, k0:k1] = Lik
             panels[i] = (i0, i1, Lik)
         for i in below:
@@ -82,7 +106,7 @@ def block_cholesky(K: torch.Tensor, block_size: int,
                 if j > i:
                     break
                 j0, j1, Ljk = panels[j]
-                W[:, i0:i1, j0:j1] -= Lik @ Ljk.mT
+                _subtract(W[:, i0:i1, j0:j1], Lik @ Ljk.mT)
     bad = torch.stack(infos).ne(0).any()
     if bool(bad):
         raise ValueError("block_cholesky: a diagonal block is not positive "

@@ -283,6 +283,11 @@ def _solve_lower_right(Lkk: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
     return torch.linalg.solve_triangular(Lkk.mT, W, upper=True, left=False)
 
 
+# bytes of f64 transients one chunk of block_cholesky_packed's reduced-
+# precision trailing update may take
+_CHUNK_BYTES = 256 << 20
+
+
 def block_cholesky_packed(K, index: PackedBlockIndex) -> PackedBlocks:
     """Cholesky factors of an SPD stack, computed AND stored in packed form.
 
@@ -298,8 +303,10 @@ def block_cholesky_packed(K, index: PackedBlockIndex) -> PackedBlocks:
     ``cholesky_ex`` of the diagonal slot, one solve of every stored panel
     slot below it, and one batched update of the target slots (i, j <= i).
     Within one k step the targets are distinct, so the indexed update is
-    deterministic. Raises ``ValueError`` if a diagonal block is not
-    positive definite.
+    deterministic. Below f64 every step runs at f64 on the stored blocks
+    and rounds what it writes, as the dense twin does (its module note
+    says why); the trailing update then goes in chunks of target slots.
+    Raises ``ValueError`` if a diagonal block is not positive definite.
     """
     if isinstance(K, PackedBlocks):
         if K.index is not index:
@@ -312,75 +319,99 @@ def block_cholesky_packed(K, index: PackedBlockIndex) -> PackedBlocks:
         raise ValueError(f"expected an (S, n_blocks, bs, bs) stack, got "
                          f"{tuple(vals.shape)}")
     dev = vals.device
+    wide = vals.dtype != torch.float64
+    # target slots per chunk of the reduced-precision trailing update: its
+    # f64 transients (the gathered panel pairs, the product and the targets
+    # at f64) stay near _CHUNK_BYTES
+    chunk = max(1, _CHUNK_BYTES // (4 * 8 * vals.shape[0] * index.bs ** 2))
     infos = []
     for k in range(index.nb):
         dk = int(index.diag_slots[k])
-        Lkk, info = torch.linalg.cholesky_ex(vals[:, dk])
+        Lkk, info = torch.linalg.cholesky_ex(vals[:, dk].to(torch.float64))
         infos.append(info)
         vals[:, dk] = Lkk
         below = index.col_slots(k)
         if not below:
             continue
         slots = torch.as_tensor([s for _, s in below], device=dev)
-        panels = _solve_lower_right(Lkk[:, None], vals[:, slots])
-        vals[:, slots] = panels
+        panels = _solve_lower_right(Lkk[:, None],
+                                    vals[:, slots].to(torch.float64))
+        vals[:, slots] = panels.to(vals.dtype)
         # symbolic fill guarantees (i, j) is stored: i, j share column k
         a, b = np.tril_indices(len(below))
         targets = [index.slot(below[x][0], below[y][0]) for x, y in zip(a, b)]
         a_t = torch.as_tensor(a, device=dev)
         b_t = torch.as_tensor(b, device=dev)
         t_t = torch.as_tensor(targets, device=dev)
-        vals[:, t_t] -= panels[:, a_t] @ panels[:, b_t].mT
+        if not wide:
+            vals[:, t_t] -= panels[:, a_t] @ panels[:, b_t].mT
+            continue
+        for c0 in range(0, len(targets), chunk):
+            c = slice(c0, c0 + chunk)
+            vals[:, t_t[c]] = (vals[:, t_t[c]].to(torch.float64)
+                               - panels[:, a_t[c]] @ panels[:, b_t[c]].mT
+                               ).to(vals.dtype)
     if bool(torch.stack(infos).ne(0).any()):
         raise ValueError("block_cholesky_packed: a diagonal block is not "
                          "positive definite")
     return PackedBlocks(vals, index)
 
 
+def _tri_solve(L: torch.Tensor, b: torch.Tensor, upper: bool) -> torch.Tensor:
+    """Batched triangular solve of an (S, bs) vector or (S, bs, r) block."""
+    if b.dim() == 2:
+        return torch.linalg.solve_triangular(L, b.unsqueeze(-1),
+                                             upper=upper).squeeze(-1)
+    return torch.linalg.solve_triangular(L, b, upper=upper)
+
+
 def packed_tri_solve(pb: PackedBlocks, b: torch.Tensor,
                      transpose: bool = False) -> torch.Tensor:
     """Solve ``L_s x_s = b_s`` (or ``L_sᵀ x_s = b_s``) for a packed factor
-    stack, ``b`` (S, n) -> (S, n).
+    stack; ``b`` is (S, n) or an (S, n, n_rhs) column block, and ``x`` has
+    its shape.
 
     Forward: block rows in order, each row's stored blocks in one product
     (its slots are contiguous, so the values are read in place). Transpose:
     block rows in reverse; once ``x_k`` is solved, row k's stored blocks
     push ``L_kjᵀ x_k`` into the pending ``x_j`` (distinct j, so the indexed
-    update is deterministic) — the values are again read in place.
+    update is deterministic) — the values are again read in place. A
+    column block takes the same walk, each block step one product over
+    every column.
     """
     index = pb.index
     vals = pb.values
-    S = b.shape[0]
+    S, cols = b.shape[0], b.shape[2:]
     n, bs, nb = index.n, index.bs, index.nb
     plan = index.device_plan(b.device)
-    x = b.new_zeros(S, nb, bs)
-    x.view(S, -1)[:, :n] = b
+    x = b.new_zeros((S, nb, bs) + cols)
+    x.view((S, -1) + cols)[:, :n] = b
     ks = range(nb - 1, -1, -1) if transpose else range(nb)
     for k in ks:
         t0, t1 = int(index.rowptr[k]), int(index.rowptr[k + 1]) - 1
-        cols = plan["row_cols"][k]
+        row_cols = plan["row_cols"][k]
         Lkk = vals[:, t1]
         if not transpose:
             acc = x[:, k]
             if t1 > t0:
-                acc = acc - torch.einsum("stab,stb->sa", vals[:, t0:t1],
-                                         x[:, cols])
-            x[:, k] = torch.linalg.solve_triangular(
-                Lkk, acc.unsqueeze(-1), upper=False).squeeze(-1)
+                acc = acc - torch.einsum("stab,stb...->sa...",
+                                         vals[:, t0:t1], x[:, row_cols])
+            x[:, k] = _tri_solve(Lkk, acc, upper=False)
             continue
-        xk = torch.linalg.solve_triangular(
-            Lkk.mT, x[:, k].unsqueeze(-1), upper=True).squeeze(-1)
+        xk = _tri_solve(Lkk.mT, x[:, k], upper=True)
         x[:, k] = xk
         if t1 > t0:
-            x[:, cols] -= torch.einsum("stab,sa->stb", vals[:, t0:t1], xk)
-    return x.reshape(S, -1)[:, :n]
+            x[:, row_cols] -= torch.einsum("stab,sa...->stb...",
+                                           vals[:, t0:t1], xk)
+    return x.reshape((S, -1) + cols)[:, :n]
 
 
 def packed_symm_matvec(pb: PackedBlocks, v: torch.Tensor) -> torch.Tensor:
     """``A_s @ v_s`` for a stack of symmetric matrices stored as their packed
-    lower triangles; ``v`` is (S, n), ``pb.values`` (S, n_blocks, bs, bs).
+    lower triangles; ``v`` is (S, n) or an (S, n, n_rhs) column block,
+    ``pb.values`` (S, n_blocks, bs, bs).
 
-    Two batched GEMVs over all stored blocks (each block and its
+    Two batched products over all stored blocks (each block and its
     transpose; the diagonal blocks' transposed products go unused, which
     is cheaper than gathering a copy of the strictly-lower blocks), then
     every block row sums its products through a precomputed gather — the
@@ -388,15 +419,17 @@ def packed_symm_matvec(pb: PackedBlocks, v: torch.Tensor) -> torch.Tensor:
     card would.
     """
     index = pb.index
-    S = v.shape[0]
+    S, cols = v.shape[0], v.shape[2:]
     n, bs, nb = index.n, index.bs, index.nb
     plan = index.device_plan(v.device)
-    vb = torch.nn.functional.pad(v, (0, index.n_pad - n)).reshape(S, nb, bs)
-    lower = torch.einsum("sbij,sbj->sbi", pb.values, vb[:, plan["cols"]])
-    upper = torch.einsum("sbji,sbj->sbi", pb.values, vb[:, plan["rows"]])
-    contrib = torch.cat([lower, upper, lower.new_zeros(S, 1, bs)], dim=1)
-    out = contrib[:, plan["matvec_gather"]].sum(dim=2)  # (S, nb, bs)
-    return out.reshape(S, -1)[:, :n]
+    pad = (0, 0) * len(cols) + (0, index.n_pad - n)
+    vb = torch.nn.functional.pad(v, pad).reshape((S, nb, bs) + cols)
+    lower = torch.einsum("sbij,sbj...->sbi...", pb.values, vb[:, plan["cols"]])
+    upper = torch.einsum("sbji,sbj...->sbi...", pb.values, vb[:, plan["rows"]])
+    contrib = torch.cat([lower, upper, lower.new_zeros((S, 1, bs) + cols)],
+                        dim=1)
+    out = contrib[:, plan["matvec_gather"]].sum(dim=2)  # (S, nb, bs, ...)
+    return out.reshape((S, -1) + cols)[:, :n]
 
 
 def packed_block_index_for(mask: Optional[np.ndarray], n: int, bs: int

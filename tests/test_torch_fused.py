@@ -7,8 +7,10 @@ result is held against the reference's UNFUSED Pallas pair in interpret
 mode — stepped TRSM (or packed stepped TRSM) then stepped SYRK — which
 computes the same F; tolerance 1e-12 relative to its scale. The ``cuda``
 cases hold the packed TRSM (B3) and both fused kernels (B4, B5) against
-their plain versions and their unfused or dense twins on the card; they
-need no JAX, so the card's machine runs them with
+their plain versions and their unfused or dense twins on the card, and
+the f32 fused kernels against their f32 plain versions and the f64
+kernels on the same f32 operands; they need no JAX, so the card's machine
+runs them with
 ``python -m pytest --noconftest -m cuda tests/test_torch_fused.py``.
 """
 import numpy as np
@@ -314,3 +316,56 @@ def test_cuda_fused_refuses_a_wrong_item_list(kernel):
             wrapper(*operands, Bp, starts, 64, 32, order=bad)
     assert wrapper.launches == before
 
+
+F32_TOL = 1e-4  # f32 kernel vs its f32 plain version: f32 sums in two orders
+F32_CASES = [
+    # n, m, bs, bm, S, empty columns: bs 8, 16, 24 and 40 (8-deep chunks
+    # where 16 does not divide bs), the full-size bs/bm, and a queue many
+    # times the resident grid
+    (61, 30, 8, 8, 2, 0),
+    (250, 75, 16, 16, 2, 5),
+    (130, 44, 24, 8, 2, 4),
+    (200, 70, 40, 8, 3, 6),
+    (520, 258, 128, 128, 2, 0),
+    (520, 258, 128, 128, 256, 0),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["B4", "B5"])
+@pytest.mark.parametrize("n,m,bs,bm,S,empty", F32_CASES)
+def test_cuda_f32_fused_kernels_match_plain(n, m, bs, bm, S, empty, kernel):
+    """The f32 fused kernels (FFMA, f32 accumulation, f32 Y and F) against
+    their f32 plain versions (TF32 off) and against the f64 kernel on the
+    same f32 operands; each counts one f32 launch and no f64 one, and the
+    upper tiles stay exact zeros."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    L, pb, B, meta = _case(n, m, bs, bm, S, empty, seed=n + bs, device=dev)
+    L, pb, B = L.float(), pb.to(torch.float32), B.float()
+    _, _, n_pad, m_pad = ops._padded_sizes(meta)
+    Bp = ops._pad_to(B, n_pad, m_pad)
+    starts = ops._starts(meta, dev)
+    if kernel == "B4":
+        Lp = ops.pad_factor(L, n_pad)
+        wrapper, plain = stepped_trsm_syrk_kernel, stepped_trsm_syrk_plain
+        operands = (ops.invert_diag_blocks(Lp, bs), Lp)
+        order = ops._fused_order(meta, S, dev)
+    else:
+        wrapper = stepped_trsm_syrk_packed_kernel
+        plain = stepped_trsm_syrk_packed_plain
+        operands = ops._packed_operands(pb, meta)
+        order = ops._fused_order(meta, S, dev, pb.index)
+    before = dict(wrapper.launches_by_dtype)
+    got = wrapper(*operands, Bp, starts, bs, bm, order=order)
+    torch.cuda.synchronize()
+    assert wrapper.launches_by_dtype == dict(before, f32=before["f32"] + 1)
+    assert got.dtype == torch.float32 and torch.isfinite(got).all()
+    wide = [t.double() if t.is_floating_point() else t for t in operands]
+    f64 = wrapper(*wide, Bp.double(), starts, bs, bm, order=order)
+    for want in (plain(*operands, Bp, starts, bs, bm), f64):
+        assert _rel(got.double(), want.double()) <= F32_TOL
+    for i in range(m_pad // bm):
+        assert torch.all(got[:, i * bm:(i + 1) * bm, (i + 1) * bm:] == 0)

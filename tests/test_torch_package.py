@@ -5,6 +5,7 @@ caller asks for the CPU."""
 import ast
 import pathlib
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -66,8 +67,6 @@ def test_entry_points_require_cuda_unless_cpu(monkeypatch):
 
 
 @pytest.mark.parametrize("kwargs,item", [
-    # f32 storage runs (A13, single RHS); its fused kernels do not yet
-    (dict(dtype=torch.float32, fused=True), "A13b"),
     (dict(schur="auto"), "A14"),
 ])
 def test_unported_options_name_their_roadmap_item(kwargs, item):
@@ -88,12 +87,30 @@ def test_unported_paths_name_their_roadmap_item():
 
     from repro_torch.feti import FetiConfig
 
-    # packed storage (A9), the fused kernels (B4, B5), elasticity (A10) and
-    # the Dirichlet preconditioner (A11) are ported
+    # packed storage (A9), the fused kernels (B4, B5), elasticity (A10),
+    # the Dirichlet preconditioner (A11) and multi-RHS solves (A12) are
+    # ported; telemetry is not
     assert SchurAssemblyConfig(storage="packed", use_kernels=True,
                                fused=True).fused
     assert decompose_problem("elasticity", 2, (2, 2), (2, 2)).kernel_dim == 3
     assert FetiConfig(preconditioner="dirichlet").dirichlet
     prob = decompose_problem("heat", 2, (2, 2), (2, 2))
-    with pytest.raises(NotImplementedError, match="A12"):
-        FetiSolver(prob).solve_many(None)
+    with pytest.raises(NotImplementedError, match="A15"):
+        FetiSolver(prob, FetiConfig(device="cpu")).report()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_reduced_fused_and_multi_rhs_run(dtype):
+    """f32 and bf16 storage with the fused kernels (A13b) and a multi-RHS
+    batch (A12) run where they raised before."""
+    from repro_torch.core import SchurAssemblyConfig
+    from repro_torch.fem import decompose_problem
+    from repro_torch.feti import FetiConfig, FetiSolver
+
+    cfg = FetiConfig(schur=SchurAssemblyConfig(
+        block_size=8, rhs_block_size=8, use_kernels=True, fused=True),
+        dtype=dtype, device="cpu")
+    assert cfg.reduced and cfg.resolved_schur().fused
+    prob = decompose_problem("heat", 2, (2, 2), (2, 2))
+    sol = FetiSolver(prob, cfg).solve_many(prob.load_cases(2), tol=1e-6)
+    assert sol.n_rhs == 2 and np.all(np.isfinite(sol.u_global))

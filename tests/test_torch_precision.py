@@ -216,19 +216,30 @@ def test_plain_f32_kernels_match_reference(n, m, bs, bm):
         assert _rel(F[s].numpy(), want_f) <= KERNEL_TOL
 
 
-def test_fused_kernels_refuse_f32():
-    """The f32 fused kernels are ROADMAP A13b: the wrappers raise on every
-    device and run neither the f64 kernel nor a plain version."""
+def test_fused_kernels_run_f32():
+    """The fused wrappers take f32 operands (the f32 kernels on the card):
+    on the CPU their plain versions give the unfused f32 pair's F, at f32,
+    and launch nothing. (tests/test_torch_f32.py holds them against the
+    reference.)"""
     from test_torch_fused import _case
 
-    from repro_torch.kernels import ops, stepped_trsm_syrk_kernel
+    from repro_torch.kernels import (
+        ops,
+        stepped_trsm_syrk_kernel,
+        stepped_trsm_syrk_packed_kernel,
+    )
 
     L, pb, B, meta = _case(61, 30, 8, 8, 2, 0, seed=1)
-    before = stepped_trsm_syrk_kernel.launches
-    for fac in (L.float(), pb.to(torch.float32)):
-        with pytest.raises(NotImplementedError, match="A13b"):
-            ops.stepped_trsm_syrk(fac, B.float(), meta)
-    assert stepped_trsm_syrk_kernel.launches == before
+    before = (stepped_trsm_syrk_kernel.launches,
+              stepped_trsm_syrk_packed_kernel.launches)
+    for fac, trsm in ((L.float(), ops.stepped_trsm),
+                      (pb.to(torch.float32), ops.stepped_trsm_packed)):
+        F = ops.stepped_trsm_syrk(fac, B.float(), meta)
+        assert F.dtype == torch.float32
+        assert torch.equal(F, ops.stepped_syrk(trsm(fac, B.float(), meta),
+                                               meta))
+    assert (stepped_trsm_syrk_kernel.launches,
+            stepped_trsm_syrk_packed_kernel.launches) == before
 
 
 # ---------------------------------------------------------------------------
@@ -329,13 +340,13 @@ def test_reduced_stacks_are_the_f64_stacks_rounded(ela, storage, dtype):
 
 
 def test_f32_operator_error_against_the_reference():
-    """ROADMAP C6: how far each package's f32 factor and F̃ land from its
-    f64 ones. Both run the same block Cholesky and assembly at f32; torch's
-    f32 LAPACK/BLAS round them differently from XLA's, and the port's f32
-    stacks lie further from f64 by a factor that grows with the subdomain
-    (at (2, 2) x (32, 32): factor 8.6e-7 against 1.3e-7, F̃ 7.2e-6 against
-    2.3e-6). Here, at 16 x 16 elements a subdomain, the port's F̃ stays
-    within 3x of the reference's distance."""
+    """ROADMAP C6: how far each package's f32 F̃ lands from the f64 one.
+    Both run the same block Cholesky and assembly at f32; the port's
+    factorization takes each step at f64 on its f32-stored blocks, which
+    puts its factor at the reference's distance from f64
+    (tests/test_torch_f32.py). Here, at 16 x 16 elements a subdomain, the
+    port's F̃ stays within 1.5x of the reference's distance (1.18x; it was
+    within 3x before the factorization's f64 steps)."""
     ref = _reference()
     ref_prob = ref.decompose("heat", 2, (2, 2), (16, 16))
     prob = _carry(ref_prob)
@@ -351,7 +362,7 @@ def test_f32_operator_error_against_the_reference():
     port_err = _rel(got["f32"], want["f64"])
     rounding = _rel(want["f64"].astype(np.float32), want["f64"])
     assert 10 * rounding < ref_err  # the f32 arithmetic's, not rounding's
-    assert port_err <= 3 * ref_err
+    assert port_err <= 1.5 * ref_err
 
 
 def test_f32_halves_the_stacks(ela):

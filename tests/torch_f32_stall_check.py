@@ -3,7 +3,7 @@ C6): the port's f32 F̃ beside f32 F̃ stacks that carry only the
 factorization's, only the assembly's or only the final rounding's error,
 and the f32 explicit solve run once with each.
 
-    PYTHONPATH=src python tests/f32_stall_check.py [--arch feti-heat-2d]
+    PYTHONPATH=src python tests/torch_f32_stall_check.py [--arch feti-heat-2d]
         [--smoke] [--device cpu] [--tol 1e-9]
 
 Preprocesses the configuration through the kernel path (explicit, dense
@@ -11,7 +11,8 @@ storage) at f64, then at f32, and builds four f32 F̃ stacks: the f32
 state's own; one assembled at f64 from the f32 factor (the factorization's
 error alone); one assembled at f32 from the f64 factor rounded to f32 (the
 assembly's error alone); and fl32(F̃64). It prints each one's distance
-from F̃64 over max|F̃64| and its asymmetry, then solves at f32 with each in
+from F̃64 over max|F̃64| and its asymmetry (and the f32 factor's distance
+from the f64 one, max|L32 - L64| over max|L64|), then solves at f32 with each in
 the state's place, the residual history on, and prints for each solve the
 total iterations, the outers and every PCPG run (the first, then one per
 outer): its iterations, its last and least ‖P r‖ over its starting one,
@@ -77,6 +78,9 @@ def main(argv=None) -> int:
           "f32 assembly of fl32(L64)": assemble(L64.float(), torch.float32),
           "fl32(F64)": F64}
     Fs = {k: v.to(torch.float32) for k, v in Fs.items()}
+    # one subdomain at a time: the dense stacks are GB-sized at full size
+    L_err = max((st.L[i].double() - L64[i]).abs().max().item()
+                for i in range(st.S)) / L64.abs().max().item()
     del s64, st64, L64
     scale = F64.abs().max().item()
 
@@ -85,7 +89,8 @@ def main(argv=None) -> int:
 
     print(f"[c6] {fc.name}: S={prob.n_subdomains} n={prob.subdomains[0].n} "
           f"m_max={prob.m_max} bs={fc.block_size}; f64 solve "
-          f"{sol64.iterations} iterations")
+          f"{sol64.iterations} iterations; f32 factor: max|L32 - L64| / "
+          f"max|L64| = {L_err:.3e}")
     for label, F in Fs.items():
         print(f"[c6] F̃ {label}: max|F - F64| / max|F64| = {rel(F, F64):.3e}, "
               f"asymmetry max|F - F^T| / max|F64| = {rel(F, F.mT):.3e}")

@@ -13,7 +13,9 @@ Phases (each prints its seconds; any failure exits non-zero):
                 memory (marked cached when no build ran), and fail unless
                 the SASS of the stepped SYRK and of the fused kernels
                 (``cuobjdump -sass``) holds DMMA, the FP64 tensor-core
-                instruction.
+                instruction, and every f32 instance of the TRSM core (the
+                stepped TRSM's and the fused kernels', dense and packed,
+                every chunk depth) holds TF32 HMMA, its 3xTF32 product.
   3. kernels  — on a real full-size feti-heat-2d factor (S=64, n=4225 ->
                 n_pad=4352, m=258 -> m_pad=384, bs=bm=128, f64) and its
                 packed form in the fill-mask layout, each of the five
@@ -30,11 +32,17 @@ Phases (each prints its seconds; any failure exits non-zero):
                 then B2). Then the f32 kernels (all five at f32) on the
                 same operands rounded to f32 (diagonal blocks inverted at
                 f32), each against its f32 plain version and against the
-                f64 kernel on the same f32 operands (<= 1e-4 relative) and
-                the f32 library call (<= 1e-3), timed beside their bound at
-                4-byte words and the FP32 FFMA peak (the f32 fused kernels
-                also beside their unfused f32 pair). TF32 is off for every
-                product (printed).
+                f64 kernel on the same f32 operands (<= 1e-4 relative;
+                <= 1e-6 for the TRSM kernels B1 and B3, F32_TRSM_TWIN_TOL,
+                at every f32 phase) and the f32 library call (<= 1e-3),
+                timed beside their bound at
+                4-byte words and the least time of their operations over
+                FFMA (67 TFLOP/s) and 3xTF32 (three TF32 products each at
+                494.7 TFLOP/s; both printed, the share uses the least, the
+                3xTF32 one) (the f32 fused kernels also beside their unfused
+                f32 pair). TF32 is off for every torch product (printed):
+                the kernels' 3xTF32 keeps f32 accuracy, a torch TF32 matmul
+                would not.
      small blocks — the same factor and right-hand side at bs = bm = 16
                 (SMALL_BS; the stepped metadata rebuilt at that size, the
                 factor packed in its nonzero 16 x 16 blocks): B1, B3, B4, B5
@@ -131,15 +139,29 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 ARCH = "feti-heat-2d"
 REL_TOL = 1e-11  # kernel vs plain version or twin, f64: sums in another order
 LIB_TOL = 1e-9  # kernel vs the library call: another algorithm (full TRSM)
-# f32 kernel (FFMA) vs its f32 plain version (cuBLAS SGEMM, TF32 off) or the
-# f64 kernel on the same f32 operands: f32 sums in another order
+# f32 kernel (3xTF32 TRSM core, FFMA SYRK tile) vs its f32 plain version
+# (cuBLAS SGEMM, TF32 off) or the f64 kernel on the same f32 operands: f32
+# sums in another order
 F32_TOL = 1e-4
 F32_LIB_TOL = 1e-3  # f32 kernel vs the f32 library call (a full TRSM)
+# the f32 TRSM kernels (B1, B3: the TRSM core alone) vs the f64 kernel on
+# the same f32 operands, tighter than F32_TOL: on the NVIDIA H100 the 3xTF32
+# core, each k8 step summed with round-to-nearest adds, reads <= 3.7e-7 at
+# every f32 phase, and the same products summed by the tensor cores'
+# truncating accumulation 1.1e-6 to 3.1e-6. The fused kernels run the same
+# core; their distance also carries the FFMA SYRK tile's (1.7e-6 alone at
+# the Dirichlet stage), so they are held to F32_TOL.
+F32_TRSM_TWIN_TOL = 1e-6
+F32_TRSM = ("stepped_trsm", "stepped_trsm_packed")
 # NVIDIA H100 SXM data sheet, dense: FP64 through the tensor cores (DMMA);
 # plain FP64 FMA peaks at half of it; FP32 outside the tensor cores (FFMA,
-# what the f32 kernels run on) at the same 67. All at the 700 W power limit.
+# what the f32 SYRK tile runs on) at the same 67; TF32 on the tensor cores
+# at 494.7 (the sheet's 989.4 is with 2:4 sparsity), of which an f32-exact
+# 3xTF32 product (the f32 TRSM core's) takes three. All at the 700 W power
+# limit.
 PEAK_FP64_FLOPS = 67e12
 PEAK_FP32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 494.7e12
 PEAK_BYTES_PER_S = 3.35e12
 REPS = 5
 SMALL_BS = 16  # the small-block phase's bs = bm (ROADMAP C4)
@@ -292,8 +314,8 @@ SAME_SOLVE = (
 F_KERNELS = ("stepped_syrk", "stepped_trsm_syrk", "stepped_trsm_syrk_packed")
 FUSED = F_KERNELS[1:]  # timed beside their unfused pair at their dtype
 # (library, a substring of the mangled kernel name) of each kernel: the
-# TRSM instances with 16-deep chunks, which every bs the main paths use but
-# the smoke configurations' 8 runs
+# row-split core's instances with its deepest chunks (16 at f64, 32 at f32),
+# which every bs the full-size main paths use
 INSTANCES = {
     "stepped_trsm": ("stepped_trsm", "IdLi16EN7stepped11DenseFactorIdEE"),
     "stepped_trsm_packed": ("stepped_trsm",
@@ -303,17 +325,31 @@ INSTANCES = {
                           "IdLi16EN7stepped11DenseFactorIdEE"),
     "stepped_trsm_syrk_packed": ("stepped_trsm_syrk",
                                  "IdLi16EN7stepped12PackedFactorIdEE"),
-    "stepped_trsm_f32": ("stepped_trsm", "IfLi16EN7stepped11DenseFactorIfEE"),
+    "stepped_trsm_f32": ("stepped_trsm", "IfLi32EN7stepped11DenseFactorIfEE"),
     "stepped_trsm_packed_f32": ("stepped_trsm",
-                                "IfLi16EN7stepped12PackedFactorIfEE"),
+                                "IfLi32EN7stepped12PackedFactorIfEE"),
     "stepped_syrk_f32": ("stepped_syrk", "stepped_syrk_kernelIfE"),
     "stepped_trsm_syrk_f32": ("stepped_trsm_syrk",
-                              "IfLi16EN7stepped11DenseFactorIfEE"),
+                              "IfLi32EN7stepped11DenseFactorIfEE"),
     "stepped_trsm_syrk_packed_f32": ("stepped_trsm_syrk",
-                                     "IfLi16EN7stepped12PackedFactorIfEE"),
+                                     "IfLi32EN7stepped12PackedFactorIfEE"),
+}
+# the small-block instances (the panel core on the dense factor, the
+# k-split core on the packed one; bs <= 16: the bs = 16 phase and the smoke
+# configurations' bs = 8)
+SMALL_INSTANCES = {
+    kernel_key(name, dtype): (lib, f"I{t}Li0EN7stepped{factor}I{t}EE")
+    for dtype, t in (("f64", "d"), ("f32", "f"))
+    for name, lib, factor in (
+        ("stepped_trsm", "stepped_trsm", "11DenseFactor"),
+        ("stepped_trsm_packed", "stepped_trsm", "12PackedFactor"),
+        ("stepped_trsm_syrk", "stepped_trsm_syrk", "11DenseFactor"),
+        ("stepped_trsm_syrk_packed", "stepped_trsm_syrk", "12PackedFactor"))
 }
 # the libraries whose SASS must run on the FP64 tensor cores
 DMMA_LIBS = ("stepped_syrk", "stepped_trsm_syrk")
+# the libraries whose f32 TRSM core must run 3xTF32 on the tensor cores
+TF32_LIBS = ("stepped_trsm", "stepped_trsm_syrk")
 SOURCES = {
     "stepped_trsm": ("src/repro_torch/kernels/csrc/stepped_trsm.cu",
                      "src/repro/kernels/stepped_trsm.py:66"),
@@ -518,18 +554,18 @@ def _packed_walk(x, word=8):
     return x["S"] * flops, word * x["S"] * len(walked) * bs * bs
 
 
-def ptxas_report(build, built):
+def ptxas_report(build, built, instances=INSTANCES):
     """{kernel: {registers, spill_stores, spill_loads, static_smem,
-    ptxas_cached}} from the nvcc logs (``-Xptxas -v``); ``ptxas_cached``
-    when the library was not in ``built``, the builds of this run, so its
-    log is an earlier build's."""
+    ptxas_cached}} of each of ``instances`` from the nvcc logs (``-Xptxas
+    -v``); ``ptxas_cached`` when the library was not in ``built``, the
+    builds of this run, so its log is an earlier build's."""
     per_lib = {}
-    for lib in {lib for lib, _ in INSTANCES.values()}:
+    for lib in {lib for lib, _ in instances.values()}:
         log = build._library_path(lib).with_suffix(".log")
         per_lib[lib] = re.split(r"Compiling entry function",
                                 log.read_text())[1:]
     out = {}
-    for name, (lib, tag) in INSTANCES.items():
+    for name, (lib, tag) in instances.items():
         block = next(b for b in per_lib[lib] if tag in b.split("'")[1])
         regs = re.search(r"Used (\d+) registers", block)
         # one line per function: the kernel and any function it calls
@@ -544,29 +580,60 @@ def ptxas_report(build, built):
     return out
 
 
+def sass_functions(build, lib):
+    """{mangled function name: its SASS} of one kernel library
+    (``cuobjdump -sass``)."""
+    cuobjdump = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
+    sass = subprocess.run(
+        [cuobjdump, "-sass", str(build._library_path(lib))],
+        capture_output=True, text=True, check=True, timeout=120).stdout
+    parts = re.split(r"Function : (\S+)", sass)
+    return dict(zip(parts[1::2], parts[2::2]))
+
+
 def dmma_counts(build):
     """DMMA instructions in the SASS of each library of DMMA_LIBS."""
-    cuobjdump = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
-    counts = {}
-    for lib in DMMA_LIBS:
-        sass = subprocess.run(
-            [cuobjdump, "-sass", str(build._library_path(lib))],
-            capture_output=True, text=True, check=True, timeout=120).stdout
-        counts[lib] = len(re.findall(r"\bDMMA\b", sass))
-    return counts
+    return {lib: sum(len(re.findall(r"\bDMMA\b", code))
+                     for code in sass_functions(build, lib).values())
+            for lib in DMMA_LIBS}
 
 
-def bounds(x, word=8, peak=PEAK_FP64_FLOPS):
+def hmma_counts(build):
+    """TF32 HMMA instructions (``HMMA.1688.F32.TF32``, the m16n8k8 TF32
+    product) in each f32 instance of the TRSM core, by library and mangled
+    kernel name, and the distinct HMMA forms found there."""
+    counts, forms = {}, set()
+    for lib in TF32_LIBS:
+        for name, code in sass_functions(build, lib).items():
+            if re.search(r"stepped_trsm(_syrk)?_kernelIf", name):
+                counts[f"{lib}:{name}"] = len(
+                    re.findall(r"\bHMMA\.1688\.F32\.TF32\b", code))
+                forms.update(re.findall(r"\bHMMA\.\S+", code))
+    return counts, sorted(forms)
+
+
+def op_routes(flops, f32):
+    """{route: ms} the card needs for ``flops`` operations at f64 (the FP64
+    tensor cores) or at f32 accuracy (FFMA, or 3xTF32: three TF32 tensor-core
+    products for each)."""
+    if not f32:
+        return {"fp64 tensor cores": flops / PEAK_FP64_FLOPS * 1e3}
+    return {"ffma": flops / PEAK_FP32_FLOPS * 1e3,
+            "3xtf32": 3 * flops / PEAK_TF32_FLOPS * 1e3}
+
+
+def bounds(x, f32=False):
     """Least card time (ms) of each kernel's work on this run's inputs: the
-    larger of its operations over the peak of their type (``peak``: FP64
-    tensor cores, or FP32 FFMA for the f32 kernels) and the bytes it must
-    move (each input read once, each output written once, ``word`` bytes an
-    element) over the memory rate. Operations come from the repo's FLOP
+    larger of its operations' least time over the routes of their type
+    (:func:`op_routes`: at f32 the 3xTF32 one) and the bytes it must move
+    (each input read once, each output written once, 8 or, at f32, 4 bytes
+    an element) over the memory rate. Operations come from the repo's FLOP
     model of the schedule, or, for the packed TRSM, from the stored slots it
     walks. A fused kernel need not move Y: its bytes are factor + Linv + B +
     F."""
     S, bs, bm, n_pad, m_pad = x["S"], x["bs"], x["bm"], x["n_pad"], x["m_pad"]
     env, starts = x["env"], [int(s) for s in x["starts_np"]]
+    word = 4 if f32 else 8
     nb = n_pad // bs
     rows_from = nb - min(starts)
     dense_L = word * S * bs * bs * rows_from * (rows_from + 1) // 2
@@ -587,10 +654,12 @@ def bounds(x, word=8, peak=PEAK_FP64_FLOPS):
     }
     out = {}
     for name, (flops, nbytes) in work.items():
-        t_ops = flops / peak * 1e3
+        routes = op_routes(flops, f32)
+        route = min(routes, key=routes.get)
+        t_ops = routes[route]
         t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-        out[name] = dict(flops=flops, bytes=nbytes,
-                         bound_ms=max(t_ops, t_bytes),
+        out[name] = dict(flops=flops, bytes=nbytes, ops_ms=routes,
+                         ops_route=route, bound_ms=max(t_ops, t_bytes),
                          bound_by="operations" if t_ops >= t_bytes else "bytes")
     return out
 
@@ -626,8 +695,7 @@ def check_kernels(x, names, dtype, label, ptxas=None, plain_reps=REPS):
     Bp, starts = x["Bp"].to(t), x["starts"]
     order, packed_order = x["orders"]
     tol, lib_tol = (F32_TOL, F32_LIB_TOL) if f32 else (REL_TOL, LIB_TOL)
-    peak = PEAK_FP32_FLOPS if f32 else PEAK_FP64_FLOPS
-    bnd = bounds(x, word=4 if f32 else 8, peak=peak)
+    bnd = bounds(x, f32)
     index = x["packed"].index
     print(f"[chip_smoke] {label} {dtype} shapes: S={x['S']} n={x['env'].n} "
           f"n_pad={n_pad} m={x['env'].m} m_pad={m_pad} "
@@ -712,8 +780,15 @@ def check_kernels(x, names, dtype, label, ptxas=None, plain_reps=REPS):
         key = kernel_key(name, dtype)
         got = kernel()
         torch.cuda.synchronize()
-        abs_err, rel_err = compare(got, plain())
-        twin_err = compare(got.to(torch.float64), twin())[1] if twin else 0.0
+        want = plain()
+        abs_err, rel_err = compare(got, want)
+        ref = twin() if twin else None
+        twin_err = compare(got.to(torch.float64), ref)[1] if twin else 0.0
+        # an f32 kernel's yardstick: its plain version's own distance from
+        # the f64 kernel
+        plain_twin_err = (compare(want.to(torch.float64), ref)[1] if f32
+                          else None)
+        del want, ref
         is_F = name in F_KERNELS
         full = ops._mirror_lower(got, bm, m_pad, m_pad) if is_F else got
         lib_err = compare(full, lib())[1]
@@ -722,11 +797,15 @@ def check_kernels(x, names, dtype, label, ptxas=None, plain_reps=REPS):
               f"max|out|={got.abs().max().item():.3e} "
               f"max|kernel-plain|={abs_err:.3e} rel={rel_err:.3e} rel vs "
               f"twin={twin_err:.3e} rel vs library={lib_err:.3e}"
+              + (f" (plain vs twin {plain_twin_err:.3e})" if f32 else "")
               + (f" upper tiles zero={zero_ok}" if is_F else ""), flush=True)
-        if not (rel_err <= tol and twin_err <= tol and lib_err <= lib_tol
-                and zero_ok and bool(torch.isfinite(got).all())):
+        twin_tol = F32_TRSM_TWIN_TOL if f32 and name in F32_TRSM else tol
+        if not (rel_err <= tol and twin_err <= twin_tol
+                and lib_err <= lib_tol and zero_ok
+                and bool(torch.isfinite(got).all())):
             raise SystemExit(f"{label} {key} disagrees: rel {rel_err:.3e} to "
-                             f"its plain version, {twin_err:.3e} to its twin, "
+                             f"its plain version, {twin_err:.3e} to its twin "
+                             f"(bar {twin_tol:g}), "
                              f"{lib_err:.3e} to the library, upper tiles "
                              f"zero={zero_ok}")
         del got, full
@@ -740,18 +819,23 @@ def check_kernels(x, names, dtype, label, ptxas=None, plain_reps=REPS):
         rows.append(dict(
             name=key, route="cuda", source=source, replaces=replaces,
             max_abs_err=abs_err, max_rel_err=rel_err, twin_rel_err=twin_err,
+            plain_twin_rel_err=plain_twin_err,
             twin=("the f64 kernel on the same f32 operands" if f32
                   else twin_names.get(name)),
             library_rel_err=lib_err, ms=ms, plain_ms=plain_ms,
             library_ms=library_ms, library_call=lib_names[name],
-            bound_ms=b["bound_ms"], bound_by=b["bound_by"], tflops=tflops,
+            bound_ms=b["bound_ms"], bound_by=b["bound_by"],
+            bound_ops_ms=b["ops_ms"], bound_ops_route=b["ops_route"],
+            tflops=tflops,
             bound_share=b["bound_ms"] / ms, unfused_pair_ms=pair_ms, bs=bs,
             bm=bm, **(ptxas or {}).get(key, {})))
+        routes = ", ".join(f"{r} {t:.3f} ms" for r, t in b["ops_ms"].items())
         print(f"[chip_smoke] {label} {key}: {ms:.3f} ms (plain "
               f"{plain_ms:.3f}, library {library_ms:.3f}, bound "
               f"{b['bound_ms']:.3f} by {b['bound_by']}: {b['flops']:.4e} "
-              f"{dtype} flop at {peak / 1e12:g} TFLOP/s, {b['bytes']:.4e} B "
-              f"at {PEAK_BYTES_PER_S / 1e12:g} TB/s)", flush=True)
+              f"{dtype} flop ({routes}; the bound takes {b['ops_route']}), "
+              f"{b['bytes']:.4e} B at {PEAK_BYTES_PER_S / 1e12:g} TB/s)",
+              flush=True)
         print(f"[chip_smoke] {label} {key}: {tflops:.2f} useful TFLOP/s, "
               f"{100 * b['bound_ms'] / ms:.1f}% of the bound, "
               f"{library_ms / ms:.2f}x the library call's speed"
@@ -1016,8 +1100,10 @@ def kernel_rows(rows, d_rows, small, runs):
     paths' launch checks, the Dirichlet phase's numbers and the small-block
     phase's."""
     keep = ("ms", "plain_ms", "library_ms", "library_call", "bound_ms",
-            "bound_by", "tflops", "bound_share", "max_abs_err", "max_rel_err",
-            "twin_rel_err", "twin", "library_rel_err", "unfused_pair_ms")
+            "bound_by", "bound_ops_ms", "bound_ops_route", "tflops",
+            "bound_share", "max_abs_err", "max_rel_err", "twin_rel_err",
+            "plain_twin_rel_err", "twin", "library_rel_err",
+            "unfused_pair_ms")
     if [r["name"] for r in rows] != [d["name"] for d in d_rows]:
         raise SystemExit("the kernel and Dirichlet phases checked different "
                          "kernels")
@@ -1033,7 +1119,8 @@ def kernel_rows(rows, d_rows, small, runs):
             for name, run in runs.items() if name in per_path}
         r["dirichlet_heat_3d"] = {k: d[k] for k in keep}
         r[f"bs{SMALL_BS}"] = next(
-            ({k: q[k] for k in keep + ("bs", "bm")}
+            ({k: q[k] for k in keep + ("bs", "bm", "registers",
+                                        "spill_stores", "spill_loads")}
              for q in small if q["name"] == r["name"]), None)
 
 
@@ -1083,7 +1170,9 @@ def main() -> int:
     print(f"[chip_smoke] built {sorted(secs)} in "
           f"{max(secs.values(), default=0.0):.1f}s", flush=True)
     ptxas = ptxas_report(build, secs)
-    for name, r in ptxas.items():
+    ptxas_small = ptxas_report(build, secs, SMALL_INSTANCES)
+    for name, r in [*ptxas.items(),
+                    *((f"{k} (bs <= 16)", v) for k, v in ptxas_small.items())]:
         print(f"[chip_smoke] ptxas {name}: {r['registers']} registers, "
               f"{r['spill_stores']} B spill stores, {r['spill_loads']} B "
               f"spill loads, {r['static_smem']} B static shared memory"
@@ -1093,6 +1182,16 @@ def main() -> int:
     print(f"[chip_smoke] DMMA instructions in the SASS: {dmma}", flush=True)
     if not all(dmma.values()):
         raise SystemExit(f"no DMMA in the SASS of {dmma}")
+    hmma, forms = hmma_counts(build)
+    print(f"[chip_smoke] TF32 HMMA instructions in the SASS of the f32 TRSM "
+          f"core's instances: {hmma} (HMMA forms there: {forms})", flush=True)
+    for key in ("stepped_trsm_f32", "stepped_trsm_syrk_f32"):
+        lib, tag = INSTANCES[key]
+        if not any(tag in name for name in hmma
+                   if name.startswith(lib + ":")):
+            raise SystemExit(f"{key}: no f32 instance {tag} in the SASS")
+    if not hmma or not all(hmma.values()):
+        raise SystemExit(f"an f32 TRSM instance issues no TF32 HMMA: {hmma}")
     done("build", t0)
 
     def free():
@@ -1125,8 +1224,10 @@ def main() -> int:
     label = f"heat-2d dual bs={SMALL_BS}"
     small_names = ("stepped_trsm", "stepped_trsm_packed", "stepped_trsm_syrk",
                    "stepped_trsm_syrk_packed")
-    small = check_kernels(x16, small_names, "f64", label, plain_reps=2)
-    small += check_kernels(x16, small_names, "f32", label, plain_reps=2)
+    small = check_kernels(x16, small_names, "f64", label, ptxas_small,
+                          plain_reps=2)
+    small += check_kernels(x16, small_names, "f32", label, ptxas_small,
+                           plain_reps=2)
     del x16
     free()
     done("small blocks", t1)

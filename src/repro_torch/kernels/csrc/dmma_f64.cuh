@@ -21,6 +21,8 @@
 // warps multiply the oldest one. Two copy policies: .ca (may allocate in
 // L1; for inputs no kernel writes) and .cg (L2 only; for data other blocks
 // of the same launch write, which a stale L1 line must never serve).
+// The tile:: helpers at the end (zeroing, pairs, copy widths) serve both
+// scalar types.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -71,14 +73,6 @@ __device__ __forceinline__ void warp_mma(double (&acc)[MI][NJ][2],
       for (int j = 0; j < NJ; ++j)
         mma_16x8x8(acc[2 * i][j], acc[2 * i + 1][j], a[i], b[j]);
   }
-}
-
-template <int MI, int NJ>
-__device__ __forceinline__ void zero(double (&acc)[MI][NJ][2]) {
-#pragma unroll
-  for (int i = 0; i < MI; ++i)
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) acc[i][j][0] = acc[i][j][1] = 0.0;
 }
 
 // 16-byte copy global -> shared; an invalid copy writes zeros and reads
@@ -140,3 +134,38 @@ cudaError_t set_smem(Kernel* kernel, size_t bytes) {
 }
 
 }  // namespace dmma
+
+// Helpers the shared device code calls for its scalar type T (double or
+// float).
+namespace tile {
+
+template <class T, int MI, int NJ>
+__device__ __forceinline__ void zero(T (&acc)[MI][NJ][2]) {
+#pragma unroll
+  for (int i = 0; i < MI; ++i)
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) acc[i][j][0] = acc[i][j][1] = T(0);
+}
+
+// two consecutive elements, moved as one 8- or 16-byte word
+template <class T>
+struct Pair;
+template <>
+struct Pair<double> {
+  using type = double2;
+};
+template <>
+struct Pair<float> {
+  using type = float2;
+};
+
+template <class T>
+__device__ __forceinline__ typename Pair<T>::type pair(T x, T y) {
+  return {x, y};
+}
+
+// elements per 16-byte cp.async copy
+template <class T>
+constexpr int VEC = 16 / (int)sizeof(T);
+
+}  // namespace tile

@@ -37,9 +37,11 @@
 //     which reduce over the most rows, start first (start blocks are
 //     non-decreasing); the sub-tiles of one tile are neighbours and share
 //     their panels in L2.
-//   * f32: the same schedule with the products on FFMA (ffma_f32.cuh),
-//     bounded by the f32 operations at the FFMA peak (67 TFLOP/s, the
-//     FP64 tensor cores' rate) or by half the f64 bytes.
+//   * f32: the same schedule with the products on FFMA (ffma_f32.cuh).
+//     The least time of its work is the f32 operations at 3xTF32's rate
+//     (three TF32 tensor-core products at 494.7 TFLOP/s each, what the
+//     f32 TRSM core runs) or half the f64 bytes; a 3xTF32 SYRK tile is
+//     queued (ROADMAP).
 //
 // Layout: row-major, Y (S, n, m), F (S, m, m), start_block (m / bm,) int32,
 // every array 16-byte aligned (the wrapper checks). n is padded to a bs

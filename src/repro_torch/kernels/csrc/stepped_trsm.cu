@@ -40,24 +40,39 @@
 //   * The diagonal step multiplies by the pre-inverted diagonal block, as
 //     on the TPU, so all arithmetic is GEMM-shaped and runs on the FP64
 //     tensor cores (mma.sync m16n8k8, dmma_f64.cuh), with every operand
-//     staged through a 3-stage cp.async ring (112 KB of shared memory at
-//     f64, 56 KB at f32: two blocks of 4 warps a SM at f64). Four 32 x 32 warp tiles load a third
-//     fewer fragments than eight 16 x 32 ones, and at 128 threads a block
-//     ptxas may use up to 255 registers, so nothing spills.
+//     staged through a cp.async ring (3 stages, 112 KB of shared memory
+//     at f64: two blocks of 4 warps a SM; at f32 2 stages of 32-deep
+//     chunks, 68 KB: three blocks a SM). Four 32 x 32 warp tiles load a
+//     third fewer fragments than eight 16 x 32 ones, and at 128 threads a
+//     block ptxas may use up to 255 registers, so nothing spills.
 //   * One template over the factor accessor: the packed kernel is the dense
 //     one with the tile walk replaced by the CSR walk over stored slots
 //     from the first one at or right of the stripe's start (exact: Y is
 //     zero left of it).
 //   * Each block still solves its rows one after another: a barrier per
-//     16-deep chunk, and the pipeline drains at each diagonal step.
-//   * f32: the same schedule with the products on FFMA, accumulating in
-//     f32 (ffma_f32.cuh), as the TPU kernel does; its bound is the f32
-//     operations at the FFMA peak (67 TFLOP/s), so per chunk the warps'
-//     4 + 4 shared loads for every 32 FFMA bound it well below that.
-//   * Block sizes below 32 (the smoke configurations' bs = 8): the same
-//     4-warp block with 8-deep chunks when 16 does not divide bs; the warps
-//     whose rows lie past bs idle. Column tiles past m (bm < 32) are
-//     clipped. Simple and right, not fast.
+//     chunk, and the pipeline drains at each diagonal step.
+//   * f32: the products run on the TF32 tensor cores at f32 accuracy, three
+//     TF32 products each (3xTF32, tf32x3_f32.cuh), accumulating in f32 as
+//     the TPU kernel does. The f32 work's least time is its operations at
+//     3 x 1/494.7 TFLOP/s (1.1 ms at feti-heat-2d's shapes) or its bytes.
+//     The products are not what bounds the f32 row core: 3xTF32 alone, in
+//     place of FFMA, left its time where it was (PERF.md), while chunks 32
+//     deep instead of 16 (half the barriers and ring round trips a row)
+//     took a fifth off, and a 2-stage ring, three blocks a SM, a further
+//     eighth at feti-heat-3d's Dirichlet stage. What remains is the
+//     traffic of the chunks: each 32-column tile copies its rows' whole
+//     factor panel from L2 (12 GB at feti-heat-2d, 30 GB at the Dirichlet
+//     stage), so more columns a block is the next lever.
+//   * Small blocks (bs <= 16; the smoke configurations' bs = 8): the panel
+//     core on the dense factor takes 64 rows (64 / bs factor rows) a pass,
+//     16 a warp: every warp works, and Y, which each factor row would
+//     otherwise read again down to the start (15 GB at bs = 16 on
+//     feti-heat-2d's shapes), is read once a panel. The panel's diagonal
+//     is solved in shared memory, each warp its own 8 columns. On the
+//     packed factor the rows of a panel walk different stored slots, so the
+//     k-split core takes one factor row at a time, up to 64 / bs stored
+//     tiles a chunk, every warp a quarter of the chunk's depth. Column
+//     tiles past m (bm < 32) are clipped.
 //
 // Layout: row-major, Linv (S, nb, bs, bs), L (S, n, n) or values
 // (S, n_blocks, bs, bs) with rowptr (nb + 1,) and colidx (n_blocks,)
@@ -82,18 +97,19 @@ stepped_trsm_kernel(Factor fac, const T* __restrict__ Linv,
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int col0 = (int)(blockIdx.x / S) * TN;
   const int start = min(start_block[col0 / bm], n / bs);
-  solve_column_tile<T, KC>(fac, Linv, B, Y, (int64_t)(blockIdx.x % S), col0,
-                           start, n, m, bs, reinterpret_cast<T*>(smem_raw));
+  solve_tile<T, KC>(fac, Linv, B, Y, (int64_t)(blockIdx.x % S), col0, start,
+                    n, m, bs, reinterpret_cast<T*>(smem_raw));
 }
 
 template <class T, int KC, class Factor>
 int launch_kc(Factor fac, const T* Linv, const T* B, const int* start_block,
               T* Y, int S, int n, int m, int bs, int bm, cudaStream_t stream) {
   auto kernel = stepped_trsm_kernel<T, KC, Factor>;
-  cudaError_t err = dmma::set_smem(kernel, trsm_smem_bytes<T>());
+  constexpr size_t smem = solve_smem_bytes<T, KC, Factor>();
+  cudaError_t err = dmma::set_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
   const unsigned grid = (unsigned)((m + TN - 1) / TN) * S;
-  kernel<<<grid, THREADS, trsm_smem_bytes<T>(), stream>>>(
+  kernel<<<grid, THREADS, smem, stream>>>(
       fac, Linv, B, start_block, Y, S, n, m, bs, bm);
   return (int)cudaGetLastError();
 }
@@ -108,12 +124,19 @@ int launch(Factor fac, const void* Linv, const void* B,
   const T* inv = (const T*)Linv;
   const T* rhs = (const T*)B;
   const int* starts = (const int*)start_block;
-  // chunks 16 deep where they divide bs, else 8 (bs a multiple of 8)
-  return bs % KC_MAX
-             ? launch_kc<T, 8>(fac, inv, rhs, starts, (T*)Y, S, n, m, bs, bm,
-                               (cudaStream_t)stream)
-             : launch_kc<T, KC_MAX>(fac, inv, rhs, starts, (T*)Y, S, n, m,
-                                    bs, bm, (cudaStream_t)stream);
+  const cudaStream_t st = (cudaStream_t)stream;
+  const int kc = chunk_depth<T>(bs);
+  if (kc == SMALL)
+    return launch_kc<T, SMALL>(fac, inv, rhs, starts, (T*)Y, S, n, m, bs,
+                                  bm, st);
+  if (kc == ROW_KC<T>)
+    return launch_kc<T, ROW_KC<T>>(fac, inv, rhs, starts, (T*)Y, S, n, m, bs,
+                                   bm, st);
+  if (kc == 16)
+    return launch_kc<T, 16>(fac, inv, rhs, starts, (T*)Y, S, n, m, bs, bm,
+                            st);
+  return launch_kc<T, MIN_BS>(fac, inv, rhs, starts, (T*)Y, S, n, m, bs, bm,
+                              st);
 }
 
 }  // namespace

@@ -17,10 +17,11 @@
 // What bounds them: the operations of the TRSM half (see stepped_trsm.cu),
 // about ten times those of the SYRK half; the bytes that must move are the
 // factor, Linv, B and F (Y need not leave the chip). At f64 both halves run
-// on the FP64 tensor cores (stepped_trsm.cuh, stepped_syrk.cuh); at f32 on
-// FFMA, accumulating in f32 (ffma_f32.cuh), the same device code templated
-// on the scalar type T: the f32 bound is the f32 operations at the FFMA
-// peak.
+// on the FP64 tensor cores (stepped_trsm.cuh, stepped_syrk.cuh). At f32 the
+// TRSM half runs 3xTF32 on the TF32 tensor cores (tf32x3_f32.cuh) and the
+// SYRK half FFMA (ffma_f32.cuh), both accumulating in f32, the same device
+// code templated on the scalar type T; the f32 bound is the operations at
+// 3xTF32's rate (three TF32 products at 494.7 TFLOP/s each) or the bytes.
 // Beyond the arithmetic, what decides the time is balance: one TRSM item
 // (a 32-column tile) of the stripe that starts at block 0 costs
 // sum_{k<nb} (k + 1) tile products (595 at nb = 34), one of a stripe that
@@ -71,9 +72,10 @@
 //
 // Small blocks (bs, bm in {8, 16, ...}): a TRSM item keeps its 32-column
 // tile, which may span several stripes; it solves from the first one's
-// start (stepped_trsm.cuh says why that is exact) and is clipped at m. A
-// SYRK item waits for every column tile its rows and columns touch, so a
-// tile narrower than 32 waits for the one it lies in.
+// start (stepped_trsm.cuh says why that is exact) and is clipped at m; at
+// bs <= 16 it runs the panel core (dense) or the k-split core (packed) of
+// stepped_trsm.cuh. A SYRK item waits for every column tile its rows and
+// columns touch, so a tile narrower than 32 waits for the one it lies in.
 //
 // f32: Y and F are f32 (sizeof(T) sizes the Y scratch the wrapper
 // allocates and every shared-memory stage); the sync words stay int32
@@ -98,12 +100,13 @@ using namespace stepped;
 
 constexpr int FUSED_TILE = 64;  // SYRK sub-tile edge: 4 warps of 32 x 32
 
-// the larger of the two halves' shared memory (the TRSM half's, 112 KB at
-// f64 and 56 KB at f32)
-template <class T>
+// the larger of the two halves' shared memory (the TRSM half's: the row
+// core's 112 KB at f64 and 68 KB at f32, the panel core's 101 KB and 93 KB,
+// the k-split core's 100 KB and 54 KB)
+template <class T, int KC, class Factor>
 constexpr size_t fused_smem_bytes() {
-  return trsm_smem_bytes<T>() > syrk_smem_bytes<T, FUSED_TILE>()
-             ? trsm_smem_bytes<T>()
+  return solve_smem_bytes<T, KC, Factor>() > syrk_smem_bytes<T, FUSED_TILE>()
+             ? solve_smem_bytes<T, KC, Factor>()
              : syrk_smem_bytes<T, FUSED_TILE>();
 }
 
@@ -152,8 +155,7 @@ stepped_trsm_syrk_kernel(Factor fac, const T* __restrict__ Linv,
       const int64_t s = item / col_tiles;
       const int col0 = (item % col_tiles) * TN;
       const int start = min(start_block[col0 / bm], nb);
-      solve_column_tile<T, KC>(fac, Linv, B, Y, s, col0, start, n, m, bs,
-                               smem);
+      solve_tile<T, KC>(fac, Linv, B, Y, s, col0, start, n, m, bs, smem);
       __threadfence();
       __syncthreads();
       if (threadIdx.x == 0) store_release(ready + item, 1);
@@ -212,7 +214,7 @@ int launch_kc(Factor fac, const void* Linv, const void* B,
               void* sync, void* Y, void* F, int S, int n, int m, int bs,
               int bm, void* stream) {
   auto kernel = stepped_trsm_syrk_kernel<T, KC, Factor>;
-  constexpr size_t smem = fused_smem_bytes<T>();
+  constexpr size_t smem = fused_smem_bytes<T, KC, Factor>();
   int resident = 0;
   cudaError_t err = resident_blocks(kernel, smem, &resident);
   if (err != cudaSuccess) return (int)err;
@@ -239,11 +241,18 @@ int launch(Factor fac, const void* Linv, const void* B,
   const int trsm_items = S * ((m + TN - 1) / TN);
   if (n_items != trsm_items + S * (nc * (nc + 1) / 2) * subs * subs)
     return (int)cudaErrorInvalidValue;
-  return bs % KC_MAX
-             ? launch_kc<T, 8>(fac, Linv, B, start_block, order, n_items,
-                               sync, Y, F, S, n, m, bs, bm, stream)
-             : launch_kc<T, KC_MAX>(fac, Linv, B, start_block, order, n_items,
-                                    sync, Y, F, S, n, m, bs, bm, stream);
+  const int kc = chunk_depth<T>(bs);
+  if (kc == SMALL)
+    return launch_kc<T, SMALL>(fac, Linv, B, start_block, order, n_items,
+                                  sync, Y, F, S, n, m, bs, bm, stream);
+  if (kc == ROW_KC<T>)
+    return launch_kc<T, ROW_KC<T>>(fac, Linv, B, start_block, order, n_items,
+                                   sync, Y, F, S, n, m, bs, bm, stream);
+  if (kc == 16)
+    return launch_kc<T, 16>(fac, Linv, B, start_block, order, n_items, sync,
+                            Y, F, S, n, m, bs, bm, stream);
+  return launch_kc<T, MIN_BS>(fac, Linv, B, start_block, order, n_items,
+                              sync, Y, F, S, n, m, bs, bm, stream);
 }
 
 }  // namespace

@@ -183,6 +183,27 @@ CUDA_CASES = [
 ]
 
 
+def test_build_sources_select_the_device_code(tmp_path, monkeypatch):
+    """``build.sources`` points the kernel build at another copy of csrc/: an
+    unchanged copy names the same library, an edited header another, and
+    the port's own sources are in use again after the block."""
+    import shutil
+
+    from repro_torch.kernels import build
+
+    monkeypatch.setattr(build, "_nvcc_version", lambda: b"nvcc")
+    own = build._library_path("stepped_trsm")
+    copy = tmp_path / "csrc"
+    shutil.copytree(build.CSRC, copy)
+    with build.sources(copy):
+        assert build._library_path("stepped_trsm") == own
+        header = copy / "tf32x3_f32.cuh"
+        header.write_text(header.read_text() + "// a variant\n")
+        assert build._library_path("stepped_trsm") != own
+        assert build._library_path("stepped_trsm", build.CSRC) == own
+    assert build._library_path("stepped_trsm") == own
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,m,bs,bm,S,empty", CUDA_CASES)
 def test_cuda_kernels_match_plain(n, m, bs, bm, S, empty):
@@ -317,3 +338,94 @@ def test_cuda_f32_kernels_match_plain(n, m, bs, bm, S, empty):
         assert (d(got) - d(want)).abs().max().item() <= F32_TOL * scale
     for i in range(m_pad // bm):
         assert torch.all(F[:, i * bm:(i + 1) * bm, (i + 1) * bm:] == 0)
+
+
+# n, m, bs, bm: the small-block core (bs 8, 16) and the row-split core's 8-
+# and 16-deep chunks (bs 24, 40, 128)
+F32_ACCURACY_CASES = [
+    (200, 90, 8, 8),
+    (250, 75, 16, 16),
+    (130, 44, 24, 8),
+    (300, 100, 40, 24),
+    (520, 258, 128, 128),
+]
+F64_GAP = 1e-5  # f32 kernel vs the f64 kernel on the same f32 operands
+
+
+def _low_bits(shape, rng):
+    """±(1 + k 2^-18), k in [1, 127]: f32 values whose low mantissa bits a
+    TF32 product (10-bit mantissa) rounds away and a 3xTF32 one keeps."""
+    k = rng.integers(1, 128, size=shape)
+    return rng.choice([-1.0, 1.0], size=shape) * (1.0 + k * 2.0 ** -18)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,m,bs,bm", F32_ACCURACY_CASES)
+def test_cuda_f32_trsm_keeps_f32_accuracy(n, m, bs, bm):
+    """The f32 TRSM core's 3xTF32 products keep f32 accuracy: the stepped
+    TRSM (B1), the packed one (B3) and both fused kernels (B4, B5) at f32
+    stay within 1e-5 of the f64 kernels on the same f32 operands, whose
+    factor and right-hand side entries are ±(1 + k 2^-18) times a power of
+    two. One TF32 product rounds each such entry to its power of two, about
+    1e-4 off: it fails here, as it would miss by far the f64 kernel."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.kernels import (
+        stepped_trsm_packed_kernel,
+        stepped_trsm_syrk_kernel,
+        stepped_trsm_syrk_packed_kernel,
+    )
+    from repro_torch.sparse import PackedBlockIndex, pack_factor
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(bs)
+    S, band = 2, 40
+    # diagonal 2 (1 + k 2^-18); half the band below it ±(1 + k 2^-18) / 8
+    L = np.zeros((S, n, n))
+    for i in range(n):
+        lo = max(0, i - band)
+        keep = rng.random((S, i - lo)) < 0.5
+        L[:, i, lo:i] = 0.125 * _low_bits((S, i - lo), rng) * keep
+        L[:, i, i] = 2.0 * np.abs(_low_bits((S,), rng))
+    Bt = _feti_like_bt(n, m, rng) * np.abs(_low_bits((n, m), rng))
+    meta = build_stepped_meta(Bt != 0, block_size=bs, rhs_block_size=bm)
+    Bp = np.broadcast_to(Bt[:, meta.perm], (S, n, m)).copy()
+    dev = torch.device("cuda")
+    n_pad, m_pad = -(-n // bs) * bs, -(-m // bm) * bm
+    L32 = torch.from_numpy(L).float().to(dev)
+    Lp = ops.pad_factor(L32, n_pad)
+    B = ops._pad_to(torch.from_numpy(Bp).float().to(dev), n_pad, m_pad)
+    starts = torch.as_tensor(ops._start_blocks(meta, bm, bs, m_pad, n_pad),
+                             device=dev)
+    Linv = ops.invert_diag_blocks(Lp, bs)
+    nb = n_pad // bs
+    mask = (Lp.reshape(S, nb, bs, nb, bs).abs().sum(dim=(0, 2, 4)) > 0
+            ).cpu().numpy()
+    packed = pack_factor(L32, PackedBlockIndex.from_mask(mask, n, bs))
+    pops = (Linv, packed.values, torch.as_tensor(packed.index.rowptr,
+                                                 device=dev),
+            torch.as_tensor(packed.index.cols, device=dev))
+    order = ops._fused_order(meta, S, dev)
+    packed_order = ops._fused_order(meta, S, dev, packed.index)
+
+    def d(ts):  # the same values at f64
+        return [t.double() if t.is_floating_point() else t for t in ts]
+
+    runs = {
+        "B1": lambda ts: stepped_trsm_kernel(*ts, B.to(ts[0].dtype), starts,
+                                             bs, bm),
+        "B3": lambda ts: stepped_trsm_packed_kernel(*ts, B.to(ts[0].dtype),
+                                                    starts, bs, bm),
+        "B4": lambda ts: stepped_trsm_syrk_kernel(
+            *ts, B.to(ts[0].dtype), starts, bs, bm, order=order),
+        "B5": lambda ts: stepped_trsm_syrk_packed_kernel(
+            *ts, B.to(ts[0].dtype), starts, bs, bm, order=packed_order),
+    }
+    operands = {"B1": (Linv, Lp), "B3": pops, "B4": (Linv, Lp), "B5": pops}
+    for name, run in runs.items():
+        got = run(list(operands[name]))
+        want = run(d(operands[name]))
+        torch.cuda.synchronize()
+        assert got.dtype == torch.float32 and torch.isfinite(got).all()
+        rel = ((got.double() - want).abs().max() / want.abs().max()).item()
+        assert rel <= F64_GAP, (name, rel)

@@ -13,9 +13,12 @@ Phases (each prints its seconds; any failure exits non-zero):
                 memory (marked cached when no build ran), and fail unless
                 the SASS of the stepped SYRK and of the fused kernels
                 (``cuobjdump -sass``) holds DMMA, the FP64 tensor-core
-                instruction, and every f32 instance of the TRSM core (the
-                stepped TRSM's and the fused kernels', dense and packed,
-                every chunk depth) holds TF32 HMMA, its 3xTF32 product.
+                instruction, and every f32 instance (the stepped TRSM's,
+                the stepped SYRK's and the fused kernels', dense and
+                packed, every chunk depth) holds TF32 HMMA, the 3xTF32
+                product of the TRSM core and the SYRK tile; print the f32
+                fused instances' registers and resident blocks a SM (the
+                persistent grid their launcher takes) at bs = 128 and 16.
   3. kernels  — on a real full-size feti-heat-2d factor (S=64, n=4225 ->
                 n_pad=4352, m=258 -> m_pad=384, bs=bm=128, f64) and its
                 packed form in the fill-mask layout, each of the five
@@ -34,7 +37,8 @@ Phases (each prints its seconds; any failure exits non-zero):
                 f32), each against its f32 plain version and against the
                 f64 kernel on the same f32 operands (<= 1e-4 relative;
                 <= 1e-6 for the TRSM kernels B1 and B3, F32_TRSM_TWIN_TOL,
-                at every f32 phase) and the f32 library call (<= 1e-3),
+                and the stepped SYRK B2 within F32_SYRK_TWIN_TOL, at every
+                f32 phase) and the f32 library call (<= 1e-3),
                 timed beside their bound at
                 4-byte words and the least time of their operations over
                 FFMA (67 TFLOP/s) and 3xTF32 (three TF32 products each at
@@ -45,8 +49,8 @@ Phases (each prints its seconds; any failure exits non-zero):
                 would not.
      small blocks — the same factor and right-hand side at bs = bm = 16
                 (SMALL_BS; the stepped metadata rebuilt at that size, the
-                factor packed in its nonzero 16 x 16 blocks): B1, B3, B4, B5
-                at f64 and at f32 against their plain versions (1e-11,
+                factor packed in its nonzero 16 x 16 blocks): all five
+                kernels at f64 and at f32 against their plain versions (1e-11,
                 1e-4), their twins and the library calls, with times
                 (ROADMAP C4). One checker serves all three phases.
   4. dirichlet — the same five checks and timings on the Dirichlet stage's
@@ -139,7 +143,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 ARCH = "feti-heat-2d"
 REL_TOL = 1e-11  # kernel vs plain version or twin, f64: sums in another order
 LIB_TOL = 1e-9  # kernel vs the library call: another algorithm (full TRSM)
-# f32 kernel (3xTF32 TRSM core, FFMA SYRK tile) vs its f32 plain version
+# f32 kernel (3xTF32 TRSM core and SYRK tile) vs its f32 plain version
 # (cuBLAS SGEMM, TF32 off) or the f64 kernel on the same f32 operands: f32
 # sums in another order
 F32_TOL = 1e-4
@@ -148,16 +152,26 @@ F32_LIB_TOL = 1e-3  # f32 kernel vs the f32 library call (a full TRSM)
 # the same f32 operands, tighter than F32_TOL: on the NVIDIA H100 the 3xTF32
 # core, each k8 step summed with round-to-nearest adds, reads <= 3.7e-7 at
 # every f32 phase, and the same products summed by the tensor cores'
-# truncating accumulation 1.1e-6 to 3.1e-6. The fused kernels run the same
-# core; their distance also carries the FFMA SYRK tile's (1.7e-6 alone at
-# the Dirichlet stage), so they are held to F32_TOL.
+# truncating accumulation 1.1e-6 to 3.1e-6.
 F32_TRSM_TWIN_TOL = 1e-6
 F32_TRSM = ("stepped_trsm", "stepped_trsm_packed")
+# the f32 stepped SYRK (B2: the SYRK tile alone) vs the f64 kernel on the
+# same f32 operands, per kernel phase (heat-2d, bs = 16, the Dirichlet
+# stage), tighter than F32_TOL: on the NVIDIA H100 (700 W) the 3xTF32 tile,
+# each k8 step summed with round-to-nearest adds, reads 1.813e-7 /
+# 2.142e-7 / 5.351e-7 here; the same products summed by the tensor cores'
+# truncating accumulation 2.37e-6 / 2.35e-6 / 7.90e-6 (the chain_acc
+# variant of tests/torch_trsm_variants.py, on the plain TRSM's Y), and the
+# FFMA tile before it (equal to the f32 plain version) 5.364e-7 / 4.447e-7
+# / 1.741e-6. The fused kernels carry both halves' distances and stay at
+# F32_TOL.
+F32_SYRK_TWIN_TOL = {"heat-2d dual": 4e-7, "heat-2d dual bs=16": 4e-7,
+                     "heat-3d dirichlet": 1.2e-6}
 # NVIDIA H100 SXM data sheet, dense: FP64 through the tensor cores (DMMA);
-# plain FP64 FMA peaks at half of it; FP32 outside the tensor cores (FFMA,
-# what the f32 SYRK tile runs on) at the same 67; TF32 on the tensor cores
-# at 494.7 (the sheet's 989.4 is with 2:4 sparsity), of which an f32-exact
-# 3xTF32 product (the f32 TRSM core's) takes three. All at the 700 W power
+# plain FP64 FMA peaks at half of it; FP32 outside the tensor cores (FFMA)
+# at the same 67; TF32 on the tensor cores at 494.7 (the sheet's 989.4 is
+# with 2:4 sparsity), of which an f32-exact 3xTF32 product (every f32
+# product of the port's kernels) takes three. All at the 700 W power
 # limit.
 PEAK_FP64_FLOPS = 67e12
 PEAK_FP32_FLOPS = 67e12
@@ -348,8 +362,8 @@ SMALL_INSTANCES = {
 }
 # the libraries whose SASS must run on the FP64 tensor cores
 DMMA_LIBS = ("stepped_syrk", "stepped_trsm_syrk")
-# the libraries whose f32 TRSM core must run 3xTF32 on the tensor cores
-TF32_LIBS = ("stepped_trsm", "stepped_trsm_syrk")
+# the libraries whose f32 products must run 3xTF32 on the tensor cores
+TF32_LIBS = ("stepped_trsm", "stepped_syrk", "stepped_trsm_syrk")
 SOURCES = {
     "stepped_trsm": ("src/repro_torch/kernels/csrc/stepped_trsm.cu",
                      "src/repro/kernels/stepped_trsm.py:66"),
@@ -600,16 +614,43 @@ def dmma_counts(build):
 
 def hmma_counts(build):
     """TF32 HMMA instructions (``HMMA.1688.F32.TF32``, the m16n8k8 TF32
-    product) in each f32 instance of the TRSM core, by library and mangled
-    kernel name, and the distinct HMMA forms found there."""
+    product) in each f32 kernel instance, by library and mangled kernel
+    name, and the distinct HMMA forms found there."""
     counts, forms = {}, set()
     for lib in TF32_LIBS:
         for name, code in sass_functions(build, lib).items():
-            if re.search(r"stepped_trsm(_syrk)?_kernelIf", name):
+            if re.search(r"stepped_(trsm|syrk|trsm_syrk)_kernelIf", name):
                 counts[f"{lib}:{name}"] = len(
                     re.findall(r"\bHMMA\.1688\.F32\.TF32\b", code))
                 forms.update(re.findall(r"\bHMMA\.\S+", code))
     return counts, sorted(forms)
+
+
+def fused_residency(build, ptxas, ptxas_small):
+    """{f32 fused instance and bs: registers (ptxas) and resident blocks a
+    SM (the persistent grid the launcher takes,
+    ``stepped_trsm_syrk_grid_f32``, over the card's SMs)} at bs = 128 and
+    bs = SMALL_BS."""
+    import ctypes
+
+    import torch
+
+    fn = build.load("stepped_trsm_syrk").stepped_trsm_syrk_grid_f32
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out = {}
+    for key, packed in (("stepped_trsm_syrk_f32", 0),
+                        ("stepped_trsm_syrk_packed_f32", 1)):
+        for bs, regs in ((128, ptxas), (SMALL_BS, ptxas_small)):
+            blocks = ctypes.c_int(0)
+            err = fn(bs, packed, ctypes.byref(blocks))
+            if err:
+                raise SystemExit(f"stepped_trsm_syrk_grid_f32 at bs {bs}: "
+                                 f"CUDA error {err}")
+            out[f"{key} bs={bs}"] = dict(registers=regs[key]["registers"],
+                                         blocks_per_sm=blocks.value / sms)
+    return out
 
 
 def op_routes(flops, f32):
@@ -799,7 +840,9 @@ def check_kernels(x, names, dtype, label, ptxas=None, plain_reps=REPS):
               f"twin={twin_err:.3e} rel vs library={lib_err:.3e}"
               + (f" (plain vs twin {plain_twin_err:.3e})" if f32 else "")
               + (f" upper tiles zero={zero_ok}" if is_F else ""), flush=True)
-        twin_tol = F32_TRSM_TWIN_TOL if f32 and name in F32_TRSM else tol
+        twin_tol = (F32_TRSM_TWIN_TOL if f32 and name in F32_TRSM
+                    else F32_SYRK_TWIN_TOL[label]
+                    if f32 and name == "stepped_syrk" else tol)
         if not (rel_err <= tol and twin_err <= twin_tol
                 and lib_err <= lib_tol and zero_ok
                 and bool(torch.isfinite(got).all())):
@@ -1183,15 +1226,19 @@ def main() -> int:
     if not all(dmma.values()):
         raise SystemExit(f"no DMMA in the SASS of {dmma}")
     hmma, forms = hmma_counts(build)
-    print(f"[chip_smoke] TF32 HMMA instructions in the SASS of the f32 TRSM "
-          f"core's instances: {hmma} (HMMA forms there: {forms})", flush=True)
-    for key in ("stepped_trsm_f32", "stepped_trsm_syrk_f32"):
+    print(f"[chip_smoke] TF32 HMMA instructions in the SASS of the f32 "
+          f"instances: {hmma} (HMMA forms there: {forms})", flush=True)
+    for key in ("stepped_trsm_f32", "stepped_syrk_f32",
+                "stepped_trsm_syrk_f32"):
         lib, tag = INSTANCES[key]
         if not any(tag in name for name in hmma
                    if name.startswith(lib + ":")):
             raise SystemExit(f"{key}: no f32 instance {tag} in the SASS")
     if not hmma or not all(hmma.values()):
-        raise SystemExit(f"an f32 TRSM instance issues no TF32 HMMA: {hmma}")
+        raise SystemExit(f"an f32 instance issues no TF32 HMMA: {hmma}")
+    for name, r in fused_residency(build, ptxas, ptxas_small).items():
+        print(f"[chip_smoke] f32 fused {name}: {r['registers']} registers, "
+              f"{r['blocks_per_sm']:g} resident blocks a SM", flush=True)
     done("build", t0)
 
     def free():
@@ -1222,11 +1269,12 @@ def main() -> int:
     del x
     free()
     label = f"heat-2d dual bs={SMALL_BS}"
-    small_names = ("stepped_trsm", "stepped_trsm_packed", "stepped_trsm_syrk",
-                   "stepped_trsm_syrk_packed")
-    small = check_kernels(x16, small_names, "f64", label, ptxas_small,
+    small_names = KERNEL_NAMES
+    # the stepped SYRK has one instance per dtype, for every bm
+    ptxas_bs16 = {**ptxas, **ptxas_small}
+    small = check_kernels(x16, small_names, "f64", label, ptxas_bs16,
                           plain_reps=2)
-    small += check_kernels(x16, small_names, "f32", label, ptxas_small,
+    small += check_kernels(x16, small_names, "f32", label, ptxas_bs16,
                            plain_reps=2)
     del x16
     free()

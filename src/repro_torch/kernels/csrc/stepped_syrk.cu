@@ -4,51 +4,52 @@
 // Replaces: repro/kernels/stepped_syrk.py::stepped_syrk_pallas (body
 // _syrk_kernel), the TPU kernel of paper §3.3: stepped_syrk_f64 at f64,
 // stepped_syrk_f32 at f32 and for bf16 storage, whose prep runs at f32
-// (the TPU kernel accumulates sub-f64 inputs in f32; so does this one, on
-// FFMA).
+// (the TPU kernel accumulates sub-f64 inputs in f32; so does this one,
+// 3xTF32 on the tensor cores with round-to-nearest f32 adds between k8
+// steps).
 //
 // What bounds it (f64): the useful work is
-// SteppedMeta.flops_syrk_output_split() per subdomain, times S (about 0.011 TFLOP on feti-heat-2d's 64
-// subdomains), 0.17 ms at the FP64 tensor cores' 67 TFLOP/s (NVIDIA H100
-// SXM data sheet; plain FP64 FMA peaks at half that). It must also read Y
-// below each stripe's start once (~0.5 GB at full size, ~0.16 ms at
-// 3.35 TB/s), so operations and bytes bound it about equally; the
-// caller's TRSM does over ten times its work. At 245 registers a thread
-// the 128 x 128 sub-tile runs one block (8 warps) a SM. Per 16-row chunk
-// its shared-memory traffic (32 KB copied in, 96 KB of fragments loaded)
-// and its 256 m16n8k8 products take about the same 1,000 SM clocks, and
-// the 384 blocks at full size are three uneven waves; it runs near 30% of
-// the bound (PERF.md).
+// SteppedMeta.flops_syrk_output_split() per subdomain, times S (about 0.011
+// TFLOP on feti-heat-2d's 64 subdomains), 0.17 ms at the FP64 tensor
+// cores' 67 TFLOP/s (NVIDIA H100 SXM data sheet, 700 W; plain FP64 FMA
+// peaks at half that). It must also read Y below each stripe's start once
+// (~0.5 GB at full size, ~0.16 ms at 3.35 TB/s), so operations and bytes
+// bound it about equally; the caller's TRSM does over ten times its work.
+// f32: the operations at 3xTF32's rate (three TF32 tensor-core products at
+// 494.7 TFLOP/s each) or half the f64 bytes.
 //
 // What the design does about it (the device code is stepped_syrk.cuh):
-//   * Only the lower tiles (i, j <= i) of the bm x bm tile grid are
-//     launched; the upper tiles are never touched and keep the zeros the
-//     wrapper allocated, which the mirror step relies on.
-//   * Tile (i, j) reduces over factor rows from stripe i's start block
-//     only (paper's k-dimension reduction): pivots are sorted, so stripe
-//     i's columns of Y are zero above it.
-//   * Each block computes one 128 x 128 sub-tile of one tile (clipped to
-//     the tile when bm is smaller) on the FP64 tensor cores (mma.sync
-//     m16n8k8, 8 warps of 64 x 32), streaming 16-row chunks of the two Y
-//     column panels through a 3-stage cp.async ring. A warp loads 8 + 4
-//     fragments for every 16 products, so shared memory keeps up with the
-//     tensor cores; the price is registers (one block a SM).
-//   * Blocks are numbered tile-major, so the tiles of the first stripes,
-//     which reduce over the most rows, start first (start blocks are
-//     non-decreasing); the sub-tiles of one tile are neighbours and share
-//     their panels in L2.
-//   * f32: the same schedule with the products on FFMA (ffma_f32.cuh).
-//     The least time of its work is the f32 operations at 3xTF32's rate
-//     (three TF32 tensor-core products at 494.7 TFLOP/s each, what the
-//     f32 TRSM core runs) or half the f64 bytes; a 3xTF32 SYRK tile is
-//     queued (ROADMAP).
+//   * A block computes one 128 x 128 region of F on 8 warps of 64 x 32
+//     (mma.sync m16n8k8: DMMA at f64, 3xTF32 HMMA at f32), streaming
+//     16-row chunks (32 at f32) of the two Y column panels through a
+//     3-stage cp.async ring. A warp loads 8 + 4 fragments for every 16 products, so shared
+//     memory keeps up with the tensor cores; the price is registers (one
+//     block a SM).
+//   * Regions follow groups of stripes, not single bm x bm tiles: a group
+//     is G = 128 / bm stripes when bm < 128 (the largest whole number of
+//     stripes in 128 columns), else one stripe cut into 128 x 128
+//     sub-tiles. Only lower groups (group row >= group column) are
+//     launched, the last one clipped at m. One block a bm x bm tile would
+//     keep (bm / 128)^2 of its products: at feti-heat-2d's bm = 16
+//     (m = 272, S = 64) 9,792 blocks each keeping 1/64 of its work, where
+//     384 blocks cover the same groups.
+//   * Paper's k-dimension reduction: a region reduces from its first row
+//     stripe's start, the smallest of its stripes' (starts are
+//     non-decreasing). Staged elements above their own column's stripe
+//     start are zero-filled, so each entry sums exactly the TPU kernel's
+//     terms (k >= the start of its row's stripe) for any Y, and a warp
+//     whose rows' stripes all start past a chunk skips that chunk's
+//     products. Entries of a stripe pair (i, j > i) inside a diagonal
+//     group are never stored and keep the zeros the wrapper allocated,
+//     which the mirror step relies on.
+//   * Blocks are numbered group-major, so the groups of the first stripes,
+//     which reduce over the most rows, start first; the sub-tiles of one
+//     group are neighbours and share their panels in L2.
 //
-// Layout: row-major, Y (S, n, m), F (S, m, m), start_block (m / bm,) int32,
-// every array 16-byte aligned (the wrapper checks). n is padded to a bs
-// multiple (any bs: the last 16-row chunk is clipped to n), m to a bm
-// multiple, bm a multiple of 8 (a tile narrower than the 128 x 128
-// sub-tile is computed whole and clipped at its store: simple, and only
-// the smoke configurations' bm = 8 pays for it).
+// Layout: row-major, Y (S, n, m), F (S, m, m), start_block (m / bm,) int32
+// non-decreasing (as the stepped metadata makes it), every array 16-byte
+// aligned (the wrapper checks). n is padded to a bs multiple (any bs: the
+// last chunk is clipped to n), m to a bm multiple, bm a multiple of 8.
 
 #include "stepped_syrk.cuh"
 
@@ -56,9 +57,14 @@ namespace {
 
 using namespace stepped;
 
-// 128 x 128 sub-tiles on 8 warps of 64 x 32 measured faster than 64 x 64
-// sub-tiles on 8 warps of 32 x 16 (PERF.md)
+// 128 x 128 regions on 8 warps of 64 x 32 measured faster than 64 x 64
+// regions on 8 warps of 32 x 16 (PERF.md)
 constexpr int SUB = 128, WARP_M = 64, WARP_N = 32;
+
+// stripes per group (a group is group_stripes(bm) * bm columns wide)
+__host__ __device__ __forceinline__ int group_stripes(int bm) {
+  return bm < SUB ? SUB / bm : 1;
+}
 
 template <class T>
 __global__ void __launch_bounds__(SYRK_THREADS)
@@ -66,19 +72,21 @@ stepped_syrk_kernel(const T* __restrict__ Y,
                     const int* __restrict__ start_block, T* __restrict__ F,
                     int S, int n, int m, int bs, int bm) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int subs = (bm + SUB - 1) / SUB, per_tile = subs * subs;
-  const int64_t per_row = (int64_t)S * per_tile;
-  int ti, tj;
-  lower_tile((int)(blockIdx.x / per_row), ti, tj);
+  const int width = group_stripes(bm) * bm;
+  const int subs = (width + SUB - 1) / SUB, per_group = subs * subs;
+  const int64_t per_row = (int64_t)S * per_group;
+  int gi, gj;
+  lower_tile((int)(blockIdx.x / per_row), gi, gj);
   const int rem = (int)(blockIdx.x % per_row);
-  const int64_t s = rem / per_tile;
-  const int sub = rem % per_tile;
-  const int r0 = ti * bm + (sub / subs) * SUB;  // F rows = Y columns
-  const int c0 = tj * bm + (sub % subs) * SUB;  // F columns
+  const int64_t s = rem / per_group;
+  const int sub = rem % per_group;
+  const int r0 = gi * width + (sub / subs) * SUB;  // F rows = Y columns
+  const int c0 = gj * width + (sub % subs) * SUB;  // F columns
   syrk_tile<T, LoadInput, SUB, WARP_M, WARP_N>(
       Y + s * (int64_t)n * m, F + s * (int64_t)m * m, n, m,
-      min(start_block[ti], n / bs) * bs, r0, c0, (ti + 1) * bm,
-      (tj + 1) * bm, reinterpret_cast<T*>(smem_raw));
+      Stripes{start_block, bs, bm, n / bs}, r0, c0,
+      min((gi + 1) * width, m), min((gj + 1) * width, m),
+      reinterpret_cast<T*>(smem_raw));
 }
 
 template <class T>
@@ -89,8 +97,10 @@ int launch(const void* Y, const void* start_block, void* F, int S, int n,
   constexpr size_t smem = syrk_smem_bytes<T, SUB>();
   cudaError_t err = dmma::set_smem(stepped_syrk_kernel<T>, smem);
   if (err != cudaSuccess) return (int)err;
-  const int nc = m / bm, subs = (bm + SUB - 1) / SUB;
-  const int64_t blocks = (int64_t)nc * (nc + 1) / 2 * subs * subs * S;
+  const int g = group_stripes(bm), width = g * bm;
+  const int groups = (m / bm + g - 1) / g, subs = (width + SUB - 1) / SUB;
+  const int64_t blocks =
+      (int64_t)groups * (groups + 1) / 2 * subs * subs * S;
   stepped_syrk_kernel<T><<<(unsigned)blocks, SYRK_THREADS, smem,
                            (cudaStream_t)stream>>>(
       (const T*)Y, (const int*)start_block, (T*)F, S, n, m, bs, bm);

@@ -300,7 +300,7 @@ __device__ __forceinline__ void solve_column_tile(
         [&](int, int stage) {
           const T* As = ring + stage * STAGE;
           if (active)
-            tile::trsm_mma<MI, TN / 8, KC, A_LD, 1, B_LD, true>(
+            tile::mma<MI, TN / 8, KC, A_LD, 1, B_LD, true>(
                 acc, As + wr0 * A_LD, As + A_STAGE);
         });
 
@@ -322,7 +322,7 @@ __device__ __forceinline__ void solve_column_tile(
         },
         [&](int c, int stage) {
           if (active)
-            tile::trsm_mma<MI, TN / 8, KC, A_LD, 1, C_LD, false>(
+            tile::mma<MI, TN / 8, KC, A_LD, 1, C_LD, false>(
                 out, ring + stage * STAGE + wr0 * A_LD, Cs + c * KC * C_LD);
         });
 #pragma unroll
@@ -436,7 +436,7 @@ __device__ __forceinline__ void solve_column_tile_ksplit(
           for (int i = 0; i < KSPLIT_KC / 8 / WARPS; ++i) {
             const int kk = warp + WARPS * i;  // warp-uniform
             if (kk < steps)
-              tile::trsm_mma<2, NJ, 8, S_A_LD, 1, LD, true>(
+              tile::mma<2, NJ, 8, S_A_LD, 1, LD, true>(
                   acc, As + 8 * kk, As + A_ST + 8 * kk * LD);
           }
         });
@@ -461,7 +461,7 @@ __device__ __forceinline__ void solve_column_tile_ksplit(
         const T* x = part + (8 * kk + t + 4 * q) * LD + cw + g;
         b[q] = ((x[0] + x[PART]) + x[2 * PART]) + x[3 * PART];
       }
-      tile::trsm_frag_mma(out[0], out[1], a, b);
+      tile::frag_mma(out[0], out[1], a, b);
     }
     if (cw < width) {
 #pragma unroll
@@ -566,8 +566,8 @@ __device__ __forceinline__ void solve_column_tile_panel(
         [&](int, int stage) {
           const T* As = ring + stage * ST;
           if (wr0 < rows)  // warp-uniform
-            tile::trsm_mma<2, NJ, KC, ALD, 1, LD, true>(acc, As + wr0 * ALD,
-                                                        As + A_ST);
+            tile::mma<2, NJ, KC, ALD, 1, LD, true>(acc, As + wr0 * ALD,
+                                                   As + A_ST);
         });
 
     // the sums into Cs; the diagonal panel and its Linv blocks into the ring
@@ -608,8 +608,8 @@ __device__ __forceinline__ void solve_column_tile_panel(
       }
       // x -= L[b, :b] Y[:b], Y[:b] already in Cs
       for (int kk = 0; kk < rb; kk += 8)
-        tile::trsm_mma<2, 1, 8, D_LD, 1, LD, true>(x, Ds + rb * D_LD + kk,
-                                                   Cs + kk * LD + cw);
+        tile::mma<2, 1, 8, D_LD, 1, LD, true>(x, Ds + rb * D_LD + kk,
+                                              Cs + kk * LD + cw);
 #pragma unroll
       for (int i = 0; i < 2; ++i)
         if (8 * i < bs)
@@ -626,7 +626,7 @@ __device__ __forceinline__ void solve_column_tile_panel(
 #pragma unroll
         for (int q = 0; q < 2; ++q)
           b[q] = Cs[(rb + kk + t + 4 * q) * LD + cw + g];
-        tile::trsm_frag_mma(out[0], out[1], a, b);
+        tile::frag_mma(out[0], out[1], a, b);
       }
       __syncwarp();
 #pragma unroll

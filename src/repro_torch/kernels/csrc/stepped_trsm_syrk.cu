@@ -17,11 +17,11 @@
 // What bounds them: the operations of the TRSM half (see stepped_trsm.cu),
 // about ten times those of the SYRK half; the bytes that must move are the
 // factor, Linv, B and F (Y need not leave the chip). At f64 both halves run
-// on the FP64 tensor cores (stepped_trsm.cuh, stepped_syrk.cuh). At f32 the
-// TRSM half runs 3xTF32 on the TF32 tensor cores (tf32x3_f32.cuh) and the
-// SYRK half FFMA (ffma_f32.cuh), both accumulating in f32, the same device
-// code templated on the scalar type T; the f32 bound is the operations at
-// 3xTF32's rate (three TF32 products at 494.7 TFLOP/s each) or the bytes.
+// on the FP64 tensor cores (stepped_trsm.cuh, stepped_syrk.cuh). At f32
+// both halves run 3xTF32 on the TF32 tensor cores (tf32x3_f32.cuh),
+// accumulating in f32, the same device code templated on the scalar type T;
+// the f32 bound is the operations at 3xTF32's rate (three TF32 products at
+// 494.7 TFLOP/s each) or the bytes.
 // Beyond the arithmetic, what decides the time is balance: one TRSM item
 // (a 32-column tile) of the stripe that starts at block 0 costs
 // sum_{k<nb} (k + 1) tile products (595 at nb = 34), one of a stripe that
@@ -89,7 +89,10 @@
 // sub-tiles + sub-tile. The launcher takes only the whole list: an n_items
 // other than its own count of every item (a list built for another
 // FUSED_TILE, say) is refused with cudaErrorInvalidValue, as are bs and bm
-// the TRSM core does not take.
+// the TRSM core does not take. stepped_trsm_syrk_grid_{f64,f32}(bs, packed,
+// &blocks) reports the persistent grid a launch at bs takes on this card.
+
+#include <type_traits>
 
 #include "stepped_syrk.cuh"
 #include "stepped_trsm.cuh"
@@ -186,7 +189,7 @@ stepped_trsm_syrk_kernel(Factor fac, const T* __restrict__ Linv,
     __syncthreads();
     syrk_tile<T, LoadFromL2, FUSED_TILE, 32, 32, THREADS>(
         Y + s * (int64_t)n * m, F + s * (int64_t)m * m, n, m,
-        min(start_block[ti], nb) * bs, r0, c0, row_end, col_end, smem);
+        Stripes{start_block, bs, bm, nb}, r0, c0, row_end, col_end, smem);
   }
 }
 
@@ -229,6 +232,17 @@ int launch_kc(Factor fac, const void* Linv, const void* B,
   return (int)cudaGetLastError();
 }
 
+// f(std::integral_constant<int, KC>()) at the TRSM core's chunk depth for
+// bs (chunk_depth<T>)
+template <class T, class F>
+int with_chunk_depth(int bs, F&& f) {
+  const int kc = chunk_depth<T>(bs);
+  if (kc == SMALL) return f(std::integral_constant<int, SMALL>());
+  if (kc == ROW_KC<T>) return f(std::integral_constant<int, ROW_KC<T>>());
+  if (kc == 16) return f(std::integral_constant<int, 16>());
+  return f(std::integral_constant<int, MIN_BS>());
+}
+
 template <class T, class Factor>
 int launch(Factor fac, const void* Linv, const void* B,
            const void* start_block, const void* order, int n_items,
@@ -241,18 +255,23 @@ int launch(Factor fac, const void* Linv, const void* B,
   const int trsm_items = S * ((m + TN - 1) / TN);
   if (n_items != trsm_items + S * (nc * (nc + 1) / 2) * subs * subs)
     return (int)cudaErrorInvalidValue;
-  const int kc = chunk_depth<T>(bs);
-  if (kc == SMALL)
-    return launch_kc<T, SMALL>(fac, Linv, B, start_block, order, n_items,
-                                  sync, Y, F, S, n, m, bs, bm, stream);
-  if (kc == ROW_KC<T>)
-    return launch_kc<T, ROW_KC<T>>(fac, Linv, B, start_block, order, n_items,
-                                   sync, Y, F, S, n, m, bs, bm, stream);
-  if (kc == 16)
-    return launch_kc<T, 16>(fac, Linv, B, start_block, order, n_items, sync,
-                            Y, F, S, n, m, bs, bm, stream);
-  return launch_kc<T, MIN_BS>(fac, Linv, B, start_block, order, n_items,
-                              sync, Y, F, S, n, m, bs, bm, stream);
+  return with_chunk_depth<T>(bs, [&](auto kc) {
+    return launch_kc<T, decltype(kc)::value>(fac, Linv, B, start_block, order,
+                                             n_items, sync, Y, F, S, n, m, bs,
+                                             bm, stream);
+  });
+}
+
+// the persistent grid launch() takes at bs on this card
+template <class T, class Factor>
+int grid_blocks(int bs, int* blocks) {
+  if (bs % MIN_BS || bs > MAX_BS || bs < MIN_BS)
+    return (int)cudaErrorInvalidValue;
+  return with_chunk_depth<T>(bs, [&](auto kc) {
+    constexpr int KC = decltype(kc)::value;
+    return (int)resident_blocks(stepped_trsm_syrk_kernel<T, KC, Factor>,
+                                fused_smem_bytes<T, KC, Factor>(), blocks);
+  });
 }
 
 }  // namespace
@@ -275,6 +294,11 @@ int launch(Factor fac, const void* Linv, const void* B,
                                      (const int*)colidx, n_blocks},          \
                      Linv, B, start_block, order, n_items, sync, Y, F, S, n, \
                      m, bs, bm, stream);                                     \
+  }                                                                          \
+  extern "C" int stepped_trsm_syrk_grid_##SUFFIX(int bs, int packed,         \
+                                                 int* blocks) {              \
+    return packed ? grid_blocks<T, PackedFactor<T>>(bs, blocks)              \
+                  : grid_blocks<T, DenseFactor<T>>(bs, blocks);              \
   }
 
 STEPPED_TRSM_SYRK_ENTRY(double, f64)

@@ -1,5 +1,6 @@
-// 3xTF32 building block of the f32 TRSM core (stepped_trsm.cuh), and the
-// product that core calls for either scalar type. Sm_90a.
+// 3xTF32 building block of every f32 product of the port, the TRSM core's
+// (stepped_trsm.cuh) and the SYRK tile's (stepped_syrk.cuh), and the
+// products both call for either scalar type. Sm_90a.
 //
 // The TF32 tensor cores (495 TFLOP/s dense on an H100 SXM, against 67 for
 // FFMA) multiply operands with a 10-bit mantissa: one TF32 product lands
@@ -20,10 +21,11 @@
 // m16n8k8 of dmma_f64.cuh does (lane 4g + t: A[g][t], A[g + 8][t],
 // A[g][t + 4], A[g + 8][t + 4]; B[t][g], B[t + 4][g]; C[g][2t, 2t + 1],
 // C[g + 8][2t, 2t + 1]), so one staging and one accumulator layout serve
-// both types. For 4-byte words a fragment load is conflict-free when an A
-// operand's leading dimension is 4 (mod 8) words (bank 4g + t, 12g + t, ...)
-// and a B operand's 8 (mod 32) (bank 8t + g); stepped_trsm.cuh sizes its
-// f32 buffers so.
+// both types. For 4-byte words a fragment load is conflict-free when a
+// row-major A operand's leading dimension is 4 (mod 8) words (bank 4g + t,
+// 12g + t, ...) and a B operand's, or a k-major A operand's (the SYRK
+// tile's), 8 (mod 32) (bank 8t + g); stepped_trsm.cuh and stepped_syrk.cuh
+// size their f32 buffers so.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -152,33 +154,32 @@ __device__ __forceinline__ void warp_mma(float (&acc)[MI][NJ][2],
 
 }  // namespace tf32x3
 
-// The TRSM core's products for its scalar type T (double: the FP64 tensor
-// cores; float: 3xTF32). The SYRK tile's are tile::mma (ffma_f32.cuh).
+// The products of the TRSM core and the SYRK tile for their scalar type T
+// (double: the FP64 tensor cores; float: 3xTF32).
 namespace tile {
 
 template <int MI, int NJ, int KD, int A_RS, int A_KS, int LDB, bool NEG>
-__device__ __forceinline__ void trsm_mma(double (&acc)[MI][NJ][2],
-                                         const double* A, const double* B) {
+__device__ __forceinline__ void mma(double (&acc)[MI][NJ][2],
+                                    const double* A, const double* B) {
   dmma::warp_mma<MI, NJ, KD, A_RS, A_KS, LDB, NEG>(acc, A, B);
 }
 
 template <int MI, int NJ, int KD, int A_RS, int A_KS, int LDB, bool NEG>
-__device__ __forceinline__ void trsm_mma(float (&acc)[MI][NJ][2],
-                                         const float* A, const float* B) {
+__device__ __forceinline__ void mma(float (&acc)[MI][NJ][2], const float* A,
+                                    const float* B) {
   tf32x3::warp_mma<MI, NJ, KD, A_RS, A_KS, LDB, NEG>(acc, A, B);
 }
 
 // one m16n8k8 step on register fragments (dmma_f64.cuh's layout)
-__device__ __forceinline__ void trsm_frag_mma(double (&d0)[2],
-                                              double (&d1)[2],
-                                              const double (&a)[4],
-                                              const double (&b)[2]) {
+__device__ __forceinline__ void frag_mma(double (&d0)[2], double (&d1)[2],
+                                         const double (&a)[4],
+                                         const double (&b)[2]) {
   dmma::mma_16x8x8(d0, d1, a, b);
 }
 
-__device__ __forceinline__ void trsm_frag_mma(float (&d0)[2], float (&d1)[2],
-                                              const float (&a)[4],
-                                              const float (&b)[2]) {
+__device__ __forceinline__ void frag_mma(float (&d0)[2], float (&d1)[2],
+                                         const float (&a)[4],
+                                         const float (&b)[2]) {
   tf32x3::mma3_16x8x8(d0, d1, a, b);
 }
 

@@ -1,10 +1,15 @@
 """Stepped SYRK: the hand-written CUDA kernel and its plain version.
 
 Computes the lower block triangle of ``F = Yᵀ Y`` over ``bm × bm`` tiles,
-batched over subdomains (paper §3.3). The CUDA kernel
+batched over subdomains (paper §3.3): tile (i, j ≤ i) sums the Y rows from
+stripe i's start block on, for any Y. The CUDA kernel
 (``csrc/stepped_syrk.cu``) replaces the TPU kernel
-``repro/kernels/stepped_syrk.py::stepped_syrk_pallas``, at float64 and at
-float32 (accumulating in f32, as the TPU kernel does).
+``repro/kernels/stepped_syrk.py::stepped_syrk_pallas``, at float64 (FP64
+tensor cores) and at float32 (3xTF32 on the TF32 tensor cores,
+accumulating in f32, as the TPU kernel does). A block covers a 128 × 128
+group of tiles when bm < 128 and masks each Y column at its own stripe's
+start, which gives each tile exactly its own terms because the start
+blocks are non-decreasing, as the stepped metadata makes them.
 
 :func:`stepped_syrk_kernel` launches the kernel for CUDA tensors (or
 raises) and runs :func:`stepped_syrk_plain` for CPU tensors. Upper tiles
@@ -49,7 +54,8 @@ def stepped_syrk_kernel(Y: torch.Tensor, start_block: torch.Tensor, bs: int,
 
     Args:
       Y: (S, n, m) stepped TRSM solutions, n a multiple of bs, m of bm.
-      start_block: (m // bm,) int first contributing row block per stripe.
+      start_block: (m // bm,) int first contributing row block per stripe,
+        non-decreasing (the CUDA kernel relies on it).
 
     Y is float64 or float32. CUDA tensors launch the kernel of its dtype
     (bm a multiple of 8, Y 16-byte aligned); CPU tensors run the plain

@@ -18,8 +18,9 @@ Each wrapper launches its kernel for CUDA tensors (or raises) and runs its
 plain version — the stepped TRSM's then the stepped SYRK's schedule — for
 CPU tensors. Upper tiles come out as exact zeros either way, as
 ``ops._mirror_lower`` needs. The kernels are built at float64 and at
-float32 (products on FFMA, accumulating in f32, as the TPU kernel
-accumulates sub-f64 inputs; bf16 storage runs its prep at f32): a wrapper
+float32 (products 3xTF32 on the TF32 tensor cores, accumulating in f32,
+as the TPU kernel accumulates sub-f64 inputs; bf16 storage runs its prep
+at f32): a wrapper
 launches the kernel of its operands' dtype and counts launches per dtype.
 """
 from __future__ import annotations

@@ -26,6 +26,7 @@ from repro_torch.kernels import (  # noqa: E402
 pytestmark = pytest.mark.torch_port
 
 TOL = 1e-12
+F32_TOL = 1e-4  # f32 kernel vs its f32 plain version: sums in another order
 
 
 def _lower_banded(n, bw, rng):
@@ -109,6 +110,74 @@ def test_plain_syrk_matches_reference(n, m, bs, bm, S, empty):
         want = ref_ops.stepped_syrk(jnp.asarray(Y[s]), rmeta, interpret=True)
         _close(got[s].numpy(), np.asarray(want))
         np.testing.assert_array_equal(got[s].numpy(), got[s].numpy().T)
+
+
+GROUP = 128  # F columns a block of the CUDA stepped SYRK covers
+
+
+def _syrk_by_groups(Y, starts, bs, bm):
+    """The CUDA stepped SYRK's schedule in numpy: F in groups of
+    ``GROUP // bm`` stripes (one when bm >= GROUP), group (gi, gj <= gi)
+    reducing from its first row stripe's start; the row panel is masked at
+    each column's own stripe start, the column panel only in a diagonal
+    group (it is the row panel there); only entries of stripe pairs
+    (i, j <= i) are kept."""
+    S, n, m = Y.shape
+    col_start = np.repeat(np.minimum(starts, n // bs) * bs, bm)
+    masked = Y * (np.arange(n)[:, None] >= col_start[None, :])
+    width = max(1, GROUP // bm) * bm
+    F = np.zeros((S, m, m))
+    for r0 in range(0, m, width):
+        rows = slice(r0, min(r0 + width, m))
+        k0 = col_start[r0]
+        for c0 in range(0, r0 + 1, width):
+            cols = slice(c0, min(c0 + width, m))
+            right = masked if c0 == r0 else Y
+            F[:, rows, cols] = (masked[:, k0:, rows].transpose(0, 2, 1)
+                                @ right[:, k0:, cols])
+    stripe = np.arange(m) // bm
+    return F * (stripe[:, None] >= stripe[None, :])
+
+
+@pytest.mark.parametrize("noise", [False, True],
+                         ids=["stepped-Y", "nonzero-above-starts"])
+@pytest.mark.parametrize("bs", [8, 16])
+def test_syrk_groups_match_reference(bs, noise):
+    """The CUDA stepped SYRK's design premise against the TPU kernel: a
+    block that covers a group of stripes, reduces from its first row
+    stripe's start and masks every Y column at its own stripe's start
+    computes what ``stepped_syrk_pallas`` computes tile by tile, for the
+    reference's stepped Y and for a Y with nonzeros above every start,
+    and leaves every upper tile zero."""
+    jnp, ref_meta, ref_ops = _reference_ops()
+    from repro.kernels.stepped_syrk import stepped_syrk_pallas
+
+    bm, n, m, S = bs, 96, 150, 2  # 19 or 10 stripes: two groups
+    Ls, Bp, _ = _case(n, m, bs, bm, S, empty=bm + 3, seed=bs + noise)
+    rmeta = ref_meta(Bp[0] != 0, block_size=bs, rhs_block_size=bm,
+                     presorted=True)
+    n_pad, m_pad = -(-n // bs) * bs, -(-m // bm) * bm
+    starts = np.asarray(ref_ops._start_blocks(rmeta, bm, bs, m_pad, n_pad))
+    assert m_pad > GROUP // bm * bm and np.all(np.diff(starts) >= 0)
+    assert starts[-1] == n_pad // bs and len(set(starts.tolist())) > 3
+    Y = np.zeros((S, n_pad, m_pad))
+    for s in range(S):
+        Y[s, :n, :m] = np.asarray(ref_ops.stepped_trsm(
+            jnp.asarray(Ls[s]), jnp.asarray(Bp[s]), rmeta, interpret=True))
+    if noise:
+        rng = np.random.default_rng(bs)
+        above = np.arange(n_pad)[:, None] < np.repeat(starts * bs, bm)[None]
+        Y += rng.standard_normal(Y.shape) * above
+    got = _syrk_by_groups(Y, starts, bs, bm)
+    for s in range(S):
+        want = np.asarray(stepped_syrk_pallas(
+            jnp.asarray(Y[s]), jnp.asarray(starts, dtype=jnp.int32), bs=bs,
+            bm=bm, interpret=True))
+        _close(got[s], want)
+    _close(got, stepped_syrk_plain(torch.from_numpy(Y),
+                                   torch.from_numpy(starts), bs, bm).numpy())
+    for i in range(m_pad // bm):
+        assert np.all(got[:, i * bm:(i + 1) * bm, (i + 1) * bm:] == 0)
 
 
 def test_start_blocks_and_empty_stripe():
@@ -255,6 +324,41 @@ def test_cuda_syrk_any_block_size(bs):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+@pytest.mark.parametrize("bm", [8, 16, 24, 40, 128])
+def test_cuda_syrk_groups_match_plain(bm, dtype):
+    """The stepped SYRK's blocks cover groups of 128 // bm stripes (bm <
+    128) and mask every Y column at its own stripe's start: on a Y that is
+    nonzero above every start (the masks must drop those terms), with
+    several groups, the last clipped at m, and an empty last stripe, it
+    matches its plain version (1e-11 at f64, 1e-4 at f32), and every upper
+    tile, those inside a diagonal group too, is exactly zero."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(bm)
+    S, bs, nb = 3, 16, 12
+    nc = -(-300 // bm)
+    n, m = nb * bs, nc * bm
+    starts = np.sort(rng.integers(0, nb, size=nc))
+    starts[-1] = nb
+    dev = torch.device("cuda")
+    Y = torch.from_numpy(rng.standard_normal((S, n, m))).to(dev, dtype)
+    st = torch.as_tensor(starts, dtype=torch.int32, device=dev)
+    key = "f64" if dtype == torch.float64 else "f32"
+    before = stepped_syrk_kernel.launches_by_dtype[key]
+    got = stepped_syrk_kernel(Y, st, bs, bm)
+    torch.cuda.synchronize()
+    assert stepped_syrk_kernel.launches_by_dtype[key] == before + 1
+    want = stepped_syrk_plain(Y, st, bs, bm)
+    tol = 1e-11 if dtype == torch.float64 else F32_TOL
+    assert (got - want).abs().max().item() <= tol * want.abs().max().item()
+    for i in range(nc):
+        assert torch.all(got[:, i * bm:(i + 1) * bm, (i + 1) * bm:] == 0)
+
+
+@pytest.mark.cuda
 def test_cuda_wrappers_refuse_misaligned_operands():
     """The kernels move operands in 16-byte copies: a contiguous view that
     starts 8 bytes into its storage is refused before any launch."""
@@ -274,10 +378,6 @@ def test_cuda_wrappers_refuse_misaligned_operands():
     with pytest.raises(ValueError, match="16-byte aligned"):
         stepped_trsm_kernel(Linv, L, Y, starts, bs, bm)
     assert stepped_syrk_kernel.launches == before
-
-
-
-F32_TOL = 1e-4  # f32 kernel vs its f32 plain version: sums in another order
 
 
 @pytest.mark.cuda
@@ -429,3 +529,35 @@ def test_cuda_f32_trsm_keeps_f32_accuracy(n, m, bs, bm):
         assert got.dtype == torch.float32 and torch.isfinite(got).all()
         rel = ((got.double() - want).abs().max() / want.abs().max()).item()
         assert rel <= F64_GAP, (name, rel)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bm", [16, 128])
+def test_cuda_f32_syrk_keeps_f32_accuracy(bm):
+    """The f32 stepped SYRK's 3xTF32 products keep f32 accuracy: within
+    1e-5 of the f64 kernel on the same f32 operands ±(1 + k 2^-18), over a
+    reduction 2,048 rows deep. One TF32 product rounds each operand to ±1:
+    the same product on operands so rounded lands more than 1e-5 off, as
+    checked here on the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(bm + 1)
+    S, bs, nb = 2, 16, 128
+    nc = -(-300 // bm)
+    starts = np.sort(rng.integers(0, nb // 2, size=nc))
+    dev = torch.device("cuda")
+    Y = torch.from_numpy(_low_bits((S, nb * bs, nc * bm), rng)).float().to(dev)
+    st = torch.as_tensor(starts, dtype=torch.int32, device=dev)
+    got = stepped_syrk_kernel(Y, st, bs, bm)
+    want = stepped_syrk_kernel(Y.double(), st, bs, bm)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and torch.isfinite(got).all()
+
+    def rel(a):
+        return ((a.double() - want).abs().max() / want.abs().max()).item()
+
+    assert rel(got) <= F64_GAP, rel(got)
+    # TF32 keeps 10 of f32's 23 mantissa bits: round the other 13 away
+    tf32 = ((Y.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+    assert rel(stepped_syrk_plain(tf32.double(), st, bs, bm)) > F64_GAP

@@ -40,7 +40,7 @@ def test_port_imports_neither_jax_nor_reference():
     assert not bad, bad
     # the kernels are real sources, shipped beside the package
     assert sorted(p.name for p in (PORT / "kernels" / "csrc").glob("*.cu*")) == [
-        "dmma_f64.cuh", "ffma_f32.cuh", "stepped_syrk.cu", "stepped_syrk.cuh",
+        "dmma_f64.cuh", "stepped_syrk.cu", "stepped_syrk.cuh",
         "stepped_trsm.cu", "stepped_trsm.cuh", "stepped_trsm_syrk.cu",
         "tf32x3_f32.cuh"]
 

@@ -1,26 +1,31 @@
-"""Time variants of the stepped-TRSM device code side by side on the card.
+"""Time variants of the stepped kernels' device code side by side.
 
     python3 tests/torch_trsm_variants.py [--levers row_ring3,panel_kc32,...]
-        [--dirichlet]
+        [--kernels B1,B2,...] [--sources NAME=DIR,...] [--f64] [--dirichlet]
 
 Each lever is a set of substitutions in the sources of
-``src/repro_torch/kernels/csrc`` (a constant or a launch bound; LEVERS
-lists them). The script copies the sources once per lever into
-``build/trsm_variants/<lever>/``, applies the substitutions (a text that
-is not found stops it), builds every variant's TRSM and fused libraries at
-once through ``repro_torch.kernels.build`` and prints each instance's
-registers and spills. Then, on feti-heat-2d's full-size factor
+``src/repro_torch/kernels/csrc`` (a constant, a launch bound, a loop's
+unrolling or the accumulation; LEVERS lists them). The script copies the
+sources once per lever into ``build/trsm_variants/<lever>/``, applies the
+substitutions (a text that is not found stops it), builds every variant's
+TRSM, SYRK and fused libraries at once through
+``repro_torch.kernels.build`` and prints each instance's registers and
+spills. ``--sources`` adds whole source trees as variants (a copy of
+``csrc/`` from another commit, unpacked with ``git archive``: its kernels
+keep the same C interface). Then, on feti-heat-2d's full-size factor
 (``chip_smoke.kernel_inputs``) at bs = 128 (f32) and at bs = bm = 16
-(``chip_smoke.small_block_inputs``; f32 and f64), it runs the stepped TRSM,
-the packed one and both fused kernels of every variant ("base": the
-sources as they are) through the port's own wrappers inside
-``build.sources(<the variant's copy>)``, holds each against its plain
-version (chip_smoke's F32_TOL and REL_TOL) and prints its CUDA-event median
-time; an f32 TRSM's distance from the f64 kernel on the same operands is
-printed beside chip_smoke's F32_TRSM_TWIN_TOL. ``--dirichlet`` adds the f32
-kernels on the full-size feti-heat-3d Dirichlet stage's operands
-(``chip_smoke.dirichlet_inputs``, ~17 GB of host memory). Compare variants
-only within one run. Needs one card and nvcc.
+(``chip_smoke.small_block_inputs``; f32 and f64; ``--f64`` adds f64 at
+every phase), it runs the stepped TRSM (B1), the stepped SYRK (B2, on the
+plain TRSM's Y), the packed TRSM (B3) and both fused kernels (B4, B5) of
+every variant ("base": the sources as they are; ``--kernels`` picks some)
+through the port's own wrappers inside ``build.sources(<the variant's
+copy>)``, holds each against its plain version (chip_smoke's F32_TOL and
+REL_TOL) and prints its CUDA-event median time; an f32 TRSM's or SYRK's
+distance from the f64 kernel on the same operands is printed beside its
+chip_smoke bar (F32_TRSM_TWIN_TOL, F32_SYRK_TWIN_TOL). ``--dirichlet``
+adds the kernels on the full-size feti-heat-3d Dirichlet stage's operands
+(``chip_smoke.dirichlet_inputs``, ~17 GB of host memory). Compare
+variants only within one run. Needs one card and nvcc.
 """
 from __future__ import annotations
 
@@ -35,7 +40,8 @@ import sys
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(ROOT, "src", "repro_torch", "kernels", "csrc")
 OUT = os.path.join(ROOT, "build", "trsm_variants")
-LIBS = ("stepped_trsm", "stepped_trsm_syrk")
+LIBS = ("stepped_trsm", "stepped_syrk", "stepped_trsm_syrk")
+KERNELS = ("B1", "B2", "B3", "B4", "B5")
 
 # lever: [(text in the sources, its replacement), ...]
 ROW_KC = "constexpr int ROW_KC = sizeof(T) == 8 ? 16 : 32;"
@@ -45,6 +51,86 @@ K8_LOOP = """  static_assert(MI % 2 == 0 && KDEPTH % 8 == 0, "m16n8k8 tiles");
 #pragma unroll 1
   for (int k = 0; k < KDEPTH; k += 8) {
     uint32_t a_hi"""
+SYRK_KC = "constexpr int SYRK_KC = sizeof(T) == 4 && TM == 128 ? 32 : 16;"
+# chip_smoke's label of each phase (F32_SYRK_TWIN_TOL's keys)
+PHASES = {"bs128": "heat-2d dual", "bs16": "heat-2d dual bs=16",
+          "dirichlet": "heat-3d dirichlet"}
+# the f32 SYRK tile split once a chunk, at staging, into TF32 hi and lo
+# panels (hi over the f32 values, lo in a buffer after the ring), the
+# products reading the split values; f64 unchanged
+SYRK_MMA = """        if (k_begin + (c + 1) * KC > k_warp)
+          tile::mma<MI, NJ, KC, 1, LD, LD, false>(acc, Pi + wm0, Pj + wn0);"""
+SYRK_SPLIT_STAGED = """        if constexpr (sizeof(T) == 4) {
+          T* hi = smem + stage * 2 * PANEL;
+          T* lo = smem + SYRK_STAGES * 2 * PANEL;
+          for (int e = tid; e < (diag ? 1 : 2) * PANEL; e += NTHREADS) {
+            uint32_t h, l;
+            tf32x3::split(hi[e], h, l);
+            hi[e] = __uint_as_float(h);
+            lo[e] = __uint_as_float(l);
+          }
+          __syncthreads();
+          if (k_begin + (c + 1) * KC > k_warp)
+            tf32x3::warp_mma_presplit<MI, NJ, KC, 1, LD, LD>(
+                acc, hi + wm0, lo + wm0, (diag ? hi : hi + PANEL) + wn0,
+                lo + (diag ? 0 : PANEL) + wn0);
+        } else {
+""" + SYRK_MMA + """
+        }"""
+PRESPLIT = """
+// warp_mma on operands split beforehand: A = Ahi + Alo, B = Bhi + Blo
+template <int MI, int NJ, int KDEPTH, int A_RS, int A_KS, int LDB>
+__device__ __forceinline__ void warp_mma_presplit(
+    float (&acc)[MI][NJ][2], const float* Ahi, const float* Alo,
+    const float* Bhi, const float* Blo) {
+  const int g = dmma::lane_g(), t = dmma::lane_t();
+#pragma unroll 1
+  for (int k = 0; k < KDEPTH; k += 8) {
+    uint32_t a_hi[MI / 2][4], a_lo[MI / 2][4], b_hi[NJ][2], b_lo[NJ][2];
+#pragma unroll
+    for (int i = 0; i < MI / 2; ++i)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int o = (16 * i + 8 * (q & 1) + g) * A_RS +
+                      (k + t + 4 * (q >> 1)) * A_KS;
+        a_hi[i][q] = __float_as_uint(Ahi[o]);
+        a_lo[i][q] = __float_as_uint(Alo[o]);
+      }
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const int o = (k + t + 4 * q) * LDB + 8 * j + g;
+        b_hi[j][q] = __float_as_uint(Bhi[o]);
+        b_lo[j][q] = __float_as_uint(Blo[o]);
+      }
+    float step[MI][NJ][2];
+#pragma unroll
+    for (int i = 0; i < MI / 2; ++i)
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+        mma_16x8x8_new(step[2 * i][j], step[2 * i + 1][j], a_lo[i], b_hi[j]);
+#pragma unroll
+    for (int i = 0; i < MI / 2; ++i)
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+        mma_16x8x8(step[2 * i][j], step[2 * i + 1][j], a_hi[i], b_lo[j]);
+#pragma unroll
+    for (int i = 0; i < MI / 2; ++i)
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+        mma_16x8x8(step[2 * i][j], step[2 * i + 1][j], a_hi[i], b_hi[j]);
+#pragma unroll
+    for (int i = 0; i < MI; ++i)
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        acc[i][j][0] += step[i][j][0];
+        acc[i][j][1] += step[i][j][1];
+      }
+  }
+}
+
+}  // namespace tf32x3"""
 LEVERS = {
     "base": [],
     # the f32 row-split core's ring 3 deep (two blocks a SM)
@@ -68,9 +154,20 @@ LEVERS = {
         ("mma_16x8x8(t0, t1,", "mma_16x8x8(d0, d1,"),
         ("d0[0] += t0[0];", ""), ("d0[1] += t0[1];", ""),
         ("d1[0] += t1[0];", ""), ("d1[1] += t1[1];", "")],
-    # the 3xTF32 product's k8 steps unrolled
+    # the 3xTF32 product's k8 steps unrolled (the TRSM core's and the
+    # SYRK tile's)
     "k_unroll": [(K8_LOOP, K8_LOOP.replace("#pragma unroll 1",
                                            "#pragma unroll"))],
+    # the f32 stepped SYRK's chunks 16 rows deep (as at f64)
+    "syrk_kc16": [(SYRK_KC, "constexpr int SYRK_KC = 16;")],
+    # no warp of the SYRK tile skips the chunks above its rows' starts
+    "syrk_no_skip": [("if (k_begin + (c + 1) * KC > k_warp)", "if (true)")],
+    "syrk_split_staged": [
+        (SYRK_MMA, SYRK_SPLIT_STAGED),
+        ("}  // namespace tf32x3", PRESPLIT),
+        ("return sizeof(T) * SYRK_STAGES * 2 * SYRK_KC<T, TM> * SYRK_LD<T, TM>;",
+         "return sizeof(T) * (SYRK_STAGES + 1) * 2 * SYRK_KC<T, TM> *\n"
+         "         SYRK_LD<T, TM>;")],
     # launch bounds asking for three blocks a SM (every instance)
     "bound3": [("__launch_bounds__(THREADS)",
                 "__launch_bounds__(THREADS, 3)")],
@@ -79,11 +176,12 @@ LEVERS = {
 }
 
 
-def build(levers):
+def build(levers, sources=None):
     """The sources of each lever (``build/trsm_variants/<lever>``; "base"
-    the port's own), their libraries built all at once; returns
+    the port's own) and of each named tree in ``sources``, their libraries
+    built all at once; returns
     ({lever: source directory}, {(lever, kernel, dtype, chunk, factor):
-    (registers, spill bytes)})."""
+    (registers, spill bytes)}; the stepped SYRK's chunk 0, factor "-")."""
     from concurrent.futures import ThreadPoolExecutor
 
     from repro_torch.kernels import build as kbuild
@@ -106,6 +204,7 @@ def build(levers):
             if not hits:
                 raise SystemExit(f"lever {lever}: {old!r} not found")
         dirs[lever] = d
+    dirs.update(sources or {})
     with ThreadPoolExecutor(len(dirs)) as pool:
         list(pool.map(lambda d: kbuild.build(LIBS, csrc=d), dirs.values()))
     regs = {}
@@ -116,17 +215,21 @@ def build(levers):
                 name = block.split("'")[1]
                 m = re.search(
                     r"(\w+_kernel)I([fd])Li(\d+)EN7stepped\d+(\w+?)I", name)
+                syrk = re.search(r"(stepped_syrk_kernel)I([fd])E", name)
                 used = re.search(r"Used (\d+) registers", block)
                 spills = re.findall(r"(\d+) bytes spill stores", block)
-                if m and used:
-                    regs[(lever, m.group(1), m.group(2), int(m.group(3)),
-                          m.group(4))] = (int(used.group(1)),
-                                          sum(int(b) for b in spills))
+                key = ((lever, m.group(1), m.group(2), int(m.group(3)),
+                        m.group(4)) if m else
+                       (lever, syrk.group(1), syrk.group(2), 0, "-") if syrk
+                       else None)
+                if key and used:
+                    regs[key] = (int(used.group(1)),
+                                 sum(int(b) for b in spills))
     return dirs, regs
 
 
-def time_phase(label, xx, dtypes, dirs):
-    """Each lever's four kernels on one phase's operands ``xx``, launched
+def time_phase(label, xx, dtypes, dirs, kernels=KERNELS):
+    """Each lever's ``kernels`` on one phase's operands ``xx``, launched
     through the port's wrappers from the lever's sources, checked against
     their plain versions and timed; returns the disagreements."""
     import torch
@@ -147,22 +250,38 @@ def time_phase(label, xx, dtypes, dirs):
         packed = ops._packed_operands(xx["packed"].to(dt), xx["env"])
         starts = xx["starts"]
         order, porder = xx["orders"]
+        Y = K.stepped_trsm_plain(*dense, B, starts, bs, bm)
         plain = {
-            "B1": K.stepped_trsm_plain(*dense, B, starts, bs, bm),
-            "B3": K.stepped_trsm_packed_plain(*packed, B, starts, bs, bm),
-            "B4": K.stepped_trsm_syrk_plain(*dense, B, starts, bs, bm),
-            "B5": K.stepped_trsm_syrk_packed_plain(*packed, B, starts, bs,
-                                                   bm)}
+            "B1": lambda: Y,
+            "B2": lambda: K.stepped_syrk_plain(Y, starts, bs, bm),
+            "B3": lambda: K.stepped_trsm_packed_plain(*packed, B, starts, bs,
+                                                      bm),
+            "B4": lambda: K.stepped_trsm_syrk_plain(*dense, B, starts, bs,
+                                                    bm),
+            "B5": lambda: K.stepped_trsm_syrk_packed_plain(*packed, B,
+                                                           starts, bs, bm)}
+        plain = {name: plain[name]() for name in kernels}
 
         def wide(operands):  # the same values at f64
             return [a.double() if a.is_floating_point() else a
                     for a in operands]
 
-        # the f32 TRSM's yardstick: the port's f64 kernel on the same values
-        twin = (K.stepped_trsm_kernel(*wide(dense), B.double(), starts, bs,
-                                      bm) if suf == "f32" else None)
+        # the f32 TRSM's and SYRK's yardsticks: the port's f64 kernels on
+        # the same values
+        f32 = suf == "f32"
+        twins = {
+            "B1": lambda: K.stepped_trsm_kernel(*wide(dense), B.double(),
+                                                starts, bs, bm),
+            "B2": lambda: K.stepped_syrk_kernel(Y.double(), starts, bs, bm)}
+        twins["B3"] = twins["B1"]
+        twins = {name: twins[name]() for name in twins
+                 if f32 and name in kernels}
+        bars = dict(B1=cs.F32_TRSM_TWIN_TOL,
+                    B2=cs.F32_SYRK_TWIN_TOL[PHASES[label]],
+                    B3=cs.F32_TRSM_TWIN_TOL)
         runs = {
             "B1": lambda: K.stepped_trsm_kernel(*dense, B, starts, bs, bm),
+            "B2": lambda: K.stepped_syrk_kernel(Y, starts, bs, bm),
             "B3": lambda: K.stepped_trsm_packed_kernel(*packed, B, starts,
                                                        bs, bm),
             "B4": lambda: K.stepped_trsm_syrk_kernel(*dense, B, starts, bs,
@@ -172,18 +291,19 @@ def time_phase(label, xx, dtypes, dirs):
         for v, d in dirs.items():
             cells = []
             with kbuild.sources(d):
-                for name, run in runs.items():
+                for name in kernels:
+                    run = runs[name]
                     got = run()
                     torch.cuda.synchronize()
                     err = cs.compare(got, plain[name])[1]
                     if not err <= tol:
                         bad.append((label, suf, v, name, err))
                     cell = f"{name} {cs.cuda_ms(run):.3f} ms (rel {err:.1e}"
-                    if twin is not None and name in ("B1", "B3"):
-                        terr = cs.compare(got.double(), twin)[1]
-                        cell += (f", {terr:.1e} from f64"
-                                 + (" > F32_TRSM_TWIN_TOL"
-                                    if terr > cs.F32_TRSM_TWIN_TOL else ""))
+                    if name in twins:
+                        terr = cs.compare(got.double(), twins[name])[1]
+                        cell += (f", {terr:.2e} from f64"
+                                 + (f" > its bar {bars[name]:g}"
+                                    if terr > bars[name] else ""))
                     cells.append(cell + ")")
             print(f"{label} {suf} {v}: " + "; ".join(cells), flush=True)
     return bad
@@ -193,8 +313,15 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--levers", default=",".join(LEVERS),
                    help="comma-separated LEVERS keys (base is always run)")
+    p.add_argument("--kernels", default=",".join(KERNELS),
+                   help="comma-separated kernels to time (B1..B5)")
+    p.add_argument("--sources", default="",
+                   help="comma-separated NAME=DIR source trees to time as "
+                        "variants (a csrc/ copy of another commit)")
+    p.add_argument("--f64", action="store_true",
+                   help="also f64 at bs = 128 and the Dirichlet stage")
     p.add_argument("--dirichlet", action="store_true",
-                   help="also the f32 kernels at the feti-heat-3d Dirichlet "
+                   help="also the kernels at the feti-heat-3d Dirichlet "
                         "stage's shapes")
     args = p.parse_args(argv)
     levers = ["base"] + [v for v in args.levers.split(",")
@@ -202,6 +329,9 @@ def main(argv=None) -> int:
     unknown = [v for v in levers if v not in LEVERS]
     if unknown:
         raise SystemExit(f"unknown levers {unknown}; known: {list(LEVERS)}")
+    kernels = [k for k in KERNELS if k in args.kernels.split(",")]
+    if not kernels:
+        raise SystemExit(f"--kernels names none of {KERNELS}")
 
     sys.path[:0] = [ROOT, os.path.join(ROOT, "src")]
     import torch
@@ -215,7 +345,10 @@ def main(argv=None) -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60).stdout.strip()
     print(smi, flush=True)
-    dirs, regs = build(levers)
+    sources = dict(item.split("=", 1) for item in args.sources.split(",")
+                   if item)
+    dirs, regs = build(levers, {name: os.path.abspath(d)
+                                for name, d in sources.items()})
     for key, (r, spill) in sorted(regs.items()):
         print(f"ptxas {key}: {r} registers, {spill} B spill stores")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -223,15 +356,17 @@ def main(argv=None) -> int:
     bad = []
     x = cs.kernel_inputs(dev)
     x16 = cs.small_block_inputs(x, dev)
-    bad += time_phase("bs128", x, (torch.float32,), dirs)
+    wide = (torch.float32, torch.float64) if args.f64 else (torch.float32,)
+    bad += time_phase("bs128", x, wide, dirs, kernels)
     del x
-    bad += time_phase("bs16", x16, (torch.float32, torch.float64), dirs)
+    bad += time_phase("bs16", x16, (torch.float32, torch.float64), dirs,
+                      kernels)
     del x16
     if args.dirichlet:
         gc.collect()
         torch.cuda.empty_cache()
-        bad += time_phase("dirichlet", cs.dirichlet_inputs(dev),
-                          (torch.float32,), dirs)
+        bad += time_phase("dirichlet", cs.dirichlet_inputs(dev), wide, dirs,
+                          kernels)
     if bad:
         print(f"variants that disagree with the plain versions: {bad}",
               file=sys.stderr)

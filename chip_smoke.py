@@ -117,12 +117,35 @@ Phases (each prints its seconds; any failure exits non-zero):
                 configuration's scipy oracle is solved once and reused
                 across its paths (a sweep's columns are multiples of it).
 
+  6. autotune — in a fresh ``REPRO_TORCH_PLAN_CACHE_DIR``: the launch
+                overhead through a kernel wrapper (the median
+                host-to-completion time of a small launch: the H100
+                device model's ``overhead_s``), then three main paths
+                with ``--autotune`` (``schur="auto"``, ``measure="auto"``),
+                each launching exactly the kernels its joint plan names
+                (every such launch held against its plain version), the
+                planner's own timing launches counted apart and left
+                unchecked: full-size feti-heat-2d (at least one kernel
+                launch from planning; 154 iterations ± 1 of the
+                hand-picked paths; within 1e-8 of scipy; the launcher
+                holds F̃ within 1e-8 of the dense baseline), the same again
+                (its plan must come from the cache: one
+                ``plan_cache.graph.hit``, no planning launch) and
+                feti-elasticity-3d ``--precond dirichlet`` (both stages
+                planned jointly; fewer iterations than lumped). Every
+                measured plan must be no slower than its measured dense
+                baseline, or be it. Last, each plan is timed beside the
+                hand-picked bs = 128 ``--kernels`` and ``--fused``
+                configurations by the planner's own timer
+                (``autotune.measure_configs``): printed, not held.
+
 Then one JSON line with the kernels' numbers, one row per kernel and
 dtype (the f32 ones named ``*_f32``; each row: the heat-2d phase's,
-``launches`` summed over the main paths beside ``launches_per_path``, the
-main paths' checks under ``path_checks``, the Dirichlet phase's under
-``dirichlet_heat_3d`` and the small-block phase's under ``bs16``) and,
-last, the device line.
+``launches`` summed over the main paths (the autotune ones included)
+beside ``launches_per_path``, the planner's launches per autotune path
+under ``planning_launches``, the main paths' checks under
+``path_checks``, the Dirichlet phase's under ``dirichlet_heat_3d`` and
+the small-block phase's under ``bs16``) and, last, the device line.
 The port imports no JAX and nothing of the ``repro`` package.
 """
 from __future__ import annotations
@@ -285,6 +308,29 @@ ERR_BAR = {
     "heat-2d packed --fused --n-rhs 8 f32": 1e-8,
 }
 LOOSE = ("heat-2d smoke --kernels bf16", "heat-2d smoke --fused bf16")
+# the autotune phase (schur="auto", measure="auto", a fresh plan cache):
+# (name, arch, launcher flags); each path's launches are the ones its plan
+# names, counted apart from the planner's timing launches
+AUTO_HEAT = "heat-2d --autotune"
+AUTO_HEAT_CACHED = "heat-2d --autotune (cached plan)"
+AUTO_ELA = "elasticity-3d --autotune dirichlet"
+AUTO_RUNS = (
+    (AUTO_HEAT, ARCH, ["--autotune"]),
+    (AUTO_HEAT_CACHED, ARCH, ["--autotune"]),
+    (AUTO_ELA, "feti-elasticity-3d", ["--autotune", "--precond", "dirichlet"]),
+)
+ERR_BAR.update({AUTO_HEAT: 1e-8, AUTO_HEAT_CACHED: 1e-8})
+# the hand-picked configurations the plans are timed beside: the
+# architectures' own bs = bm = 128 through the kernels (--kernels; the
+# launcher's config, prune as it sets it) and through the fused kernel
+# (--fused)
+HAND_PICKED = {
+    "--kernels bs 128": dict(trsm_variant="factor_split",
+                             syrk_variant="input_split", block_size=128,
+                             use_kernels=True),
+    "--fused bs 128": dict(block_size=128, use_kernels=True, fused=True),
+}
+LAUNCH_OVERHEAD_REPS = 200  # small launches timed for the launch overhead
 # each mixed-precision run's bar on its PCPG iterations summed over the
 # defect-correction outers (a multi-RHS run: its most iterated column): the
 # counts measured on the card (NVIDIA H100 80GB HBM3, 700 W) with a small
@@ -994,18 +1040,22 @@ def checked_launches():
     Yields a dict: ``records``, one per launch (kernel key, padded shape
     (S, n_pad, m_pad), errors, pass); ``check_s``, the checks' own
     seconds; ``peak``, the device peak outside the checks (each check
-    resets the peak counter once its operands are freed)."""
+    resets the peak counter once its operands are freed); ``paused``,
+    set while the planner times candidates (their launches go unchecked:
+    a plain version at bs 8 takes seconds)."""
     import torch
 
     from repro_torch import kernels
     from repro_torch.kernels import ops
 
-    state = dict(records=[], check_s=0.0, peak=0)
+    state = dict(records=[], check_s=0.0, peak=0, paused=False)
 
     def wrap(name, kernel, plain):
         def checked(*args, order=None, **kw):
             out = (kernel(*args, **kw) if order is None
                    else kernel(*args, order=order, **kw))
+            if state["paused"]:
+                return out
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             state["peak"] = max(state["peak"], torch.cuda.max_memory_allocated())
@@ -1040,13 +1090,71 @@ def checked_launches():
         state["peak"] = max(state["peak"], torch.cuda.max_memory_allocated())
 
 
+@contextlib.contextmanager
+def planning_probe(checks):
+    """Within the block, every joint planning (``StageGraph.plan``) pauses
+    the launch checks and is recorded: its kernel launches per key, its
+    seconds, the graph and its plan (the last one planned)."""
+    import torch
+
+    from repro_torch.core import stages
+
+    plan = stages.StageGraph.plan
+    rec = dict(launches=dict.fromkeys(KERNEL_KEYS, 0), seconds=0.0,
+               graph=None, gplan=None)
+
+    def probed(self, **kw):
+        before = launch_counts()
+        checks["paused"] = True
+        t0 = time.perf_counter()
+        try:
+            gplan = plan(self, **kw)
+            torch.cuda.synchronize()
+        finally:
+            checks["paused"] = False
+        rec["seconds"] += time.perf_counter() - t0
+        for k, v in launch_counts().items():
+            rec["launches"][k] += v - before[k]
+        rec["graph"], rec["gplan"] = self, gplan
+        return gplan
+
+    stages.StageGraph.plan = probed
+    try:
+        yield rec
+    finally:
+        stages.StageGraph.plan = plan
+
+
+def plan_launches(gplan):
+    """{kernel key: launches} an explicit preprocess runs under a joint
+    plan: one per kernel its stage configs name, at the kernels' dtype."""
+    out = {}
+    for p in gplan.plans.values():
+        cfg, packed = p.cfg, p.cfg.storage == "packed"
+        if cfg.fused:
+            names = ["stepped_trsm_syrk_packed" if packed
+                     else "stepped_trsm_syrk"]
+        elif cfg.use_kernels:
+            names = ([("stepped_trsm_packed" if packed else "stepped_trsm")]
+                     if cfg.trsm_variant != "dense" else [])
+            names += ["stepped_syrk"] if cfg.syrk_variant != "dense" else []
+        else:
+            names = []
+        dtype = "f64" if p.dtype == "f64" else "f32"  # bf16 runs at f32
+        for k in names:
+            out[kernel_key(k, dtype)] = out.get(kernel_key(k, dtype), 0) + 1
+    return out
+
+
 def run_main_path(name, arch, flags, expected):
     """Drive the launcher with ``--validate``, every kernel launch checked
     against its plain version (:func:`checked_launches`); returns this
     run's launch counts (per kernel and dtype), checks, iteration count,
     relative error, stack bytes, peak device memory and sharing decision.
     A run in LOOSE is held to its ERR_BAR only (the launcher's exit code
-    also reflects its 1e-6 bar and convergence)."""
+    also reflects its 1e-6 bar and convergence). An ``--autotune`` run
+    (``expected`` None) must launch what its joint plan names; the
+    planner's own launches are counted apart (``planning``)."""
     import torch
 
     from repro_torch.launch import solve_feti
@@ -1057,11 +1165,19 @@ def run_main_path(name, arch, flags, expected):
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     buf = io.StringIO()
+    auto = "--autotune" in flags
     t0 = time.perf_counter()
-    with checked_launches() as checks, contextlib.redirect_stdout(buf):
+    with checked_launches() as checks, contextlib.ExitStack() as stack:
+        planned = stack.enter_context(planning_probe(checks)) if auto else None
+        stack.enter_context(contextlib.redirect_stdout(buf))
         rc = solve_feti.main(argv)
     seconds = time.perf_counter() - t0
     launches = launch_counts()
+    if auto:
+        if planned["gplan"] is None:
+            raise SystemExit(f"{name}: the launcher planned nothing")
+        launches = {k: v - planned["launches"][k] for k, v in launches.items()}
+        expected = plan_launches(planned["gplan"])
     peak = checks["peak"]
     out = buf.getvalue()
     print(out, end="", flush=True)
@@ -1132,9 +1248,22 @@ def run_main_path(name, arch, flags, expected):
           f"shared_factor={shared} "
           f"launches={ {k: v for k, v in launches.items() if v} } "
           f"run_s={seconds:.1f}", flush=True)
+    if auto:
+        gplan = planned["gplan"]
+        print(f"[chip_smoke] main path {name} planning: "
+              f"{planned['seconds']:.2f}s (in preprocess_s), joint key "
+              f"{gplan.key[:12]} cached={gplan.from_cache}, launches "
+              f"{ {k: v for k, v in planned['launches'].items() if v} }",
+              flush=True)
+        for stage, p in gplan.plans.items():
+            print(f"[chip_smoke] main path {name} plan [{stage}]: "
+                  f"{p.candidates} candidates, {p.timed} timed, {p.refused} "
+                  f"kernel candidates left out for bs > 128; measured "
+                  f"{p.measured_s} s against the dense baseline's "
+                  f"{p.baseline_measured_s} s", flush=True)
     return dict(launches=launches, iterations=iterations, columns=columns,
                 peak=peak, checks=checks["records"], err=err, bytes=stack,
-                dtypes=dtypes)
+                dtypes=dtypes, planning=planned)
 
 
 def kernel_rows(rows, d_rows, small, runs):
@@ -1165,6 +1294,125 @@ def kernel_rows(rows, d_rows, small, runs):
             ({k: q[k] for k in keep + ("bs", "bm", "registers",
                                         "spill_stores", "spill_loads")}
              for q in small if q["name"] == r["name"]), None)
+
+
+def launch_overhead(device):
+    """Median host-to-completion seconds of one small launch through a
+    kernel wrapper: the stepped SYRK on one 8 x 8 tile, each call followed
+    by a device synchronize (the device model's ``overhead_s``)."""
+    import torch
+
+    from repro_torch import kernels
+
+    Y = torch.randn(1, 8, 8, dtype=torch.float64, device=device)
+    starts = torch.zeros(1, dtype=torch.int32, device=device)
+
+    def once():
+        t0 = time.perf_counter()
+        kernels.stepped_syrk_kernel(Y, starts, 8, 8)
+        torch.cuda.synchronize(device)
+        return time.perf_counter() - t0
+
+    for _ in range(20):
+        once()
+    return statistics.median(once() for _ in range(LAUNCH_OVERHEAD_REPS))
+
+
+def autotune_phase(device, runs):
+    """The autotune paths (AUTO_RUNS) in a fresh plan cache, their checks
+    and the plans' times beside the hand-picked configurations'; returns
+    the paths' results."""
+    import shutil
+    import tempfile
+
+    from repro_torch.core import SchurAssemblyConfig
+    from repro_torch.core.autotune import measure_configs
+    from repro_torch.launch.roofline import detect_device
+    from repro_torch.obs import metrics
+
+    model = detect_device(device)
+    overhead = launch_overhead(device)
+    print(f"[chip_smoke] launch overhead: median host-to-completion "
+          f"{overhead * 1e6:.2f} us over {LAUNCH_OVERHEAD_REPS} launches of "
+          f"stepped_syrk_kernel (one 8 x 8 tile); device model "
+          f"{model.kind} overhead_s {model.overhead_s * 1e6:.2f} us",
+          flush=True)
+    root = tempfile.mkdtemp(prefix="repro_torch_plans-")
+    saved = os.environ.get("REPRO_TORCH_PLAN_CACHE_DIR")
+    os.environ["REPRO_TORCH_PLAN_CACHE_DIR"] = root
+    auto = {}
+    try:
+        for name, arch, flags in AUTO_RUNS:
+            metrics.reset()
+            auto[name] = run_main_path(name, arch, flags, None)
+            auto[name]["graph_hits"] = metrics.get(
+                "plan_cache.graph.hit",
+                key=auto[name]["planning"]["gplan"].key[:12])
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        if saved is None:
+            os.environ.pop("REPRO_TORCH_PLAN_CACHE_DIR", None)
+        else:
+            os.environ["REPRO_TORCH_PLAN_CACHE_DIR"] = saved
+
+    heat, cached, ela = (auto[n] for n in (AUTO_HEAT, AUTO_HEAT_CACHED,
+                                           AUTO_ELA))
+    planned = {k: v for k, v in heat["planning"]["launches"].items() if v}
+    print(f"[chip_smoke] {AUTO_HEAT}: kernel launches during planning "
+          f"{planned}", flush=True)
+    if not planned:
+        raise SystemExit(f"{AUTO_HEAT}: planning launched no kernel")
+    want = runs["heat-2d dense --kernels"]["iterations"]
+    if abs(heat["iterations"] - want) > 1:
+        raise SystemExit(f"{AUTO_HEAT}: {heat['iterations']} iterations, "
+                         f"the hand-picked paths {want}")
+    for name in (AUTO_HEAT, AUTO_ELA):
+        for stage, p in auto[name]["planning"]["gplan"].plans.items():
+            if p.measured_s is None:
+                raise SystemExit(f"{name} [{stage}]: the plan was not measured")
+            if not (p.measured_s <= p.baseline_measured_s
+                    or p.cfg.is_dense_baseline):
+                raise SystemExit(f"{name} [{stage}]: plan measured "
+                                 f"{p.measured_s} s, slower than its dense "
+                                 f"baseline {p.baseline_measured_s} s")
+    first, again = heat["planning"]["gplan"], cached["planning"]["gplan"]
+    relaunched = sum(cached["planning"]["launches"].values())
+    print(f"[chip_smoke] {AUTO_HEAT_CACHED}: plan_cache.graph.hit="
+          f"{cached['graph_hits']:g} from_cache={again.from_cache} "
+          f"planning launches {relaunched} planning "
+          f"{cached['planning']['seconds']:.3f}s", flush=True)
+    if not (cached["graph_hits"] == 1 and again.from_cache
+            and again.key == first.key and relaunched == 0
+            and {k: p.cfg for k, p in again.plans.items()}
+            == {k: p.cfg for k, p in first.plans.items()}):
+        raise SystemExit(f"{AUTO_HEAT_CACHED}: the second preprocess did "
+                         "not reuse the cached plan without timing")
+    lumped = runs["elasticity-3d dense --kernels lumped"]["iterations"]
+    stages = set(ela["planning"]["gplan"].plans)
+    print(f"[chip_smoke] {AUTO_ELA}: stages {sorted(stages)}, iterations "
+          f"{ela['iterations']} (lumped {lumped})", flush=True)
+    if stages != {"dual", "dirichlet"} or not ela["iterations"] < lumped:
+        raise SystemExit(f"{AUTO_ELA}: expected both stages planned and "
+                         f"fewer iterations than lumped ({lumped})")
+
+    # the plans beside the hand-picked configurations, timed by the
+    # planner's own timer on its probes (min of 5 after 2 warmups; the
+    # dense baseline's time is the planner's yardstick)
+    for name, stage in ((AUTO_HEAT, "dual"), (AUTO_ELA, "dual"),
+                        (AUTO_ELA, "dirichlet")):
+        spec = auto[name]["planning"]["graph"][stage]
+        p = auto[name]["planning"]["gplan"][stage]
+        cfgs = [p.cfg] + [SchurAssemblyConfig(**kw)
+                          for kw in HAND_PICKED.values()]
+        times, base = measure_configs(spec.builder, cfgs, dtype=spec.dtype,
+                                      batch=spec.batch, torch_device=device)
+        hand = ", ".join(f"{h} {t * 1e3:.3f} ms"
+                         for h, t in zip(HAND_PICKED, times[1:]))
+        print(f"[chip_smoke] {name} [{stage}] planner's timer: plan "
+              f"{times[0] * 1e3:.3f} ms (when planned: "
+              f"{p.measured_s * 1e3:.3f}), {hand}, dense baseline "
+              f"{base * 1e3:.3f} ms", flush=True)
+    return auto
 
 
 def register_heat3d_cut():
@@ -1342,7 +1590,16 @@ def main() -> int:
           flush=True)
     done("main", t0)
 
-    kernel_rows(rows, d_rows, small, runs)
+    t0 = phase("autotune")
+    auto = autotune_phase(device, runs)
+    done("autotune", t0)
+
+    kernel_rows(rows, d_rows, small, {**runs, **auto})
+    for r in rows:
+        r["planning_launches"] = {
+            name: run["planning"]["launches"][r["name"]]
+            for name, run in auto.items()
+            if run["planning"]["launches"][r["name"]]}
     print(f"[chip_smoke] total {time.perf_counter() - t_all:.1f}s", flush=True)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -2,6 +2,7 @@
 preprocessing (factorization + sparsity-utilizing SC assembly), the dual
 operator in implicit and explicit form, the natural-coarse-space projector,
 PCPG, and the end-to-end solver. :class:`FetiConfig` is the front door."""
+from repro_torch.core.stages import StageGraph, StageSpec
 from repro_torch.feti.assembly import ClusterState, preprocess_cluster
 from repro_torch.feti.config import FetiConfig, as_feti_config
 from repro_torch.feti.dirichlet import (
@@ -35,6 +36,8 @@ __all__ = [
     "FetiSolver",
     "PCPGManyResult",
     "PCPGResult",
+    "StageGraph",
+    "StageSpec",
     "as_feti_config",
     "assemble_dirichlet_schur",
     "boundary_interior_split",

@@ -8,14 +8,17 @@ All subdomains of the structured decomposition share one local topology,
 so they share the fill-reducing permutation, the symbolic block fill mask
 and the (envelope) stepped metadata: the whole cluster runs through one
 batched factorization and one batched assembly with a leading subdomain
-axis. The reference plans its stages through a stage graph; here each
-stage takes the configured Schur config and resolves its symbolic
-products directly (the autotuner and the stage graph are ROADMAP item
-A14, sharding A16). When the boundary/interior split aligns with the row
-ordering the interior factorization is shared: the dual rows are ordered
+axis. Every assembly stage is declared as a
+:class:`~repro_torch.core.stages.StageSpec`; with ``schur="auto"`` the
+:class:`~repro_torch.core.stages.StageGraph` plans them jointly (one plan
+cache entry), else each takes the configured Schur config. Each stage
+then runs at its own block size, storage and kernels (sharding is ROADMAP
+item A16). When the boundary/interior split aligns with the row ordering
+the interior factorization is shared: the dual rows are ordered
 ``split.dperm``, so the dual factor's leading (n_i, n_i) principal block IS
 the Cholesky factor of the unregularized K_ii, and the Dirichlet stage
-reuses it instead of factorizing its own copy.
+reuses it, coerced to its own storage and block size, instead of
+factorizing its own copy.
 
 Host memory: the reference stacks five dense (S, n, n) host copies of K.
 Here each subdomain's K is moved to the device once, and the regularized,
@@ -43,12 +46,18 @@ import numpy as np
 import torch
 
 from repro_torch.core import (
+    GraphPlan,
+    Plan,
     SchurAssemblyConfig,
+    StageGraph,
+    StageSpec,
     SteppedMeta,
     build_stepped_meta,
+    column_pivots,
     make_assembler,
     shared_envelope,
 )
+from repro_torch.core.autotune import pattern_fingerprint
 from repro_torch.core.precision import compute_dtype
 from repro_torch.device import resolve_device
 from repro_torch.fem.decomposition import FetiProblem
@@ -92,7 +101,13 @@ def expand_node_pattern(npat: np.ndarray, ndpn: int) -> np.ndarray:
 
 @dataclasses.dataclass
 class ClusterState:
-    """Everything the solution phase needs, stacked over subdomains."""
+    """Everything the solution phase needs, stacked over subdomains.
+
+    ``cfg`` is the dual stage's resolved config, ``dirichlet_cfg`` the
+    Dirichlet stage's; ``plan``/``dirichlet_plan``/``graph_plan`` are the
+    autotuner's results under ``schur="auto"`` (else None), and ``stages``
+    carries each stage's resolved config, metadata and fill mask
+    (:class:`~repro_torch.core.stages.ResolvedStage`)."""
 
     problem: FetiProblem
     cfg: SchurAssemblyConfig
@@ -123,6 +138,12 @@ class ClusterState:
     shared_factor: bool = False  # S_b reused the dual factor's interior
     dirichlet_env: Optional[SteppedMeta] = None  # K_ib's stepped metadata
     dirichlet_mask: Optional[np.ndarray] = None  # interior block fill mask
+    dirichlet_cfg: Optional[SchurAssemblyConfig] = None
+    # the autotuner (schur="auto"), else None:
+    plan: Optional[Plan] = None
+    dirichlet_plan: Optional[Plan] = None
+    graph_plan: Optional[GraphPlan] = None
+    stages: Optional[dict] = None  # stage name -> ResolvedStage
 
     @property
     def _L_values(self) -> torch.Tensor:
@@ -206,7 +227,10 @@ def make_cluster_preprocessor(problem: FetiProblem, config=None):
     products (node permutation, block fill mask, stepped envelope, column
     permutations, packed index and, with the Dirichlet preconditioner, the
     split, the sharing decision, K_ib's stepped metadata and the interior
-    fill mask and index); ``prep(Kp_stack, Btp_stack, blocks=None) ->
+    fill mask and index), each stage's resolved config, the stage graph
+    and, under ``schur="auto"``, its joint plan (planning runs here: the
+    measured step times candidates on the configured device);
+    ``prep(Kp_stack, Btp_stack, blocks=None) ->
     (L, F, Sb)`` factorizes the regularized permuted stiffness stack IN
     PLACE (``Kp_stack`` becomes L), in explicit mode assembles the SCs, and
     given the Dirichlet stage's :class:`~repro_torch.feti.dirichlet.
@@ -218,9 +242,9 @@ def make_cluster_preprocessor(problem: FetiProblem, config=None):
     static index.
     """
     fc = as_feti_config(config)
-    cfg = fc.resolved_schur()
     dev = resolve_device(fc.device)
     subs = problem.subdomains
+    S = len(subs)
     n = subs[0].n
     ndpn = problem.ndof_per_node
     node_shape = tuple(e + 1 for e in problem.elems_per_sub)
@@ -251,41 +275,103 @@ def make_cluster_preprocessor(problem: FetiProblem, config=None):
     # principal block of L is the interior factor), else the fill order
     node_perm = split.dperm if share else fill_perm
     kpat = kpat0[node_perm][:, node_perm]
-    bs, rbs = cfg.block_size, cfg.rhs_bs
+    patterns = [sd.Bt[node_perm] != 0 for sd in subs]
+
+    # each stage's symbolic products at a (bs, rbs): what the planner
+    # scores at every candidate size and the resolved stages run with,
+    # memoized so the chosen size is not analyzed twice
+    _built: dict = {}
+
+    def _symbolic(bs: int, rbs: int):
+        key = (bs, rbs)
+        if key not in _built:
+            # regularization only touches the diagonal: pattern unchanged
+            mask = block_symbolic_cholesky(block_pattern(kpat, bs))
+            metas = [build_stepped_meta(p, block_size=bs, rhs_block_size=rbs)
+                     for p in patterns]
+            _built[key] = (metas, shared_envelope(metas), mask)
+        return _built[key]
+
+    _dbuilt: dict = {}
+
+    def _dsymbolic(bs: int, rbs: int):
+        key = (bs, rbs)
+        if key not in _dbuilt:
+            _dbuilt[key] = dirlib.dirichlet_symbolic(problem, split, bs, rbs,
+                                                     kpat=kpat0)
+        return _dbuilt[key]
+
+    # ---- the stage graph: every assembly stage, planned as one unit ----
+    piv = np.stack([column_pivots(p) for p in patterns])
+    specs = [StageSpec(
+        name="dual",
+        builder=lambda bs, rbs: _symbolic(bs, rbs)[1:],
+        fingerprint=pattern_fingerprint(
+            piv, n, problem.m_max,
+            extra=[kpat.sum(axis=1).astype(np.int64), node_perm]),
+        n=n, storage=fc.storage, dtype=fc.dtype_name, batch=S,
+        # without explicit assembly only the factorization block size
+        # matters: no timed assembly micro-runs for it
+        measure=None if fc.explicit else "never",
+    )]
+    if fc.dirichlet and split.n_i > 0:
+        specs.append(StageSpec(
+            name="dirichlet",
+            builder=_dsymbolic,
+            fingerprint=dirlib.dirichlet_fingerprint(problem, split,
+                                                     kpat=kpat0),
+            n=split.n_i, storage=fc.storage, dtype=fc.dtype_name, batch=S,
+            share_factor_of="dual" if share else None,
+        ))
+    graph = StageGraph(specs)
+
+    plan = d_plan = gplan = None
+    if fc.auto:
+        gplan = graph.plan(measure=fc.measure, cache=fc.plan_cache,
+                           torch_device=dev)
+        plan = gplan["dual"]
+        cfg = plan.cfg
+        d_plan = gplan.plans.get("dirichlet")
+    else:
+        cfg = fc.resolved_schur()
+    # without a plan of its own the Dirichlet stage takes the dual's config
+    d_cfg = d_plan.cfg if d_plan is not None else cfg
+    cfgs = {"dual": cfg}
+    if "dirichlet" in graph.by_name:
+        cfgs["dirichlet"] = d_cfg
+    resolved = graph.resolve(cfgs, plans=gplan.plans if gplan else None)
+
+    bs = cfg.block_size
     packed = cfg.storage == "packed"
-    # regularization only touches the diagonal: the pattern is unchanged
-    block_mask = block_symbolic_cholesky(block_pattern(kpat, bs))
-    metas = [build_stepped_meta(sd.Bt[node_perm] != 0, block_size=bs,
-                                rhs_block_size=rbs) for sd in subs]
-    env = shared_envelope(metas)
+    metas, env, block_mask = _symbolic(bs, cfg.rhs_bs)
     index = PackedBlockIndex.from_mask(block_mask, n, bs)
     col_perms = np.stack([me.perm for me in metas])
     inv_col_perms = np.stack([me.inv_perm for me in metas])
     cp = torch.as_tensor(col_perms, device=dev)
     icp = torch.as_tensor(inv_col_perms, device=dev)
 
-    # without the autotuner the Dirichlet stage takes the dual stage's
-    # config, as the reference does when it is not planning
     meta_ib = mask_ii = index_ii = d_assemble = Zb = None
     if fc.dirichlet:
-        meta_ib, mask_ii = dirlib.dirichlet_symbolic(problem, split, bs, rbs,
-                                                     kpat=kpat0)
-        if packed and split.n_i > 0:
-            index_ii = PackedBlockIndex.from_mask(mask_ii, split.n_i, bs)
+        meta_ib, mask_ii = _dsymbolic(d_cfg.block_size, d_cfg.rhs_bs)
+        if d_cfg.storage == "packed" and split.n_i > 0:
+            index_ii = PackedBlockIndex.from_mask(mask_ii, split.n_i,
+                                                  d_cfg.block_size)
         d_assemble = dirlib.make_dirichlet_assembler(
-            split, meta_ib, mask_ii, cfg, shared=share)
+            split, meta_ib, mask_ii, d_cfg, shared=share)
         Zb = torch.as_tensor(dirlib.own_boundary_masks(problem, split),
                              dtype=fc.compute_dtype, device=dev)
     ni = split.n_i if split is not None else 0
 
     def _interior_factor(L):
-        """The dual factor's leading (n_i, n_i) principal block: a view of
-        a dense stack; a packed one is densified for the cut and packed in
-        the interior layout, a transient dense (S, n, n) stack as in the
-        reference (avoiding it is ROADMAP A11's follow-up)."""
-        if isinstance(L, PackedBlocks):
-            return pack_factor(L.unpack()[:, :ni, :ni], index_ii)
-        return L[:, :ni, :ni]
+        """The dual factor's leading (n_i, n_i) principal block in the
+        Dirichlet stage's storage and block size: a view of a dense stack,
+        or packed in the interior layout. A packed dual factor is densified
+        for the cut, a transient dense (S, n, n) stack as in the reference
+        (avoiding it is ROADMAP A11's follow-up)."""
+        Ld = L.unpack() if isinstance(L, PackedBlocks) else L
+        if index_ii is not None:
+            return pack_factor(Ld[:, :ni, :ni], index_ii)
+        return Ld[:, :ni, :ni]
 
     def prep(Kp_stack, Btp_stack: torch.Tensor,
              blocks: Optional[dirlib.DirichletBlocks] = None):
@@ -305,8 +391,10 @@ def make_cluster_preprocessor(problem: FetiProblem, config=None):
     static = dict(node_perm=node_perm, block_mask=block_mask, env=env,
                   col_perm=cp, inv_col_perm=icp, cfg=cfg, index=index,
                   device=dev, split=split, share=share,
+                  dirichlet_cfg=d_cfg if fc.dirichlet else None,
                   dirichlet_env=meta_ib, dirichlet_mask=mask_ii,
-                  dirichlet_index=index_ii)
+                  dirichlet_index=index_ii, plan=plan, dirichlet_plan=d_plan,
+                  graph=graph, graph_plan=gplan, stages=resolved)
     return static, prep
 
 
@@ -391,7 +479,9 @@ def preprocess_cluster(problem: FetiProblem, config=None) -> ClusterState:
 
     ``preconditioner="dirichlet"`` also assembles the per-subdomain primal
     boundary Schur complements S_b = K_bb − K_bi K_ii⁻¹ K_ib
-    (:mod:`repro_torch.feti.dirichlet`) through the same assembly config;
+    (:mod:`repro_torch.feti.dirichlet`) through the same assembly config
+    (under ``schur="auto"``, the stage's own plan: the state's ``plan``,
+    ``dirichlet_plan``, ``graph_plan`` and ``stages``);
     the state then carries ``Sb``, the boundary-row slice ``Btb``, the
     split and ``shared_factor``: whether the stage reused the dual factor's
     interior principal block instead of factorizing K_ii itself.
@@ -469,4 +559,9 @@ def preprocess_cluster(problem: FetiProblem, config=None) -> ClusterState:
         shared_factor=share,
         dirichlet_env=static["dirichlet_env"],
         dirichlet_mask=static["dirichlet_mask"],
+        dirichlet_cfg=static["dirichlet_cfg"],
+        plan=static["plan"],
+        dirichlet_plan=static["dirichlet_plan"],
+        graph_plan=static["graph_plan"],
+        stages=static["stages"],
     )

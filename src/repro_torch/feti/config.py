@@ -1,5 +1,5 @@
 """The front-door configuration of the port's FETI pipeline (the subset of
-``repro.feti.config.FetiConfig`` this slice runs, plus ``device``)."""
+``repro.feti.config.FetiConfig`` the port runs, plus ``device``)."""
 from __future__ import annotations
 
 import dataclasses
@@ -17,6 +17,7 @@ _PRECONDITIONERS = ("lumped", "dirichlet", "none")
 _ORDERINGS = ("nd", "rcm", "natural")
 _STORAGES = (None, "dense", "packed")
 _SHARE = ("auto", True, False)
+_MEASURES = ("auto", "never", "model")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -24,15 +25,22 @@ class FetiConfig:
     """Everything the port's FETI pipeline is parameterized by.
 
     Attributes:
-      schur: the Schur-assembly configuration, or ``None`` for defaults.
-        ``"auto"`` (the autotuner and stage graph) is ROADMAP item A14.
+      schur: the Schur-assembly configuration, ``"auto"`` (the stage graph
+        plans every assembly stage jointly through the autotuner:
+        :class:`repro_torch.core.stages.StageGraph`), or ``None`` for
+        defaults.
       mode: ``"explicit"`` assembles the dual operators F̃ up front
         (paper eq. 12); ``"implicit"`` applies them factor-backed (eq. 11).
       preconditioner: ``"lumped"`` | ``"dirichlet"`` | ``"none"``.
         ``"dirichlet"`` adds the primal boundary-Schur stage S_b to
         preprocessing (:mod:`repro_torch.feti.dirichlet`), assembled with
-        the dual stage's Schur config.
+        the dual stage's Schur config (under ``"auto"``, its own plan).
       ordering: fill-reducing node ordering ("nd" | "rcm" | "natural").
+      measure: the autotuner's measurement policy under ``schur="auto"``:
+        ``"auto"`` times the model's best candidates on the stage's
+        device, ``"never"``/``"model"`` ranks by the roofline model alone.
+      plan_cache: consult/populate the content-addressed plan cache
+        (``$REPRO_TORCH_PLAN_CACHE_DIR``).
       storage: factor storage override ("dense" | "packed"); ``None``
         defers to ``schur.storage``.
       dtype: storage dtype of the numeric stacks: ``torch.float64`` (the
@@ -57,10 +65,12 @@ class FetiConfig:
         factorizations apart.
     """
 
-    schur: Optional[SchurAssemblyConfig] = None
+    schur: Union[SchurAssemblyConfig, str, None] = None
     mode: str = "explicit"
     preconditioner: str = "lumped"
     ordering: str = "nd"
+    measure: str = "auto"
+    plan_cache: bool = True
     storage: Optional[str] = None
     dtype: Any = torch.float64
     refine: Optional[int] = None
@@ -68,12 +78,16 @@ class FetiConfig:
     share_factor: Union[str, bool] = "auto"
 
     def __post_init__(self):
-        if self.schur == "auto":
-            raise NotImplementedError(
-                "schur='auto' (autotuner + stage graph) is ROADMAP item A14")
-        if self.schur is not None and not isinstance(self.schur,
-                                                     SchurAssemblyConfig):
-            raise TypeError("schur must be a SchurAssemblyConfig or None")
+        if isinstance(self.schur, str) and self.schur != "auto":
+            raise ValueError("schur must be a SchurAssemblyConfig, 'auto' "
+                             f"or None, got {self.schur!r}")
+        if self.schur is not None and not isinstance(
+                self.schur, (SchurAssemblyConfig, str)):
+            raise TypeError("schur must be a SchurAssemblyConfig, 'auto' "
+                            "or None")
+        if self.measure not in _MEASURES:
+            raise ValueError(f"measure must be one of {_MEASURES}, "
+                             f"got {self.measure!r}")
         if self.mode not in _MODES:
             raise ValueError(f"mode must be one of {_MODES}, got {self.mode!r}")
         if self.preconditioner not in _PRECONDITIONERS:
@@ -106,6 +120,11 @@ class FetiConfig:
     def dirichlet(self) -> bool:
         """Whether preprocessing assembles the Dirichlet stage."""
         return self.preconditioner == "dirichlet"
+
+    @property
+    def auto(self) -> bool:
+        """Whether preprocessing plans the Schur configs (``schur="auto"``)."""
+        return self.schur == "auto"
 
     # -- the precision axis -------------------------------------------------
 
@@ -145,7 +164,11 @@ class FetiConfig:
         return precision.solve_dtype(self.dtype, self.resolved_refine())
 
     def resolved_schur(self) -> SchurAssemblyConfig:
-        """The Schur config, with ``storage`` overriding its storage."""
+        """The Schur config of a run that does not autotune, with
+        ``storage`` overriding its storage; ``"auto"`` raises (it resolves
+        during preprocessing)."""
+        if self.auto:
+            raise ValueError("schur='auto' resolves during preprocessing")
         cfg = self.schur if self.schur is not None else SchurAssemblyConfig()
         if self.storage is not None and self.storage != cfg.storage:
             cfg = dataclasses.replace(cfg, storage=self.storage)

@@ -43,7 +43,13 @@ from typing import Callable, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core import SchurAssemblyConfig, build_stepped_meta, make_assembler
+from repro_torch.core import (
+    SchurAssemblyConfig,
+    build_stepped_meta,
+    column_pivots,
+    make_assembler,
+)
+from repro_torch.core.autotune import pattern_fingerprint
 from repro_torch.core.precision import canonical_dtype, compute_dtype
 from repro_torch.core.stepped import SteppedMeta
 from repro_torch.device import resolve_device
@@ -65,6 +71,7 @@ __all__ = [
     "DirichletBlocks",
     "boundary_interior_split",
     "dirichlet_symbolic",
+    "dirichlet_fingerprint",
     "make_dirichlet_assembler",
     "own_boundary_masks",
     "restrict_own_boundary",
@@ -176,6 +183,24 @@ def dirichlet_symbolic(
         kpat[P][:, B], block_size=block_size,
         rhs_block_size=rhs_block_size or block_size)
     return meta_ib, mask_ii
+
+
+def dirichlet_fingerprint(problem: FetiProblem,
+                          split: BoundaryInteriorSplit,
+                          kpat: Optional[np.ndarray] = None) -> str:
+    """Content hash of the Dirichlet stage's sparsity inputs, for the plan
+    cache (the reference's digest on the same problem): K_ib's column
+    pivots, the interior's row degrees and order. Distinct from the dual
+    stage's fingerprint by construction, and the cache key carries the
+    stage name besides. ``kpat`` is the original-order DOF pattern when the
+    caller holds it."""
+    if kpat is None:
+        kpat = _local_dof_pattern(problem)
+    pat_ib = kpat[split.interior][:, split.boundary]
+    row_deg = kpat[split.interior][:, split.interior].sum(axis=1)
+    return pattern_fingerprint(
+        column_pivots(pat_ib), split.n_i, split.n_b,
+        extra=[row_deg.astype(np.int64), split.interior])
 
 
 def own_boundary_masks(problem: FetiProblem,

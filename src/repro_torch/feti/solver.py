@@ -33,7 +33,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from repro_torch.core import SchurAssemblyConfig
+from repro_torch.core import Plan, SchurAssemblyConfig
 from repro_torch.core.precision import dtype_name, tol_floor
 from repro_torch.fem.decomposition import FetiProblem
 from repro_torch.feti.assembly import ClusterState, preprocess_cluster
@@ -139,13 +139,18 @@ class FetiSolver:
     ``config`` is a :class:`~repro_torch.feti.config.FetiConfig` or
     ``None`` (defaults). Work runs on
     ``config.device`` — ``cuda`` unless ``device="cpu"`` is passed.
+    ``cfg`` and ``plan`` are the dual stage's resolved config and, under
+    ``schur="auto"``, the autotuner's plan: set by :meth:`preprocess`
+    (``cfg`` is None before it when the config autotunes).
     """
 
     def __init__(self, problem: FetiProblem, config=None):
         fc = as_feti_config(config)
         self.problem = problem
         self.config = fc
-        self.cfg: SchurAssemblyConfig = fc.resolved_schur()
+        self.cfg: Optional[SchurAssemblyConfig] = (
+            None if fc.auto else fc.resolved_schur())
+        self.plan: Optional[Plan] = None
         self.mode = fc.mode
         self.preconditioner = fc.preconditioner
         self.state: Optional[ClusterState] = None
@@ -161,6 +166,8 @@ class FetiSolver:
         t0 = time.perf_counter()
         self.state = preprocess_cluster(self.problem, self.config)
         _sync(self.state.device)
+        self.cfg = self.state.cfg  # resolved when "auto" was passed
+        self.plan = self.state.plan
         self._ops = None
         self.timings["preprocess_s"] = time.perf_counter() - t0
         return self.state

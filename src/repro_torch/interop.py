@@ -1,12 +1,15 @@
-"""Carry a decomposition or a packed factor from the JAX reference into
-the port, at a chosen dtype.
+"""Carry a decomposition, a packed factor or a plan from the JAX reference
+into the port, at a chosen dtype.
 
 :func:`from_reference_problem` builds the port's :class:`FetiProblem` from
 the reference's host arrays, so both packages can be fed the identical
 decomposition; :func:`from_reference_packed` builds a
-:class:`PackedBlocks` from a packed factor's values and block layout. Both
-take plain numpy arrays (never the reference's objects) and import nothing
-of the reference. A problem's host arrays are f64 (the pipeline rounds them
+:class:`PackedBlocks` from a packed factor's values and block layout;
+:func:`schur_config_from_reference` and :func:`plan_from_reference` map an
+assembly config's fields and a plan's JSON (``use_pallas`` becomes
+``use_kernels``; ``interpret`` has no counterpart). All take plain numpy
+arrays or dicts (never the reference's objects) and import nothing of the
+reference. A problem's host arrays are f64 (the pipeline rounds them
 to its storage dtype itself); a packed factor is carried at ``dtype``, so
 both packages' f32 factors can be compared on identical values.
 """
@@ -15,11 +18,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.core.autotune import Plan
+from repro_torch.core.schur import SchurAssemblyConfig
 from repro_torch.fem.decomposition import FetiProblem, SubdomainData
 from repro_torch.fem.meshgen import Mesh
 from repro_torch.sparse.packed import PackedBlockIndex, PackedBlocks
 
-__all__ = ["SUBDOMAIN_KEYS", "from_reference_problem", "from_reference_packed"]
+__all__ = ["SUBDOMAIN_KEYS", "from_reference_problem", "from_reference_packed",
+           "schur_config_from_reference", "plan_from_reference"]
 
 SUBDOMAIN_KEYS = ("K", "Bt", "f", "R", "lambda_ids", "m", "dof_gids",
                   "fixing_dofs", "b_rows", "b_vals")
@@ -99,3 +105,20 @@ def from_reference_packed(values: np.ndarray, mask: np.ndarray, n: int,
     vals = torch.as_tensor(np.array(values, dtype=np.float64)).to(dtype)
     index.validate(vals)
     return PackedBlocks(vals, index)
+
+
+def schur_config_from_reference(fields: dict) -> SchurAssemblyConfig:
+    """The port's config from a reference config's fields (its
+    ``dataclasses.asdict``): ``use_pallas`` becomes ``use_kernels``,
+    ``interpret`` (the Pallas interpreter) is dropped."""
+    d = dict(fields)
+    d["use_kernels"] = d.pop("use_pallas")
+    d.pop("interpret", None)
+    return SchurAssemblyConfig(**d)
+
+
+def plan_from_reference(d: dict) -> Plan:
+    """The port's :class:`Plan` from a reference plan's ``to_json()``."""
+    d = dict(d)
+    d["cfg"] = schur_config_from_reference(d["cfg"])
+    return Plan(**d)

@@ -1,0 +1,119 @@
+"""Per-device roofline constants for ranking assembly plans (the
+``DeviceModel`` part of ``repro.launch.roofline``).
+
+The autotuner (:mod:`repro_torch.core.autotune`) feeds its FLOP and byte
+models through :meth:`DeviceModel.time_s` to order candidate plans;
+absolute accuracy matters only as far as the ranking does, and the
+measured refinement handles the rest. The reference's HLO collective
+parsers and its ``Roofline`` read XLA's compiled artifacts and have no
+counterpart here.
+
+``"tpu"``, ``"gpu"`` (an A100-class card) and ``"cpu"`` are the
+reference's models unchanged. ``"h100"`` is the card the port runs on:
+NVIDIA H100 80GB HBM3 at its 700 W power limit, data-sheet rates. One
+figure prices every dtype there. f64 runs on the FP64 tensor cores
+(DMMA, 67 TFLOP/s). The f32 candidates outside the kernels (the plain
+variants, cuBLAS SGEMM with TF32 off) run on FFMA, also 67 TFLOP/s; the f32
+kernels' 3xTF32 products take three TF32 products each, 3 x FLOPs /
+494.7 TFLOP/s, i.e. 165 TFLOP/s of f32 work, but a kernel's time is set by
+its traffic and occupancy well below either peak (PERF.md §6), so the
+ranking gains nothing from a second figure. bf16 stages compute at f32
+(:mod:`repro_torch.core.precision`).
+"""
+from __future__ import annotations
+
+import dataclasses
+import types
+from typing import Mapping, Optional, Union
+
+import torch
+
+__all__ = ["DeviceModel", "DEVICE_MODELS", "CUDA_KINDS", "detect_device"]
+
+
+@dataclasses.dataclass(frozen=True)
+class DeviceModel:
+    """Per-device roofline constants for *ranking* kernel schedules.
+
+    Attributes:
+      kind: "tpu" | "gpu" | "h100" | "cpu".
+      peak_flops: sustained f64 FLOP/s (the default dtype's regime).
+      mem_bw: main-memory bandwidth, B/s.
+      overhead_s: per-dispatched-op launch/dispatch overhead. This is the
+        term that penalizes tiny block sizes (many small ops) and rewards
+        fused single-launch schedules.
+      peak_flops_by_dtype: sustained FLOP/s per stage dtype name ("f64" |
+        "f32" | "bf16"); missing entries fall back to ``peak_flops``.
+    """
+
+    kind: str
+    name: str
+    peak_flops: float
+    mem_bw: float
+    overhead_s: float = 5e-6
+    peak_flops_by_dtype: Optional[Mapping[str, float]] = None
+
+    def peak(self, dtype: str = "f64") -> float:
+        """Sustained FLOP/s for a stage dtype name; unknown names fall
+        back to the f64 figure."""
+        if self.peak_flops_by_dtype is None:
+            return self.peak_flops
+        return self.peak_flops_by_dtype.get(dtype, self.peak_flops)
+
+    def time_s(self, flops: float, bytes_: float, n_ops: int = 1,
+               dtype: str = "f64") -> float:
+        """Roofline execution-time estimate: max(compute, memory) + launches."""
+        return max(flops / self.peak(dtype), bytes_ / self.mem_bw) \
+            + n_ops * self.overhead_s
+
+
+def _freeze(d: dict) -> Mapping[str, float]:
+    return types.MappingProxyType(dict(d))
+
+
+# the reference's TPU v5e HBM bandwidth (its roofline.HW["hbm_bw"])
+_TPU_HBM_BW = 819e9
+_TPU_BF16_PEAK = 197e12
+
+DEVICE_MODELS = {
+    # the reference's models, unchanged (the tests compare scores)
+    "tpu": DeviceModel("tpu", "tpu-v5e-f64", peak_flops=1.0e12,
+                       mem_bw=_TPU_HBM_BW, overhead_s=2e-6,
+                       peak_flops_by_dtype=_freeze(
+                           {"f64": 1.0e12, "f32": 98.5e12,
+                            "bf16": _TPU_BF16_PEAK})),
+    "gpu": DeviceModel("gpu", "a100-f64", peak_flops=9.7e12,
+                       mem_bw=1.55e12, overhead_s=5e-6,
+                       peak_flops_by_dtype=_freeze(
+                           {"f64": 9.7e12, "f32": 19.5e12,
+                            "bf16": 156e12})),
+    "cpu": DeviceModel("cpu", "host-f64", peak_flops=5.0e10,
+                       mem_bw=2.0e10, overhead_s=10e-6,
+                       peak_flops_by_dtype=_freeze(
+                           {"f64": 5.0e10, "f32": 1.0e11,
+                            "bf16": 1.0e11})),
+    # NVIDIA H100 80GB HBM3, 700 W (see the module note). overhead_s: the
+    # median host-to-completion time of one small launch through a kernel
+    # wrapper (the stepped SYRK on one 8 x 8 tile, then a synchronize),
+    # 31.11 us over 200 launches, measured by chip_smoke.py's autotune
+    # phase on that card at 700 W
+    "h100": DeviceModel("h100", "h100-f64", peak_flops=67e12,
+                        mem_bw=3.35e12, overhead_s=31.11e-6,
+                        peak_flops_by_dtype=_freeze(
+                            {"f64": 67e12, "f32": 67e12, "bf16": 67e12})),
+}
+
+# the kinds whose kernel candidates are the port's CUDA kernels
+CUDA_KINDS = ("gpu", "h100")
+
+
+def detect_device(device: Union[str, torch.device]) -> DeviceModel:
+    """The :class:`DeviceModel` of a torch device (the one the config
+    resolved): a CUDA card whose name holds "H100" is ``"h100"``, another
+    CUDA card ``"gpu"``, anything else the CPU model. Availability is the
+    caller's to check (:func:`repro_torch.device.resolve_device`)."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        name = torch.cuda.get_device_name(dev)
+        return DEVICE_MODELS["h100" if "H100" in name else "gpu"]
+    return DEVICE_MODELS["cpu"]

@@ -32,6 +32,15 @@ load, and prints each column's iterations; with ``--validate`` every
 column is checked against its own global solve, its error relative to that
 solution's largest entry.
 
+``--autotune`` replaces the architecture's hand-picked assembly config with
+the joint planner of :mod:`repro_torch.core.stages` (``schur="auto"``: the
+paper's Table-1 choice made per stage, the hand-written kernels among the
+candidates timed on the card), prints each stage's plan, and checks the
+autotuned F̃ against the dense baseline on the unpacked factor (exit 1
+above 1e-8). Plans are cached under ``$REPRO_TORCH_PLAN_CACHE_DIR``
+(default ``~/.cache/repro_torch/plans``); ``--no-plan-cache`` neither
+reads nor writes it.
+
 ``--precond dirichlet`` assembles the primal boundary Schur complements
 S_b = K_bb − K_bi K_ii⁻¹ K_ib as a second stage through the same config
 (so the same kernels run it, on new shapes) and preconditions PCPG with
@@ -64,6 +73,13 @@ def main(argv=None) -> int:
     p.add_argument("--tol", type=float, default=1e-9)
     p.add_argument("--validate", action="store_true",
                    help="compare against the global sparse solve")
+    p.add_argument("--autotune", action="store_true",
+                   help="let the stage graph's joint planner pick every "
+                        "assembly stage's config (schur='auto'); "
+                        "--kernels and --fused are then ignored (the "
+                        "planner enumerates both)")
+    p.add_argument("--no-plan-cache", action="store_true",
+                   help="neither read nor write the on-disk plan cache")
     p.add_argument("--kernels", action="store_true",
                    help="assemble with the hand-written stepped TRSM/SYRK "
                         "kernels (SchurAssemblyConfig.use_kernels)")
@@ -113,7 +129,9 @@ def main(argv=None) -> int:
           f"{prob.subdomains[0].n} DOFs, {prob.n_lambda} multipliers, "
           f"m_max={prob.m_max}, device={device}")
 
-    if args.fused:
+    if args.autotune:
+        cfg = "auto"
+    elif args.fused:
         cfg = SchurAssemblyConfig(
             block_size=fc.block_size, rhs_block_size=fc.rhs_block_size,
             use_kernels=True, fused=True)
@@ -124,7 +142,8 @@ def main(argv=None) -> int:
             use_kernels=args.kernels)
     config = FetiConfig(schur=cfg, mode=args.mode,
                         preconditioner=args.precond, storage=args.storage,
-                        dtype=args.dtype, refine=args.refine, device=device)
+                        dtype=args.dtype, refine=args.refine, device=device,
+                        plan_cache=not args.no_plan_cache)
     solver = FetiSolver(prob, config)
     if args.n_rhs > 0:
         loads = prob.load_cases(args.n_rhs, kind="sweep")
@@ -133,6 +152,7 @@ def main(argv=None) -> int:
         sol = solver.solve(tol=args.tol)
 
     st = solver.state
+    cfg = solver.cfg  # the planner's choice under --autotune
     by = st.device_bytes()
     print(f"[feti] dtype: storage={sol.storage_dtype} "
           f"compute={sol.compute_dtype} solve={sol.solve_dtype} "
@@ -146,6 +166,25 @@ def main(argv=None) -> int:
               f"{sp.n_b}/{sp.n_i} of {sp.n} DOFs, K_ib stripes start at "
               f"rows {env.col_starts.tolist()}, Sb={by['Sb']:,} "
               f"Btb={by['Btb']:,} bytes, shared_factor={st.shared_factor}")
+        if st.dirichlet_plan is not None:
+            for line in st.dirichlet_plan.summary().splitlines():
+                print(f"[autotune:dirichlet] {line}")
+    if solver.plan is not None:
+        for line in solver.plan.summary().splitlines():
+            print(f"[autotune] {line}")
+        if st.F is not None:
+            from repro_torch.core import schur_dense_baseline
+            from repro_torch.sparse import PackedBlocks
+
+            cd = config.compute_dtype
+            L = st.L.unpack() if isinstance(st.L, PackedBlocks) else st.L
+            F_ref = schur_dense_baseline(L.to(cd), st.Btp.to(cd))
+            err = (st.F.to(cd) - F_ref).abs().max().item()
+            print(f"[autotune] max |F_auto - F_dense_baseline| = {err:.2e}")
+            if err > 1e-8:
+                print("[autotune] FAIL: autotuned assembly disagrees with "
+                      "the dense baseline")
+                return 1
     if args.n_rhs > 0:
         converged = bool(sol.converged.all())
         iters = " ".join(str(int(i)) for i in sol.iterations)

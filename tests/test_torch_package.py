@@ -68,17 +68,19 @@ def test_entry_points_require_cuda_unless_cpu(monkeypatch):
 
 
 @pytest.mark.parametrize("kwargs,item", [
-    (dict(schur="auto"), "A14"),
+    (dict(schur="auto"), "resolves during preprocessing"),
 ])
 def test_unported_options_name_their_roadmap_item(kwargs, item):
-    from repro_torch.core import SchurAssemblyConfig
+    """An option that raised until its slice was ported now builds: the
+    autotuner's ``schur="auto"`` (A14) is a config whose Schur config
+    resolves only during preprocessing, and ``resolved_schur()`` raises
+    for it as the reference's does."""
     from repro_torch.feti import FetiConfig
 
-    kwargs = dict(kwargs)
-    if kwargs.pop("fused", False):
-        kwargs["schur"] = SchurAssemblyConfig(use_kernels=True, fused=True)
-    with pytest.raises(NotImplementedError, match=item):
-        FetiConfig(**kwargs)
+    cfg = FetiConfig(**kwargs)
+    assert cfg.auto and cfg.measure == "auto" and cfg.plan_cache
+    with pytest.raises(ValueError, match=item):
+        cfg.resolved_schur()
 
 
 def test_unported_paths_name_their_roadmap_item():
@@ -89,8 +91,9 @@ def test_unported_paths_name_their_roadmap_item():
     from repro_torch.feti import FetiConfig
 
     # packed storage (A9), the fused kernels (B4, B5), elasticity (A10),
-    # the Dirichlet preconditioner (A11) and multi-RHS solves (A12) are
-    # ported; telemetry is not
+    # the Dirichlet preconditioner (A11), multi-RHS solves (A12) and the
+    # autotuner with the stage graph (A14) are ported; the solver's
+    # telemetry report is not
     assert SchurAssemblyConfig(storage="packed", use_kernels=True,
                                fused=True).fused
     assert decompose_problem("elasticity", 2, (2, 2), (2, 2)).kernel_dim == 3

@@ -47,12 +47,18 @@ Phases (each prints its seconds; any failure exits non-zero):
                 f32 pair). TF32 is off for every torch product (printed):
                 the kernels' 3xTF32 keeps f32 accuracy, a torch TF32 matmul
                 would not.
-     small blocks — the same factor and right-hand side at bs = bm = 16
-                (SMALL_BS; the stepped metadata rebuilt at that size, the
-                factor packed in its nonzero 16 x 16 blocks): all five
-                kernels at f64 and at f32 against their plain versions (1e-11,
-                1e-4), their twins and the library calls, with times
-                (ROADMAP C4). One checker serves all three phases.
+     large blocks — the same factor and right-hand side at bs = bm = 256
+                (WIDE_BS, the largest block the reference's planner offers;
+                n_pad = 4352 = 17 x 256, m_pad = 512; the stepped metadata
+                rebuilt at that size, the factor packed in its nonzero
+                256 x 256 blocks): the four TRSM kernels (B1, B3, B4, B5),
+                whose core takes such a block in two 128-row passes, at f64
+                and at f32, against their plain versions (1e-11, 1e-4),
+                their twins (B1 and B3 f32 within F32_TRSM_TWIN_TOL of the
+                f64 kernel) and the library calls, with times.
+     small blocks — the same at bs = bm = 16 (SMALL_BS, the factor packed
+                in its nonzero 16 x 16 blocks): all five kernels at f64 and
+                at f32. One checker serves all four phases.
   4. dirichlet — the same five checks and timings on the Dirichlet stage's
                 operands of the full-size feti-heat-3d configuration (S=64
                 subdomains of 16^3 elements: the interior factor, n_i=3375
@@ -117,7 +123,24 @@ Phases (each prints its seconds; any failure exits non-zero):
                 configuration's scipy oracle is solved once and reused
                 across its paths (a sweep's columns are multiples of it).
 
-  6. autotune — in a fresh ``REPRO_TORCH_PLAN_CACHE_DIR``: the launch
+  6. telemetry — feti-heat-2d at full width (dense, lumped, bs 128, f64)
+                twice through the launcher with ``--validate``: explicit
+                ``--kernels --trace build/chip_smoke/heat2d_trace.json
+                --report``, then ``--mode implicit``. Fails unless
+                ``repro_torch.obs.validate`` accepts the trace, each run's
+                span tree is the reference's (TELEMETRY_SPANS) with every
+                child within its parent, the ``pcpg`` span's
+                ``iterations`` are the solution's, the report's device-byte
+                total is the launcher's printout, the explicit run
+                launches B1 and B2 once each and the implicit one nothing,
+                and the explicit solver's ``amortization_report`` (the
+                implicit run's ``pcpg`` span over its iterations passed as
+                its per-iteration time) gives a finite, positive
+                ``amortization_iterations``. Prints both span trees'
+                durations, the break-even count, ``assembly_s`` (the
+                ``stage:dual`` span: the factorization plus the dual
+                assembly) and both per-iteration times.
+  7. autotune — in a fresh ``REPRO_TORCH_PLAN_CACHE_DIR``: the launch
                 overhead through a kernel wrapper (the median
                 host-to-completion time of a small launch: the H100
                 device model's ``overhead_s``), then three main paths
@@ -141,11 +164,12 @@ Phases (each prints its seconds; any failure exits non-zero):
 
 Then one JSON line with the kernels' numbers, one row per kernel and
 dtype (the f32 ones named ``*_f32``; each row: the heat-2d phase's,
-``launches`` summed over the main paths (the autotune ones included)
-beside ``launches_per_path``, the planner's launches per autotune path
-under ``planning_launches``, the main paths' checks under
-``path_checks``, the Dirichlet phase's under ``dirichlet_heat_3d`` and
-the small-block phase's under ``bs16``) and, last, the device line.
+``launches`` summed over the main paths (the telemetry and autotune
+ones included) beside ``launches_per_path``, the planner's launches per
+autotune path under ``planning_launches``, the main paths' checks under
+``path_checks``, the Dirichlet phase's under ``dirichlet_heat_3d``, the
+small-block phase's under ``bs16`` and the large-block phase's under
+``bs256``) and, last, the device line.
 The port imports no JAX and nothing of the ``repro`` package.
 """
 from __future__ import annotations
@@ -201,7 +225,12 @@ PEAK_FP32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 494.7e12
 PEAK_BYTES_PER_S = 3.35e12
 REPS = 5
-SMALL_BS = 16  # the small-block phase's bs = bm (ROADMAP C4)
+SMALL_BS = 16  # the small-block phase's bs = bm
+WIDE_BS = 256  # the large-block phase's bs = bm: two passes of the core
+# the kernels of the large-block phase: every one whose TRSM core takes a
+# block in passes (the stepped SYRK has no factor block)
+WIDE_NAMES = ("stepped_trsm", "stepped_trsm_packed", "stepped_trsm_syrk",
+              "stepped_trsm_syrk_packed")
 
 # feti-heat-3d's validated depth (full: 4,4,4), registered under its own
 # architecture name: the width stays the configuration's
@@ -249,7 +278,7 @@ MAIN_RUNS = (
     ("heat-3d dense --kernels dirichlet", HEAT3D_CUT,
      ["--kernels", "--precond", "dirichlet"],
      dict(stepped_trsm=2, stepped_syrk=2)),
-    # the smoke configurations' bs = bm = 8 through the f64 kernels (C4)
+    # the smoke configurations' bs = bm = 8 through the f64 kernels
     ("heat-2d smoke --kernels", ARCH, ["--smoke", "--kernels"],
      dict(stepped_trsm=1, stepped_syrk=1)),
     ("elasticity-2d smoke --kernels", "feti-elasticity-2d",
@@ -331,6 +360,21 @@ HAND_PICKED = {
     "--fused bs 128": dict(block_size=128, use_kernels=True, fused=True),
 }
 LAUNCH_OVERHEAD_REPS = 200  # small launches timed for the launch overhead
+# the telemetry phase: feti-heat-2d at full width (dense, lumped, bs 128,
+# f64), explicit through the kernels with --trace and --report, then
+# implicit on the same problem: (name, launcher flags, launches)
+TELEMETRY_RUNS = (
+    ("telemetry heat-2d --kernels", ["--kernels"],
+     dict(stepped_trsm=1, stepped_syrk=1)),
+    ("telemetry heat-2d --mode implicit", ["--mode", "implicit"], dict()),
+)
+# the reference's span tree of these solves (explicit and implicit alike:
+# tests/test_torch_telemetry.py holds the port's equal to it on the CPU)
+TELEMETRY_SPANS = [
+    ("preprocess", [("init", []), ("prep", [("stage:dual", [])]),
+                    ("pack", [])]),
+    ("solve", [("rhs_setup", []), ("pcpg", []), ("recover", [])]),
+]
 # each mixed-precision run's bar on its PCPG iterations summed over the
 # defect-correction outers (a multi-RHS run: its most iterated column): the
 # counts measured on the card (NVIDIA H100 80GB HBM3, 700 W) with a small
@@ -373,39 +417,43 @@ SAME_SOLVE = (
 )
 F_KERNELS = ("stepped_syrk", "stepped_trsm_syrk", "stepped_trsm_syrk_packed")
 FUSED = F_KERNELS[1:]  # timed beside their unfused pair at their dtype
+# the TRSM core's kernels: (name, library, factor accessor's mangled name)
+TRSM_CORE = (("stepped_trsm", "stepped_trsm", "11DenseFactor"),
+             ("stepped_trsm_packed", "stepped_trsm", "12PackedFactor"),
+             ("stepped_trsm_syrk", "stepped_trsm_syrk", "11DenseFactor"),
+             ("stepped_trsm_syrk_packed", "stepped_trsm_syrk",
+              "12PackedFactor"))
+
+
+def core_instances(kc, passes):
+    """{kernel key: (library, a substring of the mangled kernel name)} of
+    the TRSM core's instances <T, KC, PASSES, Factor>; ``kc`` maps the
+    dtype to KC."""
+    return {
+        kernel_key(name, dtype): (
+            lib, f"I{t}Li{kc(dtype)}ELi{passes}EN7stepped{factor}I{t}EE")
+        for dtype, t in (("f64", "d"), ("f32", "f"))
+        for name, lib, factor in TRSM_CORE}
+
+
+def row_kc(dtype):
+    """The row-split core's deepest chunks (ROW_KC): 16 at f64, 32 at f32."""
+    return 16 if dtype == "f64" else 32
+
+
 # (library, a substring of the mangled kernel name) of each kernel: the
-# row-split core's instances with its deepest chunks (16 at f64, 32 at f32),
-# which every bs the full-size main paths use
-INSTANCES = {
-    "stepped_trsm": ("stepped_trsm", "IdLi16EN7stepped11DenseFactorIdEE"),
-    "stepped_trsm_packed": ("stepped_trsm",
-                            "IdLi16EN7stepped12PackedFactorIdEE"),
-    "stepped_syrk": ("stepped_syrk", "stepped_syrk_kernelIdE"),
-    "stepped_trsm_syrk": ("stepped_trsm_syrk",
-                          "IdLi16EN7stepped11DenseFactorIdEE"),
-    "stepped_trsm_syrk_packed": ("stepped_trsm_syrk",
-                                 "IdLi16EN7stepped12PackedFactorIdEE"),
-    "stepped_trsm_f32": ("stepped_trsm", "IfLi32EN7stepped11DenseFactorIfEE"),
-    "stepped_trsm_packed_f32": ("stepped_trsm",
-                                "IfLi32EN7stepped12PackedFactorIfEE"),
-    "stepped_syrk_f32": ("stepped_syrk", "stepped_syrk_kernelIfE"),
-    "stepped_trsm_syrk_f32": ("stepped_trsm_syrk",
-                              "IfLi32EN7stepped11DenseFactorIfEE"),
-    "stepped_trsm_syrk_packed_f32": ("stepped_trsm_syrk",
-                                     "IfLi32EN7stepped12PackedFactorIfEE"),
-}
+# row-split core's one-pass instances with its deepest chunks, which every
+# bs the full-size main paths use, and the stepped SYRK's one instance a
+# dtype
+INSTANCES = {**core_instances(row_kc, 1),
+             "stepped_syrk": ("stepped_syrk", "stepped_syrk_kernelIdE"),
+             "stepped_syrk_f32": ("stepped_syrk", "stepped_syrk_kernelIfE")}
 # the small-block instances (the panel core on the dense factor, the
 # k-split core on the packed one; bs <= 16: the bs = 16 phase and the smoke
 # configurations' bs = 8)
-SMALL_INSTANCES = {
-    kernel_key(name, dtype): (lib, f"I{t}Li0EN7stepped{factor}I{t}EE")
-    for dtype, t in (("f64", "d"), ("f32", "f"))
-    for name, lib, factor in (
-        ("stepped_trsm", "stepped_trsm", "11DenseFactor"),
-        ("stepped_trsm_packed", "stepped_trsm", "12PackedFactor"),
-        ("stepped_trsm_syrk", "stepped_trsm_syrk", "11DenseFactor"),
-        ("stepped_trsm_syrk_packed", "stepped_trsm_syrk", "12PackedFactor"))
-}
+SMALL_INSTANCES = core_instances(lambda dtype: 0, 1)
+# the two-pass instances (128 < bs <= 256: the large-block phase)
+WIDE_INSTANCES = core_instances(row_kc, 2)
 # the libraries whose SASS must run on the FP64 tensor cores
 DMMA_LIBS = ("stepped_syrk", "stepped_trsm_syrk")
 # the libraries whose f32 products must run 3xTF32 on the tensor cores
@@ -518,7 +566,7 @@ def kernel_inputs(device):
     return x
 
 
-def small_block_inputs(x, device, bs=SMALL_BS):
+def reblocked_inputs(x, device, bs):
     """The heat-2d phase's operands at bs = bm = ``bs``: the same factor
     and right-hand side, the stepped metadata rebuilt at that block size
     (each subdomain's column order, their envelope) and the factor packed
@@ -1256,21 +1304,25 @@ def run_main_path(name, arch, flags, expected):
               f"{ {k: v for k, v in planned['launches'].items() if v} }",
               flush=True)
         for stage, p in gplan.plans.items():
+            c = p.cfg
             print(f"[chip_smoke] main path {name} plan [{stage}]: "
-                  f"{p.candidates} candidates, {p.timed} timed, {p.refused} "
-                  f"kernel candidates left out for bs > 128; measured "
-                  f"{p.measured_s} s against the dense baseline's "
+                  f"trsm={c.trsm_variant} syrk={c.syrk_variant} "
+                  f"bs={c.block_size} bm={c.rhs_bs} kernels={c.use_kernels} "
+                  f"fused={c.fused} storage={c.storage}; {p.candidates} "
+                  f"candidates scored, none left out, {p.timed} timed; "
+                  f"measured {p.measured_s} s against the dense baseline's "
                   f"{p.baseline_measured_s} s", flush=True)
     return dict(launches=launches, iterations=iterations, columns=columns,
                 peak=peak, checks=checks["records"], err=err, bytes=stack,
                 dtypes=dtypes, planning=planned)
 
 
-def kernel_rows(rows, d_rows, small, runs):
+def kernel_rows(rows, d_rows, small, wide, runs):
     """Complete the heat-2d phase's rows for the JSON line, in place: each
     row's launches summed over the main paths (and per path), the main
-    paths' launch checks, the Dirichlet phase's numbers and the small-block
-    phase's."""
+    paths' launch checks, the Dirichlet phase's numbers, the small-block
+    phase's and the large-block phase's (None for the stepped SYRK, which
+    it does not run)."""
     keep = ("ms", "plain_ms", "library_ms", "library_call", "bound_ms",
             "bound_by", "bound_ops_ms", "bound_ops_route", "tflops",
             "bound_share", "max_abs_err", "max_rel_err", "twin_rel_err",
@@ -1290,10 +1342,12 @@ def kernel_rows(rows, d_rows, small, runs):
                    for c in run["checks"] if c["kernel"] == r["name"]]
             for name, run in runs.items() if name in per_path}
         r["dirichlet_heat_3d"] = {k: d[k] for k in keep}
-        r[f"bs{SMALL_BS}"] = next(
-            ({k: q[k] for k in keep + ("bs", "bm", "registers",
-                                        "spill_stores", "spill_loads")}
-             for q in small if q["name"] == r["name"]), None)
+        for key, phase_rows in ((f"bs{SMALL_BS}", small),
+                                (f"bs{WIDE_BS}", wide)):
+            r[key] = next(
+                ({k: q[k] for k in keep + ("bs", "bm", "registers",
+                                            "spill_stores", "spill_loads")}
+                 for q in phase_rows if q["name"] == r["name"]), None)
 
 
 def launch_overhead(device):
@@ -1415,6 +1469,178 @@ def autotune_phase(device, runs):
     return auto
 
 
+@contextlib.contextmanager
+def solver_probe():
+    """Within the block, every ``FetiSolver.solve`` records its solver (the
+    launcher builds its own), so its telemetry can be read after the
+    launcher returns."""
+    from repro_torch.feti import solver as solver_mod
+
+    cls = solver_mod.FetiSolver
+    solve = cls.solve
+    seen = []
+
+    def probed(self, *args, **kw):
+        seen.append(self)
+        return solve(self, *args, **kw)
+
+    cls.solve = probed
+    try:
+        yield seen
+    finally:
+        cls.solve = solve
+
+
+def span_names(tree):
+    """A span tree's names and nesting: [(name, [children...]), ...]."""
+    return [(node["name"], span_names(node["children"])) for node in tree]
+
+
+def print_spans(label, tree, depth=0):
+    """Each span's duration, indented by its depth; fails unless every
+    child's duration is at most its parent's."""
+    for node in tree:
+        attrs = {k: v for k, v in node["attrs"].items()
+                 if k != "residual_history"}
+        print(f"[chip_smoke] {label} span {'  ' * depth}{node['name']} "
+              f"{node['duration_s'] * 1e3:.3f} ms {attrs if attrs else ''}",
+              flush=True)
+        for child in node["children"]:
+            if not child["duration_s"] <= node["duration_s"]:
+                raise SystemExit(f"{label}: span {child['name']} "
+                                 f"({child['duration_s']} s) outlasts its "
+                                 f"parent {node['name']} "
+                                 f"({node['duration_s']} s)")
+        print_spans(label, node["children"], depth + 1)
+
+
+def telemetry_run(name, flags, expected):
+    """One feti-heat-2d solve through the launcher with ``--validate`` and
+    the kernel counts set to 0 just before; returns the solver, its
+    ``report()``, the launcher's output and its iterations. Fails unless the
+    launcher exits 0, launches exactly ``expected``, the span tree is the
+    reference's (TELEMETRY_SPANS) with every child within its parent, the
+    ``pcpg`` span's ``iterations`` are the solution's and the report's
+    device-byte total is the launcher's printout."""
+    import torch
+
+    from repro_torch.launch import solve_feti
+    from repro_torch.obs import metrics
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    metrics.reset()
+    reset_counts()
+    buf = io.StringIO()
+    argv = ["--arch", ARCH, *flags, "--validate"]
+    with solver_probe() as seen, contextlib.redirect_stdout(buf):
+        rc = solve_feti.main(argv)
+    launches = launch_counts()
+    out = buf.getvalue()
+    for line in out.splitlines():
+        if line.startswith("[feti]"):
+            print(line, flush=True)
+    if rc != 0 or len(seen) != 1:
+        raise SystemExit(f"{name}: solve_feti {' '.join(argv)} exited {rc}")
+    want = {k: expected.get(k, 0) for k in KERNEL_KEYS}
+    if launches != want:
+        raise SystemExit(f"{name}: launched {launches}, the path must "
+                         f"launch {want}")
+    solver = seen[0]
+    rep = solver.report()
+    print_spans(name, rep["spans"])
+    if span_names(rep["spans"]) != TELEMETRY_SPANS:
+        raise SystemExit(f"{name}: span tree {span_names(rep['spans'])}, "
+                         f"the reference's is {TELEMETRY_SPANS}")
+    iterations = int(re.search(r"iters=(\d+) ", out).group(1))
+    pcpg = rep["spans"][1]["children"][1]
+    total = int(re.search(r" total=(\S+)", out).group(1).replace(",", ""))
+    print(f"[chip_smoke] {name}: pcpg span iterations "
+          f"{pcpg['attrs']['iterations']}, the solution's {iterations}; "
+          f"report device_bytes total {rep['device_bytes']['total']:,}, "
+          f"the launcher's {total:,}; launches "
+          f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+    if not (pcpg["attrs"]["iterations"] == iterations
+            and rep["device_bytes"]["total"] == total):
+        raise SystemExit(f"{name}: the pcpg span or the report's device "
+                         f"bytes disagree with the launcher")
+    return dict(solver=solver, report=rep, out=out, iterations=iterations,
+                launches=launches, checks=[], total=total)
+
+
+def telemetry_phase():
+    """feti-heat-2d at full width through the launcher twice: explicit
+    ``--kernels --trace OUT --report`` and ``--mode implicit`` on the same
+    problem (TELEMETRY_RUNS). Validates the trace with
+    ``repro_torch.obs.validate``, holds the printed report to the
+    launcher's device bytes, and takes the explicit solver's
+    ``amortization_report`` with the implicit run's per-iteration time
+    (its ``pcpg`` span over its iterations). Returns the runs and the
+    amortization."""
+    import math
+
+    from repro_torch.obs import validate
+
+    trace = os.path.join(ROOT, "build", "chip_smoke", "heat2d_trace.json")
+    os.makedirs(os.path.dirname(trace), exist_ok=True)
+    (exp_name, exp_flags, exp_launches), (imp_name, imp_flags,
+                                          imp_launches) = TELEMETRY_RUNS
+    exp = telemetry_run(exp_name, [*exp_flags, "--trace", trace, "--report"],
+                        exp_launches)
+    start = exp["out"].index("\n{") + 1
+    printed = json.JSONDecoder().raw_decode(exp["out"][start:])[0]
+    errors = validate.validate(trace)
+    print(f"[chip_smoke] {exp_name}: repro_torch.obs.validate {trace}: "
+          f"{errors or 'OK'}; the printed report's device_bytes total "
+          f"{printed['device_bytes']['total']:,}", flush=True)
+    if errors or validate.main([trace]) != 0:
+        raise SystemExit(f"{exp_name}: the trace does not validate: {errors}")
+    if printed["device_bytes"]["total"] != exp["total"]:
+        raise SystemExit(f"{exp_name}: --report's device bytes "
+                         f"{printed['device_bytes']['total']} are not the "
+                         f"launcher's {exp['total']}")
+    imp = telemetry_run(imp_name, imp_flags, imp_launches)
+    if abs(imp["iterations"] - exp["iterations"]) > 1:
+        raise SystemExit(f"{imp_name}: {imp['iterations']} iterations, the "
+                         f"explicit solve {exp['iterations']}")
+    pcpg = imp["solver"].telemetry.tracer.last("pcpg")
+    implicit_iter_s = pcpg.duration / pcpg.attrs["iterations"]
+    am = exp["solver"].amortization_report(t_implicit_iter_s=implicit_iter_s)
+    tr = exp["solver"].telemetry.tracer
+    print(f"[chip_smoke] telemetry amortization_iterations "
+          f"{am['amortization_iterations']!r}: assembly_s "
+          f"{am['assembly_s']!r} (stage:dual: the factorization plus the "
+          f"dual assembly, as in the reference; preprocess "
+          f"{tr.last('preprocess').duration!r} s, prep "
+          f"{tr.last('prep').duration!r} s), explicit_iter_s "
+          f"{am['explicit_iter_s']!r} ({exp['iterations']} iterations), "
+          f"implicit_iter_s {am['implicit_iter_s']!r} "
+          f"({imp['iterations']} iterations); measured_from "
+          f"{am['measured_from']}; solve_iter_counts "
+          f"{am['solve_iter_counts']}", flush=True)
+    if not (math.isfinite(am["amortization_iterations"])
+            and am["amortization_iterations"] > 0):
+        raise SystemExit(f"amortization_iterations "
+                         f"{am['amortization_iterations']} is not finite "
+                         f"and positive")
+    summary = dict(
+        amortization_iterations=am["amortization_iterations"],
+        assembly_s=am["assembly_s"], explicit_iter_s=am["explicit_iter_s"],
+        implicit_iter_s=am["implicit_iter_s"],
+        explicit_iterations=exp["iterations"],
+        implicit_iterations=imp["iterations"],
+        spans={exp_name: span_durations(exp["report"]["spans"]),
+               imp_name: span_durations(imp["report"]["spans"])})
+    print(f"[chip_smoke] telemetry {json.dumps(summary)}", flush=True)
+    return {exp_name: exp, imp_name: imp}, summary
+
+
+def span_durations(tree):
+    """A span tree as [[name, seconds, children], ...]."""
+    return [[node["name"], node["duration_s"],
+             span_durations(node["children"])] for node in tree]
+
+
 def register_heat3d_cut():
     """Register feti-heat-3d at the validated depth HEAT3D_SUB_GRID as the
     architecture HEAT3D_CUT (the width and every other field unchanged)."""
@@ -1462,8 +1688,11 @@ def main() -> int:
           f"{max(secs.values(), default=0.0):.1f}s", flush=True)
     ptxas = ptxas_report(build, secs)
     ptxas_small = ptxas_report(build, secs, SMALL_INSTANCES)
+    ptxas_wide = ptxas_report(build, secs, WIDE_INSTANCES)
     for name, r in [*ptxas.items(),
-                    *((f"{k} (bs <= 16)", v) for k, v in ptxas_small.items())]:
+                    *((f"{k} (bs <= 16)", v) for k, v in ptxas_small.items()),
+                    *((f"{k} (bs > 128: two passes)", v)
+                      for k, v in ptxas_wide.items())]:
         print(f"[chip_smoke] ptxas {name}: {r['registers']} registers, "
               f"{r['spill_stores']} B spill stores, {r['spill_loads']} B "
               f"spill loads, {r['static_smem']} B static shared memory"
@@ -1512,8 +1741,17 @@ def main() -> int:
     free()
     done("kernels f32", t1)
 
+    t1 = phase("large blocks")
+    x256 = reblocked_inputs(x, device, WIDE_BS)
+    label = f"heat-2d dual bs={WIDE_BS}"
+    wide = check_kernels(x256, WIDE_NAMES, "f64", label, ptxas_wide)
+    wide += check_kernels(x256, WIDE_NAMES, "f32", label, ptxas_wide)
+    del x256
+    free()
+    done("large blocks", t1)
+
     t1 = phase("small blocks")
-    x16 = small_block_inputs(x, device)
+    x16 = reblocked_inputs(x, device, SMALL_BS)
     del x
     free()
     label = f"heat-2d dual bs={SMALL_BS}"
@@ -1590,11 +1828,15 @@ def main() -> int:
           flush=True)
     done("main", t0)
 
+    t0 = phase("telemetry")
+    telemetry, _ = telemetry_phase()
+    done("telemetry", t0)
+
     t0 = phase("autotune")
     auto = autotune_phase(device, runs)
     done("autotune", t0)
 
-    kernel_rows(rows, d_rows, small, {**runs, **auto})
+    kernel_rows(rows, d_rows, small, wide, {**runs, **telemetry, **auto})
     for r in rows:
         r["planning_launches"] = {
             name: run["planning"]["launches"][r["name"]]

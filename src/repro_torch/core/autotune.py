@@ -23,10 +23,9 @@ planner:
 What differs from the reference: ``use_kernels`` takes ``use_pallas``'s
 place. Kernel candidates are priced without the reference's interpret
 penalty when the device model is a CUDA kind (``CUDA_KINDS``), and timed
-only when, in addition, the stage runs on a CUDA device. On a CUDA model a
-kernel candidate whose tiles the CUDA kernels refuse
-(:func:`~repro_torch.kernels._launch.check_cuda_tiles`: bs > 128) is scored
-but never timed and never returned. The probes are the reference's, one
+only when, in addition, the stage runs on a CUDA device; the CUDA kernels
+take every block size the space holds (8 to 256), so no candidate is left
+out. The probes are the reference's, one
 per subdomain, stacked ``batch`` deep: the stage assembles that many
 subdomains at once, and a card's time depends on it. The cache is the
 port's own (``$REPRO_TORCH_PLAN_CACHE_DIR``); its keys are the reference's.
@@ -57,7 +56,6 @@ from repro_torch.core.stepped import (
     column_pivots,
 )
 from repro_torch.device import resolve_device
-from repro_torch.kernels._launch import check_cuda_tiles
 from repro_torch.launch.roofline import CUDA_KINDS, DeviceModel, detect_device
 from repro_torch.obs import metrics
 from repro_torch.obs.timing import min_time, synchronize
@@ -337,18 +335,6 @@ def enumerate_space(block_sizes: Sequence[int],
     return out
 
 
-def _cuda_refuses(cfg: SchurAssemblyConfig) -> bool:
-    """Whether the CUDA kernels refuse ``cfg``'s tiles (a kernel candidate
-    at bs > 128; ROADMAP C4)."""
-    if not cfg.use_kernels:
-        return False
-    try:
-        check_cuda_tiles(cfg.block_size, cfg.rhs_bs)
-    except ValueError:
-        return True
-    return False
-
-
 # --------------------------------------------------------------------------
 # content-addressed plan cache
 # --------------------------------------------------------------------------
@@ -417,8 +403,7 @@ class Plan:
     ``predicted_s`` is the roofline-model estimate, ``measured_s`` the
     min-of-reps timed micro-run (None when ``measure="never"``).
     ``baseline_*`` are the same numbers for the dense baseline. ``timed``
-    counts the candidates measured, ``refused`` the kernel candidates
-    scored but left out because the CUDA kernels refuse their tiles.
+    counts the candidates measured.
     """
 
     cfg: SchurAssemblyConfig
@@ -431,7 +416,6 @@ class Plan:
     candidates: int
     dtype: str = "f64"
     timed: int = 0
-    refused: int = 0
     from_cache: bool = False
 
     @property
@@ -455,9 +439,7 @@ class Plan:
             f"  predicted {self.predicted_s * 1e6:9.1f}us  "
             f"(dense baseline {self.baseline_predicted_s * 1e6:.1f}us, "
             f"{self.predicted_speedup:.2f}x) over "
-            f"{self.candidates} candidates, {self.timed} timed, "
-            f"{self.refused} kernel candidates left out (tiles the CUDA "
-            f"kernels refuse: bs > 128)",
+            f"{self.candidates} candidates, {self.timed} timed",
         ]
         if self.measured_s is not None:
             base = ("" if self.baseline_measured_s is None else
@@ -477,6 +459,9 @@ class Plan:
     def from_json(cls, d: dict) -> "Plan":
         d = dict(d)
         d["cfg"] = SchurAssemblyConfig(**d["cfg"])
+        # entries written while the CUDA kernels refused bs > 128 carry
+        # the count of candidates left out
+        d.pop("refused", None)
         return cls(**d, from_cache=True)
 
 
@@ -615,8 +600,7 @@ def plan_from_builder(
     the model of ``torch_device``); ``torch_device`` is where the measured
     step runs (default ``cuda``); ``batch`` how many subdomains its probes
     stack. Kernel candidates are timed only under a CUDA device model on a
-    CUDA device; under a CUDA model, a kernel candidate whose tiles the
-    CUDA kernels refuse is scored but never timed nor returned.
+    CUDA device.
 
     ``storage`` restricts the search to one factor layout ("dense" |
     "packed"); ``None`` searches both. ``stage`` names the assembly
@@ -665,10 +649,6 @@ def plan_from_builder(
             scored.append((cost["total_s"], cfg, meta, mask))
         scored.sort(key=lambda t: t[0])
         sp.set(candidates=len(scored))
-    # the candidates a plan may name: on a CUDA model, none the CUDA
-    # kernels refuse
-    eligible = [t for t in scored
-                if not (cuda_model and _cuda_refuses(t[1]))]
 
     dense_cfg = SchurAssemblyConfig(
         trsm_variant="dense", syrk_variant="dense",
@@ -681,7 +661,7 @@ def plan_from_builder(
         dense_meta, dense_cfg, device, block_mask=dense_mask,
         dtype=dtype)["total_s"]
 
-    best_s, best_cfg, best_meta, best_mask = eligible[0]
+    best_s, best_cfg, best_meta, best_mask = scored[0]
     measured_s = baseline_meas = None
     timed = 0
 
@@ -706,7 +686,7 @@ def plan_from_builder(
                         cfg.fused)
 
             kernels_run = cuda_model and run_dev.type == "cuda"
-            runnable = [t for t in eligible
+            runnable = [t for t in scored
                         if kernels_run or not t[1].use_kernels]
             stage1: dict = {}
             for t in runnable:  # runnable is model-score sorted
@@ -743,7 +723,6 @@ def plan_from_builder(
         candidates=len(candidates),
         dtype=dtype,
         timed=timed,
-        refused=len(scored) - len(eligible),
     )
     if cache:
         _store(plan)

@@ -1,7 +1,9 @@
 """FETI solver substrate (paper §2) on torch: batched cluster
 preprocessing (factorization + sparsity-utilizing SC assembly), the dual
 operator in implicit and explicit form, the natural-coarse-space projector,
-PCPG, and the end-to-end solver. :class:`FetiConfig` is the front door."""
+PCPG, and the end-to-end solver with its telemetry (``FetiSolver.report``,
+``FetiSolver.amortization_report``). :class:`FetiConfig` is the front
+door."""
 from repro_torch.core.stages import StageGraph, StageSpec
 from repro_torch.feti.assembly import ClusterState, preprocess_cluster
 from repro_torch.feti.config import FetiConfig, as_feti_config

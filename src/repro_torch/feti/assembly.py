@@ -66,6 +66,7 @@ from repro_torch.fem.regularization import regularization_shift
 from repro_torch.feti import dirichlet as dirlib
 from repro_torch.feti.config import as_feti_config
 from repro_torch.feti.operator import DualMap, dual_map
+from repro_torch.obs.trace import annotation, current_tracer
 from repro_torch.sparse import (
     PackedBlockIndex,
     PackedBlocks,
@@ -164,8 +165,10 @@ class ClusterState:
 
     def device_bytes(self) -> dict:
         """Device bytes of the persistent solution-phase stacks; ``dense_L``
-        is what a dense (S, n, n) factor stack would take (not in
-        ``total``)."""
+        and ``dense_K`` are what a dense (S, n, n) stack would take (not in
+        ``total``); ``per_stage`` attributes the bytes to their stage-graph
+        node, as the reference does (the factor, the lumped K, B̃ᵀ, F̃ and
+        K_reg live with the dual stage)."""
         def nbytes(x):
             if x is None:
                 return 0
@@ -179,7 +182,12 @@ class ClusterState:
                "Kreg": nbytes(self.Kreg)}
         out["total"] = sum(out.values())
         n = self.index.n
-        out["dense_L"] = self.S * n * n * self.Btp.element_size()
+        out["dense_L"] = out["dense_K"] = (self.S * n * n
+                                           * self.Btp.element_size())
+        out["per_stage"] = {"dual": out["L"] + out["K"] + out["Btp"]
+                            + out["F"] + out["Kreg"]}
+        if self.Sb is not None:
+            out["per_stage"]["dirichlet"] = out["Sb"] + out["Btb"]
         return out
 
 
@@ -375,17 +383,25 @@ def make_cluster_preprocessor(problem: FetiProblem, config=None):
 
     def prep(Kp_stack, Btp_stack: torch.Tensor,
              blocks: Optional[dirlib.DirichletBlocks] = None):
-        if packed:
-            L = block_cholesky_packed(Kp_stack, index)
-        else:
-            L = block_cholesky(Kp_stack, bs, mask=block_mask)
-        F = (batched_assemble(L, Btp_stack, cp, icp, env, cfg, block_mask)
-             if fc.explicit else None)
+        # the current tracer's spans (no-ops without one): each stage's
+        # outputs are synchronized at its span's close
+        tr = current_tracer()
+        with tr.span("stage:dual") as sp:
+            if packed:
+                L = block_cholesky_packed(Kp_stack, index)
+            else:
+                L = block_cholesky(Kp_stack, bs, mask=block_mask)
+            F = (batched_assemble(L, Btp_stack, cp, icp, env, cfg,
+                                  block_mask)
+                 if fc.explicit else None)
+            sp.sync(L, F)
         Sb = None
         if blocks is not None:
-            A_ii = _interior_factor(L) if share else blocks.Kii
-            Sb = dirlib.restrict_own_boundary(
-                d_assemble(A_ii, blocks.Kib, blocks.Kbb), Zb)
+            with tr.span("stage:dirichlet") as sp:
+                A_ii = _interior_factor(L) if share else blocks.Kii
+                Sb = dirlib.restrict_own_boundary(
+                    d_assemble(A_ii, blocks.Kib, blocks.Kbb), Zb)
+                sp.sync(Sb)
         return L, F, Sb
 
     static = dict(node_perm=node_perm, block_mask=block_mask, env=env,
@@ -490,9 +506,28 @@ def preprocess_cluster(problem: FetiProblem, config=None) -> ClusterState:
     are at the storage dtype, computed at the compute dtype; f, fp and R
     carry the solve dtype; with refinement ``Kreg`` holds the f64
     regularized K (packed) and ``refine_steps`` the steps.
+
+    Spans (on the current tracer, :func:`repro_torch.obs.use_tracer`; the
+    reference's names and nesting): ``init`` around the symbolic phase and
+    planning (the planner's ``plan:*`` spans inside it); ``prep``, under
+    ``annotation("feti.prep")``, around the numeric phase with its
+    children ``stage:dual`` (the factorization and the dual assembly) and,
+    with the Dirichlet preconditioner, ``stage:dirichlet``; then ``pack``.
+    Each span synchronizes the tensors it produced before it closes. The
+    port runs the dual stage and then the Dirichlet stage, so each stage
+    span times its own stage; the reference's compiled prep computes both
+    in one call, and its ``stage:dirichlet`` is only the tail that remains
+    after the dual outputs are ready. The stiffness upload, which also
+    packs the lumped preconditioner's K and refinement's K_reg (each K_i
+    crosses to the device once), runs between ``init`` and ``prep``, in no
+    span of its own, as the reference's uploads do; ``pack`` holds the
+    persistent outputs' rounding to the storage dtype and the loads'
+    upload.
     """
     fc = as_feti_config(config)
-    static, prep = make_cluster_preprocessor(problem, fc)
+    tr = current_tracer()
+    with tr.span("init"):
+        static, prep = make_cluster_preprocessor(problem, fc)
     sdt, cdt, vdt = fc.storage_dtype, fc.compute_dtype, fc.solve_dtype
     refine = fc.resolved_refine()
     dev = static["device"]
@@ -518,20 +553,24 @@ def preprocess_cluster(problem: FetiProblem, config=None) -> ClusterState:
         keep_reg=refine > 0, storage=sdt)
     Btp = torch.as_tensor(np.stack([sd.Bt[node_perm] for sd in subs]),
                           dtype=sdt, device=dev)
-    L, F, Sb = prep(Kp, Btp.to(cdt), blocks)
+    with tr.span("prep"), annotation("feti.prep"):
+        L, F, Sb = prep(Kp, Btp.to(cdt), blocks)
     del blocks, Kp
-    # the persistent outputs at the storage dtype (no copy when it is the
-    # compute dtype)
-    L = L.to(sdt)
-    F = None if F is None else F.to(sdt)
-    Sb = None if Sb is None else Sb.to(sdt)
-
-    f = np.stack([sd.f for sd in subs])
-    lam = np.stack([sd.lambda_ids for sd in subs])
-    R = np.stack([sd.R for sd in subs])  # (S, n, k) original order
 
     def to_dev(x):
         return torch.as_tensor(x, dtype=vdt, device=dev)
+
+    with tr.span("pack") as sp:
+        # the persistent outputs at the storage dtype (no copy when it is
+        # the compute dtype)
+        L = L.to(sdt)
+        F = None if F is None else F.to(sdt)
+        Sb = None if Sb is None else Sb.to(sdt)
+        f = np.stack([sd.f for sd in subs])
+        lam = np.stack([sd.lambda_ids for sd in subs])
+        R = np.stack([sd.R for sd in subs])  # (S, n, k) original order
+        f_dev, fp_dev = to_dev(f), to_dev(f[:, node_perm])
+        sp.sync(L, F, Sb, f_dev, fp_dev)
 
     return ClusterState(
         problem=problem,
@@ -544,8 +583,8 @@ def preprocess_cluster(problem: FetiProblem, config=None) -> ClusterState:
         Btp=Btp,
         K=K_packed,
         F=F,
-        f=to_dev(f),
-        fp=to_dev(f[:, node_perm]),
+        f=f_dev,
+        fp=fp_dev,
         dual=dual_map(lam, problem.n_lambda, dev),
         col_perm=static["col_perm"],
         inv_col_perm=static["inv_col_perm"],

@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.precision import dtype_name, tol_floor
+from repro_torch.obs import metrics
 
 __all__ = ["PCPGResult", "PCPGManyResult", "pcpg", "pcpg_many",
            "TolClampState", "reset_tol_clamp_warnings"]
@@ -48,11 +49,17 @@ def _clamp_tol(tol: float, dtype, state: TolClampState) -> float:
     """Clamp a requested relative tolerance to what ``dtype`` residual
     arithmetic can attain (:func:`repro_torch.core.precision.tol_floor`),
     warning once per dtype per ``state`` when the clamp engages; f64
-    requests above ~1.1e-14 pass through untouched."""
+    requests above ~1.1e-14 pass through untouched.
+
+    Every engagement increments the ``pcpg.tol_clamp`` telemetry counter
+    (exact, independent of the warn-once dedup). The port runs eagerly, so
+    the counter counts clamped *calls*; the reference clamps at trace time
+    and counts clamped compilations (call sites) instead."""
     floor = tol_floor(dtype)
     if tol >= floor:
         return tol
     name = dtype_name(dtype)
+    metrics.inc("pcpg.tol_clamp", dtype=name)
     if name not in state.warned:
         state.warned.add(name)
         warnings.warn(

@@ -18,10 +18,19 @@ then defect-correction outer iterations recover f64 accuracy: each
 measures the true residual with the refined implicit apply and solves
 P F δ = P r for a correction.
 
-Timings are host wall clock (``time.perf_counter``) around work that ends
-in a device synchronization, so they measure the device work, not its
-enqueue. Telemetry (``report``) is ROADMAP item A15; the sharded multi-RHS
-batch A16.
+Telemetry (paper §5's measurements): every phase opens a span on the
+solver's :class:`~repro_torch.obs.Telemetry` tracer — ``preprocess`` (with
+``init``, ``prep`` and its ``stage:*`` children, ``pack`` from
+:func:`~repro_torch.feti.assembly.preprocess_cluster`), and per solve
+``solve`` with ``rhs_setup``, ``pcpg`` (``refine_outer`` beside it under
+mixed precision) and ``recover`` — each closing after a device
+synchronization, so it measures the device work, not its enqueue. The
+PCPG counters and the device-byte gauges go to the process-global
+:mod:`repro_torch.obs.metrics`; :meth:`FetiSolver.report` returns both,
+and :meth:`FetiSolver.amortization_report` turns the spans into the
+paper's break-even iteration count. ``timings`` stays as the deprecated
+flat view (host wall clock around the same synchronized work). The
+sharded multi-RHS batch is ROADMAP item A16.
 """
 from __future__ import annotations
 
@@ -33,8 +42,8 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from repro_torch.core import Plan, SchurAssemblyConfig
-from repro_torch.core.precision import dtype_name, tol_floor
+from repro_torch.core import Plan, SchurAssemblyConfig, assembly_flops
+from repro_torch.core.precision import dtype_name, itemsize, tol_floor
 from repro_torch.fem.decomposition import FetiProblem
 from repro_torch.feti.assembly import ClusterState, preprocess_cluster
 from repro_torch.feti.config import as_feti_config
@@ -57,6 +66,11 @@ from repro_torch.feti.projector import (
     build_coarse_problem,
     coarse_e,
 )
+from repro_torch.launch.analytic import feti_solve_iter_counts
+from repro_torch.obs import Telemetry, metrics
+from repro_torch.obs.trace import use_tracer
+from repro_torch.sparse import PackedBlocks
+from repro_torch.sparse.cholesky import block_cholesky_flops
 
 __all__ = ["FetiSolver", "FetiSolution", "FetiManySolution", "solve_many"]
 
@@ -154,7 +168,11 @@ class FetiSolver:
         self.mode = fc.mode
         self.preconditioner = fc.preconditioner
         self.state: Optional[ClusterState] = None
-        self.timings: dict = {}
+        # structured telemetry (spans + metrics), on by default: a span
+        # costs two clock reads and a synchronization the surrounding code
+        # needs anyway; telemetry.disable() makes the spans no-ops
+        self.telemetry = Telemetry()
+        self.timings: dict = {}  # deprecated flat view; prefer report()
         self._ops: Optional[_SolutionOps] = None
 
     # ---- preprocessing (paper §2.2) ----
@@ -163,14 +181,39 @@ class FetiSolver:
         # mantissa): the f32 stacks and the kernels' plain versions run in
         # full f32, as the reference's do
         torch.backends.cuda.matmul.allow_tf32 = False
+        tr = self.telemetry.tracer
         t0 = time.perf_counter()
-        self.state = preprocess_cluster(self.problem, self.config)
-        _sync(self.state.device)
+        with use_tracer(tr), tr.span("preprocess") as sp:
+            self.state = preprocess_cluster(self.problem, self.config)
+            # an explicit sync (not only the span's): the timings entry
+            # must stay honest when telemetry is disabled
+            _sync(self.state.device)
+            sp.set(mode=self.mode, S=int(self.state.S))
         self.cfg = self.state.cfg  # resolved when "auto" was passed
         self.plan = self.state.plan
         self._ops = None
         self.timings["preprocess_s"] = time.perf_counter() - t0
+        self._record_device_bytes()
         return self.state
+
+    def _record_device_bytes(self) -> None:
+        """Gauge the persistent device stacks: bytes per stack labeled by
+        dtype, per stage-graph node, and the total."""
+        st = self.state
+        db = st.device_bytes()
+        stacks = {"L": st.L, "K": st.K, "Btp": st.Btp, "F": st.F,
+                  "Sb": st.Sb, "Btb": st.Btb, "Kreg": st.Kreg}
+        for name, x in stacks.items():
+            if x is None:
+                continue
+            # packed stacks carry their dtype on .values; the label is the
+            # reference's numpy name ("float64", "float32", "bfloat16")
+            dt = (x.values if isinstance(x, PackedBlocks) else x).dtype
+            metrics.gauge("device_bytes", int(db[name]), stack=name,
+                          dtype=str(dt).removeprefix("torch."))
+        metrics.gauge("device_bytes_total", int(db["total"]))
+        for stage, v in db["per_stage"].items():
+            metrics.gauge("device_bytes", int(v), stage=stage)
 
     # ---- solution-phase machinery, load-independent ----
     def _solution_ops(self) -> _SolutionOps:
@@ -302,60 +345,83 @@ class FetiSolver:
         coarse = ops.coarse
         fc = self.config
 
-        t0 = time.perf_counter()
-        if loads is None:
-            fp = st.fp
-            lam0 = coarse.lambda0()
-        else:
-            f, fp = self._load_stacks(loads)
-            lam0 = coarse.lambda0(coarse_e(f, st.R))
-        d = ops.dual_rhs(fp)
-        _sync(st.device)
-        self.timings["rhs_setup_s"] = time.perf_counter() - t0
+        tr = self.telemetry.tracer
+        with use_tracer(tr), tr.span("solve", mode=self.mode) as sp_solve:
+            t0 = time.perf_counter()
+            with tr.span("rhs_setup") as sp:
+                if loads is None:
+                    fp = st.fp
+                    lam0 = coarse.lambda0()
+                else:
+                    f, fp = self._load_stacks(loads)
+                    lam0 = coarse.lambda0(coarse_e(f, st.R))
+                d = ops.dual_rhs(fp)
+                sp.sync(d, lam0)
+                _sync(st.device)
+            self.timings["rhs_setup_s"] = time.perf_counter() - t0
 
-        # mixed precision, explicit mode: the inner PCPG runs the reduced
-        # F̃ down to its dtype's floor, then the outers recover f64
-        mixed = st.refine_steps > 0 and self.mode == "explicit"
-        inner_tol = max(tol, tol_floor(fc.storage_dtype)) if mixed else tol
+            # mixed precision, explicit mode: the inner PCPG runs the
+            # reduced F̃ down to its dtype's floor, then the outers recover
+            # f64
+            mixed = st.refine_steps > 0 and self.mode == "explicit"
+            inner_tol = (max(tol, tol_floor(fc.storage_dtype)) if mixed
+                         else tol)
 
-        def run(rhs, start):
-            return pcpg(ops.apply_F, coarse.project, rhs, start,
-                        precondition=ops.precond, tol=inner_tol,
-                        max_iter=max_iter, history=history)
+            def run(rhs, start):
+                return pcpg(ops.apply_F, coarse.project, rhs, start,
+                            precondition=ops.precond, tol=inner_tol,
+                            max_iter=max_iter, history=history)
 
-        t0 = time.perf_counter()
-        res: PCPGResult = run(d, lam0)
-        lam = res.lam
-        iterations, residual, converged = (res.iterations, res.residual,
-                                           res.converged)
-        hist = list(res.residual_history or ())
-        n_outer = 0
-        if mixed:
-            # the target scale is pcpg's: tol · ‖P(d − F λ⁰)‖ (the fast
-            # operator is accurate enough to set a scale)
-            w0n = float(torch.linalg.norm(coarse.project(d - ops.apply_F(lam0))))
-            target = tol * max(w0n, 1e-300)
-            r = d - ops.apply_F_exact(lam)
-            wnorm = float(torch.linalg.norm(coarse.project(r)))
-            prev = float("inf")
-            while (wnorm > target and n_outer < _MAX_OUTER
-                   and wnorm < 0.5 * prev):
-                prev = wnorm
-                cres = run(r, torch.zeros_like(lam))
-                lam = lam + cres.lam
-                hist += cres.residual_history or ()
-                iterations += cres.iterations
-                n_outer += 1
+            t0 = time.perf_counter()
+            with tr.span("pcpg", tol=float(inner_tol)) as sp:
+                res: PCPGResult = run(d, lam0)
+                sp.sync(res.lam)
+                sp.set(iterations=int(res.iterations),
+                       residual=float(res.residual))
+            lam = res.lam
+            iterations, residual, converged = (res.iterations, res.residual,
+                                               res.converged)
+            hist = list(res.residual_history or ())
+            n_outer = 0
+            if mixed:
+                # the target scale is pcpg's: tol · ‖P(d − F λ⁰)‖ (the fast
+                # operator is accurate enough to set a scale)
+                w0n = float(torch.linalg.norm(
+                    coarse.project(d - ops.apply_F(lam0))))
+                target = tol * max(w0n, 1e-300)
                 r = d - ops.apply_F_exact(lam)
                 wnorm = float(torch.linalg.norm(coarse.project(r)))
-            residual = wnorm
-            converged = wnorm <= target
-        _sync(st.device)
-        self.timings["solve_s"] = time.perf_counter() - t0
+                prev = float("inf")
+                while (wnorm > target and n_outer < _MAX_OUTER
+                       and wnorm < 0.5 * prev):
+                    prev = wnorm
+                    with tr.span("refine_outer", outer=n_outer) as sp:
+                        cres = run(r, torch.zeros_like(lam))
+                        lam = lam + cres.lam
+                        sp.sync(lam)
+                        sp.set(iterations=int(cres.iterations))
+                    hist += cres.residual_history or ()
+                    iterations += cres.iterations
+                    n_outer += 1
+                    r = d - ops.apply_F_exact(lam)
+                    wnorm = float(torch.linalg.norm(coarse.project(r)))
+                residual = wnorm
+                converged = wnorm <= target
+            _sync(st.device)
+            self.timings["solve_s"] = time.perf_counter() - t0
+            metrics.inc("pcpg.solves")
+            metrics.inc("pcpg.iterations", iterations)
+            if n_outer:
+                metrics.inc("pcpg.refine_outer", n_outer)
 
-        t0 = time.perf_counter()
-        u, alpha, u_global = self._recover(ops, lam, d, fp)
-        self.timings["recover_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            with tr.span("recover"):
+                # ends in host arrays: synchronized by the copies
+                u, alpha, u_global = self._recover(ops, lam, d, fp)
+            self.timings["recover_s"] = time.perf_counter() - t0
+            if history:
+                sp_solve.set(iterations=iterations,
+                             residual_history=[float(x) for x in hist])
 
         return FetiSolution(
             u=u, u_global=u_global, lam=lam.cpu().numpy(), alpha=alpha,
@@ -420,63 +486,83 @@ class FetiSolver:
 
         ops = self._solution_ops()
         coarse = ops.coarse
-        t0 = time.perf_counter()
-        # column-stacked device layout: (S, n, n_rhs), the case last
-        F, Fp = self._load_stacks(loads.transpose(1, 2, 0))
-        D = ops.dual_rhs(Fp)
-        Lam0 = coarse.lambda0(coarse_e(F, st.R))
-        _sync(st.device)
-        self.timings["rhs_setup_s"] = time.perf_counter() - t0
+        tr = self.telemetry.tracer
+        with use_tracer(tr), tr.span("solve", mode=self.mode,
+                                     n_rhs=int(n_rhs)) as sp_solve:
+            t0 = time.perf_counter()
+            with tr.span("rhs_setup") as sp:
+                # column-stacked device layout: (S, n, n_rhs), case last
+                F, Fp = self._load_stacks(loads.transpose(1, 2, 0))
+                D = ops.dual_rhs(Fp)
+                Lam0 = coarse.lambda0(coarse_e(F, st.R))
+                sp.sync(D, Lam0)
+                _sync(st.device)
+            self.timings["rhs_setup_s"] = time.perf_counter() - t0
 
-        mixed = st.refine_steps > 0 and self.mode == "explicit"
-        inner_tol = max(tol, tol_floor(fc.storage_dtype)) if mixed else tol
+            mixed = st.refine_steps > 0 and self.mode == "explicit"
+            inner_tol = (max(tol, tol_floor(fc.storage_dtype)) if mixed
+                         else tol)
 
-        def run(rhs, start):
-            return pcpg_many(ops.apply_F, coarse.project, rhs, start,
-                             precondition=ops.precond, tol=inner_tol,
-                             max_iter=max_iter, history=history)
+            def run(rhs, start):
+                return pcpg_many(ops.apply_F, coarse.project, rhs, start,
+                                 precondition=ops.precond, tol=inner_tol,
+                                 max_iter=max_iter, history=history)
 
-        t0 = time.perf_counter()
-        res: PCPGManyResult = run(D, Lam0)
-        Lam = res.lam
-        iters = res.iterations.copy()
-        residuals, converged = res.residual, res.converged
-        block_iters = res.block_iterations
-        hist_rows = [res.residual_history] if history else []
-        n_outer = 0
-        if mixed:
-            # block defect correction (see solve()): columns already at
-            # their target freeze at iteration 0 of a correction solve
-            def col_norms(W):
-                return torch.linalg.norm(W, dim=0).cpu().numpy()
+            t0 = time.perf_counter()
+            with tr.span("pcpg", tol=float(inner_tol)) as sp:
+                res: PCPGManyResult = run(D, Lam0)
+                sp.sync(res.lam)
+                sp.set(block_iterations=int(res.block_iterations))
+            Lam = res.lam
+            iters = res.iterations.copy()
+            residuals, converged = res.residual, res.converged
+            block_iters = res.block_iterations
+            hist_rows = [res.residual_history] if history else []
+            n_outer = 0
+            if mixed:
+                # block defect correction (see solve()): columns already
+                # at their target freeze at iteration 0 of a correction
+                # solve
+                def col_norms(W):
+                    return torch.linalg.norm(W, dim=0).cpu().numpy()
 
-            W0n = col_norms(coarse.project(D - ops.apply_F(Lam0)))
-            targets = tol * np.maximum(W0n, 1e-300)
-            R = D - ops.apply_F_exact(Lam)
-            Wn = col_norms(coarse.project(R))
-            prev = np.full_like(Wn, np.inf)
-            while (np.any(Wn > targets) and n_outer < _MAX_OUTER
-                   and np.all(Wn <= np.maximum(0.5 * prev, targets))):
-                prev = Wn
-                cres = run(R, torch.zeros_like(Lam))
-                Lam = Lam + cres.lam
-                if history:
-                    hist_rows.append(cres.residual_history)
-                iters += cres.iterations
-                block_iters += cres.block_iterations
-                n_outer += 1
+                W0n = col_norms(coarse.project(D - ops.apply_F(Lam0)))
+                targets = tol * np.maximum(W0n, 1e-300)
                 R = D - ops.apply_F_exact(Lam)
                 Wn = col_norms(coarse.project(R))
-            residuals = Wn
-            converged = Wn <= targets
-        _sync(st.device)
-        t_solve = time.perf_counter() - t0
-        self.timings["solve_many_s"] = t_solve
-        self.timings["per_solve_s"] = t_solve / n_rhs
+                prev = np.full_like(Wn, np.inf)
+                while (np.any(Wn > targets) and n_outer < _MAX_OUTER
+                       and np.all(Wn <= np.maximum(0.5 * prev, targets))):
+                    prev = Wn
+                    with tr.span("refine_outer", outer=n_outer) as sp:
+                        cres = run(R, torch.zeros_like(Lam))
+                        Lam = Lam + cres.lam
+                        sp.sync(Lam)
+                        sp.set(block_iterations=int(cres.block_iterations))
+                    if history:
+                        hist_rows.append(cres.residual_history)
+                    iters += cres.iterations
+                    block_iters += cres.block_iterations
+                    n_outer += 1
+                    R = D - ops.apply_F_exact(Lam)
+                    Wn = col_norms(coarse.project(R))
+                residuals = Wn
+                converged = Wn <= targets
+            _sync(st.device)
+            t_solve = time.perf_counter() - t0
+            self.timings["solve_many_s"] = t_solve
+            self.timings["per_solve_s"] = t_solve / n_rhs
+            metrics.inc("pcpg.solves", n_rhs)
+            metrics.inc("pcpg.iterations", int(iters.sum()))
+            if n_outer:
+                metrics.inc("pcpg.refine_outer", n_outer)
 
-        t0 = time.perf_counter()
-        u, alpha, u_global = self._recover(ops, Lam, D, Fp)
-        self.timings["recover_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            with tr.span("recover"):
+                u, alpha, u_global = self._recover(ops, Lam, D, Fp)
+            self.timings["recover_s"] = time.perf_counter() - t0
+            if history:
+                sp_solve.set(block_iterations=block_iters)
 
         return FetiManySolution(
             u=u, u_global=u_global, lam=Lam.cpu().numpy().T, alpha=alpha,
@@ -487,8 +573,139 @@ class FetiSolver:
                 np.concatenate(hist_rows).T) if history else None),
             **dtypes)
 
-    def report(self):
-        raise NotImplementedError("telemetry (repro.obs) is ROADMAP item A15")
+    # ---- telemetry surfacing ----
+    def report(self) -> dict:
+        """Structured telemetry report for this solver: the nested span
+        tree (device-synchronized wall times for every pipeline phase),
+        the metrics snapshot (plan-cache hits and misses, PCPG iterations,
+        tolerance clamps, device bytes), and the per-stack device bytes.
+        ``timings`` is kept as a deprecated flat view: prefer the spans,
+        which attribute time instead of overwriting it per call."""
+        rep = {
+            "schema_version": 1,
+            "spans": self.telemetry.tracer.tree(),
+            "metrics": metrics.snapshot(),
+            "timings": dict(self.timings),  # deprecated: use spans
+        }
+        if self.state is not None:
+            rep["device_bytes"] = self.state.device_bytes()
+        return rep
+
+    # ---- amortization (paper §5, Fig. 10) ----
+    def amortization_report(self,
+                            t_assembly_s: Optional[float] = None,
+                            t_implicit_iter_s: Optional[float] = None,
+                            t_explicit_iter_s: Optional[float] = None,
+                            t_dirichlet_s: Optional[float] = None,
+                            n_rhs: int = 1,
+                            iters_per_solve: Optional[float] = None) -> dict:
+        """Iterations needed before the explicit approach wins (paper §1).
+
+        Every timing argument is optional: when omitted it is filled from
+        this solver's spans — ``t_assembly_s`` from the last ``stage:dual``
+        span (the factorization plus the dual assembly, as in the
+        reference; falling back to the autotuner's measured micro-run
+        scaled by S), ``t_dirichlet_s`` from the last ``stage:dirichlet``
+        span (else 0), and the CURRENT mode's per-iteration time from the
+        last ``pcpg`` span divided by its iteration count. The counterpart
+        mode's per-iteration time cannot be inferred from this solver's
+        own spans and must be passed; a ``ValueError`` names whatever is
+        still missing. The returned dict records where each inferred
+        number came from under ``"measured_from"``.
+
+        ``t_dirichlet_s`` (the Dirichlet stage's extra preprocessing) goes
+        into the numerator: the stage pays for itself through fewer
+        iterations, but its time still delays the explicit operator's
+        break-even point.
+
+        With ``n_rhs`` > 1 the iteration times are block iteration times
+        on an (n_lambda, n_rhs) stack, so ``amortization_iterations`` stays
+        the block-iteration break-even; ``iters_per_solve`` (one load
+        case's typical PCPG iteration count) adds ``amortization_solves``,
+        the load cases after which explicit assembly has paid for itself.
+        The analytic per-iteration cost model
+        (:func:`repro_torch.launch.analytic.feti_solve_iter_counts`) is
+        attached per n_rhs.
+        """
+        tr = self.telemetry.tracer
+        st = self.state
+        measured_from = {}
+        if t_assembly_s is None:
+            sp = tr.last("stage:dual")
+            if sp is not None:
+                t_assembly_s = sp.duration
+                measured_from["assembly_s"] = "span:stage:dual"
+            elif (self.plan is not None and self.plan.measured_s is not None
+                  and st is not None):
+                t_assembly_s = self.plan.measured_s * st.S
+                measured_from["assembly_s"] = "plan.measured_s * S_real"
+        if t_dirichlet_s is None:
+            sp = tr.last("stage:dirichlet")
+            if sp is not None:
+                t_dirichlet_s = sp.duration
+                measured_from["dirichlet_s"] = "span:stage:dirichlet"
+            else:
+                t_dirichlet_s = 0.0
+        if t_implicit_iter_s is None or t_explicit_iter_s is None:
+            sp = tr.last("pcpg")
+            iters = None
+            if sp is not None:
+                iters = sp.attrs.get("iterations",
+                                     sp.attrs.get("block_iterations"))
+            if iters:
+                per_iter = sp.duration / iters
+                if self.mode == "implicit" and t_implicit_iter_s is None:
+                    t_implicit_iter_s = per_iter
+                    measured_from["implicit_iter_s"] = "span:pcpg"
+                elif self.mode == "explicit" and t_explicit_iter_s is None:
+                    t_explicit_iter_s = per_iter
+                    measured_from["explicit_iter_s"] = "span:pcpg"
+        missing = [nm for nm, v in (("t_assembly_s", t_assembly_s),
+                                    ("t_implicit_iter_s", t_implicit_iter_s),
+                                    ("t_explicit_iter_s", t_explicit_iter_s))
+                   if v is None]
+        if missing:
+            raise ValueError(
+                "amortization_report could not infer "
+                + ", ".join(missing) + " from telemetry spans; pass "
+                "explicitly (the counterpart mode's per-iteration time "
+                "always must be — this solver only ever measures its own "
+                "mode)")
+        gain = t_implicit_iter_s - t_explicit_iter_s
+        overhead = t_assembly_s + t_dirichlet_s
+        point = float("inf") if gain <= 0 else overhead / gain
+        amort_solves = None
+        if iters_per_solve is not None and iters_per_solve > 0:
+            amort_solves = point / iters_per_solve * n_rhs
+        iter_counts = flops = d_flops = None
+        if st is not None:
+            iter_counts = feti_solve_iter_counts(
+                st.S, self.problem.m_max, n_rhs=n_rhs,
+                fb=itemsize(self.config.dtype_name))
+            flops = assembly_flops(st.env, self.cfg)
+        if st is not None and st.dirichlet_env is not None:
+            d_flops = dict(assembly_flops(st.dirichlet_env, st.dirichlet_cfg))
+            chol_ii = block_cholesky_flops(
+                st.split.n_i, st.dirichlet_cfg.block_size, st.dirichlet_mask)
+            # a shared interior factor elides the interior factorization:
+            # the dual factor already holds it
+            d_flops["cholesky_ii"] = 0.0 if st.shared_factor else chol_ii
+            d_flops["cholesky_ii_saved_by_sharing"] = (
+                chol_ii if st.shared_factor else 0.0)
+            d_flops["total"] += d_flops["cholesky_ii"]
+        return {
+            "amortization_iterations": point,
+            "amortization_solves": amort_solves,
+            "n_rhs": int(n_rhs),
+            "assembly_s": t_assembly_s,
+            "dirichlet_s": t_dirichlet_s,
+            "implicit_iter_s": t_implicit_iter_s,
+            "explicit_iter_s": t_explicit_iter_s,
+            "assembly_flops_per_subdomain": flops,
+            "dirichlet_flops_per_subdomain": d_flops,
+            "solve_iter_counts": iter_counts,
+            "measured_from": measured_from,
+        }
 
 
 def solve_many(problem: FetiProblem, loads, config=None, *,

@@ -8,7 +8,7 @@ import torch
 
 TILE = 32  # column tile of the TRSM kernels (TN in csrc/stepped_trsm.cuh)
 MIN_BS = 8  # the TRSM kernels take bs and bm multiples of it
-MAX_BS = 128  # largest factor block the TRSM accumulator holds
+MAX_BS = 256  # largest factor block: two 128-row passes of the TRSM core
 # SYRK sub-tile edge of the fused kernels (FUSED_TILE in
 # csrc/stepped_trsm_syrk.cu, whose launcher refuses an item list of another
 # length than its own count)
@@ -47,14 +47,13 @@ def check_operands(name: str, **tensors: torch.Tensor) -> torch.device:
 
 
 def check_cuda_tiles(bs: int, bm: int) -> None:
-    """The TRSM kernels take bs a multiple of MIN_BS up to MAX_BS and bm a
-    multiple of MIN_BS. The reference's kernels take any bs and bm that
-    divide the padded sizes: the rest is ROADMAP item C4."""
+    """The TRSM kernels take bs a multiple of MIN_BS up to MAX_BS (every
+    block size the reference's planner offers: 8 to 256) and bm a multiple
+    of MIN_BS."""
     if bs % MIN_BS or not MIN_BS <= bs <= MAX_BS or bm % MIN_BS or bm < 1:
         raise ValueError(f"the CUDA kernel takes bs a multiple of {MIN_BS} "
                          f"up to {MAX_BS} and bm a multiple of {MIN_BS}; got "
-                         f"bs={bs}, bm={bm} (other block sizes are ROADMAP "
-                         "item C4)")
+                         f"bs={bs}, bm={bm}")
 
 
 class counted:

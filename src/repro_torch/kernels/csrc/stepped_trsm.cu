@@ -73,12 +73,24 @@
 //     k-split core takes one factor row at a time, up to 64 / bs stored
 //     tiles a chunk, every warp a quarter of the chunk's depth. Column
 //     tiles past m (bm < 32) are clipped.
+//   * Large blocks (128 < bs <= 256; the reference's planner offers bs 256
+//     whenever n >= 256): the row core takes a block's rows in two passes
+//     of 128 over the same 4 warps, so one core, one accumulator and one
+//     thread count serve every bs >= 24, and the fused kernels' SYRK half,
+//     written for 128 threads, is unchanged. Each pass subtracts every
+//     earlier block's contribution from its rows first; only then does the
+//     diagonal step multiply by the block's whole inverse from
+//     invert_diag_blocks(L, bs) (the top pass by its leading 128 columns,
+//     the rest of its rows being zero), exactly the TPU kernel's step. What
+//     it costs: both passes' sums sit in shared memory at once (149 KB a
+//     block at f64: one block a SM, against two at bs 128; 88 KB at f32),
+//     and each pass copies the Y rows of its chunks again.
 //
 // Layout: row-major, Linv (S, nb, bs, bs), L (S, n, n) or values
 // (S, n_blocks, bs, bs) with rowptr (nb + 1,) and colidx (n_blocks,)
 // int32, B and Y (S, n, m), start_block (m / bm,) int32 shared by all
 // subdomains. n and m are padded to bs and bm multiples; bs is a multiple
-// of 8 up to 128, bm a multiple of 8. Rows above a stripe's start come
+// of 8 up to 256, bm a multiple of 8. Rows above a stripe's start come
 // out exactly zero. A launcher returns cudaErrorInvalidValue for any other
 // bs or bm.
 
@@ -88,7 +100,7 @@ namespace {
 
 using namespace stepped;
 
-template <class T, int KC, class Factor>
+template <class T, int KC, int PASSES, class Factor>
 __global__ void __launch_bounds__(THREADS)
 stepped_trsm_kernel(Factor fac, const T* __restrict__ Linv,
                     const T* __restrict__ B,
@@ -97,15 +109,15 @@ stepped_trsm_kernel(Factor fac, const T* __restrict__ Linv,
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int col0 = (int)(blockIdx.x / S) * TN;
   const int start = min(start_block[col0 / bm], n / bs);
-  solve_tile<T, KC>(fac, Linv, B, Y, (int64_t)(blockIdx.x % S), col0, start,
-                    n, m, bs, reinterpret_cast<T*>(smem_raw));
+  solve_tile<T, KC, PASSES>(fac, Linv, B, Y, (int64_t)(blockIdx.x % S), col0,
+                            start, n, m, bs, reinterpret_cast<T*>(smem_raw));
 }
 
-template <class T, int KC, class Factor>
+template <class T, int KC, int PASSES, class Factor>
 int launch_kc(Factor fac, const T* Linv, const T* B, const int* start_block,
               T* Y, int S, int n, int m, int bs, int bm, cudaStream_t stream) {
-  auto kernel = stepped_trsm_kernel<T, KC, Factor>;
-  constexpr size_t smem = solve_smem_bytes<T, KC, Factor>();
+  auto kernel = stepped_trsm_kernel<T, KC, PASSES, Factor>;
+  constexpr size_t smem = solve_smem_bytes<T, KC, PASSES, Factor>();
   cudaError_t err = dmma::set_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
   const unsigned grid = (unsigned)((m + TN - 1) / TN) * S;
@@ -121,22 +133,11 @@ int launch(Factor fac, const void* Linv, const void* B,
   if (bs % MIN_BS || bs > MAX_BS || bs < MIN_BS || bm % MIN_BS || bm < 1 ||
       n % bs || m % bm)
     return (int)cudaErrorInvalidValue;
-  const T* inv = (const T*)Linv;
-  const T* rhs = (const T*)B;
-  const int* starts = (const int*)start_block;
-  const cudaStream_t st = (cudaStream_t)stream;
-  const int kc = chunk_depth<T>(bs);
-  if (kc == SMALL)
-    return launch_kc<T, SMALL>(fac, inv, rhs, starts, (T*)Y, S, n, m, bs,
-                                  bm, st);
-  if (kc == ROW_KC<T>)
-    return launch_kc<T, ROW_KC<T>>(fac, inv, rhs, starts, (T*)Y, S, n, m, bs,
-                                   bm, st);
-  if (kc == 16)
-    return launch_kc<T, 16>(fac, inv, rhs, starts, (T*)Y, S, n, m, bs, bm,
-                            st);
-  return launch_kc<T, MIN_BS>(fac, inv, rhs, starts, (T*)Y, S, n, m, bs, bm,
-                              st);
+  return with_core<T>(bs, [&](auto kc, auto passes) {
+    return launch_kc<T, decltype(kc)::value, decltype(passes)::value>(
+        fac, (const T*)Linv, (const T*)B, (const int*)start_block, (T*)Y, S,
+        n, m, bs, bm, (cudaStream_t)stream);
+  });
 }
 
 }  // namespace

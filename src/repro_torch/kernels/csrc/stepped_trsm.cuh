@@ -2,7 +2,7 @@
 // kernels (stepped_trsm.cu) and the fused TRSM->SYRK kernels
 // (stepped_trsm_syrk.cu). Sm_90a; scalar type T = double or float.
 //
-// solve_tile<T, KC>() runs the forward substitution of TN = 32 right-hand
+// solve_tile<T, KC, PASSES>() runs the forward substitution of TN = 32 right-hand
 // side columns of one subdomain, from its tile's start block down:
 //
 //   Y[k] = Linv[k] (B[k] - sum_j L[k, j] Y[j]),  k >= start,
@@ -35,14 +35,22 @@
 // operands are copied with cp.async.cg (L2): Y is this kernel's own
 // output, and in the fused kernels other blocks read it in the same
 // launch. Three cores, one per shape of the work:
-//   * the row-split core (bs >= 24), solve_column_tile(): the block's
-//     (bs x 32) accumulator is split over 4 warps of 32 x 32; a warp whose
-//     rows all lie at or past bs idles (bs < 97), and rows past bs in an
-//     active warp are computed from stale shared memory and never stored.
-//     Chunks are KC deep: ROW_KC<T> (16 at f64, 32 at f32) where that
-//     divides bs, else 16 or 8; the ring's layout is the same for all.
-//     The diagonal step stages the accumulator in shared memory as the
-//     right operand of Linv[k];
+//   * the row-split core (bs >= 24), solve_column_tile(): a pass of ROWS
+//     = 128 accumulator rows (x 32 columns) is split over 4 warps of
+//     32 x 32; a warp whose rows all lie at or past the pass's last row
+//     idles (bs < 97), and rows past it in an active warp are computed
+//     from stale shared memory and never stored. A block of bs > 128 rows
+//     (up to MAX_BS = 256) takes two passes over the same 4 warps: each
+//     pass first subtracts every earlier block's contribution from its
+//     rows, and only then does the diagonal step apply the whole inverse
+//     block, Y_top = Linv[:128, :128] r_top and Y_bot = Linv[128:, :] r
+//     (Linv[k] is lower triangular, so the top pass reads Cs rows below
+//     128 never). Chunks are KC deep: ROW_KC<T> (16 at f64, 32 at f32)
+//     where that divides bs, else 16 or 8; the ring's layout is the same
+//     for all. The diagonal step stages both passes' sums in shared
+//     memory (Cs, PASSES x 128 rows) as the right operand of Linv[k]. The
+//     pass count is a template argument (row_passes(bs)), so the one-pass
+//     instances that serve bs <= 128 are the single-pass core as it was;
 //   * the panel core (dense factor, bs <= 16), solve_column_tile_panel():
 //     64 rows of the factor a pass, 16 a warp, so Y is read once a panel,
 //     not once a factor row, and every warp works; the panel's diagonal
@@ -56,6 +64,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "dmma_f64.cuh"
 #include "tf32x3_f32.cuh"
 
@@ -63,10 +73,11 @@ namespace stepped {
 
 constexpr int TN = 32;             // right-hand-side columns per block
 constexpr int STAGES = 3;          // cp.async ring depth (row core: ROW_STAGES)
-constexpr int MAX_BS = 128;        // largest factor block
+constexpr int ROWS = 128;          // row core's accumulator rows a pass
+constexpr int MAX_BS = 2 * ROWS;   // largest factor block: two passes
 constexpr int MIN_BS = 8;          // bs and bm are multiples of it
 constexpr int THREADS = 128;       // 4 warps of 32 accumulator rows
-constexpr int WROWS = MAX_BS / (THREADS / 32);  // rows per warp
+constexpr int WROWS = ROWS / (THREADS / 32);  // rows per warp
 constexpr int MI = WROWS / 8;      // 8-row fragment blocks per warp
 constexpr int WARPS = THREADS / 32;
 // The row-split core's deepest chunk and ring: 16 deep in 3 stages at f64;
@@ -76,24 +87,33 @@ template <class T>
 constexpr int ROW_KC = sizeof(T) == 8 ? 16 : 32;
 template <class T>
 constexpr int ROW_STAGES = sizeof(T) == 8 ? 3 : 2;
-// factor / Linv chunk [MAX_BS][ROW_LD]: 4 (mod 16) doubles, 4 (mod 8) words
+// factor / Linv chunk [ROWS][ROW_LD]: 4 (mod 16) doubles, 4 (mod 8) words
 template <class T>
 constexpr int ROW_LD = ROW_KC<T> + 4;
-// Y chunk [ROW_KC][Y_LD] and the diagonal step's right side [MAX_BS][Y_LD]:
+// Y chunk [ROW_KC][Y_LD] and the diagonal step's right side [ROWS][Y_LD] a
+// pass:
 // 4 (mod 16) doubles, 8 (mod 32) words at f32 (tf32x3_f32.cuh)
 template <class T>
 constexpr int Y_LD = sizeof(T) == 8 ? TN + 4 : TN + 8;
 template <class T>
-constexpr int A_STAGE = MAX_BS * ROW_LD<T>;
+constexpr int A_STAGE = ROWS * ROW_LD<T>;
 template <class T>
 constexpr int STAGE = A_STAGE<T> + ROW_KC<T> * Y_LD<T>;
 static_assert(ROW_LD<double> % 16 == 4 && ROW_LD<float> % 8 == 4 &&
                   Y_LD<double> % 16 == 4 && Y_LD<float> % 32 == 8,
               "conflict-free fragments at f64 and f32");
 
-template <class T>
+// the row core's passes over a bs-row block (1 up to bs = 128, else 2)
+constexpr int row_passes(int bs) {
+  return (bs + ROWS - 1) / ROWS;
+}
+
+// the ring and the diagonal step's right side, ROWS rows a pass: in one
+// pass 112 KB at f64 (two blocks a SM) and 68 KB at f32; in two 149 KB at
+// f64 (one block a SM) and 88 KB at f32 (two)
+template <class T, int PASSES>
 constexpr size_t trsm_smem_bytes() {
-  return sizeof(T) * (ROW_STAGES<T> * STAGE<T> + MAX_BS * Y_LD<T>);
+  return sizeof(T) * (ROW_STAGES<T> * STAGE<T> + PASSES * ROWS * Y_LD<T>);
 }
 
 // Small blocks (bs <= SMALL_MAX_BS) run the small-block cores, which the
@@ -202,14 +222,14 @@ struct PackedFactor {
   }
 };
 
-// As[r][0..KC) = A[r][0..KC) for r < bs (A row-major, leading dim lda)
+// As[r][0..KC) = A[r][0..KC) for r < rows (A row-major, leading dim lda)
 template <class T, int KC>
 __device__ __forceinline__ void stage_a_chunk(T* As, const T* A, int lda,
-                                              int bs) {
+                                              int rows) {
   constexpr int V = tile::VEC<T>;
   static_assert(KC > 0 && KC % V == 0 && ROW_KC<T> % KC == 0,
                 "whole 16-byte copies into a ROW_KC-deep ring");
-  for (int idx = threadIdx.x; idx < bs * (KC / V); idx += THREADS) {
+  for (int idx = threadIdx.x; idx < rows * (KC / V); idx += THREADS) {
     const int r = idx / (KC / V), q = V * (idx % (KC / V));
     dmma::cp_async_cg(As + r * ROW_LD<T> + q, A + r * lda + q);
   }
@@ -230,11 +250,11 @@ __device__ __forceinline__ void zero_rows(T* Ys, int rows, int m, int col0,
 }
 
 // Columns [col0, col0 + TN) of subdomain s, clipped to m. Linv
-// (S, nb, bs, bs), B and Y (S, n, m) row-major; smem (16-byte aligned) holds
-// trsm_smem_bytes<T>(). Every loop bound is uniform over the block, so the
-// barriers inside are reached by all threads. Returns after this tile's
-// last store of Y and a barrier.
-template <class T, int KC, class Factor>
+// (S, nb, bs, bs), B and Y (S, n, m) row-major, PASSES == row_passes(bs);
+// smem (16-byte aligned) holds trsm_smem_bytes<T, PASSES>(). Every loop
+// bound is uniform over the block, so the barriers inside are reached by
+// all threads. Returns after this tile's last store of Y and a barrier.
+template <class T, int KC, int PASSES, class Factor>
 __device__ __forceinline__ void solve_column_tile(
     const Factor& factor, const T* Linv, const T* B, T* Y, int64_t s,
     int col0, int start, int n, int m, int bs, T* smem) {
@@ -247,13 +267,12 @@ __device__ __forceinline__ void solve_column_tile(
   constexpr int B_LD = Y_LD<T>, C_LD = Y_LD<T>;
   const Factor fac = factor.at(s, bs);
   T* ring = smem;                 // RING x {A chunk, Y chunk}
-  T* Cs = smem + RING * STAGE;    // [MAX_BS][C_LD]
+  T* Cs = smem + RING * STAGE;    // [PASSES * ROWS][C_LD]
 
   const int tid = threadIdx.x;
   const int warp = tid / 32;
   const int g = dmma::lane_g(), t = dmma::lane_t();
-  const int wr0 = warp * WROWS;      // this warp's first accumulator row
-  const bool active = wr0 < bs;      // warp-uniform
+  const int wr0 = warp * WROWS;      // this warp's first row of a pass
   const int nb = n / bs;
   const int cpt = bs / KC;           // chunks per factor tile
   const int width = min(TN, m - col0);  // a multiple of MIN_BS
@@ -264,77 +283,98 @@ __device__ __forceinline__ void solve_column_tile(
   zero_rows(Ys, start * bs, m, col0, width);
 
   for (int k = start; k < nb; ++k) {
-    T acc[MI][TN / 8][2];
+    // each pass: its rows of B[k] - sum_j L[k, j] Y[j], over the factor
+    // tiles of row k with j >= start, staged in Cs (unrolled: at PASSES = 1
+    // no pass arithmetic is left)
 #pragma unroll
-    for (int i = 0; i < MI; ++i) {
-      const int r = wr0 + 8 * i + g;
+    for (int p = 0; p < PASSES; ++p) {
+      const int pr0 = p * ROWS;  // the pass's first row of k
+      // its rows, a multiple of MIN_BS
+      const int rows = PASSES == 1 ? bs : min(ROWS, bs - pr0);
+      const bool active = wr0 < rows;         // warp-uniform
+      T acc[MI][TN / 8][2];
 #pragma unroll
-      for (int j = 0; j < TN / 8; ++j) {
-        const P v = r < bs && 8 * j < width
-                        ? __ldg(reinterpret_cast<const P*>(
-                              Bsub + (int64_t)(k * bs + r) * m + col0 +
-                              8 * j + 2 * t))
-                        : tile::pair<T>(0, 0);
-        acc[i][j][0] = v.x;
-        acc[i][j][1] = v.y;
+      for (int i = 0; i < MI; ++i) {
+        const int r = wr0 + 8 * i + g;
+#pragma unroll
+        for (int j = 0; j < TN / 8; ++j) {
+          const P v = r < rows && 8 * j < width
+                          ? __ldg(reinterpret_cast<const P*>(
+                                Bsub + (int64_t)(k * bs + pr0 + r) * m +
+                                col0 + 8 * j + 2 * t))
+                          : tile::pair<T>(0, 0);
+          acc[i][j][0] = v.x;
+          acc[i][j][1] = v.y;
+        }
       }
-    }
 
-    // acc -= L[k, j] Y[j] over the factor tiles of row k with j >= start
-    const int it0 = fac.first(k, start);
-    const int lda = fac.ld(bs);
-    dmma::pipeline<RING>(
-        (fac.last(k) - it0) * cpt,
-        [&](int c, int stage) {
-          const int it = it0 + c / cpt, kc0 = (c % cpt) * KC;
-          T* As = ring + stage * STAGE;
-          stage_a_chunk<T, KC>(As, fac.tile(k, it, bs) + kc0, lda, bs);
-          const T* Yj = Ys + (int64_t)(fac.col(it) * bs + kc0) * m + col0;
-          for (int idx = tid; idx < KC * (TN / V); idx += THREADS) {
-            const int q = idx / (TN / V), cv = V * (idx % (TN / V));
-            const bool in = cv < width;
-            dmma::cp_async_cg(As + A_STAGE + q * B_LD + cv,
-                              in ? Yj + (int64_t)q * m + cv : Yj, in);
-          }
-        },
-        [&](int, int stage) {
-          const T* As = ring + stage * STAGE;
-          if (active)
-            tile::mma<MI, TN / 8, KC, A_LD, 1, B_LD, true>(
-                acc, As + wr0 * A_LD, As + A_STAGE);
-        });
-
-    // diagonal step: Y[k] = Linv[k] acc, acc staged as the right operand
+      const int it0 = fac.first(k, start);
+      const int lda = fac.ld(bs);
+      dmma::pipeline<RING>(
+          (fac.last(k) - it0) * cpt,
+          [&](int c, int stage) {
+            const int it = it0 + c / cpt, kc0 = (c % cpt) * KC;
+            T* As = ring + stage * STAGE;
+            stage_a_chunk<T, KC>(
+                As, fac.tile(k, it, bs) + (int64_t)pr0 * lda + kc0, lda,
+                rows);
+            const T* Yj = Ys + (int64_t)(fac.col(it) * bs + kc0) * m + col0;
+            for (int idx = tid; idx < KC * (TN / V); idx += THREADS) {
+              const int q = idx / (TN / V), cv = V * (idx % (TN / V));
+              const bool in = cv < width;
+              dmma::cp_async_cg(As + A_STAGE + q * B_LD + cv,
+                                in ? Yj + (int64_t)q * m + cv : Yj, in);
+            }
+          },
+          [&](int, int stage) {
+            const T* As = ring + stage * STAGE;
+            if (active)
+              tile::mma<MI, TN / 8, KC, A_LD, 1, B_LD, true>(
+                  acc, As + wr0 * A_LD, As + A_STAGE);
+          });
 #pragma unroll
-    for (int i = 0; i < MI; ++i)
-#pragma unroll
-      for (int j = 0; j < TN / 8; ++j)
-        *reinterpret_cast<P*>(Cs + (wr0 + 8 * i + g) * C_LD + 8 * j + 2 * t) =
-            tile::pair<T>(acc[i][j][0], acc[i][j][1]);
-    T out[MI][TN / 8][2];
-    tile::zero(out);
-    const T* Lkk_inv = Linvs + (int64_t)k * bs * bs;
-    dmma::pipeline<RING>(
-        cpt,
-        [&](int c, int stage) {
-          stage_a_chunk<T, KC>(ring + stage * STAGE, Lkk_inv + c * KC, bs,
-                               bs);
-        },
-        [&](int c, int stage) {
-          if (active)
-            tile::mma<MI, TN / 8, KC, A_LD, 1, C_LD, false>(
-                out, ring + stage * STAGE + wr0 * A_LD, Cs + c * KC * C_LD);
-        });
-#pragma unroll
-    for (int i = 0; i < MI; ++i) {
-      const int r = wr0 + 8 * i + g;
-      if (r < bs) {
+      for (int i = 0; i < MI; ++i)
 #pragma unroll
         for (int j = 0; j < TN / 8; ++j)
-          if (8 * j < width)
-            *reinterpret_cast<P*>(Ys + (int64_t)(k * bs + r) * m + col0 +
-                                  8 * j + 2 * t) =
-                tile::pair<T>(out[i][j][0], out[i][j][1]);
+          *reinterpret_cast<P*>(Cs + (pr0 + wr0 + 8 * i + g) * C_LD + 8 * j +
+                                2 * t) =
+              tile::pair<T>(acc[i][j][0], acc[i][j][1]);
+    }
+
+    // diagonal step, a pass at a time: Y[k] = Linv[k] Cs. Linv[k] is lower
+    // triangular, so a pass's rows take Cs rows [0, pr0 + rows) only (a
+    // multiple of KC: 128 or bs)
+#pragma unroll
+    for (int p = 0; p < PASSES; ++p) {
+      const int pr0 = p * ROWS;
+      const int rows = PASSES == 1 ? bs : min(ROWS, bs - pr0);
+      const bool active = wr0 < rows;
+      T out[MI][TN / 8][2];
+      tile::zero(out);
+      const T* Lkk_inv = Linvs + ((int64_t)k * bs + pr0) * bs;
+      dmma::pipeline<RING>(
+          PASSES == 1 ? cpt : (pr0 + rows) / KC,
+          [&](int c, int stage) {
+            stage_a_chunk<T, KC>(ring + stage * STAGE, Lkk_inv + c * KC, bs,
+                                 rows);
+          },
+          [&](int c, int stage) {
+            if (active)
+              tile::mma<MI, TN / 8, KC, A_LD, 1, C_LD, false>(
+                  out, ring + stage * STAGE + wr0 * A_LD,
+                  Cs + c * KC * C_LD);
+          });
+#pragma unroll
+      for (int i = 0; i < MI; ++i) {
+        const int r = wr0 + 8 * i + g;
+        if (r < rows) {
+#pragma unroll
+          for (int j = 0; j < TN / 8; ++j)
+            if (8 * j < width)
+              *reinterpret_cast<P*>(Ys + (int64_t)(k * bs + pr0 + r) * m +
+                                    col0 + 8 * j + 2 * t) =
+                  tile::pair<T>(out[i][j][0], out[i][j][1]);
+        }
       }
     }
     // Y[k] is read back (through L2) by this block's later rows
@@ -650,15 +690,16 @@ __device__ __forceinline__ void solve_column_tile_panel(
 
 // The forward substitution of one column tile: for KC == SMALL (bs <=
 // SMALL_MAX_BS) the panel core on a dense factor and the k-split core on a
-// packed one, else the row-split core with KC-deep chunks (KC divides bs).
-template <class T, int KC, class Factor>
+// packed one, else the row-split core with KC-deep chunks (KC divides bs)
+// in PASSES passes (row_passes(bs)).
+template <class T, int KC, int PASSES, class Factor>
 __device__ __forceinline__ void solve_tile(const Factor& factor,
                                            const T* Linv, const T* B, T* Y,
                                            int64_t s, int col0, int start,
                                            int n, int m, int bs, T* smem) {
   if constexpr (KC != SMALL)
-    solve_column_tile<T, KC>(factor, Linv, B, Y, s, col0, start, n, m, bs,
-                             smem);
+    solve_column_tile<T, KC, PASSES>(factor, Linv, B, Y, s, col0, start, n,
+                                     m, bs, smem);
   else if constexpr (Factor::contiguous)
     solve_column_tile_panel<T>(factor, Linv, B, Y, s, col0, start, n, m, bs,
                                smem);
@@ -667,9 +708,9 @@ __device__ __forceinline__ void solve_tile(const Factor& factor,
                                 bs, smem);
 }
 
-template <class T, int KC, class Factor>
+template <class T, int KC, int PASSES, class Factor>
 constexpr size_t solve_smem_bytes() {
-  return KC != SMALL           ? trsm_smem_bytes<T>()
+  return KC != SMALL           ? trsm_smem_bytes<T, PASSES>()
          : Factor::contiguous ? panel_smem_bytes<T>()
                               : ksplit_smem_bytes<T>();
 }
@@ -683,6 +724,30 @@ constexpr int chunk_depth(int bs) {
          : bs % ROW_KC<T> == 0 ? ROW_KC<T>
          : bs % 16 == 0        ? 16
                                : MIN_BS;
+}
+
+// f(integral_constant<int, KC>(), integral_constant<int, PASSES>()) for
+// the core a launcher instantiates for bs (chunk_depth<T>(bs) and
+// row_passes(bs); the small-block cores take one pass)
+template <class T, int PASSES, class F>
+int with_row_core(int kc, F& f) {
+  using std::integral_constant;
+  if (kc == ROW_KC<T>)
+    return f(integral_constant<int, ROW_KC<T>>(),
+             integral_constant<int, PASSES>());
+  if (kc == 16)
+    return f(integral_constant<int, 16>(), integral_constant<int, PASSES>());
+  return f(integral_constant<int, MIN_BS>(), integral_constant<int, PASSES>());
+}
+
+template <class T, class F>
+int with_core(int bs, F&& f) {
+  const int kc = chunk_depth<T>(bs);
+  if (kc == SMALL)
+    return f(std::integral_constant<int, SMALL>(),
+             std::integral_constant<int, 1>());
+  return row_passes(bs) == 1 ? with_row_core<T, 1>(kc, f)
+                             : with_row_core<T, 2>(kc, f);
 }
 
 }  // namespace stepped

@@ -84,7 +84,7 @@
 // Layout: as stepped_trsm.cu, plus the scratch Y (S, n, m), the output
 // F (S, m, m), both of the operands' type, the item list (n_items,) int32
 // and the sync words (1 + S * ceil(m / 32),) int32; bs a multiple of 8 up
-// to 128, bm a multiple of 8. Item codes: a TRSM item is s * ceil(m / 32) + column
+// to 256, bm a multiple of 8. Item codes: a TRSM item is s * ceil(m / 32) + column
 // tile, a SYRK item is S * ceil(m / 32) + (s * lower tiles + tile) *
 // sub-tiles + sub-tile. The launcher takes only the whole list: an n_items
 // other than its own count of every item (a list built for another
@@ -104,12 +104,13 @@ using namespace stepped;
 constexpr int FUSED_TILE = 64;  // SYRK sub-tile edge: 4 warps of 32 x 32
 
 // the larger of the two halves' shared memory (the TRSM half's: the row
-// core's 112 KB at f64 and 68 KB at f32, the panel core's 101 KB and 93 KB,
-// the k-split core's 100 KB and 54 KB)
-template <class T, int KC, class Factor>
+// core's 112 KB at f64 and 68 KB at f32, 149 KB and 88 KB at bs > 128, the
+// panel core's 101 KB and 93 KB, the k-split core's 100 KB and 54 KB)
+template <class T, int KC, int PASSES, class Factor>
 constexpr size_t fused_smem_bytes() {
-  return solve_smem_bytes<T, KC, Factor>() > syrk_smem_bytes<T, FUSED_TILE>()
-             ? solve_smem_bytes<T, KC, Factor>()
+  return solve_smem_bytes<T, KC, PASSES, Factor>() >
+                 syrk_smem_bytes<T, FUSED_TILE>()
+             ? solve_smem_bytes<T, KC, PASSES, Factor>()
              : syrk_smem_bytes<T, FUSED_TILE>();
 }
 
@@ -127,7 +128,7 @@ __device__ __forceinline__ int load_acquire(const int* p) {
   return v;
 }
 
-template <class T, int KC, class Factor>
+template <class T, int KC, int PASSES, class Factor>
 __global__ void __launch_bounds__(THREADS)
 stepped_trsm_syrk_kernel(Factor fac, const T* __restrict__ Linv,
                          const T* __restrict__ B,
@@ -158,7 +159,8 @@ stepped_trsm_syrk_kernel(Factor fac, const T* __restrict__ Linv,
       const int64_t s = item / col_tiles;
       const int col0 = (item % col_tiles) * TN;
       const int start = min(start_block[col0 / bm], nb);
-      solve_tile<T, KC>(fac, Linv, B, Y, s, col0, start, n, m, bs, smem);
+      solve_tile<T, KC, PASSES>(fac, Linv, B, Y, s, col0, start, n, m, bs,
+                                smem);
       __threadfence();
       __syncthreads();
       if (threadIdx.x == 0) store_release(ready + item, 1);
@@ -211,13 +213,13 @@ cudaError_t resident_blocks(Kernel* kernel, size_t smem, int* blocks) {
   return cudaSuccess;
 }
 
-template <class T, int KC, class Factor>
+template <class T, int KC, int PASSES, class Factor>
 int launch_kc(Factor fac, const void* Linv, const void* B,
               const void* start_block, const void* order, int n_items,
               void* sync, void* Y, void* F, int S, int n, int m, int bs,
               int bm, void* stream) {
-  auto kernel = stepped_trsm_syrk_kernel<T, KC, Factor>;
-  constexpr size_t smem = fused_smem_bytes<T, KC, Factor>();
+  auto kernel = stepped_trsm_syrk_kernel<T, KC, PASSES, Factor>;
+  constexpr size_t smem = fused_smem_bytes<T, KC, PASSES, Factor>();
   int resident = 0;
   cudaError_t err = resident_blocks(kernel, smem, &resident);
   if (err != cudaSuccess) return (int)err;
@@ -232,17 +234,6 @@ int launch_kc(Factor fac, const void* Linv, const void* B,
   return (int)cudaGetLastError();
 }
 
-// f(std::integral_constant<int, KC>()) at the TRSM core's chunk depth for
-// bs (chunk_depth<T>)
-template <class T, class F>
-int with_chunk_depth(int bs, F&& f) {
-  const int kc = chunk_depth<T>(bs);
-  if (kc == SMALL) return f(std::integral_constant<int, SMALL>());
-  if (kc == ROW_KC<T>) return f(std::integral_constant<int, ROW_KC<T>>());
-  if (kc == 16) return f(std::integral_constant<int, 16>());
-  return f(std::integral_constant<int, MIN_BS>());
-}
-
 template <class T, class Factor>
 int launch(Factor fac, const void* Linv, const void* B,
            const void* start_block, const void* order, int n_items,
@@ -255,10 +246,10 @@ int launch(Factor fac, const void* Linv, const void* B,
   const int trsm_items = S * ((m + TN - 1) / TN);
   if (n_items != trsm_items + S * (nc * (nc + 1) / 2) * subs * subs)
     return (int)cudaErrorInvalidValue;
-  return with_chunk_depth<T>(bs, [&](auto kc) {
-    return launch_kc<T, decltype(kc)::value>(fac, Linv, B, start_block, order,
-                                             n_items, sync, Y, F, S, n, m, bs,
-                                             bm, stream);
+  return with_core<T>(bs, [&](auto kc, auto passes) {
+    return launch_kc<T, decltype(kc)::value, decltype(passes)::value>(
+        fac, Linv, B, start_block, order, n_items, sync, Y, F, S, n, m, bs,
+        bm, stream);
   });
 }
 
@@ -267,10 +258,11 @@ template <class T, class Factor>
 int grid_blocks(int bs, int* blocks) {
   if (bs % MIN_BS || bs > MAX_BS || bs < MIN_BS)
     return (int)cudaErrorInvalidValue;
-  return with_chunk_depth<T>(bs, [&](auto kc) {
-    constexpr int KC = decltype(kc)::value;
-    return (int)resident_blocks(stepped_trsm_syrk_kernel<T, KC, Factor>,
-                                fused_smem_bytes<T, KC, Factor>(), blocks);
+  return with_core<T>(bs, [&](auto kc, auto passes) {
+    constexpr int KC = decltype(kc)::value, PASSES = decltype(passes)::value;
+    return (int)resident_blocks(
+        stepped_trsm_syrk_kernel<T, KC, PASSES, Factor>,
+        fused_smem_bytes<T, KC, PASSES, Factor>(), blocks);
   });
 }
 

@@ -151,7 +151,7 @@ def stepped_trsm_kernel(Linv: torch.Tensor, L: torch.Tensor, B: torch.Tensor,
 
     Operands are float64 or float32, all of one dtype (f32 kernels
     accumulate in f32). CUDA tensors launch the kernel of their dtype,
-    which takes bs a multiple of 8 up to 128 and bm a multiple of 8; CPU
+    which takes bs a multiple of 8 up to 256 and bm a multiple of 8; CPU
     tensors run the plain version. ``stepped_trsm_kernel.launches`` counts
     launches, ``.launches_by_dtype`` them per dtype.
     """

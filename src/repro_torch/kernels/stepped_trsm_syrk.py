@@ -109,7 +109,7 @@ def stepped_trsm_syrk_kernel(Linv: torch.Tensor, L: torch.Tensor,
 
     Operands as :func:`repro_torch.kernels.stepped_trsm.stepped_trsm_kernel`;
     returns (S, m, m) with exact zeros in the upper tiles. CUDA tensors
-    launch the kernel (bs a multiple of 8 up to 128, bm a multiple of 8)
+    launch the kernel (bs a multiple of 8 up to 256, bm a multiple of 8)
     and need ``order``, its item list
     (:func:`repro_torch.kernels.schedule.fused_work_order_on` of the same
     start blocks); CPU tensors run the plain version, which needs no list.

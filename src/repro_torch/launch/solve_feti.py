@@ -41,6 +41,13 @@ above 1e-8). Plans are cached under ``$REPRO_TORCH_PLAN_CACHE_DIR``
 (default ``~/.cache/repro_torch/plans``); ``--no-plan-cache`` neither
 reads nor writes it.
 
+``--trace OUT.json`` records the per-iteration residual history and
+exports the run's telemetry as a Chrome-trace JSON (``chrome://tracing`` /
+Perfetto): the nested spans of every pipeline phase with the metrics
+snapshot embedded (check it with ``python -m repro_torch.obs.validate
+OUT.json``). ``--report`` prints :meth:`FetiSolver.report` (span tree,
+metrics, device bytes) as JSON after the solve.
+
 ``--precond dirichlet`` assembles the primal boundary Schur complements
 S_b = K_bb − K_bi K_ii⁻¹ K_ib as a second stage through the same config
 (so the same kernels run it, on new shapes) and preconditions PCPG with
@@ -103,6 +110,15 @@ def main(argv=None) -> int:
                         "the multi-RHS block PCPG (solve_many) instead of "
                         "the single-load solve; with --validate each "
                         "column is checked against its own global solve")
+    p.add_argument("--trace", default=None, metavar="OUT.json",
+                   help="export the run's telemetry as a Chrome-trace JSON "
+                        "(chrome://tracing / Perfetto): nested spans for "
+                        "every pipeline phase plus the metrics snapshot; "
+                        "implies per-iteration residual history")
+    p.add_argument("--report", action="store_true",
+                   help="print the structured telemetry report "
+                        "(FetiSolver.report(): span tree, metrics, device "
+                        "bytes) as JSON after the solve")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                    help="where the stacks live and the work runs; cuda "
                         "fails when CUDA is not available")
@@ -145,11 +161,23 @@ def main(argv=None) -> int:
                         dtype=args.dtype, refine=args.refine, device=device,
                         plan_cache=not args.no_plan_cache)
     solver = FetiSolver(prob, config)
+    history = bool(args.trace)  # the trace embeds the convergence curve
     if args.n_rhs > 0:
         loads = prob.load_cases(args.n_rhs, kind="sweep")
-        sol = solver.solve_many(loads, tol=args.tol)
+        sol = solver.solve_many(loads, tol=args.tol, history=history)
     else:
-        sol = solver.solve(tol=args.tol)
+        sol = solver.solve(tol=args.tol, history=history)
+
+    if args.trace or args.report:
+        import json
+
+        rep = solver.report()
+        if args.trace:
+            solver.telemetry.tracer.to_chrome_trace(
+                args.trace, metrics=rep["metrics"])
+            print(f"[feti] telemetry trace -> {args.trace}")
+        if args.report:
+            print(json.dumps(rep, indent=1, default=float))
 
     st = solver.state
     cfg = solver.cfg  # the planner's choice under --autotune
@@ -159,7 +187,7 @@ def main(argv=None) -> int:
           f"refine={st.refine_steps} refine_outer={sol.refine_outer}")
     print(f"[feti] storage={st.storage} device bytes: L={by['L']:,} "
           f"K={by['K']:,} Btp={by['Btp']:,} F={by['F']:,} Kreg={by['Kreg']:,} "
-          f"(dense L would be {by['dense_L']:,})")
+          f"(dense L would be {by['dense_L']:,}) total={by['total']:,}")
     if st.Sb is not None:
         sp, env = st.split, st.dirichlet_env
         print(f"[feti] precond=dirichlet: boundary/interior split "

@@ -4,12 +4,17 @@ of ``repro.obs``:
   * :mod:`repro_torch.obs.trace` — nested span tracer (context-manager API,
     device sync at span close, Chrome-trace/JSONL export, cross-module
     propagation via :func:`use_tracer`/:func:`current_tracer`)
-  * :mod:`repro_torch.obs.metrics` — process-global counters/gauges (the
-    planner's plan-cache hits and misses)
+  * :mod:`repro_torch.obs.metrics` — process-global counters/gauges
+    (plan-cache hits and misses, PCPG solves, iterations, defect-correction
+    outers and tolerance clamps, device bytes by stack, dtype and stage)
   * :mod:`repro_torch.obs.timing` — THE synchronized timing helper of the
     autotuner's measured refinement
+  * :mod:`repro_torch.obs.validate` — schema validation of the exported
+    artifacts (``python -m repro_torch.obs.validate out.json``; not
+    imported here, so that ``-m`` runs it as a fresh module)
 
-The solver's report and the artifact validation are ROADMAP item A15.
+:class:`Telemetry` is what ``FetiSolver.telemetry`` holds;
+``FetiSolver.report()`` and ``FetiSolver.amortization_report()`` read it.
 """
 from __future__ import annotations
 
@@ -41,9 +46,10 @@ __all__ = [
 
 
 class Telemetry:
-    """A span tracer plus the process-global metrics registry;
-    ``disable()`` turns the spans into no-ops without touching the
-    counters."""
+    """One solver's telemetry: a span tracer plus the process-global
+    metrics registry. Held by :class:`repro_torch.feti.solver.FetiSolver`
+    as ``solver.telemetry``; ``disable()`` turns the spans into no-ops
+    without touching the counters."""
 
     def __init__(self, enabled: bool = True):
         self.tracer = Tracer(enabled=enabled)

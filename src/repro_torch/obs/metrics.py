@@ -2,8 +2,9 @@
 copy of the framework-free ``repro.obs.metrics``).
 
 The planner counts its plan-cache hits and misses here (per stage and per
-graph key); the reference's other instruments (PCPG iterations, device
-bytes by dtype) are ROADMAP item A15. One process-global default registry
+graph key), the solver its PCPG solves, iterations and defect-correction
+outers, PCPG its tolerance clamps, and the solver gauges the device bytes
+by stack and dtype, by stage and in total. One process-global default registry
 (like Prometheus' default registry) keeps the call sites one-liners:
 
     from repro_torch.obs import metrics

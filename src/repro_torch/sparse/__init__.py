@@ -2,7 +2,7 @@
 (block fill mask), the batched blocked numerical Cholesky, and the packed
 block layout (the fill mask as storage) with its Cholesky and triangular
 solves."""
-from repro_torch.sparse.cholesky import block_cholesky
+from repro_torch.sparse.cholesky import block_cholesky, block_cholesky_flops
 from repro_torch.sparse.ordering import (
     nested_dissection_order,
     node_ordering,
@@ -27,6 +27,7 @@ __all__ = [
     "PackedBlockIndex",
     "PackedBlocks",
     "block_cholesky",
+    "block_cholesky_flops",
     "block_cholesky_packed",
     "block_pattern",
     "block_symbolic_cholesky",

@@ -31,7 +31,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-__all__ = ["block_cholesky"]
+__all__ = ["block_cholesky", "block_cholesky_flops"]
 
 
 def _solve_lower_right(Lkk: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
@@ -112,3 +112,32 @@ def block_cholesky(K: torch.Tensor, block_size: int,
         raise ValueError("block_cholesky: a diagonal block is not positive "
                          "definite")
     return W.tril_()
+
+
+def block_cholesky_flops(n: int, block_size: int,
+                         mask: Optional[np.ndarray] = None) -> int:
+    """FLOP model of the blocked factorization (MAC = 2 flops), the
+    reference's: a dense Cholesky of each diagonal block, a triangular
+    solve of each stored panel block and a GEMM update of each stored
+    trailing pair; ``mask`` (the symbolic block fill mask) skips the
+    structurally-zero blocks."""
+    nb = -(-n // block_size)
+
+    def bsz(k):
+        return min((k + 1) * block_size, n) - k * block_size
+
+    total = 0
+    for k in range(nb):
+        b = bsz(k)
+        total += b * b * b // 3  # dense Cholesky of the diagonal block
+        below = (
+            [i for i in range(k + 1, nb) if mask[i, k]]
+            if mask is not None
+            else list(range(k + 1, nb))
+        )
+        for i in below:
+            total += bsz(i) * b * b  # panel triangular solve
+        for ii, i in enumerate(below):
+            for j in below[: ii + 1]:
+                total += 2 * bsz(i) * bsz(j) * b  # trailing GEMM update
+    return total

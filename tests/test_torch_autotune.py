@@ -8,9 +8,10 @@ and cache keys, and the model-only plans under the ``"cpu"`` model must
 agree; under the ``"gpu"`` model the port's kernel candidates drop the
 reference's 200x interpret penalty. Each package caches in its own
 ``tmp_path`` root, and the port never touches the reference's. The
-planner's CUDA rules are checked here through the ``"h100"`` model (a
-kernel candidate the CUDA kernels refuse, bs > 128, is never returned;
-kernel candidates are timed only on a CUDA device).
+planner's CUDA rules are checked here through the ``"h100"`` model (the
+CUDA kernels take every block size of the space, bs 256 included, so no
+kernel candidate is left out; kernel candidates are timed only on a CUDA
+device).
 
 The ``cuda`` cases need the card and no JAX:
 ``python -m pytest --noconftest -m cuda tests/test_torch_autotune.py``.
@@ -182,7 +183,7 @@ def test_model_plan_matches_reference(caches, storage, dtype):
     assert got.key == want.key and got.candidates == want.candidates
     assert _rel(got.predicted_s, want.predicted_s)
     assert _rel(got.baseline_predicted_s, want.baseline_predicted_s)
-    assert got.measured_s is None and got.timed == 0 and got.refused == 0
+    assert got.measured_s is None and got.timed == 0
 
 
 def test_plan_facade_and_cache_roundtrip(caches):
@@ -205,25 +206,30 @@ def test_plan_facade_and_cache_roundtrip(caches):
 
 
 def test_refused_kernel_tiles_are_never_returned(caches):
-    """Under the "h100" model the kernel candidates at bs 256 are scored
-    but never returned (the CUDA kernels take bs <= 128); the CPU model
-    refuses nothing. On a CPU device no kernel candidate is timed."""
+    """No kernel tile is refused any more: under the "h100" model the
+    kernel candidates at bs 256 are scored like any other and may be
+    returned (the CUDA kernels take bs up to 256), and the plan records no
+    count of candidates left out. On a CPU device no kernel candidate is
+    timed; the CPU model never returns one."""
     bt, kpat = _pattern(n=300, m=64, seed=2)
     assert 256 in autotune.default_block_sizes(300)
+    h100 = DEVICE_MODELS["h100"]
     for measure in ("never", "auto"):
         p = plan_assembly(bt, factor_pattern=kpat, measure=measure,
-                          device=DEVICE_MODELS["h100"], torch_device="cpu",
-                          cache=False)
-        n256 = sum(c.use_kernels for c in enumerate_space((256,)))
-        assert p.refused == n256 > 0
-        assert not (p.cfg.use_kernels and p.cfg.block_size > 128)
+                          device=h100, torch_device="cpu", cache=False)
+        assert p.candidates == len(enumerate_space(
+            autotune.default_block_sizes(300)))
+        assert not hasattr(p, "refused") and "left out" not in p.summary()
         if measure == "auto":
             assert not p.cfg.use_kernels and 0 < p.timed
             assert p.measured_s <= p.baseline_measured_s
+    # restricted to bs 256 the model's best is a kernel candidate there
+    p = plan_assembly(bt, factor_pattern=kpat, measure="never", device=h100,
+                      block_sizes=(256,), cache=False)
+    assert p.cfg.block_size == 256 and p.cfg.use_kernels
     p = plan_assembly(bt, factor_pattern=kpat, measure="never",
                       device=DEVICE_MODELS["cpu"], cache=False)
-    assert p.refused == 0 and not p.cfg.use_kernels
-    assert "0 kernel candidates left out" in p.summary()
+    assert not p.cfg.use_kernels
 
 
 def test_measured_plan_no_slower_than_its_baseline(caches):
@@ -372,8 +378,9 @@ def _launches():
 @pytest.mark.cuda
 def test_cuda_planner_times_kernels_and_caches(caches):
     """On the card the measured step times kernel candidates (the launch
-    counters rise), never returns a kernel candidate at bs > 128 under
-    either measure setting, and a cached plan reruns with no launch."""
+    counters rise), leaves out no candidate (bs-256 kernel candidates
+    included) under either measure setting, and a cached plan reruns with
+    no launch."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     bt, kpat = _pattern(n=300, m=64, seed=2)
@@ -381,8 +388,9 @@ def test_cuda_planner_times_kernels_and_caches(caches):
         before = _launches()
         p = plan_assembly(bt, factor_pattern=kpat, measure=measure,
                           torch_device="cuda")
-        assert p.device in ("gpu", "h100") and p.refused > 0
-        assert not (p.cfg.use_kernels and p.cfg.block_size > 128)
+        assert p.device in ("gpu", "h100")
+        assert p.candidates == len(enumerate_space(
+            autotune.default_block_sizes(300)))
         assert (_launches() > before) == (measure == "auto")
         before = _launches()
         q = plan_assembly(bt, factor_pattern=kpat, measure=measure,

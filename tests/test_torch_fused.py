@@ -97,6 +97,9 @@ CPU_CASES = [
     # n, m, bs, bm, S, empty columns
     (61, 30, 8, 8, 2, 0),  # ragged n: 61 -> 64, m 30 -> 32
     (64, 40, 16, 8, 2, 8),  # the last stripe is all padding: start = nb
+    # bs 256, the reference planner's largest: n 600 -> 768, three block
+    # rows, two of the three lower blocks stored
+    (600, 100, 256, 32, 2, 0),
 ]
 
 
@@ -212,6 +215,9 @@ CUDA_CASES = [
     (200, 90, 8, 8, 3, 10),  # m 90 -> 96: the last 32-column item clipped
     (250, 75, 16, 16, 2, 5),  # bs 16: 16-deep chunks
     (130, 44, 24, 8, 2, 4),  # bs 24: 8-deep chunks
+    # blocks over 128 rows: two passes of the TRSM core
+    (520, 258, 256, 256, 2, 0),  # bs = bm = 256
+    (600, 200, 200, 40, 2, 10),  # bs 200: a second pass of 72 rows
 ]
 
 
@@ -328,6 +334,7 @@ F32_CASES = [
     (200, 70, 40, 8, 3, 6),
     (520, 258, 128, 128, 2, 0),
     (520, 258, 128, 128, 256, 0),
+    (520, 258, 256, 256, 2, 0),  # bs 256: two passes of the TRSM core
 ]
 
 

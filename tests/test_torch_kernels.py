@@ -66,6 +66,7 @@ CASES = [
     (60, 28, 16, 8, 2, 0),  # n padded 60 -> 64, m padded 28 -> 32
     (96, 40, 32, 16, 1, 16),  # last stripe all empty: start_block = nb
     (128, 64, 32, 32, 3, 0),  # batched S
+    (512, 96, 256, 32, 2, 0),  # bs 256, the reference planner's largest
 ]
 
 
@@ -235,6 +236,26 @@ def test_wrappers_check_operands():
     assert stepped_trsm_kernel.launches == before
 
 
+@pytest.mark.parametrize("bs,ok", [(8, True), (128, True), (200, True),
+                                   (256, True), (264, False), (12, False),
+                                   (0, False)])
+def test_cuda_tile_limits(bs, ok):
+    """The CUDA TRSM kernels take every block size the reference's planner
+    offers, multiples of 8 up to 256, and refuse the rest before any
+    launch."""
+    from repro_torch.kernels._launch import MAX_BS, check_cuda_tiles
+
+    assert MAX_BS == 256
+    if ok:
+        check_cuda_tiles(bs, 256)
+        check_cuda_tiles(bs, 8)
+    else:
+        with pytest.raises(ValueError, match="up to 256"):
+            check_cuda_tiles(bs, 32)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        check_cuda_tiles(256, 12)
+
+
 CUDA_CASES = [
     # n, m, bs, bm, S, empty columns
     (300, 100, 64, 32, 3, 0),  # n padded 300 -> 320, m padded 100 -> 128
@@ -249,6 +270,9 @@ CUDA_CASES = [
     (250, 75, 16, 16, 2, 5),  # m 75 -> 80, bs 16: 16-deep chunks
     (130, 44, 24, 8, 2, 4),  # bs 24: 8-deep chunks, 5 stripes in a tile
     (300, 100, 40, 24, 3, 0),  # bs 40 > 32: a second warp owns rows
+    # blocks over 128 rows: two passes of the row core
+    (520, 258, 256, 256, 2, 0),  # bs = bm = 256: n 520 -> 768, m -> 512
+    (600, 200, 200, 40, 2, 10),  # bs 200: a second pass of 72 rows
 ]
 
 

@@ -222,15 +222,18 @@ def test_graph_plan_roundtrip_and_summary():
     cfg = SchurAssemblyConfig(block_size=16, use_kernels=True, fused=True)
     p = Plan(cfg=cfg, predicted_s=1e-5, measured_s=2e-5,
              baseline_predicted_s=3e-5, baseline_measured_s=4e-5,
-             device="h100", key="k" * 64, candidates=140, timed=17,
-             refused=12)
+             device="h100", key="k" * 64, candidates=140, timed=17)
     q = Plan.from_json(json.loads(json.dumps(p.to_json())))
     assert q.from_cache and dataclasses.replace(q, from_cache=False) == p
+    assert "refused" not in p.to_json()
+    # an entry cached while bs > 128 kernel tiles were refused still loads
+    old = dict(p.to_json(), refused=12)
+    assert dataclasses.replace(Plan.from_json(old), from_cache=False) == p
     gp = GraphPlan(key="k" * 64, device="h100", plans={"dual": p})
     text = gp.summary()
     assert "graph[h100] 1 stage(s)" in text and "[dual]" in text
     assert "kernels=True fused=True" in text
-    assert "140 candidates, 17 timed, 12 kernel candidates left out" in text
+    assert "140 candidates, 17 timed" in text and "left out" not in text
 
 
 def test_stage_graph_validates_wiring():

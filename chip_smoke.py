@@ -161,13 +161,32 @@ Phases (each prints its seconds; any failure exits non-zero):
                 hand-picked bs = 128 ``--kernels`` and ``--fused``
                 configurations by the planner's own timer
                 (``autotune.measure_configs``): printed, not held.
+  8. sharded  — the subdomain-sharded pipeline through the launcher's
+                ``--devices N --backend gloo --validate``, the ranks (one
+                process each) sharing the one card: full-size feti-heat-2d
+                ``--kernels`` on 2 ranks (32 subdomains each) and
+                feti-elasticity-3d ``--storage packed --kernels --precond
+                dirichlet`` on 3 (slices of 3, 3 and 2 subdomains, both
+                stages). Fails unless every rank launches exactly its
+                path's kernels once per stage (B1 and B2 on heat-2d; B3 ×2
+                and B2 ×2 on elasticity-3d; each rank's own counts, set to
+                0 just before its solve), every rank returns the same
+                solution, the launcher's single-device run of the same
+                solve (here) takes the same iteration count and lies within
+                1e-9 of the sharded u, and the ranks' stack bytes sum to
+                the single device's. Prints each rank's preprocess and
+                solve seconds, peak device bytes and all-reduces (their
+                count and host seconds; PCPG's per iteration). Two ranks
+                sharing one card measure no scaling.
 
 Then one JSON line with the kernels' numbers, one row per kernel and
 dtype (the f32 ones named ``*_f32``; each row: the heat-2d phase's,
-``launches`` summed over the main paths (the telemetry and autotune
-ones included) beside ``launches_per_path``, the planner's launches per
-autotune path under ``planning_launches``, the main paths' checks under
-``path_checks``, the Dirichlet phase's under ``dirichlet_heat_3d``, the
+``launches`` summed over the main paths (the telemetry, autotune and
+sharded ones included; a sharded path's over its ranks) beside
+``launches_per_path``, the planner's launches per autotune path under
+``planning_launches``, the main paths' checks under ``path_checks`` (the
+sharded paths' launches, made in the ranks' processes, are counted and
+not checked there), the Dirichlet phase's under ``dirichlet_heat_3d``, the
 small-block phase's under ``bs16`` and the large-block phase's under
 ``bs256``) and, last, the device line.
 The port imports no JAX and nothing of the ``repro`` package.
@@ -375,6 +394,19 @@ TELEMETRY_SPANS = [
                     ("pack", [])]),
     ("solve", [("rhs_setup", []), ("pcpg", []), ("recover", [])]),
 ]
+# the sharded phase: (name, arch, launcher flags, each rank's launches,
+# ranks); --validate is added
+SHARDED_RUNS = (
+    ("heat-2d --kernels 2 ranks", ARCH,
+     ["--kernels", "--devices", "2", "--backend", "gloo"],
+     dict(stepped_trsm=1, stepped_syrk=1), 2),
+    ("elasticity-3d packed --kernels dirichlet 3 ranks",
+     "feti-elasticity-3d",
+     ["--storage", "packed", "--kernels", "--precond", "dirichlet",
+      "--devices", "3", "--backend", "gloo"],
+     dict(stepped_trsm_packed=2, stepped_syrk=2), 3),
+)
+SHARDED_DU = 1e-9  # max|u_sharded - u_single|: only G t's sums reorder
 # each mixed-precision run's bar on its PCPG iterations summed over the
 # defect-correction outers (a multi-RHS run: its most iterated column): the
 # counts measured on the card (NVIDIA H100 80GB HBM3, 700 W) with a small
@@ -1635,6 +1667,99 @@ def telemetry_phase():
     return {exp_name: exp, imp_name: imp}, summary
 
 
+def sharded_run(name, arch, flags, expected, world, cpu=False):
+    """One ``--devices`` solve through the launcher with ``--validate``;
+    returns the ranks' results and the launches summed over them. Fails
+    unless every rank launches exactly ``expected`` (``cpu``: none; a CPU
+    rehearsal with ``--smoke --device cpu`` in ``flags``), the ranks agree,
+    the single-device run takes the same iterations within SHARDED_DU and
+    the stack bytes sum to the single device's."""
+    from repro_torch.launch import solve_feti
+
+    if not cpu:
+        import torch
+
+        gc.collect()
+        torch.cuda.empty_cache()
+    reset_counts()
+    buf = io.StringIO()
+    argv = ["--arch", arch, *flags, "--validate"]
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = solve_feti.main(argv)
+    seconds = time.perf_counter() - t0
+    single = launch_counts()  # the launcher's single-device run's
+    out = buf.getvalue()
+    for line in out.splitlines():
+        if line.startswith(("[feti]", "[autotune]")):
+            print(line, flush=True)
+    ranks = [json.loads(m.group(1)) for m in
+             re.finditer(r"^\[feti\] rank \d+/\d+ (\{.*\})$", out, re.M)]
+    m_du = re.search(r"sharded vs single-device: max\|Δu\|=(\S+) iters "
+                     r"(\S+) vs (\S+)", out)
+    m_bytes = re.search(r"stack bytes sum to the single device's: (\w+)",
+                        out)
+    if rc != 0 or len(ranks) != world or not (m_du and m_bytes):
+        raise SystemExit(f"{name}: solve_feti {' '.join(argv)} exited {rc} "
+                         f"with {len(ranks)} rank lines")
+    want = {k: 0 if cpu else expected.get(k, 0) for k in KERNEL_KEYS}
+    launches = dict.fromkeys(KERNEL_KEYS, 0)
+    for rank, r in enumerate(ranks):
+        got = dict.fromkeys(KERNEL_KEYS, 0)
+        for kernel, by_dtype in r["launches"].items():
+            for dtype, count in by_dtype.items():
+                got[kernel_key(kernel, dtype)] += count
+        pcpg = r["pcpg_all_reduces"]
+        print(f"[chip_smoke] {name} rank {rank}: subdomains "
+              f"{r['subdomains']} on {r['device']}, preprocess_s "
+              f"{r['preprocess_s']!r} solve_s {r['solve_s']!r} "
+              f"peak_device_bytes {r['peak_device_bytes']} all_reduces "
+              f"{r['all_reduces']} in {r['all_reduce_s']!r} s (PCPG {pcpg}: "
+              f"{pcpg / (r['iterations'] + 1):g} an iteration with its "
+              f"start) launches { {k: v for k, v in got.items() if v} }",
+              flush=True)
+        if got != want:
+            raise SystemExit(f"{name}: rank {rank} launched {got}, the path "
+                             f"must launch {want} on every rank")
+        for k, v in got.items():
+            launches[k] += v
+    du = float(m_du.group(1))
+    iters = (m_du.group(2), m_du.group(3))
+    print(f"[chip_smoke] {name}: max|Δu| {du:.3e} (bar {SHARDED_DU:g}), "
+          f"iterations {iters[0]} sharded, {iters[1]} on one device; stack "
+          f"bytes sum to the single device's: {m_bytes.group(1)}; the "
+          f"single-device run launched "
+          f"{ {k: v for k, v in single.items() if v} }; run_s "
+          f"{seconds:.1f}", flush=True)
+    if not (du <= SHARDED_DU and iters[0] == iters[1]
+            and m_bytes.group(1) == "True"):
+        raise SystemExit(f"{name}: the sharded solve is not the single-"
+                         "device one")
+    if single != want:
+        raise SystemExit(f"{name}: the single-device run launched {single}, "
+                         f"not {want}")
+    return dict(launches=launches, checks=[], ranks=ranks, du=du,
+                iterations=int(iters[0]), seconds=seconds)
+
+
+def sharded_phase(cpu=False):
+    """SHARDED_RUNS (with ``cpu``, rehearsed at the smoke sizes on the CPU,
+    no launches expected); returns the runs."""
+    runs = {}
+    for name, arch, flags, expected, world in SHARDED_RUNS:
+        if cpu:
+            flags = [*flags, "--smoke", "--device", "cpu"]
+        runs[name] = sharded_run(name, arch, flags, expected, world, cpu)
+    summary = {name: dict(
+        iterations=run["iterations"], max_abs_du=run["du"],
+        ranks=[{k: r[k] for k in ("subdomains", "preprocess_s", "solve_s",
+                                  "peak_device_bytes", "all_reduces",
+                                  "all_reduce_s", "pcpg_all_reduces")}
+               for r in run["ranks"]]) for name, run in runs.items()}
+    print(f"[chip_smoke] sharded {json.dumps(summary)}", flush=True)
+    return runs
+
+
 def span_durations(tree):
     """A span tree as [[name, seconds, children], ...]."""
     return [[node["name"], node["duration_s"],
@@ -1830,13 +1955,23 @@ def main() -> int:
 
     t0 = phase("telemetry")
     telemetry, _ = telemetry_phase()
+    for run in telemetry.values():
+        # each solver holds its full-size heat-2d stacks (~11 GB); later
+        # phases, the sharded ranks on this card among them, need them free
+        del run["solver"]
+    free()
     done("telemetry", t0)
 
     t0 = phase("autotune")
     auto = autotune_phase(device, runs)
     done("autotune", t0)
 
-    kernel_rows(rows, d_rows, small, wide, {**runs, **telemetry, **auto})
+    t0 = phase("sharded")
+    shard = sharded_phase()
+    done("sharded", t0)
+
+    kernel_rows(rows, d_rows, small, wide,
+                {**runs, **telemetry, **auto, **shard})
     for r in rows:
         r["planning_launches"] = {
             name: run["planning"]["launches"][r["name"]]

@@ -2,8 +2,9 @@
 preprocessing (factorization + sparsity-utilizing SC assembly), the dual
 operator in implicit and explicit form, the natural-coarse-space projector,
 PCPG, and the end-to-end solver with its telemetry (``FetiSolver.report``,
-``FetiSolver.amortization_report``). :class:`FetiConfig` is the front
-door."""
+``FetiSolver.amortization_report``), on one device or split over
+``torch.distributed`` ranks (:mod:`repro_torch.feti.sharded`,
+``FetiConfig.mesh``). :class:`FetiConfig` is the front door."""
 from repro_torch.core.stages import StageGraph, StageSpec
 from repro_torch.feti.assembly import ClusterState, preprocess_cluster
 from repro_torch.feti.config import FetiConfig, as_feti_config

@@ -1,8 +1,9 @@
 """Cluster preprocessing: numerical factorization + explicit SC assembly,
 batched over the subdomains of a cluster (paper §2.2 "preprocessing");
-counterpart of ``repro.feti.assembly`` for one device, with dense or
-packed factors, the dual stage and, for the Dirichlet preconditioner, the
-primal boundary stage S_b = K_bb − K_bi K_ii⁻¹ K_ib.
+counterpart of ``repro.feti.assembly`` for one device or one rank of a
+:class:`~repro_torch.launch.mesh.FetiMesh`, with dense or packed factors,
+the dual stage and, for the Dirichlet preconditioner, the primal boundary
+stage S_b = K_bb − K_bi K_ii⁻¹ K_ib.
 
 All subdomains of the structured decomposition share one local topology,
 so they share the fill-reducing permutation, the symbolic block fill mask
@@ -12,13 +13,22 @@ axis. Every assembly stage is declared as a
 :class:`~repro_torch.core.stages.StageSpec`; with ``schur="auto"`` the
 :class:`~repro_torch.core.stages.StageGraph` plans them jointly (one plan
 cache entry), else each takes the configured Schur config. Each stage
-then runs at its own block size, storage and kernels (sharding is ROADMAP
-item A16). When the boundary/interior split aligns with the row ordering
-the interior factorization is shared: the dual rows are ordered
+then runs at its own block size, storage and kernels. When the
+boundary/interior split aligns with the row ordering the interior
+factorization is shared: the dual rows are ordered
 ``split.dperm``, so the dual factor's leading (n_i, n_i) principal block IS
 the Cholesky factor of the unregularized K_ii, and the Dirichlet stage
 reuses it, coerced to its own storage and block size, instead of
 factorizing its own copy.
+
+Under a mesh (``FetiConfig.mesh``) every rank runs the host symbolic phase
+for the whole cluster, so every rank holds the same global stepped
+envelope, column permutations and split, and takes its own slice of the
+subdomains (:meth:`~repro_torch.launch.mesh.FetiMesh.owned`): it uploads
+only its own K_i, and factorizes and assembles only them. Under
+``schur="auto"`` rank 0 plans (and alone reads and writes the plan cache)
+and broadcasts the plan: ranks that planned apart could pick different
+block sizes, and with them different envelopes.
 
 Host memory: the reference stacks five dense (S, n, n) host copies of K.
 Here each subdomain's K is moved to the device once, and the regularized,
@@ -66,6 +76,7 @@ from repro_torch.fem.regularization import regularization_shift
 from repro_torch.feti import dirichlet as dirlib
 from repro_torch.feti.config import as_feti_config
 from repro_torch.feti.operator import DualMap, dual_map
+from repro_torch.launch.mesh import FetiMesh
 from repro_torch.obs.trace import annotation, current_tracer
 from repro_torch.sparse import (
     PackedBlockIndex,
@@ -145,6 +156,10 @@ class ClusterState:
     dirichlet_plan: Optional[Plan] = None
     graph_plan: Optional[GraphPlan] = None
     stages: Optional[dict] = None  # stage name -> ResolvedStage
+    # distributed FETI: this rank's mesh and the global indices of its
+    # subdomains (the stacks above hold those only), else None
+    mesh: Optional[FetiMesh] = None
+    owned: Optional[range] = None
 
     @property
     def _L_values(self) -> torch.Tensor:
@@ -152,6 +167,7 @@ class ClusterState:
 
     @property
     def S(self) -> int:
+        """Subdomains in this state's stacks (a rank's own under a mesh)."""
         return self._L_values.shape[0]
 
     @property
@@ -164,11 +180,12 @@ class ClusterState:
         return "packed" if isinstance(self.L, PackedBlocks) else "dense"
 
     def device_bytes(self) -> dict:
-        """Device bytes of the persistent solution-phase stacks; ``dense_L``
-        and ``dense_K`` are what a dense (S, n, n) stack would take (not in
-        ``total``); ``per_stage`` attributes the bytes to their stage-graph
-        node, as the reference does (the factor, the lumped K, B̃ᵀ, F̃ and
-        K_reg live with the dual stage)."""
+        """Device bytes of the persistent solution-phase stacks (under a
+        mesh, this rank's: they sum over the ranks to the single-device
+        bytes); ``dense_L`` and ``dense_K`` are what a dense (S, n, n)
+        stack would take (not in ``total``); ``per_stage`` attributes the
+        bytes to their stage-graph node, as the reference does (the factor,
+        the lumped K, B̃ᵀ, F̃ and K_reg live with the dual stage)."""
         def nbytes(x):
             if x is None:
                 return 0
@@ -233,11 +250,13 @@ def make_cluster_preprocessor(problem: FetiProblem, config=None):
 
     Returns ``(static, prep)``: ``static`` carries the host-side symbolic
     products (node permutation, block fill mask, stepped envelope, column
-    permutations, packed index and, with the Dirichlet preconditioner, the
-    split, the sharing decision, K_ib's stepped metadata and the interior
-    fill mask and index), each stage's resolved config, the stage graph
-    and, under ``schur="auto"``, its joint plan (planning runs here: the
-    measured step times candidates on the configured device);
+    permutations (``owned``'s: under ``FetiConfig.mesh`` the rank's
+    slice, every subdomain else), packed index and, with the Dirichlet
+    preconditioner, the split, the sharing decision, K_ib's stepped
+    metadata and the interior fill mask and index), each stage's resolved
+    config, the stage graph and, under ``schur="auto"``, its joint plan
+    (planning runs here: the measured step times candidates on the
+    configured device);
     ``prep(Kp_stack, Btp_stack, blocks=None) ->
     (L, F, Sb)`` factorizes the regularized permuted stiffness stack IN
     PLACE (``Kp_stack`` becomes L), in explicit mode assembles the SCs, and
@@ -253,6 +272,7 @@ def make_cluster_preprocessor(problem: FetiProblem, config=None):
     dev = resolve_device(fc.device)
     subs = problem.subdomains
     S = len(subs)
+    owned = fc.mesh.owned(S) if fc.mesh is not None else range(S)
     n = subs[0].n
     ndpn = problem.ndof_per_node
     node_shape = tuple(e + 1 for e in problem.elems_per_sub)
@@ -317,7 +337,7 @@ def make_cluster_preprocessor(problem: FetiProblem, config=None):
         fingerprint=pattern_fingerprint(
             piv, n, problem.m_max,
             extra=[kpat.sum(axis=1).astype(np.int64), node_perm]),
-        n=n, storage=fc.storage, dtype=fc.dtype_name, batch=S,
+        n=n, storage=fc.storage, dtype=fc.dtype_name, batch=len(owned),
         # without explicit assembly only the factorization block size
         # matters: no timed assembly micro-runs for it
         measure=None if fc.explicit else "never",
@@ -328,15 +348,19 @@ def make_cluster_preprocessor(problem: FetiProblem, config=None):
             builder=_dsymbolic,
             fingerprint=dirlib.dirichlet_fingerprint(problem, split,
                                                      kpat=kpat0),
-            n=split.n_i, storage=fc.storage, dtype=fc.dtype_name, batch=S,
-            share_factor_of="dual" if share else None,
+            n=split.n_i, storage=fc.storage, dtype=fc.dtype_name,
+            batch=len(owned), share_factor_of="dual" if share else None,
         ))
     graph = StageGraph(specs)
 
     plan = d_plan = gplan = None
     if fc.auto:
-        gplan = graph.plan(measure=fc.measure, cache=fc.plan_cache,
-                           torch_device=dev)
+        # one plan for every rank: rank 0 plans, the others receive it
+        if fc.mesh is None or fc.mesh.rank == 0:
+            gplan = graph.plan(measure=fc.measure, cache=fc.plan_cache,
+                               torch_device=dev)
+        if fc.mesh is not None:
+            gplan = fc.mesh.broadcast_object(gplan)
         plan = gplan["dual"]
         cfg = plan.cfg
         d_plan = gplan.plans.get("dirichlet")
@@ -353,8 +377,8 @@ def make_cluster_preprocessor(problem: FetiProblem, config=None):
     packed = cfg.storage == "packed"
     metas, env, block_mask = _symbolic(bs, cfg.rhs_bs)
     index = PackedBlockIndex.from_mask(block_mask, n, bs)
-    col_perms = np.stack([me.perm for me in metas])
-    inv_col_perms = np.stack([me.inv_perm for me in metas])
+    col_perms = np.stack([metas[i].perm for i in owned])
+    inv_col_perms = np.stack([metas[i].inv_perm for i in owned])
     cp = torch.as_tensor(col_perms, device=dev)
     icp = torch.as_tensor(inv_col_perms, device=dev)
 
@@ -366,8 +390,9 @@ def make_cluster_preprocessor(problem: FetiProblem, config=None):
                                                   d_cfg.block_size)
         d_assemble = dirlib.make_dirichlet_assembler(
             split, meta_ib, mask_ii, d_cfg, shared=share)
-        Zb = torch.as_tensor(dirlib.own_boundary_masks(problem, split),
-                             dtype=fc.compute_dtype, device=dev)
+        Zb = torch.as_tensor(
+            dirlib.own_boundary_masks(problem, split, owned),
+            dtype=fc.compute_dtype, device=dev)
     ni = split.n_i if split is not None else 0
 
     def _interior_factor(L):
@@ -410,7 +435,8 @@ def make_cluster_preprocessor(problem: FetiProblem, config=None):
                   dirichlet_cfg=d_cfg if fc.dirichlet else None,
                   dirichlet_env=meta_ib, dirichlet_mask=mask_ii,
                   dirichlet_index=index_ii, plan=plan, dirichlet_plan=d_plan,
-                  graph=graph, graph_plan=gplan, stages=resolved)
+                  graph=graph, graph_plan=gplan, stages=resolved,
+                  owned=owned)
     return static, prep
 
 
@@ -419,13 +445,15 @@ def _device_stiffness(problem: FetiProblem, node_perm: np.ndarray,
                       packed: bool = False,
                       blocks: Optional[dirlib.DirichletBlocks] = None,
                       keep_reg: bool = False,
-                      storage: torch.dtype = torch.float64):
+                      storage: torch.dtype = torch.float64,
+                      owned: Optional[range] = None):
     """The regularized, permuted stiffness stack on ``dev`` — (S, n, n), or
     a :class:`PackedBlocks` when ``packed`` — and the packed unregularized
     permuted K of the lumped preconditioner; ``blocks`` (the Dirichlet
     stage's inputs) are cut from the same uploads. With ``keep_reg`` also
     returns the regularized stack packed at f64 (the K_reg of refinement),
-    else ``None``.
+    else ``None``. ``owned`` (one rank's slice) uploads those subdomains
+    only.
 
     Each K_i crosses to the device once; permutation, packing and the
     fixing-DOF shift happen there at f64, one subdomain at a time, and each
@@ -439,7 +467,8 @@ def _device_stiffness(problem: FetiProblem, node_perm: np.ndarray,
     permutation folded into the gather positions), so the packed path
     builds no dense (n, n) matrix.
     """
-    subs = problem.subdomains
+    subs = [problem.subdomains[i] for i in
+            (owned if owned is not None else range(problem.n_subdomains))]
     S, n, bs = len(subs), subs[0].n, index.bs
     inv = np.argsort(node_perm)
     pos = np.stack([inv[sd.fixing_dofs] for sd in subs])  # (S, k) factor order
@@ -502,6 +531,10 @@ def preprocess_cluster(problem: FetiProblem, config=None) -> ClusterState:
     split and ``shared_factor``: whether the stage reused the dual factor's
     interior principal block instead of factorizing K_ii itself.
 
+    Under ``FetiConfig.mesh`` the state holds the rank's own subdomains
+    (``owned``) only, with the global symbolic products, the global
+    multiplier space (``dual`` built ``sliced``) and every rank's plan.
+
     Below f64 (``FetiConfig.dtype``) the stacks L, F, Sb, K, Btp and Btb
     are at the storage dtype, computed at the compute dtype; f, fp and R
     carry the solve dtype; with refinement ``Kreg`` holds the f64
@@ -535,7 +568,8 @@ def preprocess_cluster(problem: FetiProblem, config=None) -> ClusterState:
     index: PackedBlockIndex = static["index"]
     split = static["split"]
     share = static["share"]
-    subs = problem.subdomains
+    owned = static["owned"]
+    subs = [problem.subdomains[i] for i in owned]
 
     blocks = Btb = None
     if split is not None:
@@ -550,7 +584,7 @@ def preprocess_cluster(problem: FetiProblem, config=None) -> ClusterState:
     Kp, K_packed, Kreg = _device_stiffness(
         problem, node_perm, index, dev,
         packed=static["cfg"].storage == "packed", blocks=blocks,
-        keep_reg=refine > 0, storage=sdt)
+        keep_reg=refine > 0, storage=sdt, owned=owned)
     Btp = torch.as_tensor(np.stack([sd.Bt[node_perm] for sd in subs]),
                           dtype=sdt, device=dev)
     with tr.span("prep"), annotation("feti.prep"):
@@ -585,7 +619,8 @@ def preprocess_cluster(problem: FetiProblem, config=None) -> ClusterState:
         F=F,
         f=f_dev,
         fp=fp_dev,
-        dual=dual_map(lam, problem.n_lambda, dev),
+        dual=dual_map(lam, problem.n_lambda, dev,
+                      sliced=fc.mesh is not None),
         col_perm=static["col_perm"],
         inv_col_perm=static["inv_col_perm"],
         R=to_dev(R),
@@ -603,4 +638,6 @@ def preprocess_cluster(problem: FetiProblem, config=None) -> ClusterState:
         dirichlet_plan=static["dirichlet_plan"],
         graph_plan=static["graph_plan"],
         stages=static["stages"],
+        mesh=fc.mesh,
+        owned=owned,
     )

@@ -63,6 +63,11 @@ class FetiConfig:
         cannot perturb the shared interior factor); ``True`` requires it
         (preprocessing raises if invalid); ``False`` keeps the two
         factorizations apart.
+      mesh: this rank's :class:`~repro_torch.launch.mesh.FetiMesh` to
+        split the subdomains over ``torch.distributed`` ranks
+        (:mod:`repro_torch.feti.sharded`); ``None`` runs every subdomain on
+        one device. Under a mesh ``device`` is the mesh's (``None`` takes
+        it; another device type raises).
     """
 
     schur: Union[SchurAssemblyConfig, str, None] = None
@@ -76,8 +81,20 @@ class FetiConfig:
     refine: Optional[int] = None
     device: Union[str, torch.device, None] = None
     share_factor: Union[str, bool] = "auto"
+    mesh: Optional[Any] = None
 
     def __post_init__(self):
+        if self.mesh is not None:
+            from repro_torch.launch.mesh import FetiMesh
+
+            if not isinstance(self.mesh, FetiMesh):
+                raise TypeError(f"mesh must be a FetiMesh or None, got "
+                                f"{type(self.mesh).__name__}")
+            if (self.device is not None and torch.device(self.device).type
+                    != self.mesh.device.type):
+                raise ValueError(f"device {self.device} is not the mesh's "
+                                 f"{self.mesh.device}")
+            object.__setattr__(self, "device", self.mesh.device)
         if isinstance(self.schur, str) and self.schur != "auto":
             raise ValueError("schur must be a SchurAssemblyConfig, 'auto' "
                              f"or None, got {self.schur!r}")
@@ -111,6 +128,12 @@ class FetiConfig:
                 "bf16 storage needs refine >= 1: without refinement the PCPG "
                 "vectors would be bf16, and torch (like the reference) has no "
                 "bf16 QR for the coarse problem")
+
+    def replace(self, **changes) -> "FetiConfig":
+        """A copy with ``changes`` applied (``dataclasses.replace``), e.g.
+        ``config.replace(mesh=None)`` for the single-device twin of a
+        sharded run (on the mesh's device); validated as a new config."""
+        return dataclasses.replace(self, **changes)
 
     @property
     def explicit(self) -> bool:

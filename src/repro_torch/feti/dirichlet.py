@@ -204,14 +204,18 @@ def dirichlet_fingerprint(problem: FetiProblem,
 
 
 def own_boundary_masks(problem: FetiProblem,
-                       split: BoundaryInteriorSplit) -> np.ndarray:
+                       split: BoundaryInteriorSplit,
+                       owned: Optional[range] = None) -> np.ndarray:
     """(S, n_b) float mask, 1.0 where the shared boundary DOF carries NONE
     of that subdomain's multipliers (its "spurious" boundary: faces on the
     cluster's outer surface), which :func:`restrict_own_boundary`
-    eliminates per subdomain."""
+    eliminates per subdomain. ``owned`` (one rank's slice of the
+    subdomains) keeps only those rows; the split stays the cluster's."""
     ndpn = problem.ndof_per_node
-    Z = np.zeros((len(problem.subdomains), split.n_b))
-    for i, sd in enumerate(problem.subdomains):
+    subs = [problem.subdomains[i] for i in
+            (owned if owned is not None else range(problem.n_subdomains))]
+    Z = np.zeros((len(subs), split.n_b))
+    for i, sd in enumerate(subs):
         own = np.zeros(sd.n, dtype=bool)
         own[sd.b_rows[: sd.m]] = True
         if ndpn > 1:
@@ -238,8 +242,9 @@ def restrict_own_boundary(Sb: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
 
 
 class DirichletBlocks:
-    """The Dirichlet stage's device inputs, cut from each subdomain's K as
-    it reaches the device: K_ib (S, n_i, n_b), K_bb (S, n_b, n_b) and, when
+    """The Dirichlet stage's device inputs for ``S`` subdomains (all of
+    them, or one rank's slice), cut from each subdomain's K as it reaches
+    the device: K_ib (S, n_i, n_b), K_bb (S, n_b, n_b) and, when
     the interior factor is not shared, K_ii — dense (S, n_i, n_i), or
     packed straight from the upload in ``index_ii``'s layout (one gather,
     identity-padded), so the packed path builds no dense interior stack.
@@ -288,13 +293,17 @@ class DirichletBlocks:
         elif self.Kii is not None:
             self.Kii[i] = rows[:, self._int].to(sdt)
 
-    def upload(self, problem: FetiProblem) -> "DirichletBlocks":
-        """Fill every subdomain's blocks from its host K, one upload each:
-        for callers that build no dual-stage stack beside them."""
+    def upload(self, problem: FetiProblem,
+               owned: Optional[range] = None) -> "DirichletBlocks":
+        """Fill every subdomain's blocks (those of ``owned``, one rank's
+        slice, when given) from its host K, one upload each: for callers
+        that build no dual-stage stack beside them."""
         n = self.n
         flat = torch.zeros(n * n + 1, dtype=torch.float64,
                            device=self.Kib.device)
-        for i, sd in enumerate(problem.subdomains):
+        if owned is None:
+            owned = range(problem.n_subdomains)
+        for i, sd in enumerate(problem.subdomains[j] for j in owned):
             flat[: n * n].copy_(torch.as_tensor(sd.K, dtype=torch.float64)
                                 .reshape(-1))
             self.add(i, flat)

@@ -18,6 +18,15 @@ in an order that changes from run to run (and can flip PCPG iteration
 counts). Every multiplier has at most two local copies, so the port
 precomputes both copies' slots once (:class:`DualMap`) and the scatter is
 a gather and one add — deterministic, and the same sum as the reference's.
+
+On one rank's slice of the subdomains (:mod:`repro_torch.feti.sharded`)
+the map is built with ``sliced=True``: a multiplier with no copy on the
+slice, or one of its two, points the missing slots at the zero slot. Each
+rank's scatter then holds, for every multiplier, at most its two copies
+and exact zeros, so the all-reduced sum over the ranks is the two-copy sum
+``x₁ + x₂`` whatever order the ranks are added in: the sharded dual apply,
+preconditioners and right-hand side are bit-identical to the single-device
+ones wherever the per-subdomain products are.
 """
 from __future__ import annotations
 
@@ -45,11 +54,13 @@ __all__ = [
     "lumped_preconditioner",
     "dirichlet_preconditioner",
     "dual_rhs",
+    "dual_load",
     "solve_with_factor",
     "apply_stiffness",
     "solve_with_factor_refined",
     "implicit_dual_apply_refined",
     "dual_rhs_refined",
+    "dual_load_refined",
 ]
 
 
@@ -69,23 +80,28 @@ class DualMap:
 
 
 def dual_map(lambda_ids: np.ndarray, n_lambda: int,
-             device: torch.device) -> DualMap:
+             device: torch.device, sliced: bool = False) -> DualMap:
     """Build the :class:`DualMap` of an (S, m_max) multiplier-id stack.
 
     Copies are taken in flat (subdomain-major) order, the order the
     reference's scatter-add visits them. Raises ``ValueError`` if a
-    multiplier has no copy or more than two.
+    multiplier has more than two copies, or none unless ``sliced``: the
+    stack is then one rank's slice of the subdomains, and a multiplier
+    without a copy there reads the zero slot twice.
     """
     ids = np.asarray(lambda_ids, dtype=np.int64)
     flat = ids.reshape(-1)
     zero_slot = flat.size
     real = np.flatnonzero(flat < n_lambda)
-    order = real[np.argsort(flat[real], kind="stable")]
+    # the copies by multiplier, then the zero slot (where a multiplier
+    # without a copy past the last one would start)
+    order = np.append(real[np.argsort(flat[real], kind="stable")], zero_slot)
     counts = np.bincount(flat[real], minlength=n_lambda)
-    if counts.min(initial=1) < 1 or counts.max(initial=0) > 2:
+    if counts.max(initial=0) > 2 or (
+            not sliced and counts.min(initial=1) < 1):
         raise ValueError("every multiplier needs one or two local copies")
     starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
-    first = order[starts]
+    first = np.where(counts >= 1, order[starts], zero_slot)
     second = np.where(counts == 2, order[np.minimum(starts + 1, len(order) - 1)],
                       zero_slot)
     as_t = lambda a: torch.as_tensor(a, dtype=torch.long, device=device)  # noqa: E731
@@ -212,12 +228,19 @@ def dirichlet_preconditioner(Sb: torch.Tensor, Btb: torch.Tensor,
                                 transpose=True), dm, w)
 
 
+def dual_load(L, Btp: torch.Tensor, fp: torch.Tensor,
+              dm: DualMap) -> torch.Tensor:
+    """B K⁺ f, the load half of :func:`dual_rhs` (one rank's partial sum
+    on a slice)."""
+    t = solve_with_factor(L, fp)
+    return scatter_dual(batched_apply(Btp, t, transpose=True), dm)
+
+
 def dual_rhs(L, Btp: torch.Tensor, fp: torch.Tensor,
              dm: DualMap, c: torch.Tensor) -> torch.Tensor:
     """d = B K⁺ f − c (paper §2.1); an (S, n, n_rhs) load stack ``fp``
     gives D = B K⁺ F − c1ᵀ."""
-    t = solve_with_factor(L, fp)
-    return _minus_c(scatter_dual(batched_apply(Btp, t, transpose=True), dm), c)
+    return _minus_c(dual_load(L, Btp, fp, dm), c)
 
 
 # iterative refinement around reduced-precision factors: the factor stacks
@@ -255,10 +278,18 @@ def implicit_dual_apply_refined(L, Kreg: PackedBlocks, Bt: torch.Tensor,
             L, Kreg, batched_apply(Bt, p), steps), transpose=True), dm, lam)
 
 
+def dual_load_refined(L, Kreg: PackedBlocks, Bt: torch.Tensor,
+                      fp: torch.Tensor, dm: DualMap, steps: int
+                      ) -> torch.Tensor:
+    """B K⁺ f with the refined interior solve, the load half of
+    :func:`dual_rhs_refined`."""
+    t = solve_with_factor_refined(L, Kreg, fp, steps)
+    return scatter_dual(batched_apply(Bt, t, transpose=True), dm)
+
+
 def dual_rhs_refined(L, Kreg: PackedBlocks, Bt: torch.Tensor,
                      fp: torch.Tensor, dm: DualMap, steps: int,
                      c: torch.Tensor) -> torch.Tensor:
     """d = B K⁺ f − c with the refined (f64-accurate) interior solve; ``Bt``
     at ``fp``'s dtype, as in :func:`implicit_dual_apply_refined`."""
-    t = solve_with_factor_refined(L, Kreg, fp, steps)
-    return _minus_c(scatter_dual(batched_apply(Bt, t, transpose=True), dm), c)
+    return _minus_c(dual_load_refined(L, Kreg, Bt, fp, dm, steps), c)

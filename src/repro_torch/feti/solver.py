@@ -1,7 +1,9 @@
 """End-to-end FETI solver (paper §2 + §5); counterpart of
-``repro.feti.solver`` for one device, one load case (``solve``) or a batch
-of them through the block PCPG (``solve_many``), at f64 or with
-reduced-precision stacks (f32, bf16) and refinement.
+``repro.feti.solver`` for one device or, under ``FetiConfig.mesh``, one
+rank of the subdomain-sharded pipeline (:mod:`repro_torch.feti.sharded`),
+one load case (``solve``) or a batch of them through the block PCPG
+(``solve_many``), at f64 or with reduced-precision stacks (f32, bf16) and
+refinement.
 
 Stages exactly as the paper defines them:
   initialization —  symbolic factorization & persistent structures
@@ -29,8 +31,15 @@ PCPG counters and the device-byte gauges go to the process-global
 :mod:`repro_torch.obs.metrics`; :meth:`FetiSolver.report` returns both,
 and :meth:`FetiSolver.amortization_report` turns the spans into the
 paper's break-even iteration count. ``timings`` stays as the deprecated
-flat view (host wall clock around the same synchronized work). The
-sharded multi-RHS batch is ROADMAP item A16.
+flat view (host wall clock around the same synchronized work).
+
+Under a mesh every rank preprocesses its own subdomains, the λ-space
+operators and the coarse problem are the sharded ones (each λ-space sum an
+all-reduce), and the recovered u is assembled from every rank's
+subdomains, so every rank returns the same solution. Spans, ``timings``,
+``report()`` and the device bytes stay per rank; the ``pcpg`` span also
+carries the rank's ``all_reduces`` there. PCPG needs no change: λ is whole
+on every rank and every value it stops on comes out of an all-reduce.
 """
 from __future__ import annotations
 
@@ -45,13 +54,15 @@ import torch
 from repro_torch.core import Plan, SchurAssemblyConfig, assembly_flops
 from repro_torch.core.precision import dtype_name, itemsize, tol_floor
 from repro_torch.fem.decomposition import FetiProblem
+from repro_torch.feti import sharded
 from repro_torch.feti.assembly import ClusterState, preprocess_cluster
 from repro_torch.feti.config import as_feti_config
 from repro_torch.feti.operator import (
     batched_apply,
     dirichlet_preconditioner,
-    dual_rhs,
-    dual_rhs_refined,
+    _minus_c,
+    dual_load,
+    dual_load_refined,
     explicit_dual_apply,
     gather_local,
     implicit_dual_apply,
@@ -140,6 +151,7 @@ class _SolutionOps:
     precond: Optional[Callable]
     dual_rhs: Callable  # fp (S, n[, r]) -> d (n_lambda[, r])
     Bt: torch.Tensor  # (S, n, m_max) B̃ᵀ in factor row order, solve dtype
+    coarse_e: Callable  # f (S, n[, r]) -> e = Rᵀf (S_total·k[, r])
 
 
 def _sync(device: torch.device) -> None:
@@ -221,45 +233,66 @@ class FetiSolver:
             return self._ops
         st = self.state
         prob = self.problem
+        mesh = st.mesh
         vdt = self.config.solve_dtype  # f64 when refining, else storage
         stor = self.config.storage_dtype
         refine = st.refine_steps
-        Bt_orig = torch.as_tensor(np.stack([sd.Bt for sd in prob.subdomains]),
-                                  dtype=vdt, device=st.device)
-        coarse = build_coarse_problem(Bt_orig, st.f, st.R, st.dual)
+        Bt_orig = torch.as_tensor(
+            np.stack([prob.subdomains[i].Bt for i in st.owned]),
+            dtype=vdt, device=st.device)
         c = torch.as_tensor(prob.c, dtype=vdt, device=st.device)
+        if mesh is None:
+            coarse = build_coarse_problem(Bt_orig, st.f, st.R, st.dual)
+            load_moment = partial(coarse_e, R=st.R)
+
+            def reduced(fn):
+                return fn
+        else:
+            S = prob.n_subdomains
+            coarse = sharded.build_coarse_problem(
+                mesh, Bt_orig, st.f, st.R, st.dual, st.owned, S)
+            load_moment = partial(sharded.coarse_e, mesh, R=st.R,
+                                  owned=st.owned, S=S)
+
+            def reduced(fn):
+                return sharded.reduce_sum(mesh, fn)
         # B̃ᵀ at the solve dtype, cast once (exact: it holds ±1 and 0); the
         # stored stack itself when that is its dtype
         Bt = st.Btp.to(vdt)
         if self.mode == "explicit":
-            apply_F = partial(explicit_dual_apply, st.F, st.dual)
+            apply_F = reduced(partial(explicit_dual_apply, st.F, st.dual))
         elif refine > 0:
             # the refined implicit operator is f64-accurate by itself, so
             # plain PCPG reaches f64 tolerances with it
-            apply_F = partial(implicit_dual_apply_refined, st.L, st.Kreg,
-                              Bt, st.dual, refine)
+            apply_F = reduced(partial(implicit_dual_apply_refined, st.L,
+                                      st.Kreg, Bt, st.dual, refine))
         else:
-            apply_F = partial(implicit_dual_apply, st.L, st.Btp, st.dual)
+            apply_F = reduced(partial(implicit_dual_apply, st.L, st.Btp,
+                                      st.dual))
         if refine > 0:
-            apply_F_exact = partial(implicit_dual_apply_refined, st.L,
-                                    st.Kreg, Bt, st.dual, refine)
-            rhs = partial(dual_rhs_refined, st.L, st.Kreg, Bt,
-                          dm=st.dual, steps=refine, c=c)
+            apply_F_exact = reduced(partial(implicit_dual_apply_refined,
+                                            st.L, st.Kreg, Bt, st.dual,
+                                            refine))
+            load = partial(dual_load_refined, st.L, st.Kreg, Bt, dm=st.dual,
+                           steps=refine)
         else:
             apply_F_exact = apply_F
-            rhs = partial(dual_rhs, st.L, st.Btp, dm=st.dual, c=c)
+            load = partial(dual_load, st.L, st.Btp, dm=st.dual)
+        # d = B K⁺ f − c: c once, after the ranks' loads are summed
+        load = reduced(load)
         if self.preconditioner == "lumped":
             # K is packed in factor row order, so it pairs with Btp (the
             # product B̃ K B̃ᵀ is invariant to the shared row permutation)
-            precond = partial(lumped_preconditioner, st.K, st.Btp, st.dual)
+            precond = reduced(partial(lumped_preconditioner, st.K, st.Btp,
+                                      st.dual))
         elif self.preconditioner == "dirichlet":
             if st.Sb is None:
                 raise ValueError(
                     "state was preprocessed without the dirichlet stage; "
                     "construct the solver with preconditioner='dirichlet' "
                     "before preprocess()")
-            precond = partial(dirichlet_preconditioner, st.Sb, st.Btb,
-                              st.dual)
+            precond = reduced(partial(dirichlet_preconditioner, st.Sb,
+                                      st.Btb, st.dual))
         else:
             precond = None
         if vdt != stor:
@@ -276,15 +309,18 @@ class FetiSolver:
                 precond = _fast(precond)
         self._ops = _SolutionOps(
             coarse=coarse, apply_F=apply_F, apply_F_exact=apply_F_exact,
-            precond=precond, dual_rhs=lambda fp: rhs(fp=fp), Bt=Bt)
+            precond=precond, dual_rhs=lambda fp: _minus_c(load(fp=fp), c),
+            Bt=Bt, coarse_e=load_moment)
         return self._ops
 
     def _load_stacks(self, loads: np.ndarray):
         """Host (S, n, ...) loads in original DOF order -> device (f, fp)
-        at the solve dtype, fp in factor row order."""
+        at the solve dtype, fp in factor row order (this rank's subdomains
+        under a mesh)."""
         st = self.state
-        f = torch.as_tensor(np.asarray(loads), dtype=self.config.solve_dtype,
-                            device=st.device)
+        own = st.owned
+        f = torch.as_tensor(np.asarray(loads)[own.start:own.stop],
+                            dtype=self.config.solve_dtype, device=st.device)
         return f, f[:, torch.as_tensor(st.node_perm, device=st.device)]
 
     def _recover(self, ops: _SolutionOps, lam: torch.Tensor,
@@ -292,7 +328,9 @@ class FetiSolver:
         """α (paper eq. 7) and u = K⁺(f − Bᵀλ) + Rα (eq. 5), back to
         original DOF order and averaged onto the global mesh (host numpy).
         An (n_lambda, n_rhs) ``lam`` recovers that many stacked columns,
-        the load case leading."""
+        the load case leading. Under a mesh each rank solves for its own
+        subdomains and the (S, n[, n_rhs]) stack is assembled from every
+        rank's, so every rank returns the whole solution."""
         st = self.state
         prob = self.problem
         alpha_flat = ops.coarse.alpha(ops.apply_F_exact(lam) - d)  # (S·k,..)
@@ -302,16 +340,22 @@ class FetiSolver:
                                            st.refine_steps)
         else:
             up = solve_with_factor(st.L, rhs)
-        n_cols = lam.shape[1] if lam.dim() == 2 else None
+        S = prob.n_subdomains
         k = st.R.shape[2]
+        if st.mesh is None:
+            R = st.R.cpu().numpy()
+        else:
+            up = sharded.assemble_segments(st.mesh, up, st.owned.start, S)
+            R = torch.as_tensor(np.stack([sd.R for sd in prob.subdomains]),
+                                dtype=st.R.dtype).numpy()
+        n_cols = lam.shape[1] if lam.dim() == 2 else None
         inv_perm = np.argsort(st.node_perm)
-        R = st.R.cpu().numpy()
         if n_cols is None:
-            alpha = alpha_flat.cpu().numpy().reshape(st.S, k)
+            alpha = alpha_flat.cpu().numpy().reshape(S, k)
             u = up.cpu().numpy()[:, inv_perm] + np.einsum("snk,sk->sn", R,
                                                           alpha)
         else:
-            alpha = alpha_flat.cpu().numpy().reshape(st.S, k, n_cols)
+            alpha = alpha_flat.cpu().numpy().reshape(S, k, n_cols)
             u = (up.cpu().numpy()[:, inv_perm]
                  + np.einsum("snk,skr->snr", R, alpha))
             u = np.moveaxis(u, -1, 0)  # (n_rhs, S, n)
@@ -324,6 +368,17 @@ class FetiSolver:
             np.add.at(acc, (..., sd.dof_gids), u[..., i, :])
             np.add.at(cnt, sd.dof_gids, 1.0)
         return u, alpha, acc / np.maximum(cnt, 1.0)
+
+    def _all_reduces(self) -> int:
+        mesh = self.state.mesh
+        return 0 if mesh is None else mesh.all_reduces
+
+    def _set_all_reduces(self, span, before: int) -> None:
+        """Under a mesh, the all-reduces this rank made since ``before`` on
+        ``span`` (six a PCPG iteration with a preconditioner, six more for
+        its start)."""
+        if self.state.mesh is not None:
+            span.set(all_reduces=self._all_reduces() - before)
 
     # ---- solution (paper §2.2) ----
     def solve(self, tol: float = 1e-9, max_iter: int = 2000,
@@ -354,7 +409,7 @@ class FetiSolver:
                     lam0 = coarse.lambda0()
                 else:
                     f, fp = self._load_stacks(loads)
-                    lam0 = coarse.lambda0(coarse_e(f, st.R))
+                    lam0 = coarse.lambda0(ops.coarse_e(f))
                 d = ops.dual_rhs(fp)
                 sp.sync(d, lam0)
                 _sync(st.device)
@@ -374,10 +429,12 @@ class FetiSolver:
 
             t0 = time.perf_counter()
             with tr.span("pcpg", tol=float(inner_tol)) as sp:
+                reduces = self._all_reduces()
                 res: PCPGResult = run(d, lam0)
                 sp.sync(res.lam)
                 sp.set(iterations=int(res.iterations),
                        residual=float(res.residual))
+                self._set_all_reduces(sp, reduces)
             lam = res.lam
             iterations, residual, converged = (res.iterations, res.residual,
                                                res.converged)
@@ -458,7 +515,7 @@ class FetiSolver:
         loads = np.asarray(loads)
         if loads.ndim == 2:
             loads = loads[None]
-        S, n = st.S, prob.subdomains[0].n
+        S, n = prob.n_subdomains, prob.subdomains[0].n
         if loads.ndim != 3 or loads.shape[1:] != (S, n):
             raise ValueError(f"loads must be (n_rhs, {S}, {n}) (or one "
                              f"(S, n) case), got {loads.shape}")
@@ -494,7 +551,7 @@ class FetiSolver:
                 # column-stacked device layout: (S, n, n_rhs), case last
                 F, Fp = self._load_stacks(loads.transpose(1, 2, 0))
                 D = ops.dual_rhs(Fp)
-                Lam0 = coarse.lambda0(coarse_e(F, st.R))
+                Lam0 = coarse.lambda0(ops.coarse_e(F))
                 sp.sync(D, Lam0)
                 _sync(st.device)
             self.timings["rhs_setup_s"] = time.perf_counter() - t0
@@ -510,9 +567,11 @@ class FetiSolver:
 
             t0 = time.perf_counter()
             with tr.span("pcpg", tol=float(inner_tol)) as sp:
+                reduces = self._all_reduces()
                 res: PCPGManyResult = run(D, Lam0)
                 sp.sync(res.lam)
                 sp.set(block_iterations=int(res.block_iterations))
+                self._set_all_reduces(sp, reduces)
             Lam = res.lam
             iters = res.iterations.copy()
             residuals, converged = res.residual, res.converged

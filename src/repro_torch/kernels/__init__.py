@@ -23,6 +23,8 @@ from repro_torch.kernels.stepped_trsm_syrk import (
 )
 
 __all__ = [
+    "launch_counts",
+    "reset_launch_counts",
     "stepped_syrk_kernel",
     "stepped_syrk_plain",
     "stepped_trsm_kernel",
@@ -34,3 +36,27 @@ __all__ = [
     "stepped_trsm_syrk_packed_plain",
     "stepped_trsm_syrk_plain",
 ]
+
+
+WRAPPERS = ("stepped_trsm", "stepped_trsm_packed", "stepped_syrk",
+            "stepped_trsm_syrk", "stepped_trsm_syrk_packed")
+
+
+def launch_counts() -> dict:
+    """{kernel: {dtype: launches}} of this process since the last
+    :func:`reset_launch_counts`, kernels and dtypes with none left out."""
+    out = {}
+    for name in WRAPPERS:
+        counts = {d: c for d, c in
+                  globals()[f"{name}_kernel"].launches_by_dtype.items() if c}
+        if counts:
+            out[name] = counts
+    return out
+
+
+def reset_launch_counts() -> None:
+    """Set every kernel wrapper's launch counts to zero."""
+    from repro_torch.kernels._launch import reset_launches
+
+    for name in WRAPPERS:
+        reset_launches(globals()[f"{name}_kernel"])

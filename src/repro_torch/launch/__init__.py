@@ -1,7 +1,10 @@
 """Command-line entry points of the port and what they report:
 
   * :mod:`repro_torch.launch.solve_feti` — the FETI solve launcher
-    (``--trace OUT.json`` and ``--report`` export its telemetry)
+    (``--trace OUT.json`` and ``--report`` export its telemetry;
+    ``--devices N`` splits the subdomains over N ranks)
+  * :mod:`repro_torch.launch.mesh` — the ranks of distributed FETI
+    (:class:`~repro_torch.launch.mesh.FetiMesh`, ``spawn_ranks``)
   * :mod:`repro_torch.launch.analytic` — the analytic FLOP / byte counts of
     the FETI solve phase (:func:`feti_solve_iter_counts`,
     :data:`FETI_SOLVE_N_RHS`)

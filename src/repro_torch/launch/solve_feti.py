@@ -48,6 +48,24 @@ snapshot embedded (check it with ``python -m repro_torch.obs.validate
 OUT.json``). ``--report`` prints :meth:`FetiSolver.report` (span tree,
 metrics, device bytes) as JSON after the solve.
 
+``--devices N`` splits the subdomains over N ranks
+(:mod:`repro_torch.feti.sharded`, one process a rank started by
+:func:`repro_torch.launch.mesh.spawn_ranks`): each rank preprocesses and
+solves its own slice, the λ-space sums are all-reduces. The backend is
+``nccl`` when each rank has a card of its own; ``--backend gloo`` lets
+ranks share cards (or run on the CPU with ``--device cpu``), and without
+it too few cards is an error. The kernels are built here before the ranks
+start, so no two ranks run ``nvcc`` into one build directory. Each rank
+prints one line: its subdomains, its kernel launches per kernel and dtype,
+its preprocess and solve seconds, its peak device bytes and its
+all-reduces (their count and seconds). With ``--validate`` the same solve
+also runs on one device here, and the run fails when the sharded solution
+is more than 1e-9 from it, takes another iteration count (one more or
+fewer is allowed under ``--precond dirichlet``, as the reference allows),
+or when the ranks' stack bytes do not sum to the single device's.
+``--n-rhs`` composes with it. A rank that fails ends the run within the
+collectives' timeout.
+
 ``--precond dirichlet`` assembles the primal boundary Schur complements
 S_b = K_bb − K_bi K_ii⁻¹ K_ib as a second stage through the same config
 (so the same kernels run it, on new shapes) and preconditions PCPG with
@@ -122,6 +140,14 @@ def main(argv=None) -> int:
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                    help="where the stacks live and the work runs; cuda "
                         "fails when CUDA is not available")
+    p.add_argument("--devices", type=int, default=0, metavar="N",
+                   help="split the subdomains over N ranks (one process "
+                        "each; torch.distributed), the λ-space sums as "
+                        "all-reduces")
+    p.add_argument("--backend", choices=("nccl", "gloo"), default=None,
+                   help="the ranks' backend: nccl (default; a card a rank) "
+                        "or gloo (ranks share cards round-robin, or run on "
+                        "the CPU with --device cpu)")
     args = p.parse_args(argv)
 
     import numpy as np
@@ -160,6 +186,8 @@ def main(argv=None) -> int:
                         preconditioner=args.precond, storage=args.storage,
                         dtype=args.dtype, refine=args.refine, device=device,
                         plan_cache=not args.no_plan_cache)
+    if args.devices:
+        return _main_sharded(args, prob, config)
     solver = FetiSolver(prob, config)
     history = bool(args.trace)  # the trace embeds the convergence curve
     if args.n_rhs > 0:
@@ -252,6 +280,155 @@ def main(argv=None) -> int:
         if err > 1e-6:
             return 1
     return 0 if sol.converged else 1
+
+
+def _main_sharded(args, prob, config) -> int:
+    """``--devices N``: the solve on N ranks, one line a rank, and with
+    ``--validate`` the checks against the global solve and against the
+    same solve on one device."""
+    import json
+
+    import numpy as np
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.feti import FetiSolver, sharded
+    from repro_torch.launch import mesh as meshlib
+
+    if args.trace or args.report:
+        raise SystemExit("--trace and --report read one process's "
+                         "telemetry; with --devices each rank keeps its own")
+    try:
+        backend, devices = meshlib.rank_devices(args.devices, args.backend,
+                                                config.device)
+    except ValueError as e:
+        raise SystemExit(f"[feti] --devices {args.devices}: {e}") from None
+    print(f"[feti] mesh: {meshlib.describe(backend, devices)}; "
+          f"{args.devices} slice(s) of "
+          f"{meshlib.split_sizes(prob.n_subdomains, args.devices)} "
+          f"subdomains", flush=True)
+    if config.device.type == "cuda":
+        from repro_torch.kernels import build
+
+        secs = build.build()
+        print(f"[feti] kernels built before the ranks start: "
+              f"{sorted(secs) or 'all cached'}", flush=True)
+    sweep = args.n_rhs > 0
+    case = dict(arch=args.arch, smoke=args.smoke, problem=args.problem,
+                n_rhs=args.n_rhs, tol=args.tol,
+                config=dict(schur=config.schur, mode=config.mode,
+                            preconditioner=config.preconditioner,
+                            storage=config.storage, dtype=config.dtype,
+                            refine=config.refine,
+                            plan_cache=config.plan_cache))
+    try:
+        ranks = [r[0] for r in meshlib.spawn_ranks(
+            sharded.solve_cases, args.devices, backend=backend,
+            device=config.device, args=([case],))]
+    except meshlib.RankFailure as e:
+        print(f"[feti] FAIL: {e}", flush=True)
+        return 1
+    for r in ranks:
+        sol = r["solution"]
+        line = dict(subdomains=list(r["owned"]), device=r["device"],
+                    launches=r["launches"], preprocess_s=r["preprocess_s"],
+                    solve_s=r["solve_s"],
+                    peak_device_bytes=r["peak_device_bytes"],
+                    all_reduces=r["all_reduces"],
+                    all_reduce_s=r["all_reduce_s"],
+                    pcpg_all_reduces=r["pcpg_all_reduces"],
+                    iterations=np.asarray(sol.iterations).tolist(),
+                    device_bytes=r["device_bytes"])
+        print(f"[feti] rank {r['rank']}/{r['world_size']} "
+              f"{json.dumps(line)}", flush=True)
+    sol = ranks[0]["solution"]
+    same = all(np.array_equal(r["solution"].u_global, sol.u_global)
+               and np.array_equal(r["solution"].iterations, sol.iterations)
+               for r in ranks)
+    print(f"[feti] every rank returned the same solution: {same}")
+    if not same:
+        return 1
+    by = {k: sum(r["device_bytes"][k] for r in ranks)
+          for k in ("L", "K", "Btp", "F", "Kreg", "Sb", "Btb", "total",
+                    "dense_L")}
+    print(f"[feti] dtype: storage={sol.storage_dtype} "
+          f"compute={sol.compute_dtype} solve={sol.solve_dtype} "
+          f"refine={config.resolved_refine()} "
+          f"refine_outer={sol.refine_outer}")
+    print(f"[feti] ranks' device bytes summed: L={by['L']:,} K={by['K']:,} "
+          f"Btp={by['Btp']:,} F={by['F']:,} Kreg={by['Kreg']:,} "
+          f"(dense L would be {by['dense_L']:,}) total={by['total']:,}")
+    if ranks[0]["plans"] is not None:
+        same_plan = all(r["plans"] == ranks[0]["plans"] for r in ranks)
+        for stage, c in ranks[0]["plans"].items():
+            print(f"[autotune] [{stage}] {c}")
+        print(f"[autotune] every rank runs rank 0's plan: {same_plan}")
+        if not same_plan:
+            return 1
+    prep = max(r["preprocess_s"] for r in ranks)
+    solve = max(r["solve_s"] for r in ranks)
+    if sweep:
+        converged = bool(sol.converged.all())
+        iters = " ".join(str(int(i)) for i in sol.iterations)
+        print(f"[feti] mode={args.mode} n_rhs={sol.n_rhs} iters=[{iters}] "
+              f"block_iters={sol.block_iterations} "
+              f"residual={sol.residuals.max():.2e} converged={converged}")
+        print(f"[feti] preprocess={prep:.2f}s solve_many={solve:.2f}s "
+              f"(the slowest rank's)")
+    else:
+        converged = bool(sol.converged)
+        print(f"[feti] mode={args.mode} iters={sol.iterations} "
+              f"residual={sol.residual:.2e} converged={converged}")
+        print(f"[feti] preprocess={prep:.2f}s solve={solve:.2f}s (the "
+              f"slowest rank's)")
+    if not args.validate:
+        return 0 if converged else 1
+
+    if sweep:
+        loads = prob.load_cases(args.n_rhs, kind="sweep")
+        refs = prob.reference_solutions(loads)
+        scale = np.abs(refs).max(axis=1)
+        scale = np.where(scale > 0, scale, np.abs(refs).max())
+        err = np.max(np.abs(sol.u_global - refs).max(axis=1) / scale)
+        print(f"[feti] max per-column rel err vs global solves: {err:.2e}")
+    else:
+        u_ref = prob.reference_solution()
+        err = np.max(np.abs(sol.u_global - u_ref)) / np.abs(u_ref).max()
+        print(f"[feti] rel err vs global solve: {err:.2e}")
+    if err > 1e-6:
+        return 1
+    # the same solve on one device, here
+    if config.device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(config.device)
+    kernels.reset_launch_counts()
+    single = FetiSolver(prob, config)
+    one = (single.solve_many(loads, tol=args.tol) if sweep
+           else single.solve(tol=args.tol))
+    du = float(np.max(np.abs(sol.u_global - one.u_global)))
+    slack = 1 if args.precond == "dirichlet" else 0
+    d_it = np.max(np.abs(np.asarray(sol.iterations)
+                         - np.asarray(one.iterations)))
+    peak = (torch.cuda.max_memory_allocated(config.device)
+            if config.device.type == "cuda" else None)
+    print(f"[feti] sharded vs single-device: max|Δu|={du:.2e} iters "
+          f"{np.asarray(sol.iterations).tolist()} vs "
+          f"{np.asarray(one.iterations).tolist()}")
+    print(f"[feti] single-device run: preprocess="
+          f"{one.timings['preprocess_s']:.2f}s solve="
+          f"{one.timings['solve_many_s' if sweep else 'solve_s']:.2f}s "
+          f"peak_device_bytes={peak}")
+    one_by = single.state.device_bytes()
+    sums = {k: (by[k], one_by[k]) for k in ("L", "K", "Btp", "F", "Kreg",
+                                            "Sb", "Btb")}
+    bytes_ok = all(a == b for a, b in sums.values())
+    print(f"[feti] ranks' stack bytes sum to the single device's: "
+          f"{bytes_ok} {json.dumps(sums)}; single-device launches "
+          f"{kernels.launch_counts()}")
+    if du > 1e-9 or d_it > slack or not bytes_ok:
+        print("[feti] FAIL: the sharded solve diverged from the "
+              "single-device solve")
+        return 1
+    return 0 if converged else 1
 
 
 if __name__ == "__main__":

@@ -29,11 +29,13 @@ def _imported_roots(path):
 def test_port_imports_neither_jax_nor_reference():
     sources = sorted(PORT.rglob("*.py"))
     assert len(sources) > 20
-    # the walk reaches every module, the elasticity and Dirichlet ones too
+    # the walk reaches every module, the elasticity, Dirichlet and sharded
+    # ones too
     names = {str(p.relative_to(PORT)) for p in sources}
     assert {"feti/dirichlet.py", "fem/assembly.py",
             "configs/feti_elasticity_2d.py", "configs/feti_elasticity_3d.py",
-            "configs/feti_heat_3d.py"} <= names
+            "configs/feti_heat_3d.py", "feti/sharded.py",
+            "launch/mesh.py"} <= names
     bad = [f"{p.relative_to(PORT)}:{line} imports {root}"
            for p in sources for root, line in _imported_roots(p)
            if root in FORBIDDEN]

@@ -178,6 +178,30 @@ Phases (each prints its seconds; any failure exits non-zero):
                 solve seconds, peak device bytes and all-reduces (their
                 count and host seconds; PCPG's per iteration). Two ranks
                 sharing one card measure no scaling.
+  9. lm       — the LM serving path (``repro_torch.models``,
+                ``repro_torch.train``), after the FETI phases' solvers and
+                device caches are freed. LM_RUNS at full width and depth,
+                bf16, weights from the model's own seeded initialization:
+                granite-3-8b (40 layers, d_model 4096; 512-token prompts),
+                recurrentgemma-2b (2304-token prompts: a ring-buffer
+                prefill past its 2048-token window and a wrapping decode)
+                and rwkv6-1.6b (512), each LM_BATCH prompts and LM_STEPS
+                greedy tokens through ``greedy_generate`` after a short
+                warm-up. Each must generate finite logits of the expected
+                shape, and one uncached ``forward`` over prompt and
+                generated tokens must give logits within the run's bar
+                (relative L2 over every decoded position) of the cached
+                decode's. Each is repeated at f32 with LM_F32_LAYERS layers
+                at full width (bar LM_F32_BAR). Then every smoke config of
+                ``tests/data/torch_lm_golden.npz`` (the reference's CPU
+                logits) at f32 on the seeded numpy weights the reference
+                ran: forward, prefill and decode logits within
+                LM_GOLDEN_TOL, the greedy tokens equal. Prints, beside the
+                card's name and power limit, each run's prefill ms, decode
+                ms a step and tok/s, peak device bytes and weight bytes
+                against ``param_count()`` × 2. The path runs no hand kernel
+                (the reference's LM modules reach no ``pl.pallas_call``):
+                the phase fails if one was launched.
 
 Then one JSON line with the kernels' numbers, one row per kernel and
 dtype (the f32 ones named ``*_f32``; each row: the heat-2d phase's,
@@ -243,6 +267,7 @@ PEAK_FP64_FLOPS = 67e12
 PEAK_FP32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 494.7e12
 PEAK_BYTES_PER_S = 3.35e12
+PEAK_BF16_FLOPS = 989e12  # dense bf16 tensor-core products
 REPS = 5
 SMALL_BS = 16  # the small-block phase's bs = bm
 WIDE_BS = 256  # the large-block phase's bs = bm: two passes of the core
@@ -407,6 +432,27 @@ SHARDED_RUNS = (
      dict(stepped_trsm_packed=2, stepped_syrk=2), 3),
 )
 SHARDED_DU = 1e-9  # max|u_sharded - u_single|: only G t's sums reorder
+# the lm phase: (arch, prompt tokens, bar on the relative L2 distance of
+# the cached decode's logits from one uncached forward's, bf16). Served at
+# full width and depth, LM_BATCH prompts, LM_STEPS greedy steps. The bars
+# are twice the distances measured on the card (NVIDIA H100 80GB HBM3,
+# 700 W) or 5e-2, whichever is less, but rwkv6-1.6b's: its bf16 stack
+# amplifies rounding, 9.554e-2 at full depth, so twice that (the
+# reference's own path shows as much: tests/torch_lm_bf16_drift.py gives
+# 3.895e-2 for it and 3.893e-2 for the port at 24 layers of width 256 on
+# the CPU); the f32 check holds its cache path to 1e-4
+LM_RUNS = (
+    ("granite-3-8b", 512, 3.7e-2),  # measured 1.852e-2
+    # 2304 > the 2048-token window: ring-buffer prefill, a wrapping decode
+    ("recurrentgemma-2b", 2304, 5e-2),  # measured 2.986e-2
+    ("rwkv6-1.6b", 512, 0.19),  # measured 9.554e-2
+)
+LM_BATCH, LM_STEPS = 8, 32
+# each LM_RUNS arch again at f32, full width, LM_F32_LAYERS layers: the
+# cached logits within LM_F32_BAR of the uncached forward's (TF32 off)
+LM_F32_LAYERS, LM_F32_BAR = 4, 1e-4
+LM_GOLDEN = os.path.join(ROOT, "tests", "data", "torch_lm_golden.npz")
+LM_GOLDEN_TOL = 1e-4  # the reference's smoke logits (CPU) against the card
 # each mixed-precision run's bar on its PCPG iterations summed over the
 # defect-correction outers (a multi-RHS run: its most iterated column): the
 # counts measured on the card (NVIDIA H100 80GB HBM3, 700 W) with a small
@@ -1766,6 +1812,196 @@ def span_durations(tree):
              span_durations(node["children"])] for node in tree]
 
 
+def rel_l2(got, want):
+    got, want = got.double(), want.double()
+    return ((got - want).norm() / want.norm()).item()
+
+
+def lm_bounds(cfg, model, batch, prompt_len, steps):
+    """(prefill, decode step) lower bounds in ms, from the data sheet's
+    peaks: the prefill's dense products (every ``Dense`` weight once a
+    prompt token, the head for the last) at the bf16 tensor-core rate (f32:
+    FFMA, TF32 being off), its attention and scans left out; a decode step
+    reads the weights and the whole cache once at 3.35 TB/s."""
+    from repro_torch.models import init_cache
+
+    dense = sum(p.numel() for name, p in model.named_parameters()
+                if name.endswith(".w"))
+    flops = 2 * batch * (dense * prompt_len + cfg.d_model * cfg.vocab_size)
+    rate = PEAK_BF16_FLOPS if cfg.dtype == "bfloat16" else PEAK_FP32_FLOPS
+    weights = sum(p.numel() * p.element_size() for p in model.parameters())
+    cache = sum(t.numel() * t.element_size() for layer in init_cache(
+        cfg, batch, prompt_len + steps, "meta") for t in layer.values())
+    return flops / rate * 1e3, (weights + cache) / PEAK_BYTES_PER_S * 1e3
+
+
+def lm_serve(cfg, prompt_len, bar, device, smi, batch=LM_BATCH,
+             steps=LM_STEPS):
+    """Serve ``cfg`` from the model's own seeded initialization on
+    ``device``: ``batch`` random prompts of ``prompt_len`` tokens, ``steps``
+    greedy tokens through ``greedy_generate`` (after a short warm-up), then
+    one uncached ``forward`` over prompt and generated tokens, whose logits
+    at every decoded position must lie within ``bar`` (relative L2) of the
+    cached steps'. Returns the row printed."""
+    import torch
+
+    from repro_torch.models import LanguageModel, forward
+    from repro_torch.train import greedy_generate
+
+    cuda = device.type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(device)
+
+    gen = torch.Generator(device=device).manual_seed(0)
+    t0 = time.perf_counter()
+    model = LanguageModel(cfg, device=device, generator=gen)
+    sync()
+    init_s = time.perf_counter() - t0
+    weight_bytes = sum(t.numel() * t.element_size()
+                       for t in model.state_dict().values())
+    prompt = torch.randint(0, cfg.vocab_size, (batch, prompt_len),
+                           generator=gen, device=device, dtype=torch.int32)
+    greedy_generate(model, prompt[:, :16], 2)  # warm-up: library handles
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(device)
+    times = {}
+    out, steps_logits = greedy_generate(model, prompt, steps,
+                                        all_logits=True, timings=times)
+    peak = torch.cuda.max_memory_allocated(device) if cuda else None
+    with torch.inference_mode():
+        full, _ = forward(model, {"tokens": torch.cat([prompt, out[:, :-1]],
+                                                      dim=1)})
+    want = full[:, prompt_len - 1:]
+    dist = rel_l2(steps_logits, want)
+    finite = bool(torch.isfinite(steps_logits).all()
+                  and torch.isfinite(want).all())
+    n_dec = steps - 1
+    prefill_bound, decode_bound = lm_bounds(cfg, model, batch, prompt_len,
+                                            steps)
+    row = dict(
+        arch=cfg.name, layers=cfg.num_layers, d_model=cfg.d_model,
+        dtype=cfg.dtype, batch=batch, prompt=prompt_len, steps=steps,
+        init_s=init_s, prefill_ms=times["prefill_s"] * 1e3,
+        decode_ms_per_step=times["decode_s"] * 1e3 / n_dec,
+        tok_per_s=batch * n_dec / times["decode_s"],
+        prefill_bound_ms=prefill_bound, decode_bound_ms=decode_bound,
+        peak_device_bytes=peak, weight_bytes=weight_bytes,
+        param_count_x2=cfg.param_count() * 2, cache_rel_l2=dist, bar=bar,
+        first_row=out[0, :8].tolist())
+    print(f"[chip_smoke] lm {cfg.name} ({cfg.num_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.dtype}) on {smi}: batch {batch}, prompt "
+          f"{prompt_len}: prefill {row['prefill_ms']:.3f} ms (bound "
+          f"{prefill_bound:.3f}); decode {row['decode_ms_per_step']:.3f} ms "
+          f"a step over {n_dec} steps (bound {decode_bound:.3f}; "
+          f"{row['tok_per_s']:,.1f} tok/s); peak device bytes {peak:,}; "
+          f"weight bytes {weight_bytes:,} (param_count() x 2 = "
+          f"{row['param_count_x2']:,}); init {init_s:.2f} s; cached "
+          f"logits {dist:.3e} (relative L2) from the uncached forward "
+          f"(bar {bar:g}); first row {row['first_row']}"
+          if cuda else f"[chip_smoke] lm {cfg.name}: {row}", flush=True)
+    if not finite or out.shape != (batch, steps):
+        raise SystemExit(f"lm {cfg.name}: generated {tuple(out.shape)}, "
+                         f"finite logits: {finite}")
+    if not dist <= bar:
+        raise SystemExit(f"lm {cfg.name}: the cached logits are {dist:.3e} "
+                         f"from the uncached forward (bar {bar:g})")
+    return row
+
+
+def lm_golden(device, path=LM_GOLDEN, tol=LM_GOLDEN_TOL):
+    """Every smoke config of the golden file at f32 on ``device``, on the
+    seeded numpy weights the reference ran (``random_lm_state``): forward,
+    prefill and decode logits within ``tol`` (max relative) of the
+    reference's, the greedy tokens equal. Returns {arch: worst}."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.interop import random_lm_state
+    from repro_torch.models import LanguageModel, forward
+    from repro_torch.models.layers import DTYPES
+    from repro_torch.train import greedy_generate
+
+    with np.load(path) as f:
+        gold = {k: f[k] for k in f.files}
+    archs = sorted({k.split("/")[0] for k in gold})
+    worst = {}
+    for arch in archs:
+        cfg = get_smoke_config(arch)
+        model = LanguageModel(cfg, device=device)
+        dtype = DTYPES[cfg.param_dtype]
+        model.load_state_dict({k: torch.from_numpy(v).to(dtype) for k, v in
+                               random_lm_state(cfg).items()})
+        prompt = torch.from_numpy(gold[f"{arch}/prompt"]).to(device)
+        errs = {}
+
+        def check(name, got):
+            want = torch.from_numpy(gold[f"{arch}/{name}"]).to(device)
+            errs[name] = compare(got.float(), want)[1]
+
+        with torch.inference_mode():
+            check("forward", forward(model, {"tokens": prompt})[0])
+        if f"{arch}/decode" in gold:
+            n = gold[f"{arch}/decode"].shape[1]
+            toks, logits = greedy_generate(model, prompt, n + 1,
+                                           all_logits=True)
+            check("prefill", logits[:, 0])
+            check("decode", logits[:, 1:])
+            same = np.array_equal(toks.cpu().numpy(), gold[f"{arch}/tokens"])
+        else:
+            same = True
+        worst[arch] = max(errs.values())
+        print(f"[chip_smoke] lm golden {arch}: " + ", ".join(
+            f"{k} {v:.3e}" for k, v in errs.items())
+            + f" (max relative, bar {tol:g}); greedy tokens equal: {same}",
+            flush=True)
+        if worst[arch] > tol or not same:
+            raise SystemExit(f"lm golden {arch}: the port is not the "
+                             "reference's on the card")
+    return worst
+
+
+def lm_phase(device, smi, cpu=False):
+    """LM_RUNS at full width on the card (with ``cpu``: their smoke configs
+    on the CPU, prompts past the window, a rehearsal), each again at f32
+    and LM_F32_LAYERS layers (bar LM_F32_BAR), then the golden file. Fails
+    if the path launched a hand kernel. Returns the rows."""
+    from repro_torch.configs import get_config, get_smoke_config
+
+    f32 = dict(num_layers=LM_F32_LAYERS, dtype="float32",
+               param_dtype="float32")
+    runs = [(arch, n, bar, {}) for arch, n, bar in LM_RUNS]
+    runs += [(arch, n, LM_F32_BAR, f32) for arch, n, _ in LM_RUNS]
+    sizes = dict(batch=2, steps=6) if cpu else {}
+    reset_counts()
+    rows = []
+    for arch, prompt_len, bar, changes in runs:
+        cfg = (get_smoke_config if cpu else get_config)(arch)
+        rows.append(lm_serve(dataclasses.replace(cfg, **changes),
+                             24 if cpu else prompt_len, bar, device, smi,
+                             **sizes))
+        free()
+    golden = lm_golden(device)
+    launched = {k: v for k, v in launch_counts().items() if v}
+    if launched:
+        raise SystemExit(f"the LM path launched hand kernels: {launched}")
+    print(f"[chip_smoke] lm {json.dumps(dict(runs=rows, golden=golden))}",
+          flush=True)
+    return rows
+
+
+def free():
+    """Return the freed device memory to the card and restart its peak."""
+    import torch
+
+    gc.collect()
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+
 def register_heat3d_cut():
     """Register feti-heat-3d at the validated depth HEAT3D_SUB_GRID as the
     architecture HEAT3D_CUT (the width and every other field unchanged)."""
@@ -1842,11 +2078,6 @@ def main() -> int:
         print(f"[chip_smoke] f32 fused {name}: {r['registers']} registers, "
               f"{r['blocks_per_sm']:g} resident blocks a SM", flush=True)
     done("build", t0)
-
-    def free():
-        gc.collect()
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
 
     # every f32 product, the kernels' plain versions and the library
     # yardsticks included, in full f32 (TF32 keeps a 10-bit mantissa)
@@ -1977,6 +2208,15 @@ def main() -> int:
             name: run["planning"]["launches"][r["name"]]
             for name, run in auto.items()
             if run["planning"]["launches"][r["name"]]}
+
+    t0 = phase("lm")
+    # the FETI phases' solvers, plans and their device caches go first
+    del runs, telemetry, auto, shard
+    free()
+    print(f"[chip_smoke] device bytes held before the lm phase "
+          f"{torch.cuda.memory_allocated(device):,}", flush=True)
+    lm_phase(device, smi)
+    done("lm", t0)
     print(f"[chip_smoke] total {time.perf_counter() - t_all:.1f}s", flush=True)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,5 @@
-"""The paper's FETI problems, selectable via ``--arch <id>``."""
+"""The paper's FETI problems and the language models of the serving path,
+selectable via ``--arch <id>``."""
 from repro_torch.configs.registry import (
     FetiArchConfig,
     get_config,

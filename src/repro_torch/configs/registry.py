@@ -1,8 +1,10 @@
-"""Architecture registry: ``--arch <id>`` resolution for the FETI launcher
-(counterpart of ``repro.configs.registry``, FETI part only).
+"""Architecture registry: ``--arch <id>`` resolution for the FETI and the
+serving launchers (counterpart of ``repro.configs.registry``).
 
-Each config module registers a full-size FetiArchConfig and a reduced
-smoke FetiArchConfig used by the CPU tests.
+Each config module registers a full-size config and a reduced smoke config
+used by the CPU tests: a FetiArchConfig for the paper's FETI problems, a
+:class:`~repro_torch.models.config.ModelConfig` for the language models
+whose blocks the port has (every family but MoE and MLA, ROADMAP A18b).
 """
 from __future__ import annotations
 
@@ -16,8 +18,20 @@ __all__ = ["register", "get_config", "get_smoke_config", "list_archs",
 _FULL: Dict[str, Callable] = {}
 _SMOKE: Dict[str, Callable] = {}
 
-ARCH_MODULES = ["feti_heat_2d", "feti_heat_3d", "feti_elasticity_2d",
-                "feti_elasticity_3d"]
+ARCH_MODULES = [
+    "qwen2_vl_2b",
+    "granite_3_8b",
+    "nemotron_4_340b",
+    "qwen15_32b",
+    "mistral_large_123b",
+    "recurrentgemma_2b",
+    "rwkv6_1_6b",
+    "hubert_xlarge",
+    "feti_heat_2d",
+    "feti_heat_3d",
+    "feti_elasticity_2d",
+    "feti_elasticity_3d",
+]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,14 +64,14 @@ def _ensure_loaded() -> None:
         importlib.import_module(f"repro_torch.configs.{mod}")
 
 
-def get_config(name: str) -> FetiArchConfig:
+def get_config(name: str):
     _ensure_loaded()
     if name not in _FULL:
         raise KeyError(f"unknown arch {name!r}; known: {sorted(_FULL)}")
     return _FULL[name]()
 
 
-def get_smoke_config(name: str) -> FetiArchConfig:
+def get_smoke_config(name: str):
     _ensure_loaded()
     if name not in _SMOKE:
         raise KeyError(f"unknown arch {name!r}; known: {sorted(_SMOKE)}")

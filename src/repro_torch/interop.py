@@ -12,6 +12,14 @@ arrays or dicts (never the reference's objects) and import nothing of the
 reference. A problem's host arrays are f64 (the pipeline rounds them
 to its storage dtype itself); a packed factor is carried at ``dtype``, so
 both packages' f32 factors can be compared on identical values.
+
+For the LM path, :func:`lm_params_from_reference` turns the reference's
+params pytree (as numpy) into a :class:`~repro_torch.models.LanguageModel`
+state dict, :func:`lm_layers_from_reference` unstacks any per-layer tree
+of the reference (params or caches) into layer order, and
+:func:`random_lm_state` draws seeded numpy weights for every parameter of
+a config, so that both packages (or a run without the reference) can be
+fed the identical weights.
 """
 from __future__ import annotations
 
@@ -22,10 +30,16 @@ from repro_torch.core.autotune import Plan
 from repro_torch.core.schur import SchurAssemblyConfig
 from repro_torch.fem.decomposition import FetiProblem, SubdomainData
 from repro_torch.fem.meshgen import Mesh
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import DTYPES
+from repro_torch.models.model import LanguageModel
+from repro_torch.models.transformer import StackLayout
 from repro_torch.sparse.packed import PackedBlockIndex, PackedBlocks
 
 __all__ = ["SUBDOMAIN_KEYS", "from_reference_problem", "from_reference_packed",
-           "schur_config_from_reference", "plan_from_reference"]
+           "schur_config_from_reference", "plan_from_reference",
+           "lm_layers_from_reference", "lm_params_from_reference",
+           "random_lm_state"]
 
 SUBDOMAIN_KEYS = ("K", "Bt", "f", "R", "lambda_ids", "m", "dof_gids",
                   "fixing_dofs", "b_rows", "b_vals")
@@ -122,3 +136,101 @@ def plan_from_reference(d: dict) -> Plan:
     d = dict(d)
     d["cfg"] = schur_config_from_reference(d["cfg"])
     return Plan(**d)
+
+
+# ------------------------------------------------------------- LM path ----
+def _tensor(a) -> torch.Tensor:
+    """A numpy array as a CPU tensor, bit for bit. numpy has no bf16 or
+    float8: the reference's come as ``ml_dtypes`` arrays, which
+    ``torch.from_numpy`` refuses, so they travel as an unsigned view."""
+    a = np.asarray(a)
+    name = a.dtype.name
+    if name in DTYPES and not hasattr(np, name):
+        bits = {1: np.uint8, 2: np.uint16}[a.dtype.itemsize]
+        return torch.from_numpy(np.array(a).view(bits)).view(DTYPES[name])
+    return torch.from_numpy(np.array(a))
+
+
+def _flatten(tree, prefix=""):
+    for key, val in tree.items():
+        if isinstance(val, dict):
+            yield from _flatten(val, f"{prefix}{key}.")
+        else:
+            yield prefix + key, val
+
+
+def lm_layers_from_reference(cfg: ModelConfig, stack: dict) -> list:
+    """The reference's ``{"prologue", "body", "epilogue"}`` tree (a params
+    ``stack`` or a cache) as one nested dict per layer, in layer order:
+    ``body[j]``'s leaves are stacked over cycles, cycle ``c`` being layer
+    ``StackLayout.layer(j, c)``."""
+    lay = StackLayout.build(cfg)
+    layers = [None] * cfg.num_layers
+    for i, li in enumerate(lay.prologue):
+        layers[li] = stack["prologue"][i]
+    for i, li in enumerate(lay.epilogue):
+        layers[li] = stack["epilogue"][i]
+
+    def cut(tree, c):
+        return {k: cut(v, c) if isinstance(v, dict) else np.asarray(v)[c]
+                for k, v in tree.items()}
+
+    for j, body in enumerate(stack["body"]):
+        for c in range(lay.cycles if body is not None else 0):
+            layers[lay.layer(j, c)] = cut(body, c)
+    missing = [li for li, t in enumerate(layers) if t is None]
+    if missing:
+        raise KeyError(f"layers {missing} are missing from the tree")
+    return layers
+
+
+def lm_params_from_reference(cfg: ModelConfig, params: dict) -> dict:
+    """The state dict of ``LanguageModel(cfg)`` (CPU tensors at the
+    reference's dtypes) from the reference's params pytree, its leaves as
+    numpy. Load with ``model.load_state_dict(state)``."""
+    state = {"embed": _tensor(params["embed"])}
+    for i, block in enumerate(lm_layers_from_reference(cfg,
+                                                       params["stack"])):
+        for path, leaf in _flatten(block):
+            state[f"blocks.{i}.{path}"] = _tensor(leaf)
+    for path, leaf in _flatten(params["final_norm"]):
+        state[f"final_norm.{path}"] = _tensor(leaf)
+    if "lm_head" in params:
+        state["lm_head"] = _tensor(params["lm_head"])
+    return state
+
+
+def random_lm_state(cfg: ModelConfig, seed: int = 0) -> dict:
+    """Seeded f32 numpy values for every parameter of ``LanguageModel(cfg)``,
+    by state-dict name (round them to ``cfg.param_dtype`` to load).
+
+    Unlike the model's own initialization, every weight is drawn: norm
+    scales around 1, biases and the RWKV bonus around 0, mixes in (0, 1),
+    RWKV decay offsets near -3, RG-LRU's Λ with a = σ(Λ) in (0.9, 0.999),
+    dense weights N(0, 1/d_in), the embedding N(0, 1) (distinct logits)."""
+    meta = LanguageModel(cfg, device="meta").state_dict()
+    rng = np.random.default_rng(seed)
+    out = {}
+    for name, t in meta.items():
+        shape, leaf = tuple(t.shape), name.rsplit(".", 1)[-1]
+        if leaf == "scale":
+            v = 1.0 + 0.1 * rng.standard_normal(shape)
+        elif leaf in ("b", "bias", "conv_b", "u"):
+            v = 0.1 * rng.standard_normal(shape)
+        elif leaf in ("w", "lm_head"):
+            v = rng.standard_normal(shape) / np.sqrt(shape[0])
+        elif leaf == "embed":
+            v = rng.standard_normal(shape)
+        elif leaf == "conv_w":
+            v = 0.3 * rng.standard_normal(shape)
+        elif leaf.startswith("mix_") or leaf == "cm_mix":
+            v = rng.uniform(0.0, 1.0, shape)
+        elif leaf == "w0":
+            v = -3.0 + 0.3 * rng.standard_normal(shape)
+        elif leaf == "lam":
+            p = rng.uniform(0.9, 0.999, shape)
+            v = np.log(p / (1 - p))
+        else:
+            raise KeyError(f"no draw for parameter {name!r}")
+        out[name] = v.astype(np.float32)
+    return out

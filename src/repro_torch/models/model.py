@@ -1,0 +1,138 @@
+"""The language model (counterpart of ``repro.models.model``): embeddings
+(tokens, or the audio / VLM frontend stubs' precomputed embeddings), the
+block stack, the final norm and the LM head (tied: ``h @ embedᵀ``).
+
+:class:`LanguageModel` is built on a device (``cuda`` unless the caller
+asks for another) from an explicit ``torch.Generator``; weights carried
+from the reference load through ``load_state_dict`` (see
+:func:`repro_torch.interop.lm_params_from_reference`). :func:`forward`
+returns ``(logits, cache)``: a cache from :func:`init_cache` (one dict per
+layer) is updated in place and returned.
+"""
+from __future__ import annotations
+
+from typing import Optional, Union
+
+import torch
+from torch import nn
+
+from repro_torch.device import resolve_device
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import DTYPES, Init, Norm
+from repro_torch.models.transformer import (Block, check_ported,
+                                            init_layer_cache)
+
+__all__ = ["LanguageModel", "forward", "init_cache", "default_positions",
+           "embed_inputs"]
+
+
+class LanguageModel(nn.Module):
+    """Weights of ``cfg`` at its ``param_dtype`` on ``device``.
+
+    ``generator`` (on ``device``; default: seeded 0) supplies every draw,
+    with the reference's distributions. ``device="meta"`` allocates the
+    parameters without values (shapes only). Raises ``ValueError`` for a
+    config whose blocks are not ported (MoE, MLA: ROADMAP A18b)."""
+
+    def __init__(self, cfg: ModelConfig,
+                 device: Union[str, torch.device, None] = None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        check_ported(cfg)
+        dev = resolve_device(device)
+        if generator is None and dev.type != "meta":
+            generator = torch.Generator(device=dev).manual_seed(0)
+        init = Init(dev, DTYPES[cfg.param_dtype], generator)
+        self.cfg = cfg
+        self.embed = init.normal((cfg.vocab_size, cfg.d_model), 0.02)
+        self.blocks = nn.ModuleList(Block(cfg, kind, init)
+                                    for kind in cfg.layer_kinds)
+        self.final_norm = Norm(cfg.d_model, cfg.norm, cfg.norm_eps, init)
+        self.lm_head = (init.normal((cfg.d_model, cfg.vocab_size),
+                                    cfg.d_model ** -0.5)
+                        if cfg.has_lm_head and not cfg.tie_embeddings
+                        else None)
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.device
+
+    def forward(self, batch: dict, cache: Optional[list] = None,
+                cache_index: int = 0, positions=None,
+                attn_args: Optional[dict] = None, last_only: bool = False):
+        """Returns (logits (B, S, V), cache). ``batch`` holds ``tokens``
+        (B, S) and optionally ``features``, ``vision_embeds`` /
+        ``vision_mask`` and ``positions``; ``cache_index`` is the slot of
+        the first new token (a Python int). ``last_only`` projects only
+        the last position through the head (the prefill path)."""
+        cfg = self.cfg
+        h = embed_inputs(self, batch)
+        B, S = h.shape[:2]
+        if positions is None:
+            positions = batch.get("positions")
+        if positions is None:
+            positions = default_positions(cfg, B, S, cache_index,
+                                          device=self.device)
+        positions = positions.to(self.device)
+        attn_args = attn_args or {}
+        for i, block in enumerate(self.blocks):
+            h = block(h, positions, cache[i] if cache is not None else None,
+                      cache_index, attn_args)
+        if last_only:
+            h = h[:, -1:, :]
+        h = self.final_norm(h)
+        if not cfg.has_lm_head:
+            return h, cache
+        if cfg.tie_embeddings:
+            return torch.einsum("bsd,vd->bsv", h, self.embed), cache
+        return h @ self.lm_head, cache
+
+
+def forward(model: LanguageModel, batch: dict, cache: Optional[list] = None,
+            cache_index: int = 0, **kwargs):
+    """``model(batch, cache, cache_index, ...)``: the reference's
+    ``forward`` with the weights in the module."""
+    return model(batch, cache, cache_index, **kwargs)
+
+
+def embed_inputs(model: LanguageModel, batch: dict) -> torch.Tensor:
+    """Token embedding at the activation dtype, with the frontend stubs:
+    ``features`` (B, S, d) replace the tokens (audio), ``vision_embeds``
+    (B, S, d) replace them where ``vision_mask`` (B, S) is set (VLM)."""
+    cfg = model.cfg
+    dtype = DTYPES[cfg.dtype]
+    dev = model.device
+    if cfg.frontend_stub and "features" in batch:
+        h = batch["features"].to(device=dev, dtype=dtype)
+    else:
+        h = model.embed[batch["tokens"].to(dev)].to(dtype)
+    if "vision_embeds" in batch:
+        mask = batch["vision_mask"].to(dev)[..., None]
+        h = torch.where(mask, batch["vision_embeds"].to(device=dev,
+                                                        dtype=dtype), h)
+    return h
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               device: Union[str, torch.device, None] = None) -> list:
+    """One cache dict per layer, at ``cfg.cache_dtype`` (default: the
+    activation dtype): K/V and slot positions for attention (a ring buffer
+    of the window under local attention), ``(h, conv)`` for RG-LRU,
+    ``(S, shift_tm, shift_cm)`` for RWKV-6. A float8 cache rounds on write
+    and reads back at f32."""
+    check_ported(cfg)
+    dev = resolve_device(device)
+    dtype = DTYPES[cfg.cache_dtype or cfg.dtype]
+    return [init_layer_cache(cfg, kind, batch, max_len, dtype, dev)
+            for kind in cfg.layer_kinds]
+
+
+def default_positions(cfg: ModelConfig, batch: int, seq: int,
+                      offset: int = 0, device=None) -> torch.Tensor:
+    """(B, S) int32 positions ``offset, offset+1, ...``; (B, S, 3) under
+    mrope (text tokens: t == h == w)."""
+    pos = torch.arange(offset, offset + seq, dtype=torch.int32,
+                       device=device)[None, :].expand(batch, seq)
+    if cfg.pos_emb == "mrope":
+        pos = pos[..., None].expand(batch, seq, 3)
+    return pos

@@ -1,0 +1,104 @@
+"""Block and stack of the LM path (counterpart of
+``repro.models.transformer``): one pre-norm residual block per layer kind
+(attn / rwkv6 / rglru), run as a Python loop over an ``nn.ModuleList``.
+
+The reference stacks the layers of each pattern slot for ``lax.scan``
+(prologue / scanned cycles / epilogue, :class:`StackLayout`); here the
+blocks are one list in layer order, and :meth:`StackLayout.layer` maps the
+reference's ``body[j]`` entry of cycle ``c`` to its layer. MoE layers are
+not ported yet (ROADMAP A18b).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+from torch import nn
+
+from repro_torch.models.attention import Attention, init_kv_cache
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import MLP, Init, Norm
+from repro_torch.models.rglru import RGLRU, init_rglru_state
+from repro_torch.models.rwkv6 import RWKV6, init_rwkv_state
+
+__all__ = ["StackLayout", "Block", "check_ported", "init_layer_cache"]
+
+
+def check_ported(cfg: ModelConfig) -> None:
+    """Raise ``ValueError`` for a config that needs a block not ported yet."""
+    if cfg.attn_kind == "mla" and "attn" in cfg.layer_kinds:
+        raise ValueError(f"{cfg.name}: MLA attention is not ported yet "
+                         "(ROADMAP A18b)")
+    if cfg.is_moe:
+        raise ValueError(f"{cfg.name}: MoE layers are not ported yet "
+                         "(ROADMAP A18b)")
+    unknown = set(cfg.layer_kinds) - {"attn", "rwkv6", "rglru"}
+    if unknown:
+        raise ValueError(f"unknown layer kinds {sorted(unknown)}")
+
+
+@dataclasses.dataclass(frozen=True)
+class StackLayout:
+    """How num_layers decomposes into prologue / scanned cycles / epilogue
+    in the reference's params and caches."""
+
+    pattern: Tuple[str, ...]
+    prologue: Tuple[int, ...]  # absolute layer indices
+    cycles: int
+    epilogue: Tuple[int, ...]
+
+    @classmethod
+    def build(cls, cfg: ModelConfig) -> "StackLayout":
+        P = len(cfg.layer_pattern)
+        pro = tuple(range(cfg.first_dense_layers))
+        cycles = (cfg.num_layers - len(pro)) // P
+        epi_start = len(pro) + cycles * P
+        return cls(pattern=cfg.layer_pattern, prologue=pro, cycles=cycles,
+                   epilogue=tuple(range(epi_start, cfg.num_layers)))
+
+    def layer(self, j: int, c: int) -> int:
+        """The layer of the reference's ``body[j]``, cycle ``c``."""
+        return len(self.prologue) + c * len(self.pattern) + j
+
+
+class Block(nn.Module):
+    """Pre-norm residual block: ``x + inner(norm1(x))``, then
+    ``x + mlp(norm2(x))`` (an RWKV-6 layer's own channel mix in place of
+    the MLP)."""
+
+    def __init__(self, cfg: ModelConfig, kind: str, init: Init):
+        super().__init__()
+        self.cfg, self.kind = cfg, kind
+        self.norm1 = Norm(cfg.d_model, cfg.norm, cfg.norm_eps, init)
+        self.inner = {"attn": Attention, "rwkv6": RWKV6,
+                      "rglru": RGLRU}[kind](cfg, init)
+        self.norm2 = Norm(cfg.d_model, cfg.norm, cfg.norm_eps, init)
+        self.mlp = (None if kind == "rwkv6" else
+                    MLP(cfg.d_model, cfg.d_ff, cfg.mlp_kind, init,
+                        cfg.mlp_bias))
+
+    def forward(self, x, positions, cache: Optional[dict], cache_index: int,
+                attn_args: dict):
+        h = self.norm1(x)
+        if self.kind == "attn":
+            y = self.inner(h, positions, cache, cache_index,
+                           window=self.cfg.local_window, **attn_args)
+        else:
+            y = self.inner(h, cache)
+        x = x + y
+        h = self.norm2(x)
+        y = (self.inner.channel_mix(h, cache) if self.kind == "rwkv6"
+             else self.mlp(h))
+        return x + y
+
+
+def init_layer_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
+                     dtype, device) -> dict:
+    if kind == "attn":
+        return init_kv_cache(cfg, batch, max_len, dtype, device,
+                             window=cfg.local_window)
+    if kind == "rwkv6":
+        return init_rwkv_state(cfg, batch, dtype, device)
+    if kind == "rglru":
+        return init_rglru_state(cfg, batch, dtype, device)
+    raise ValueError(kind)

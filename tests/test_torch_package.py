@@ -35,7 +35,8 @@ def test_port_imports_neither_jax_nor_reference():
     assert {"feti/dirichlet.py", "fem/assembly.py",
             "configs/feti_elasticity_2d.py", "configs/feti_elasticity_3d.py",
             "configs/feti_heat_3d.py", "feti/sharded.py",
-            "launch/mesh.py"} <= names
+            "launch/mesh.py", "models/attention.py", "models/transformer.py",
+            "launch/serve.py"} <= names
     bad = [f"{p.relative_to(PORT)}:{line} imports {root}"
            for p in sources for root, line in _imported_roots(p)
            if root in FORBIDDEN]
@@ -52,7 +53,8 @@ def test_entry_points_require_cuda_unless_cpu(monkeypatch):
     from repro_torch.device import resolve_device
     from repro_torch.fem import decompose_problem
     from repro_torch.feti import FetiConfig, FetiSolver, preprocess_cluster
-    from repro_torch.launch import solve_feti
+    from repro_torch.launch import serve, solve_feti
+    from repro_torch.models import LanguageModel, init_cache
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     fc = get_smoke_config("feti-heat-2d")
@@ -65,6 +67,15 @@ def test_entry_points_require_cuda_unless_cpu(monkeypatch):
         FetiSolver(prob).solve()
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         solve_feti.main(["--smoke"])
+    # the LM serving path (A18a): the model, its caches and the launcher
+    lm = get_smoke_config("granite-3-8b")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        LanguageModel(lm)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        init_cache(lm, 1, 4)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        serve.main(["--smoke"])
+    assert LanguageModel(lm, device="cpu").device == torch.device("cpu")
     assert resolve_device("cpu") == torch.device("cpu")
     assert FetiSolver(prob, FetiConfig(device="cpu")).solve().converged
 
@@ -106,6 +117,26 @@ def test_unported_paths_name_their_roadmap_item():
     assert "device_bytes" not in rep  # nothing preprocessed yet
     assert not [p for p in PORT.rglob("*.py")
                 if "NotImplementedError" in p.read_text()]
+
+
+@pytest.mark.parametrize("changes", [
+    dict(attn_kind="mla", q_lora_rank=16, kv_lora_rank=16,
+         qk_nope_head_dim=8, qk_rope_head_dim=8, v_head_dim=8),
+    dict(num_experts=4, top_k=2, moe_d_ff=32),
+])
+def test_moe_and_mla_name_their_roadmap_item(changes):
+    """The LM blocks not ported yet raise ``ValueError`` naming ROADMAP
+    A18b (never ``NotImplementedError``), from the model and the cache."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import LanguageModel, init_cache
+
+    cfg = dataclasses.replace(get_smoke_config("granite-3-8b"), **changes)
+    with pytest.raises(ValueError, match="A18b"):
+        LanguageModel(cfg, device="cpu")
+    with pytest.raises(ValueError, match="A18b"):
+        init_cache(cfg, 1, 4, device="cpu")
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -185,14 +185,31 @@ Phases (each prints its seconds; any failure exits non-zero):
                 granite-3-8b (40 layers, d_model 4096; 512-token prompts),
                 recurrentgemma-2b (2304-token prompts: a ring-buffer
                 prefill past its 2048-token window and a wrapping decode)
-                and rwkv6-1.6b (512), each LM_BATCH prompts and LM_STEPS
+                and rwkv6-1.6b (512), then the MoE models at full width and
+                a cut depth (their full configs' weights do not fit one
+                card): deepseek-v2-236b (MLA, 160 routed experts top-6
+                and 2 shared; 4 of its 60 layers: the dense first layer
+                and 3 MoE layers) and grok-1-314b (8 experts top-2; 2 of
+                64), 512-token prompts; each LM_BATCH prompts and LM_STEPS
                 greedy tokens through ``greedy_generate`` after a short
                 warm-up. Each must generate finite logits of the expected
                 shape, and one uncached ``forward`` over prompt and
                 generated tokens must give logits within the run's bar
                 (relative L2 over every decoded position) of the cached
-                decode's. Each is repeated at f32 with LM_F32_LAYERS layers
-                at full width (bar LM_F32_BAR). Then every smoke config of
+                decode's. A MoE run whose capacity can drop entries (the
+                uncached forward over more tokens has more capacity and
+                drops others) is held instead by its prefill: the first
+                generated token's logits against one uncached forward over
+                the prompt alone (the same length, capacity and drop rule;
+                for deepseek MLA's absorbed mode against its expanded
+                one). Each is repeated at f32 with LM_F32_LAYERS layers
+                (the MoE models LM_F32_MOE: fewer layers, batch 2, and a
+                copy of the config whose capacity_factor is E / top_k, so
+                that nothing drops at any length and the decode is held to
+                the full forward) at full width (bar LM_F32_BAR). Then
+                deepseek-v2-236b's smoke config with ``moe_impl="sort"`` on
+                the card against the port on the CPU (LM_SORT_TOL, greedy
+                tokens equal), and every smoke config of
                 ``tests/data/torch_lm_golden.npz`` (the reference's CPU
                 logits) at f32 on the seeded numpy weights the reference
                 ran: forward, prefill and decode logits within
@@ -440,17 +457,34 @@ SHARDED_DU = 1e-9  # max|u_sharded - u_single|: only G t's sums reorder
 # amplifies rounding, 9.554e-2 at full depth, so twice that (the
 # reference's own path shows as much: tests/torch_lm_bf16_drift.py gives
 # 3.895e-2 for it and 3.893e-2 for the port at 24 layers of width 256 on
-# the CPU); the f32 check holds its cache path to 1e-4
+# the CPU); the f32 check holds its cache path to 1e-4. Each entry: arch,
+# prompt tokens, bar, the changes to its full config (a depth cut). The
+# MoE models' bars hold their prefill against the prompt's forward
 LM_RUNS = (
-    ("granite-3-8b", 512, 3.7e-2),  # measured 1.852e-2
+    ("granite-3-8b", 512, 3.7e-2, {}),  # measured 1.852e-2
     # 2304 > the 2048-token window: ring-buffer prefill, a wrapping decode
-    ("recurrentgemma-2b", 2304, 5e-2),  # measured 2.986e-2
-    ("rwkv6-1.6b", 512, 0.19),  # measured 9.554e-2
+    ("recurrentgemma-2b", 2304, 5e-2, {}),  # measured 2.986e-2
+    ("rwkv6-1.6b", 512, 0.19, {}),  # measured 9.554e-2
+    # 4 of 60 layers: the dense first layer and 3 MoE layers (13.30 B
+    # parameters, 26.6 GB); the full config holds 471 GB of bf16 weights.
+    # Measured 3.796e-2 (MLA absorbed against expanded, then routing among
+    # 160 experts; tests/torch_lm_bf16_drift.py: the reference 5.312e-2,
+    # the port 1.740e-2 at 4 layers of width 256 on the CPU)
+    ("deepseek-v2-236b", 512, 5e-2, dict(num_layers=4)),
+    # 2 of 64 layers (11.45 B parameters, 22.9 GB; the full config 633 GB)
+    ("grok-1-314b", 512, 1.5e-2, dict(num_layers=2)),  # measured 7.591e-3
 )
 LM_BATCH, LM_STEPS = 8, 32
 # each LM_RUNS arch again at f32, full width, LM_F32_LAYERS layers: the
-# cached logits within LM_F32_BAR of the uncached forward's (TF32 off)
+# cached logits within LM_F32_BAR of the uncached forward's (TF32 off).
+# The MoE models at f32 hold (layers, batch) of LM_F32_MOE, their
+# capacity raised so that nothing drops: deepseek's dense and first MoE
+# layer (21.4 GB of f32 weights), grok's first layer (26.1 GB)
 LM_F32_LAYERS, LM_F32_BAR = 4, 1e-4
+LM_F32_MOE = {"deepseek-v2-236b": (2, 2), "grok-1-314b": (1, 2)}
+# deepseek-v2-236b's smoke config with sort dispatch: the card against the
+# port on the CPU (max relative), the greedy tokens equal
+LM_SORT_ARCH, LM_SORT_TOL = "deepseek-v2-236b", 1e-4
 LM_GOLDEN = os.path.join(ROOT, "tests", "data", "torch_lm_golden.npz")
 LM_GOLDEN_TOL = 1e-4  # the reference's smoke logits (CPU) against the card
 # each mixed-precision run's bar on its PCPG iterations summed over the
@@ -1817,17 +1851,42 @@ def rel_l2(got, want):
     return ((got - want).norm() / want.norm()).item()
 
 
+def moe_prefill_flops(cfg, batch, prompt_len):
+    """The products of the prefill's MoE layers beyond their ``Dense``
+    weights: the router, the experts over every slot the dispatch fills
+    (2·B·E·C·3·d·e_ff; GShard computes all E·C slots, dropped or empty
+    ones too) and, under GShard, the one-hot dispatch and combine
+    einsums."""
+    from repro_torch.models.moe import moe_capacity
+    from repro_torch.models.transformer import StackLayout
+
+    E, k, d = cfg.num_experts, cfg.top_k, cfg.d_model
+    C = moe_capacity(cfg, prompt_len)
+    tokens = batch * prompt_len
+    layer = 2 * tokens * d * E + 2 * batch * E * C * 3 * d * (
+        cfg.moe_d_ff or cfg.d_ff)
+    if cfg.moe_impl != "sort":
+        # (bske,bskc->bsec) twice, then (bsd,bsec->becd), (becd,bsec->bsd)
+        layer += 2 * 2 * tokens * k * E * C + 2 * 2 * tokens * E * C * d
+    return layer * sum(StackLayout.moe_of(cfg, li)
+                       for li in range(cfg.num_layers))
+
+
 def lm_bounds(cfg, model, batch, prompt_len, steps):
     """(prefill, decode step) lower bounds in ms, from the data sheet's
     peaks: the prefill's dense products (every ``Dense`` weight once a
-    prompt token, the head for the last) at the bf16 tensor-core rate (f32:
+    prompt token, the head for the last; a MoE layer's router, experts and
+    dispatch, ``moe_prefill_flops``) at the bf16 tensor-core rate (f32:
     FFMA, TF32 being off), its attention and scans left out; a decode step
-    reads the weights and the whole cache once at 3.35 TB/s."""
+    reads the weights (every expert's: GShard runs them all) and the whole
+    cache once at 3.35 TB/s."""
     from repro_torch.models import init_cache
 
     dense = sum(p.numel() for name, p in model.named_parameters()
                 if name.endswith(".w"))
     flops = 2 * batch * (dense * prompt_len + cfg.d_model * cfg.vocab_size)
+    if cfg.is_moe:
+        flops += moe_prefill_flops(cfg, batch, prompt_len)
     rate = PEAK_BF16_FLOPS if cfg.dtype == "bfloat16" else PEAK_FP32_FLOPS
     weights = sum(p.numel() * p.element_size() for p in model.parameters())
     cache = sum(t.numel() * t.element_size() for layer in init_cache(
@@ -1836,16 +1895,21 @@ def lm_bounds(cfg, model, batch, prompt_len, steps):
 
 
 def lm_serve(cfg, prompt_len, bar, device, smi, batch=LM_BATCH,
-             steps=LM_STEPS):
+             steps=LM_STEPS, of_layers=None):
     """Serve ``cfg`` from the model's own seeded initialization on
     ``device``: ``batch`` random prompts of ``prompt_len`` tokens, ``steps``
     greedy tokens through ``greedy_generate`` (after a short warm-up), then
     one uncached ``forward`` over prompt and generated tokens, whose logits
     at every decoded position must lie within ``bar`` (relative L2) of the
-    cached steps'. Returns the row printed."""
+    cached steps'. A MoE config whose capacity can drop entries at these
+    lengths is held by its prefill instead: the first generated token's
+    logits against one uncached forward over the prompt alone.
+    ``of_layers``: the full config's depth, for the row. Returns the row
+    printed."""
     import torch
 
     from repro_torch.models import LanguageModel, forward
+    from repro_torch.models.moe import moe_capacity
     from repro_torch.train import greedy_generate
 
     cuda = device.type == "cuda"
@@ -1870,18 +1934,32 @@ def lm_serve(cfg, prompt_len, bar, device, smi, batch=LM_BATCH,
     out, steps_logits = greedy_generate(model, prompt, steps,
                                         all_logits=True, timings=times)
     peak = torch.cuda.max_memory_allocated(device) if cuda else None
+    # an uncached forward over all prompt_len + steps - 1 tokens takes
+    # another capacity than the prefill: held by the prefill alone
+    prefill_only = cfg.is_moe and any(
+        moe_capacity(cfg, n) < n for n in (prompt_len,
+                                           prompt_len + steps - 1))
     with torch.inference_mode():
-        full, _ = forward(model, {"tokens": torch.cat([prompt, out[:, :-1]],
-                                                      dim=1)})
-    want = full[:, prompt_len - 1:]
-    dist = rel_l2(steps_logits, want)
+        if prefill_only:
+            got = steps_logits[:, 0]
+            want = forward(model, {"tokens": prompt}, last_only=True)[0][:, -1]
+        else:
+            got = steps_logits
+            full, _ = forward(model, {"tokens": torch.cat(
+                [prompt, out[:, :-1]], dim=1)})
+            want = full[:, prompt_len - 1:]
+    held = ("prefill logits from the uncached forward over the prompt"
+            if prefill_only else "cached logits from the uncached forward")
+    dist = rel_l2(got, want)
     finite = bool(torch.isfinite(steps_logits).all()
                   and torch.isfinite(want).all())
     n_dec = steps - 1
     prefill_bound, decode_bound = lm_bounds(cfg, model, batch, prompt_len,
                                             steps)
+    of_layers = of_layers or cfg.num_layers
     row = dict(
-        arch=cfg.name, layers=cfg.num_layers, d_model=cfg.d_model,
+        arch=cfg.name, layers=cfg.num_layers, of_layers=of_layers,
+        d_model=cfg.d_model,
         dtype=cfg.dtype, batch=batch, prompt=prompt_len, steps=steps,
         init_s=init_s, prefill_ms=times["prefill_s"] * 1e3,
         decode_ms_per_step=times["decode_s"] * 1e3 / n_dec,
@@ -1889,25 +1967,72 @@ def lm_serve(cfg, prompt_len, bar, device, smi, batch=LM_BATCH,
         prefill_bound_ms=prefill_bound, decode_bound_ms=decode_bound,
         peak_device_bytes=peak, weight_bytes=weight_bytes,
         param_count_x2=cfg.param_count() * 2, cache_rel_l2=dist, bar=bar,
-        first_row=out[0, :8].tolist())
-    print(f"[chip_smoke] lm {cfg.name} ({cfg.num_layers} layers, d_model "
-          f"{cfg.d_model}, {cfg.dtype}) on {smi}: batch {batch}, prompt "
+        held=held, first_row=out[0, :8].tolist())
+    if cfg.is_moe:
+        row.update(capacity_factor=cfg.capacity_factor,
+                   capacity_prefill=moe_capacity(cfg, prompt_len),
+                   moe_impl=cfg.moe_impl)
+    print(f"[chip_smoke] lm {cfg.name} (layers {cfg.num_layers} of "
+          f"{of_layers}, d_model {cfg.d_model}, {cfg.dtype}) on {smi}: "
+          f"batch {batch}, prompt "
           f"{prompt_len}: prefill {row['prefill_ms']:.3f} ms (bound "
           f"{prefill_bound:.3f}); decode {row['decode_ms_per_step']:.3f} ms "
           f"a step over {n_dec} steps (bound {decode_bound:.3f}; "
           f"{row['tok_per_s']:,.1f} tok/s); peak device bytes {peak:,}; "
           f"weight bytes {weight_bytes:,} (param_count() x 2 = "
-          f"{row['param_count_x2']:,}); init {init_s:.2f} s; cached "
-          f"logits {dist:.3e} (relative L2) from the uncached forward "
-          f"(bar {bar:g}); first row {row['first_row']}"
+          f"{row['param_count_x2']:,}); init {init_s:.2f} s; {held} "
+          f"{dist:.3e} (relative L2, bar {bar:g})"
+          + (f"; capacity {row['capacity_prefill']} a prefill expert "
+             f"(capacity_factor {cfg.capacity_factor:g}, {cfg.moe_impl})"
+             if cfg.is_moe else "")
+          + f"; first row {row['first_row']}"
           if cuda else f"[chip_smoke] lm {cfg.name}: {row}", flush=True)
     if not finite or out.shape != (batch, steps):
         raise SystemExit(f"lm {cfg.name}: generated {tuple(out.shape)}, "
                          f"finite logits: {finite}")
     if not dist <= bar:
-        raise SystemExit(f"lm {cfg.name}: the cached logits are {dist:.3e} "
-                         f"from the uncached forward (bar {bar:g})")
+        raise SystemExit(f"lm {cfg.name}: {held} {dist:.3e} (bar {bar:g})")
     return row
+
+
+def lm_sort_check(device, path=LM_GOLDEN, arch=LM_SORT_ARCH,
+                  tol=LM_SORT_TOL):
+    """``arch``'s smoke config with ``moe_impl="sort"`` at f32 on the
+    golden file's prompt and the seeded numpy weights: forward and greedy
+    logits on ``device`` within ``tol`` (max relative) of the port's on the
+    CPU, the greedy tokens equal. Returns the worst distance."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.interop import random_lm_state
+    from repro_torch.models import LanguageModel, forward
+    from repro_torch.train import greedy_generate
+
+    cfg = dataclasses.replace(get_smoke_config(arch), moe_impl="sort")
+    state = {k: torch.from_numpy(v) for k, v in random_lm_state(cfg).items()}
+    with np.load(path) as f:
+        prompt = torch.from_numpy(f[f"{arch}/prompt"])
+    outs = {}
+    for dev in (device, torch.device("cpu")):
+        model = LanguageModel(cfg, device=dev)
+        model.load_state_dict(state)
+        with torch.inference_mode():
+            logits = forward(model, {"tokens": prompt.to(dev)})[0]
+        toks, steps = greedy_generate(model, prompt, 4, all_logits=True)
+        outs[dev.type] = (logits.cpu(), steps.cpu(), toks.cpu())
+    got, want = outs[device.type], outs["cpu"]
+    worst = max(compare(got[i].double(), want[i].double())[1]
+                for i in (0, 1))
+    same = torch.equal(got[2], want[2])
+    print(f"[chip_smoke] lm sort dispatch {cfg.name} on {device.type} "
+          f"against the CPU: forward and greedy logits {worst:.3e} (max "
+          f"relative, bar {tol:g}); greedy tokens equal: {same}",
+          flush=True)
+    if not (worst <= tol and same):
+        raise SystemExit(f"lm sort dispatch {cfg.name}: the card is not the "
+                         "CPU's")
+    return worst
 
 
 def lm_golden(device, path=LM_GOLDEN, tol=LM_GOLDEN_TOL):
@@ -1963,32 +2088,66 @@ def lm_golden(device, path=LM_GOLDEN, tol=LM_GOLDEN_TOL):
     return worst
 
 
+def lm_f32(cfg, steps, prompt_len):
+    """(the f32 repeat of ``cfg``, its batch or None): LM_F32_LAYERS
+    layers; a MoE config at LM_F32_MOE's depth and batch with
+    capacity_factor E / top_k, checked to leave every entry its slot at
+    every length the run takes."""
+    from repro_torch.models.moe import moe_capacity
+
+    f32 = dict(dtype="float32", param_dtype="float32")
+    if not cfg.is_moe:
+        return dataclasses.replace(cfg, num_layers=LM_F32_LAYERS, **f32), None
+    layers, batch = LM_F32_MOE[cfg.name.removesuffix("-smoke")]
+    raised = dataclasses.replace(
+        cfg, num_layers=layers, capacity_factor=cfg.num_experts / cfg.top_k,
+        **f32)
+    short = [n for n in range(1, prompt_len + steps)
+             if moe_capacity(raised, n) < n]
+    if short:
+        raise SystemExit(f"{cfg.name}: capacity_factor "
+                         f"{raised.capacity_factor} leaves lengths "
+                         f"{short[:5]} short of a slot per token")
+    print(f"[chip_smoke] lm {cfg.name} f32 repeat: capacity raised for this "
+          f"check only (capacity_factor {cfg.capacity_factor:g} -> "
+          f"{raised.capacity_factor:g} = num_experts / top_k: capacity >= S "
+          f"at every length, no entry dropped), layers {layers}, batch "
+          f"{batch}", flush=True)
+    return raised, batch
+
+
 def lm_phase(device, smi, cpu=False):
     """LM_RUNS at full width on the card (with ``cpu``: their smoke configs
     on the CPU, prompts past the window, a rehearsal), each again at f32
-    and LM_F32_LAYERS layers (bar LM_F32_BAR), then the golden file. Fails
-    if the path launched a hand kernel. Returns the rows."""
+    (``lm_f32``; bar LM_F32_BAR), then the sort-dispatch check and the
+    golden file. Fails if the path launched a hand kernel. Returns the
+    rows."""
     from repro_torch.configs import get_config, get_smoke_config
 
-    f32 = dict(num_layers=LM_F32_LAYERS, dtype="float32",
-               param_dtype="float32")
-    runs = [(arch, n, bar, {}) for arch, n, bar in LM_RUNS]
-    runs += [(arch, n, LM_F32_BAR, f32) for arch, n, _ in LM_RUNS]
     sizes = dict(batch=2, steps=6) if cpu else {}
+    steps = sizes.get("steps", LM_STEPS)
+    runs = []
+    for arch, n, bar, changes in LM_RUNS:
+        full = (get_smoke_config if cpu else get_config)(arch)
+        runs.append((dataclasses.replace(full, **changes), 24 if cpu else n,
+                     bar, full.num_layers, {}))
+    for cfg, n, _, of, _ in list(runs):
+        f32, batch = lm_f32(cfg, steps, n)
+        runs.append((f32, n, LM_F32_BAR, of,
+                     {} if batch is None or cpu else dict(batch=batch)))
     reset_counts()
     rows = []
-    for arch, prompt_len, bar, changes in runs:
-        cfg = (get_smoke_config if cpu else get_config)(arch)
-        rows.append(lm_serve(dataclasses.replace(cfg, **changes),
-                             24 if cpu else prompt_len, bar, device, smi,
-                             **sizes))
+    for cfg, prompt_len, bar, of_layers, kw in runs:
+        rows.append(lm_serve(cfg, prompt_len, bar, device, smi,
+                             of_layers=of_layers, **sizes, **kw))
         free()
+    sort = lm_sort_check(device)
     golden = lm_golden(device)
     launched = {k: v for k, v in launch_counts().items() if v}
     if launched:
         raise SystemExit(f"the LM path launched hand kernels: {launched}")
-    print(f"[chip_smoke] lm {json.dumps(dict(runs=rows, golden=golden))}",
-          flush=True)
+    summary = dict(runs=rows, sort=sort, golden=golden)
+    print(f"[chip_smoke] lm {json.dumps(summary)}", flush=True)
     return rows
 
 

@@ -3,8 +3,8 @@ serving launchers (counterpart of ``repro.configs.registry``).
 
 Each config module registers a full-size config and a reduced smoke config
 used by the CPU tests: a FetiArchConfig for the paper's FETI problems, a
-:class:`~repro_torch.models.config.ModelConfig` for the language models
-whose blocks the port has (every family but MoE and MLA, ROADMAP A18b).
+:class:`~repro_torch.models.config.ModelConfig` for each of the reference's
+ten language models.
 """
 from __future__ import annotations
 
@@ -27,6 +27,8 @@ ARCH_MODULES = [
     "recurrentgemma_2b",
     "rwkv6_1_6b",
     "hubert_xlarge",
+    "deepseek_v2_236b",
+    "grok_1_314b",
     "feti_heat_2d",
     "feti_heat_3d",
     "feti_elasticity_2d",

@@ -187,7 +187,9 @@ def lm_layers_from_reference(cfg: ModelConfig, stack: dict) -> list:
 def lm_params_from_reference(cfg: ModelConfig, params: dict) -> dict:
     """The state dict of ``LanguageModel(cfg)`` (CPU tensors at the
     reference's dtypes) from the reference's params pytree, its leaves as
-    numpy. Load with ``model.load_state_dict(state)``."""
+    numpy. Load with ``model.load_state_dict(state)``. A MoE layer's
+    stacked experts (E, ...) are leaves like any other: stacked over the
+    cycles in ``body``, cut per cycle."""
     state = {"embed": _tensor(params["embed"])}
     for i, block in enumerate(lm_layers_from_reference(cfg,
                                                        params["stack"])):
@@ -205,20 +207,24 @@ def random_lm_state(cfg: ModelConfig, seed: int = 0) -> dict:
     by state-dict name (round them to ``cfg.param_dtype`` to load).
 
     Unlike the model's own initialization, every weight is drawn: norm
-    scales around 1, biases and the RWKV bonus around 0, mixes in (0, 1),
-    RWKV decay offsets near -3, RG-LRU's Λ with a = σ(Λ) in (0.9, 0.999),
-    dense weights N(0, 1/d_in), the embedding N(0, 1) (distinct logits)."""
+    scales (MLA's ``q_norm_scale`` and ``kv_norm_scale`` too) around 1,
+    biases and the RWKV bonus around 0, mixes in (0, 1), RWKV decay offsets
+    near -3, RG-LRU's Λ with a = σ(Λ) in (0.9, 0.999), dense weights and
+    the MoE router N(0, 1/d_in), the stacked experts (E, d_in, d_out)
+    N(0, 1/d_in), the embedding N(0, 1) (distinct logits)."""
     meta = LanguageModel(cfg, device="meta").state_dict()
     rng = np.random.default_rng(seed)
     out = {}
     for name, t in meta.items():
         shape, leaf = tuple(t.shape), name.rsplit(".", 1)[-1]
-        if leaf == "scale":
+        if leaf in ("scale", "q_norm_scale", "kv_norm_scale"):
             v = 1.0 + 0.1 * rng.standard_normal(shape)
         elif leaf in ("b", "bias", "conv_b", "u"):
             v = 0.1 * rng.standard_normal(shape)
-        elif leaf in ("w", "lm_head"):
+        elif leaf in ("w", "lm_head", "router"):
             v = rng.standard_normal(shape) / np.sqrt(shape[0])
+        elif leaf in ("wi", "wg", "wo") and len(shape) == 3:
+            v = rng.standard_normal(shape) / np.sqrt(shape[1])
         elif leaf == "embed":
             v = rng.standard_normal(shape)
         elif leaf == "conv_w":

@@ -3,14 +3,23 @@ recurrent caches, tokens/s reporting (counterpart of the reference's
 ``examples/serve_decode.py``).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-8b --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-v2-236b --smoke --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-8b --batch 8 --prompt-len 512
 
 The full config is served unless ``--smoke``; weights come from the
 model's own seeded initialization (``--seed``), the prompt from the same
-generator. Prints the prefill and decode milliseconds (host clock, each
-ended by a device synchronize; the first call's set-up included, as the
-example's), tok/s, the first generated row, the weights' bytes and the
-peak device bytes.
+generator. Every LM config but hubert-xlarge (encoder-only) serves, the
+MoE ones (deepseek-v2-236b with MLA, grok-1-314b) too. The full
+deepseek-v2-236b (471 GB of bf16 weights) and grok-1-314b (633 GB) do not
+fit on one 80 GB card, nor do qwen1.5-32b, mistral-large-123b and
+nemotron-4-340b: serve their smoke configs, or a depth-cut copy of the
+config from Python (``chip_smoke.py``'s lm phase serves deepseek at 4 of
+its 60 layers and grok at 2 of 64).
+
+Prints the prefill and decode milliseconds (host clock, each ended by a
+device synchronize; the first call's set-up included, as the example's),
+tok/s, the first generated row, the weights' bytes and the peak device
+bytes.
 """
 from __future__ import annotations
 

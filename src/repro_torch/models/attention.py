@@ -1,14 +1,18 @@
-"""Attention of the LM path (counterpart of ``repro.models.attention``, GQA
-and MHA): chunked (flash-style) softmax with RoPE / M-RoPE, sliding
-windows and KV caches, ring buffers of the window size among them.
+"""Attention of the LM path (counterpart of ``repro.models.attention``):
+chunked (flash-style) GQA / MHA with RoPE / M-RoPE, sliding windows and KV
+caches, ring buffers of the window size among them, and DeepSeek-V2's
+multi-head latent attention (MLA).
 
 :func:`flash_attention` is the reference's computation in torch ops: f32
 scores and accumulators, a running softmax over KV chunks, the chunk sizes
 fitted by the reference's divisor rule and causal block skipping under
 ``skip_masked_blocks``. It never materializes an (S, S) score matrix. The
-caches are dicts of tensors that :class:`Attention` updates in place (the
-reference returns new ones). MLA (DeepSeek-V2) is not ported yet
-(ROADMAP A18b).
+caches are dicts of tensors that :class:`Attention` and
+:class:`MLAttention` update in place (the reference returns new ones).
+MLA caches the compressed ``ckv`` and the shared ``krope`` of each token
+(576 values for deepseek-v2) and attends in that space with the key and
+value up-projections absorbed into the query and the output; without a
+cache it expands K and V per head.
 """
 from __future__ import annotations
 
@@ -19,9 +23,11 @@ import torch
 from torch import nn
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import Dense, Init, apply_mrope, apply_rope
+from repro_torch.models.layers import (Dense, Init, apply_mrope, apply_rope,
+                                      rms_norm)
 
-__all__ = ["NEG_INF", "flash_attention", "Attention", "init_kv_cache"]
+__all__ = ["NEG_INF", "flash_attention", "Attention", "MLAttention",
+           "init_kv_cache"]
 
 # Not -inf: a wholly masked KV chunk (empty cache slots, pos = -1) then
 # gives exp(0) terms that a later live chunk's correction wipes, where -inf
@@ -49,9 +55,13 @@ def flash_attention(
     kv_valid: Optional[torch.Tensor] = None,  # (B, Skv) bool
     q_chunk: int = 512,
     kv_chunk: int = 512,
+    scale: Optional[float] = None,
     skip_masked_blocks: bool = False,
 ) -> torch.Tensor:
     """Memory-efficient attention with a running softmax over KV chunks.
+
+    ``scale`` multiplies the queries (default ``1/sqrt(D)``; MLA passes
+    ``1/sqrt(dn + dr)`` whatever width its queries have).
 
     ``skip_masked_blocks``: under a causal mask without a window, a query
     chunk stops at the last KV chunk that can hold one of its keys. Returns
@@ -64,7 +74,8 @@ def flash_attention(
     G = Hq // Hkv
     cq, ck = _fit(q_chunk, Sq), _fit(kv_chunk, Skv)
     nq, nkv = Sq // cq, Skv // ck
-    qs = q.float() * (1.0 / math.sqrt(D))
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    qs = q.float() * scale
     outs = []
     for qi in range(nq):
         qsl = slice(qi * cq, (qi + 1) * cq)
@@ -114,8 +125,18 @@ def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
                   device, window: int = 0) -> dict:
     """One layer's cache: K and V of (batch, size, Hkv, hd) and the position
     of each slot (-1: empty). A local-attention layer keeps a ring buffer of
-    ``size = min(window, max_len)`` slots."""
+    ``size = min(window, max_len)`` slots. MLA keeps the compressed ``ckv``
+    (batch, size, kv_lora_rank) and ``krope`` (batch, size, rope dim)."""
     size = min(window, max_len) if window else max_len
+    if cfg.attn_kind == "mla":
+        return {
+            "ckv": torch.zeros((batch, size, cfg.kv_lora_rank), dtype=dtype,
+                               device=device),
+            "krope": torch.zeros((batch, size, cfg.qk_rope_head_dim),
+                                 dtype=dtype, device=device),
+            "pos": torch.full((batch, size), -1, dtype=torch.int32,
+                              device=device),
+        }
     shape = (batch, size, cfg.num_kv_heads, cfg.head_dim)
     return {
         "k": torch.zeros(shape, dtype=dtype, device=device),
@@ -134,23 +155,32 @@ def _store(dst: torch.Tensor, slots: torch.Tensor, val: torch.Tensor) -> None:
     dst[:, slots] = val
 
 
-def _cache_write(cache: dict, k, v, positions, index: int,
+def _cache_write(cache: dict, names, values, positions, index: int,
                  ring: bool) -> None:
-    """Write S new K/V entries and their positions at slot ``index`` on
-    (modulo the size if ``ring``), in place."""
-    S, size = k.shape[1], cache["k"].shape[1]
+    """Write S new entries of each cache entry in ``names`` (``values`` in
+    the same order) and their positions at slot ``index`` on (modulo the
+    size if ``ring``), in place."""
+    S, size = values[0].shape[1], cache[names[0]].shape[1]
     slots = torch.arange(index, index + S, device=positions.device)
     if ring:
         slots = slots % size
     elif index + S > size:
         raise IndexError(f"cache of {size} slots cannot take entries "
                          f"{index}..{index + S - 1}")
-    _store(cache["k"], slots, k)
-    _store(cache["v"], slots, v)
+    for name, val in zip(names, values):
+        _store(cache[name], slots, val)
     cache["pos"][:, slots] = positions[:, :S].to(torch.int32)
 
 
-# -------------------------------------------------------------- the block ----
+# ------------------------------------------------------------- the blocks ----
+def _rope(cfg: ModelConfig, x, positions):
+    if cfg.pos_emb == "mrope":
+        return apply_mrope(x, positions, cfg.rope_theta, cfg.mrope_sections)
+    if cfg.pos_emb == "rope":
+        return apply_rope(x, positions, cfg.rope_theta)
+    return x
+
+
 class Attention(nn.Module):
     """GQA / MHA with RoPE or M-RoPE; ``forward`` returns the block's output
     and updates ``cache`` in place."""
@@ -158,24 +188,14 @@ class Attention(nn.Module):
     def __init__(self, cfg: ModelConfig, init: Init):
         super().__init__()
         if cfg.attn_kind != "gqa":
-            raise ValueError(
-                f"attn_kind={cfg.attn_kind!r} is not ported: MLA waits for "
-                "ROADMAP A18b")
+            raise ValueError(f"attn_kind={cfg.attn_kind!r}: Attention is GQA "
+                             "/ MHA (MLA is MLAttention)")
         self.cfg = cfg
         d, hd = cfg.d_model, cfg.head_dim
         self.wq = Dense(d, cfg.num_heads * hd, init, cfg.qkv_bias)
         self.wk = Dense(d, cfg.num_kv_heads * hd, init, cfg.qkv_bias)
         self.wv = Dense(d, cfg.num_kv_heads * hd, init, cfg.qkv_bias)
         self.wo = Dense(cfg.num_heads * hd, d, init)
-
-    def _rope(self, x, positions):
-        cfg = self.cfg
-        if cfg.pos_emb == "mrope":
-            return apply_mrope(x, positions, cfg.rope_theta,
-                               cfg.mrope_sections)
-        if cfg.pos_emb == "rope":
-            return apply_rope(x, positions, cfg.rope_theta)
-        return x
 
     def forward(self, x, positions, cache: Optional[dict] = None,
                 cache_index: int = 0, window: int = 0, q_chunk: int = 512,
@@ -192,8 +212,8 @@ class Attention(nn.Module):
         H, Hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
         pos_1d = positions[..., 0] if positions.dim() == 3 else positions
         ring = window > 0 and cache is not None
-        q = self._rope(self.wq(x).reshape(B, S, H, hd), positions)
-        k = self._rope(self.wk(x).reshape(B, S, Hkv, hd), positions)
+        q = _rope(cfg, self.wq(x).reshape(B, S, H, hd), positions)
+        k = _rope(cfg, self.wk(x).reshape(B, S, Hkv, hd), positions)
         v = self.wv(x).reshape(B, S, Hkv, hd)
         chunks = dict(q_chunk=q_chunk, kv_chunk=kv_chunk)
         if cache is None or (ring and S > 1):
@@ -205,13 +225,95 @@ class Attention(nn.Module):
                 # tokens early in the prefix would be overwritten before
                 # their window expires: persist only the last W
                 wl = min(cache["k"].shape[1], S)
-                _cache_write(cache, k[:, S - wl:], v[:, S - wl:],
+                _cache_write(cache, ("k", "v"), (k[:, S - wl:], v[:, S - wl:]),
                              pos_1d[:, S - wl:], cache_index + S - wl,
                              ring=True)
         else:
-            _cache_write(cache, k, v, pos_1d, cache_index, ring)
+            _cache_write(cache, ("k", "v"), (k, v), pos_1d, cache_index, ring)
             out = flash_attention(q, cache["k"], cache["v"], pos_1d,
                                   cache["pos"], causal=cfg.causal,
                                   window=window, kv_valid=cache["pos"] >= 0,
                                   **chunks)
         return self.wo(out.reshape(B, S, H * hd))
+
+
+class MLAttention(nn.Module):
+    """DeepSeek-V2 multi-head latent attention (the reference's
+    ``_mla_block``); ``forward`` returns the block's output and updates
+    ``cache`` in place.
+
+    The parameters keep the reference's names: ``wq_a``, ``q_norm_scale``
+    (with a query rank), ``wq_b``, ``wkv_a``, ``kv_norm_scale``, ``wk_b``,
+    ``wv_b``, ``wo``. Without a cache K and V are expanded per head (every
+    head sharing the one RoPE'd key part); with one, prefill included, the
+    compressed entries are written and the queries attend in their space:
+    ``wk_b`` absorbed into the query, ``wv_b`` applied to the context.
+    Both modes scale the scores by ``1/sqrt(dn + dr)``.
+    """
+
+    def __init__(self, cfg: ModelConfig, init: Init):
+        super().__init__()
+        if cfg.attn_kind != "mla":
+            raise ValueError(f"attn_kind={cfg.attn_kind!r} is not MLA")
+        self.cfg = cfg
+        d, H, rank = cfg.d_model, cfg.num_heads, cfg.kv_lora_rank
+        dn, dr = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+        if cfg.q_lora_rank:
+            self.wq_a = Dense(d, cfg.q_lora_rank, init)
+            self.q_norm_scale = init.full((cfg.q_lora_rank,), 1.0)
+            self.wq_b = Dense(cfg.q_lora_rank, H * (dn + dr), init)
+        else:
+            self.wq_a = self.q_norm_scale = None
+            self.wq_b = Dense(d, H * (dn + dr), init)
+        self.wkv_a = Dense(d, rank + dr, init)
+        self.kv_norm_scale = init.full((rank,), 1.0)
+        self.wk_b = Dense(rank, H * dn, init)
+        self.wv_b = Dense(rank, H * cfg.v_head_dim, init)
+        self.wo = Dense(H * cfg.v_head_dim, d, init)
+
+    def forward(self, x, positions, cache: Optional[dict] = None,
+                cache_index: int = 0, window: int = 0, q_chunk: int = 512,
+                kv_chunk: int = 512, skip_masked_blocks: bool = False):
+        """x: (B, S, d); positions (B, S), or (B, S, 3) under mrope.
+        ``window`` is accepted for the block's uniform call and ignored, as
+        the reference ignores it for MLA (its cache is no ring)."""
+        cfg = self.cfg
+        B, S, _ = x.shape
+        H, rank = cfg.num_heads, cfg.kv_lora_rank
+        dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+        pos_1d = positions[..., 0] if positions.dim() == 3 else positions
+        if self.wq_a is not None:
+            q = self.wq_b(rms_norm(self.wq_a(x), self.q_norm_scale,
+                                   cfg.norm_eps))
+        else:
+            q = self.wq_b(x)
+        q = q.reshape(B, S, H, dn + dr)
+        q_nope, q_rope = q[..., :dn], _rope(cfg, q[..., dn:], positions)
+        kv = self.wkv_a(x)
+        ckv = rms_norm(kv[..., :rank], self.kv_norm_scale, cfg.norm_eps)
+        krope = _rope(cfg, kv[..., None, rank:], positions)[:, :, 0]
+        wk_b = self.wk_b.w.reshape(rank, H, dn)
+        wv_b = self.wv_b.w.reshape(rank, H, dv)
+        args = dict(causal=cfg.causal, q_chunk=q_chunk, kv_chunk=kv_chunk,
+                    scale=1.0 / math.sqrt(dn + dr))
+        if cache is None:
+            k_nope = torch.einsum("bsr,rhd->bshd", ckv, wk_b)
+            v = torch.einsum("bsr,rhd->bshd", ckv, wv_b)
+            k = torch.cat([k_nope, krope[:, :, None, :].expand(B, S, H, dr)],
+                          dim=-1)
+            out = flash_attention(torch.cat([q_nope, q_rope], dim=-1), k, v,
+                                  pos_1d, pos_1d,
+                                  skip_masked_blocks=skip_masked_blocks,
+                                  **args)
+        else:
+            _cache_write(cache, ("ckv", "krope"), (ckv, krope), pos_1d,
+                         cache_index, ring=False)
+            q_abs = torch.einsum("bshd,rhd->bshr", q_nope, wk_b)
+            q_eff = torch.cat([q_abs, q_rope], dim=-1)  # (B, S, H, rank+dr)
+            kv_eff = torch.cat([cache["ckv"], cache["krope"]], dim=-1)
+            ctx = flash_attention(q_eff, kv_eff[:, :, None, :],
+                                  cache["ckv"][:, :, None, :], pos_1d,
+                                  cache["pos"], kv_valid=cache["pos"] >= 0,
+                                  **args)  # (B, S, H, rank)
+            out = torch.einsum("bshr,rhd->bshd", ctx, wv_b)
+        return self.wo(out.reshape(B, S, H * dv))

@@ -4,8 +4,7 @@ reference's ``ModelConfig``, every field and count kept).
 One dataclass; families select behaviour through the ``attn_kind`` /
 ``mlp_kind`` / ``layer_pattern`` fields rather than subclassing, so every
 architecture flows through the same layer stack and serve steps. Pure
-Python: the MoE and MLA fields are kept (and counted by ``param_count``)
-though their blocks are not ported yet (ROADMAP A18b).
+Python.
 """
 from __future__ import annotations
 

@@ -47,15 +47,19 @@ class Init:
     dtype: torch.dtype
     generator: Optional[torch.Generator]
 
-    def _empty(self, shape) -> torch.Tensor:
-        return torch.empty(shape, dtype=self.dtype, device=self.device)
+    def _empty(self, shape, dtype=None) -> torch.Tensor:
+        return torch.empty(shape, dtype=dtype or self.dtype,
+                           device=self.device)
 
-    def normal(self, shape, scale: float) -> nn.Parameter:
+    def normal(self, shape, scale: float,
+               dtype: Optional[torch.dtype] = None) -> nn.Parameter:
+        """N(0, scale²) at ``dtype`` (default: the parameter dtype; the MoE
+        router stays f32)."""
         if self.device.type == "meta":
-            return _frozen(self._empty(shape))
+            return _frozen(self._empty(shape, dtype))
         x = torch.randn(shape, generator=self.generator, device=self.device,
                         dtype=torch.float32) * scale
-        return _frozen(x.to(self.dtype))
+        return _frozen(x.to(dtype or self.dtype))
 
     def full(self, shape, value: float) -> nn.Parameter:
         x = self._empty(shape)

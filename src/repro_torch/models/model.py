@@ -6,8 +6,10 @@ block stack, the final norm and the LM head (tied: ``h @ embedᵀ``).
 asks for another) from an explicit ``torch.Generator``; weights carried
 from the reference load through ``load_state_dict`` (see
 :func:`repro_torch.interop.lm_params_from_reference`). :func:`forward`
-returns ``(logits, cache)``: a cache from :func:`init_cache` (one dict per
-layer) is updated in place and returned.
+returns ``(logits, cache)``, with ``with_aux=True`` the reference's
+``(logits, cache, aux)`` (the MoE layers' summed auxiliary loss): a cache
+from :func:`init_cache` (one dict per layer) is updated in place and
+returned.
 """
 from __future__ import annotations
 
@@ -19,8 +21,8 @@ from torch import nn
 from repro_torch.device import resolve_device
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import DTYPES, Init, Norm
-from repro_torch.models.transformer import (Block, check_ported,
-                                            init_layer_cache)
+from repro_torch.models.transformer import (Block, StackLayout,
+                                            check_ported, init_layer_cache)
 
 __all__ = ["LanguageModel", "forward", "init_cache", "default_positions",
            "embed_inputs"]
@@ -32,7 +34,7 @@ class LanguageModel(nn.Module):
     ``generator`` (on ``device``; default: seeded 0) supplies every draw,
     with the reference's distributions. ``device="meta"`` allocates the
     parameters without values (shapes only). Raises ``ValueError`` for a
-    config whose blocks are not ported (MoE, MLA: ROADMAP A18b)."""
+    config with an unknown layer kind."""
 
     def __init__(self, cfg: ModelConfig,
                  device: Union[str, torch.device, None] = None,
@@ -45,8 +47,9 @@ class LanguageModel(nn.Module):
         init = Init(dev, DTYPES[cfg.param_dtype], generator)
         self.cfg = cfg
         self.embed = init.normal((cfg.vocab_size, cfg.d_model), 0.02)
-        self.blocks = nn.ModuleList(Block(cfg, kind, init)
-                                    for kind in cfg.layer_kinds)
+        self.blocks = nn.ModuleList(
+            Block(cfg, kind, init, use_moe=StackLayout.moe_of(cfg, i))
+            for i, kind in enumerate(cfg.layer_kinds))
         self.final_norm = Norm(cfg.d_model, cfg.norm, cfg.norm_eps, init)
         self.lm_head = (init.normal((cfg.d_model, cfg.vocab_size),
                                     cfg.d_model ** -0.5)
@@ -59,12 +62,15 @@ class LanguageModel(nn.Module):
 
     def forward(self, batch: dict, cache: Optional[list] = None,
                 cache_index: int = 0, positions=None,
-                attn_args: Optional[dict] = None, last_only: bool = False):
-        """Returns (logits (B, S, V), cache). ``batch`` holds ``tokens``
-        (B, S) and optionally ``features``, ``vision_embeds`` /
-        ``vision_mask`` and ``positions``; ``cache_index`` is the slot of
-        the first new token (a Python int). ``last_only`` projects only
-        the last position through the head (the prefill path)."""
+                attn_args: Optional[dict] = None, last_only: bool = False,
+                with_aux: bool = False):
+        """Returns (logits (B, S, V), cache), with ``with_aux`` also the
+        MoE layers' summed auxiliary loss (an f32 scalar; 0 without MoE).
+        ``batch`` holds ``tokens`` (B, S) and optionally ``features``,
+        ``vision_embeds`` / ``vision_mask`` and ``positions``;
+        ``cache_index`` is the slot of the first new token (a Python int).
+        ``last_only`` projects only the last position through the head
+        (the prefill path)."""
         cfg = self.cfg
         h = embed_inputs(self, batch)
         B, S = h.shape[:2]
@@ -75,17 +81,27 @@ class LanguageModel(nn.Module):
                                           device=self.device)
         positions = positions.to(self.device)
         attn_args = attn_args or {}
+        aux = None
         for i, block in enumerate(self.blocks):
-            h = block(h, positions, cache[i] if cache is not None else None,
-                      cache_index, attn_args)
+            h, a = block(h, positions,
+                         cache[i] if cache is not None else None,
+                         cache_index, attn_args)
+            if a is not None:
+                aux = a if aux is None else aux + a
         if last_only:
             h = h[:, -1:, :]
         h = self.final_norm(h)
         if not cfg.has_lm_head:
-            return h, cache
-        if cfg.tie_embeddings:
-            return torch.einsum("bsd,vd->bsv", h, self.embed), cache
-        return h @ self.lm_head, cache
+            out = h
+        elif cfg.tie_embeddings:
+            out = torch.einsum("bsd,vd->bsv", h, self.embed)
+        else:
+            out = h @ self.lm_head
+        if not with_aux:
+            return out, cache
+        if aux is None:
+            aux = torch.zeros((), dtype=torch.float32, device=self.device)
+        return out, cache, aux
 
 
 def forward(model: LanguageModel, batch: dict, cache: Optional[list] = None,
@@ -119,7 +135,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     activation dtype): K/V and slot positions for attention (a ring buffer
     of the window under local attention), ``(h, conv)`` for RG-LRU,
     ``(S, shift_tm, shift_cm)`` for RWKV-6. A float8 cache rounds on write
-    and reads back at f32."""
+    and reads back at f32. MLA layers keep the compressed ``ckv`` and
+    ``krope`` (no ring)."""
     check_ported(cfg)
     dev = resolve_device(device)
     dtype = DTYPES[cfg.cache_dtype or cfg.dtype]

@@ -1,0 +1,130 @@
+"""Mixture-of-Experts layer (counterpart of ``repro.models.moe``): top-k
+routing with a per-expert capacity, dispatched either GShard-style (one-hot
+dispatch and combine einsums) or by sorting (``moe_impl="sort"``: argsort
+and gathers, MegaBlocks-style), plus DeepSeek-V2's shared experts and the
+router's load-balancing auxiliary loss.
+
+Capacity is ``max(int(S * k / E * capacity_factor), 1)`` for a call of S
+tokens, per batch row (a row is a group); a (token, choice) entry past its
+expert's capacity is dropped. Both dispatches drop by queue position, the
+GShard one in token order and the sort one in sorted order (the same order:
+the sort is stable). The router stays f32 whatever the parameter dtype.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import MLP, Init
+
+__all__ = ["MoE", "moe_capacity"]
+
+
+def moe_capacity(cfg: ModelConfig, S: int) -> int:
+    """Slots per expert and batch row for a call of ``S`` tokens, evaluated
+    in the reference's order (float rounding of the product decides it)."""
+    return max(int(S * cfg.top_k / cfg.num_experts * cfg.capacity_factor), 1)
+
+
+class MoE(nn.Module):
+    """Routed SwiGLU experts, stacked as ``wi``/``wg`` (E, d, e_ff) and
+    ``wo`` (E, e_ff, d), the f32 ``router`` (d, E) and, with
+    ``num_shared_experts``, one dense SwiGLU ``shared`` of width
+    ``e_ff · num_shared_experts`` that every token runs. ``forward`` returns
+    ``(y, aux_loss)``."""
+
+    def __init__(self, cfg: ModelConfig, init: Init):
+        super().__init__()
+        self.cfg = cfg
+        d, E = cfg.d_model, cfg.num_experts
+        e_ff = cfg.moe_d_ff or cfg.d_ff
+        self.router = init.normal((d, E), d ** -0.5, dtype=torch.float32)
+        self.wi = init.normal((E, d, e_ff), d ** -0.5)
+        self.wg = init.normal((E, d, e_ff), d ** -0.5)
+        self.wo = init.normal((E, e_ff, d), e_ff ** -0.5)
+        self.shared = (MLP(d, e_ff * cfg.num_shared_experts, "swiglu", init)
+                       if cfg.num_shared_experts else None)
+
+    def _experts(self, xe):
+        """The SwiGLU of every expert on its slots: (..., E, C, d)."""
+        h = torch.einsum("becd,edf->becf", xe, self.wi)
+        g = torch.einsum("becd,edf->becf", xe, self.wg)
+        return torch.einsum("becf,efd->becd", F.silu(g) * h, self.wo)
+
+    def forward(self, x) -> Tuple[torch.Tensor, torch.Tensor]:
+        """x: (B, S, d). Returns (y (B, S, d), aux_loss (f32 scalar))."""
+        cfg = self.cfg
+        E, k = cfg.num_experts, cfg.top_k
+        capacity = moe_capacity(cfg, x.shape[1])
+        probs = torch.softmax(torch.einsum("bsd,de->bse", x.float(),
+                                           self.router), dim=-1)
+        gate_vals, gate_idx = torch.topk(probs, k, dim=-1)  # (B, S, k)
+        gate_vals = gate_vals / torch.clamp_min(
+            gate_vals.sum(-1, keepdim=True), 1e-9)
+        dispatch = self._sorted if cfg.moe_impl == "sort" else self._gshard
+        y = dispatch(x, gate_vals, gate_idx, capacity)
+        if self.shared is not None:
+            y = y + self.shared(x)
+        return y, self._aux_loss(probs, gate_idx)
+
+    def _aux_loss(self, probs, gate_idx):
+        """Switch's load-balancing loss, E · Σ_e f_e p_e · router_aux_coef:
+        f_e the share of first choices, p_e the mean probability."""
+        E = self.cfg.num_experts
+        frac_tokens = F.one_hot(gate_idx[..., 0], E).float().mean((0, 1))
+        frac_probs = probs.mean((0, 1))
+        return E * (frac_tokens * frac_probs).sum() * self.cfg.router_aux_coef
+
+    def _gshard(self, x, gate_vals, gate_idx, capacity):
+        B, S, _ = x.shape
+        E, k = self.cfg.num_experts, self.cfg.top_k
+        # each (token, choice)'s place in its expert's queue: s outer, k inner
+        onehot = F.one_hot(gate_idx, E)  # (B, S, k, E)
+        flat = onehot.reshape(B, S * k, E)
+        pos = ((flat.cumsum(1) - flat) * flat).sum(-1).reshape(B, S, k)
+        # past capacity: an all-zero slot one-hot, the entry dropped
+        slots = torch.arange(capacity, device=x.device)
+        pos_oh = (pos[..., None] == slots).to(x.dtype)  # (B, S, k, C)
+        exp_oh = onehot.to(x.dtype)
+        dispatch = torch.einsum("bske,bskc->bsec", exp_oh, pos_oh)
+        combine = torch.einsum("bsk,bske,bskc->bsec", gate_vals.to(x.dtype),
+                               exp_oh, pos_oh)
+        xe = torch.einsum("bsd,bsec->becd", x, dispatch)  # (B, E, C, d)
+        return torch.einsum("becd,bsec->bsd", self._experts(xe), combine)
+
+    def _sorted(self, x, gate_vals, gate_idx, capacity):
+        """Sort and gather, each batch row a group: the (token, choice)
+        entries sorted stably by expert, an expert's queue position its
+        rank among them, entries at or past capacity sent to the overflow
+        slot E·C (zeroed, then scaled by 0). The outputs return to token
+        order through the inverse permutation and sum over the k choices:
+        no scatter-add, so no atomics."""
+        B, S, d = x.shape
+        E, k, C = self.cfg.num_experts, self.cfg.top_k, capacity
+        dev = x.device
+        flat_e = gate_idx.reshape(B, S * k)
+        order = torch.argsort(flat_e, dim=-1, stable=True)
+        e_sorted = flat_e.gather(1, order)
+        tok_sorted = order // k  # entry s·k + j belongs to token s
+        gate_sorted = gate_vals.reshape(B, S * k).gather(1, order)
+        start = torch.searchsorted(
+            e_sorted, torch.arange(E, device=dev).expand(B, E).contiguous(),
+            side="left")
+        pos = torch.arange(S * k, device=dev) - start.gather(1, e_sorted)
+        keep = pos < C
+        dest = torch.where(keep, e_sorted * C + pos, E * C)
+        rows = torch.arange(B, device=dev)[:, None]
+        buf = torch.zeros((B, E * C + 1, d), dtype=x.dtype, device=dev)
+        # kept entries have distinct slots; the overflow slot only takes
+        # zeros and is cut off
+        buf[rows, dest] = x[rows, tok_sorted] * keep[..., None].to(x.dtype)
+        ye = self._experts(buf[:, :-1].reshape(B, E, C, d))
+        ye = torch.cat([ye.reshape(B, E * C, d),
+                        ye.new_zeros((B, 1, d))], dim=1)
+        contrib = ye[rows, dest] * (gate_sorted * keep)[..., None].to(ye.dtype)
+        inverse = torch.argsort(order, dim=-1)
+        return contrib[rows, inverse].reshape(B, S, k, d).sum(2)

@@ -1,12 +1,14 @@
 """Block and stack of the LM path (counterpart of
 ``repro.models.transformer``): one pre-norm residual block per layer kind
-(attn / rwkv6 / rglru), run as a Python loop over an ``nn.ModuleList``.
+(attn / rwkv6 / rglru; attn is GQA or MLA), its MLP dense or a MoE layer,
+run as a Python loop over an ``nn.ModuleList``.
 
 The reference stacks the layers of each pattern slot for ``lax.scan``
 (prologue / scanned cycles / epilogue, :class:`StackLayout`); here the
 blocks are one list in layer order, and :meth:`StackLayout.layer` maps the
-reference's ``body[j]`` entry of cycle ``c`` to its layer. MoE layers are
-not ported yet (ROADMAP A18b).
+reference's ``body[j]`` entry of cycle ``c`` to its layer. A layer is MoE
+when the config has experts and the layer is past ``first_dense_layers``
+(:meth:`StackLayout.moe_of`).
 """
 from __future__ import annotations
 
@@ -15,9 +17,11 @@ from typing import Optional, Tuple
 
 from torch import nn
 
-from repro_torch.models.attention import Attention, init_kv_cache
+from repro_torch.models.attention import (Attention, MLAttention,
+                                          init_kv_cache)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import MLP, Init, Norm
+from repro_torch.models.moe import MoE
 from repro_torch.models.rglru import RGLRU, init_rglru_state
 from repro_torch.models.rwkv6 import RWKV6, init_rwkv_state
 
@@ -25,13 +29,8 @@ __all__ = ["StackLayout", "Block", "check_ported", "init_layer_cache"]
 
 
 def check_ported(cfg: ModelConfig) -> None:
-    """Raise ``ValueError`` for a config that needs a block not ported yet."""
-    if cfg.attn_kind == "mla" and "attn" in cfg.layer_kinds:
-        raise ValueError(f"{cfg.name}: MLA attention is not ported yet "
-                         "(ROADMAP A18b)")
-    if cfg.is_moe:
-        raise ValueError(f"{cfg.name}: MoE layers are not ported yet "
-                         "(ROADMAP A18b)")
+    """Raise ``ValueError`` for a config with a layer kind the stack does
+    not know."""
     unknown = set(cfg.layer_kinds) - {"attn", "rwkv6", "rglru"}
     if unknown:
         raise ValueError(f"unknown layer kinds {sorted(unknown)}")
@@ -60,25 +59,39 @@ class StackLayout:
         """The layer of the reference's ``body[j]``, cycle ``c``."""
         return len(self.prologue) + c * len(self.pattern) + j
 
+    @staticmethod
+    def moe_of(cfg: ModelConfig, layer: int) -> bool:
+        """Whether ``layer``'s MLP is a MoE layer (deepseek-v2's first
+        layer keeps its dense MLP)."""
+        return cfg.is_moe and layer >= cfg.first_dense_layers
+
 
 class Block(nn.Module):
     """Pre-norm residual block: ``x + inner(norm1(x))``, then
     ``x + mlp(norm2(x))`` (an RWKV-6 layer's own channel mix in place of
-    the MLP)."""
+    the MLP; with ``use_moe`` a :class:`~repro_torch.models.moe.MoE`)."""
 
-    def __init__(self, cfg: ModelConfig, kind: str, init: Init):
+    def __init__(self, cfg: ModelConfig, kind: str, init: Init,
+                 use_moe: bool = False):
         super().__init__()
         self.cfg, self.kind = cfg, kind
         self.norm1 = Norm(cfg.d_model, cfg.norm, cfg.norm_eps, init)
-        self.inner = {"attn": Attention, "rwkv6": RWKV6,
+        attn = MLAttention if cfg.attn_kind == "mla" else Attention
+        self.inner = {"attn": attn, "rwkv6": RWKV6,
                       "rglru": RGLRU}[kind](cfg, init)
         self.norm2 = Norm(cfg.d_model, cfg.norm, cfg.norm_eps, init)
-        self.mlp = (None if kind == "rwkv6" else
-                    MLP(cfg.d_model, cfg.d_ff, cfg.mlp_kind, init,
-                        cfg.mlp_bias))
+        if kind == "rwkv6":
+            self.mlp = None
+        elif use_moe:
+            self.mlp = MoE(cfg, init)
+        else:
+            self.mlp = MLP(cfg.d_model, cfg.d_ff, cfg.mlp_kind, init,
+                           cfg.mlp_bias)
 
     def forward(self, x, positions, cache: Optional[dict], cache_index: int,
                 attn_args: dict):
+        """Returns ``(x, aux)``: the MoE layer's auxiliary loss, ``None``
+        without one."""
         h = self.norm1(x)
         if self.kind == "attn":
             y = self.inner(h, positions, cache, cache_index,
@@ -87,9 +100,14 @@ class Block(nn.Module):
             y = self.inner(h, cache)
         x = x + y
         h = self.norm2(x)
-        y = (self.inner.channel_mix(h, cache) if self.kind == "rwkv6"
-             else self.mlp(h))
-        return x + y
+        aux = None
+        if self.kind == "rwkv6":
+            y = self.inner.channel_mix(h, cache)
+        elif isinstance(self.mlp, MoE):
+            y, aux = self.mlp(h)
+        else:
+            y = self.mlp(h)
+        return x + y, aux
 
 
 def init_layer_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,

@@ -1,7 +1,8 @@
 """The LM serving path against the reference, one parametrized case per
-smoke config the port has (every family but MoE and MLA): the configs are
-the reference's field for field; ``forward`` logits; prefill then decode,
-logits and cache contents; ``greedy_generate``'s tokens, equal at f32; a
+smoke config (all ten, deepseek-v2's MLA and MoE and grok-1's MoE among
+them): the configs are the reference's field for field; ``forward``
+logits; prefill then decode, logits and cache contents (MLA's compressed
+``ckv`` / ``krope`` too); ``greedy_generate``'s tokens, equal at f32; a
 ring-buffer decode past the window (recurrentgemma); qwen1.5's float8
 cache; the frontend stubs; the golden file (recomputed with the reference,
 and met by the port); the serving launcher.
@@ -398,7 +399,7 @@ def test_port_meets_golden_on_cuda():
 
 # ---------------------------------------------------------- launcher ----
 @pytest.mark.parametrize("arch", ["granite-3-8b", "recurrentgemma-2b",
-                                  "rwkv6-1.6b"])
+                                  "rwkv6-1.6b", "deepseek-v2-236b"])
 def test_serve_launcher_on_cpu(arch, capsys):
     from repro_torch.launch import serve
 

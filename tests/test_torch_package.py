@@ -124,19 +124,30 @@ def test_unported_paths_name_their_roadmap_item():
          qk_nope_head_dim=8, qk_rope_head_dim=8, v_head_dim=8),
     dict(num_experts=4, top_k=2, moe_d_ff=32),
 ])
-def test_moe_and_mla_name_their_roadmap_item(changes):
-    """The LM blocks not ported yet raise ``ValueError`` naming ROADMAP
-    A18b (never ``NotImplementedError``), from the model and the cache."""
+def test_moe_and_mla_configs_build(changes):
+    """MLA attention and MoE layers (ported in A18b) build: the model and
+    ``init_cache``, whose layers have the reference's cache entries and
+    shapes (MLA: the compressed ``ckv`` and ``krope``), and a cached
+    forward runs."""
     import dataclasses
 
+    from repro.configs import get_smoke_config as ref_smoke
+    from repro.models import init_cache as ref_init_cache
     from repro_torch.configs import get_smoke_config
-    from repro_torch.models import LanguageModel, init_cache
+    from repro_torch.interop import lm_layers_from_reference
+    from repro_torch.models import LanguageModel, forward, init_cache
 
     cfg = dataclasses.replace(get_smoke_config("granite-3-8b"), **changes)
-    with pytest.raises(ValueError, match="A18b"):
-        LanguageModel(cfg, device="cpu")
-    with pytest.raises(ValueError, match="A18b"):
-        init_cache(cfg, 1, 4, device="cpu")
+    rcfg = dataclasses.replace(ref_smoke("granite-3-8b"), **changes)
+    model = LanguageModel(cfg, device="cpu")
+    cache = init_cache(cfg, 1, 4, device="cpu")
+    want = lm_layers_from_reference(cfg, ref_init_cache(rcfg, 1, 4))
+    assert [{k: tuple(v.shape) for k, v in layer.items()} for layer in cache
+            ] == [{k: v.shape for k, v in layer.items()} for layer in want]
+    tokens = torch.zeros((1, 4), dtype=torch.int32)
+    logits, _ = forward(model, {"tokens": tokens}, cache)
+    assert torch.isfinite(logits).all()
+    assert (cache[0]["pos"] == torch.arange(4)).all()
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

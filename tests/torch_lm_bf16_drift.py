@@ -13,7 +13,11 @@ port's own initialization, carried into the reference) on a 96-token
 prompt for 12 greedy steps, on the CPU. Per arch and dtype it prints the
 relative L2 distance of each package's cached step logits from its own
 uncached forward's, and of the port's step logits from the reference's
-(both fed the port's greedy tokens).
+(both fed the port's greedy tokens). For a MoE arch (deepseek-v2-236b:
+MLA and routed experts; grok-1-314b) a forward over more tokens has
+another capacity, so, as in ``chip_smoke.py``, the prefill's logits are
+held against an uncached forward over the prompt alone (for deepseek,
+MLA's absorbed mode against its expanded one).
 """
 from __future__ import annotations
 
@@ -25,6 +29,7 @@ import sys
 import numpy as np
 
 ARCHS = ("granite-3-8b", "recurrentgemma-2b", "rwkv6-1.6b")
+MOE_ARCHS = ("deepseek-v2-236b", "grok-1-314b")
 
 
 def rel_l2(a, b):
@@ -53,6 +58,11 @@ def drift(arch, dtype, layers, width, B=4, S=96, T=12):
     elif arch == "recurrentgemma-2b":
         kw.update(num_heads=8, num_kv_heads=1, head_dim=width // 8,
                   lru_width=width)
+    elif arch == "grok-1-314b":
+        kw.update(num_heads=8, num_kv_heads=2, head_dim=width // 8,
+                  moe_d_ff=2 * width)
+    elif arch == "deepseek-v2-236b":  # MLA ranks and experts: the smoke's
+        kw.update(num_heads=8)
     cfg = dataclasses.replace(get_smoke_config(arch), **kw)
     rcfg = dataclasses.replace(ref_smoke(arch), **kw)
     model = LanguageModel(cfg, device="cpu",
@@ -61,9 +71,12 @@ def drift(arch, dtype, layers, width, B=4, S=96, T=12):
     out, steps = greedy_generate(model, torch.from_numpy(prompt), T,
                                  all_logits=True)
     toks = out.numpy()
-    full, _ = forward(model, {"tokens": torch.from_numpy(
-        np.concatenate([prompt, toks[:, :-1]], 1))})
-    port = rel_l2(steps.float().numpy(), full[:, S - 1:].float().numpy())
+    # the tokens of the uncached forward and the positions held to it
+    seq, held = np.concatenate([prompt, toks[:, :-1]], 1), slice(S - 1, None)
+    if cfg.is_moe:
+        seq, held, steps = prompt, slice(S - 1, S), steps[:, :1]
+    full, _ = forward(model, {"tokens": torch.from_numpy(seq)})
+    port = rel_l2(steps.float().numpy(), full[:, held].float().numpy())
 
     params = golden.reference_params(rcfg, {
         k: v.float().numpy() for k, v in model.state_dict().items()})
@@ -72,14 +85,13 @@ def drift(arch, dtype, layers, width, B=4, S=96, T=12):
         params, {"tokens": jnp.asarray(prompt)}, cache)
     decode = jax.jit(make_decode_step(rcfg))
     ref_steps = [np.asarray(logits, np.float32)]
-    for t in range(T - 1):  # the port's tokens, so both see the same input
+    for t in range(steps.shape[1] - 1):  # the port's tokens: same inputs
         logits, cache = decode(params, jnp.asarray(toks[:, t:t + 1]), cache,
                                jnp.asarray(S + t, jnp.int32))
         ref_steps.append(np.asarray(logits, np.float32))
     ref_steps = np.stack(ref_steps, 1)
-    ref_full, _, _ = ref_forward(params, rcfg, {"tokens": jnp.asarray(
-        np.concatenate([prompt, toks[:, :-1]], 1))})
-    ref = rel_l2(ref_steps, np.asarray(ref_full[:, S - 1:], np.float32))
+    ref_full, _, _ = ref_forward(params, rcfg, {"tokens": jnp.asarray(seq)})
+    ref = rel_l2(ref_steps, np.asarray(ref_full[:, held], np.float32))
     across = rel_l2(steps.float().numpy(), ref_steps)
     return port, ref, across
 
@@ -88,7 +100,7 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--layers", type=int, default=6)
     p.add_argument("--width", type=int, default=256)
-    p.add_argument("--arch", action="append", choices=ARCHS)
+    p.add_argument("--arch", action="append", choices=ARCHS + MOE_ARCHS)
     args = p.parse_args(argv)
     import jax
 

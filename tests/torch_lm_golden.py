@@ -30,7 +30,7 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 GOLDEN = ROOT / "tests" / "data" / "torch_lm_golden.npz"
 ARCHS = ("granite-3-8b", "qwen2-vl-2b", "hubert-xlarge", "qwen1.5-32b",
          "mistral-large-123b", "nemotron-4-340b", "recurrentgemma-2b",
-         "rwkv6-1.6b")
+         "rwkv6-1.6b", "deepseek-v2-236b", "grok-1-314b")
 SEED, BATCH, PROMPT, DECODE = 0, 2, 8, 3
 
 

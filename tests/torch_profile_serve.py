@@ -2,11 +2,13 @@
 reading of a prefill and of greedy decode steps.
 
     PYTHONPATH=src python tests/torch_profile_serve.py [--arch granite-3-8b]
-        [--batch 8] [--prompt-len 512] [--steps 8] [--smoke]
+        [--batch 8] [--prompt-len 512] [--steps 8] [--smoke] [--layers N]
         [--device cpu] [--out FILE.json]
 
-Builds the arch's full config (``--smoke``: its smoke config) from the
-model's own seeded initialization, warms the path up with a short
+Builds the arch's full config (``--smoke``: its smoke config; ``--layers``:
+cut to N layers at full width, as ``chip_smoke.py`` serves the MoE models
+whose full depth does not fit one card) from the model's own seeded
+initialization, warms the path up with a short
 generation, then reads, each under ``torch.profiler`` (CPU and CUDA
 activities): one prefill of ``--batch`` prompts of ``--prompt-len``
 tokens into a fresh cache, then ``--steps`` decode steps. For each: its
@@ -21,6 +23,7 @@ is no device time: the script says so and reports host times only.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import subprocess
@@ -34,6 +37,8 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--arch", default="granite-3-8b")
     p.add_argument("--smoke", action="store_true")
+    p.add_argument("--layers", type=int, default=0,
+                   help="cut the config to this many layers (0: its own)")
     p.add_argument("--batch", type=int, default=8)
     p.add_argument("--prompt-len", type=int, default=512)
     p.add_argument("--steps", type=int, default=8)
@@ -61,6 +66,8 @@ def main(argv=None) -> int:
             timeout=60).stdout.strip().splitlines()[0]
     print(f"[profile] {card}; torch {torch.__version__}", flush=True)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    if args.layers:
+        cfg = dataclasses.replace(cfg, num_layers=args.layers)
     gen = torch.Generator(device=device).manual_seed(0)
     model = LanguageModel(cfg, device=device, generator=gen)
     B, S = args.batch, args.prompt_len

@@ -219,6 +219,35 @@ Phases (each prints its seconds; any failure exits non-zero):
                 against ``param_count()`` × 2. The path runs no hand kernel
                 (the reference's LM modules reach no ``pl.pallas_call``):
                 the phase fails if one was launched.
+ 10. train    — the LM training path (``make_train_step``: AdamW, the LM
+                loss, gradient accumulation, remat), after the lm phase's
+                models are freed. TRAIN_RUNS at full width, bf16, the
+                model's own seeded initialization and
+                ``synthetic_batch(seed=17)``, the reference's settings for
+                each size (f32 moments below 100 B parameters; bf16
+                moments and accumulator above): granite-3-8b at 16 of 40
+                layers (seq 4096, batch 4, grad_accum 4, 4 steps),
+                deepseek-v2-236b at 2 of 60 (MLA, GShard and the router's
+                aux loss in backward, the bf16 accumulator, the sliced
+                update of 1.26 G-element expert stacks; seq 1024, batch 8,
+                grad_accum 8, 3 steps), rwkv6-1.6b and recurrentgemma-2b
+                at full depth (seq 4096, past recurrentgemma's window;
+                batch 4; 3 steps). Prints each step's loss (and its parts
+                where the step returns them: without accumulation), lr
+                and gradient norm, ``loss_fn``'s parts at the start
+                weights, the step ms (host clock, device synchronized, the
+                first step apart), tok/s, peak device bytes, the step's
+                bound ((3 + 1 with remat) x the forward's products at 989
+                TFLOP/s bf16; the f32 attention and WKV products at 67
+                TFLOP/s beside it) and the model-FLOPs share; fails on a
+                non-finite loss or gradient norm, or a MoE run without an
+                aux loss. Then TRAIN_CHECK at f32 (TF32 off): grad_accum 2
+                against 1, remat against none, the bf16 first loss
+                against the f32 one; and every entry of
+                ``tests/data/torch_train_golden.npz`` (the reference's
+                three f32 steps of each smoke config) through the port
+                within TRAIN_GOLDEN_TOL. Fails if the path launched a hand
+                kernel.
 
 Then one JSON line with the kernels' numbers, one row per kernel and
 dtype (the f32 ones named ``*_f32``; each row: the heat-2d phase's,
@@ -239,6 +268,7 @@ import dataclasses
 import gc
 import io
 import json
+import math
 import os
 import re
 import statistics
@@ -487,6 +517,51 @@ LM_F32_MOE = {"deepseek-v2-236b": (2, 2), "grok-1-314b": (1, 2)}
 LM_SORT_ARCH, LM_SORT_TOL = "deepseek-v2-236b", 1e-4
 LM_GOLDEN = os.path.join(ROOT, "tests", "data", "torch_lm_golden.npz")
 LM_GOLDEN_TOL = 1e-4  # the reference's smoke logits (CPU) against the card
+# The train phase: each entry trains through make_train_step at
+# full width, bf16, remat on, the reference's settings for its size
+# (src/repro/launch/dryrun.py _train_settings: f32 moments below 100 B
+# parameters, bf16 moments and accumulator at 100 B or more): arch, layers
+# (None: full depth), seq, batch, grad_accum, moment and accumulator
+# dtype, steps. granite-3-8b at full depth holds 98 GB of weights,
+# gradients and f32 moments: 16 of 40 layers (3.39 B parameters, 40.7 GB,
+# plus the 13.6 GB f32 accumulator); deepseek-v2-236b at 2 of 60 layers
+# (the dense layer 0 and one MoE layer, 5.36 B parameters, 53.6 GB).
+# Microbatches of one row keep the f32 attention chunks that one block's
+# recompute saves for backward to ~9 GB at seq 4096 (granite) and
+# recurrentgemma's f32 logits (256,000 columns) to 4.2 GB
+TRAIN_RUNS = (
+    ("granite-3-8b", 16, 4096, 4, 4, "float32", 4),
+    ("deepseek-v2-236b", 2, 1024, 8, 8, "bfloat16", 3),
+    ("rwkv6-1.6b", None, 4096, 4, 1, "float32", 3),
+    # 4096 tokens: past its 2048-token local window
+    ("recurrentgemma-2b", None, 4096, 4, 4, "float32", 3),
+)
+TRAIN_LR = 1e-3  # the training launcher's default
+# the internal checks at f32, TF32 off: arch, layers, batch, seq. One step
+# with grad_accum 2 against one with grad_accum 1: the gradients' norm and
+# the updated parameters (max relative per tensor) within TRAIN_ACCUM_TOL,
+# the gradients (caught by grad_transform; relative L2 per tensor) within
+# TRAIN_GRADS_TOL, twice the measured 9.340e-6: a key projection's
+# gradient passes the softmax's derivative, which cancels at init (near
+# uniform attention), so its summation order shows at 1e-5; remat against
+# none within TRAIN_REMAT_TOL; the bf16 model of the same weights: its
+# first loss within TRAIN_BF16_BAR (relative) of the f32 one.
+# TRAIN_CHECK_LR: AdamW's first step moves each element by about
+# ±lr whatever its gradient's size, so an element whose gradient is at
+# the two runs' rounding level can move 2·lr apart; 1e-7 keeps that below
+# 1e-5 of the smallest tensor maximum (granite's mlp wo, ~0.045). At lr
+# 1e-5 the parameters measured 2.026e-5 apart (NVIDIA H100 80GB HBM3,
+# 700.00 W), the gradients 9.850e-6 (max relative per tensor), their
+# norm 7.391e-8; at lr 1e-7 the parameters
+# 2.061e-7, the gradients 9.340e-6 (relative L2); remat 0.0; the bf16
+# first loss 7.367e-7 from the f32 one: the bar is twice that
+TRAIN_CHECK = ("granite-3-8b", 2, 4, 1024)
+TRAIN_CHECK_LR = 1e-7
+TRAIN_ACCUM_TOL, TRAIN_GRADS_TOL = 1e-5, 2e-5
+TRAIN_REMAT_TOL, TRAIN_BF16_BAR = 1e-6, 1.5e-6
+# tests/data/torch_train_golden.npz (the reference's three f32 steps of
+# every smoke config, CPU) against the card, max relative
+TRAIN_GOLDEN_TOL = 1e-4
 # each mixed-precision run's bar on its PCPG iterations summed over the
 # defect-correction outers (a multi-RHS run: its most iterated column): the
 # counts measured on the card (NVIDIA H100 80GB HBM3, 700 W) with a small
@@ -2151,6 +2226,295 @@ def lm_phase(device, smi, cpu=False):
     return rows
 
 
+# ------------------------------------------------------------ train ----
+def train_flops(cfg, model, batch, seq):
+    """(forward FLOPs of a step's batch on the tensor cores, its f32
+    FLOPs): the dense products (every ``Dense`` weight once a token, the
+    head once a position; a MoE layer's router, expert slots and dispatch,
+    ``moe_prefill_flops``) and, apart, the f32 products of attention (the
+    scores and the context over all S² pairs of every attention layer: the
+    training forward skips no causal block) and of RWKV-6's chunked WKV
+    (4·D² + 4·64·D a token and head, as the reference's analytic model)."""
+    tokens = batch * seq
+    dense = sum(p.numel() for name, p in model.named_parameters()
+                if name.endswith(".w"))
+    fwd = 2 * tokens * (dense + cfg.d_model * cfg.vocab_size)
+    if cfg.is_moe:
+        fwd += moe_prefill_flops(cfg, batch, seq)
+    if cfg.attn_kind == "mla":
+        heads, width = cfg.num_heads, (cfg.qk_nope_head_dim
+                                       + cfg.qk_rope_head_dim
+                                       + cfg.v_head_dim)
+    else:
+        heads, width = cfg.num_heads, 2 * cfg.head_dim
+    f32 = 0
+    for kind in cfg.layer_kinds:
+        if kind == "attn":
+            f32 += 2 * batch * heads * seq * seq * width
+        elif kind == "rwkv6":
+            D = cfg.rwkv_head_dim
+            f32 += tokens * (cfg.d_model // D) * (4 * D * D + 4 * 64 * D)
+    return fwd, f32
+
+
+def train_config(steps, moments, accum_dtype="float32", grad_accum=1,
+                 remat=True, lr=TRAIN_LR, grad_transform=None):
+    """The launcher's settings: warm-up ``max(steps // 20, 1)``, a cosine
+    to ``steps``."""
+    from repro_torch.train import OptimizerConfig, TrainConfig
+
+    return TrainConfig(
+        optimizer=OptimizerConfig(learning_rate=lr,
+                                  warmup_steps=max(steps // 20, 1),
+                                  total_steps=steps, moment_dtype=moments),
+        remat=remat, grad_accum=grad_accum, accum_dtype=accum_dtype,
+        grad_transform=grad_transform)
+
+
+def to_device(batch, device):
+    return {k: v.to(device) for k, v in batch.items()}
+
+
+def train_run(cfg, of_layers, seq, batch, grad_accum, moments, steps,
+              device, smi):
+    """``steps`` steps of ``make_train_step`` on ``cfg`` (bf16, the model's
+    own seeded initialization, ``synthetic_batch(seed=17)``), remat on,
+    moments and the accumulator at ``moments``. Before the first step,
+    ``loss_fn``'s parts on the first microbatch (no grad). Returns the
+    run's row; fails on a non-finite loss or gradient norm."""
+    import torch
+
+    from repro_torch.data import synthetic_batch
+    from repro_torch.models import LanguageModel
+    from repro_torch.train import adamw_init, loss_fn, make_train_step
+
+    cuda = device.type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(device)
+
+    tcfg = train_config(steps, moments, moments, grad_accum)
+    gen = torch.Generator(device=device).manual_seed(0)
+    t0 = time.perf_counter()
+    model = LanguageModel(cfg, device=device, generator=gen)
+    opt = adamw_init(dict(model.named_parameters()), tcfg.optimizer)
+    sync()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    batches = [to_device(synthetic_batch(cfg, batch, seq, seed=17, step=i),
+                         device) for i in range(steps)]
+    with torch.no_grad():
+        micro = {k: v[:batch // grad_accum] for k, v in batches[0].items()}
+        _, parts = loss_fn(model, micro, tcfg)
+        parts = {k: float(v) for k, v in parts.items()}
+    step_fn = make_train_step(cfg, tcfg)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(device)
+    metrics, times = [], []
+    for i in range(steps):
+        t0 = time.perf_counter()
+        model, opt, m = step_fn(model, opt, batches[i])
+        sync()
+        times.append(time.perf_counter() - t0)
+        metrics.append({k: float(v) for k, v in m.items()})
+        print(f"[chip_smoke] train {cfg.name} step {i}: "
+              + ", ".join(f"{k} {v:.6g}" for k, v in metrics[-1].items())
+              + f"; {times[-1] * 1e3:.1f} ms", flush=True)
+    peak = torch.cuda.max_memory_allocated(device) if cuda else None
+    later = times[1:] or times
+    step_s = statistics.mean(later)
+    fwd, f32 = train_flops(cfg, model, batch, seq)
+    passes = 3 + (1 if tcfg.remat else 0)
+    bound_ms = passes * fwd / PEAK_BF16_FLOPS * 1e3
+    f32_ms = passes * f32 / PEAK_FP32_FLOPS * 1e3
+    active = cfg.active_param_count()
+    mfu = 6 * active * batch * seq / (step_s * PEAK_BF16_FLOPS)
+    row = dict(arch=cfg.name, layers=cfg.num_layers, of_layers=of_layers,
+               d_model=cfg.d_model, seq=seq, batch=batch,
+               grad_accum=grad_accum, moments=moments, remat=tcfg.remat,
+               steps=steps, params=n_params, active_params=active,
+               init_s=init_s, first_step_ms=times[0] * 1e3,
+               step_ms=step_s * 1e3, tok_per_s=batch * seq / step_s,
+               peak_device_bytes=peak, bound_ms=bound_ms,
+               f32_products_ms=f32_ms, model_flops_share=mfu,
+               first_parts=parts, metrics=metrics)
+    print(f"[chip_smoke] train {cfg.name} (layers {cfg.num_layers} of "
+          f"{of_layers}, d_model {cfg.d_model}, {cfg.dtype}, {n_params:,} "
+          f"parameters) on {smi}: batch {batch} x seq {seq}, grad_accum "
+          f"{grad_accum}, {moments} moments and accumulator, remat: first "
+          f"step {row['first_step_ms']:.1f} ms, then {row['step_ms']:.1f} ms "
+          f"a step ({row['tok_per_s']:,.1f} tok/s); bound {bound_ms:.1f} ms "
+          f"({passes} x {fwd:.4g} forward FLOPs at 989 TFLOP/s bf16), f32 "
+          f"products {f32_ms:.1f} ms ({passes} x {f32:.4g} at 67 TFLOP/s); "
+          f"model-FLOPs share {mfu:.4f} (6 x {active:,} x {batch * seq} "
+          f"tokens); peak device bytes {peak:,}; init {init_s:.2f} s; "
+          f"loss_fn parts at the start weights {parts}"
+          if cuda else f"[chip_smoke] train {cfg.name}: {row}", flush=True)
+    bad = [m for m in metrics if not (math.isfinite(m["loss"])
+                                      and math.isfinite(m["grad_norm"]))]
+    if bad or not all(math.isfinite(v) for v in parts.values()):
+        raise SystemExit(f"train {cfg.name}: non-finite loss or gradient "
+                         f"norm {bad or parts}")
+    if cfg.is_moe and not parts["moe_aux"] > 0:
+        raise SystemExit(f"train {cfg.name}: no router aux loss {parts}")
+    return row
+
+
+def train_golden(device, tol=TRAIN_GOLDEN_TOL):
+    """Every entry of the golden training file (the reference's three
+    f32 steps of each smoke config on the CPU) through the port on
+    ``device``: losses, gradient norms and final parameters within ``tol``
+    (max relative). Returns {entry: worst}."""
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import torch_train_golden as golden
+
+    worst = {}
+    for name, errs in golden.distances(device).items():
+        worst[name] = max(errs.values())
+        print(f"[chip_smoke] train golden {name}: " + ", ".join(
+            f"{k} {v:.3e}" for k, v in errs.items())
+            + f" (max relative, bar {tol:g})", flush=True)
+    bad = {k: v for k, v in worst.items() if v > tol}
+    if bad:
+        raise SystemExit(f"train golden {bad}: the port is not the "
+                         "reference's on the card")
+    return worst
+
+
+def train_checks(device, cfg, batch, seq, bf16_bar=TRAIN_BF16_BAR):
+    """At f32 (TF32 off) on ``cfg``'s model from its seeded init and one
+    batch, lr TRAIN_CHECK_LR: a step with grad_accum 2 against grad_accum
+    1 (the gradients caught by ``grad_transform`` within TRAIN_GRADS_TOL,
+    their norm and the updated parameters within TRAIN_ACCUM_TOL), remat
+    against none
+    (TRAIN_REMAT_TOL), then the same weights rounded to bf16: the first
+    loss within ``bf16_bar`` (relative) of the f32 one (None: printed,
+    not held). Returns the distances."""
+    import torch
+
+    from repro_torch.data import synthetic_batch
+    from repro_torch.models import LanguageModel
+    from repro_torch.train import adamw_init, loss_fn, make_train_step
+
+    f32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
+    data = to_device(synthetic_batch(f32, batch, seq, seed=17), device)
+
+    def run(accum, remat):
+        caught = {}
+
+        def catch(grads):
+            caught.update({n: g.detach().clone() for n, g in grads.items()})
+            return grads
+
+        tcfg = train_config(1, "float32", grad_accum=accum, remat=remat,
+                            lr=TRAIN_CHECK_LR, grad_transform=catch)
+        gen = torch.Generator(device=device).manual_seed(0)
+        model = LanguageModel(f32, device=device, generator=gen)
+        opt = adamw_init(dict(model.named_parameters()), tcfg.optimizer)
+        model, _, m = make_train_step(f32, tcfg)(model, opt, data)
+        params = {n: p.detach() for n, p in model.named_parameters()}
+        return dict(grads=caught, params=params, loss=float(m["loss"]),
+                    grad_norm=float(m["grad_norm"]))
+
+    def dist(a, b):
+        """Held: the gradients' relative L2, their norm, the parameters'
+        max relative (each the worst tensor); printed: the gradients' max
+        relative and the worst tensors."""
+        held, seen = {}, {}
+        for key, how in (("grads", "l2"), ("params", "max")):
+            worst = (0.0, "")
+            for n in b[key]:
+                got, want = a[key][n].double(), b[key][n].double()
+                d = (rel_l2(got, want) if how == "l2"
+                     else compare(got, want)[1])
+                worst = max(worst, (d, n))
+            held[key], seen[key] = worst
+        seen["grads_max"] = max(compare(a["grads"][n].double(),
+                                        b["grads"][n].double())[1]
+                                for n in b["grads"])
+        held["grad_norm"] = abs(a["grad_norm"] - b["grad_norm"]) / abs(
+            b["grad_norm"])
+        held["loss"] = abs(a["loss"] - b["loss"]) / abs(b["loss"])
+        return held, seen
+
+    base = run(1, False)
+    accum, accum_seen = dist(run(2, False), base)
+    free()
+    remat, remat_seen = dist(run(1, True), base)
+    free()
+    # the bf16 model draws the f32 model's numbers and rounds them
+    losses = {}
+    for dt in ("float32", "bfloat16"):
+        gen = torch.Generator(device=device).manual_seed(0)
+        model = LanguageModel(dataclasses.replace(cfg, dtype=dt,
+                                                  param_dtype=dt),
+                              device=device, generator=gen)
+        with torch.no_grad():
+            losses[dt] = float(loss_fn(model, data,
+                                       train_config(1, "float32"))[0])
+        del model
+    loss16, loss32 = losses["bfloat16"], losses["float32"]
+    bf16_dist = abs(loss16 - loss32) / abs(loss32)
+    out = dict(accum=accum, accum_seen=accum_seen, remat=remat,
+               remat_seen=remat_seen, bf16_loss=loss16, f32_loss=loss32,
+               bf16_rel=bf16_dist, lr=TRAIN_CHECK_LR)
+    print(f"[chip_smoke] train checks {cfg.name} (layers {cfg.num_layers}, "
+          f"f32, TF32 off, batch {batch} x seq {seq}, lr "
+          f"{TRAIN_CHECK_LR:g}): grad_accum 2 against 1 {accum} (bars "
+          f"{TRAIN_GRADS_TOL:g} gradients, {TRAIN_ACCUM_TOL:g} the rest; "
+          f"worst tensors and the gradients' max relative {accum_seen}); "
+          f"remat against none {remat} (bar "
+          f"{TRAIN_REMAT_TOL:g}; {remat_seen}); bf16 first loss {loss16:.6g} "
+          f"against f32 {loss32:.6g}: {bf16_dist:.3e} relative (bar "
+          f"{bf16_bar})", flush=True)
+    if (accum["grads"] > TRAIN_GRADS_TOL
+            or max(accum[k] for k in ("params", "grad_norm", "loss"))
+            > TRAIN_ACCUM_TOL):
+        raise SystemExit(f"train: grad_accum 2 is not grad_accum 1 {accum}")
+    if max(remat.values()) > TRAIN_REMAT_TOL:
+        raise SystemExit(f"train: remat is not the plain step {remat}")
+    if bf16_bar is not None and not bf16_dist <= bf16_bar:
+        raise SystemExit(f"train: the bf16 loss is {bf16_dist:.3e} from "
+                         "the f32 one")
+    return out
+
+
+def train_phase(device, smi, cpu=False):
+    """TRAIN_RUNS at full width and cut depths on the card (with ``cpu``:
+    their smoke configs on the CPU, a rehearsal), the internal checks
+    (TRAIN_CHECK), then the golden file. Fails if the path launched a hand
+    kernel. Returns the rows."""
+    from repro_torch.configs import get_config, get_smoke_config
+
+    reset_counts()
+    rows = []
+    for arch, layers, seq, batch, accum, moments, steps in TRAIN_RUNS:
+        full = (get_smoke_config if cpu else get_config)(arch)
+        cfg = dataclasses.replace(full, num_layers=layers or full.num_layers)
+        if cpu:
+            seq, batch = 16, 2 * accum if accum > 1 else 2
+        rows.append(train_run(cfg, full.num_layers, seq, batch, accum,
+                              moments, steps, device, smi))
+        free()
+    arch, layers, batch, seq = TRAIN_CHECK
+    full = (get_smoke_config if cpu else get_config)(arch)
+    # the card's bf16 bar is the card's measurement's
+    checks = train_checks(device, dataclasses.replace(full, num_layers=layers),
+                          batch, 16 if cpu else seq,
+                          None if cpu else TRAIN_BF16_BAR)
+    free()
+    golden = train_golden(device)
+    launched = {k: v for k, v in launch_counts().items() if v}
+    if launched:
+        raise SystemExit(f"the training path launched hand kernels: "
+                         f"{launched}")
+    summary = dict(runs=[{k: v for k, v in r.items() if k != "metrics"}
+                         for r in rows], checks=checks, golden=golden)
+    print(f"[chip_smoke] train {json.dumps(summary)}", flush=True)
+    return rows
+
+
 def free():
     """Return the freed device memory to the card and restart its peak."""
     import torch
@@ -2376,6 +2740,13 @@ def main() -> int:
           f"{torch.cuda.memory_allocated(device):,}", flush=True)
     lm_phase(device, smi)
     done("lm", t0)
+
+    t0 = phase("train")
+    free()
+    print(f"[chip_smoke] device bytes held before the train phase "
+          f"{torch.cuda.memory_allocated(device):,}", flush=True)
+    train_phase(device, smi)
+    done("train", t0)
     print(f"[chip_smoke] total {time.perf_counter() - t_all:.1f}s", flush=True)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

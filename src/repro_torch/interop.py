@@ -19,7 +19,9 @@ state dict, :func:`lm_layers_from_reference` unstacks any per-layer tree
 of the reference (params or caches) into layer order, and
 :func:`random_lm_state` draws seeded numpy weights for every parameter of
 a config, so that both packages (or a run without the reference) can be
-fed the identical weights.
+fed the identical weights. :func:`train_state_from_reference` carries a
+training state (params and AdamW moments) the same way, so both packages
+can go on from the same point mid-training.
 """
 from __future__ import annotations
 
@@ -39,7 +41,7 @@ from repro_torch.sparse.packed import PackedBlockIndex, PackedBlocks
 __all__ = ["SUBDOMAIN_KEYS", "from_reference_problem", "from_reference_packed",
            "schur_config_from_reference", "plan_from_reference",
            "lm_layers_from_reference", "lm_params_from_reference",
-           "random_lm_state"]
+           "train_state_from_reference", "random_lm_state"]
 
 SUBDOMAIN_KEYS = ("K", "Bt", "f", "R", "lambda_ids", "m", "dof_gids",
                   "fixing_dofs", "b_rows", "b_vals")
@@ -200,6 +202,19 @@ def lm_params_from_reference(cfg: ModelConfig, params: dict) -> dict:
     if "lm_head" in params:
         state["lm_head"] = _tensor(params["lm_head"])
     return state
+
+
+def train_state_from_reference(cfg: ModelConfig, params: dict,
+                               opt_state: dict) -> tuple:
+    """``(state_dict, {"m", "v", "step"})`` of the port's training step from
+    the reference's params pytree and AdamW state (numpy leaves): the
+    moments are trees shaped like the params, so they map to the same
+    names, at their own dtype; ``step`` is an int32 0-dim tensor."""
+    return (lm_params_from_reference(cfg, params),
+            {"m": lm_params_from_reference(cfg, opt_state["m"]),
+             "v": lm_params_from_reference(cfg, opt_state["v"]),
+             "step": torch.tensor(int(np.asarray(opt_state["step"])),
+                                  dtype=torch.int32)})
 
 
 def random_lm_state(cfg: ModelConfig, seed: int = 0) -> dict:

@@ -9,14 +9,18 @@ from the reference load through ``load_state_dict`` (see
 returns ``(logits, cache)``, with ``with_aux=True`` the reference's
 ``(logits, cache, aux)`` (the MoE layers' summed auxiliary loss): a cache
 from :func:`init_cache` (one dict per layer) is updated in place and
-returned.
+returned. ``remat=True`` recomputes each block in the backward pass
+(the reference's ``jax.checkpoint`` per block): training runs without a
+cache.
 """
 from __future__ import annotations
 
 from typing import Optional, Union
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models.config import ModelConfig
@@ -63,14 +67,15 @@ class LanguageModel(nn.Module):
     def forward(self, batch: dict, cache: Optional[list] = None,
                 cache_index: int = 0, positions=None,
                 attn_args: Optional[dict] = None, last_only: bool = False,
-                with_aux: bool = False):
+                with_aux: bool = False, remat: bool = False):
         """Returns (logits (B, S, V), cache), with ``with_aux`` also the
         MoE layers' summed auxiliary loss (an f32 scalar; 0 without MoE).
         ``batch`` holds ``tokens`` (B, S) and optionally ``features``,
         ``vision_embeds`` / ``vision_mask`` and ``positions``;
         ``cache_index`` is the slot of the first new token (a Python int).
         ``last_only`` projects only the last position through the head
-        (the prefill path)."""
+        (the prefill path). ``remat`` keeps only each block's input for
+        backward and recomputes the block there (no cache allowed)."""
         cfg = self.cfg
         h = embed_inputs(self, batch)
         B, S = h.shape[:2]
@@ -81,11 +86,19 @@ class LanguageModel(nn.Module):
                                           device=self.device)
         positions = positions.to(self.device)
         attn_args = attn_args or {}
+        if remat and cache is not None:
+            raise ValueError("remat recomputes blocks for backward: training "
+                             "takes no cache")
+        remat = remat and torch.is_grad_enabled()
         aux = None
         for i, block in enumerate(self.blocks):
-            h, a = block(h, positions,
-                         cache[i] if cache is not None else None,
-                         cache_index, attn_args)
+            if remat:
+                h, a = checkpoint(block, h, positions, None, cache_index,
+                                  attn_args, use_reentrant=False)
+            else:
+                h, a = block(h, positions,
+                             cache[i] if cache is not None else None,
+                             cache_index, attn_args)
             if a is not None:
                 aux = a if aux is None else aux + a
         if last_only:
@@ -121,7 +134,9 @@ def embed_inputs(model: LanguageModel, batch: dict) -> torch.Tensor:
     if cfg.frontend_stub and "features" in batch:
         h = batch["features"].to(device=dev, dtype=dtype)
     else:
-        h = model.embed[batch["tokens"].to(dev)].to(dtype)
+        # F.embedding: its backward sums each row's gradients in a fixed
+        # order (an index's accumulating scatter does not on the CPU)
+        h = F.embedding(batch["tokens"].to(dev), model.embed).to(dtype)
     if "vision_embeds" in batch:
         mask = batch["vision_mask"].to(dev)[..., None]
         h = torch.where(mask, batch["vision_embeds"].to(device=dev,

@@ -1,0 +1,121 @@
+"""The training step (counterpart of ``repro.train.train_step``): the LM
+loss (CE + z-loss + MoE aux), its gradient by autograd, microbatched
+gradient accumulation, an optional gradient transform (compression), and
+the AdamW update.
+
+The same step serves decoder LMs (next token), the encoder-only audio arch
+(per-frame labels from the batch) and the VLM backbone (vision
+embeddings and positions in the batch dict). ``train_step(model,
+opt_state, batch)`` updates the model's parameters and the optimizer
+state in place (the reference donates them) and returns them with the
+metrics, f32 tensors on the device (no host synchronization).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Optional
+
+import torch
+
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import DTYPES
+from repro_torch.models.model import LanguageModel
+from repro_torch.train.optimizer import OptimizerConfig, adamw_update
+
+__all__ = ["TrainConfig", "loss_fn", "make_train_step", "trainable"]
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    optimizer: OptimizerConfig = OptimizerConfig()
+    remat: bool = True
+    grad_accum: int = 1  # microbatches per step
+    accum_dtype: str = "float32"  # the accumulator's; "bfloat16" halves it
+    z_loss_coef: float = 1e-4
+    grad_transform: Optional[Callable] = None  # e.g. compression
+    attn_args: Optional[dict] = None  # chunk sizes / skip_masked_blocks
+
+
+def loss_fn(model: LanguageModel, batch: dict, tcfg: TrainConfig):
+    """Mean CE over the unmasked tokens (+ z-loss + MoE aux) of one forward
+    without a cache. Returns ``(total, {"ce", "z_loss", "moe_aux"})``."""
+    logits, _, aux = model(batch, remat=tcfg.remat,
+                           attn_args=tcfg.attn_args, with_aux=True)
+    dev = logits.device
+    labels = batch["labels"].to(dev, torch.int64)
+    mask = batch.get("loss_mask")
+    mask = (torch.ones(labels.shape, dtype=torch.float32, device=dev)
+            if mask is None else mask.to(dev, torch.float32))
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels[..., None])[..., 0]
+    denom = torch.clamp_min(mask.sum(), 1.0)
+    ce = ((lse - gold) * mask).sum() / denom
+    zl = tcfg.z_loss_coef * (lse.square() * mask).sum() / denom
+    return ce + zl + aux, {"ce": ce, "z_loss": zl, "moe_aux": aux}
+
+
+def trainable(model: LanguageModel) -> dict:
+    """The model's parameters by name, with ``requires_grad`` on (they are
+    built frozen for serving)."""
+    params = dict(model.named_parameters())
+    for p in params.values():
+        p.requires_grad_(True)
+    return params
+
+
+def _grads(loss, params: dict) -> dict:
+    gs = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
+    return {n: torch.zeros_like(p) if g is None else g
+            for (n, p), g in zip(params.items(), gs)}
+
+
+def make_train_step(cfg: ModelConfig, tcfg: TrainConfig):
+    """Returns ``train_step(model, opt_state, batch) -> (model, opt_state,
+    metrics)``; metrics: ``loss``, its parts (``ce``, ``z_loss``,
+    ``moe_aux``; none under accumulation), ``lr`` and ``grad_norm``.
+
+    With ``grad_accum`` k > 1 the batch's leading axis is cut into k
+    contiguous microbatches; each one's gradients are added into an
+    accumulator at ``accum_dtype`` (not into ``.grad`` at the parameter
+    dtype), which is then scaled by 1/k, and the loss is the microbatches'
+    mean."""
+    k = tcfg.grad_accum
+    adt = DTYPES[tcfg.accum_dtype]
+
+    def accum_grads(model, params, batch):
+        if k <= 1:
+            loss, parts = loss_fn(model, batch, tcfg)
+            return loss.detach(), {n: v.detach() for n, v in parts.items()}, \
+                _grads(loss, params)
+        B = next(iter(batch.values())).shape[0]
+        if B % k:
+            raise ValueError(f"batch {B} is not a multiple of grad_accum {k}")
+        acc = {n: torch.zeros(p.shape, dtype=adt, device=p.device)
+               for n, p in params.items()}
+        loss_sum = torch.zeros((), dtype=torch.float32, device=model.device)
+        for i in range(k):
+            micro = {n: v[i * (B // k):(i + 1) * (B // k)]
+                     for n, v in batch.items()}
+            loss, _ = loss_fn(model, micro, tcfg)
+            for n, g in _grads(loss, params).items():
+                # a + g.astype(a.dtype): an f32 accumulator widens exactly
+                acc[n].add_(g if adt == torch.float32 else g.to(adt))
+            loss_sum += loss.detach()
+        scale = 1.0 / k
+        return loss_sum * scale, {}, {n: a.mul_(scale)
+                                      for n, a in acc.items()}
+
+    def train_step(model: LanguageModel, opt_state: dict, batch: dict):
+        if model.cfg != cfg:
+            raise ValueError(f"the step was made for {cfg.name}, not "
+                             f"{model.cfg.name}")
+        params = trainable(model)
+        loss, parts, grads = accum_grads(model, params, batch)
+        if tcfg.grad_transform is not None:
+            grads = tcfg.grad_transform(grads)
+        _, opt_state, om = adamw_update(params, grads, opt_state,
+                                        tcfg.optimizer)
+        del grads
+        return model, opt_state, {"loss": loss, **parts, **om}
+
+    return train_step

@@ -36,7 +36,10 @@ def test_port_imports_neither_jax_nor_reference():
             "configs/feti_elasticity_2d.py", "configs/feti_elasticity_3d.py",
             "configs/feti_heat_3d.py", "feti/sharded.py",
             "launch/mesh.py", "models/attention.py", "models/transformer.py",
-            "launch/serve.py"} <= names
+            "launch/serve.py", "launch/train.py", "train/optimizer.py",
+            "train/train_step.py", "data/synthetic.py", "data/tokens.py",
+            "distributed/checkpoint.py", "distributed/compression.py",
+            "distributed/elastic.py"} <= names
     bad = [f"{p.relative_to(PORT)}:{line} imports {root}"
            for p in sources for root, line in _imported_roots(p)
            if root in FORBIDDEN]
@@ -53,7 +56,7 @@ def test_entry_points_require_cuda_unless_cpu(monkeypatch):
     from repro_torch.device import resolve_device
     from repro_torch.fem import decompose_problem
     from repro_torch.feti import FetiConfig, FetiSolver, preprocess_cluster
-    from repro_torch.launch import serve, solve_feti
+    from repro_torch.launch import serve, solve_feti, train
     from repro_torch.models import LanguageModel, init_cache
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -75,6 +78,9 @@ def test_entry_points_require_cuda_unless_cpu(monkeypatch):
         init_cache(lm, 1, 4)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         serve.main(["--smoke"])
+    # the LM training launcher (A18c)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train.main(["--arch", "granite-3-8b", "--smoke", "--steps", "1"])
     assert LanguageModel(lm, device="cpu").device == torch.device("cpu")
     assert resolve_device("cpu") == torch.device("cpu")
     assert FetiSolver(prob, FetiConfig(device="cpu")).solve().converged
@@ -148,6 +154,29 @@ def test_moe_and_mla_configs_build(changes):
     logits, _ = forward(model, {"tokens": tokens}, cache)
     assert torch.isfinite(logits).all()
     assert (cache[0]["pos"] == torch.arange(4)).all()
+
+
+def test_training_surface_is_the_reference_s():
+    """The training path (A18c) exports the reference's names: ``train``
+    its optimizer and step beside the serve steps, ``data`` and
+    ``distributed`` (less the GSPMD sharding rules, which wait for the LM
+    meshes of A18d)."""
+    import repro.data
+    import repro.distributed
+    import repro.train
+    import repro_torch.data
+    import repro_torch.distributed
+    import repro_torch.train
+
+    assert set(repro.train.__all__) <= set(repro_torch.train.__all__)
+    assert set(repro_torch.data.__all__) == set(repro.data.__all__)
+    unported = {"batch_shardings", "batch_spec", "cache_shardings",
+                "opt_state_shardings", "param_shardings"}
+    assert set(repro_torch.distributed.__all__) == (
+        set(repro.distributed.__all__) - unported)
+    for mod in (repro_torch.train, repro_torch.data,
+                repro_torch.distributed):
+        assert all(hasattr(mod, n) for n in mod.__all__)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

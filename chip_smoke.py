@@ -32,7 +32,9 @@ Phases (each prints its seconds; any failure exits non-zero):
                 its library call(s) and the card's bound, with its useful
                 TFLOP/s and share of the bound; each fused kernel also
                 beside its unfused pair run back to back (B1 then B2, B3
-                then B2). Then the f32 kernels (all five at f32) on the
+                then B2) and with the count of SYRK items its list holds
+                (groups of 64 / bm stripes when bm < 64). Then the f32
+                kernels (all five at f32) on the
                 same operands rounded to f32 (diagonal blocks inverted at
                 f32), each against its f32 plain version and against the
                 f64 kernel on the same f32 operands (<= 1e-4 relative;
@@ -52,10 +54,11 @@ Phases (each prints its seconds; any failure exits non-zero):
                 n_pad = 4352 = 17 x 256, m_pad = 512; the stepped metadata
                 rebuilt at that size, the factor packed in its nonzero
                 256 x 256 blocks): the four TRSM kernels (B1, B3, B4, B5),
-                whose core takes such a block in two 128-row passes, at f64
-                and at f32, against their plain versions (1e-11, 1e-4),
-                their twins (B1 and B3 f32 within F32_TRSM_TWIN_TOL of the
-                f64 kernel) and the library calls, with times.
+                whose core takes such a block in two 128-row passes, and
+                the stepped SYRK (B2), at f64 and at f32, against their
+                plain versions (1e-11, 1e-4), their twins (B1 and B3 f32
+                within F32_TRSM_TWIN_TOL of the f64 kernel, B2 f32 within
+                F32_SYRK_TWIN_TOL) and the library calls, with times.
      small blocks — the same at bs = bm = 16 (SMALL_BS, the factor packed
                 in its nonzero 16 x 16 blocks): all five kernels at f64 and
                 at f32. One checker serves all four phases.
@@ -294,16 +297,17 @@ F32_TRSM_TWIN_TOL = 1e-6
 F32_TRSM = ("stepped_trsm", "stepped_trsm_packed")
 # the f32 stepped SYRK (B2: the SYRK tile alone) vs the f64 kernel on the
 # same f32 operands, per kernel phase (heat-2d, bs = 16, the Dirichlet
-# stage), tighter than F32_TOL: on the NVIDIA H100 (700 W) the 3xTF32 tile,
-# each k8 step summed with round-to-nearest adds, reads 1.813e-7 /
-# 2.142e-7 / 5.351e-7 here; the same products summed by the tensor cores'
-# truncating accumulation 2.37e-6 / 2.35e-6 / 7.90e-6 (the chain_acc
+# stage; bs = 256), tighter than F32_TOL: on the NVIDIA H100 (700 W) the
+# 3xTF32 tile, each k8 step summed with round-to-nearest adds, reads
+# 1.813e-7 / 2.142e-7 / 5.351e-7 here (1.871e-7 at bs = 256); the same
+# products summed by the tensor cores' truncating accumulation 2.37e-6 /
+# 2.35e-6 / 7.90e-6 (the chain_acc
 # variant of tests/torch_trsm_variants.py, on the plain TRSM's Y), and the
 # FFMA tile before it (equal to the f32 plain version) 5.364e-7 / 4.447e-7
 # / 1.741e-6. The fused kernels carry both halves' distances and stay at
 # F32_TOL.
 F32_SYRK_TWIN_TOL = {"heat-2d dual": 4e-7, "heat-2d dual bs=16": 4e-7,
-                     "heat-3d dirichlet": 1.2e-6}
+                     "heat-2d dual bs=256": 4e-7, "heat-3d dirichlet": 1.2e-6}
 # NVIDIA H100 SXM data sheet, dense: FP64 through the tensor cores (DMMA);
 # plain FP64 FMA peaks at half of it; FP32 outside the tensor cores (FFMA)
 # at the same 67; TF32 on the tensor cores at 494.7 (the sheet's 989.4 is
@@ -319,9 +323,10 @@ REPS = 5
 SMALL_BS = 16  # the small-block phase's bs = bm
 WIDE_BS = 256  # the large-block phase's bs = bm: two passes of the core
 # the kernels of the large-block phase: every one whose TRSM core takes a
-# block in passes (the stepped SYRK has no factor block)
-WIDE_NAMES = ("stepped_trsm", "stepped_trsm_packed", "stepped_trsm_syrk",
-              "stepped_trsm_syrk_packed")
+# block in passes, and the stepped SYRK at bm = 256 (one stripe cut into
+# four 128 x 128 sub-tiles), which the planner offers too
+WIDE_NAMES = ("stepped_trsm", "stepped_syrk", "stepped_trsm_packed",
+              "stepped_trsm_syrk", "stepped_trsm_syrk_packed")
 
 # feti-heat-3d's validated depth (full: 4,4,4), registered under its own
 # architecture name: the width stays the configuration's
@@ -1005,6 +1010,7 @@ def check_kernels(x, names, dtype, label, ptxas=None, plain_reps=REPS):
 
     from repro_torch import kernels as K
     from repro_torch.kernels import ops
+    from repro_torch.kernels._launch import TILE
     from repro_torch.kernels.ref import syrk_ref, trsm_ref
 
     f32 = dtype == "f32"
@@ -1016,6 +1022,10 @@ def check_kernels(x, names, dtype, label, ptxas=None, plain_reps=REPS):
               else x["packed_ops"])
     Bp, starts = x["Bp"].to(t), x["starts"]
     order, packed_order = x["orders"]
+    # the SYRK items of each fused launch's list (after its TRSM items)
+    trsm_items = x["S"] * -(-m_pad // TILE)
+    syrk_items = {"stepped_trsm_syrk": order.numel() - trsm_items,
+                  "stepped_trsm_syrk_packed": packed_order.numel() - trsm_items}
     tol, lib_tol = (F32_TOL, F32_LIB_TOL) if f32 else (REL_TOL, LIB_TOL)
     bnd = bounds(x, f32)
     index = x["packed"].index
@@ -1151,8 +1161,9 @@ def check_kernels(x, names, dtype, label, ptxas=None, plain_reps=REPS):
             bound_ms=b["bound_ms"], bound_by=b["bound_by"],
             bound_ops_ms=b["ops_ms"], bound_ops_route=b["ops_route"],
             tflops=tflops,
-            bound_share=b["bound_ms"] / ms, unfused_pair_ms=pair_ms, bs=bs,
-            bm=bm, **(ptxas or {}).get(key, {})))
+            bound_share=b["bound_ms"] / ms, unfused_pair_ms=pair_ms,
+            syrk_items=syrk_items.get(name), bs=bs, bm=bm,
+            **(ptxas or {}).get(key, {})))
         routes = ", ".join(f"{r} {t:.3f} ms" for r, t in b["ops_ms"].items())
         print(f"[chip_smoke] {label} {key}: {ms:.3f} ms (plain "
               f"{plain_ms:.3f}, library {library_ms:.3f}, bound "
@@ -1164,7 +1175,8 @@ def check_kernels(x, names, dtype, label, ptxas=None, plain_reps=REPS):
               f"{100 * b['bound_ms'] / ms:.1f}% of the bound, "
               f"{library_ms / ms:.2f}x the library call's speed"
               + (f"; unfused pair back to back {pair_ms:.3f} ms "
-                 f"({pair_ms / ms:.2f}x the fused time)"
+                 f"({pair_ms / ms:.2f}x the fused time); "
+                 f"{syrk_items[name]} SYRK items ({trsm_items} TRSM items)"
                  if pair_ms is not None else ""), flush=True)
     return rows
 
@@ -1508,13 +1520,12 @@ def kernel_rows(rows, d_rows, small, wide, runs):
     """Complete the heat-2d phase's rows for the JSON line, in place: each
     row's launches summed over the main paths (and per path), the main
     paths' launch checks, the Dirichlet phase's numbers, the small-block
-    phase's and the large-block phase's (None for the stepped SYRK, which
-    it does not run)."""
+    phase's and the large-block phase's."""
     keep = ("ms", "plain_ms", "library_ms", "library_call", "bound_ms",
             "bound_by", "bound_ops_ms", "bound_ops_route", "tflops",
             "bound_share", "max_abs_err", "max_rel_err", "twin_rel_err",
             "plain_twin_rel_err", "twin", "library_rel_err",
-            "unfused_pair_ms")
+            "unfused_pair_ms", "syrk_items")
     if [r["name"] for r in rows] != [d["name"] for d in d_rows]:
         raise SystemExit("the kernel and Dirichlet phases checked different "
                          "kernels")
@@ -2623,8 +2634,10 @@ def main() -> int:
     t1 = phase("large blocks")
     x256 = reblocked_inputs(x, device, WIDE_BS)
     label = f"heat-2d dual bs={WIDE_BS}"
-    wide = check_kernels(x256, WIDE_NAMES, "f64", label, ptxas_wide)
-    wide += check_kernels(x256, WIDE_NAMES, "f32", label, ptxas_wide)
+    # the stepped SYRK has one instance per dtype, for every bm
+    ptxas_bs256 = {**ptxas, **ptxas_wide}
+    wide = check_kernels(x256, WIDE_NAMES, "f64", label, ptxas_bs256)
+    wide += check_kernels(x256, WIDE_NAMES, "f32", label, ptxas_bs256)
     del x256
     free()
     done("large blocks", t1)

@@ -9,9 +9,10 @@ import torch
 TILE = 32  # column tile of the TRSM kernels (TN in csrc/stepped_trsm.cuh)
 MIN_BS = 8  # the TRSM kernels take bs and bm multiples of it
 MAX_BS = 256  # largest factor block: two 128-row passes of the TRSM core
-# SYRK sub-tile edge of the fused kernels (FUSED_TILE in
+# SYRK region edge of the fused kernels (FUSED_TILE in
 # csrc/stepped_trsm_syrk.cu, whose launcher refuses an item list of another
-# length than its own count)
+# length than its own count): a SYRK item covers a group of 64 // bm
+# stripes when bm < 64, else a 64 x 64 sub-tile of one stripe
 FUSED_SYRK_TILE = 64
 ALIGN = 16  # bytes: the CUDA kernels move operands in 16-byte copies
 # the scalar types the kernels are built for, and the suffix of their C

@@ -61,18 +61,13 @@ using namespace stepped;
 // regions on 8 warps of 32 x 16 (PERF.md)
 constexpr int SUB = 128, WARP_M = 64, WARP_N = 32;
 
-// stripes per group (a group is group_stripes(bm) * bm columns wide)
-__host__ __device__ __forceinline__ int group_stripes(int bm) {
-  return bm < SUB ? SUB / bm : 1;
-}
-
 template <class T>
 __global__ void __launch_bounds__(SYRK_THREADS)
 stepped_syrk_kernel(const T* __restrict__ Y,
                     const int* __restrict__ start_block, T* __restrict__ F,
                     int S, int n, int m, int bs, int bm) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int width = group_stripes(bm) * bm;
+  const int width = group_stripes<SUB>(bm) * bm;
   const int subs = (width + SUB - 1) / SUB, per_group = subs * subs;
   const int64_t per_row = (int64_t)S * per_group;
   int gi, gj;
@@ -97,7 +92,7 @@ int launch(const void* Y, const void* start_block, void* F, int S, int n,
   constexpr size_t smem = syrk_smem_bytes<T, SUB>();
   cudaError_t err = dmma::set_smem(stepped_syrk_kernel<T>, smem);
   if (err != cudaSuccess) return (int)err;
-  const int g = group_stripes(bm), width = g * bm;
+  const int g = group_stripes<SUB>(bm), width = g * bm;
   const int groups = (m / bm + g - 1) / g, subs = (width + SUB - 1) / SUB;
   const int64_t blocks =
       (int64_t)groups * (groups + 1) / 2 * subs * subs * S;

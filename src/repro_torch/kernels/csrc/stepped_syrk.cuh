@@ -6,8 +6,9 @@
 // F = Y^T Y for one subdomain: rows r0.. (columns of Y), columns c0..,
 // clipped to row_end / col_end, reducing over Y rows from the start of the
 // stripe of row r0 to n. The region may span several bm-wide stripes (the
-// stepped SYRK's groups of stripes); entry (r, c) takes the terms of Y rows
-// k >= start(r), the start of r's own stripe, as the TPU kernel's tile does,
+// groups of stripes of the stepped SYRK and of the fused kernels); entry
+// (r, c) takes the terms of Y rows k >= start(r), the start of r's own
+// stripe, as the TPU kernel's tile does,
 // and is stored only where c's stripe is at or before r's (a stripe pair
 // (i, j <= i)): the rest keeps the zeros the wrapper allocated. To that end
 // every staged element of the row panel is zero-filled (cp.async with
@@ -84,6 +85,14 @@ __device__ __forceinline__ void lower_tile(int t, int& ti, int& tj) {
   ti = 0;
   while ((ti + 1) * (ti + 2) / 2 <= t) ++ti;
   tj = t - ti * (ti + 1) / 2;
+}
+
+// Stripes a group of a TM-wide region takes: the most whole bm-wide
+// stripes in TM columns when bm < TM, else one stripe, cut into TM x TM
+// sub-tiles. A group is group_stripes<TM>(bm) * bm columns wide.
+template <int TM>
+__host__ __device__ __forceinline__ int group_stripes(int bm) {
+  return bm < TM ? TM / bm : 1;
 }
 
 // The stripes of one launch: column x of Y (row or column x of F) lies in

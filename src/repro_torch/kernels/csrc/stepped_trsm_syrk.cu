@@ -27,12 +27,12 @@
 // sum_{k<nb} (k + 1) tile products (595 at nb = 34), one of a stripe that
 // starts near the end a few, and the start-0 items set the critical path.
 // Even balanced, fusion saves little here: Y still goes through device
-// memory, and a SYRK tile can only start once its stripes are solved, so
+// memory, and a SYRK item can only start once its stripes are solved, so
 // the SYRK half overlaps no more than the TRSM half's tail. On the dense
 // factor the kernel's TRSM items alone run about 20% slower than the
 // stepped TRSM's blocks on the same items, for a reason not found yet (not
 // registers, residency or item order; PERF.md); on the packed one they
-// match.
+// match at bs = 128, and at bs = 16 run about 20% slower too (PERF.md).
 //
 // The TPU kernel runs its (nc, nc) grid sequentially in row-major order:
 // program (c, 0) solves stripe c into a persistent VMEM scratch and every
@@ -41,10 +41,11 @@
 //   * A persistent grid, no larger than what is co-resident, draws items
 //     from one host-built list (kernels/schedule.py) through one atomicAdd
 //     ticket: first every TRSM item (subdomain, 32-column tile) in
-//     non-increasing cost, then every SYRK item (subdomain, lower tile,
-//     64 x 64 sub-tile), those reducing over the most rows first. A block
-//     that drew a cheap item draws again at once, so the heavy items
-//     spread over all SMs instead of a fixed stride's share.
+//     non-increasing cost, then every SYRK item (subdomain, lower group
+//     of stripes, 64 x 64 sub-tile; below), those reducing over the most
+//     rows first. A block that drew a cheap item draws again at once, so
+//     the heavy items spread over all SMs instead of a fixed stride's
+//     share.
 //   * A TRSM item runs stepped_trsm.cuh's forward substitution into a
 //     global Y scratch (S, n, m), then publishes its column tile: every
 //     thread fences, the block meets at a barrier, and one thread stores
@@ -53,7 +54,7 @@
 //     its columns of Y): one thread spins on their flags with
 //     ld.acquire.gpu, then the block meets at a barrier and copies Y with
 //     cp.async.cg (L2, never a stale L1 line, never the read-only path).
-//     SYRK tiles of the early-finishing stripes run while the start-0
+//     SYRK items of the early-finishing stripes run while the start-0
 //     stripe is still being solved.
 // The wrapper's launcher zeroes the ticket and the flags with
 // cudaMemsetAsync on the same stream before every launch.
@@ -70,12 +71,29 @@
 // Upper tiles (j > i) are never written: the wrapper allocates F as zeros,
 // which the mirror step relies on.
 //
+// SYRK items follow groups of stripes, as the stepped SYRK's blocks do
+// (stepped_syrk.cu), at this kernel's 64-wide region: a group is
+// G = 64 / bm stripes when bm < 64, else one stripe, so G * bm columns
+// wide (bm 8: 8 stripes, 16: 4, 24: 2 (48 wide), 32: 2, 40 to 56: 1).
+// Only lower groups (gi >= gj) get items, each cut into 64 x 64 sub-tiles
+// (more than one only when bm > 64) and clipped at the group's end and at
+// m, so the last group may be narrower. syrk_tile reduces a region from
+// its first row stripe's start, masks each column at its own stripe's
+// start and stores only stripe pairs (i, j <= i), so pairs (i, j > i)
+// inside a diagonal group keep the wrapper's zeros. One item a bm x bm
+// tile would keep (bm / 64)^2 of its products and stage both 64-column
+// panels over its whole k range: at feti-heat-2d's bs = bm = 16 (S 64,
+// m 272) 9,792 SYRK items where 960 cover the same groups. At bm >= 64
+// (G = 1) an item is a 64 x 64 sub-tile of one bm x bm tile.
+//
 // Small blocks (bs, bm in {8, 16, ...}): a TRSM item keeps its 32-column
 // tile, which may span several stripes; it solves from the first one's
 // start (stepped_trsm.cuh says why that is exact) and is clipped at m; at
 // bs <= 16 it runs the panel core (dense) or the k-split core (packed) of
 // stepped_trsm.cuh. A SYRK item waits for every column tile its rows and
-// columns touch, so a tile narrower than 32 waits for the one it lies in.
+// columns touch: a 64-wide region up to two (three when it starts
+// off a 32-column boundary, as at bm 56) on each side, a region narrower
+// than 32 the one it lies in.
 //
 // f32: Y and F are f32 (sizeof(T) sizes the Y scratch the wrapper
 // allocates and every shared-memory stage); the sync words stay int32
@@ -84,13 +102,18 @@
 // Layout: as stepped_trsm.cu, plus the scratch Y (S, n, m), the output
 // F (S, m, m), both of the operands' type, the item list (n_items,) int32
 // and the sync words (1 + S * ceil(m / 32),) int32; bs a multiple of 8 up
-// to 256, bm a multiple of 8. Item codes: a TRSM item is s * ceil(m / 32) + column
-// tile, a SYRK item is S * ceil(m / 32) + (s * lower tiles + tile) *
-// sub-tiles + sub-tile. The launcher takes only the whole list: an n_items
-// other than its own count of every item (a list built for another
-// FUSED_TILE, say) is refused with cudaErrorInvalidValue, as are bs and bm
-// the TRSM core does not take. stepped_trsm_syrk_grid_{f64,f32}(bs, packed,
-// &blocks) reports the persistent grid a launch at bs takes on this card.
+// to 256, bm a multiple of 8. Item codes: a TRSM item is
+// s * ceil(m / 32) + column tile, a SYRK item is S * ceil(m / 32) +
+// (s * lower groups + group) * subs^2 + sub, with groups =
+// ceil((m / bm) / G), lower groups = groups * (groups + 1) / 2 (group
+// (gi, gj) at gi * (gi + 1) / 2 + gj) and subs = ceil(G * bm / 64); its
+// region starts at row gi * G * bm + (sub / subs) * 64 and column
+// gj * G * bm + (sub % subs) * 64. The launcher takes only the whole
+// list: an n_items other than its own count of every item (a list built
+// for another FUSED_TILE or for one item a bm x bm tile, say) is refused
+// with cudaErrorInvalidValue, as are bs and bm the TRSM core does not
+// take. stepped_trsm_syrk_grid_{f64,f32}(bs, packed, &blocks) reports the
+// persistent grid a launch at bs takes on this card.
 
 #include <type_traits>
 
@@ -101,7 +124,10 @@ namespace {
 
 using namespace stepped;
 
-constexpr int FUSED_TILE = 64;  // SYRK sub-tile edge: 4 warps of 32 x 32
+// SYRK region edge: 4 warps of 32 x 32. 128 x 128 regions at the TRSM
+// core's 128 threads would need 64 x 64 warp tiles, 256 accumulator
+// registers a thread at f64.
+constexpr int FUSED_TILE = 64;
 
 // the larger of the two halves' shared memory (the TRSM half's: the row
 // core's 112 KB at f64 and 68 KB at f32, 149 KB and 88 KB at bs > 128, the
@@ -168,19 +194,21 @@ stepped_trsm_syrk_kernel(Factor fac, const T* __restrict__ Linv,
     }
 
     // decoded here, not above the loop: nothing of it is live in a TRSM item
-    const int subs = (bm + FUSED_TILE - 1) / FUSED_TILE;
-    const int per_tile = subs * subs;
-    const int per_sub = (m / bm) * (m / bm + 1) / 2 * per_tile;
+    const int g = group_stripes<FUSED_TILE>(bm), width = g * bm;
+    const int groups = (m / bm + g - 1) / g;
+    const int subs = (width + FUSED_TILE - 1) / FUSED_TILE;
+    const int per_group = subs * subs;
+    const int per_s = groups * (groups + 1) / 2 * per_group;
     const int code = item - trsm_items;
-    const int64_t s = code / per_sub;
-    const int rem = code % per_sub;
-    int ti, tj;
-    lower_tile(rem / per_tile, ti, tj);
-    const int sub = rem % per_tile;
-    const int r0 = ti * bm + (sub / subs) * FUSED_TILE;
-    const int c0 = tj * bm + (sub % subs) * FUSED_TILE;
-    const int row_end = min(r0 + FUSED_TILE, (ti + 1) * bm);
-    const int col_end = min(c0 + FUSED_TILE, (tj + 1) * bm);
+    const int64_t s = code / per_s;
+    const int rem = code % per_s;
+    int gi, gj;
+    lower_tile(rem / per_group, gi, gj);
+    const int sub = rem % per_group;
+    const int r0 = gi * width + (sub / subs) * FUSED_TILE;
+    const int c0 = gj * width + (sub % subs) * FUSED_TILE;
+    const int row_end = min(min(r0 + FUSED_TILE, (gi + 1) * width), m);
+    const int col_end = min(min(c0 + FUSED_TILE, (gj + 1) * width), m);
     if (threadIdx.x == 0) {
       const int* flags = ready + s * col_tiles;
       for (int c = r0 / TN; c < (row_end + TN - 1) / TN; ++c)
@@ -242,9 +270,11 @@ int launch(Factor fac, const void* Linv, const void* B,
   if (bs % MIN_BS || bs > MAX_BS || bs < MIN_BS || bm % MIN_BS || bm < 1 ||
       n % bs || m % bm)
     return (int)cudaErrorInvalidValue;
-  const int nc = m / bm, subs = (bm + FUSED_TILE - 1) / FUSED_TILE;
+  const int g = group_stripes<FUSED_TILE>(bm), width = g * bm;
+  const int groups = (m / bm + g - 1) / g;
+  const int subs = (width + FUSED_TILE - 1) / FUSED_TILE;
   const int trsm_items = S * ((m + TN - 1) / TN);
-  if (n_items != trsm_items + S * (nc * (nc + 1) / 2) * subs * subs)
+  if (n_items != trsm_items + S * (groups * (groups + 1) / 2) * subs * subs)
     return (int)cudaErrorInvalidValue;
   return with_core<T>(bs, [&](auto kc, auto passes) {
     return launch_kc<T, decltype(kc)::value, decltype(passes)::value>(

@@ -11,9 +11,19 @@ start blocks and hands to the wrapper):
   ceil(m / 32)``; the last tile is clipped at m), code
   ``s * col_tiles + tile`` — in non-increasing cost (a stable sort, so
   the tiles of one subdomain stay neighbours);
-* then every SYRK item — one 64 × 64 sub-tile of one lower ``bm × bm``
-  tile of one subdomain, code ``S * col_tiles + (s * lower_tiles + tile) *
-  sub_tiles + sub`` — those that reduce over the most rows first.
+* then every SYRK item — one 64 × 64 sub-tile (clipped) of one lower
+  group of stripes of one subdomain, code ``S * col_tiles + (s *
+  lower_groups + group) * subs² + sub`` — those that reduce over the most
+  rows first (a stable sort).
+
+A group (:func:`fused_groups`) is ``G = 64 // bm`` stripes when bm < 64,
+else one stripe; it is ``G · bm`` columns wide and cut into ``subs²``
+sub-tiles of 64 × 64 (``subs`` is 1 unless bm > 64). Only lower groups
+``(gi, gj <= gi)`` get items, numbered ``gi (gi + 1) / 2 + gj``; the last
+group is clipped at m. An item's region starts at row ``gi · G · bm +
+(sub // subs) · 64`` and column ``gj · G · bm + (sub % subs) · 64`` and
+is clipped at the group's end and at m. At bm >= 64 an item is a 64 × 64
+sub-tile of one ``bm × bm`` tile.
 
 Costs count 128×128×32-shaped tile products. A dense TRSM item of a stripe
 starting at block ``st`` costs ``Σ_{k=st}^{nb-1} (k - st + 1)``: row k
@@ -30,14 +40,22 @@ import torch
 
 from repro_torch.kernels._launch import FUSED_SYRK_TILE, TILE
 
-__all__ = ["trsm_stripe_costs", "fused_item_count", "fused_work_order",
-           "fused_work_order_on"]
+__all__ = ["trsm_stripe_costs", "fused_groups", "fused_item_count",
+           "fused_work_order", "fused_work_order_on"]
+
+
+def fused_groups(m: int, bm: int) -> tuple[int, int, int]:
+    """``(G, groups, subs)`` of the fused kernels' SYRK items for m
+    columns in bm-wide stripes: stripes a group, groups, 64 × 64
+    sub-tiles a side of a group."""
+    g = FUSED_SYRK_TILE // bm if bm < FUSED_SYRK_TILE else 1
+    return g, -(-(m // bm) // g), -(-(g * bm) // FUSED_SYRK_TILE)
 
 
 def fused_item_count(S: int, m: int, bm: int) -> int:
     """Items of a fused launch: every TRSM item, then every SYRK item."""
-    nc, subs = m // bm, -(-bm // FUSED_SYRK_TILE)
-    return S * -(-m // TILE) + S * nc * (nc + 1) // 2 * subs * subs
+    _, groups, subs = fused_groups(m, bm)
+    return S * -(-m // TILE) + S * groups * (groups + 1) // 2 * subs * subs
 
 
 def trsm_stripe_costs(starts, nb: int, rowptr=None, colidx=None) -> np.ndarray:
@@ -59,17 +77,16 @@ def trsm_stripe_costs(starts, nb: int, rowptr=None, colidx=None) -> np.ndarray:
 def _order(starts: tuple, S: int, nb: int, m: int, bm: int,
            rowptr: tuple | None, colidx: tuple | None) -> np.ndarray:
     col_tiles = -(-m // TILE)
-    nc = m // bm
-    subs = -(-bm // FUSED_SYRK_TILE)
+    g, groups, subs = fused_groups(m, bm)
     stripe_cost = trsm_stripe_costs(starts, nb, rowptr, colidx)
     tile_stripe = np.arange(col_tiles) * TILE // bm
     trsm_cost = np.tile(stripe_cost[tile_stripe], S)  # code s*col_tiles + t
     trsm = np.argsort(-trsm_cost, kind="stable")
-    # SYRK: lower tile (i, j <= i) reduces over nb - starts[i] row blocks
-    rows = np.asarray([nb - min(int(starts[i]), nb)
-                       for i in range(nc) for _ in range(i + 1)])
-    per_tile = subs * subs
-    syrk_rows = np.tile(np.repeat(rows, per_tile), S)
+    # SYRK: lower group (gi, gj <= gi) reduces over nb - starts[gi * G] row
+    # blocks, from its first row stripe's start
+    rows = np.asarray([nb - min(int(starts[gi * g]), nb)
+                       for gi in range(groups) for _ in range(gi + 1)])
+    syrk_rows = np.tile(np.repeat(rows, subs * subs), S)
     syrk = np.argsort(-syrk_rows, kind="stable") + S * col_tiles
     order = np.concatenate([trsm, syrk]).astype(np.int32)
     order.setflags(write=False)

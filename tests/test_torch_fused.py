@@ -218,6 +218,12 @@ CUDA_CASES = [
     # blocks over 128 rows: two passes of the TRSM core
     (520, 258, 256, 256, 2, 0),  # bs = bm = 256
     (600, 200, 200, 40, 2, 10),  # bs 200: a second pass of 72 rows
+] + [
+    # the fused kernels' SYRK groups (64 // bm stripes when bm < 64)
+    (400, 258, 16, 16, 2, 6),  # m 258 -> 272: 17 stripes, a ragged last group
+    (300, 140, 24, 24, 2, 4),  # m 140 -> 144: groups 48 wide, off the tiles
+    (320, 200, 40, 40, 2, 8),  # bm 40: a group is one stripe
+    (300, 264, 8, 8, 2, 0),  # 33 stripes in groups of 8, the last one stripe
 ]
 
 
@@ -335,6 +341,12 @@ F32_CASES = [
     (520, 258, 128, 128, 2, 0),
     (520, 258, 128, 128, 256, 0),
     (520, 258, 256, 256, 2, 0),  # bs 256: two passes of the TRSM core
+    # the SYRK groups: a ragged last group, 48-wide groups, one stripe a
+    # group at bm 40, groups of 8 stripes with a last one of one
+    (400, 258, 16, 16, 2, 6),
+    (300, 140, 24, 24, 2, 4),
+    (320, 200, 40, 40, 2, 8),
+    (300, 264, 8, 8, 2, 0),
 ]
 
 

@@ -16,8 +16,10 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.core import build_stepped_meta  # noqa: E402
 from repro_torch.kernels import ops, stepped_trsm_syrk  # noqa: E402
+from repro_torch.kernels.stepped_syrk import stepped_syrk_plain  # noqa: E402
 from repro_torch.kernels._launch import FUSED_SYRK_TILE, TILE  # noqa: E402
 from repro_torch.kernels.schedule import (  # noqa: E402
+    fused_groups,
     fused_item_count,
     fused_work_order,
     fused_work_order_on,
@@ -35,31 +37,62 @@ def _packed_index(nb, bs, seed):
     return PackedBlockIndex.from_mask(mask, nb * bs, bs), mask
 
 
+# feti-heat-2d re-blocked at bs = bm = 16: n_pad 4352 (nb 272), m_pad 272,
+# 17 stripes in groups of 4, the last group one stripe
+HEAT2D_BS16 = [16 * i for i in range(17)]
+
 CASES = [
     # starts, S, nb, m, bm, packed
     ([0, 16, 32], 64, 34, 384, 128, False),  # the full-size plan
     ([0, 16, 32], 3, 34, 384, 128, True),
-    ([0, 2, 2, 5], 4, 6, 128, 32, False),  # bm < the SYRK sub-tile
+    ([0, 2, 2, 5], 4, 6, 128, 32, False),  # bm 32: 2 stripes a group
     ([1, 3, 6], 5, 6, 288, 96, True),  # a ragged sub-tile; the last stripe empty
     ([0], 1, 1, 32, 32, False),
+    (HEAT2D_BS16, 64, 272, 272, 16, False),  # m no multiple of 32
+    (HEAT2D_BS16, 2, 272, 272, 16, True),
+    # bm 24: groups of 2 stripes, 48 wide, off the 32-column tiles
+    ([0, 1, 1, 3, 4, 6, 8], 3, 9, 168, 24, True),
+    ([0, 2, 3, 3, 5], 2, 6, 200, 40, False),  # bm 40: a group is one stripe
+    # bm 8, m 264: 33 stripes in groups of 8, the last group one stripe, the
+    # last TRSM tile clipped at m
+    ([k // 4 for k in range(33)], 2, 10, 264, 8, False),
 ]
+TILE_CASES = [c for c in CASES if c[4] >= FUSED_SYRK_TILE]
+
+
+def _group_stripes(bm):
+    """Stripes a SYRK group takes: as many as fit 64 columns, at least one."""
+    return max(FUSED_SYRK_TILE // bm, 1)
 
 
 def decode_item(code, S, m, bm):
-    """``("trsm", s, column tile)`` or ``("syrk", s, ti, tj, sub)``: an
+    """``("trsm", s, column tile)`` or ``("syrk", s, gi, gj, sub)``: an
     item code decoded as csrc/stepped_trsm_syrk.cu decodes it."""
-    col_tiles = m // TILE
+    col_tiles = -(-m // TILE)
     if code < S * col_tiles:
         return ("trsm", code // col_tiles, code % col_tiles)
-    subs = -(-bm // FUSED_SYRK_TILE)
-    per_tile = subs * subs
-    nc = m // bm
-    s, rem = divmod(code - S * col_tiles, nc * (nc + 1) // 2 * per_tile)
-    tile, sub = divmod(rem, per_tile)
-    ti = 0
-    while (ti + 1) * (ti + 2) // 2 <= tile:
-        ti += 1
-    return ("syrk", s, ti, tile - ti * (ti + 1) // 2, sub)
+    g = _group_stripes(bm)
+    groups = -(-(m // bm) // g)
+    per_group = (-(-(g * bm) // FUSED_SYRK_TILE)) ** 2
+    s, rem = divmod(code - S * col_tiles,
+                    groups * (groups + 1) // 2 * per_group)
+    group, sub = divmod(rem, per_group)
+    gi = 0
+    while (gi + 1) * (gi + 2) // 2 <= group:
+        gi += 1
+    return ("syrk", s, gi, group - gi * (gi + 1) // 2, sub)
+
+
+def region(item, m, bm):
+    """``(r0, r1, c0, c1)``: the rows and columns of F a decoded SYRK item
+    covers, clipped as the kernel clips them."""
+    _, _, gi, gj, sub = item
+    width = _group_stripes(bm) * bm
+    subs = -(-width // FUSED_SYRK_TILE)
+    r0 = gi * width + (sub // subs) * FUSED_SYRK_TILE
+    c0 = gj * width + (sub % subs) * FUSED_SYRK_TILE
+    return (r0, min(r0 + FUSED_SYRK_TILE, (gi + 1) * width, m),
+            c0, min(c0 + FUSED_SYRK_TILE, (gj + 1) * width, m))
 
 
 def _items(starts, S, nb, m, bm, packed, seed=0):
@@ -74,9 +107,11 @@ def _items(starts, S, nb, m, bm, packed, seed=0):
 @pytest.mark.parametrize("starts,S,nb,m,bm,packed", CASES)
 def test_order_is_a_permutation_of_every_item(starts, S, nb, m, bm, packed):
     order, items, _, _ = _items(starts, S, nb, m, bm, packed)
-    nc, col_tiles = m // bm, m // TILE
-    subs = -(-bm // FUSED_SYRK_TILE)
-    n_syrk = S * nc * (nc + 1) // 2 * subs * subs
+    col_tiles = -(-m // TILE)
+    g = _group_stripes(bm)
+    groups = -(-(m // bm) // g)
+    subs = -(-(g * bm) // FUSED_SYRK_TILE)
+    n_syrk = S * groups * (groups + 1) // 2 * subs * subs
     assert order.dtype == np.int32
     # the count the wrapper checks the list against; the launcher refuses
     # any length but its own count of every item
@@ -86,7 +121,7 @@ def test_order_is_a_permutation_of_every_item(starts, S, nb, m, bm, packed):
     trsm = {it[1:] for it in items if it[0] == "trsm"}
     assert trsm == {(s, t) for s in range(S) for t in range(col_tiles)}
     syrk = {it[1:] for it in items if it[0] == "syrk"}
-    assert syrk == {(s, i, j, q) for s in range(S) for i in range(nc)
+    assert syrk == {(s, i, j, q) for s in range(S) for i in range(groups)
                     for j in range(i + 1) for q in range(subs * subs)}
 
 
@@ -100,33 +135,116 @@ def test_trsm_items_first_in_non_increasing_cost(starts, S, nb, m, bm,
     cost = trsm_stripe_costs(starts, nb, rp, ci)
     trsm_cost = [cost[t * TILE // bm] for _, _, t in items[:n_trsm]]
     assert all(a >= b for a, b in zip(trsm_cost, trsm_cost[1:]))
-    # SYRK items: the most rows to reduce first
-    rows = [nb - min(starts[it[2]], nb) for it in items[n_trsm:]]
+    # SYRK items: the most rows to reduce first, from the start of the
+    # group's first row stripe
+    g = _group_stripes(bm)
+    rows = [nb - min(starts[it[2] * g], nb) for it in items[n_trsm:]]
     assert all(a >= b for a, b in zip(rows, rows[1:]))
 
 
 @pytest.mark.parametrize("starts,S,nb,m,bm,packed", CASES)
 def test_syrk_items_wait_only_on_earlier_trsm_items(starts, S, nb, m, bm,
                                                     packed):
-    """Every column tile a SYRK sub-tile reads (its rows and its columns of
-    Y) is a TRSM item placed before it in the list."""
+    """Every column tile a SYRK item reads (its rows and its columns of Y)
+    is a TRSM item placed before it in the list, and every item's region
+    is a non-empty part of its own group."""
     _, items, _, _ = _items(starts, S, nb, m, bm, packed)
-    subs = -(-bm // FUSED_SYRK_TILE)
+    width = _group_stripes(bm) * bm
     seen = set()
     for it in items:
         if it[0] == "trsm":
             seen.add(it[1:])
             continue
-        s, ti, tj, q = it[1:]
-        r0 = ti * bm + (q // subs) * FUSED_SYRK_TILE
-        c0 = tj * bm + (q % subs) * FUSED_SYRK_TILE
-        r1 = min(r0 + FUSED_SYRK_TILE, (ti + 1) * bm)
-        c1 = min(c0 + FUSED_SYRK_TILE, (tj + 1) * bm)
-        assert r0 < r1 and c0 < c1  # no empty sub-tile
+        s, gi, gj = it[1:4]
+        r0, r1, c0, c1 = region(it, m, bm)
+        assert gi * width <= r0 < r1 <= min((gi + 1) * width, m)
+        assert gj * width <= c0 < c1 <= min((gj + 1) * width, m)
         needed = {(s, c // TILE) for c in [*range(r0, r1), *range(c0, c1)]}
         assert needed <= seen
-        # and they are the stripes' own tiles
-        assert {c * TILE // bm for _, c in needed} <= {ti, tj}
+
+
+@pytest.mark.parametrize("starts,S,nb,m,bm,packed", CASES)
+def test_syrk_items_store_the_plain_result_once(starts, S, nb, m, bm,
+                                                packed):
+    """The SYRK items emulated in numpy by syrk_tile's rule, on a random
+    Y (no zeros above the starts, so the row mask must do the work): each
+    region reduces from its first row stripe's start, every staged row
+    element above its own column's start is zero, and only entries whose
+    column stripe is at or before the row stripe are stored. Their union
+    is the plain stepped SYRK; every lower-block entry is written exactly
+    once and no upper one."""
+    bs, S = 8, min(S, 2)
+    n = nb * bs
+    _, items, _, _ = _items(starts, S, nb, m, bm, packed)
+    Y = np.random.default_rng(m + bm).standard_normal((S, n, m))
+    start = np.repeat(np.minimum(np.asarray(starts), nb) * bs, bm)  # by column
+    stripe = np.arange(m) // bm
+    F = np.zeros((S, m, m))
+    writes = np.zeros((S, m, m), dtype=int)
+    for it in items:
+        if it[0] == "trsm":
+            continue
+        s = it[1]
+        r0, r1, c0, c1 = region(it, m, bm)
+        k0 = start[r0]
+        A = Y[s, k0:, r0:r1] * (np.arange(k0, n)[:, None] >= start[r0:r1])
+        stored = stripe[c0:c1][None, :] <= stripe[r0:r1][:, None]
+        F[s, r0:r1, c0:c1][stored] = (A.T @ Y[s, k0:, c0:c1])[stored]
+        writes[s, r0:r1, c0:c1] += stored
+    lower = stripe[None, :] <= stripe[:, None]
+    np.testing.assert_array_equal(writes, np.broadcast_to(lower, F.shape))
+    want = stepped_syrk_plain(torch.from_numpy(Y),
+                              torch.as_tensor(starts), bs, bm).numpy()
+    np.testing.assert_allclose(F, want, rtol=0,
+                               atol=1e-12 * np.abs(want).max())
+
+
+def _tile_regions(codes, S, m, bm):
+    """The regions of SYRK codes in the list before groups: one item a
+    64 × 64 sub-tile of one lower ``bm × bm`` tile."""
+    col_tiles, nc = -(-m // TILE), m // bm
+    subs = -(-bm // FUSED_SYRK_TILE)
+    out = []
+    for code in codes:
+        _, rem = divmod(code - S * col_tiles, nc * (nc + 1) // 2 * subs * subs)
+        tile, sub = divmod(rem, subs * subs)
+        ti = 0
+        while (ti + 1) * (ti + 2) // 2 <= tile:
+            ti += 1
+        tj = tile - ti * (ti + 1) // 2
+        r0 = ti * bm + (sub // subs) * FUSED_SYRK_TILE
+        c0 = tj * bm + (sub % subs) * FUSED_SYRK_TILE
+        out.append((r0, min(r0 + FUSED_SYRK_TILE, (ti + 1) * bm),
+                    c0, min(c0 + FUSED_SYRK_TILE, (tj + 1) * bm)))
+    return out
+
+
+@pytest.mark.parametrize("starts,S,nb,m,bm,packed", TILE_CASES)
+def test_wide_stripes_keep_the_list_before_groups(starts, S, nb, m, bm,
+                                                  packed):
+    """bm >= 64: a group is one stripe, so the list's length, its order and
+    every item's region are those of one item a sub-tile of a bm × bm
+    tile."""
+    order, items, _, _ = _items(starts, S, nb, m, bm, packed)
+    nc, subs = m // bm, -(-bm // FUSED_SYRK_TILE)
+    n_trsm = S * -(-m // TILE)
+    assert order.size == n_trsm + S * nc * (nc + 1) // 2 * subs * subs
+    assert [region(it, m, bm) for it in items[n_trsm:]] == _tile_regions(
+        [int(c) for c in order[n_trsm:]], S, m, bm)
+
+
+def test_item_counts_of_the_planned_small_blocks():
+    """feti-heat-2d at bs = bm = 16 (S 64, m 272): 576 TRSM items and 960
+    SYRK items (15 lower groups of 4 stripes; one item a 16 × 16 tile would
+    be 9,792); feti-elasticity-3d at bs = bm = 8 (S 8, m 896): 224 and 840
+    (105 lower groups of 8 stripes, against 50,624)."""
+    assert fused_item_count(64, 272, 16) == 576 + 960
+    assert fused_item_count(8, 896, 8) == 224 + 840
+    assert fused_groups(272, 16) == (4, 5, 1)
+    assert fused_groups(288, 24) == (2, 6, 1)
+    for bm in (40, 48, 56, 64):
+        assert fused_groups(7 * bm, bm) == (1, 7, 1)
+    assert fused_groups(384, 128) == (1, 3, 2)
 
 
 def test_full_size_dense_costs():

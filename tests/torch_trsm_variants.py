@@ -1,29 +1,36 @@
 """Time variants of the stepped kernels' device code side by side.
 
     python3 tests/torch_trsm_variants.py [--levers row_ring3,panel_kc32,...]
-        [--kernels B1,B2,...] [--sources NAME=DIR,...] [--f64] [--dirichlet]
+        [--kernels B1,B2,...] [--sources NAME=DIR,...] [--orders rows,ready]
+        [--phases bs128,bs16] [--f64] [--dirichlet]
 
 Each lever is a set of substitutions in the sources of
 ``src/repro_torch/kernels/csrc`` (a constant, a launch bound, a loop's
-unrolling or the accumulation; LEVERS lists them). The script copies the
-sources once per lever into ``build/trsm_variants/<lever>/``, applies the
-substitutions (a text that is not found stops it), builds every variant's
-TRSM, SYRK and fused libraries at once through
-``repro_torch.kernels.build`` and prints each instance's registers and
-spills. ``--sources`` adds whole source trees as variants (a copy of
-``csrc/`` from another commit, unpacked with ``git archive``: its kernels
-keep the same C interface). Then, on feti-heat-2d's full-size factor
-(``chip_smoke.kernel_inputs``) at bs = 128 (f32) and at bs = bm = 16
-(``chip_smoke.small_block_inputs``; f32 and f64; ``--f64`` adds f64 at
-every phase), it runs the stepped TRSM (B1), the stepped SYRK (B2, on the
-plain TRSM's Y), the packed TRSM (B3) and both fused kernels (B4, B5) of
-every variant ("base": the sources as they are; ``--kernels`` picks some)
-through the port's own wrappers inside ``build.sources(<the variant's
-copy>)``, holds each against its plain version (chip_smoke's F32_TOL and
-REL_TOL) and prints its CUDA-event median time; an f32 TRSM's or SYRK's
-distance from the f64 kernel on the same operands is printed beside its
-chip_smoke bar (F32_TRSM_TWIN_TOL, F32_SYRK_TWIN_TOL). ``--dirichlet``
-adds the kernels on the full-size feti-heat-3d Dirichlet stage's operands
+unrolling, the accumulation, the fused kernels' wait; LEVERS lists them).
+The script copies the sources once per lever into
+``build/trsm_variants/<lever>/``, applies the substitutions (a text that
+is not found stops it), builds every variant's TRSM, SYRK and fused
+libraries at once through ``repro_torch.kernels.build`` and prints each
+instance's registers and spills. ``--sources`` adds whole source trees as
+variants (a copy of ``csrc/`` from another commit, unpacked with ``git
+archive``: its kernels keep the same C interface). Then, on feti-heat-2d's
+full-size factor (``chip_smoke.kernel_inputs``) at bs = 128 (f32) and at
+bs = bm = 16 (``chip_smoke.reblocked_inputs``; f32 and f64; ``--f64``
+adds f64 at every phase; ``--phases`` picks some), it runs the stepped
+TRSM (B1), the stepped SYRK (B2, on the plain TRSM's Y), the packed TRSM
+(B3) and both fused kernels (B4, B5) of every variant ("base": the
+sources as they are; ``--kernels`` picks some) through the port's own
+wrappers inside ``build.sources(<the variant's copy>)``, holds each
+against its plain version (chip_smoke's F32_TOL and REL_TOL; a
+TIMING_ONLY lever's disagreement is printed, not counted) and prints its
+CUDA-event median time; an f32 TRSM's or SYRK's distance from the f64
+kernel on the same operands is printed beside its chip_smoke bar
+(F32_TRSM_TWIN_TOL, F32_SYRK_TWIN_TOL). ``--orders`` times the fused
+kernels (B4, B5) of every variant on each named order of their SYRK items
+(ORDERS: "rows", the list as ``kernels/schedule.py`` builds it; "ready",
+its SYRK items re-sorted so that those whose TRSM tiles cost least, and so
+are solved first, come first). ``--dirichlet`` adds the kernels on the
+full-size feti-heat-3d Dirichlet stage's operands
 (``chip_smoke.dirichlet_inputs``, ~17 GB of host memory). Compare
 variants only within one run. Needs one card and nvcc.
 """
@@ -131,6 +138,18 @@ __device__ __forceinline__ void warp_mma_presplit(
 }
 
 }  // namespace tf32x3"""
+FUSED_SYRK_CALL = "    syrk_tile<T, LoadFromL2, FUSED_TILE, 32, 32, THREADS>("
+FUSED_WAIT = "        while (!load_acquire(flags + c)) __nanosleep(128);"
+POLL_RELAXED = """__device__ __forceinline__ int load_relaxed(const int* p) {
+  int v;
+  asm volatile("ld.relaxed.gpu.global.s32 %0, [%1];\\n"
+               : "=r"(v)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+
+"""
 LEVERS = {
     "base": [],
     # the f32 row-split core's ring 3 deep (two blocks a SM)
@@ -160,6 +179,10 @@ LEVERS = {
                                            "#pragma unroll"))],
     # the f32 stepped SYRK's chunks 16 rows deep (as at f64)
     "syrk_kc16": [(SYRK_KC, "constexpr int SYRK_KC = 16;")],
+    # the fused kernels' SYRK items' chunks 32 rows deep at both dtypes
+    # (the f64 stepped SYRK's stay 16)
+    "fused_kc32": [(SYRK_KC, "constexpr int SYRK_KC = "
+                             "sizeof(T) == 8 && TM == 128 ? 16 : 32;")],
     # no warp of the SYRK tile skips the chunks above its rows' starts
     "syrk_no_skip": [("if (k_begin + (c + 1) * KC > k_warp)", "if (true)")],
     "syrk_split_staged": [
@@ -168,12 +191,78 @@ LEVERS = {
         ("return sizeof(T) * SYRK_STAGES * 2 * SYRK_KC<T, TM> * SYRK_LD<T, TM>;",
          "return sizeof(T) * (SYRK_STAGES + 1) * 2 * SYRK_KC<T, TM> *\n"
          "         SYRK_LD<T, TM>;")],
+    # timing only (their F is wrong, reported and not counted as a
+    # failure; TIMING_ONLY): the fused kernels' SYRK items skipped, which
+    # leaves the TRSM half's time in the fused launch, and their SYRK
+    # items run without waiting for their TRSM tiles, which leaves the
+    # cost of both halves without their dependencies
+    "fused_no_syrk": [(FUSED_SYRK_CALL,
+                       "    if (n < 0) " + FUSED_SYRK_CALL.strip())],
+    "fused_no_wait": [(FUSED_WAIT, "        (void)load_acquire(flags + c);")],
+    # the fused kernels' SYRK items poll their ready flags with relaxed
+    # loads and acquire once a flag reads set (an ld.acquire.gpu a poll
+    # otherwise)
+    "fused_poll_relaxed": [
+        ("__device__ __forceinline__ int load_acquire(const int* p) {",
+         POLL_RELAXED + "__device__ __forceinline__ int load_acquire("
+                        "const int* p) {"),
+        (FUSED_WAIT,
+         "        while (!load_relaxed(flags + c) || !load_acquire(flags + c))\n"
+         "          __nanosleep(128);")],
+    # the fused kernels' SYRK items poll every microsecond, not 128 ns
+    "fused_sleep1us": [("__nanosleep(128);", "__nanosleep(1024);")],
     # launch bounds asking for three blocks a SM (every instance)
     "bound3": [("__launch_bounds__(THREADS)",
                 "__launch_bounds__(THREADS, 3)")],
     # the panel and k-split cores' rings 2 deep
     "small_ring2": [("constexpr int STAGES = 3;", "constexpr int STAGES = 2;")],
 }
+
+
+TIMING_ONLY = ("fused_no_syrk", "fused_no_wait")
+ORDERS = ("rows", "ready")
+
+
+def ready_first(xx, index=None):
+    """The fused kernels' item list for ``xx``'s plan (with the packed
+    ``index``: B5's) with its SYRK items re-sorted: those whose costliest
+    TRSM tile (of the column tiles the item waits for) costs least first,
+    ties broken by the most rows to reduce, as the schedule's own order.
+    The TRSM items stay first, as freedom from deadlock needs."""
+    import numpy as np
+
+    from repro_torch.kernels._launch import FUSED_SYRK_TILE as T
+    from repro_torch.kernels._launch import TILE
+    from repro_torch.kernels.schedule import (
+        fused_groups,
+        fused_work_order,
+        trsm_stripe_costs,
+    )
+
+    S, bm, m = xx["S"], xx["bm"], xx["m_pad"]
+    nb, starts = xx["n_pad"] // xx["bs"], xx["starts_np"]
+    csr = (index.rowptr, index.cols) if index is not None else ()
+    base = fused_work_order(starts, S, nb, m, bm, *csr)
+    col_tiles = -(-m // TILE)
+    g, groups, subs = fused_groups(m, bm)
+    width = g * bm
+    tile_cost = trsm_stripe_costs(starts, nb, *csr)[
+        np.arange(col_tiles) * TILE // bm]
+    ready, rows = [], []
+    for gi in range(groups):
+        for gj in range(gi + 1):
+            for sub in range(subs * subs):
+                r0 = gi * width + (sub // subs) * T
+                c0 = gj * width + (sub % subs) * T
+                r1 = min(r0 + T, (gi + 1) * width, m)
+                c1 = min(c0 + T, (gj + 1) * width, m)
+                tiles = [*range(r0 // TILE, -(-r1 // TILE)),
+                         *range(c0 // TILE, -(-c1 // TILE))]
+                ready.append(tile_cost[tiles].max())
+                rows.append(nb - min(int(starts[gi * g]), nb))
+    perm = np.lexsort((-np.tile(rows, S), np.tile(ready, S)))
+    n_trsm = S * col_tiles
+    return np.concatenate([base[:n_trsm], perm + n_trsm]).astype(np.int32)
 
 
 def build(levers, sources=None):
@@ -205,8 +294,16 @@ def build(levers, sources=None):
                 raise SystemExit(f"lever {lever}: {old!r} not found")
         dirs[lever] = d
     dirs.update(sources or {})
-    with ThreadPoolExecutor(len(dirs)) as pool:
-        list(pool.map(lambda d: kbuild.build(LIBS, csrc=d), dirs.values()))
+    # a library whose sources no lever changed is built once, not by two
+    # threads into the same path
+    claimed, jobs = set(), []
+    for d in dirs.values():
+        libs = [lib for lib in LIBS
+                if kbuild._library_path(lib, d) not in claimed]
+        claimed.update(kbuild._library_path(lib, d) for lib in libs)
+        jobs.append((d, libs))
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        list(pool.map(lambda job: kbuild.build(job[1], csrc=job[0]), jobs))
     regs = {}
     for lever, d in dirs.items():
         for lib in LIBS:
@@ -228,10 +325,11 @@ def build(levers, sources=None):
     return dirs, regs
 
 
-def time_phase(label, xx, dtypes, dirs, kernels=KERNELS):
+def time_phase(label, xx, dtypes, dirs, kernels=KERNELS, orders=("rows",)):
     """Each lever's ``kernels`` on one phase's operands ``xx``, launched
-    through the port's wrappers from the lever's sources, checked against
-    their plain versions and timed; returns the disagreements."""
+    through the port's wrappers from the lever's sources (the fused ones
+    once for each of ``orders``), checked against their plain versions and
+    timed; returns the disagreements."""
     import torch
 
     import chip_smoke as cs
@@ -249,7 +347,12 @@ def time_phase(label, xx, dtypes, dirs, kernels=KERNELS):
         B = xx["Bp"].to(dt)
         packed = ops._packed_operands(xx["packed"].to(dt), xx["env"])
         starts = xx["starts"]
-        order, porder = xx["orders"]
+        dev = B.device
+        lists = {"rows": xx["orders"]}
+        if "ready" in orders:
+            lists["ready"] = tuple(
+                torch.from_numpy(ready_first(xx, i)).to(dev)
+                for i in (None, xx["packed"].index))
         Y = K.stepped_trsm_plain(*dense, B, starts, bs, bm)
         plain = {
             "B1": lambda: Y,
@@ -279,25 +382,32 @@ def time_phase(label, xx, dtypes, dirs, kernels=KERNELS):
         bars = dict(B1=cs.F32_TRSM_TWIN_TOL,
                     B2=cs.F32_SYRK_TWIN_TOL[PHASES[label]],
                     B3=cs.F32_TRSM_TWIN_TOL)
-        runs = {
-            "B1": lambda: K.stepped_trsm_kernel(*dense, B, starts, bs, bm),
-            "B2": lambda: K.stepped_syrk_kernel(Y, starts, bs, bm),
-            "B3": lambda: K.stepped_trsm_packed_kernel(*packed, B, starts,
-                                                       bs, bm),
-            "B4": lambda: K.stepped_trsm_syrk_kernel(*dense, B, starts, bs,
-                                                     bm, order=order),
-            "B5": lambda: K.stepped_trsm_syrk_packed_kernel(
-                *packed, B, starts, bs, bm, order=porder)}
-        for v, d in dirs.items():
+        def runs(order, porder):
+            return {
+                "B1": lambda: K.stepped_trsm_kernel(*dense, B, starts, bs,
+                                                    bm),
+                "B2": lambda: K.stepped_syrk_kernel(Y, starts, bs, bm),
+                "B3": lambda: K.stepped_trsm_packed_kernel(*packed, B,
+                                                           starts, bs, bm),
+                "B4": lambda: K.stepped_trsm_syrk_kernel(
+                    *dense, B, starts, bs, bm, order=order),
+                "B5": lambda: K.stepped_trsm_syrk_packed_kernel(
+                    *packed, B, starts, bs, bm, order=porder)}
+
+        cases = [(v, d, o) for v, d in dirs.items() for o in orders]
+        for v, d, o in cases:
             cells = []
             with kbuild.sources(d):
                 for name in kernels:
-                    run = runs[name]
+                    if o != orders[0] and name not in ("B4", "B5"):
+                        continue
+                    run = runs(*lists[o])[name]
                     got = run()
                     torch.cuda.synchronize()
                     err = cs.compare(got, plain[name])[1]
                     if not err <= tol:
-                        bad.append((label, suf, v, name, err))
+                        if v not in TIMING_ONLY:
+                            bad.append((label, suf, v, name, err))
                     cell = f"{name} {cs.cuda_ms(run):.3f} ms (rel {err:.1e}"
                     if name in twins:
                         terr = cs.compare(got.double(), twins[name])[1]
@@ -305,7 +415,8 @@ def time_phase(label, xx, dtypes, dirs, kernels=KERNELS):
                                  + (f" > its bar {bars[name]:g}"
                                     if terr > bars[name] else ""))
                     cells.append(cell + ")")
-            print(f"{label} {suf} {v}: " + "; ".join(cells), flush=True)
+            tag = v if len(orders) == 1 else f"{v} order={o}"
+            print(f"{label} {suf} {tag}: " + "; ".join(cells), flush=True)
     return bad
 
 
@@ -318,6 +429,12 @@ def main(argv=None) -> int:
     p.add_argument("--sources", default="",
                    help="comma-separated NAME=DIR source trees to time as "
                         "variants (a csrc/ copy of another commit)")
+    p.add_argument("--orders", default="rows",
+                   help=f"comma-separated orders of the fused kernels' "
+                        f"SYRK items to time ({', '.join(ORDERS)})")
+    p.add_argument("--phases", default="bs128,bs16",
+                   help="comma-separated phases: bs128 (f32; --f64 adds "
+                        "f64), bs16 (f32 and f64)")
     p.add_argument("--f64", action="store_true",
                    help="also f64 at bs = 128 and the Dirichlet stage")
     p.add_argument("--dirichlet", action="store_true",
@@ -332,6 +449,10 @@ def main(argv=None) -> int:
     kernels = [k for k in KERNELS if k in args.kernels.split(",")]
     if not kernels:
         raise SystemExit(f"--kernels names none of {KERNELS}")
+    orders = [o for o in args.orders.split(",") if o]
+    if not orders or any(o not in ORDERS for o in orders):
+        raise SystemExit(f"--orders {args.orders!r}: known {ORDERS}")
+    phases = args.phases.split(",")
 
     sys.path[:0] = [ROOT, os.path.join(ROOT, "src")]
     import torch
@@ -355,18 +476,20 @@ def main(argv=None) -> int:
     dev = torch.device("cuda", 0)
     bad = []
     x = cs.kernel_inputs(dev)
-    x16 = cs.small_block_inputs(x, dev)
     wide = (torch.float32, torch.float64) if args.f64 else (torch.float32,)
-    bad += time_phase("bs128", x, wide, dirs, kernels)
-    del x
-    bad += time_phase("bs16", x16, (torch.float32, torch.float64), dirs,
-                      kernels)
-    del x16
+    if "bs128" in phases:
+        bad += time_phase("bs128", x, wide, dirs, kernels, orders)
+    if "bs16" in phases:
+        x16 = cs.reblocked_inputs(x, dev, cs.SMALL_BS)
+        del x
+        bad += time_phase("bs16", x16, (torch.float32, torch.float64), dirs,
+                          kernels, orders)
+        del x16
     if args.dirichlet:
         gc.collect()
         torch.cuda.empty_cache()
         bad += time_phase("dirichlet", cs.dirichlet_inputs(dev), wide, dirs,
-                          kernels)
+                          kernels, orders)
     if bad:
         print(f"variants that disagree with the plain versions: {bad}",
               file=sys.stderr)

@@ -219,7 +219,12 @@ Phases (each prints its seconds; any failure exits non-zero):
                 LM_GOLDEN_TOL, the greedy tokens equal. Prints, beside the
                 card's name and power limit, each run's prefill ms, decode
                 ms a step and tok/s, peak device bytes and weight bytes
-                against ``param_count()`` × 2. The path runs no hand kernel
+                against ``param_count()`` × 2, and the bounds from
+                ``repro_torch.launch.analytic.lm_cell_counts`` on the run's
+                own batch, prompt and depth (prefill: its compute term,
+                attention included, at 989 TFLOP/s bf16 or 67 f32; a decode
+                step: its weight and cache stream at 3.35 TB/s). The path
+                runs no hand kernel
                 (the reference's LM modules reach no ``pl.pallas_call``):
                 the phase fails if one was launched.
  10. train    — the LM training path (``make_train_step``: AdamW, the LM
@@ -239,10 +244,13 @@ Phases (each prints its seconds; any failure exits non-zero):
                 where the step returns them: without accumulation), lr
                 and gradient norm, ``loss_fn``'s parts at the start
                 weights, the step ms (host clock, device synchronized, the
-                first step apart), tok/s, peak device bytes, the step's
-                bound ((3 + 1 with remat) x the forward's products at 989
-                TFLOP/s bf16; the f32 attention and WKV products at 67
-                TFLOP/s beside it) and the model-FLOPs share; fails on a
+                first step apart), tok/s, peak device bytes beside the
+                analytic residency, the step's bound (``lm_cell_counts``'
+                executed FLOPs, (3 + 1 with remat) forward passes, at 989
+                TFLOP/s bf16; its attention and WKV part at 67 TFLOP/s
+                beside it) and the model-FLOPs share (``model_flops``,
+                6 · N_active · tokens, over step seconds x 989 TFLOP/s);
+                fails on a
                 non-finite loss or gradient norm, or a MoE run without an
                 aux loss. Then TRAIN_CHECK at f32 (TF32 off): grad_accum 2
                 against 1, remat against none, the bf16 first loss
@@ -251,6 +259,26 @@ Phases (each prints its seconds; any failure exits non-zero):
                 three f32 steps of each smoke config) through the port
                 within TRAIN_GOLDEN_TOL. Fails if the path launched a hand
                 kernel.
+ 11. dryrun   — ``repro_torch.launch.dryrun --arch all --shape all`` on the
+                reference's two meshes (16x16, 2x16x16; host arithmetic)
+                into a temporary file: prints the census and holds every
+                full-size FETI row to ``tests/data/torch_dryrun_golden.json``
+                (the reference's ``feti_cell_counts``, exactly). Then
+                DRYRUN_RUNS at ``--devices 1 --run`` on the card at full
+                width: feti-heat-2d x assembly (S 64, n 4225, bs 128, f32:
+                the block Cholesky, then B1 f32 and B2 f32 through
+                ``use_kernels=True``, each launched exactly once a step),
+                granite-3-8b x decode_32k (40 layers, the global batch cut
+                to the largest whose analytic residency fits
+                ``dryrun.FIT_FRACTION`` of the card; decode steps at
+                cache_index 32767 on a cache filled from a seeded
+                generator) and recurrentgemma-2b x long_500k (batch 1, full
+                depth). Prints each row's measured_s, peak device bytes
+                beside its analytic residency and ``finalize.fraction``
+                (and floor / measured_s), and ``report.dryrun_table`` of
+                the three. Fails on a row whose status is not ``ok``, a
+                peak at or above the card's 80 GB, a FETI row off the
+                golden file or a launch count off.
 
 Then one JSON line with the kernels' numbers, one row per kernel and
 dtype (the f32 ones named ``*_f32``; each row: the heat-2d phase's,
@@ -308,17 +336,13 @@ F32_TRSM = ("stepped_trsm", "stepped_trsm_packed")
 # F32_TOL.
 F32_SYRK_TWIN_TOL = {"heat-2d dual": 4e-7, "heat-2d dual bs=16": 4e-7,
                      "heat-2d dual bs=256": 4e-7, "heat-3d dirichlet": 1.2e-6}
-# NVIDIA H100 SXM data sheet, dense: FP64 through the tensor cores (DMMA);
-# plain FP64 FMA peaks at half of it; FP32 outside the tensor cores (FFMA)
-# at the same 67; TF32 on the tensor cores at 494.7 (the sheet's 989.4 is
-# with 2:4 sparsity), of which an f32-exact 3xTF32 product (every f32
-# product of the port's kernels) takes three. All at the 700 W power
-# limit.
-PEAK_FP64_FLOPS = 67e12
-PEAK_FP32_FLOPS = 67e12
-PEAK_TF32_FLOPS = 494.7e12
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_BF16_FLOPS = 989e12  # dense bf16 tensor-core products
+# The card's peaks are repro_torch.launch.roofline.HW's (NVIDIA H100 SXM
+# data sheet, dense, at the 700 W power limit): FP64 through the tensor
+# cores (DMMA; plain FP64 FMA peaks at half of it); FP32 outside the tensor
+# cores (FFMA) at the same 67 TFLOP/s; TF32 on the tensor cores at 494.7
+# (the sheet's 989.4 is with 2:4 sparsity), of which an f32-exact 3xTF32
+# product (every f32 product of the port's kernels) takes three; bf16 at
+# 989; HBM at 3.35 TB/s.
 REPS = 5
 SMALL_BS = 16  # the small-block phase's bs = bm
 WIDE_BS = 256  # the large-block phase's bs = bm: two passes of the core
@@ -567,6 +591,13 @@ TRAIN_REMAT_TOL, TRAIN_BF16_BAR = 1e-6, 1.5e-6
 # tests/data/torch_train_golden.npz (the reference's three f32 steps of
 # every smoke config, CPU) against the card, max relative
 TRAIN_GOLDEN_TOL = 1e-4
+# the dryrun phase: the cells run on the card at --devices 1 (each FETI
+# one's launches a step, exactly); the reference's full-size FETI counts
+# are tests/data/torch_dryrun_golden.json (tests/torch_dryrun_golden.py)
+DRYRUN_RUNS = (("feti-heat-2d", "assembly"), ("granite-3-8b", "decode_32k"),
+               ("recurrentgemma-2b", "long_500k"))
+DRYRUN_LAUNCHES = {"feti-heat-2d": {"stepped_trsm": {"f32": 1},
+                                    "stepped_syrk": {"f32": 1}}}
 # each mixed-precision run's bar on its PCPG iterations summed over the
 # defect-correction outers (a multi-RHS run: its most iterated column): the
 # counts measured on the card (NVIDIA H100 80GB HBM3, 700 W) with a small
@@ -943,10 +974,12 @@ def op_routes(flops, f32):
     """{route: ms} the card needs for ``flops`` operations at f64 (the FP64
     tensor cores) or at f32 accuracy (FFMA, or 3xTF32: three TF32 tensor-core
     products for each)."""
+    from repro_torch.launch.roofline import HW
+
     if not f32:
-        return {"fp64 tensor cores": flops / PEAK_FP64_FLOPS * 1e3}
-    return {"ffma": flops / PEAK_FP32_FLOPS * 1e3,
-            "3xtf32": 3 * flops / PEAK_TF32_FLOPS * 1e3}
+        return {"fp64 tensor cores": flops / HW["peak_flops_f64"] * 1e3}
+    return {"ffma": flops / HW["peak_flops_f32"] * 1e3,
+            "3xtf32": 3 * flops / HW["peak_flops_tf32"] * 1e3}
 
 
 def bounds(x, f32=False):
@@ -958,6 +991,8 @@ def bounds(x, f32=False):
     model of the schedule, or, for the packed TRSM, from the stored slots it
     walks. A fused kernel need not move Y: its bytes are factor + Linv + B +
     F."""
+    from repro_torch.launch.roofline import HW
+
     S, bs, bm, n_pad, m_pad = x["S"], x["bs"], x["bm"], x["n_pad"], x["m_pad"]
     env, starts = x["env"], [int(s) for s in x["starts_np"]]
     word = 4 if f32 else 8
@@ -984,7 +1019,7 @@ def bounds(x, f32=False):
         routes = op_routes(flops, f32)
         route = min(routes, key=routes.get)
         t_ops = routes[route]
-        t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+        t_bytes = nbytes / HW["hbm_bw"] * 1e3
         out[name] = dict(flops=flops, bytes=nbytes, ops_ms=routes,
                          ops_route=route, bound_ms=max(t_ops, t_bytes),
                          bound_by="operations" if t_ops >= t_bytes else "bytes")
@@ -1012,6 +1047,7 @@ def check_kernels(x, names, dtype, label, ptxas=None, plain_reps=REPS):
     from repro_torch.kernels import ops
     from repro_torch.kernels._launch import TILE
     from repro_torch.kernels.ref import syrk_ref, trsm_ref
+    from repro_torch.launch.roofline import HW
 
     f32 = dtype == "f32"
     t = torch.float32 if f32 else torch.float64
@@ -1169,7 +1205,7 @@ def check_kernels(x, names, dtype, label, ptxas=None, plain_reps=REPS):
               f"{plain_ms:.3f}, library {library_ms:.3f}, bound "
               f"{b['bound_ms']:.3f} by {b['bound_by']}: {b['flops']:.4e} "
               f"{dtype} flop ({routes}; the bound takes {b['ops_route']}), "
-              f"{b['bytes']:.4e} B at {PEAK_BYTES_PER_S / 1e12:g} TB/s)",
+              f"{b['bytes']:.4e} B at {HW['hbm_bw'] / 1e12:g} TB/s)",
               flush=True)
         print(f"[chip_smoke] {label} {key}: {tflops:.2f} useful TFLOP/s, "
               f"{100 * b['bound_ms'] / ms:.1f}% of the bound, "
@@ -1937,47 +1973,35 @@ def rel_l2(got, want):
     return ((got - want).norm() / want.norm()).item()
 
 
-def moe_prefill_flops(cfg, batch, prompt_len):
-    """The products of the prefill's MoE layers beyond their ``Dense``
-    weights: the router, the experts over every slot the dispatch fills
-    (2·B·E·C·3·d·e_ff; GShard computes all E·C slots, dropped or empty
-    ones too) and, under GShard, the one-hot dispatch and combine
-    einsums."""
-    from repro_torch.models.moe import moe_capacity
-    from repro_torch.models.transformer import StackLayout
+def lm_counts(cfg, kind, seq, batch, grad_accum=1, remat=False,
+              moment_bytes=4, accum_bytes=4):
+    """``lm_cell_counts`` of one of this script's LM runs on the one card:
+    its own batch, sequence (a decode run: the cache's length) and depth,
+    and the port's attention chunks (512 x 512; no causal block
+    skipping)."""
+    from repro_torch.launch.analytic import lm_cell_counts
+    from repro_torch.launch.shapes import ShapeCase
 
-    E, k, d = cfg.num_experts, cfg.top_k, cfg.d_model
-    C = moe_capacity(cfg, prompt_len)
-    tokens = batch * prompt_len
-    layer = 2 * tokens * d * E + 2 * batch * E * C * 3 * d * (
-        cfg.moe_d_ff or cfg.d_ff)
-    if cfg.moe_impl != "sort":
-        # (bske,bskc->bsec) twice, then (bsd,bsec->becd), (becd,bsec->bsd)
-        layer += 2 * 2 * tokens * k * E * C + 2 * 2 * tokens * E * C * d
-    return layer * sum(StackLayout.moe_of(cfg, li)
-                       for li in range(cfg.num_layers))
+    return lm_cell_counts(cfg, ShapeCase(kind, seq, batch, kind), chips=1,
+                          tp=1, grad_accum=grad_accum, remat=remat,
+                          moment_bytes=moment_bytes, accum_bytes=accum_bytes,
+                          q_chunk=512, kv_chunk=512)
 
 
-def lm_bounds(cfg, model, batch, prompt_len, steps):
-    """(prefill, decode step) lower bounds in ms, from the data sheet's
-    peaks: the prefill's dense products (every ``Dense`` weight once a
-    prompt token, the head for the last; a MoE layer's router, experts and
-    dispatch, ``moe_prefill_flops``) at the bf16 tensor-core rate (f32:
-    FFMA, TF32 being off), its attention and scans left out; a decode step
-    reads the weights (every expert's: GShard runs them all) and the whole
-    cache once at 3.35 TB/s."""
-    from repro_torch.models import init_cache
+def lm_bounds(cfg, batch, prompt_len, steps):
+    """(prefill, decode step) lower bounds in ms from ``lm_cell_counts``:
+    the prefill's compute term (every executed product, attention
+    included) at the tensor cores' bf16 rate (f32: FFMA, TF32 being off),
+    and a decode step's weight and cache stream (every expert's weights:
+    ``param_count``) at the memory rate."""
+    from repro_torch.launch.roofline import HW
 
-    dense = sum(p.numel() for name, p in model.named_parameters()
-                if name.endswith(".w"))
-    flops = 2 * batch * (dense * prompt_len + cfg.d_model * cfg.vocab_size)
-    if cfg.is_moe:
-        flops += moe_prefill_flops(cfg, batch, prompt_len)
-    rate = PEAK_BF16_FLOPS if cfg.dtype == "bfloat16" else PEAK_FP32_FLOPS
-    weights = sum(p.numel() * p.element_size() for p in model.parameters())
-    cache = sum(t.numel() * t.element_size() for layer in init_cache(
-        cfg, batch, prompt_len + steps, "meta") for t in layer.values())
-    return flops / rate * 1e3, (weights + cache) / PEAK_BYTES_PER_S * 1e3
+    pre = lm_counts(cfg, "prefill", prompt_len, batch)
+    dec = lm_counts(cfg, "decode", prompt_len + steps, batch)
+    rate = (HW["peak_flops"] if cfg.dtype == "bfloat16"
+            else HW["peak_flops_f32"])
+    stream = dec.notes["weight_stream_dev"] + dec.notes["cache_stream_dev"]
+    return pre.flops_per_dev / rate * 1e3, stream / HW["hbm_bw"] * 1e3
 
 
 def lm_serve(cfg, prompt_len, bar, device, smi, batch=LM_BATCH,
@@ -2040,8 +2064,7 @@ def lm_serve(cfg, prompt_len, bar, device, smi, batch=LM_BATCH,
     finite = bool(torch.isfinite(steps_logits).all()
                   and torch.isfinite(want).all())
     n_dec = steps - 1
-    prefill_bound, decode_bound = lm_bounds(cfg, model, batch, prompt_len,
-                                            steps)
+    prefill_bound, decode_bound = lm_bounds(cfg, batch, prompt_len, steps)
     of_layers = of_layers or cfg.num_layers
     row = dict(
         arch=cfg.name, layers=cfg.num_layers, of_layers=of_layers,
@@ -2238,36 +2261,6 @@ def lm_phase(device, smi, cpu=False):
 
 
 # ------------------------------------------------------------ train ----
-def train_flops(cfg, model, batch, seq):
-    """(forward FLOPs of a step's batch on the tensor cores, its f32
-    FLOPs): the dense products (every ``Dense`` weight once a token, the
-    head once a position; a MoE layer's router, expert slots and dispatch,
-    ``moe_prefill_flops``) and, apart, the f32 products of attention (the
-    scores and the context over all S² pairs of every attention layer: the
-    training forward skips no causal block) and of RWKV-6's chunked WKV
-    (4·D² + 4·64·D a token and head, as the reference's analytic model)."""
-    tokens = batch * seq
-    dense = sum(p.numel() for name, p in model.named_parameters()
-                if name.endswith(".w"))
-    fwd = 2 * tokens * (dense + cfg.d_model * cfg.vocab_size)
-    if cfg.is_moe:
-        fwd += moe_prefill_flops(cfg, batch, seq)
-    if cfg.attn_kind == "mla":
-        heads, width = cfg.num_heads, (cfg.qk_nope_head_dim
-                                       + cfg.qk_rope_head_dim
-                                       + cfg.v_head_dim)
-    else:
-        heads, width = cfg.num_heads, 2 * cfg.head_dim
-    f32 = 0
-    for kind in cfg.layer_kinds:
-        if kind == "attn":
-            f32 += 2 * batch * heads * seq * seq * width
-        elif kind == "rwkv6":
-            D = cfg.rwkv_head_dim
-            f32 += tokens * (cfg.d_model // D) * (4 * D * D + 4 * 64 * D)
-    return fwd, f32
-
-
 def train_config(steps, moments, accum_dtype="float32", grad_accum=1,
                  remat=True, lr=TRAIN_LR, grad_transform=None):
     """The launcher's settings: warm-up ``max(steps // 20, 1)``, a cosine
@@ -2335,19 +2328,26 @@ def train_run(cfg, of_layers, seq, batch, grad_accum, moments, steps,
     peak = torch.cuda.max_memory_allocated(device) if cuda else None
     later = times[1:] or times
     step_s = statistics.mean(later)
-    fwd, f32 = train_flops(cfg, model, batch, seq)
-    passes = 3 + (1 if tcfg.remat else 0)
-    bound_ms = passes * fwd / PEAK_BF16_FLOPS * 1e3
-    f32_ms = passes * f32 / PEAK_FP32_FLOPS * 1e3
+    from repro_torch.launch.roofline import HW
+
+    width = 2 if moments == "bfloat16" else 4
+    counts = lm_counts(cfg, "train", seq, batch, grad_accum, tcfg.remat,
+                       moment_bytes=width, accum_bytes=width)
+    passes = counts.notes["fwd_passes"]
+    f32 = counts.notes["attention"] + counts.notes["rwkv"]
+    bound_ms = counts.flops_per_dev / HW["peak_flops"] * 1e3
+    f32_ms = passes * f32 / HW["peak_flops_f32"] * 1e3
     active = cfg.active_param_count()
-    mfu = 6 * active * batch * seq / (step_s * PEAK_BF16_FLOPS)
+    mfu = counts.model_flops / (step_s * HW["peak_flops"])
     row = dict(arch=cfg.name, layers=cfg.num_layers, of_layers=of_layers,
                d_model=cfg.d_model, seq=seq, batch=batch,
                grad_accum=grad_accum, moments=moments, remat=tcfg.remat,
                steps=steps, params=n_params, active_params=active,
                init_s=init_s, first_step_ms=times[0] * 1e3,
                step_ms=step_s * 1e3, tok_per_s=batch * seq / step_s,
-               peak_device_bytes=peak, bound_ms=bound_ms,
+               peak_device_bytes=peak,
+               analytic_resident_bytes=int(counts.hbm_resident_per_dev),
+               bound_ms=bound_ms,
                f32_products_ms=f32_ms, model_flops_share=mfu,
                first_parts=parts, metrics=metrics)
     print(f"[chip_smoke] train {cfg.name} (layers {cfg.num_layers} of "
@@ -2356,10 +2356,13 @@ def train_run(cfg, of_layers, seq, batch, grad_accum, moments, steps,
           f"{grad_accum}, {moments} moments and accumulator, remat: first "
           f"step {row['first_step_ms']:.1f} ms, then {row['step_ms']:.1f} ms "
           f"a step ({row['tok_per_s']:,.1f} tok/s); bound {bound_ms:.1f} ms "
-          f"({passes} x {fwd:.4g} forward FLOPs at 989 TFLOP/s bf16), f32 "
-          f"products {f32_ms:.1f} ms ({passes} x {f32:.4g} at 67 TFLOP/s); "
-          f"model-FLOPs share {mfu:.4f} (6 x {active:,} x {batch * seq} "
-          f"tokens); peak device bytes {peak:,}; init {init_s:.2f} s; "
+          f"({counts.flops_per_dev:.4g} executed FLOPs, {passes:g} forward "
+          f"passes, at 989 TFLOP/s bf16), of it attention and WKV "
+          f"{f32_ms:.1f} ms at 67 TFLOP/s ({passes:g} x {f32:.4g}); "
+          f"model-FLOPs share {mfu:.4f} ({counts.model_flops:.4g} = 6 x "
+          f"{active:,} x {batch * seq} tokens); peak device bytes {peak:,} "
+          f"(analytic residency {row['analytic_resident_bytes']:,}); init "
+          f"{init_s:.2f} s; "
           f"loss_fn parts at the start weights {parts}"
           if cuda else f"[chip_smoke] train {cfg.name}: {row}", flush=True)
     bad = [m for m in metrics if not (math.isfinite(m["loss"])
@@ -2523,6 +2526,94 @@ def train_phase(device, smi, cpu=False):
     summary = dict(runs=[{k: v for k, v in r.items() if k != "metrics"}
                          for r in rows], checks=checks, golden=golden)
     print(f"[chip_smoke] train {json.dumps(summary)}", flush=True)
+    return rows
+
+
+# ------------------------------------------------------------ dryrun ----
+def dryrun_phase(device, smi, cpu=False):
+    """The dry-run on the reference's two meshes (its census; the full-size
+    FETI rows against tests/data/torch_dryrun_golden.json), then DRYRUN_RUNS at --devices 1
+    --run on the card (with ``cpu``: the smoke configs on the CPU, the LM
+    cells' shapes cut to 64 positions and batch 2, no launches expected; a
+    rehearsal). Returns the run rows."""
+    import tempfile
+    from unittest import mock
+
+    from repro_torch.launch import dryrun, finalize, report
+    from repro_torch.launch.roofline import HW
+
+    with tempfile.TemporaryDirectory(prefix="repro_torch_dryrun-") as tmp:
+        path = os.path.join(tmp, "dryrun.jsonl")
+        with contextlib.redirect_stdout(io.StringIO()) as out:
+            rc = dryrun.main(["--arch", "all", "--shape", "all", "--mesh",
+                              "both", "--out", path])
+        recs = report.load(path)
+    status = {}
+    for r in recs:
+        status[r["status"]] = status.get(r["status"], 0) + 1
+    print(f"[chip_smoke] dryrun census (16x16, 2x16x16): {status}; "
+          f"{out.getvalue().strip().splitlines()[-1]}", flush=True)
+    if rc != 0 or set(status) - {"ok", "skipped"}:
+        raise SystemExit(f"dryrun: cells in error: {status}")
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import torch_dryrun_golden
+
+    golden = torch_dryrun_golden.load()
+    off, held = [], 0
+    for r in recs:
+        key = f"{r['arch']}/{r['shape']}/{r.get('mesh')}"
+        if key in golden:
+            held += 1
+            if torch_dryrun_golden.mismatches(r, golden[key]):
+                off.append(key)
+    print(f"[chip_smoke] dryrun FETI rows against the reference's "
+          f"feti_cell_counts: {held} of {len(golden)} held, exactly equal: "
+          f"{held - len(off)}", flush=True)
+    if off or held != len(golden):
+        raise SystemExit(f"dryrun: FETI rows off the golden file: {off}")
+
+    cut = {}
+    if cpu:
+        cut = {name: dataclasses.replace(dryrun.SHAPES[name], seq_len=64,
+                                         global_batch=2)
+               for _, name in DRYRUN_RUNS if name in dryrun.SHAPES}
+    rows = []
+    for arch, shape in DRYRUN_RUNS:
+        free()
+        with mock.patch.dict(dryrun.SHAPES, cut):
+            rec = dryrun.run_cell(arch, shape, dryrun.DEVICE_MESH, run=True,
+                                  device=device, smoke=cpu)
+        rows.append(rec)
+        if rec["status"] != "ok":
+            print(rec.get("traceback", ""), flush=True)
+            raise SystemExit(f"dryrun {arch} x {shape}: {rec['status']}: "
+                             f"{rec.get('error')}")
+        rec.pop("traceback", None)
+        peak = rec["peak_device_bytes"]
+        frac = finalize.fraction(rec)
+        meas = finalize.measured_fraction(rec)
+        print(f"[chip_smoke] dryrun {arch} x {shape} on {smi}: global batch "
+              f"{rec.get('global_batch', '-')}, layers "
+              f"{rec.get('num_layers', '-')}, reduced {rec['reduced']}; "
+              f"measured_s {rec['measured_s']:.6f} (first step "
+              f"{rec['first_step_s']:.6f}, median of {rec['steps']} after "
+              f"it); peak device bytes {peak} against the analytic "
+              f"residency {rec['analytic_resident_bytes_per_dev']:,} "
+              f"(fit budget {rec['fit_budget_bytes']:,}); "
+              f"finalize.fraction {frac:.4f}, floor {finalize.floor_s(rec):.6g}"
+              f" s / measured_s {meas:.6f}; {rec['note']}", flush=True)
+        launches = rec.get("launches_per_step")
+        if launches is not None:
+            want = {} if cpu else DRYRUN_LAUNCHES[arch]
+            print(f"[chip_smoke] dryrun {arch} x {shape} launches a step: "
+                  f"{launches}", flush=True)
+            if any(step != want for step in launches):
+                raise SystemExit(f"dryrun {arch} x {shape}: launches "
+                                 f"{launches}, want {want} every step")
+        if peak is not None and not peak < HW["hbm_bytes"]:
+            raise SystemExit(f"dryrun {arch} x {shape}: peak {peak} B")
+    print(report.dryrun_table(rows), flush=True)
+    free()
     return rows
 
 
@@ -2760,6 +2851,10 @@ def main() -> int:
           f"{torch.cuda.memory_allocated(device):,}", flush=True)
     train_phase(device, smi)
     done("train", t0)
+
+    t0 = phase("dryrun")
+    dryrun_phase(device, smi)
+    done("dryrun", t0)
     print(f"[chip_smoke] total {time.perf_counter() - t_all:.1f}s", flush=True)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -26,6 +26,7 @@ __all__ = [
     "stepped_permutation",
     "SteppedMeta",
     "build_stepped_meta",
+    "build_stepped_meta_from_pivots",
     "shared_envelope",
 ]
 
@@ -201,6 +202,42 @@ def build_stepped_meta(
         pivots=pivots,
         widths=widths,
         col_starts=col_starts,
+    )
+
+
+def build_stepped_meta_from_pivots(
+    pivots_orig: np.ndarray,
+    n: int,
+    block_size: int = 128,
+    rhs_block_size: int | None = None,
+) -> SteppedMeta:
+    """Build metadata directly from per-column pivot rows (no dense pattern).
+
+    Used by the dry-run for production-sized subdomains: FETI gluing columns
+    have exactly one nonzero, so the pivot row IS the pattern, and the dense
+    (n × m) B̃ᵀ never needs to exist host-side.
+    """
+    pivots_orig = np.asarray(pivots_orig, dtype=np.int64)
+    m = pivots_orig.shape[0]
+    if rhs_block_size is None:
+        rhs_block_size = block_size
+    perm = stepped_permutation(pivots_orig)
+    pivots = pivots_orig[perm]
+    inv_perm = np.empty_like(perm)
+    inv_perm[perm] = np.arange(m, dtype=np.int64)
+
+    nb = -(-n // block_size)
+    widths = np.searchsorted(
+        pivots, np.minimum((np.arange(nb) + 1) * block_size, n) - 1,
+        side="right",
+    ).astype(np.int64)
+    cb = -(-m // rhs_block_size)
+    col_starts = np.minimum(pivots[np.arange(cb) * rhs_block_size], n)
+
+    return SteppedMeta(
+        n=n, m=m, block_size=int(block_size),
+        rhs_block_size=int(rhs_block_size), perm=perm, inv_perm=inv_perm,
+        pivots=pivots, widths=widths, col_starts=col_starts.astype(np.int64),
     )
 
 

@@ -240,6 +240,7 @@ def decompose_problem(
     lam: float = 1.0,
     mu: float = 1.0,
     body_force=None,
+    assemble_values: bool = True,
 ) -> FetiProblem:
     """Build the total-FETI decomposition of a structured problem.
 
@@ -252,6 +253,11 @@ def decompose_problem(
       kappa/source: heat conductivity and source term (heat only).
       lam/mu/body_force: Lamé parameters and constant body force
         (elasticity only; body_force defaults to unit downward gravity).
+      assemble_values: if False, build topology/patterns only (K, f and
+        B̃ᵀ are 1x1, (1,) and (1, m_max) placeholders; the sizes live in
+        ``dof_gids`` and ``b_rows``) — the dry-run's path, which needs the
+        stepped/symbolic metadata of production-sized subdomains without
+        their dense matrices.
     """
     if problem not in ("heat", "elasticity"):
         raise ValueError(f"unknown problem {problem!r}")
@@ -284,22 +290,27 @@ def decompose_problem(
 
     Ks, fs, gids_per_sub = [], [], []
     for s in sub_list:
-        origin = tuple(s[d] * sub_lengths[d] for d in range(dim))
-        lmesh = structured_mesh(elems_per_sub, origin=origin,
-                                lengths=sub_lengths)
-        if problem == "heat":
-            Ke = p1_element_stiffness(lmesh.coords, lmesh.elems, kappa=kappa)
-            edofs = lmesh.elems
-            f = load_vector(lmesh.coords, lmesh.elems, lmesh.n_nodes,
-                            source=source)
+        if assemble_values:
+            origin = tuple(s[d] * sub_lengths[d] for d in range(dim))
+            lmesh = structured_mesh(elems_per_sub, origin=origin,
+                                    lengths=sub_lengths)
+            if problem == "heat":
+                Ke = p1_element_stiffness(lmesh.coords, lmesh.elems,
+                                          kappa=kappa)
+                edofs = lmesh.elems
+                f = load_vector(lmesh.coords, lmesh.elems, lmesh.n_nodes,
+                                source=source)
+            else:
+                Ke = p1_elasticity_stiffness(lmesh.coords, lmesh.elems,
+                                             lam=lam, mu=mu)
+                edofs = element_dofs(lmesh.elems, dim)
+                f = elasticity_load_vector(lmesh.coords, lmesh.elems,
+                                           lmesh.n_nodes, body_force)
+            Ks.append(assemble_dense(n_local, edofs, Ke))
+            fs.append(f)
         else:
-            Ke = p1_elasticity_stiffness(lmesh.coords, lmesh.elems, lam=lam,
-                                         mu=mu)
-            edofs = element_dofs(lmesh.elems, dim)
-            f = elasticity_load_vector(lmesh.coords, lmesh.elems,
-                                       lmesh.n_nodes, body_force)
-        Ks.append(assemble_dense(n_local, edofs, Ke))
-        fs.append(f)
+            Ks.append(np.zeros((1, 1)))
+            fs.append(np.zeros((1,)))
         gnode = lidx + np.array([s[d] * elems_per_sub[d] for d in range(dim)])
         gids_per_sub.append((gnode * np.array(gstrides)).sum(axis=1)
                             .astype(np.int64))
@@ -357,8 +368,11 @@ def decompose_problem(
             b_rows[col] = lid
             b_vals[col] = val
         m = m_per_sub[si]
-        Bt = np.zeros((n_local, m_max), dtype=np.float64)
-        Bt[b_rows[:m], np.arange(m)] = b_vals[:m]
+        if assemble_values:
+            Bt = np.zeros((n_local, m_max), dtype=np.float64)
+            Bt[b_rows[:m], np.arange(m)] = b_vals[:m]
+        else:
+            Bt = np.zeros((1, m_max), dtype=np.float64)
         gids = gids_per_sub[si]
         dof_gids = ((gids[:, None] * ndpn + np.arange(ndpn)).reshape(-1)
                     if ndpn > 1 else gids)

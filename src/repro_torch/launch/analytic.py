@@ -1,14 +1,27 @@
-"""Exact analytic FLOP / byte counts of the FETI solve phase (the FETI part
-of the framework-free ``repro.launch.analytic``; its LM cells are ROADMAP
-item A18).
+"""Exact analytic FLOP / byte counts (counterpart of
+``repro.launch.analytic``): the LM cells (:func:`lm_cell_counts`) and the
+FETI solve phase (:func:`feti_solve_iter_counts`).
 
+The counts are EXECUTED work of the loop structure the program runs
+(chunked attention with or without causal block skipping, MoE capacity,
+the remat pass), not idealized-model work; ``model_flops`` (6·N·D for
+training, 2·N·D for serving) is reported beside them so their ratio shows
+the waste. The arithmetic is the reference's, term for term and in the
+same order, so both packages give the same numbers bit for bit.
 ``FetiSolver.amortization_report`` attaches :func:`feti_solve_iter_counts`
 per ``n_rhs``, so the reference's and the port's reports agree by
 construction.
 """
 from __future__ import annotations
 
-__all__ = ["feti_solve_iter_counts", "FETI_SOLVE_N_RHS"]
+import dataclasses
+import math
+
+from repro_torch.launch.shapes import ShapeCase
+from repro_torch.models.config import ModelConfig
+
+__all__ = ["CellCounts", "lm_cell_counts", "feti_solve_iter_counts",
+           "FETI_SOLVE_N_RHS"]
 
 # default multi-RHS width of the reference's ``solve_iter_multi`` dry-run
 # cell (the middle of its n_rhs sweep 1, 4, 16, 64)
@@ -39,3 +52,211 @@ def feti_solve_iter_counts(S: int, m: int, n_rhs: int = 1,
         "arithmetic_intensity": flops / bytes_,
         "n_rhs": int(n_rhs),
     }
+
+
+@dataclasses.dataclass
+class CellCounts:
+    flops_global: float  # executed flops per step, whole fleet
+    flops_per_dev: float
+    hbm_bytes_per_dev: float  # HBM traffic per step per device
+    hbm_resident_per_dev: float  # steady-state residency (fit check)
+    model_flops: float  # 6·N_active·D (train) / 2·N_active·D (serve)
+    notes: dict
+
+    def as_dict(self) -> dict:
+        return dataclasses.asdict(self)
+
+
+def _bytes_of(dtype_str: str) -> int:
+    return {"bfloat16": 2, "float16": 2, "float32": 4,
+            "float8_e4m3fn": 1}[dtype_str]
+
+
+def _fit_chunk(chunk, total):
+    chunk = min(chunk, total)
+    while total % chunk:
+        chunk -= 1
+    return chunk
+
+
+def _attn_sched_flops(cfg: ModelConfig, Sq: int, Skv: int, B: int,
+                      q_chunk: int, kv_chunk: int, window: int,
+                      skip_masked: bool, n_layers: int) -> float:
+    """Executed score+PV flops of the chunked attention across layers.
+
+    The reference's chunk schedule: baseline visits every (q_chunk,
+    kv_chunk) pair (masked blocks still compute); with skip_masked only
+    causally-live kv chunks run; a window bounds live kv chunks to
+    ceil(W/ck)+1 per q chunk. The port's ``flash_attention`` keeps the
+    first two; under a window it visits every kv chunk, so there the count
+    is below what the port executes.
+    """
+    if n_layers == 0 or cfg.num_heads == 0:
+        return 0.0
+    cq = _fit_chunk(q_chunk, Sq)
+    ck = _fit_chunk(kv_chunk, Skv)
+    nq, nkv = Sq // cq, Skv // ck
+    if cfg.attn_kind == "mla":
+        d_qk = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
+        d_v = cfg.v_head_dim
+    else:
+        d_qk = d_v = cfg.head_dim
+    H = cfg.num_heads
+    pairs = 0
+    for qi in range(nq):
+        if window > 0:
+            live = min(nkv, math.ceil(window / ck) + 1)
+        elif skip_masked and cfg.causal and Sq > 1:
+            hi = (qi + 1) * cq
+            live = min((hi + ck - 1) // ck, nkv)
+        else:
+            live = nkv
+        pairs += live
+    # per (q,kv) chunk pair: scores 2·cq·ck·H·d_qk + PV 2·cq·ck·H·d_v
+    per_pair = 2.0 * cq * ck * H * (d_qk + d_v)
+    return float(B * n_layers * pairs * per_pair)
+
+
+def _rwkv_flops(cfg: ModelConfig, tokens: float, n_layers: int,
+                chunk: int = 64) -> float:
+    """Chunked WKV evaluation: per token per head ≈ 4·D² (state in/out) +
+    4·c·D (intra-chunk attention)."""
+    if n_layers == 0:
+        return 0.0
+    D = cfg.rwkv_head_dim
+    H = cfg.d_model // D
+    per_tok_head = 4.0 * D * D + 4.0 * chunk * D
+    return tokens * n_layers * H * per_tok_head
+
+
+def lm_cell_counts(cfg: ModelConfig, shape: ShapeCase, *, chips: int,
+                   tp: int, grad_accum: int, remat: bool,
+                   moment_bytes: int, accum_bytes: int,
+                   q_chunk: int = 1024, kv_chunk: int = 512,
+                   skip_masked: bool = False) -> CellCounts:
+    V, d = cfg.vocab_size, cfg.d_model
+    n_active = cfg.active_param_count()
+    embed_params = V * d
+    # matmul params: everything except the embedding gather; the logits
+    # matmul always runs (tied adds it back)
+    matmul_params = n_active - embed_params
+    kinds = cfg.layer_kinds
+    n_attn = sum(1 for k in kinds if k == "attn")
+    n_rwkv = sum(1 for k in kinds if k == "rwkv6")
+    n_moe_layers = (cfg.num_layers - cfg.first_dense_layers) if cfg.is_moe else 0
+
+    if shape.kind == "train":
+        B, S = shape.global_batch, shape.seq_len
+        tokens = float(B * S)
+        Sq = Skv = S
+        fwd_passes = 3.0 + (1.0 if remat else 0.0)  # fwd + bwd(2x) + remat
+        logits_positions = tokens
+        model_flops = 6.0 * n_active * tokens
+    elif shape.kind == "prefill":
+        B, S = shape.global_batch, shape.seq_len
+        tokens = float(B * S)
+        Sq = Skv = S
+        fwd_passes = 1.0
+        logits_positions = float(B)  # last_only
+        model_flops = 2.0 * n_active * tokens
+    else:  # decode
+        B = shape.global_batch
+        tokens = float(B)
+        Sq, Skv = 1, shape.seq_len
+        fwd_passes = 1.0
+        logits_positions = float(B)
+        model_flops = 2.0 * n_active * tokens
+
+    mm = 2.0 * matmul_params * tokens  # includes lm_head if untied
+    if cfg.tie_embeddings and cfg.has_lm_head:
+        mm += 2.0 * V * d * logits_positions
+    elif cfg.has_lm_head and not cfg.tie_embeddings:
+        # lm_head already in matmul_params for `tokens`; correct to the
+        # actual number of projected positions
+        mm -= 2.0 * V * d * (tokens - logits_positions)
+
+    attn = _attn_sched_flops(cfg, Sq, Skv, B, q_chunk, kv_chunk,
+                             cfg.local_window, skip_masked, n_attn)
+    rwkv = _rwkv_flops(cfg, tokens, n_rwkv)
+    # MoE dispatch/combine einsums: each is 2·T·E·C·d flops per layer, so
+    # 4·E·C·d per token — the GShard one-hot-matmul tax (a sort/gather
+    # dispatch, ``moe_impl="sort"``, removes it entirely)
+    moe = 0.0
+    if cfg.is_moe and n_moe_layers:
+        S_group = shape.seq_len if shape.kind != "decode" else 1
+        C = max(int(S_group * cfg.top_k / cfg.num_experts
+                    * cfg.capacity_factor), 1)
+        if cfg.moe_impl == "sort":
+            # sort/gather dispatch: only the router matmul survives
+            moe = tokens * n_moe_layers * 2.0 * cfg.num_experts * d
+        else:
+            moe = tokens * n_moe_layers * (
+                4.0 * cfg.num_experts * C * d
+                + 2.0 * cfg.num_experts * d  # router
+            )
+
+    fwd_flops = mm + attn + rwkv + moe
+    flops_global = fwd_flops * fwd_passes
+    flops_per_dev = flops_global / chips
+
+    # ---- HBM traffic per device ----
+    pb = _bytes_of(cfg.param_dtype)
+    P_total = cfg.param_count()
+    # weights stream: gathered weights are still TP-sharded -> /tp; read
+    # once per pass per microbatch
+    weight_stream = P_total * pb / tp * fwd_passes * (
+        grad_accum if shape.kind == "train" else 1
+    )
+    act_bytes = _bytes_of(cfg.dtype)
+    tokens_dev = tokens / chips * tp  # activations sharded dp×sp
+    act_stream = tokens_dev / tp * d * act_bytes * cfg.num_layers * 12.0
+    cache_stream = 0.0
+    cache_resident = 0.0
+    if shape.kind == "decode":
+        cb = _bytes_of(cfg.cache_dtype or cfg.dtype)
+        if cfg.attn_kind == "mla":
+            per_tok = cfg.kv_lora_rank + cfg.qk_rope_head_dim
+        else:
+            per_tok = 2 * cfg.num_kv_heads * cfg.head_dim
+        eff_len = min(cfg.local_window or shape.seq_len, shape.seq_len)
+        cache_global = B * eff_len * per_tok * cb * n_attn
+        # rwkv/rglru states are tiny by comparison; add them anyway
+        state = 0.0
+        for k in kinds:
+            if k == "rwkv6":
+                state += B * (cfg.d_model // cfg.rwkv_head_dim) * \
+                    cfg.rwkv_head_dim ** 2 * 4
+            elif k == "rglru":
+                state += B * cfg.lru_width * 4
+        cache_global += state
+        cache_stream = cache_global / chips  # read once per decode step
+        cache_resident = cache_global / chips
+    opt_stream = 0.0
+    opt_resident = 0.0
+    if shape.kind == "train":
+        # p, g, m, v resident; update reads p,m,v,g and writes p,m,v
+        opt_resident = P_total * (pb + accum_bytes + 2 * moment_bytes) / chips
+        opt_stream = P_total * (4 * pb + 6 * moment_bytes) / chips
+    hbm_stream = weight_stream + act_stream + cache_stream + opt_stream
+
+    resid = P_total * pb / chips + opt_resident + cache_resident
+    if shape.kind == "train":
+        # residual carries for backward: one (B,S,d) per layer per
+        # microbatch, sharded dp×sp
+        resid += (tokens / grad_accum) / chips * d * act_bytes * cfg.num_layers
+
+    return CellCounts(
+        flops_global=flops_global,
+        flops_per_dev=flops_per_dev,
+        hbm_bytes_per_dev=hbm_stream,
+        hbm_resident_per_dev=resid,
+        model_flops=model_flops,
+        notes={
+            "matmul": mm, "attention": attn, "rwkv": rwkv, "moe": moe,
+            "fwd_passes": fwd_passes,
+            "weight_stream_dev": weight_stream,
+            "act_stream_dev": act_stream,
+            "cache_stream_dev": cache_stream,
+            "opt_stream_dev": opt_stream,
+        },
+    )

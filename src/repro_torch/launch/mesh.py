@@ -1,5 +1,5 @@
-"""Process meshes of the port's distributed FETI (counterpart of
-``repro.launch.mesh.make_feti_mesh``).
+"""Process meshes of the port: the ranks of distributed FETI and the LM
+meshes (counterpart of ``repro.launch.mesh``).
 
 The reference shards the subdomain axis over a ``("data",)`` device mesh
 inside one program. Here every device is one process (rank) of a
@@ -25,8 +25,15 @@ importable from ``repro_torch`` (it is pickled by name), and its return
 value comes back to the caller, one per rank.
 
 The reference's ``force_host_device_count`` has no counterpart: gloo
-ranks on the CPU play its part. ``make_production_mesh`` and
-``make_local_mesh`` are the LM meshes (ROADMAP A18).
+ranks on the CPU play its part.
+
+The LM meshes: :func:`make_production_mesh` describes the reference's
+(data=16, model=16) and (pod=2, data=16, model=16) meshes by their shape
+alone (:class:`MeshShape`; no 256- or 512-rank group exists), which is
+all the dry-run's arithmetic and the sharding rules
+(:mod:`repro_torch.distributed.sharding`) read. :func:`make_local_mesh`
+is a real ``DeviceMesh`` of (world, 1) over ``("data", "model")`` on the
+launched ranks; the sharding rules accept either.
 """
 from __future__ import annotations
 
@@ -41,8 +48,10 @@ import torch
 
 from repro_torch.device import resolve_device
 
-__all__ = ["DEFAULT_TIMEOUT_S", "FetiMesh", "RankFailure", "describe",
-           "make_feti_mesh", "rank_devices", "spawn_ranks", "split_sizes"]
+__all__ = ["DEFAULT_TIMEOUT_S", "FetiMesh", "MeshShape", "RankFailure",
+           "describe", "make_feti_mesh", "make_local_mesh",
+           "make_production_mesh", "rank_devices", "spawn_ranks",
+           "split_sizes"]
 
 DEFAULT_TIMEOUT_S = 120.0
 BACKENDS = ("nccl", "gloo")
@@ -184,6 +193,49 @@ def make_feti_mesh(device: Union[str, torch.device, None] = None,
             raise ValueError(f"pass the rank's device under {backend}")
         device = torch.device("cuda", rank)
     return FetiMesh(rank, world, device, group=group, backend=backend)
+
+
+class MeshShape:
+    """A mesh described by its axes alone: ``shape`` maps each axis name to
+    its size, in order, as a ``jax.sharding.Mesh``'s does."""
+
+    def __init__(self, shape: dict):
+        self.shape = dict(shape)
+
+    @property
+    def size(self) -> int:
+        n = 1
+        for v in self.shape.values():
+            n *= v
+        return n
+
+    def __repr__(self) -> str:
+        return f"MeshShape({self.shape})"
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> MeshShape:
+    """The reference's production meshes by shape: one pod (data=16,
+    model=16) = 256 devices, two pods (pod=2, data=16, model=16) = 512;
+    the "pod" axis carries pure data parallelism."""
+    if multi_pod:
+        return MeshShape({"pod": 2, "data": 16, "model": 16})
+    return MeshShape({"data": 16, "model": 16})
+
+
+def make_local_mesh(device_type: str = "cuda"):
+    """The launched ranks as a ``DeviceMesh`` of (world, 1) over ("data",
+    "model") on ``device_type`` (``"cpu"`` for gloo ranks on the CPU).
+    Needs an initialized process group."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    if not dist.is_initialized():
+        raise RuntimeError("make_local_mesh needs an initialized process "
+                           "group (torch.distributed.init_process_group)")
+    if device_type == "cuda":
+        resolve_device("cuda")
+    return init_device_mesh(device_type, (dist.get_world_size(), 1),
+                            mesh_dim_names=("data", "model"))
 
 
 class RankFailure(RuntimeError):

@@ -1,12 +1,19 @@
-"""Per-device roofline constants for ranking assembly plans (the
-``DeviceModel`` part of ``repro.launch.roofline``).
+"""Roofline terms of the dry-run's cells and per-device constants for
+ranking assembly plans (counterpart of ``repro.launch.roofline``).
+
+:data:`HW` holds the card's data-sheet figures; :func:`roofline_terms`
+turns a cell's analytic FLOP and byte counts
+(:mod:`repro_torch.launch.analytic`) into its compute, memory and
+collective seconds. The reference reads its collective bytes from XLA's
+compiled HLO (``parse_collective_bytes``, ``collective_stats_trip_corrected``);
+those parsers read XLA text and have no counterpart here. Without a
+collective model a row carries :func:`no_collectives`: zero bytes, which
+:mod:`repro_torch.launch.report` prints as "—".
 
 The autotuner (:mod:`repro_torch.core.autotune`) feeds its FLOP and byte
 models through :meth:`DeviceModel.time_s` to order candidate plans;
 absolute accuracy matters only as far as the ranking does, and the
-measured refinement handles the rest. The reference's HLO collective
-parsers and its ``Roofline`` read XLA's compiled artifacts and have no
-counterpart here.
+measured refinement handles the rest.
 
 ``"tpu"``, ``"gpu"`` (an A100-class card) and ``"cpu"`` are the
 reference's models unchanged. ``"h100"`` is the card the port runs on:
@@ -28,7 +35,92 @@ from typing import Mapping, Optional, Union
 
 import torch
 
-__all__ = ["DeviceModel", "DEVICE_MODELS", "CUDA_KINDS", "detect_device"]
+__all__ = ["HW", "CollectiveStats", "Roofline", "roofline_terms",
+           "no_collectives", "DeviceModel", "DEVICE_MODELS", "CUDA_KINDS",
+           "detect_device"]
+
+# One NVIDIA H100 80GB HBM3 (SXM) at its 700 W power limit, NVIDIA's data
+# sheet, dense rates without sparsity. ``link_bw``: NVLink 4, 18 links of
+# 25 GB/s each way (900 GB/s both ways together), one direction's sum.
+HW = {
+    "name": "NVIDIA H100 80GB HBM3, 700 W",
+    "peak_flops": 989e12,  # bf16 / fp16 tensor cores
+    "peak_flops_tf32": 494.7e12,  # TF32 tensor cores
+    "peak_flops_f32": 67e12,  # FFMA, outside the tensor cores
+    "peak_flops_f64": 67e12,  # FP64 tensor cores (DMMA)
+    "hbm_bw": 3.35e12,  # B/s
+    "link_bw": 450e9,  # B/s
+    "hbm_bytes": 80 * 2**30,  # capacity, for fit checks
+}
+
+
+@dataclasses.dataclass
+class CollectiveStats:
+    """Collective payload bytes and counts by operation name."""
+
+    bytes_by_op: dict
+    count_by_op: dict
+
+    @property
+    def total_bytes(self) -> int:
+        return sum(self.bytes_by_op.values())
+
+    @property
+    def total_count(self) -> int:
+        return sum(self.count_by_op.values())
+
+
+def no_collectives() -> CollectiveStats:
+    """The record of a cell without a collective model: no bytes."""
+    return CollectiveStats(bytes_by_op={}, count_by_op={})
+
+
+@dataclasses.dataclass
+class Roofline:
+    flops_per_dev: float
+    bytes_per_dev: float
+    coll_bytes_per_dev: float
+    compute_s: float
+    memory_s: float
+    collective_s: float
+    dominant: str
+    model_flops: Optional[float] = None
+    useful_ratio: Optional[float] = None  # MODEL_FLOPS / (FLOPs * chips)
+
+    def as_dict(self) -> dict:
+        return dataclasses.asdict(self)
+
+
+def roofline_terms(cost: dict, coll: CollectiveStats, chips: int,
+                   model_flops: Optional[float] = None,
+                   link_bw: float = HW["link_bw"]) -> Roofline:
+    """The three terms of one cell: ``cost["flops"]`` / peak,
+    ``cost["bytes accessed"]`` / HBM rate (both per device, from the
+    analytic counts) and the collective bytes / ``link_bw``; the largest
+    is the dominant one."""
+    flops = float(cost.get("flops", 0.0))
+    bytes_ = float(cost.get("bytes accessed", 0.0))
+    cb = float(coll.total_bytes)
+    compute_s = flops / HW["peak_flops"]
+    memory_s = bytes_ / HW["hbm_bw"]
+    collective_s = cb / link_bw
+    terms = {"compute": compute_s, "memory": memory_s,
+             "collective": collective_s}
+    dominant = max(terms, key=terms.get)
+    useful = None
+    if model_flops:
+        useful = model_flops / max(flops * chips, 1.0)
+    return Roofline(
+        flops_per_dev=flops,
+        bytes_per_dev=bytes_,
+        coll_bytes_per_dev=cb,
+        compute_s=compute_s,
+        memory_s=memory_s,
+        collective_s=collective_s,
+        dominant=dominant,
+        model_flops=model_flops,
+        useful_ratio=useful,
+    )
 
 
 @dataclasses.dataclass(frozen=True)

@@ -22,6 +22,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from repro_torch.distributed.actsharding import shard_act
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (Dense, Init, apply_mrope, apply_rope,
                                       rms_norm)
@@ -75,6 +76,11 @@ def flash_attention(
     cq, ck = _fit(q_chunk, Sq), _fit(kv_chunk, Skv)
     nq, nkv = Sq // cq, Skv // ck
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    # batch on DP, heads on TP for the whole chunk loop: every chunk slices
+    # the one placed buffer
+    q = shard_act(q, "dp", None, "model", None)
+    k = shard_act(k, "dp", None, "model", None)
+    v = shard_act(v, "dp", None, "model", None)
     qs = q.float() * scale
     outs = []
     for qi in range(nq):
@@ -212,9 +218,12 @@ class Attention(nn.Module):
         H, Hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
         pos_1d = positions[..., 0] if positions.dim() == 3 else positions
         ring = window > 0 and cache is not None
-        q = _rope(cfg, self.wq(x).reshape(B, S, H, hd), positions)
-        k = _rope(cfg, self.wk(x).reshape(B, S, Hkv, hd), positions)
-        v = self.wv(x).reshape(B, S, Hkv, hd)
+        q = shard_act(_rope(cfg, self.wq(x).reshape(B, S, H, hd), positions),
+                      "dp", None, "model", None)
+        k = shard_act(_rope(cfg, self.wk(x).reshape(B, S, Hkv, hd),
+                            positions), "dp", None, "model", None)
+        v = shard_act(self.wv(x).reshape(B, S, Hkv, hd),
+                      "dp", None, "model", None)
         chunks = dict(q_chunk=q_chunk, kv_chunk=kv_chunk)
         if cache is None or (ring and S > 1):
             out = flash_attention(q, k, v, pos_1d, pos_1d, causal=cfg.causal,

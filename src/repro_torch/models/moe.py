@@ -18,6 +18,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.distributed.actsharding import shard_act
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import MLP, Init
 
@@ -50,10 +51,13 @@ class MoE(nn.Module):
                        if cfg.num_shared_experts else None)
 
     def _experts(self, xe):
-        """The SwiGLU of every expert on its slots: (..., E, C, d)."""
+        """The SwiGLU of every expert on its slots: (B, E, C, d), experts
+        on EP."""
+        xe = shard_act(xe, "dp", "model", None, None)  # tokens to experts
         h = torch.einsum("becd,edf->becf", xe, self.wi)
         g = torch.einsum("becd,edf->becf", xe, self.wg)
-        return torch.einsum("becf,efd->becd", F.silu(g) * h, self.wo)
+        h = shard_act(F.silu(g) * h, "dp", "model", None, None)
+        return torch.einsum("becf,efd->becd", h, self.wo)
 
     def forward(self, x) -> Tuple[torch.Tensor, torch.Tensor]:
         """x: (B, S, d). Returns (y (B, S, d), aux_loss (f32 scalar))."""
@@ -93,8 +97,11 @@ class MoE(nn.Module):
         dispatch = torch.einsum("bske,bskc->bsec", exp_oh, pos_oh)
         combine = torch.einsum("bsk,bske,bskc->bsec", gate_vals.to(x.dtype),
                                exp_oh, pos_oh)
+        dispatch = shard_act(dispatch, "dp", None, "model", None)
+        combine = shard_act(combine, "dp", None, "model", None)
         xe = torch.einsum("bsd,bsec->becd", x, dispatch)  # (B, E, C, d)
-        return torch.einsum("becd,bsec->bsd", self._experts(xe), combine)
+        y = torch.einsum("becd,bsec->bsd", self._experts(xe), combine)
+        return shard_act(y, "dp", None, None)
 
     def _sorted(self, x, gate_vals, gate_idx, capacity):
         """Sort and gather, each batch row a group: the (token, choice)
@@ -127,4 +134,5 @@ class MoE(nn.Module):
                         ye.new_zeros((B, 1, d))], dim=1)
         contrib = ye[rows, dest] * (gate_sorted * keep)[..., None].to(ye.dtype)
         inverse = torch.argsort(order, dim=-1)
-        return contrib[rows, inverse].reshape(B, S, k, d).sum(2)
+        y = contrib[rows, inverse].reshape(B, S, k, d).sum(2)
+        return shard_act(y, "dp", None, None)

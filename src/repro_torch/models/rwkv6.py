@@ -21,6 +21,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.distributed.actsharding import shard_act
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import Dense, Init
 
@@ -56,12 +57,15 @@ def _wkv_chunked(r, k, v, w, u, chunk: int, S0):
         chunk -= 1
     n = S // chunk
 
-    def chunks(x):  # (n, B, H, c, D)
-        return x.reshape(B, n, chunk, H, D).permute(1, 0, 3, 2, 4)
+    def chunks(x):  # (n, B, H, c, D), batch on DP and heads on TP
+        y = x.reshape(B, n, chunk, H, D).permute(1, 0, 3, 2, 4)
+        return shard_act(y, None, "dp", "model", None, None)
 
     r_, k_, v_ = (chunks(x).float() for x in (r, k, v))
     logw = torch.log(torch.clamp(chunks(w).float(), 1e-8, 1.0))
+    logw = shard_act(logw, None, "dp", "model", None, None)
     cum = torch.cumsum(logw, dim=3)  # log P_t, P_t = prod_{tau<=t} w_tau
+    cum = shard_act(cum, None, "dp", "model", None, None)
     past = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
                                  device=r.device), diagonal=-1)
     state = S0.float()

@@ -242,3 +242,30 @@ def test_elastic_plan_is_the_reference_s(total, per_pod, surviving):
 
     assert (ElasticPlan(total, per_pod).plan(surviving)
             == RefPlan(total, per_pod).plan(surviving))
+
+
+# ------------------------------------------------------- placed forward ----
+@pytest.mark.cuda
+def test_placed_forward_on_gloo_ranks_sharing_the_card():
+    """Two gloo ranks on the one card hold granite-3-8b's smoke model as
+    DTensors on a (data=1, model=2) mesh: each rank's logits within 1e-6
+    of one process's forward on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.distributed.sharding import placed_forward
+    from repro_torch.launch.mesh import spawn_ranks
+    from repro_torch.models import LanguageModel, forward
+
+    cfg = get_smoke_config("granite-3-8b")
+    tokens = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 8)).astype(np.int32)
+    ranks = spawn_ranks(placed_forward, 2, backend="gloo", device="cuda",
+                        args=("granite-3-8b", (1, 2), tokens))
+    model = LanguageModel(cfg, device="cuda")
+    with torch.inference_mode():
+        want = forward(model, {"tokens": torch.as_tensor(
+            tokens, device="cuda")})[0].float().cpu().numpy()
+    for r in ranks:
+        assert np.abs(r["logits"] - want).max() <= 1e-6 * np.abs(want).max()
+        assert r["local_shapes"]["blocks.0.inner.wq.w"] == (64, 32)

@@ -39,7 +39,10 @@ def test_port_imports_neither_jax_nor_reference():
             "launch/serve.py", "launch/train.py", "train/optimizer.py",
             "train/train_step.py", "data/synthetic.py", "data/tokens.py",
             "distributed/checkpoint.py", "distributed/compression.py",
-            "distributed/elastic.py"} <= names
+            "distributed/elastic.py", "distributed/sharding.py",
+            "distributed/actsharding.py", "launch/shapes.py",
+            "launch/dryrun.py", "launch/report.py", "launch/finalize.py",
+            "testing.py"} <= names
     bad = [f"{p.relative_to(PORT)}:{line} imports {root}"
            for p in sources for root, line in _imported_roots(p)
            if root in FORBIDDEN]
@@ -157,10 +160,9 @@ def test_moe_and_mla_configs_build(changes):
 
 
 def test_training_surface_is_the_reference_s():
-    """The training path (A18c) exports the reference's names: ``train``
-    its optimizer and step beside the serve steps, ``data`` and
-    ``distributed`` (less the GSPMD sharding rules, which wait for the LM
-    meshes of A18d)."""
+    """The training path (A18c) and the LM meshes (A18d) export the
+    reference's names: ``train`` its optimizer and step beside the serve
+    steps, ``data``, and ``distributed`` with the sharding rules."""
     import repro.data
     import repro.distributed
     import repro.train
@@ -170,10 +172,7 @@ def test_training_surface_is_the_reference_s():
 
     assert set(repro.train.__all__) <= set(repro_torch.train.__all__)
     assert set(repro_torch.data.__all__) == set(repro.data.__all__)
-    unported = {"batch_shardings", "batch_spec", "cache_shardings",
-                "opt_state_shardings", "param_shardings"}
-    assert set(repro_torch.distributed.__all__) == (
-        set(repro.distributed.__all__) - unported)
+    assert repro_torch.distributed.__all__ == repro.distributed.__all__
     for mod in (repro_torch.train, repro_torch.data,
                 repro_torch.distributed):
         assert all(hasattr(mod, n) for n in mod.__all__)

@@ -259,15 +259,39 @@ Phases (each prints its seconds; any failure exits non-zero):
                 three f32 steps of each smoke config) through the port
                 within TRAIN_GOLDEN_TOL. Fails if the path launched a hand
                 kernel.
- 11. dryrun   — ``repro_torch.launch.dryrun --arch all --shape all`` on the
+ 11. placed   — placed LM training over ``torch.distributed``: two gloo
+                ranks share the card (``spawn_ranks``), each running
+                ``distributed.sharding.placed_train_step`` on PLACED:
+                granite-3-8b at full width and 2 of 40 layers, f32 (TF32
+                off), remat, lr TRAIN_CHECK_LR, on a (data=2, model=1)
+                ``DeviceMesh`` (FSDP: each layer's weights gathered before
+                its forward and again in its recomputation, the gradients
+                summed over the ranks and cut to the shards), three steps
+                on the rank's rows of a global batch of 4 x 512. Each rank
+                first runs one process's three steps on the whole batches
+                from the same weights and holds its losses, gradient norms
+                and final parameter shards (PLACED_TOL) and every step's
+                shard gradients (PLACED_GRAD_TOL, relative L2) to their
+                slices of that run. Prints each rank's step ms, peak device
+                bytes and the c10d collectives it recorded each step
+                (``record_collectives``) beside ``analytic.lm_collectives``
+                for the cell; fails unless they are equal, bytes and counts
+                by operation.
+ 12. dryrun   — ``repro_torch.launch.dryrun --arch all --shape all`` on the
                 reference's two meshes (16x16, 2x16x16; host arithmetic)
                 into a temporary file: prints the census and holds every
                 full-size FETI row to ``tests/data/torch_dryrun_golden.json``
-                (the reference's ``feti_cell_counts``, exactly). Then
+                (the reference's ``feti_cell_counts``, exactly), and every
+                row to carry its collective schedule (a finite
+                ``collective_s`` at ``HW["net_bw"]``; the totals by mesh
+                are printed). Then
                 DRYRUN_RUNS at ``--devices 1 --run`` on the card at full
                 width: feti-heat-2d x assembly (S 64, n 4225, bs 128, f32:
                 the block Cholesky, then B1 f32 and B2 f32 through
                 ``use_kernels=True``, each launched exactly once a step),
+                feti-heat-3d x dirichlet (S 64, n_i 3375, n_b 1538, bs 128,
+                f32: the interior block Cholesky, the Dirichlet stage's B1
+                f32 and B2 f32 once a step each, ``restrict_own_boundary``),
                 granite-3-8b x decode_32k (40 layers, the global batch cut
                 to the largest whose analytic residency fits
                 ``dryrun.FIT_FRACTION`` of the card; decode steps at
@@ -276,9 +300,10 @@ Phases (each prints its seconds; any failure exits non-zero):
                 depth). Prints each row's measured_s, peak device bytes
                 beside its analytic residency and ``finalize.fraction``
                 (and floor / measured_s), and ``report.dryrun_table`` of
-                the three. Fails on a row whose status is not ``ok``, a
+                the four. Fails on a row whose status is not ``ok``, a
                 peak at or above the card's 80 GB, a FETI row off the
-                golden file or a launch count off.
+                golden file, a row without collectives or a launch count
+                off.
 
 Then one JSON line with the kernels' numbers, one row per kernel and
 dtype (the f32 ones named ``*_f32``; each row: the heat-2d phase's,
@@ -594,10 +619,19 @@ TRAIN_GOLDEN_TOL = 1e-4
 # the dryrun phase: the cells run on the card at --devices 1 (each FETI
 # one's launches a step, exactly); the reference's full-size FETI counts
 # are tests/data/torch_dryrun_golden.json (tests/torch_dryrun_golden.py)
-DRYRUN_RUNS = (("feti-heat-2d", "assembly"), ("granite-3-8b", "decode_32k"),
+DRYRUN_RUNS = (("feti-heat-2d", "assembly"), ("feti-heat-3d", "dirichlet"),
+               ("granite-3-8b", "decode_32k"),
                ("recurrentgemma-2b", "long_500k"))
-DRYRUN_LAUNCHES = {"feti-heat-2d": {"stepped_trsm": {"f32": 1},
-                                    "stepped_syrk": {"f32": 1}}}
+DRYRUN_LAUNCHES = {arch: {"stepped_trsm": {"f32": 1},
+                          "stepped_syrk": {"f32": 1}}
+                   for arch in ("feti-heat-2d", "feti-heat-3d")}
+# the placed phase: arch, layers, mesh (data, model), global batch, seq,
+# steps; f32, remat, lr TRAIN_CHECK_LR. The bars are the accumulation
+# check's (a placed step sums its gradients over the ranks in another
+# order): losses, gradient norms and parameters within PLACED_TOL
+# (relative), the shard gradients within PLACED_GRAD_TOL (relative L2)
+PLACED = ("granite-3-8b", 2, (2, 1), 4, 512, 3)
+PLACED_TOL, PLACED_GRAD_TOL = TRAIN_ACCUM_TOL, TRAIN_GRADS_TOL
 # each mixed-precision run's bar on its PCPG iterations summed over the
 # defect-correction outers (a multi-RHS run: its most iterated column): the
 # counts measured on the card (NVIDIA H100 80GB HBM3, 700 W) with a small
@@ -2529,6 +2563,66 @@ def train_phase(device, smi, cpu=False):
     return rows
 
 
+# ------------------------------------------------------------ placed ----
+def placed_phase(device, smi, cpu=False):
+    """PLACED on two gloo ranks sharing the card (with ``cpu``: the smoke
+    config at seq 16 on CPU ranks, a rehearsal): each rank's placed steps
+    held to one process's, and its recorded collectives to
+    ``lm_collectives``. Returns the ranks' rows."""
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.data import synthetic_batch
+    from repro_torch.distributed.sharding import placed_train_step
+    from repro_torch.launch.analytic import lm_collectives
+    from repro_torch.launch.mesh import MeshShape, spawn_ranks
+    from repro_torch.launch.shapes import ShapeCase
+
+    arch, layers, mesh, batch, seq, steps = PLACED
+    full = (get_smoke_config if cpu else get_config)(arch)
+    cfg = dataclasses.replace(full, num_layers=layers, dtype="float32",
+                              param_dtype="float32")
+    seq = 16 if cpu else seq
+    tcfg = train_config(steps, "float32", remat=True, lr=TRAIN_CHECK_LR)
+    batches = [synthetic_batch(cfg, batch, seq, seed=17, step=i)
+               for i in range(steps)]
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(placed_train_step, mesh[0] * mesh[1],
+                        backend="gloo", device="cpu" if cpu else "cuda",
+                        args=(cfg, mesh, batches, tcfg), timeout=300)
+    wall = time.perf_counter() - t0
+    want = lm_collectives(cfg, ShapeCase("placed", seq, batch, "train"),
+                          MeshShape({"data": mesh[0], "model": mesh[1]}),
+                          tcfg)
+    bad = []
+    for i, r in enumerate(ranks):
+        d = r["distances"]
+        print(f"[chip_smoke] placed {cfg.name} (layers {layers} of "
+              f"{full.num_layers}, d_model {cfg.d_model}, f32, remat) rank "
+              f"{i} {r['coords']} of mesh (data, model) {mesh} on "
+              f"{'cpu' if cpu else smi}: global batch {batch} x seq {seq}; "
+              f"set-up {r['setup_s']:.3f} s, one process "
+              f"{r['reference_s']:.3f} s, gradient checks {r['check_s']:.3f}"
+              f" s; step ms {[round(t * 1e3, 3) for t in r['step_s']]}; peak "
+              f"device bytes a step {r['peak_device_bytes']}; against one "
+              f"process "
+              f"(bars {PLACED_TOL:g}, gradients {PLACED_GRAD_TOL:g}): {d}; "
+              f"losses {[m['loss'] for m in r['metrics']]}, gradient norms "
+              f"{[m['grad_norm'] for m in r['metrics']]}", flush=True)
+        for step, got in enumerate(r["collectives"]):
+            print(f"[chip_smoke] placed rank {i} step {step} collectives "
+                  f"recorded {got} / lm_collectives {want}", flush=True)
+            if got != want:
+                bad.append(f"rank {i} step {step}: collectives {got} are not "
+                           f"the schedule {want}")
+        if (d["metrics"][0] > PLACED_TOL or d["params"][0] > PLACED_TOL
+                or d["grads"][0] > PLACED_GRAD_TOL):
+            bad.append(f"rank {i}: {d}")
+    print(f"[chip_smoke] placed: {len(ranks)} ranks in {wall:.1f}s "
+          f"(spawn, both runs, the checks)", flush=True)
+    if bad:
+        raise SystemExit(f"placed: {bad}")
+    return ranks
+
+
 # ------------------------------------------------------------ dryrun ----
 def dryrun_phase(device, smi, cpu=False):
     """The dry-run on the reference's two meshes (its census; the full-size
@@ -2555,6 +2649,20 @@ def dryrun_phase(device, smi, cpu=False):
           f"{out.getvalue().strip().splitlines()[-1]}", flush=True)
     if rc != 0 or set(status) - {"ok", "skipped"}:
         raise SystemExit(f"dryrun: cells in error: {status}")
+    ok = [r for r in recs if r["status"] == "ok"]
+    bare = [f"{r['arch']}/{r['shape']}/{r['mesh']}" for r in ok
+            if r["collectives"] is None
+            or not math.isfinite(r["roofline"]["collective_s"])]
+    for mesh in dryrun.MESHES:
+        rows = [r for r in ok if r["mesh"] == mesh]
+        print(f"[chip_smoke] dryrun {mesh} collectives (the port's "
+              f"schedule, at {HW['net_bw']:g} B/s): "
+              f"{sum(r['roofline']['coll_bytes_per_dev'] for r in rows):.6g} "
+              f"B a device over {len(rows)} cells; collective-dominant "
+              f"{sum(r['roofline']['dominant'] == 'collective' for r in rows)}"
+              f" of them", flush=True)
+    if bare:
+        raise SystemExit(f"dryrun: rows without collectives: {bare}")
     sys.path.insert(0, os.path.join(ROOT, "tests"))
     import torch_dryrun_golden
 
@@ -2851,6 +2959,11 @@ def main() -> int:
           f"{torch.cuda.memory_allocated(device):,}", flush=True)
     train_phase(device, smi)
     done("train", t0)
+
+    t0 = phase("placed")
+    free()
+    placed_phase(device, smi)
+    done("placed", t0)
 
     t0 = phase("dryrun")
     dryrun_phase(device, smi)

@@ -13,6 +13,13 @@ which is exact. A checkpoint is written into ``step_<N>.tmp`` and
 published by ``os.rename``, so a failed writer never leaves a partial
 checkpoint visible. Restore lands every leaf on ``device`` (default: the
 template leaf's), whatever device wrote it.
+
+A placed tree (DTensor leaves: a placed model's parameters and AdamW
+moments) is saved whole: every rank gathers each leaf
+(:func:`~repro_torch.distributed.sharding.full_tensor`), rank 0 writes,
+and the ranks meet at a barrier, so the layout is the reference's. The
+elastic restore, ``restore_checkpoint(..., shardings=, mesh=)``, puts
+each leaf onto its placement on ``mesh``, whatever mesh saved it.
 """
 from __future__ import annotations
 
@@ -23,6 +30,8 @@ from typing import Any, Optional, Union
 
 import numpy as np
 import torch
+
+from repro_torch.distributed.sharding import full_tensor, is_placed, place
 
 __all__ = ["save_checkpoint", "restore_checkpoint", "latest_step",
            "available_steps"]
@@ -63,14 +72,34 @@ def _host(leaf) -> np.ndarray:
 def save_checkpoint(ckpt_dir: str, step: int, tree: Any, keep: int = 3,
                     extra: Optional[dict] = None) -> str:
     """Atomically write ``tree`` for ``step``; prune to the newest
-    ``keep``. Returns the checkpoint's directory."""
-    os.makedirs(ckpt_dir, exist_ok=True)
+    ``keep``. Returns the checkpoint's directory. A tree with DTensor
+    leaves is a collective: every rank of their mesh calls this, each leaf
+    is gathered whole, rank 0 writes, and every rank returns once the
+    checkpoint is published."""
     final = os.path.join(ckpt_dir, f"step_{step:012d}")
+    flat, placed = {}, False
+    for path, leaf in _leaves(tree):
+        if is_placed(leaf):
+            leaf, placed = full_tensor(leaf), True
+        flat[_SEP.join(path)] = _host(leaf)
+    if not placed:
+        _write(ckpt_dir, final, step, flat, keep, extra)
+        return final
+    import torch.distributed as dist
+
+    if dist.get_rank() == 0:
+        _write(ckpt_dir, final, step, flat, keep, extra)
+    dist.barrier()
+    return final
+
+
+def _write(ckpt_dir: str, final: str, step: int, flat: dict, keep: int,
+           extra: Optional[dict]) -> None:
+    os.makedirs(ckpt_dir, exist_ok=True)
     tmp = final + ".tmp"
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
     os.makedirs(tmp)
-    flat = {_SEP.join(path): _host(leaf) for path, leaf in _leaves(tree)}
     np.savez(os.path.join(tmp, "arrays.npz"), **flat)
     manifest = {
         "step": step,
@@ -87,7 +116,6 @@ def save_checkpoint(ckpt_dir: str, step: int, tree: Any, keep: int = 3,
     for s in available_steps(ckpt_dir)[:-keep]:
         shutil.rmtree(os.path.join(ckpt_dir, f"step_{s:012d}"),
                       ignore_errors=True)
-    return final
 
 
 def available_steps(ckpt_dir: str) -> list[int]:
@@ -108,13 +136,31 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
     return steps[-1] if steps else None
 
 
+def _at(tree, path):
+    """The entry of ``tree`` (nested dicts and lists) at a key path."""
+    for k in path:
+        tree = tree[k] if isinstance(tree, dict) else tree[int(k)]
+    return tree
+
+
 def restore_checkpoint(ckpt_dir: str, template: Any,
                        step: Optional[int] = None,
-                       device: Union[str, torch.device, None] = None
+                       device: Union[str, torch.device, None] = None,
+                       shardings: Any = None, mesh=None
                        ) -> tuple[Any, int]:
     """Restore ``step`` (default: the latest) into the structure of
     ``template``: each leaf at the template leaf's dtype, on ``device``
-    (default: the template leaf's device). Returns ``(tree, step)``."""
+    (default: the template leaf's device). Returns ``(tree, step)``.
+
+    ``shardings`` (a tree of specs matching ``template``, e.g.
+    ``{"params": param_shardings(mesh, model), "opt":
+    opt_state_shardings(...)}``) with the ``DeviceMesh`` ``mesh``: the
+    elastic path. Each leaf becomes a DTensor placed by its spec on
+    ``mesh`` (:func:`~repro_torch.distributed.sharding.place`; each rank
+    keeps its shard, nothing is sent), whatever mesh saved it; a 0-d leaf
+    (the step counter) stays a plain tensor, whole on every rank."""
+    if shardings is not None and mesh is None:
+        raise ValueError("shardings place the leaves on a mesh: pass mesh=")
     if step is None:
         step = latest_step(ckpt_dir)
     if step is None:
@@ -125,6 +171,8 @@ def restore_checkpoint(ckpt_dir: str, template: Any,
         for kpath, leaf in _leaves(template):
             arr = torch.from_numpy(np.asarray(data[_SEP.join(kpath)]))
             like = torch.as_tensor(leaf)
-            values[kpath] = arr.to(device=device or like.device,
-                                   dtype=like.dtype)
+            t = arr.to(device=device or like.device, dtype=like.dtype)
+            if shardings is not None and t.dim():
+                t = place(t, mesh, _at(shardings, kpath))
+            values[kpath] = t
     return _rebuild(template, values), step

@@ -25,6 +25,16 @@ latter, :func:`placements` turns a spec into DTensor placements and
 :func:`distribute_model` places a model's parameters; the parameter names
 are the state dict's (the reference's paths with ``.`` for ``/``, one
 module a layer, no stacked axis).
+
+What the placed model computes, as far as this port goes (FSDP plus data
+parallelism): each layer gathers its weights whole before its forward,
+and the whole weights' gradients reach the shards (summed over the
+data-parallel ranks, cut to the rank's shard). The ranks along 'model'
+gather the same weights and compute on the same batch rows: no
+tensor-parallel split of heads or FFN, no expert-parallel dispatch, and a
+serving cache is held for the rank's batch rows alone. Every collective
+is a c10d call, which :func:`repro_torch.launch.roofline.record_collectives`
+counts and :func:`repro_torch.launch.analytic.lm_collectives` schedules.
 """
 from __future__ import annotations
 
@@ -42,9 +52,22 @@ __all__ = [
     "mesh_axes",
     "placements",
     "local_shape",
+    "data_parallel_dims",
+    "is_placed",
+    "local_tensor",
+    "placed_like",
+    "coordinate",
+    "shard_of",
+    "place",
+    "dp_all_reduce",
+    "gathered",
     "full_tensor",
     "distribute_model",
+    "local_batch",
+    "gather_batch",
     "placed_forward",
+    "placed_serve",
+    "placed_train_step",
 ]
 
 
@@ -245,77 +268,279 @@ def local_shape(mesh, spec: tuple, shape) -> tuple:
     return tuple(out)
 
 
-def full_tensor(dt) -> torch.Tensor:
-    """The whole tensor of an evenly sharded DTensor on every rank, by
-    c10d ``all_gather`` over each sharded mesh dimension's group, the
-    innermost first. (``DTensor.full_tensor`` takes the functional
-    collectives' path, which ends in a segmentation fault when gloo ranks
-    hold CUDA tensors: torch 2.11 on the H100.)"""
+def data_parallel_dims(mesh) -> list:
+    """The indices of the mesh's data-parallel dimensions ('pod', 'data')
+    of more than one rank: the ranks along them take other batch rows."""
+    return [d for d, (name, size) in enumerate(mesh_axes(mesh).items())
+            if name in ("pod", "data") and size > 1]
+
+
+def is_placed(t) -> bool:
+    """Whether ``t`` is a DTensor (a tensor placed on a ``DeviceMesh``)."""
+    return hasattr(t, "device_mesh") and hasattr(t, "to_local")
+
+
+def local_tensor(t):
+    """This rank's shard of a DTensor (a view of its storage), else ``t``."""
+    return t.to_local() if is_placed(t) else t
+
+
+def placed_like(local: torch.Tensor, like):
+    """``local`` as a DTensor placed as ``like`` (one rank's shard of the
+    same shape), or ``local`` itself when ``like`` is a plain tensor."""
+    if not is_placed(like):
+        return local
+    from torch.distributed.tensor import DTensor
+
+    return DTensor.from_local(local, like.device_mesh, like.placements,
+                              run_check=False)
+
+
+def coordinate(mesh) -> dict:
+    """``{axis name: index}`` of this rank on a ``DeviceMesh``."""
+    return dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
+
+
+def shard_of(full: torch.Tensor, mesh, spec: tuple,
+             coord: Optional[dict] = None) -> torch.Tensor:
+    """The shard of ``full`` that the rank at ``coord`` (``{axis: index}``;
+    default: this rank's on a ``DeviceMesh``) holds under ``spec``: each
+    dimension cut by its axes, a tuple of axes cut major-first as a
+    ``PartitionSpec`` cuts it. A view of ``full``."""
+    if coord is None:
+        coord = coordinate(mesh)
+    out = full
+    for dim, a in enumerate(spec):
+        n = axis_size(mesh, a) if a is not None else 1
+        if n == 1:
+            continue
+        idx = 0
+        for name in (a if isinstance(a, tuple) else (a,)):
+            idx = idx * axis_size(mesh, name) + coord.get(name, 0)
+        chunk = full.shape[dim] // n
+        out = out.narrow(dim, idx * chunk, chunk)
+    return out
+
+
+def place(full: torch.Tensor, mesh, spec: tuple):
+    """``full`` (the same on every rank) as a DTensor on the ``DeviceMesh``
+    ``mesh`` by ``spec``: each rank keeps a copy of its own shard, and
+    nothing is sent."""
+    from torch.distributed.tensor import DTensor
+
+    local = shard_of(full, mesh, spec).clone(
+        memory_format=torch.contiguous_format)
+    return DTensor.from_local(local, mesh, placements(mesh, spec),
+                              run_check=False)
+
+
+def _cuts(mesh, pl) -> list:
+    """(mesh dim, tensor dim) of each placement that shards over more than
+    one rank, the outer mesh dimension first."""
+    return [(d, p.dim) for d, p in enumerate(pl)
+            if p.is_shard() and mesh.size(d) > 1]
+
+
+def _all_gather(x: torch.Tensor, mesh, pl) -> torch.Tensor:
+    """The whole tensor of the shard ``x`` placed by ``pl`` on ``mesh``, by
+    c10d ``all_gather`` over each sharding mesh dimension's group, the
+    innermost first (``x`` itself where nothing is sharded). The
+    functional collectives of ``DTensor.full_tensor`` end in a
+    segmentation fault when gloo ranks hold CUDA tensors (torch 2.11 on
+    the H100); c10d's do not."""
     import torch.distributed as dist
 
-    x = dt.to_local()
-    mesh = dt.device_mesh
-    for mdim in reversed(range(mesh.ndim)):
-        p = dt.placements[mdim]
-        if p.is_shard():
-            group = mesh.get_group(mdim)
-            parts = [torch.empty_like(x)
-                     for _ in range(dist.get_world_size(group))]
-            dist.all_gather(parts, x.contiguous(), group=group)
-            x = torch.cat(parts, dim=p.dim)
+    for mdim, tdim in reversed(_cuts(mesh, pl)):
+        parts = [torch.empty_like(x) for _ in range(mesh.size(mdim))]
+        dist.all_gather(parts, x.contiguous(), group=mesh.get_group(mdim))
+        x = torch.cat(parts, dim=tdim)
     return x
+
+
+def _narrow(x: torch.Tensor, mesh, cuts) -> torch.Tensor:
+    """This rank's block of ``x`` along ``cuts`` (outer mesh dim first)."""
+    coord = mesh.get_coordinate()
+    for mdim, tdim in cuts:
+        chunk = x.shape[tdim] // mesh.size(mdim)
+        x = x.narrow(tdim, coord[mdim] * chunk, chunk)
+    return x
+
+
+def dp_all_reduce(x: torch.Tensor, mesh) -> torch.Tensor:
+    """``x`` summed in place over the data-parallel ranks of ``mesh`` (a
+    ``DeviceMesh``): one c10d all-reduce a data-parallel dimension."""
+    import torch.distributed as dist
+
+    for d in data_parallel_dims(mesh):
+        dist.all_reduce(x, op=dist.ReduceOp.SUM, group=mesh.get_group(d))
+    return x
+
+
+class _Gather(torch.autograd.Function):
+    """The whole parameter from this rank's shard, with a gradient to it.
+
+    Backward turns the whole parameter's gradient into this rank's shard
+    gradient: cut along the 'model' (non-data-parallel) shards, where the
+    ranks took the same batch rows; summed over the data-parallel ranks,
+    which took others; then cut along the data-parallel shards. gloo has
+    no reduce-scatter, so the sum is an all-reduce before the cut."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, pl):
+        ctx.mesh, ctx.pl = mesh, pl
+        out = _all_gather(x, mesh, pl)
+        return out.view_as(out) if out is x else out
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh = ctx.mesh
+        cuts, dp = _cuts(mesh, ctx.pl), data_parallel_dims(mesh)
+        g = _narrow(g, mesh, [c for c in cuts if c[0] not in dp])
+        if dp:
+            g = dp_all_reduce(g.clone(memory_format=torch.contiguous_format),
+                              mesh)
+        g = _narrow(g, mesh, [c for c in cuts if c[0] in dp])
+        return g.contiguous(), None, None
+
+
+def gathered(dt) -> torch.Tensor:
+    """The whole tensor of the DTensor ``dt`` on every rank. Where autograd
+    records (grad mode on, ``dt`` requiring grad) its gradient reaches the
+    shard (:class:`_Gather`); elsewhere, as under ``inference_mode``, no
+    graph is built."""
+    x = dt.to_local()
+    if torch.is_grad_enabled() and dt.requires_grad:
+        return _Gather.apply(x, dt.device_mesh, tuple(dt.placements))
+    return _all_gather(x, dt.device_mesh, dt.placements)
+
+
+def full_tensor(dt) -> torch.Tensor:
+    """The whole tensor of an evenly sharded DTensor on every rank (no
+    gradient), by c10d ``all_gather``."""
+    return _all_gather(dt.to_local().detach(), dt.device_mesh, dt.placements)
 
 
 def distribute_model(model: torch.nn.Module, mesh, specs: dict) -> None:
     """Place every parameter of ``model`` (in place) as a DTensor on the
     ``DeviceMesh`` ``mesh`` by its spec in ``specs``
-    (:func:`param_shardings`), and gather them around each forward, as
-    GSPMD's FSDP all-gathers do: each unit (every entry of the model's
-    module lists, i.e. every layer, and the model with the rest) replaces
-    its parameters by their full tensors before its forward and puts the
-    DTensors back after it. Forward (serving) only: the gathered tensors
-    carry no gradient to the shards."""
-    from torch.distributed.tensor import distribute_tensor
-
-    holders = {}
+    (:func:`param_shardings`; one mesh axis a tensor dimension), and gather
+    them around each forward, as GSPMD's FSDP all-gathers do: each unit
+    (every entry of the model's module lists, i.e. every layer, and the
+    model with the rest) replaces its parameters by their whole tensors
+    (:func:`gathered`) before its forward and puts the DTensors back after
+    it. The whole tensors carry their gradient to the shards. The ranks
+    along 'model' gather the same whole weights and compute without a
+    tensor-parallel split. Under ``remat`` a layer's recomputation in
+    backward runs its hooks again, so its weights are gathered twice a
+    step."""
+    placed = {}
     for name, p in list(model.named_parameters()):
         mod_name, _, leaf = name.rpartition(".")
         mod = model.get_submodule(mod_name)
-        dt = distribute_tensor(p.detach(), mesh, placements(mesh, specs[name]))
-        mod._parameters[leaf] = torch.nn.Parameter(
-            dt, requires_grad=p.requires_grad)
-        holders[name] = (mod, leaf)
+        param = torch.nn.Parameter(place(p.detach(), mesh, specs[name]),
+                                   requires_grad=p.requires_grad)
+        mod._parameters[leaf] = param
+        placed[name] = (mod, leaf, param)
 
     units = []  # (layer, its parameters' names)
     for prefix, child in model.named_children():
         if isinstance(child, torch.nn.ModuleList):
             for i, layer in enumerate(child):
-                units.append((layer, [n for n in holders
+                units.append((layer, [n for n in placed
                                       if n.startswith(f"{prefix}.{i}.")]))
     in_layers = {n for _, names in units for n in names}
-    units.append((model, [n for n in holders if n not in in_layers]))
+    units.append((model, [n for n in placed if n not in in_layers]))
 
-    def hooks(names):
+    def hooks(entries):
         def gather(module, args):
-            for n in names:
-                mod, leaf = holders[n]
-                dt = mod._parameters[leaf]
-                mod._sharded = getattr(mod, "_sharded", {})
-                mod._sharded[leaf] = dt
-                mod._parameters[leaf] = torch.nn.Parameter(
-                    full_tensor(dt), requires_grad=False)
+            for mod, leaf, param in entries:
+                mod._parameters[leaf] = gathered(param)
 
         def reshard(module, args, out):
-            for n in names:
-                mod, leaf = holders[n]
-                mod._parameters[leaf] = mod._sharded.pop(leaf)
+            for mod, leaf, param in entries:
+                mod._parameters[leaf] = param
 
         return gather, reshard
 
     for unit, names in units:
-        gather, reshard = hooks(names)
+        gather, reshard = hooks([placed[n] for n in names])
         unit.register_forward_pre_hook(gather)
         unit.register_forward_hook(reshard)
+
+
+def local_batch(mesh, batch: dict, microbatches: Optional[int] = None
+                ) -> dict:
+    """This rank's rows of a global batch, by :func:`batch_shardings` on
+    the ``DeviceMesh`` ``mesh``.
+
+    ``microbatches`` k (training; 1 without accumulation): the rank takes
+    its shard of each of the k contiguous microbatches the global step
+    cuts, so that its i-th microbatch is its part of the global i-th one;
+    raises unless the batch divides k times the data-parallel ranks.
+    ``None`` (serving): a batch that does not divide them rides whole on
+    every rank (long_500k's batch of 1)."""
+    dp = _dp_axes(mesh)
+    n = axis_size(mesh, dp) if dp is not None else 1
+    k = microbatches or 1
+    specs = batch_shardings(mesh, batch)
+    coord = coordinate(mesh)
+    out = {}
+    for key, x in batch.items():
+        x = torch.as_tensor(x)
+        if microbatches is not None and x.shape[0] % (k * n):
+            raise ValueError(f"batch {key!r} of {x.shape[0]} rows does not "
+                             f"divide {k} microbatches x {n} data-parallel "
+                             "ranks")
+        if n == 1 or specs[key][0] is None:
+            out[key] = x
+            continue
+        rows = x.shape[0] // k
+        out[key] = torch.cat([shard_of(x[i * rows:(i + 1) * rows], mesh,
+                                       specs[key], coord) for i in range(k)])
+    return out
+
+
+def gather_batch(mesh, x: torch.Tensor, rows: int) -> torch.Tensor:
+    """The global batch's ``rows`` of an output whose leading axis holds
+    this rank's rows (:func:`local_batch`, serving): all-gathered over the
+    data-parallel ranks (``x`` itself when it already holds them all)."""
+    import torch.distributed as dist
+
+    for d in reversed(data_parallel_dims(mesh)):
+        if x.shape[0] == rows:
+            break
+        parts = [torch.empty_like(x) for _ in range(mesh.size(d))]
+        dist.all_gather(parts, x.contiguous(), group=mesh.get_group(d))
+        x = torch.cat(parts)
+    return x
+
+
+# ------------------------------------------------- functions of a rank ----
+def _placed_model(rank, cfg, mesh_shape: tuple, state: Optional[dict] = None):
+    """``cfg``'s model on the rank's device (its own seeded initialization,
+    or ``state``: numpy arrays by state-dict name), placed on a
+    ``DeviceMesh`` of ``mesh_shape`` over ("data", "model"). Returns
+    ``(mesh, model, specs)``."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.models import LanguageModel
+
+    dev = rank.device
+    mesh = init_device_mesh(dev.type, tuple(mesh_shape),
+                            mesh_dim_names=("data", "model"))
+    model = LanguageModel(cfg, device=dev)
+    if state is not None:
+        model.load_state_dict({k: torch.as_tensor(v) for k, v in
+                               state.items()})
+    specs = param_shardings(mesh, model)
+    distribute_model(model, mesh, specs)
+    return mesh, model, specs
+
+
+def _config(arch: str, smoke: bool):
+    from repro_torch.configs import get_config, get_smoke_config
+
+    return (get_smoke_config if smoke else get_config)(arch)
 
 
 def placed_forward(rank, arch: str, mesh_shape: tuple, tokens,
@@ -325,25 +550,178 @@ def placed_forward(rank, arch: str, mesh_shape: tuple, tokens,
     ``arch``'s model (its smoke config with ``smoke``) from its own seeded
     initialization on the rank's device, placed by :func:`param_shardings`
     on a ``DeviceMesh`` of ``mesh_shape`` over ("data", "model") and run
-    once on ``tokens`` (B, S). Returns the logits (numpy, f32), each
-    parameter's spec and its local shard shape."""
-    import numpy as np
-    from torch.distributed.device_mesh import init_device_mesh
+    once on the rank's rows of ``tokens`` (B, S) (:func:`local_batch`).
+    Returns the logits of the whole batch (numpy, f32; the ranks' rows
+    gathered after the forward), each parameter's spec and its local shard
+    shape."""
+    from repro_torch.models import forward
 
-    from repro_torch.configs import get_config, get_smoke_config
-    from repro_torch.models import LanguageModel, forward
-
-    cfg = (get_smoke_config if smoke else get_config)(arch)
-    dev = rank.device
-    mesh = init_device_mesh(dev.type, tuple(mesh_shape),
-                            mesh_dim_names=("data", "model"))
-    model = LanguageModel(cfg, device=dev)
-    specs = param_shardings(mesh, model)
-    distribute_model(model, mesh, specs)
+    mesh, model, specs = _placed_model(rank, _config(arch, smoke),
+                                       mesh_shape)
     local = {name: tuple(p.to_local().shape)
              for name, p in model.named_parameters()}
+    batch = local_batch(mesh, {"tokens": tokens})
     with torch.inference_mode():
-        logits, _ = forward(model, {"tokens": torch.as_tensor(
-            np.asarray(tokens), device=dev)})
+        logits, _ = forward(model, batch)
+        logits = gather_batch(mesh, logits, len(tokens))
     return {"logits": logits.float().cpu().numpy(), "specs": specs,
             "local_shapes": local}
+
+
+def placed_serve(rank, arch: str, mesh_shape: tuple, tokens,
+                 smoke: bool = True) -> dict:
+    """One rank of placed serving: ``arch``'s model placed as in
+    :func:`placed_forward`, a prefill of the rank's rows of ``tokens`` (B,
+    S) into a cache held for those rows alone, then one greedy decode
+    step. Returns both steps' logits of the whole batch (numpy, f32; the
+    ranks' rows gathered after each step) and each step's collectives."""
+    from repro_torch.launch.roofline import record_collectives
+    from repro_torch.models import init_cache
+    from repro_torch.train import make_decode_step, make_prefill_step
+
+    cfg = _config(arch, smoke)
+    mesh, model, _ = _placed_model(rank, cfg, mesh_shape)
+    prompt = local_batch(mesh, {"tokens": tokens})["tokens"].to(rank.device)
+    B, S = prompt.shape
+    cache = init_cache(cfg, B, S + 1, rank.device)
+    out = {"collectives": {}}
+    with record_collectives() as coll:
+        logits, cache = make_prefill_step(model)({"tokens": prompt}, cache)
+    out["collectives"]["prefill"] = coll
+    tok = logits.argmax(-1)[:, None].to(torch.int32)
+    with record_collectives() as coll:
+        step, cache = make_decode_step(model)(tok, cache, S)
+    out["collectives"]["decode"] = coll
+    with torch.inference_mode():
+        for key, x in (("prefill", logits), ("decode", step)):
+            out[key] = gather_batch(mesh, x, len(tokens)).float().cpu().numpy()
+    return out
+
+
+def _rel(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max|got - want| / max|want|, in f64."""
+    got, want = got.double(), want.double()
+    return float((got - want).abs().max() / want.abs().max().clamp_min(1e-30))
+
+
+def _rel_l2(got: torch.Tensor, want: torch.Tensor) -> float:
+    got, want = got.double(), want.double()
+    return float(torch.linalg.vector_norm(got - want)
+                 / torch.linalg.vector_norm(want).clamp_min(1e-30))
+
+
+def placed_train_step(rank, cfg, mesh_shape: tuple, batches: list, tcfg,
+                      state: Optional[dict] = None, check: bool = True,
+                      keep: bool = False) -> dict:
+    """One rank of placed training: the model of ``cfg`` (a
+    ``ModelConfig``) placed as in :func:`placed_forward` (from ``state``,
+    numpy arrays by state-dict name, if given), AdamW moments placed as
+    the parameters, and one step of ``make_train_step(cfg, tcfg, mesh)``
+    on the rank's rows (:func:`local_batch`) of each global batch of
+    ``batches`` (dicts of CPU tensors or arrays).
+
+    Returns each step's metrics (floats), collectives
+    (:func:`~repro_torch.launch.roofline.record_collectives`), host
+    seconds (ended by a device synchronize) and peak device bytes (CUDA;
+    ``None`` on the CPU), the rank's coordinate, the specs and the host
+    seconds of the set-up, the one-process run and the gradient checks. With
+    ``check``: first one process's steps on the whole batches from the
+    same weights (``make_train_step`` without a mesh; the rank's slices of
+    its gradients and parameters kept on the host), then ``distances``:
+    the worst relative distance of the metrics, of the final parameters
+    (max over elements over the largest, the worst tensor) and of every
+    step's gradients (relative L2, the worst tensor), each shard against
+    its slice of the one-process tensor, compared in f64 on the rank's
+    device after each step's clock and peak are read. With ``keep`` also
+    the final local shards (``params``, numpy)."""
+    import dataclasses
+    import time
+
+    from repro_torch.launch.roofline import record_collectives
+    from repro_torch.models import LanguageModel
+    from repro_torch.train import adamw_init, make_train_step
+
+    dev = rank.device
+    cuda = dev.type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(dev)
+
+    t0 = time.perf_counter()
+    mesh, model, specs = _placed_model(rank, cfg, mesh_shape, state)
+    sync()
+    setup_s = time.perf_counter() - t0
+    want = {"grads": [], "metrics": []}
+    if check:
+        ref = LanguageModel(cfg, device=dev)
+        if state is not None:
+            ref.load_state_dict({k: torch.as_tensor(v) for k, v in
+                                 state.items()})
+
+        def keep_ref(grads):
+            want["grads"].append({n: shard_of(g.detach(), mesh,
+                                              specs[n]).cpu()
+                                  for n, g in grads.items()})
+            return grads
+
+        step = make_train_step(cfg, dataclasses.replace(
+            tcfg, grad_transform=keep_ref))
+        opt = adamw_init(dict(ref.named_parameters()), tcfg.optimizer)
+        for batch in batches:
+            ref, opt, m = step(ref, opt, {k: torch.as_tensor(v)
+                                          for k, v in batch.items()})
+            want["metrics"].append({k: float(v) for k, v in m.items()})
+        want["params"] = {n: shard_of(p.detach(), mesh, specs[n]).cpu()
+                          for n, p in ref.named_parameters()}
+        del ref, opt, step
+        if cuda:
+            torch.cuda.empty_cache()
+    reference_s = time.perf_counter() - t0 - setup_s
+
+    held = []  # this step's gradients, compared after the step
+    step = make_train_step(cfg, dataclasses.replace(
+        tcfg, grad_transform=lambda g: held.append(g) or g), mesh=mesh)
+    opt = adamw_init(dict(model.named_parameters()), tcfg.optimizer)
+    metrics, colls, times, peaks, grad_dist = [], [], [], [], []
+    check_s = 0.0
+    for i, batch in enumerate(batches):
+        local = local_batch(mesh, batch, tcfg.grad_accum)
+        sync()
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        with record_collectives() as coll:
+            model, opt, m = step(model, opt, local)
+        sync()
+        times.append(time.perf_counter() - t0)
+        peaks.append(torch.cuda.max_memory_allocated(dev) if cuda else None)
+        metrics.append({k: float(v) for k, v in m.items()})
+        colls.append(coll)
+        grads = held.pop()
+        t1 = time.perf_counter()
+        if check:
+            grad_dist.append(max(
+                (_rel_l2(local_tensor(g).detach(),
+                         want["grads"][i][n].to(dev)), n)
+                for n, g in grads.items()))
+        del grads
+        check_s += time.perf_counter() - t1
+    out = {"metrics": metrics, "collectives": colls, "step_s": times,
+           "peak_device_bytes": peaks, "coords": coordinate(mesh),
+           "specs": specs, "setup_s": setup_s, "reference_s": reference_s,
+           "check_s": check_s}
+    if keep:
+        out["params"] = {n: local_tensor(p).detach().cpu().numpy()
+                         for n, p in model.named_parameters()}
+    if check:
+        worst_metric = max(
+            (abs(a[k] - b[k]) / max(abs(b[k]), 1e-30), f"{k} step {i}")
+            for i, (a, b) in enumerate(zip(metrics, want["metrics"]))
+            for k in a if k in b)
+        worst_param = max((_rel(local_tensor(p).detach(),
+                                want["params"][n].to(dev)), n)
+                          for n, p in model.named_parameters())
+        out["distances"] = {"metrics": worst_metric, "params": worst_param,
+                            "grads": max(grad_dist)}
+    return out

@@ -1,6 +1,8 @@
 """Exact analytic FLOP / byte counts (counterpart of
 ``repro.launch.analytic``): the LM cells (:func:`lm_cell_counts`) and the
-FETI solve phase (:func:`feti_solve_iter_counts`).
+FETI solve phase (:func:`feti_solve_iter_counts`); and the collective
+schedule of a cell on a mesh (:func:`lm_collectives`,
+:func:`feti_collectives`).
 
 The counts are EXECUTED work of the loop structure the program runs
 (chunked attention with or without causal block skipping, MoE capacity,
@@ -15,13 +17,14 @@ construction.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 from repro_torch.launch.shapes import ShapeCase
 from repro_torch.models.config import ModelConfig
 
 __all__ = ["CellCounts", "lm_cell_counts", "feti_solve_iter_counts",
-           "FETI_SOLVE_N_RHS"]
+           "FETI_SOLVE_N_RHS", "lm_collectives", "feti_collectives"]
 
 # default multi-RHS width of the reference's ``solve_iter_multi`` dry-run
 # cell (the middle of its n_rhs sweep 1, 4, 16, 64)
@@ -260,3 +263,132 @@ def lm_cell_counts(cfg: ModelConfig, shape: ShapeCase, *, chips: int,
             "opt_stream_dev": opt_stream,
         },
     )
+
+
+# ------------------------------------------------ the collective schedule ----
+# The port's own schedule: what its placed LM steps
+# (repro_torch.distributed.sharding) and its sharded FETI operator
+# (repro_torch.feti.sharded) send, call by call, in record_collectives'
+# convention (each call's result bytes, every call counted). It is not
+# XLA's: the reference's rows read GSPMD's collectives from the compiled
+# HLO, which may differ. Where both run, the two are equal exactly
+# (tests/test_torch_collectives.py, chip_smoke.py's placed phase).
+@functools.lru_cache(maxsize=None)
+def _param_meta(cfg: ModelConfig) -> dict:
+    """``{name: meta tensor}`` of the model's parameters (shapes and
+    dtypes, no storage)."""
+    from repro_torch.models import LanguageModel
+
+    return dict(LanguageModel(cfg, device="meta").named_parameters())
+
+
+def lm_collectives(cfg: ModelConfig, shape: ShapeCase, mesh, tcfg=None,
+                   opt: bool = False):
+    """The c10d collectives one rank of the port's placed step of ``cfg``
+    at ``shape`` issues on ``mesh`` (a ``MeshShape`` or ``DeviceMesh``
+    with axes among pod / data / model), as a
+    :class:`~repro_torch.launch.roofline.CollectiveStats`.
+
+    Parameters are placed by ``param_shardings`` (serving under ``opt``
+    drops FSDP where the TP-sharded bf16 weights fit 4 GiB, as the
+    reference's dry-run does). A unit's forward gathers each of its
+    parameters whole: one all-gather a mesh dimension that shards it over
+    more than one rank, the innermost first. Serving (prefill, decode):
+    one forward. Training (``tcfg``: ``grad_accum`` k, ``remat``), per
+    microbatch: a forward, and under ``remat`` every layer's gathers again
+    in backward; one all-reduce of the loss's three sums and, in every
+    MoE layer and pass, one of its load-balancing sums (2E + 1 f32) over
+    each data-parallel dimension; each parameter's gradient, cut to the
+    rank's 'model' shard, all-reduced over each data-parallel dimension.
+    Per step, the gradient norm: one all-reduce of a partial sum per set of
+    sharding mesh dimensions, over each such dimension. Dimensions of one
+    rank send nothing. The batch must divide the data-parallel ranks (k
+    times) in training; in serving a batch that does not rides whole and
+    changes nothing here."""
+    from repro_torch.distributed.sharding import (data_parallel_dims,
+                                                  mesh_axes, param_shardings,
+                                                  placements)
+    from repro_torch.launch.roofline import CollectiveStats
+
+    sizes = list(mesh_axes(mesh).values())
+    params = _param_meta(cfg)
+    tp = mesh_axes(mesh).get("model", 1)
+    serving = shape.kind in ("decode", "prefill")
+    fsdp = not (opt and serving and cfg.param_count() * 2 / tp <= 4 * 2**30)
+    specs = param_shardings(mesh, params, fsdp=fsdp)
+    dp = data_parallel_dims(mesh)
+    stats = CollectiveStats(bytes_by_op={}, count_by_op={})
+
+    def add(op: str, nbytes: int, times: int = 1) -> None:
+        if times:
+            stats.bytes_by_op[op] = stats.bytes_by_op.get(op, 0) + \
+                nbytes * times
+            stats.count_by_op[op] = stats.count_by_op.get(op, 0) + times
+
+    cuts = {n: [(d, p.dim) for d, p in enumerate(placements(mesh, specs[n]))
+                if p.is_shard() and sizes[d] > 1] for n in params}
+    layers = [n for n in params if n.startswith("blocks.")]
+    rest = [n for n in params if not n.startswith("blocks.")]
+
+    def gathers(names, times: int) -> None:
+        for n in names:
+            local = list(params[n].shape)
+            for d, tdim in cuts[n]:
+                local[tdim] //= sizes[d]
+            for d, tdim in reversed(cuts[n]):
+                local[tdim] *= sizes[d]
+                add("all-gather", math.prod(local) * params[n].element_size(),
+                    times)
+
+    if serving:
+        gathers(rest + layers, 1)
+        return stats
+    k = tcfg.grad_accum
+    passes = 2 if tcfg.remat else 1
+    gathers(rest, k)
+    gathers(layers, k * passes)
+    moe_layers = sum(n.endswith(".mlp.router") for n in params)
+    add("all-reduce", 3 * 4, k * len(dp))
+    add("all-reduce", (2 * cfg.num_experts + 1) * 4,
+        k * passes * moe_layers * len(dp))
+    for n, p in params.items():
+        cut = math.prod(sizes[d] for d, _ in cuts[n] if d not in dp)
+        add("all-reduce", p.numel() // cut * p.element_size(), k * len(dp))
+    keys = {tuple(d for d, _ in cuts[n]) for n in params}
+    for d in range(len(sizes)):
+        shared = sum(d in key for key in keys)
+        add("all-reduce", 4 * shared, 1 if shared else 0)
+    return stats
+
+
+@functools.lru_cache(maxsize=None)
+def _n_lambda(problem: str, dim: int, sub_grid: tuple,
+              elems_per_sub: tuple) -> int:
+    from repro_torch.fem.decomposition import decompose_problem
+
+    return decompose_problem(problem, dim, sub_grid, elems_per_sub,
+                             assemble_values=False).n_lambda
+
+
+def feti_collectives(fc, shape_name: str, chips: int):
+    """The c10d collectives one rank of the port's sharded FETI operator
+    issues in the cell ``shape_name`` of ``fc`` over ``chips`` ranks: the
+    assembly and the Dirichlet stage run rank by rank and send nothing;
+    ``solve_iter`` is one explicit dual-operator application, whose
+    λ-space sum (``feti.sharded.reduce_sum``) is one all-reduce of n_λ f32
+    (``FetiMesh.all_reduce``), and ``solve_iter_multi`` one of n_λ ×
+    FETI_SOLVE_N_RHS. One rank sends nothing. The payload does not depend
+    on the rank count; the port's split needs a subdomain a rank
+    (``launch.mesh.split_sizes``), so on more ranks than subdomains it is
+    the schedule of a deployment the port cannot yet run."""
+    from repro_torch.launch.roofline import CollectiveStats
+
+    stats = CollectiveStats(bytes_by_op={}, count_by_op={})
+    if chips == 1 or shape_name not in ("solve_iter", "solve_iter_multi"):
+        return stats
+    n_rhs = FETI_SOLVE_N_RHS if shape_name == "solve_iter_multi" else 1
+    nl = _n_lambda(fc.problem, fc.dim, tuple(fc.sub_grid),
+                   tuple(fc.elems_per_sub))
+    stats.bytes_by_op["all-reduce"] = nl * n_rhs * 4
+    stats.count_by_op["all-reduce"] = 1
+    return stats

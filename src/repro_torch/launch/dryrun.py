@@ -9,8 +9,15 @@ and the roofline terms at the card's data-sheet rates
 (:mod:`repro_torch.launch.roofline`). The reference lowers and compiles
 each cell for its mesh; here the rows of the reference's two meshes
 (data=16, model=16) and (pod=2, data=16, model=16) are host arithmetic
-over their shapes (:func:`~repro_torch.launch.mesh.make_production_mesh`),
-and no collective model exists (zero collective bytes, printed "—").
+over their shapes (:func:`~repro_torch.launch.mesh.make_production_mesh`).
+Their collectives are the port's own schedule on that mesh
+(:func:`~repro_torch.launch.analytic.lm_collectives` for the placed LM
+steps, :func:`~repro_torch.launch.analytic.feti_collectives` for the
+sharded FETI operator), priced at ``HW["net_bw"]``: every group of those
+meshes spans more than one 8-GPU NVLink domain. The LM rows' ``analytic``
+notes say what the placed steps leave out (no tensor-parallel split over
+'model', caches per batch shard). One card sends nothing: its rows carry
+no collectives.
 
 ``--devices 1`` asks the question of one card (the mesh label
 :data:`DEVICE_MESH`): a row also gives the largest global batch whose
@@ -29,14 +36,17 @@ and ``peak_device_bytes`` (``torch.cuda.max_memory_allocated``) beside the
 analytic residency. Executors exist for decode and prefill cells (the
 model's own seeded weights; a decode cell's cache is filled from a seeded
 generator with every slot before the last written, and each step decodes
-at the last slot, which is not a prefill of that length) and for the FETI
+at the last slot, which is not a prefill of that length), for the FETI
 ``assembly`` (seeded SPD stiffness stacks with the decomposition's
 pattern, the block Cholesky, then the assembly through the hand-written
-kernels) and ``solve_iter`` / ``solve_iter_multi`` cells (one explicit
-dual-operator application on a seeded F̃ stack). Train and ``dirichlet``
-cells have none (``run_skipped`` says so): the training launcher runs
-the former. A cell whose run fails is ``"status": "error"`` with the
-reason; nothing falls back to the CPU or a smaller size.
+kernels), ``dirichlet`` (seeded SPD stacks with the Dirichlet split's
+pattern: the interior factorization, the stage through the hand-written
+kernels, then ``restrict_own_boundary``) and ``solve_iter`` /
+``solve_iter_multi`` cells (one explicit dual-operator application on a
+seeded F̃ stack). Train cells have none (``run_skipped`` says so): the
+training launcher runs them. A cell whose run fails is ``"status":
+"error"`` with the reason; nothing falls back to the CPU or a smaller
+size.
 
 Usage::
 
@@ -61,7 +71,8 @@ import numpy as np
 
 from repro_torch.configs import (FetiArchConfig, get_config,
                                  get_smoke_config, list_archs)
-from repro_torch.launch.analytic import CellCounts, lm_cell_counts
+from repro_torch.launch.analytic import (CellCounts, feti_collectives,
+                                        lm_cell_counts, lm_collectives)
 from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.launch.roofline import HW, no_collectives, roofline_terms
 from repro_torch.launch.shapes import SHAPES, ShapeCase, applicable_shapes
@@ -70,7 +81,8 @@ from repro_torch.train import OptimizerConfig, TrainConfig
 
 __all__ = ["FETI_SHAPES", "BIG_PARAMS", "ATTN_ARGS", "OPT_FETI_GRIDS",
            "MESHES", "DEVICE_MESH", "FIT_FRACTION", "feti_cell_counts",
-           "lm_counts", "fit_one_device", "run_cell", "iter_cells", "main"]
+           "lm_counts", "fit_one_device", "run_cell", "iter_cells",
+           "feti_rank_collectives", "main"]
 
 FETI_SHAPES = ("assembly", "solve_iter", "solve_iter_multi", "dirichlet")
 BIG_PARAMS = 100e9  # >= this: bf16 moments + gradient accumulation
@@ -81,6 +93,15 @@ DEVICE_MESH = "1xH100"  # the label of --devices 1's rows
 FIT_FRACTION = 0.9  # of HW["hbm_bytes"]: headroom for activations
 RUN_STEPS = 3
 SCHEMA_VERSION = 1
+# what the placed LM steps behind an LM row's collectives leave out
+PLACEMENT_NOTES = {
+    "placement_model_axis": "the 'model' ranks gather the weights whole "
+                            "and compute on the same batch rows: no "
+                            "tensor-parallel split, no expert-parallel "
+                            "dispatch",
+    "placement_cache": "a serving cache is held for the rank's batch rows "
+                       "alone (not sharded along seq over 'model')",
+}
 
 
 def _train_settings(cfg: ModelConfig, opt: bool = False) -> TrainConfig:
@@ -441,6 +462,70 @@ def _run_lm(cfg: ModelConfig, shape: ShapeCase, device, steps: int) -> dict:
     return {"first_step_s": first, "measured_s": med, "note": note}
 
 
+def _spd_stack(kpat: np.ndarray, S: int, gen, device):
+    """(S, n, n) f32 SPD stacks with ``kpat``'s pattern, from ``gen``:
+    off-diagonal entries -U(0, 1) symmetrized, the diagonal their absolute
+    row sum + 1."""
+    import torch
+
+    n = kpat.shape[0]
+    pat = torch.as_tensor(kpat, device=device)
+    pat.fill_diagonal_(False)
+    K0 = torch.rand((S, n, n), generator=gen, device=device,
+                    dtype=torch.float32)
+    K0.mul_(pat)
+    K0.add_(K0.mT.clone()).mul_(-0.5)
+    K0.diagonal(dim1=1, dim2=2).copy_(K0.abs().sum(-1) + 1.0)
+    return K0
+
+
+def _run_dirichlet(fc: FetiArchConfig, device, steps: int) -> dict:
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.feti.dirichlet import (_local_dof_pattern,
+                                            make_dirichlet_assembler,
+                                            restrict_own_boundary)
+
+    prob, cfg, split, meta_ib, mask_ii, Zb, _ = _feti_dirichlet_setup(fc)
+    S, nb = prob.n_subdomains, split.n_b
+    gen = torch.Generator(device=device).manual_seed(0)
+    K0 = _spd_stack(_local_dof_pattern(prob), S, gen, device)
+    P = torch.as_tensor(split.interior, device=device)
+    B = torch.as_tensor(split.boundary, device=device)
+    rows = K0[:, P]
+    Kii0, Kib = rows[:, :, P], rows[:, :, B]
+    del rows
+    Kbb = K0[:, B][:, :, B]
+    del K0
+    z = torch.as_tensor(Zb, device=device, dtype=torch.float32)
+    assemble = make_dirichlet_assembler(
+        split, meta_ib, mask_ii, dataclasses.replace(cfg, use_kernels=True))
+    A = torch.empty_like(Kii0)
+    launches = []
+
+    def step():
+        kernels.reset_launch_counts()
+        A.copy_(Kii0)  # factorized in place
+        Sb = restrict_own_boundary(assemble(A, Kib, Kbb), z)
+        launches.append(kernels.launch_counts())
+        return Sb
+
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+        torch.cuda.reset_peak_memory_stats(device)
+    first, med, Sb = _timed(step, steps, device)
+    if Sb.shape != (S, nb, nb) or not bool(torch.isfinite(Sb).all()):
+        raise RuntimeError(f"S_b {tuple(Sb.shape)} not finite")
+    return {"first_step_s": first, "measured_s": med,
+            "launches_per_step": launches,
+            "note": (f"{S} seeded SPD f32 stacks with the Dirichlet split's "
+                     f"pattern (n_i {split.n_i}, n_b {nb}); the interior "
+                     f"block Cholesky at bs {cfg.block_size}, the stage "
+                     f"through the kernels (use_kernels=True), then "
+                     f"restrict_own_boundary, every step from the same K")}
+
+
 def _run_feti(fc: FetiArchConfig, shape_name: str, device,
               steps: int) -> dict:
     import torch
@@ -449,20 +534,14 @@ def _run_feti(fc: FetiArchConfig, shape_name: str, device,
     from repro_torch.feti.assembly import batched_assemble
     from repro_torch.sparse.cholesky import block_cholesky
 
+    if shape_name == "dirichlet":
+        return _run_dirichlet(fc, device, steps)
     st = _feti_setup(fc)
     S, n, m = st.prob.n_subdomains, st.n, st.m
     gen = torch.Generator(device=device).manual_seed(0)
     f32 = torch.float32
     if shape_name == "assembly":
-        # seeded SPD stacks with K's pattern: off-diagonal entries -U(0, 1)
-        # symmetrized, the diagonal their absolute row sum + 1
-        pat = torch.as_tensor(st.kpat, device=device)
-        pat.fill_diagonal_(False)
-        K0 = torch.rand((S, n, n), generator=gen, device=device, dtype=f32)
-        K0.mul_(pat)
-        K0.add_(K0.mT.clone()).mul_(-0.5)
-        K0.diagonal(dim1=1, dim2=2).copy_(K0.abs().sum(-1) + 1.0)
-        del pat
+        K0 = _spd_stack(st.kpat, S, gen, device)
         Bt = torch.zeros((S, n, m), device=device, dtype=f32)
         piv = torch.as_tensor(st.pivots, device=device)
         vals = torch.as_tensor(np.stack(
@@ -499,17 +578,9 @@ def _run_feti(fc: FetiArchConfig, shape_name: str, device,
                          f"kernels (use_kernels=True), every step from the "
                          f"same K")}
     # solve_iter / solve_iter_multi: one explicit dual-operator application
-    from repro_torch.feti.operator import dual_map, explicit_dual_apply
-    from repro_torch.launch.analytic import FETI_SOLVE_N_RHS
+    from repro_torch.feti.operator import explicit_dual_apply
 
-    nl = st.prob.n_lambda
-    ids = np.full((S, m), nl, np.int64)
-    for i, sd in enumerate(st.prob.subdomains):
-        ids[i, : sd.lambda_ids.shape[0]] = sd.lambda_ids
-    dm = dual_map(ids, nl, device)
-    F = torch.randn((S, m, m), generator=gen, device=device, dtype=f32)
-    cols = (FETI_SOLVE_N_RHS,) if shape_name == "solve_iter_multi" else ()
-    lam = torch.randn((nl,) + cols, generator=gen, device=device, dtype=f32)
+    dm, F, lam = _solve_inputs(st, shape_name, gen, device)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
         torch.cuda.reset_peak_memory_stats(device)
@@ -519,6 +590,55 @@ def _run_feti(fc: FetiArchConfig, shape_name: str, device,
         raise RuntimeError(f"q {tuple(q.shape)} not finite")
     return {"first_step_s": first, "measured_s": med,
             "note": "a seeded F̃ stack and multiplier stack"}
+
+
+def _solve_inputs(st: FetiSetup, shape_name: str, gen, device,
+                  owned: Optional[range] = None):
+    """The dual map, a seeded (S, m, m) f32 F̃ stack and a seeded f32
+    multiplier stack (n_λ, or n_λ × FETI_SOLVE_N_RHS for
+    ``solve_iter_multi``) of a solve cell; with ``owned`` (one rank's
+    subdomains) the map and the stack of that slice alone."""
+    import torch
+
+    from repro_torch.feti.operator import dual_map
+    from repro_torch.launch.analytic import FETI_SOLVE_N_RHS
+
+    S, m, nl = st.prob.n_subdomains, st.m, st.prob.n_lambda
+    ids = np.full((S, m), nl, np.int64)
+    for i, sd in enumerate(st.prob.subdomains):
+        ids[i, : sd.lambda_ids.shape[0]] = sd.lambda_ids
+    F = torch.randn((S, m, m), generator=gen, device=device,
+                    dtype=torch.float32)
+    cols = (FETI_SOLVE_N_RHS,) if shape_name == "solve_iter_multi" else ()
+    lam = torch.randn((nl,) + cols, generator=gen, device=device,
+                      dtype=torch.float32)
+    if owned is None:
+        return dual_map(ids, nl, device), F, lam
+    sl = slice(owned.start, owned.stop)
+    return dual_map(ids[sl], nl, device, sliced=True), F[sl], lam
+
+
+def feti_rank_collectives(rank, arch: str, shape_name: str,
+                          smoke: bool = True) -> dict:
+    """One rank of the sharded form of a solve cell's step: the rank's
+    slice of the cell's seeded F̃ stack (``FetiMesh.owned``), one explicit
+    dual-operator application through ``feti.sharded.reduce_sum`` under
+    :func:`~repro_torch.launch.roofline.record_collectives`. Returns the
+    collectives and the all-reduced result (numpy), which equals the
+    one-device application of the whole stack."""
+    import torch
+
+    from repro_torch.feti.operator import explicit_dual_apply
+    from repro_torch.feti.sharded import reduce_sum
+    from repro_torch.launch.roofline import record_collectives
+
+    st = _feti_setup((get_smoke_config if smoke else get_config)(arch))
+    gen = torch.Generator(device=rank.device).manual_seed(0)
+    dm, F, lam = _solve_inputs(st, shape_name, gen, rank.device,
+                               rank.owned(st.prob.n_subdomains))
+    with record_collectives() as coll:
+        q = reduce_sum(rank, explicit_dual_apply)(F, dm, lam)
+    return {"collectives": coll, "q": q.cpu().numpy()}
 
 
 def _execute(cfg, shape_name: str, shape: Optional[ShapeCase], device,
@@ -546,9 +666,6 @@ def _execute(cfg, shape_name: str, shape: Optional[ShapeCase], device,
 def _run_reason(cfg, shape_name: str) -> Optional[str]:
     """Why ``--run`` has no executor for this cell (None: it has one)."""
     if isinstance(cfg, FetiArchConfig):
-        if shape_name == "dirichlet":
-            return ("no executor for the dirichlet cell (the solve "
-                    "launcher's --precond dirichlet runs the stage)")
         return None
     if SHAPES[shape_name].kind == "train":
         return ("no executor for train cells (python -m "
@@ -583,6 +700,7 @@ def run_cell(arch: str, shape_name: str, mesh: str = "16x16",
     rec["optimized"] = opt
     try:
         shape = None
+        coll = None  # one card sends nothing
         if isinstance(cfg, FetiArchConfig):
             if opt:
                 # one independent subdomain stream per device: the cluster
@@ -592,6 +710,8 @@ def run_cell(arch: str, shape_name: str, mesh: str = "16x16",
             counts = feti_cell_counts(cfg, shape_name, chips)
             if one:
                 rec["reduced"] = []
+            else:
+                coll = feti_collectives(cfg, shape_name, chips)
         else:
             # moe_impl="sort" removes the 4·E·C·d dispatch flops, but under
             # the reference's GSPMD placement the expert buffer lost EP
@@ -604,15 +724,20 @@ def run_cell(arch: str, shape_name: str, mesh: str = "16x16",
                            num_layers=cfg.num_layers, reduced=reduced)
             else:
                 counts = lm_counts(cfg, shape, chips, tp, opt)
+                coll = lm_collectives(cfg, shape, pm,
+                                      _train_settings(cfg, opt), opt)
+                counts.notes.update(PLACEMENT_NOTES)
         roof = roofline_terms(
             {"flops": counts.flops_per_dev,
              "bytes accessed": counts.hbm_bytes_per_dev},
-            no_collectives(), chips, counts.model_flops)
+            coll or no_collectives(), chips, counts.model_flops,
+            link_bw=HW["net_bw"])
         rec.update({
             "analytic_resident_bytes_per_dev":
                 int(counts.hbm_resident_per_dev),
             "fits_hbm": bool(counts.hbm_resident_per_dev <= HW["hbm_bytes"]),
-            "collectives": None,  # no collective model
+            "collectives": None if coll is None else {
+                "bytes": coll.bytes_by_op, "count": coll.count_by_op},
             "analytic": counts.notes,
             "roofline": roof.as_dict(),
         })

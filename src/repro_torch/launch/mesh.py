@@ -50,8 +50,8 @@ from repro_torch.device import resolve_device
 
 __all__ = ["DEFAULT_TIMEOUT_S", "FetiMesh", "MeshShape", "RankFailure",
            "describe", "make_feti_mesh", "make_local_mesh",
-           "make_production_mesh", "rank_devices", "spawn_ranks",
-           "split_sizes"]
+           "make_production_mesh", "rank_devices", "run_each",
+           "spawn_ranks", "split_sizes"]
 
 DEFAULT_TIMEOUT_S = 120.0
 BACKENDS = ("nccl", "gloo")
@@ -236,6 +236,13 @@ def make_local_mesh(device_type: str = "cuda"):
         resolve_device("cuda")
     return init_device_mesh(device_type, (dist.get_world_size(), 1),
                             mesh_dim_names=("data", "model"))
+
+
+def run_each(rank: FetiMesh, calls: Sequence) -> list:
+    """``[fn(rank, *args) for fn, args in calls]``: several functions of a
+    rank in one :func:`spawn_ranks` group, in the same order on every
+    rank (each function module-level, as ``spawn_ranks`` needs)."""
+    return [fn(rank, *args) for fn, args in calls]
 
 
 class RankFailure(RuntimeError):

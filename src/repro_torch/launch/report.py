@@ -3,9 +3,11 @@
 
     PYTHONPATH=src python -m repro_torch.launch.report dryrun.jsonl
 
-The port's rows carry no collective model: their collective columns print
-"—". The ``run s`` column (``measured_s`` of a ``--devices 1 --run`` row)
-takes the place of the reference's ``compile s``.
+The collective columns of a production-mesh row are the port's own
+schedule (``analytic.lm_collectives`` / ``feti_collectives``); a
+``--devices 1`` row sends nothing and prints "—". The ``run s`` column
+(``measured_s`` of a ``--devices 1 --run`` row) takes the place of the
+reference's ``compile s``.
 """
 from __future__ import annotations
 

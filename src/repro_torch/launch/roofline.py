@@ -6,9 +6,15 @@ turns a cell's analytic FLOP and byte counts
 (:mod:`repro_torch.launch.analytic`) into its compute, memory and
 collective seconds. The reference reads its collective bytes from XLA's
 compiled HLO (``parse_collective_bytes``, ``collective_stats_trip_corrected``);
-those parsers read XLA text and have no counterpart here. Without a
-collective model a row carries :func:`no_collectives`: zero bytes, which
-:mod:`repro_torch.launch.report` prints as "—".
+those parsers read XLA text and have no counterpart here. The port counts
+what it sends itself: :func:`record_collectives` records every c10d
+collective a block issues on this rank, by the reference's operation
+names and byte convention (the result tensor's bytes of every call), and
+:func:`repro_torch.launch.analytic.lm_collectives` /
+``feti_collectives`` give the same schedule for a cell on a mesh of
+shapes. A row without one (one card sends nothing) carries
+:func:`no_collectives`: zero bytes, which :mod:`repro_torch.launch.report`
+prints as "—".
 
 The autotuner (:mod:`repro_torch.core.autotune`) feeds its FLOP and byte
 models through :meth:`DeviceModel.time_s` to order candidate plans;
@@ -29,19 +35,24 @@ ranking gains nothing from a second figure. bf16 stages compute at f32
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import inspect
 import types
 from typing import Mapping, Optional, Union
 
 import torch
 
 __all__ = ["HW", "CollectiveStats", "Roofline", "roofline_terms",
-           "no_collectives", "DeviceModel", "DEVICE_MODELS", "CUDA_KINDS",
-           "detect_device"]
+           "no_collectives", "record_collectives", "DeviceModel",
+           "DEVICE_MODELS", "CUDA_KINDS", "detect_device"]
 
 # One NVIDIA H100 80GB HBM3 (SXM) at its 700 W power limit, NVIDIA's data
 # sheet, dense rates without sparsity. ``link_bw``: NVLink 4, 18 links of
 # 25 GB/s each way (900 GB/s both ways together), one direction's sum.
+# ``net_bw``: one 400 Gb/s NDR InfiniBand port a GPU (NVIDIA DGX H100 data
+# sheet), the rate of a group that spans more than one 8-GPU NVLink
+# domain, as every group of the production meshes does.
 HW = {
     "name": "NVIDIA H100 80GB HBM3, 700 W",
     "peak_flops": 989e12,  # bf16 / fp16 tensor cores
@@ -50,6 +61,7 @@ HW = {
     "peak_flops_f64": 67e12,  # FP64 tensor cores (DMMA)
     "hbm_bw": 3.35e12,  # B/s
     "link_bw": 450e9,  # B/s
+    "net_bw": 50e9,  # B/s
     "hbm_bytes": 80 * 2**30,  # capacity, for fit checks
 }
 
@@ -71,8 +83,77 @@ class CollectiveStats:
 
 
 def no_collectives() -> CollectiveStats:
-    """The record of a cell without a collective model: no bytes."""
+    """The record of a cell that sends nothing: no bytes."""
     return CollectiveStats(bytes_by_op={}, count_by_op={})
+
+
+# c10d function -> (the reference's operation name, the argument holding
+# the call's result)
+_C10D_OPS = {
+    "all_gather": ("all-gather", "tensor_list"),
+    "all_gather_into_tensor": ("all-gather", "output_tensor"),
+    "all_reduce": ("all-reduce", "tensor"),
+    "reduce_scatter": ("reduce-scatter", "output"),
+    "reduce_scatter_tensor": ("reduce-scatter", "output"),
+    "all_to_all": ("all-to-all", "output_tensor_list"),
+    "all_to_all_single": ("all-to-all", "output"),
+    "send": ("collective-permute", "tensor"),
+    "recv": ("collective-permute", "tensor"),
+    "isend": ("collective-permute", "tensor"),
+    "irecv": ("collective-permute", "tensor"),
+}
+_RECORDERS: list = []  # the active recorders' stats, innermost last
+_ORIGINALS: dict = {}  # c10d function name -> the unwrapped function
+
+
+def _nbytes(x) -> int:
+    if isinstance(x, (list, tuple)):
+        return sum(_nbytes(t) for t in x)
+    return x.numel() * x.element_size()
+
+
+def _counting(name: str, fn):
+    op, result = _C10D_OPS[name]
+    sig = inspect.signature(fn)
+
+    def call(*args, **kwargs):
+        nbytes = _nbytes(sig.bind(*args, **kwargs).arguments[result])
+        for stats in _RECORDERS:
+            stats.bytes_by_op[op] = stats.bytes_by_op.get(op, 0) + nbytes
+            stats.count_by_op[op] = stats.count_by_op.get(op, 0) + 1
+        return fn(*args, **kwargs)
+
+    return call
+
+
+@contextlib.contextmanager
+def record_collectives():
+    """Count every c10d collective the block issues on this rank: yields a
+    :class:`CollectiveStats` that fills in as the calls are made, keyed by
+    the reference's operation names (``all-gather``, ``all-reduce``,
+    ``reduce-scatter``, ``all-to-all``, ``collective-permute`` for
+    point-to-point sends and receives), each call's bytes those of its
+    result tensor(s), every call counted (the reference's trip-corrected
+    convention). The ``torch.distributed`` functions are wrapped while any
+    recorder is open; blocks nest, each outer one counting the inner
+    block's calls too. Calls made below c10d's Python functions (DTensor's
+    functional collectives) are not seen: the port issues none."""
+    import torch.distributed as dist
+
+    stats = CollectiveStats(bytes_by_op={}, count_by_op={})
+    if not _RECORDERS:
+        for name in _C10D_OPS:
+            _ORIGINALS[name] = getattr(dist, name)
+            setattr(dist, name, _counting(name, _ORIGINALS[name]))
+    _RECORDERS.append(stats)
+    try:
+        yield stats
+    finally:
+        _RECORDERS[:] = [r for r in _RECORDERS if r is not stats]
+        if not _RECORDERS:
+            for name, fn in _ORIGINALS.items():
+                setattr(dist, name, fn)
+            _ORIGINALS.clear()
 
 
 @dataclasses.dataclass

@@ -23,6 +23,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed.actsharding import recompute_contexts
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import DTYPES, Init, Norm
 from repro_torch.models.transformer import (Block, StackLayout,
@@ -94,7 +95,8 @@ class LanguageModel(nn.Module):
         for i, block in enumerate(self.blocks):
             if remat:
                 h, a = checkpoint(block, h, positions, None, cache_index,
-                                  attn_args, use_reentrant=False)
+                                  attn_args, use_reentrant=False,
+                                  context_fn=recompute_contexts)
             else:
                 h, a = block(h, positions,
                              cache[i] if cache is not None else None,

@@ -18,7 +18,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.distributed.actsharding import shard_act
+from repro_torch.distributed.actsharding import dp_active, dp_sum, shard_act
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import MLP, Init
 
@@ -77,10 +77,19 @@ class MoE(nn.Module):
 
     def _aux_loss(self, probs, gate_idx):
         """Switch's load-balancing loss, E · Σ_e f_e p_e · router_aux_coef:
-        f_e the share of first choices, p_e the mean probability."""
+        f_e the share of first choices, p_e the mean probability, both over
+        the global batch: in a placed training step (``dp_active``) the
+        rank's sums and token count are summed over the data-parallel
+        ranks, with gradient, before the product."""
         E = self.cfg.num_experts
-        frac_tokens = F.one_hot(gate_idx[..., 0], E).float().mean((0, 1))
-        frac_probs = probs.mean((0, 1))
+        first = F.one_hot(gate_idx[..., 0], E).float()
+        if dp_active():
+            n = probs.new_full((1,), float(first.shape[0] * first.shape[1]))
+            tot = dp_sum(torch.cat([first.sum((0, 1)), probs.sum((0, 1)), n]))
+            frac_tokens, frac_probs = tot[:E] / tot[-1], tot[E:-1] / tot[-1]
+        else:
+            frac_tokens = first.mean((0, 1))
+            frac_probs = probs.mean((0, 1))
         return E * (frac_tokens * frac_probs).sum() * self.cfg.router_aux_coef
 
     def _gshard(self, x, gate_vals, gate_idx, capacity):

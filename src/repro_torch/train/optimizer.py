@@ -25,6 +25,8 @@ from typing import Iterator, Union
 
 import torch
 
+from repro_torch.distributed.sharding import (is_placed, local_tensor,
+                                              placed_like)
 from repro_torch.models.layers import DTYPES
 
 __all__ = ["OptimizerConfig", "adamw_init", "adamw_update", "cosine_lr",
@@ -65,13 +67,15 @@ def cosine_lr(cfg: OptimizerConfig,
 
 
 def adamw_init(params: dict, cfg: OptimizerConfig) -> dict:
-    """``{"m", "v"}`` zeros at ``moment_dtype`` beside each parameter, and
+    """``{"m", "v"}`` zeros at ``moment_dtype`` beside each parameter (a
+    DTensor parameter's placed as it is: ``opt_state_shardings``), and
     ``step`` an int32 0 on the parameters' device."""
     mdt = DTYPES[cfg.moment_dtype]
     dev = next(iter(params.values())).device
 
     def zeros():
-        return {n: torch.zeros(p.shape, dtype=mdt, device=p.device)
+        return {n: placed_like(torch.zeros(local_tensor(p).shape, dtype=mdt,
+                                           device=p.device), p)
                 for n, p in params.items()}
 
     return {"m": zeros(), "v": zeros(),
@@ -85,15 +89,39 @@ def _slices(n: int, max_slice: int) -> Iterator[slice]:
 
 def global_norm(tensors) -> torch.Tensor:
     """√(Σ g²) over every tensor, squares summed in f32 (in slices of
-    NORM_SLICE elements, so no tensor is widened whole)."""
-    total = None
+    NORM_SLICE elements, so no tensor is widened whole).
+
+    A DTensor adds its local shard's squares to the partial sum of the
+    tensors sharded over the same mesh dimensions; each partial is then
+    summed over exactly those dimensions (one all-reduce a mesh dimension,
+    over every partial it shards), so a tensor replicated over an axis is
+    counted once. The partials add up in a fixed order."""
+    sums, mesh = {}, None
     for g in tensors:
-        flat = g.detach().reshape(-1)
+        key = ()
+        if is_placed(g):
+            mesh = g.device_mesh
+            key = tuple(d for d, p in enumerate(g.placements)
+                        if p.is_shard() and mesh.size(d) > 1)
+        flat = local_tensor(g).detach().reshape(-1)
         for sl in _slices(flat.numel(), NORM_SLICE):
             s = flat[sl].float().square().sum()
-            total = s if total is None else total + s
-    if total is None:
+            sums[key] = s if key not in sums else sums[key] + s
+    if not sums:
         raise ValueError("no gradients")
+    if mesh is not None:
+        import torch.distributed as dist
+
+        for d in range(mesh.ndim):
+            keys = sorted(k for k in sums if d in k)
+            if keys:
+                v = torch.stack([sums[k] for k in keys])
+                dist.all_reduce(v, op=dist.ReduceOp.SUM,
+                                group=mesh.get_group(d))
+                sums.update(zip(keys, v.unbind()))
+    total = None
+    for key in sorted(sums):
+        total = sums[key] if total is None else total + sums[key]
     return total.sqrt()
 
 
@@ -112,8 +140,11 @@ def adamw_update(params: dict, grads: dict, state: dict,
     bc1 = 1 - cfg.b1 ** stepf
     bc2 = 1 - cfg.b2 ** stepf
     for name, p in params.items():
-        pf, gf = p.detach().view(-1), grads[name].reshape(-1)
-        mf, vf = state["m"][name].view(-1), state["v"][name].view(-1)
+        # a placed step updates each rank's shards: elementwise, no exchange
+        pf = local_tensor(p).detach().view(-1)
+        gf = local_tensor(grads[name]).reshape(-1)
+        mf = local_tensor(state["m"][name]).view(-1)
+        vf = local_tensor(state["v"][name]).view(-1)
         for sl in _slices(pf.numel(), MAX_SLICE):
             g = gf[sl].float() * scale
             m32 = cfg.b1 * mf[sl].float() + (1 - cfg.b1) * g

@@ -16,7 +16,12 @@ import dataclasses
 from typing import Callable, Optional
 
 import torch
+from torch.utils.checkpoint import set_checkpoint_early_stop
 
+from repro_torch.distributed.actsharding import (data_parallel, dp_active,
+                                                 dp_sum)
+from repro_torch.distributed.sharding import (is_placed, local_tensor,
+                                              placed_like)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import DTYPES
 from repro_torch.models.model import LanguageModel
@@ -37,7 +42,11 @@ class TrainConfig:
 
 def loss_fn(model: LanguageModel, batch: dict, tcfg: TrainConfig):
     """Mean CE over the unmasked tokens (+ z-loss + MoE aux) of one forward
-    without a cache. Returns ``(total, {"ce", "z_loss", "moe_aux"})``."""
+    without a cache. Returns ``(total, {"ce", "z_loss", "moe_aux"})``.
+    Inside :func:`~repro_torch.distributed.actsharding.data_parallel` the
+    numerators and the token count are summed over the data-parallel ranks
+    first (one all-reduce): the global batch's mean, not a mean of the
+    ranks' means."""
     logits, _, aux = model(batch, remat=tcfg.remat,
                            attn_args=tcfg.attn_args, with_aux=True)
     dev = logits.device
@@ -48,9 +57,13 @@ def loss_fn(model: LanguageModel, batch: dict, tcfg: TrainConfig):
     logits = logits.float()
     lse = torch.logsumexp(logits, dim=-1)
     gold = logits.gather(-1, labels[..., None])[..., 0]
-    denom = torch.clamp_min(mask.sum(), 1.0)
-    ce = ((lse - gold) * mask).sum() / denom
-    zl = tcfg.z_loss_coef * (lse.square() * mask).sum() / denom
+    nll, zsq, count = ((lse - gold) * mask).sum(), (lse.square() * mask).sum(), \
+        mask.sum()
+    if dp_active():  # a placed step: the global batch's sums
+        nll, zsq, count = dp_sum(torch.stack([nll, zsq, count])).unbind()
+    denom = torch.clamp_min(count, 1.0)
+    ce = nll / denom
+    zl = tcfg.z_loss_coef * zsq / denom
     return ce + zl + aux, {"ce": ce, "z_loss": zl, "moe_aux": aux}
 
 
@@ -69,7 +82,7 @@ def _grads(loss, params: dict) -> dict:
             for (n, p), g in zip(params.items(), gs)}
 
 
-def make_train_step(cfg: ModelConfig, tcfg: TrainConfig):
+def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh=None):
     """Returns ``train_step(model, opt_state, batch) -> (model, opt_state,
     metrics)``; metrics: ``loss``, its parts (``ce``, ``z_loss``,
     ``moe_aux``; none under accumulation), ``lr`` and ``grad_norm``.
@@ -78,31 +91,55 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig):
     contiguous microbatches; each one's gradients are added into an
     accumulator at ``accum_dtype`` (not into ``.grad`` at the parameter
     dtype), which is then scaled by 1/k, and the loss is the microbatches'
-    mean."""
+    mean.
+
+    With a ``DeviceMesh`` ``mesh`` the step is placed: the model's
+    parameters are DTensors on it
+    (:func:`~repro_torch.distributed.sharding.distribute_model`), the
+    AdamW moments too (``adamw_init`` places them as the parameters), and
+    ``batch`` holds the rank's rows
+    (:func:`~repro_torch.distributed.sharding.local_batch` with k
+    microbatches). The step then equals one process's step on the global
+    batch: the loss's sums and the MoE means are summed over the
+    data-parallel ranks (``data_parallel``), each microbatch's backward
+    sums the whole weights' gradients over them and cuts them to the
+    shards, and the gradient norm sums each shard's squares over the axes
+    its parameter is sharded on. The accumulation and the update run on
+    the local shards. ``remat``'s recomputation runs the whole block
+    (``set_checkpoint_early_stop(False)``), so each layer's weights are
+    gathered a second time in every microbatch's backward."""
     k = tcfg.grad_accum
     adt = DTYPES[tcfg.accum_dtype]
 
+    def placed_loss(model, batch):
+        if mesh is None:
+            return loss_fn(model, batch, tcfg)
+        with data_parallel(mesh), set_checkpoint_early_stop(False):
+            return loss_fn(model, batch, tcfg)
+
     def accum_grads(model, params, batch):
         if k <= 1:
-            loss, parts = loss_fn(model, batch, tcfg)
+            loss, parts = placed_loss(model, batch)
             return loss.detach(), {n: v.detach() for n, v in parts.items()}, \
                 _grads(loss, params)
         B = next(iter(batch.values())).shape[0]
         if B % k:
             raise ValueError(f"batch {B} is not a multiple of grad_accum {k}")
-        acc = {n: torch.zeros(p.shape, dtype=adt, device=p.device)
+        acc = {n: torch.zeros(local_tensor(p).shape, dtype=adt,
+                              device=p.device)
                for n, p in params.items()}
         loss_sum = torch.zeros((), dtype=torch.float32, device=model.device)
         for i in range(k):
             micro = {n: v[i * (B // k):(i + 1) * (B // k)]
                      for n, v in batch.items()}
-            loss, _ = loss_fn(model, micro, tcfg)
+            loss, _ = placed_loss(model, micro)
             for n, g in _grads(loss, params).items():
+                g = local_tensor(g)
                 # a + g.astype(a.dtype): an f32 accumulator widens exactly
                 acc[n].add_(g if adt == torch.float32 else g.to(adt))
             loss_sum += loss.detach()
         scale = 1.0 / k
-        return loss_sum * scale, {}, {n: a.mul_(scale)
+        return loss_sum * scale, {}, {n: placed_like(a.mul_(scale), params[n])
                                       for n, a in acc.items()}
 
     def train_step(model: LanguageModel, opt_state: dict, batch: dict):
@@ -110,6 +147,10 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig):
             raise ValueError(f"the step was made for {cfg.name}, not "
                              f"{model.cfg.name}")
         params = trainable(model)
+        if (mesh is not None) != any(is_placed(p) for p in params.values()):
+            raise ValueError("a placed step needs a model placed on its mesh "
+                             "(distribute_model), and only a placed step "
+                             "takes one")
         loss, parts, grads = accum_grads(model, params, batch)
         if tcfg.grad_transform is not None:
             grads = tcfg.grad_transform(grads)

@@ -303,9 +303,10 @@ def test_dryrun_cli_report_and_finalize(tmp_path, capsys):
     assert {r["status"] for r in recs} == {"ok", "skipped"}
     table = report.dryrun_table(recs)
     assert "| granite-3-8b | decode_32k | 16x16 | ok |" in table
-    assert "| — | — | — |" in table  # no collective model, no run
+    assert "| — | — | — |" in table  # one card: no collectives, no run
     assert "SKIP: full attention" in table
-    assert "**memory**" in report.roofline_table(recs, "16x16")
+    # the placed steps gather granite's weights whole over 50 GB/s links
+    assert "**collective**" in report.roofline_table(recs, "16x16")
     capsys.readouterr()
     assert report.main([str(base)]) == 0
     out = capsys.readouterr().out

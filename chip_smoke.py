@@ -234,7 +234,7 @@ Phases (each prints its seconds; any failure exits non-zero):
                 ``synthetic_batch(seed=17)``, the reference's settings for
                 each size (f32 moments below 100 B parameters; bf16
                 moments and accumulator above): granite-3-8b at 16 of 40
-                layers (seq 4096, batch 4, grad_accum 4, 4 steps),
+                layers (seq 4096, batch 4, grad_accum 4, 3 steps),
                 deepseek-v2-236b at 2 of 60 (MLA, GShard and the router's
                 aux loss in backward, the bf16 accumulator, the sliced
                 update of 1.26 G-element expert stacks; seq 1024, batch 8,
@@ -260,23 +260,29 @@ Phases (each prints its seconds; any failure exits non-zero):
                 within TRAIN_GOLDEN_TOL. Fails if the path launched a hand
                 kernel.
  11. placed   — placed LM training over ``torch.distributed``: two gloo
-                ranks share the card (``spawn_ranks``), each running
-                ``distributed.sharding.placed_train_step`` on PLACED:
-                granite-3-8b at full width and 2 of 40 layers, f32 (TF32
-                off), remat, lr TRAIN_CHECK_LR, on a (data=2, model=1)
-                ``DeviceMesh`` (FSDP: each layer's weights gathered before
-                its forward and again in its recomputation, the gradients
-                summed over the ranks and cut to the shards), three steps
-                on the rank's rows of a global batch of 4 x 512. Each rank
-                first runs one process's three steps on the whole batches
-                from the same weights and holds its losses, gradient norms
-                and final parameter shards (PLACED_TOL) and every step's
-                shard gradients (PLACED_GRAD_TOL, relative L2) to their
-                slices of that run. Prints each rank's step ms, peak device
-                bytes and the c10d collectives it recorded each step
-                (``record_collectives``) beside ``analytic.lm_collectives``
-                for the cell; fails unless they are equal, bytes and counts
-                by operation.
+                ranks share the card (``spawn_ranks``, one group for every
+                run), each running
+                ``distributed.sharding.placed_train_step`` on each entry
+                of PLACED_RUNS: granite-3-8b at full width and 2 of 40
+                layers, f32 (TF32 off), remat, lr TRAIN_CHECK_LR, three
+                steps on the rank's rows of a global batch of 4 x 512, on
+                a (data=2, model=1) ``DeviceMesh`` (FSDP: each layer's
+                weights gathered before its forward and again in its
+                recomputation, the gradients summed over the ranks and cut
+                to the shards) and on a (data=1, model=2) one (tensor
+                parallelism: each rank computes its half of the heads and
+                of the FFN, the activations all-reduced over 'model').
+                Each rank first runs one process's three steps on the
+                whole batches from the same weights and holds its losses,
+                gradient norms and final parameter shards (PLACED_TOL) and
+                every step's shard gradients (PLACED_GRAD_TOL, relative
+                L2) to their slices of that run. Prints each rank's step
+                ms, peak device bytes and the c10d collectives it recorded
+                each step (``record_collectives``) beside
+                ``analytic.lm_collectives`` for the cell; fails unless they
+                are equal, bytes and counts by operation, and if the
+                (1, 2) run gathers anything (but a split head's logits,
+                which granite's vocab does not make).
  12. dryrun   — ``repro_torch.launch.dryrun --arch all --shape all`` on the
                 reference's two meshes (16x16, 2x16x16; host arithmetic)
                 into a temporary file: prints the census and holds every
@@ -584,7 +590,7 @@ LM_GOLDEN_TOL = 1e-4  # the reference's smoke logits (CPU) against the card
 # recompute saves for backward to ~9 GB at seq 4096 (granite) and
 # recurrentgemma's f32 logits (256,000 columns) to 4.2 GB
 TRAIN_RUNS = (
-    ("granite-3-8b", 16, 4096, 4, 4, "float32", 4),
+    ("granite-3-8b", 16, 4096, 4, 4, "float32", 3),
     ("deepseek-v2-236b", 2, 1024, 8, 8, "bfloat16", 3),
     ("rwkv6-1.6b", None, 4096, 4, 1, "float32", 3),
     # 4096 tokens: past its 2048-token local window
@@ -625,12 +631,16 @@ DRYRUN_RUNS = (("feti-heat-2d", "assembly"), ("feti-heat-3d", "dirichlet"),
 DRYRUN_LAUNCHES = {arch: {"stepped_trsm": {"f32": 1},
                           "stepped_syrk": {"f32": 1}}
                    for arch in ("feti-heat-2d", "feti-heat-3d")}
-# the placed phase: arch, layers, mesh (data, model), global batch, seq,
-# steps; f32, remat, lr TRAIN_CHECK_LR. The bars are the accumulation
-# check's (a placed step sums its gradients over the ranks in another
-# order): losses, gradient norms and parameters within PLACED_TOL
-# (relative), the shard gradients within PLACED_GRAD_TOL (relative L2)
-PLACED = ("granite-3-8b", 2, (2, 1), 4, 512, 3)
+# the placed phase's runs: arch, layers, mesh (data, model), global batch,
+# seq, steps; f32, remat, lr TRAIN_CHECK_LR. (2, 1): FSDP and data
+# parallelism; (1, 2): tensor parallelism over 'model' (granite's
+# attention and MLPs split, its vocab of 49,155 stays whole, so nothing is
+# gathered). The bars are the accumulation check's (a placed step sums
+# its gradients over the ranks in another order): losses, gradient norms
+# and parameters within PLACED_TOL (relative), the shard gradients within
+# PLACED_GRAD_TOL (relative L2)
+PLACED_RUNS = (("granite-3-8b", 2, (2, 1), 4, 512, 3),
+               ("granite-3-8b", 2, (1, 2), 4, 512, 3))
 PLACED_TOL, PLACED_GRAD_TOL = TRAIN_ACCUM_TOL, TRAIN_GRADS_TOL
 # each mixed-precision run's bar on its PCPG iterations summed over the
 # defect-correction outers (a multi-RHS run: its most iterated column): the
@@ -2565,62 +2575,90 @@ def train_phase(device, smi, cpu=False):
 
 # ------------------------------------------------------------ placed ----
 def placed_phase(device, smi, cpu=False):
-    """PLACED on two gloo ranks sharing the card (with ``cpu``: the smoke
-    config at seq 16 on CPU ranks, a rehearsal): each rank's placed steps
-    held to one process's, and its recorded collectives to
-    ``lm_collectives``. Returns the ranks' rows."""
+    """PLACED_RUNS on two gloo ranks sharing the card (with ``cpu``: the
+    smoke config at seq 16 on CPU ranks, a rehearsal): each rank's placed
+    steps held to one process's, and its recorded collectives to
+    ``lm_collectives``; a run on a (1, model) mesh records no all-gather.
+    Returns the ranks' rows, a list a run."""
     from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.data import synthetic_batch
-    from repro_torch.distributed.sharding import placed_train_step
+    from repro_torch.distributed.sharding import (local_shape,
+                                                  param_shardings,
+                                                  placed_train_step)
+    from repro_torch.distributed.tensor_parallel import vocab_splits
     from repro_torch.launch.analytic import lm_collectives
-    from repro_torch.launch.mesh import MeshShape, spawn_ranks
+    from repro_torch.launch.mesh import MeshShape, run_each, spawn_ranks
     from repro_torch.launch.shapes import ShapeCase
+    from repro_torch.models import LanguageModel
 
-    arch, layers, mesh, batch, seq, steps = PLACED
-    full = (get_smoke_config if cpu else get_config)(arch)
-    cfg = dataclasses.replace(full, num_layers=layers, dtype="float32",
-                              param_dtype="float32")
-    seq = 16 if cpu else seq
-    tcfg = train_config(steps, "float32", remat=True, lr=TRAIN_CHECK_LR)
-    batches = [synthetic_batch(cfg, batch, seq, seed=17, step=i)
-               for i in range(steps)]
+    runs, calls = [], []
+    for arch, layers, mesh, batch, seq, steps in PLACED_RUNS:
+        full = (get_smoke_config if cpu else get_config)(arch)
+        cfg = dataclasses.replace(full, num_layers=layers, dtype="float32",
+                                  param_dtype="float32")
+        seq = 16 if cpu else seq
+        tcfg = train_config(steps, "float32", remat=True, lr=TRAIN_CHECK_LR)
+        batches = [synthetic_batch(cfg, batch, seq, seed=17, step=i)
+                   for i in range(steps)]
+        want = lm_collectives(cfg, ShapeCase("placed", seq, batch, "train"),
+                              MeshShape({"data": mesh[0], "model": mesh[1]}),
+                              tcfg)
+        shape = MeshShape({"data": mesh[0], "model": mesh[1]})
+        meta = dict(LanguageModel(cfg, device="meta").named_parameters())
+        specs = param_shardings(shape, meta)
+        held = sum(math.prod(local_shape(shape, specs[n], tuple(p.shape)))
+                   for n, p in meta.items())
+        print(f"[chip_smoke] placed {cfg.name} on {mesh}: "
+              f"{held:,} of {sum(p.numel() for p in meta.values()):,} "
+              f"parameters a rank", flush=True)
+        runs.append((cfg, full, mesh, batch, seq, want))
+        calls.append((placed_train_step, (cfg, mesh, batches, tcfg)))
+    world = {m[0] * m[1] for _, _, m, *_ in PLACED_RUNS}
+    assert len(world) == 1, "the placed runs share one group of ranks"
     t0 = time.perf_counter()
-    ranks = spawn_ranks(placed_train_step, mesh[0] * mesh[1],
+    ranks = spawn_ranks(run_each, world.pop(),
                         backend="gloo", device="cpu" if cpu else "cuda",
-                        args=(cfg, mesh, batches, tcfg), timeout=300)
+                        args=(calls,), timeout=300)
     wall = time.perf_counter() - t0
-    want = lm_collectives(cfg, ShapeCase("placed", seq, batch, "train"),
-                          MeshShape({"data": mesh[0], "model": mesh[1]}),
-                          tcfg)
     bad = []
-    for i, r in enumerate(ranks):
-        d = r["distances"]
-        print(f"[chip_smoke] placed {cfg.name} (layers {layers} of "
-              f"{full.num_layers}, d_model {cfg.d_model}, f32, remat) rank "
-              f"{i} {r['coords']} of mesh (data, model) {mesh} on "
-              f"{'cpu' if cpu else smi}: global batch {batch} x seq {seq}; "
-              f"set-up {r['setup_s']:.3f} s, one process "
-              f"{r['reference_s']:.3f} s, gradient checks {r['check_s']:.3f}"
-              f" s; step ms {[round(t * 1e3, 3) for t in r['step_s']]}; peak "
-              f"device bytes a step {r['peak_device_bytes']}; against one "
-              f"process "
-              f"(bars {PLACED_TOL:g}, gradients {PLACED_GRAD_TOL:g}): {d}; "
-              f"losses {[m['loss'] for m in r['metrics']]}, gradient norms "
-              f"{[m['grad_norm'] for m in r['metrics']]}", flush=True)
-        for step, got in enumerate(r["collectives"]):
-            print(f"[chip_smoke] placed rank {i} step {step} collectives "
-                  f"recorded {got} / lm_collectives {want}", flush=True)
-            if got != want:
-                bad.append(f"rank {i} step {step}: collectives {got} are not "
-                           f"the schedule {want}")
-        if (d["metrics"][0] > PLACED_TOL or d["params"][0] > PLACED_TOL
-                or d["grads"][0] > PLACED_GRAD_TOL):
-            bad.append(f"rank {i}: {d}")
-    print(f"[chip_smoke] placed: {len(ranks)} ranks in {wall:.1f}s "
-          f"(spawn, both runs, the checks)", flush=True)
+    for j, (cfg, full, mesh, batch, seq, want) in enumerate(runs):
+        for i, r in enumerate(rk[j] for rk in ranks):
+            d = r["distances"]
+            print(f"[chip_smoke] placed {cfg.name} (layers {cfg.num_layers} "
+                  f"of {full.num_layers}, d_model {cfg.d_model}, f32, remat) "
+                  f"rank {i} {r['coords']} of mesh (data, model) {mesh} on "
+                  f"{'cpu' if cpu else smi}: global batch {batch} x seq "
+                  f"{seq}; set-up {r['setup_s']:.3f} s, one process "
+                  f"{r['reference_s']:.3f} s, gradient checks "
+                  f"{r['check_s']:.3f} s; step ms "
+                  f"{[round(t * 1e3, 3) for t in r['step_s']]}; peak device "
+                  f"bytes a step {r['peak_device_bytes']}; against one "
+                  f"process (bars {PLACED_TOL:g}, gradients "
+                  f"{PLACED_GRAD_TOL:g}): {d}; losses "
+                  f"{[m['loss'] for m in r['metrics']]}, gradient norms "
+                  f"{[m['grad_norm'] for m in r['metrics']]}", flush=True)
+            for step, got in enumerate(r["collectives"]):
+                print(f"[chip_smoke] placed {mesh} rank {i} step {step} "
+                      f"collectives recorded {got} / lm_collectives {want}",
+                      flush=True)
+                if got != want:
+                    bad.append(f"{mesh} rank {i} step {step}: collectives "
+                               f"{got} are not the schedule {want}")
+                # (1, model): no weight is gathered; only a split head's
+                # logits are (the smoke vocab divides, granite's does not)
+                heads = vocab_splits(cfg, mesh[1])
+                if mesh[0] == 1 and got.count_by_op.get("all-gather",
+                                                        0) != heads:
+                    bad.append(f"{mesh} rank {i} step {step}: a "
+                               f"tensor-parallel step gathered {got}")
+            if (d["metrics"][0] > PLACED_TOL or d["params"][0] > PLACED_TOL
+                    or d["grads"][0] > PLACED_GRAD_TOL):
+                bad.append(f"{mesh} rank {i}: {d}")
+    print(f"[chip_smoke] placed: {len(ranks)} ranks, {len(runs)} runs in "
+          f"{wall:.1f}s (spawn, both runs of each, the checks)", flush=True)
     if bad:
         raise SystemExit(f"placed: {bad}")
-    return ranks
+    return [[rk[j] for rk in ranks] for j in range(len(runs))]
 
 
 # ------------------------------------------------------------ dryrun ----
@@ -2655,12 +2693,20 @@ def dryrun_phase(device, smi, cpu=False):
             or not math.isfinite(r["roofline"]["collective_s"])]
     for mesh in dryrun.MESHES:
         rows = [r for r in ok if r["mesh"] == mesh]
+        dom = sorted(finalize.fraction(r) for r in rows
+                     if r["roofline"]["dominant"] == "collective")
+        ds = {r["shape"]: r["collectives"]["bytes"].get("all-gather", 0)
+              for r in rows if r["arch"] == "deepseek-v2-236b"}
         print(f"[chip_smoke] dryrun {mesh} collectives (the port's "
               f"schedule, at {HW['net_bw']:g} B/s): "
               f"{sum(r['roofline']['coll_bytes_per_dev'] for r in rows):.6g} "
               f"B a device over {len(rows)} cells; collective-dominant "
-              f"{sum(r['roofline']['dominant'] == 'collective' for r in rows)}"
-              f" of them", flush=True)
+              f"{len(dom)} of them, finalize.fraction {dom[0] if dom else 0:.4g}"
+              f"-{dom[-1] if dom else 0:.4g} (median "
+              f"{statistics.median(dom) if dom else 0:.4g}), of all cells "
+              f"median {statistics.median(map(finalize.fraction, rows)):.4g}"
+              f"; deepseek-v2-236b all-gather bytes a rank by shape {ds}",
+              flush=True)
     if bare:
         raise SystemExit(f"dryrun: rows without collectives: {bare}")
     sys.path.insert(0, os.path.join(ROOT, "tests"))

@@ -26,21 +26,30 @@ latter, :func:`placements` turns a spec into DTensor placements and
 are the state dict's (the reference's paths with ``.`` for ``/``, one
 module a layer, no stacked axis).
 
-What the placed model computes, as far as this port goes (FSDP plus data
-parallelism): each layer gathers its weights whole before its forward,
-and the whole weights' gradients reach the shards (summed over the
-data-parallel ranks, cut to the rank's shard). The ranks along 'model'
-gather the same weights and compute on the same batch rows: no
-tensor-parallel split of heads or FFN, no expert-parallel dispatch, and a
-serving cache is held for the rank's batch rows alone. Every collective
-is a c10d call, which :func:`repro_torch.launch.roofline.record_collectives`
-counts and :func:`repro_torch.launch.analytic.lm_collectives` schedules.
+What the placed model computes, as far as this port goes (FSDP, data
+parallelism and tensor parallelism over 'model'): each layer gathers its
+weights before its forward over the data-parallel axes, and the weights'
+gradients reach the shards (summed over the data-parallel ranks, cut to
+the rank's shard). Where a block's shapes allow
+(:func:`~repro_torch.distributed.tensor_parallel.split_plan`: GQA / MHA
+attention, dense MLPs, the vocab), each 'model' rank keeps its 'model'
+shard and computes with it alone, the activations summed or gathered over
+the 'model' group (:mod:`repro_torch.distributed.tensor_parallel`). The
+other blocks (MLA, RG-LRU, RWKV-6, MoE) gather their weights whole along
+'model' too, and the ranks along 'model' compute them on the same batch
+rows: no expert-parallel dispatch. A serving cache holds the rank's batch
+rows and the rank's KV heads. Every collective is a c10d call, which
+:func:`repro_torch.launch.roofline.record_collectives` counts and
+:func:`repro_torch.launch.analytic.lm_collectives` schedules.
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+
+from repro_torch.distributed.tensor_parallel import (TensorParallel,
+                                                     copy_to_tp, split_plan)
 
 __all__ = [
     "batch_spec",
@@ -62,6 +71,7 @@ __all__ = [
     "dp_all_reduce",
     "gathered",
     "full_tensor",
+    "tensor_parallel",
     "distribute_model",
     "local_batch",
     "gather_batch",
@@ -341,16 +351,18 @@ def _cuts(mesh, pl) -> list:
             if p.is_shard() and mesh.size(d) > 1]
 
 
-def _all_gather(x: torch.Tensor, mesh, pl) -> torch.Tensor:
+def _all_gather(x: torch.Tensor, mesh, pl, keep: tuple = ()) -> torch.Tensor:
     """The whole tensor of the shard ``x`` placed by ``pl`` on ``mesh``, by
     c10d ``all_gather`` over each sharding mesh dimension's group, the
-    innermost first (``x`` itself where nothing is sharded). The
-    functional collectives of ``DTensor.full_tensor`` end in a
-    segmentation fault when gloo ranks hold CUDA tensors (torch 2.11 on
-    the H100); c10d's do not."""
+    innermost first (``x`` itself where nothing is sharded); the mesh
+    dimensions in ``keep`` stay cut. The functional collectives of
+    ``DTensor.full_tensor`` end in a segmentation fault when gloo ranks
+    hold CUDA tensors (torch 2.11 on the H100); c10d's do not."""
     import torch.distributed as dist
 
     for mdim, tdim in reversed(_cuts(mesh, pl)):
+        if mdim in keep:
+            continue
         parts = [torch.empty_like(x) for _ in range(mesh.size(mdim))]
         dist.all_gather(parts, x.contiguous(), group=mesh.get_group(mdim))
         x = torch.cat(parts, dim=tdim)
@@ -377,41 +389,46 @@ def dp_all_reduce(x: torch.Tensor, mesh) -> torch.Tensor:
 
 
 class _Gather(torch.autograd.Function):
-    """The whole parameter from this rank's shard, with a gradient to it.
+    """The parameter from this rank's shard, gathered over every mesh
+    dimension but those in ``keep`` (a tensor-parallel part keeps its
+    'model' shard), with a gradient to the shard.
 
-    Backward turns the whole parameter's gradient into this rank's shard
-    gradient: cut along the 'model' (non-data-parallel) shards, where the
-    ranks took the same batch rows; summed over the data-parallel ranks,
-    which took others; then cut along the data-parallel shards. gloo has
-    no reduce-scatter, so the sum is an all-reduce before the cut."""
+    Backward turns the gathered parameter's gradient into this rank's
+    shard gradient: cut along the gathered 'model' (non-data-parallel)
+    shards, where the ranks took the same batch rows; summed over the
+    data-parallel ranks, which took others; then cut along the
+    data-parallel shards. gloo has no reduce-scatter, so the sum is an
+    all-reduce before the cut."""
 
     @staticmethod
-    def forward(ctx, x, mesh, pl):
-        ctx.mesh, ctx.pl = mesh, pl
-        out = _all_gather(x, mesh, pl)
+    def forward(ctx, x, mesh, pl, keep):
+        ctx.mesh, ctx.pl, ctx.keep = mesh, pl, keep
+        out = _all_gather(x, mesh, pl, keep)
         return out.view_as(out) if out is x else out
 
     @staticmethod
     def backward(ctx, g):
         mesh = ctx.mesh
-        cuts, dp = _cuts(mesh, ctx.pl), data_parallel_dims(mesh)
+        cuts = [c for c in _cuts(mesh, ctx.pl) if c[0] not in ctx.keep]
+        dp = data_parallel_dims(mesh)
         g = _narrow(g, mesh, [c for c in cuts if c[0] not in dp])
         if dp:
             g = dp_all_reduce(g.clone(memory_format=torch.contiguous_format),
                               mesh)
         g = _narrow(g, mesh, [c for c in cuts if c[0] in dp])
-        return g.contiguous(), None, None
+        return g.contiguous(), None, None, None
 
 
-def gathered(dt) -> torch.Tensor:
-    """The whole tensor of the DTensor ``dt`` on every rank. Where autograd
-    records (grad mode on, ``dt`` requiring grad) its gradient reaches the
-    shard (:class:`_Gather`); elsewhere, as under ``inference_mode``, no
-    graph is built."""
+def gathered(dt, keep: tuple = ()) -> torch.Tensor:
+    """The tensor of the DTensor ``dt`` on every rank, gathered over every
+    mesh dimension but those in ``keep``. Where autograd records (grad
+    mode on, ``dt`` requiring grad) its gradient reaches the shard
+    (:class:`_Gather`); elsewhere, as under ``inference_mode``, no graph is
+    built."""
     x = dt.to_local()
     if torch.is_grad_enabled() and dt.requires_grad:
-        return _Gather.apply(x, dt.device_mesh, tuple(dt.placements))
-    return _all_gather(x, dt.device_mesh, dt.placements)
+        return _Gather.apply(x, dt.device_mesh, tuple(dt.placements), keep)
+    return _all_gather(x, dt.device_mesh, dt.placements, keep)
 
 
 def full_tensor(dt) -> torch.Tensor:
@@ -420,19 +437,60 @@ def full_tensor(dt) -> torch.Tensor:
     return _all_gather(dt.to_local().detach(), dt.device_mesh, dt.placements)
 
 
+def tensor_parallel(mesh) -> Optional[TensorParallel]:
+    """The 'model' group of a ``DeviceMesh`` whose 'model' axis has more
+    than one rank, else ``None``."""
+    names = list(getattr(mesh, "mesh_dim_names", None) or ())
+    if "model" not in names or mesh.size(names.index("model")) <= 1:
+        return None
+    d = names.index("model")
+    return TensorParallel(mesh.get_group(d), mesh.size(d),
+                          mesh.get_coordinate()[d])
+
+
 def distribute_model(model: torch.nn.Module, mesh, specs: dict) -> None:
-    """Place every parameter of ``model`` (in place) as a DTensor on the
-    ``DeviceMesh`` ``mesh`` by its spec in ``specs``
+    """Place every parameter of the ``LanguageModel`` ``model`` (in place)
+    as a DTensor on the ``DeviceMesh`` ``mesh`` by its spec in ``specs``
     (:func:`param_shardings`; one mesh axis a tensor dimension), and gather
     them around each forward, as GSPMD's FSDP all-gathers do: each unit
     (every entry of the model's module lists, i.e. every layer, and the
-    model with the rest) replaces its parameters by their whole tensors
+    model with the rest) replaces its parameters by their gathered tensors
     (:func:`gathered`) before its forward and puts the DTensors back after
-    it. The whole tensors carry their gradient to the shards. The ranks
-    along 'model' gather the same whole weights and compute without a
-    tensor-parallel split. Under ``remat`` a layer's recomputation in
-    backward runs its hooks again, so its weights are gathered twice a
-    step."""
+    it. The gathered tensors carry their gradient to the shards.
+
+    On a 'model' axis of more than one rank the parts that
+    :func:`~repro_torch.distributed.tensor_parallel.split_plan` splits
+    compute tensor-parallel: their parameters are gathered over the
+    data-parallel axes only, each rank keeping its 'model' shard (a
+    replicated KV head's ``wk`` and ``wv``: gathered whole, the head sliced
+    out, the whole gradient summed over 'model' before it is cut), and their
+    modules learn the 'model' group (their ``tp`` attribute). The other
+    parameters are gathered whole, and the ranks along 'model' compute
+    those blocks alike. Under ``remat`` a layer's recomputation in backward
+    runs its hooks again, so its weights are gathered twice a step."""
+    tp = tensor_parallel(mesh)
+    cfg = model.cfg
+    plan = split_plan(cfg, tp.size if tp is not None else 1)
+    keep = tuple(d for d, n in enumerate(mesh.mesh_dim_names) if n == "model")
+    if tp is not None:
+        for i in plan.attention:
+            model.blocks[i].inner.tp = tp
+        for i in plan.mlp:
+            model.blocks[i].mlp.tp = tp
+        if plan.vocab:
+            model.tp = tp
+    if plan.kv_replicated:  # the one KV head this rank's query heads use
+        hd = cfg.head_dim
+        head = tp.rank // (tp.size // cfg.num_kv_heads) * hd
+
+    def use(param, mode):
+        if mode == "shard":
+            return gathered(param, keep)
+        whole = gathered(param)
+        if mode == "head":
+            return copy_to_tp(whole, tp).narrow(-1, head, hd)
+        return whole
+
     placed = {}
     for name, p in list(model.named_parameters()):
         mod_name, _, leaf = name.rpartition(".")
@@ -440,7 +498,7 @@ def distribute_model(model: torch.nn.Module, mesh, specs: dict) -> None:
         param = torch.nn.Parameter(place(p.detach(), mesh, specs[name]),
                                    requires_grad=p.requires_grad)
         mod._parameters[leaf] = param
-        placed[name] = (mod, leaf, param)
+        placed[name] = (mod, leaf, param, plan.mode(name))
 
     units = []  # (layer, its parameters' names)
     for prefix, child in model.named_children():
@@ -453,11 +511,11 @@ def distribute_model(model: torch.nn.Module, mesh, specs: dict) -> None:
 
     def hooks(entries):
         def gather(module, args):
-            for mod, leaf, param in entries:
-                mod._parameters[leaf] = gathered(param)
+            for mod, leaf, param, mode in entries:
+                mod._parameters[leaf] = use(param, mode)
 
         def reshard(module, args, out):
-            for mod, leaf, param in entries:
+            for mod, leaf, param, _ in entries:
                 mod._parameters[leaf] = param
 
         return gather, reshard
@@ -553,19 +611,31 @@ def placed_forward(rank, arch: str, mesh_shape: tuple, tokens,
     once on the rank's rows of ``tokens`` (B, S) (:func:`local_batch`).
     Returns the logits of the whole batch (numpy, f32; the ranks' rows
     gathered after the forward), each parameter's spec and its local shard
-    shape."""
+    shape, and the shape of each projection's output as the rank computed
+    it (``out_shapes``, by module name)."""
     from repro_torch.models import forward
+    from repro_torch.models.layers import Dense
 
     mesh, model, specs = _placed_model(rank, _config(arch, smoke),
                                        mesh_shape)
     local = {name: tuple(p.to_local().shape)
              for name, p in model.named_parameters()}
+    out_shapes = {}
+
+    def record(name):
+        def hook(module, args, y):
+            out_shapes[name] = tuple(y.shape)
+        return hook
+
+    for name, mod in model.named_modules():
+        if isinstance(mod, Dense):
+            mod.register_forward_hook(record(name))
     batch = local_batch(mesh, {"tokens": tokens})
     with torch.inference_mode():
         logits, _ = forward(model, batch)
         logits = gather_batch(mesh, logits, len(tokens))
     return {"logits": logits.float().cpu().numpy(), "specs": specs,
-            "local_shapes": local}
+            "local_shapes": local, "out_shapes": out_shapes}
 
 
 def placed_serve(rank, arch: str, mesh_shape: tuple, tokens,
@@ -573,8 +643,10 @@ def placed_serve(rank, arch: str, mesh_shape: tuple, tokens,
     """One rank of placed serving: ``arch``'s model placed as in
     :func:`placed_forward`, a prefill of the rank's rows of ``tokens`` (B,
     S) into a cache held for those rows alone, then one greedy decode
-    step. Returns both steps' logits of the whole batch (numpy, f32; the
-    ranks' rows gathered after each step) and each step's collectives."""
+    step. The cache holds the rank's KV heads where its attention splits
+    over 'model'. Returns both steps' logits of the whole batch (numpy,
+    f32; the ranks' rows gathered after each step), each step's
+    collectives and the shapes of the cache's tensors, a dict a layer."""
     from repro_torch.launch.roofline import record_collectives
     from repro_torch.models import init_cache
     from repro_torch.train import make_decode_step, make_prefill_step
@@ -583,8 +655,11 @@ def placed_serve(rank, arch: str, mesh_shape: tuple, tokens,
     mesh, model, _ = _placed_model(rank, cfg, mesh_shape)
     prompt = local_batch(mesh, {"tokens": tokens})["tokens"].to(rank.device)
     B, S = prompt.shape
-    cache = init_cache(cfg, B, S + 1, rank.device)
-    out = {"collectives": {}}
+    cache = init_cache(cfg, B, S + 1, rank.device,
+                       tp=axis_size(mesh, "model"))
+    out = {"collectives": {},
+           "cache_shapes": [{k: tuple(v.shape) for k, v in layer.items()}
+                            for layer in cache]}
     with record_collectives() as coll:
         logits, cache = make_prefill_step(model)({"tokens": prompt}, cache)
     out["collectives"]["prefill"] = coll

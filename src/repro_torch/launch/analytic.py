@@ -292,31 +292,46 @@ def lm_collectives(cfg: ModelConfig, shape: ShapeCase, mesh, tcfg=None,
     Parameters are placed by ``param_shardings`` (serving under ``opt``
     drops FSDP where the TP-sharded bf16 weights fit 4 GiB, as the
     reference's dry-run does). A unit's forward gathers each of its
-    parameters whole: one all-gather a mesh dimension that shards it over
-    more than one rank, the innermost first. Serving (prefill, decode):
-    one forward. Training (``tcfg``: ``grad_accum`` k, ``remat``), per
-    microbatch: a forward, and under ``remat`` every layer's gathers again
-    in backward; one all-reduce of the loss's three sums and, in every
-    MoE layer and pass, one of its load-balancing sums (2E + 1 f32) over
-    each data-parallel dimension; each parameter's gradient, cut to the
-    rank's 'model' shard, all-reduced over each data-parallel dimension.
-    Per step, the gradient norm: one all-reduce of a partial sum per set of
-    sharding mesh dimensions, over each such dimension. Dimensions of one
-    rank send nothing. The batch must divide the data-parallel ranks (k
-    times) in training; in serving a batch that does not rides whole and
-    changes nothing here."""
+    parameters: one all-gather a mesh dimension that shards it over more
+    than one rank, the innermost first, but none along 'model' for a part
+    that computes tensor-parallel
+    (:func:`~repro_torch.distributed.tensor_parallel.split_plan`). Such a
+    part sends activations over 'model' instead, each of (rows, S, d) at
+    the activation dtype (rows: the rank's batch rows, a microbatch's in
+    training): in each forward one all-reduce after each row-parallel
+    projection (a split attention's or MLP's ``wo``) and one after a split
+    embedding's lookup; a split head one all-gather of its (rows, S, V)
+    logits (S 1 in serving, which projects the last position). Serving
+    (prefill, decode): one forward. Training (``tcfg``: ``grad_accum`` k,
+    ``remat``), per microbatch: a forward, and under ``remat`` every
+    layer's gathers and forward collectives again in backward; in backward
+    one all-reduce of (rows, S, d) for each split attention, split MLP and
+    split head (the gradient of their input), and for a replicated KV
+    head's ``wk`` and ``wv`` one all-reduce of each whole tensor over
+    'model'; one all-reduce of the loss's three sums and, in every MoE
+    layer and pass, one of its load-balancing sums (2E + 1 f32) over each
+    data-parallel dimension; each parameter's gradient, cut to the rank's
+    'model' shard, all-reduced over each data-parallel dimension. Per step,
+    the gradient norm: one all-reduce of a partial sum per set of sharding
+    mesh dimensions, over each such dimension. Dimensions of one rank send
+    nothing. The batch must divide the data-parallel ranks (k times) in
+    training; in serving a batch that does not rides whole on every
+    rank."""
     from repro_torch.distributed.sharding import (data_parallel_dims,
                                                   mesh_axes, param_shardings,
                                                   placements)
+    from repro_torch.distributed.tensor_parallel import split_plan
     from repro_torch.launch.roofline import CollectiveStats
 
-    sizes = list(mesh_axes(mesh).values())
+    axes = mesh_axes(mesh)
+    sizes = list(axes.values())
     params = _param_meta(cfg)
-    tp = mesh_axes(mesh).get("model", 1)
+    tp = axes.get("model", 1)
     serving = shape.kind in ("decode", "prefill")
     fsdp = not (opt and serving and cfg.param_count() * 2 / tp <= 4 * 2**30)
     specs = param_shardings(mesh, params, fsdp=fsdp)
     dp = data_parallel_dims(mesh)
+    plan = split_plan(cfg, tp)
     stats = CollectiveStats(bytes_by_op={}, count_by_op={})
 
     def add(op: str, nbytes: int, times: int = 1) -> None:
@@ -327,6 +342,9 @@ def lm_collectives(cfg: ModelConfig, shape: ShapeCase, mesh, tcfg=None,
 
     cuts = {n: [(d, p.dim) for d, p in enumerate(placements(mesh, specs[n]))
                 if p.is_shard() and sizes[d] > 1] for n in params}
+    model_dims = {d for d, a in enumerate(axes) if a == "model"}
+    gathered = {n: [c for c in cuts[n] if not (
+        plan.mode(n) == "shard" and c[0] in model_dims)] for n in params}
     layers = [n for n in params if n.startswith("blocks.")]
     rest = [n for n in params if not n.startswith("blocks.")]
 
@@ -335,18 +353,39 @@ def lm_collectives(cfg: ModelConfig, shape: ShapeCase, mesh, tcfg=None,
             local = list(params[n].shape)
             for d, tdim in cuts[n]:
                 local[tdim] //= sizes[d]
-            for d, tdim in reversed(cuts[n]):
+            for d, tdim in reversed(gathered[n]):
                 local[tdim] *= sizes[d]
                 add("all-gather", math.prod(local) * params[n].element_size(),
                     times)
 
+    # the activations a split part sends over 'model'
+    dpn = math.prod(sizes[d] for d in dp)
+    B = shape.global_batch
+    k = 1 if serving else tcfg.grad_accum
+    if serving:
+        rows = B // dpn if B % dpn == 0 else B
+        S, S_out = (shape.seq_len if shape.kind == "prefill" else 1), 1
+    else:
+        rows, S = B // (k * dpn), shape.seq_len
+        S_out = S
+    act = _bytes_of(cfg.dtype)
+    hidden = rows * S * cfg.d_model * act
+    split = len(plan.attention) + len(plan.mlp)
+    lookup = plan.vocab and not (cfg.frontend_stub and cfg.family == "audio")
+    head = plan.vocab and cfg.has_lm_head
+    add("all-gather", rows * S_out * cfg.vocab_size * act, k * head)
+
     if serving:
         gathers(rest + layers, 1)
+        add("all-reduce", hidden, split + lookup)
         return stats
-    k = tcfg.grad_accum
     passes = 2 if tcfg.remat else 1
     gathers(rest, k)
     gathers(layers, k * passes)
+    add("all-reduce", hidden, k * (split * passes + lookup + split + head))
+    for n, p in params.items():
+        if plan.mode(n) == "head":
+            add("all-reduce", p.numel() * p.element_size(), k)
     moe_layers = sum(n.endswith(".mlp.router") for n in params)
     add("all-reduce", 3 * 4, k * len(dp))
     add("all-reduce", (2 * cfg.num_experts + 1) * 4,

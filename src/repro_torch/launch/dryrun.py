@@ -71,6 +71,7 @@ import numpy as np
 
 from repro_torch.configs import (FetiArchConfig, get_config,
                                  get_smoke_config, list_archs)
+from repro_torch.distributed.tensor_parallel import split_plan
 from repro_torch.launch.analytic import (CellCounts, feti_collectives,
                                         lm_cell_counts, lm_collectives)
 from repro_torch.launch.mesh import make_production_mesh
@@ -82,7 +83,7 @@ from repro_torch.train import OptimizerConfig, TrainConfig
 __all__ = ["FETI_SHAPES", "BIG_PARAMS", "ATTN_ARGS", "OPT_FETI_GRIDS",
            "MESHES", "DEVICE_MESH", "FIT_FRACTION", "feti_cell_counts",
            "lm_counts", "fit_one_device", "run_cell", "iter_cells",
-           "feti_rank_collectives", "main"]
+           "feti_rank_collectives", "placement_notes", "main"]
 
 FETI_SHAPES = ("assembly", "solve_iter", "solve_iter_multi", "dirichlet")
 BIG_PARAMS = 100e9  # >= this: bf16 moments + gradient accumulation
@@ -93,15 +94,45 @@ DEVICE_MESH = "1xH100"  # the label of --devices 1's rows
 FIT_FRACTION = 0.9  # of HW["hbm_bytes"]: headroom for activations
 RUN_STEPS = 3
 SCHEMA_VERSION = 1
-# what the placed LM steps behind an LM row's collectives leave out
-PLACEMENT_NOTES = {
-    "placement_model_axis": "the 'model' ranks gather the weights whole "
-                            "and compute on the same batch rows: no "
-                            "tensor-parallel split, no expert-parallel "
-                            "dispatch",
-    "placement_cache": "a serving cache is held for the rank's batch rows "
-                       "alone (not sharded along seq over 'model')",
-}
+
+
+def placement_notes(cfg: ModelConfig, tp: int) -> dict:
+    """What the placed LM steps behind an LM row's collectives compute
+    tensor-parallel over a 'model' axis of ``tp`` ranks
+    (:func:`~repro_torch.distributed.tensor_parallel.split_plan`), what
+    they still gather whole along it, and the serving cache they hold."""
+    plan = split_plan(cfg, tp)
+    kinds = set(cfg.layer_kinds)
+    split, whole = [], []
+    if "attn" in kinds:
+        if cfg.attn_kind == "mla":
+            whole.append("MLA attention")
+        else:
+            heads = f"attention ({cfg.num_heads} heads, {cfg.num_kv_heads} KV)"
+            (split if plan.attention else whole).append(
+                heads + (", KV heads replicated" if plan.kv_replicated
+                         else ""))
+    if "rglru" in kinds:
+        whole.append("RG-LRU")
+    if "rwkv6" in kinds:
+        whole.append("RWKV-6")
+    if cfg.is_moe:
+        whole.append("the MoE router and experts (no expert-parallel "
+                     "dispatch)")
+    if any(k != "rwkv6" for k in kinds) and (
+            not cfg.is_moe or cfg.first_dense_layers):
+        (split if plan.mlp else whole).append(f"dense MLP (d_ff {cfg.d_ff})")
+    (split if plan.vocab else whole).append(f"vocab {cfg.vocab_size}")
+    return {
+        "placement_model_axis":
+            f"tensor-parallel over 'model' ({tp} ranks): "
+            f"{', '.join(split) or 'nothing'}; gathered whole along "
+            f"'model' and computed alike on its ranks: "
+            f"{', '.join(whole) or 'nothing'}",
+        "placement_cache": "a serving cache holds the rank's batch rows "
+                           + ("and its KV heads " if plan.attention else "")
+                           + "(not sharded along seq over 'model')",
+    }
 
 
 def _train_settings(cfg: ModelConfig, opt: bool = False) -> TrainConfig:
@@ -726,7 +757,7 @@ def run_cell(arch: str, shape_name: str, mesh: str = "16x16",
                 counts = lm_counts(cfg, shape, chips, tp, opt)
                 coll = lm_collectives(cfg, shape, pm,
                                       _train_settings(cfg, opt), opt)
-                counts.notes.update(PLACEMENT_NOTES)
+                counts.notes.update(placement_notes(cfg, tp))
         roof = roofline_terms(
             {"flops": counts.flops_per_dev,
              "bytes accessed": counts.hbm_bytes_per_dev},

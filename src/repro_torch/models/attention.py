@@ -23,6 +23,9 @@ import torch
 from torch import nn
 
 from repro_torch.distributed.actsharding import shard_act
+from repro_torch.distributed.tensor_parallel import (TensorParallel,
+                                                     copy_to_tp,
+                                                     local_kv_heads)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (Dense, Init, apply_mrope, apply_rope,
                                       rms_norm)
@@ -128,11 +131,14 @@ def flash_attention(
 
 # ------------------------------------------------------------------ cache ----
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
-                  device, window: int = 0) -> dict:
+                  device, window: int = 0, tp: int = 1) -> dict:
     """One layer's cache: K and V of (batch, size, Hkv, hd) and the position
     of each slot (-1: empty). A local-attention layer keeps a ring buffer of
     ``size = min(window, max_len)`` slots. MLA keeps the compressed ``ckv``
-    (batch, size, kv_lora_rank) and ``krope`` (batch, size, rope dim)."""
+    (batch, size, kv_lora_rank) and ``krope`` (batch, size, rope dim).
+    ``tp``: a rank of a 'model' axis of that many ranks, whose split
+    attention holds only its own KV heads
+    (:func:`~repro_torch.distributed.tensor_parallel.local_kv_heads`)."""
     size = min(window, max_len) if window else max_len
     if cfg.attn_kind == "mla":
         return {
@@ -143,7 +149,7 @@ def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
             "pos": torch.full((batch, size), -1, dtype=torch.int32,
                               device=device),
         }
-    shape = (batch, size, cfg.num_kv_heads, cfg.head_dim)
+    shape = (batch, size, local_kv_heads(cfg, tp), cfg.head_dim)
     return {
         "k": torch.zeros(shape, dtype=dtype, device=device),
         "v": torch.zeros(shape, dtype=dtype, device=device),
@@ -189,7 +195,13 @@ def _rope(cfg: ModelConfig, x, positions):
 
 class Attention(nn.Module):
     """GQA / MHA with RoPE or M-RoPE; ``forward`` returns the block's output
-    and updates ``cache`` in place."""
+    and updates ``cache`` in place.
+
+    With a 'model' group ``tp`` (set by
+    :func:`~repro_torch.distributed.sharding.distribute_model`) the weights
+    are the rank's: ``wq`` its ``H/tp`` contiguous query heads, ``wk`` and
+    ``wv`` the KV heads those use, ``wo`` their rows (row-parallel), and the
+    cache holds those KV heads."""
 
     def __init__(self, cfg: ModelConfig, init: Init):
         super().__init__()
@@ -202,6 +214,7 @@ class Attention(nn.Module):
         self.wk = Dense(d, cfg.num_kv_heads * hd, init, cfg.qkv_bias)
         self.wv = Dense(d, cfg.num_kv_heads * hd, init, cfg.qkv_bias)
         self.wo = Dense(cfg.num_heads * hd, d, init)
+        self.tp: Optional[TensorParallel] = None
 
     def forward(self, x, positions, cache: Optional[dict] = None,
                 cache_index: int = 0, window: int = 0, q_chunk: int = 512,
@@ -216,6 +229,9 @@ class Attention(nn.Module):
         cfg = self.cfg
         B, S, _ = x.shape
         H, Hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+        if self.tp is not None:  # this rank's heads
+            x = copy_to_tp(x, self.tp)
+            H, Hkv = H // self.tp.size, local_kv_heads(cfg, self.tp.size)
         pos_1d = positions[..., 0] if positions.dim() == 3 else positions
         ring = window > 0 and cache is not None
         q = shard_act(_rope(cfg, self.wq(x).reshape(B, S, H, hd), positions),
@@ -243,7 +259,7 @@ class Attention(nn.Module):
                                   cache["pos"], causal=cfg.causal,
                                   window=window, kv_valid=cache["pos"] >= 0,
                                   **chunks)
-        return self.wo(out.reshape(B, S, H * hd))
+        return self.wo(out.reshape(B, S, H * hd), self.tp)
 
 
 class MLAttention(nn.Module):

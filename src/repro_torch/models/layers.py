@@ -19,6 +19,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.distributed.tensor_parallel import (TensorParallel,
+                                                     copy_to_tp,
+                                                     reduce_from_tp)
+
 __all__ = [
     "DTYPES",
     "Init",
@@ -105,7 +109,9 @@ class Norm(nn.Module):
 
 # ---------------------------------------------------------------- dense ----
 class Dense(nn.Module):
-    """``x @ w (+ b)`` with ``w`` of shape (d_in, d_out)."""
+    """``x @ w (+ b)`` with ``w`` of shape (d_in, d_out); row-parallel with
+    a 'model' group ``tp`` (its products summed over the group before the
+    bias)."""
 
     def __init__(self, d_in: int, d_out: int, init: Init, bias: bool = False,
                  scale: float | None = None):
@@ -114,8 +120,8 @@ class Dense(nn.Module):
         self.w = init.normal((d_in, d_out), scale)
         self.b = init.full((d_out,), 0.0) if bias else None
 
-    def forward(self, x):
-        y = x @ self.w
+    def forward(self, x, tp: Optional[TensorParallel] = None):
+        y = reduce_from_tp(x @ self.w, tp)
         return y + self.b if self.b is not None else y
 
 
@@ -126,18 +132,25 @@ def gelu(x):
 
 
 class MLP(nn.Module):
+    """A dense MLP. With a 'model' group ``tp`` (set by
+    :func:`~repro_torch.distributed.sharding.distribute_model`) its weights
+    are the rank's FFN slice: ``wi`` and ``wg`` column-parallel, ``wo``
+    row-parallel."""
+
     def __init__(self, d_model: int, d_ff: int, kind: str, init: Init,
                  bias: bool = False):
         super().__init__()
         if kind not in ("swiglu", "geglu", "squared_relu", "gelu"):
             raise ValueError(f"unknown mlp kind {kind!r}")
         self.kind = kind
+        self.tp: Optional[TensorParallel] = None
         self.wi = Dense(d_model, d_ff, init, bias)
         self.wg = (Dense(d_model, d_ff, init, bias)
                    if kind in ("swiglu", "geglu") else None)
         self.wo = Dense(d_ff, d_model, init, bias)
 
     def forward(self, x):
+        x = copy_to_tp(x, self.tp)
         if self.kind == "swiglu":
             h = F.silu(self.wg(x)) * self.wi(x)
         elif self.kind == "geglu":
@@ -146,7 +159,7 @@ class MLP(nn.Module):
             h = torch.relu(self.wi(x)).square()
         else:
             h = gelu(self.wi(x))
-        return self.wo(h)
+        return self.wo(h, self.tp)
 
 
 # ----------------------------------------------------------------- RoPE ----

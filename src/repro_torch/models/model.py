@@ -11,7 +11,10 @@ returns ``(logits, cache)``, with ``with_aux=True`` the reference's
 from :func:`init_cache` (one dict per layer) is updated in place and
 returned. ``remat=True`` recomputes each block in the backward pass
 (the reference's ``jax.checkpoint`` per block): training runs without a
-cache.
+cache. Placed with a 'model' group ``tp`` where the vocab divides it
+(:func:`~repro_torch.distributed.sharding.distribute_model`), the
+embedding and the head hold the rank's vocab rows: the lookup is summed
+over the group and the head's logits are gathered along V.
 """
 from __future__ import annotations
 
@@ -24,6 +27,10 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.distributed.actsharding import recompute_contexts
+from repro_torch.distributed.tensor_parallel import (TensorParallel,
+                                                     copy_to_tp,
+                                                     gather_from_tp,
+                                                     reduce_from_tp)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import DTYPES, Init, Norm
 from repro_torch.models.transformer import (Block, StackLayout,
@@ -60,6 +67,7 @@ class LanguageModel(nn.Module):
                                     cfg.d_model ** -0.5)
                         if cfg.has_lm_head and not cfg.tie_embeddings
                         else None)
+        self.tp: Optional[TensorParallel] = None
 
     @property
     def device(self) -> torch.device:
@@ -108,10 +116,13 @@ class LanguageModel(nn.Module):
         h = self.final_norm(h)
         if not cfg.has_lm_head:
             out = h
-        elif cfg.tie_embeddings:
-            out = torch.einsum("bsd,vd->bsv", h, self.embed)
         else:
-            out = h @ self.lm_head
+            h = copy_to_tp(h, self.tp)
+            if cfg.tie_embeddings:
+                out = torch.einsum("bsd,vd->bsv", h, self.embed)
+            else:
+                out = h @ self.lm_head
+            out = gather_from_tp(out, self.tp)
         if not with_aux:
             return out, cache
         if aux is None:
@@ -138,7 +149,15 @@ def embed_inputs(model: LanguageModel, batch: dict) -> torch.Tensor:
     else:
         # F.embedding: its backward sums each row's gradients in a fixed
         # order (an index's accumulating scatter does not on the CPU)
-        h = F.embedding(batch["tokens"].to(dev), model.embed).to(dtype)
+        tokens, tp = batch["tokens"].to(dev), model.tp
+        if tp is None:
+            h = F.embedding(tokens, model.embed).to(dtype)
+        else:  # the rank's vocab rows, zero elsewhere, summed over 'model'
+            lo = tp.rank * model.embed.shape[0]
+            mine = (tokens >= lo) & (tokens < lo + model.embed.shape[0])
+            h = F.embedding(torch.where(mine, tokens - lo, 0), model.embed)
+            h = reduce_from_tp(torch.where(mine[..., None], h, 0).to(dtype),
+                               tp)
     if "vision_embeds" in batch:
         mask = batch["vision_mask"].to(dev)[..., None]
         h = torch.where(mask, batch["vision_embeds"].to(device=dev,
@@ -147,17 +166,20 @@ def embed_inputs(model: LanguageModel, batch: dict) -> torch.Tensor:
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
-               device: Union[str, torch.device, None] = None) -> list:
+               device: Union[str, torch.device, None] = None,
+               tp: int = 1) -> list:
     """One cache dict per layer, at ``cfg.cache_dtype`` (default: the
     activation dtype): K/V and slot positions for attention (a ring buffer
     of the window under local attention), ``(h, conv)`` for RG-LRU,
     ``(S, shift_tm, shift_cm)`` for RWKV-6. A float8 cache rounds on write
     and reads back at f32. MLA layers keep the compressed ``ckv`` and
-    ``krope`` (no ring)."""
+    ``krope`` (no ring). ``tp``: the cache of one rank of a placed model
+    on a 'model' axis of that many ranks, whose split attention holds only
+    the rank's KV heads."""
     check_ported(cfg)
     dev = resolve_device(device)
     dtype = DTYPES[cfg.cache_dtype or cfg.dtype]
-    return [init_layer_cache(cfg, kind, batch, max_len, dtype, dev)
+    return [init_layer_cache(cfg, kind, batch, max_len, dtype, dev, tp)
             for kind in cfg.layer_kinds]
 
 

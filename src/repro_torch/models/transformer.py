@@ -111,10 +111,10 @@ class Block(nn.Module):
 
 
 def init_layer_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
-                     dtype, device) -> dict:
+                     dtype, device, tp: int = 1) -> dict:
     if kind == "attn":
         return init_kv_cache(cfg, batch, max_len, dtype, device,
-                             window=cfg.local_window)
+                             window=cfg.local_window, tp=tp)
     if kind == "rwkv6":
         return init_rwkv_state(cfg, batch, dtype, device)
     if kind == "rglru":

@@ -102,12 +102,14 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh=None):
     microbatches). The step then equals one process's step on the global
     batch: the loss's sums and the MoE means are summed over the
     data-parallel ranks (``data_parallel``), each microbatch's backward
-    sums the whole weights' gradients over them and cuts them to the
-    shards, and the gradient norm sums each shard's squares over the axes
-    its parameter is sharded on. The accumulation and the update run on
-    the local shards. ``remat``'s recomputation runs the whole block
-    (``set_checkpoint_early_stop(False)``), so each layer's weights are
-    gathered a second time in every microbatch's backward."""
+    sums the gathered weights' gradients over them and cuts them to the
+    shards (the parts that split over 'model' compute tensor-parallel on
+    the rank's 'model' shard), and the gradient norm sums each shard's
+    squares over the axes its parameter is sharded on. The accumulation
+    and the update run on the local shards. ``remat``'s recomputation runs
+    the whole block (``set_checkpoint_early_stop(False)``), so each
+    layer's weights are gathered, and its forward all-reduces over
+    'model' sent, a second time in every microbatch's backward."""
     k = tcfg.grad_accum
     adt = DTYPES[tcfg.accum_dtype]
 

@@ -14,9 +14,14 @@ relative, every step's shard gradients within 2e-5 relative L2 of their
 slice of the one-process gradient. Meshes (data, model): (2, 1) for
 granite-3-8b, deepseek-v2-236b (MoE aux loss, GShard), rwkv6-1.6b and
 granite with grad_accum 2 and remat; (2, 2) for granite and deepseek with
-grad_accum 2 and remat. One (2, 1) granite run starts from the
-reference's weights (``interop.train_state_from_reference``) and meets
-the reference's own ``make_train_step`` on the same batches.
+grad_accum 2 and remat; (1, 2), tensor parallelism alone, for
+recurrentgemma-2b with grad_accum 2 and remat (its one KV head
+replicated, its RG-LRU blocks whole, its MLPs and vocab split). One (2, 1)
+and one (1, 2) granite run start from the reference's weights
+(``interop.train_state_from_reference``) and meet the reference's own
+``make_train_step`` on the same batches. Placed serving on (1, 2) (a
+prefill and a decode step with the head-sharded cache) meets one process
+for granite and recurrentgemma.
 
 The training launcher on two ranks (``launch.train.rank_main``): four
 steps with a checkpoint every two, and a resume from the step-2
@@ -49,8 +54,14 @@ CASES = {
     "granite-3-8b (2,2)": ("granite-3-8b", (2, 2), 1, False),
     "deepseek-v2-236b (2,2) accum2 remat": ("deepseek-v2-236b", (2, 2), 2,
                                             True),
+    "recurrentgemma-2b (1,2) accum2 remat": ("recurrentgemma-2b", (1, 2), 2,
+                                             True),
 }
-REFERENCE = "granite-3-8b (2,1) from the reference's weights"
+# mesh -> its run from the reference's weights
+REFERENCE = {(2, 1): "granite-3-8b (2,1) from the reference's weights",
+             (1, 2): "granite-3-8b (1,2) from the reference's weights"}
+SERVE = ("granite-3-8b", "recurrentgemma-2b")  # placed serving on (1, 2)
+SERVE_TOL = 1e-6
 LAUNCH = ["--arch", "granite-3-8b", "--smoke", "--batch", "4", "--seq", "16",
           "--steps", "4", "--ckpt-every", "2", "--log-every", "4"]
 
@@ -128,40 +139,71 @@ def _spawn(calls, n):
                            args=(calls,), timeout=300)
 
 
+def _serve_tokens(arch):
+    from repro_torch.configs import get_smoke_config
+
+    return np.random.default_rng(5).integers(
+        0, get_smoke_config(arch).vocab_size, (BATCH, SEQ)).astype(np.int32)
+
+
+def _case_calls(mesh, reference):
+    """The placed_train_step calls of ``mesh``'s cases and its run from the
+    reference's weights, with their names."""
+    from repro_torch.distributed.sharding import placed_train_step
+
+    names = [c for c, v in CASES.items() if v[1] == mesh]
+    calls = []
+    for name in names:
+        arch, _, accum, remat = CASES[name]
+        cfg = _config(arch)
+        calls.append((placed_train_step, (
+            cfg, mesh, _batches(cfg), _train_config(accum, remat))))
+    if mesh in REFERENCE:
+        cfg = _config("granite-3-8b")
+        calls.append((placed_train_step, (
+            cfg, mesh, _batches(cfg), _train_config(), reference["state"],
+            True, True)))
+        names.append(REFERENCE[mesh])
+    return names, calls
+
+
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory, reference):
     """{case: [each rank's placed_train_step result]}, the launcher's
-    checkpoints and the elastic restore's ranks."""
-    from repro_torch.distributed.sharding import placed_train_step
+    checkpoints, the elastic restore's ranks, a placed forward on (2, 2)
+    (``forward (2,2)``) and placed serving on (1, 2) (``serve``: {arch:
+    [each rank's placed_serve result]})."""
+    from repro_torch.distributed.sharding import placed_forward, placed_serve
     from repro_torch.launch.train import rank_main, restore_onto
 
     tmp = tmp_path_factory.mktemp("placed")
     straight, resumed = str(tmp / "straight"), str(tmp / "resumed")
     out = {"dirs": (straight, resumed)}
     for world, mesh in ((2, (2, 1)), (4, (2, 2))):
-        names = [c for c, v in CASES.items() if v[1] == mesh]
-        calls = []
-        for name in names:
-            arch, _, accum, remat = CASES[name]
-            cfg = _config(arch)
-            calls.append((placed_train_step, (
-                cfg, mesh, _batches(cfg), _train_config(accum, remat))))
+        names, calls = _case_calls(mesh, reference)
         if mesh == (2, 1):
-            cfg = _config("granite-3-8b")
-            calls.append((placed_train_step, (
-                cfg, mesh, _batches(cfg), _train_config(), reference["state"],
-                True, True)))
-            names.append(REFERENCE)
             calls.append((rank_main, (LAUNCH + ["--ckpt-dir", straight],)))
+        else:
+            calls.append((placed_forward, (
+                "granite-3-8b", mesh, _serve_tokens("granite-3-8b"))))
+            names.append("forward (2,2)")
         results = _spawn(calls, world)
         for i, name in enumerate(names):
             out[name] = [r[i] for r in results]
     os.makedirs(resumed)
     shutil.copytree(os.path.join(straight, "step_000000000002"),
                     os.path.join(resumed, "step_000000000002"))
-    out["restore"] = _spawn([
+    names, calls = _case_calls((1, 2), reference)
+    calls += [(placed_serve, (arch, (1, 2), _serve_tokens(arch)))
+              for arch in SERVE]
+    results = _spawn([
         (rank_main, (LAUNCH + ["--ckpt-dir", resumed, "--resume"],)),
-        (restore_onto, (straight, "granite-3-8b", (1, 2)))], 2)
+        (restore_onto, (straight, "granite-3-8b", (1, 2)))] + calls, 2)
+    out["restore"] = [r[:2] for r in results]
+    for i, name in enumerate(names):
+        out[name] = [r[2 + i] for r in results]
+    out["serve"] = {arch: [r[2 + len(names) + i] for r in results]
+                    for i, arch in enumerate(SERVE)}
     return out
 
 
@@ -183,17 +225,17 @@ def test_placed_steps_equal_one_process(runs, case):
         assert ranks[0]["metrics"][0]["moe_aux"] > 0
 
 
-def test_placed_step_meets_the_reference(runs, reference):
-    """The (2, 1) granite steps from the reference's weights against the
+def _meets_the_reference(ranks, reference, mesh_shape):
+    """Each rank's steps from the reference's weights against the
     reference's own ``make_train_step`` (jit, CPU) on the same batches:
-    losses and their parts, gradient norms and every rank's parameter
+    losses and their parts, gradient norms and the rank's parameter
     shards."""
     from repro_torch.distributed.sharding import shard_of
     from repro_torch.launch.mesh import MeshShape
 
     want = reference
-    mesh = MeshShape({"data": 2, "model": 1})
-    for r in runs[REFERENCE]:
+    mesh = MeshShape({"data": mesh_shape[0], "model": mesh_shape[1]})
+    for r in ranks:
         for key in ("loss", "grad_norm", "ce", "z_loss"):
             got = np.array([m[key] for m in r["metrics"]])
             err = np.abs(got - want[key]).max() / np.abs(want[key]).max()
@@ -207,6 +249,102 @@ def test_placed_step_meets_the_reference(runs, reference):
                                      / np.abs(ref).max()))
         assert worst <= TOL
         assert r["distances"]["params"][0] <= TOL
+
+
+def test_placed_step_meets_the_reference(runs, reference):
+    """The (2, 1) granite steps from the reference's weights against the
+    reference's own steps."""
+    _meets_the_reference(runs[REFERENCE[(2, 1)]], reference, (2, 1))
+
+
+def test_tensor_parallel_step_meets_the_reference(runs, reference):
+    """The (1, 2) granite steps from the reference's weights, each rank
+    computing its half of the heads, of the FFN and of the vocab, against
+    the reference's own steps; each step sends the schedule, in which no
+    weight is gathered: the one all-gather is the split head's logits."""
+    from repro_torch.launch.analytic import lm_collectives
+    from repro_torch.launch.mesh import MeshShape
+    from repro_torch.launch.shapes import ShapeCase
+
+    ranks = runs[REFERENCE[(1, 2)]]
+    _meets_the_reference(ranks, reference, (1, 2))
+    cfg = _config("granite-3-8b")
+    want = lm_collectives(cfg, ShapeCase("placed", SEQ, BATCH, "train"),
+                          MeshShape({"data": 1, "model": 2}),
+                          _train_config())
+    logits = BATCH * SEQ * cfg.vocab_size * 4
+    assert want.count_by_op["all-gather"] == 1
+    assert want.bytes_by_op["all-gather"] == logits
+    for r in ranks:
+        assert r["collectives"] == [want] * STEPS
+
+
+def test_split_ranks_compute_with_their_shards(runs):
+    """A placed forward of granite-3-8b's smoke model (4 heads, 2 KV heads,
+    d_ff 128) on (2, 2): each rank's projections give its own batch rows
+    and its half of the heads, of the KV heads and of the FFN; the row-
+    parallel ``wo`` outputs whole (summed) rows; the logits meet one
+    process."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import LanguageModel, forward
+
+    cfg = get_smoke_config("granite-3-8b")
+    rows, hd = BATCH // 2, cfg.head_dim
+    want = {"inner.wq": cfg.num_heads // 2 * hd,
+            "inner.wk": cfg.num_kv_heads // 2 * hd,
+            "inner.wv": cfg.num_kv_heads // 2 * hd,
+            "inner.wo": cfg.d_model,
+            "mlp.wi": cfg.d_ff // 2, "mlp.wg": cfg.d_ff // 2,
+            "mlp.wo": cfg.d_model}
+    model = LanguageModel(cfg, device="cpu")
+    with torch.inference_mode():
+        logits = forward(model, {"tokens": torch.as_tensor(
+            _serve_tokens("granite-3-8b"))})[0].numpy()
+    for r in runs["forward (2,2)"]:
+        for layer in range(cfg.num_layers):
+            for name, width in want.items():
+                assert r["out_shapes"][f"blocks.{layer}.{name}"] == (
+                    rows, SEQ, width), name
+        err = np.abs(r["logits"] - logits).max() / np.abs(logits).max()
+        assert err <= SERVE_TOL
+
+
+def test_placed_serving_on_model_ranks_is_one_process(runs):
+    """Placed serving on (1, 2): a prefill and a decode step with the
+    head-sharded cache (granite's two KV heads one a rank;
+    recurrentgemma's one KV head replicated, its RG-LRU states whole)
+    within SERVE_TOL of one process, each step's collectives the
+    schedule's."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.analytic import lm_collectives
+    from repro_torch.launch.mesh import MeshShape
+    from repro_torch.launch.shapes import ShapeCase
+    from repro_torch.models import LanguageModel, init_cache
+    from repro_torch.train import make_decode_step, make_prefill_step
+
+    mesh = MeshShape({"data": 1, "model": 2})
+    for arch in SERVE:
+        cfg = get_smoke_config(arch)
+        tokens = _serve_tokens(arch)
+        model = LanguageModel(cfg, device="cpu")
+        cache = init_cache(cfg, BATCH, SEQ + 1, "cpu")
+        prefill, _ = make_prefill_step(model)(
+            {"tokens": torch.as_tensor(tokens)}, cache)
+        tok = prefill.argmax(-1)[:, None].to(torch.int32)
+        decode, _ = make_decode_step(model)(tok, cache, SEQ)
+        want = {"prefill": prefill.numpy(), "decode": decode.numpy()}
+        heads = cfg.num_kv_heads // 2 or 1
+        for r in runs["serve"][arch]:
+            for key in ("prefill", "decode"):
+                assert r[key].shape == want[key].shape
+                err = (np.abs(r[key] - want[key]).max()
+                       / np.abs(want[key]).max())
+                assert err <= SERVE_TOL, (arch, key, err)
+                assert r["collectives"][key] == lm_collectives(
+                    cfg, ShapeCase(key, SEQ, BATCH, key), mesh)
+            for layer, kind in zip(r["cache_shapes"], cfg.layer_kinds):
+                if kind == "attn":
+                    assert layer["k"][2] == layer["v"][2] == heads, arch
 
 
 def test_collectives_recorded_equal_the_schedule(runs):

@@ -83,7 +83,9 @@ Phases (each prints its seconds; any failure exits non-zero):
                 ``--kernels`` (lumped), and feti-heat-3d ``--kernels
                 --precond dirichlet`` at a cut depth (HEAT3D_SUB_GRID,
                 registered as the architecture HEAT3D_CUT: the scipy oracle
-                of --validate decides the depth). Each must exit 0
+                of --validate decides the depth; run last, its oracle
+                solved on the host in a process of its own from the
+                script's start, the same solve). Each must exit 0
                 (converged, within 1e-6 of the global sparse solve) and
                 launch exactly the kernels its path runs, as often as it
                 runs them: once per kernel and stage, so twice on a
@@ -282,7 +284,22 @@ Phases (each prints its seconds; any failure exits non-zero):
                 ``analytic.lm_collectives`` for the cell; fails unless they
                 are equal, bytes and counts by operation, and if the
                 (1, 2) run gathers anything (but a split head's logits,
-                which granite's vocab does not make).
+                which granite's vocab does not make). In the same group,
+                PLACED_SERVE: placed serving (``placed_serve``: a prefill
+                of 4 x 512 tokens and one decode step, bf16, full width)
+                on (1, 2) of deepseek-v2-236b at 2 of 60 layers (MLA by
+                heads, 80 of 160 experts a rank, the shared expert by
+                columns) and grok-1-314b at 1 of 64 (4 of 8 experts a
+                rank), each step's logits held to one process's on the
+                card (run before the ranks, from the same seeded weights)
+                within the run's bar, its collectives to
+                ``lm_collectives``, its all-gathers to the split head's
+                logits and the weights the plan computes whole (MLA's
+                latent projections, the router): no split head weight or
+                expert. Then PLACED_FORWARD, the ``cuda`` case of
+                ``tests/test_torch_lm_distributed.py``: the smoke models'
+                f32 forwards on (1, 2) within PLACED_FORWARD_TOL of one
+                process's.
  12. dryrun   — ``repro_torch.launch.dryrun --arch all --shape all`` on the
                 reference's two meshes (16x16, 2x16x16; host arithmetic)
                 into a temporary file: prints the census and holds every
@@ -426,9 +443,6 @@ MAIN_RUNS = (
      ["--fused", "--precond", "dirichlet"], dict(stepped_trsm_syrk=2)),
     ("elasticity-3d dense --kernels lumped", "feti-elasticity-3d",
      ["--kernels"], dict(stepped_trsm=1, stepped_syrk=1)),
-    ("heat-3d dense --kernels dirichlet", HEAT3D_CUT,
-     ["--kernels", "--precond", "dirichlet"],
-     dict(stepped_trsm=2, stepped_syrk=2)),
     # the smoke configurations' bs = bm = 8 through the f64 kernels
     ("heat-2d smoke --kernels", ARCH, ["--smoke", "--kernels"],
      dict(stepped_trsm=1, stepped_syrk=1)),
@@ -471,6 +485,11 @@ MAIN_RUNS = (
     ("heat-2d packed --fused --n-rhs 8 f32", ARCH,
      ["--storage", "packed", "--fused", "--n-rhs", str(N_RHS), "--dtype",
       "f32"], dict(stepped_trsm_syrk_packed_f32=1)),
+    # last: its scipy oracle (a few minutes of host time) is solved in a
+    # process of its own from the script's start (start_oracle)
+    ("heat-3d dense --kernels dirichlet", HEAT3D_CUT,
+     ["--kernels", "--precond", "dirichlet"],
+     dict(stepped_trsm=2, stepped_syrk=2)),
 )
 # each run's bar on the relative error of u against the scipy oracle (the
 # launcher's 1e-6 where not named); the bf16 run is held to its own bar
@@ -628,6 +647,11 @@ TRAIN_GOLDEN_TOL = 1e-4
 DRYRUN_RUNS = (("feti-heat-2d", "assembly"), ("feti-heat-3d", "dirichlet"),
                ("granite-3-8b", "decode_32k"),
                ("recurrentgemma-2b", "long_500k"))
+# deepseek-v2-236b's decode_32k all-gather bytes a rank on each mesh with
+# its MLA heads and experts gathered whole along 'model' (the schedule
+# before they split), printed beside the schedule's figure
+DRYRUN_DEEPSEEK_DECODE_WHOLE = {"16x16": 498_566_594_560,
+                                "2x16x16": 498_565_775_360}
 DRYRUN_LAUNCHES = {arch: {"stepped_trsm": {"f32": 1},
                           "stepped_syrk": {"f32": 1}}
                    for arch in ("feti-heat-2d", "feti-heat-3d")}
@@ -642,6 +666,22 @@ DRYRUN_LAUNCHES = {arch: {"stepped_trsm": {"f32": 1},
 PLACED_RUNS = (("granite-3-8b", 2, (2, 1), 4, 512, 3),
                ("granite-3-8b", 2, (1, 2), 4, 512, 3))
 PLACED_TOL, PLACED_GRAD_TOL = TRAIN_ACCUM_TOL, TRAIN_GRADS_TOL
+# placed serving in the same group of ranks, on (data=1, model=2), at full
+# width and bf16, the model's own seeded initialization: arch, layers,
+# global batch, prompt, the bar on the prefill's and the decode step's
+# logits against one process's (max relative). deepseek-v2-236b at 2 of 60
+# layers (the dense layer 0, then MLA by heads and 80 of 160 experts a
+# rank; 5.36 B parameters), grok-1-314b at 1 of 64 (its heads, and 4 of 8
+# experts a rank; 6.53 B). The bars are twice the distances measured on
+# the card (NVIDIA H100 80GB HBM3, 700 W; the larger of prefill and
+# decode), at most the lm phase's bf16 bar of 5e-2
+PLACED_SERVE = (("deepseek-v2-236b", 2, 4, 512, 2.1e-2),  # 1.008e-2
+                ("grok-1-314b", 1, 4, 512, 1.9e-2))  # measured 9.259e-3
+# the `cuda` case of tests/test_torch_lm_distributed.py in the same group:
+# these smoke models' f32 forwards on (1, 2) within PLACED_FORWARD_TOL of
+# one process's on the card
+PLACED_FORWARD = ("granite-3-8b", "deepseek-v2-236b", "grok-1-314b")
+PLACED_FORWARD_TOL = 1e-6
 # each mixed-precision run's bar on its PCPG iterations summed over the
 # defect-correction outers (a multi-RHS run: its most iterated column): the
 # counts measured on the card (NVIDIA H100 80GB HBM3, 700 W) with a small
@@ -1297,12 +1337,47 @@ def check_dirichlet_sb(x):
                          f"{bad}")
 
 
-def cache_oracles():
+def oracle_key(prob):
+    """What decides a problem's scipy oracle."""
+    return (prob.problem, prob.dim, tuple(prob.sub_grid),
+            tuple(prob.elems_per_sub), repr(sorted(prob.params.items())))
+
+
+def heat3d_oracle(src, out):
+    """HEAT3D_CUT's scipy oracle (the global sparse solve its main path's
+    ``--validate`` asks for), solved in a process of its own: puts
+    ``(oracle_key, u)`` on the queue ``out``."""
+    sys.path.insert(0, src)
+    from repro_torch.configs import get_config
+    from repro_torch.fem import decompose_problem
+
+    fc = get_config("feti-heat-3d")
+    prob = decompose_problem(fc.problem, fc.dim, HEAT3D_SUB_GRID,
+                             fc.elems_per_sub)
+    out.put((oracle_key(prob), prob.reference_solution()))
+
+
+def start_oracle(src):
+    """Start :func:`heat3d_oracle` in a daemon process (spawned, so that
+    it shares no CUDA state; ended with the script if it is still
+    running): ``(process, queue)``."""
+    import multiprocessing
+
+    ctx = multiprocessing.get_context("spawn")
+    out = ctx.Queue()
+    proc = ctx.Process(target=heat3d_oracle, args=(src, out), daemon=True)
+    proc.start()
+    return proc, out
+
+
+def cache_oracles(ahead=None):
     """Solve each configuration's scipy oracle once: the launcher's
     ``--validate`` asks for it on every path, and the paths of one
     configuration share the problem. A load sweep's oracles (each case a
     multiple of the problem's own load, as ``--n-rhs`` makes them) are
-    built from it: the solution of s·f is s times f's."""
+    built from it: the solution of s·f is s times f's. ``ahead``: a
+    :func:`start_oracle` whose oracle is taken when its configuration's
+    first path asks (waiting for it if need be)."""
     import numpy as np
 
     from repro_torch.fem.decomposition import FetiProblem
@@ -1310,12 +1385,26 @@ def cache_oracles():
     solve = FetiProblem.reference_solution
     solve_all = FetiProblem.reference_solutions
     cache = {}
+    pending = {(HEAT3D_SUB_GRID, "heat", 3): ahead} if ahead else {}
 
     def cached(self, loads=None):
         if loads is not None:
             return solve(self, loads)
-        key = (self.problem, self.dim, tuple(self.sub_grid),
-               tuple(self.elems_per_sub), repr(sorted(self.params.items())))
+        key = oracle_key(self)
+        run = pending.pop((tuple(self.sub_grid), self.problem, self.dim),
+                          None)
+        if run is not None:
+            proc, out = run
+            t0 = time.perf_counter()
+            got, u = out.get()
+            proc.join()
+            print(f"[chip_smoke] the {key[:4]} oracle came from its own "
+                  f"process (waited {time.perf_counter() - t0:.1f} s)",
+                  flush=True)
+            if got != key:
+                raise SystemExit(f"the prefetched oracle is {got}, the "
+                                 f"path's problem {key}")
+            cache[key] = u
         if key not in cache:
             cache[key] = solve(self)
         return cache[key].copy()
@@ -2579,11 +2668,17 @@ def placed_phase(device, smi, cpu=False):
     smoke config at seq 16 on CPU ranks, a rehearsal): each rank's placed
     steps held to one process's, and its recorded collectives to
     ``lm_collectives``; a run on a (1, model) mesh records no all-gather.
-    Returns the ranks' rows, a list a run."""
+    Then, in the same group, PLACED_SERVE's serving runs and
+    PLACED_FORWARD's forwards, each held to one process's. Returns the
+    ranks' rows, a list a run."""
+    import numpy as np
+
     from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.data import synthetic_batch
     from repro_torch.distributed.sharding import (local_shape,
                                                   param_shardings,
+                                                  placed_forward,
+                                                  placed_serve,
                                                   placed_train_step)
     from repro_torch.distributed.tensor_parallel import vocab_splits
     from repro_torch.launch.analytic import lm_collectives
@@ -2615,6 +2710,12 @@ def placed_phase(device, smi, cpu=False):
         calls.append((placed_train_step, (cfg, mesh, batches, tcfg)))
     world = {m[0] * m[1] for _, _, m, *_ in PLACED_RUNS}
     assert len(world) == 1, "the placed runs share one group of ranks"
+    serving = placed_serving_runs(device, smi, cpu)
+    calls += [(placed_serve, (cfg, (1, 2), tokens))
+              for cfg, tokens, *_ in serving]
+    forwards = placed_forward_runs(device, cpu)
+    calls += [(placed_forward, (get_smoke_config(arch), (1, 2), tokens))
+              for arch, tokens, _ in forwards]
     t0 = time.perf_counter()
     ranks = spawn_ranks(run_each, world.pop(),
                         backend="gloo", device="cpu" if cpu else "cuda",
@@ -2654,11 +2755,167 @@ def placed_phase(device, smi, cpu=False):
             if (d["metrics"][0] > PLACED_TOL or d["params"][0] > PLACED_TOL
                     or d["grads"][0] > PLACED_GRAD_TOL):
                 bad.append(f"{mesh} rank {i}: {d}")
-    print(f"[chip_smoke] placed: {len(ranks)} ranks, {len(runs)} runs in "
-          f"{wall:.1f}s (spawn, both runs of each, the checks)", flush=True)
+    j = len(runs)
+    bad += check_placed_serving(serving, [rk[j:j + len(serving)]
+                                          for rk in ranks], smi, cpu)
+    j += len(serving)
+    for k, (arch, _, want) in enumerate(forwards):
+        for i, rk in enumerate(ranks):
+            got = rk[j + k]["logits"]
+            err = float(np.abs(got - want).max() / np.abs(want).max())
+            print(f"[chip_smoke] placed forward {arch} smoke f32 rank {i} "
+                  f"on (1, 2): max relative distance from one process "
+                  f"{err:.3e} (bar {PLACED_FORWARD_TOL:g})", flush=True)
+            if not err <= PLACED_FORWARD_TOL:
+                bad.append(f"forward {arch} rank {i}: {err:.3e}")
+    print(f"[chip_smoke] placed: {len(ranks)} ranks, {len(runs)} runs, "
+          f"{len(serving)} serving runs and {len(forwards)} forwards in "
+          f"{wall:.1f}s (spawn, every run, the checks)", flush=True)
     if bad:
         raise SystemExit(f"placed: {bad}")
     return [[rk[j] for rk in ranks] for j in range(len(runs))]
+
+
+def serve_one_process(cfg, tokens, device):
+    """One process's prefill of ``tokens`` and one greedy decode step on
+    ``device``, from the model's own seeded initialization (the weights
+    each rank of ``placed_serve`` builds): both steps' logits (numpy,
+    f32) and host ms."""
+    import torch
+
+    from repro_torch.models import LanguageModel, init_cache
+    from repro_torch.train import make_decode_step, make_prefill_step
+
+    model = LanguageModel(cfg, device=device)
+    B, S = tokens.shape
+    cache = init_cache(cfg, B, S + 1, device)
+    out = {}
+    sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: 0)
+    sync()
+    t0 = time.perf_counter()
+    logits, cache = make_prefill_step(model)(
+        {"tokens": torch.as_tensor(tokens, device=device)}, cache)
+    sync()
+    t1 = time.perf_counter()
+    tok = logits.argmax(-1)[:, None].to(torch.int32)
+    step, cache = make_decode_step(model)(tok, cache, S)
+    sync()
+    out["ms"] = {"prefill": (t1 - t0) * 1e3,
+                 "decode": (time.perf_counter() - t1) * 1e3}
+    out["prefill"] = logits.float().cpu().numpy()
+    out["decode"] = step.float().cpu().numpy()
+    del model, cache, logits, step
+    free()
+    return out
+
+
+def placed_serving_runs(device, smi, cpu):
+    """PLACED_SERVE's runs, each with one process's logits, computed before
+    the ranks start (their models then free the card): ``(cfg, tokens,
+    one process, bar, full depth)`` a run (with ``cpu``: the smoke configs
+    at seq 16)."""
+    import numpy as np
+
+    from repro_torch.configs import get_config, get_smoke_config
+
+    out = []
+    for arch, layers, batch, seq, bar in PLACED_SERVE:
+        full = (get_smoke_config if cpu else get_config)(arch)
+        cfg = full if cpu else dataclasses.replace(full, num_layers=layers)
+        seq = 16 if cpu else seq
+        tokens = np.random.default_rng(5).integers(
+            0, cfg.vocab_size, (batch, seq)).astype(np.int32)
+        t0 = time.perf_counter()
+        one = serve_one_process(cfg, tokens, device)
+        print(f"[chip_smoke] placed serving {cfg.name} ({cfg.num_layers} of "
+              f"{full.num_layers} layers, {cfg.dtype}): one process on "
+              f"{'cpu' if cpu else smi}: prefill {one['ms']['prefill']:.3f} "
+              f"ms, decode step {one['ms']['decode']:.3f} ms (host clock, "
+              f"first call), {time.perf_counter() - t0:.1f} s with the "
+              f"model's set-up", flush=True)
+        out.append((cfg, tokens, one, bar, full.num_layers))
+    return out
+
+
+def placed_forward_runs(device, cpu):
+    """PLACED_FORWARD's smoke models: ``(arch, tokens, one process's
+    logits)`` each, the forward of tests/test_torch_lm_distributed.py's
+    ``cuda`` case."""
+    import numpy as np
+
+    import torch
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import LanguageModel, forward
+
+    out = []
+    for arch in PLACED_FORWARD:
+        cfg = get_smoke_config(arch)
+        tokens = np.random.default_rng(0).integers(
+            0, cfg.vocab_size, (2, 8)).astype(np.int32)
+        model = LanguageModel(cfg, device=device)
+        with torch.inference_mode():
+            want = forward(model, {"tokens": torch.as_tensor(
+                tokens, device=device)})[0].float().cpu().numpy()
+        out.append((arch, tokens, want))
+    return out
+
+
+def check_placed_serving(serving, ranks, smi, cpu):
+    """Each placed serving run's ranks against one process: the prefill's
+    and the decode step's logits (max relative, over the largest), the
+    collectives (``lm_collectives``, exactly) and the all-gathers (the
+    split head's logits and the weights the plan computes whole that the
+    specs cut along 'model', nothing else). Returns the failures."""
+    import numpy as np
+
+    from repro_torch.distributed.sharding import param_shardings
+    from repro_torch.distributed.tensor_parallel import split_plan
+    from repro_torch.launch.analytic import lm_collectives
+    from repro_torch.launch.mesh import MeshShape
+    from repro_torch.launch.shapes import ShapeCase
+    from repro_torch.models import LanguageModel
+
+    mesh = MeshShape({"data": 1, "model": 2})
+    bad = []
+    for k, (cfg, tokens, one, bar, of_layers) in enumerate(serving):
+        meta = dict(LanguageModel(cfg, device="meta").named_parameters())
+        specs = param_shardings(mesh, meta)
+        plan = split_plan(cfg, 2)
+        whole = [n for n, spec in specs.items()
+                 if "model" in spec and plan.mode(n) != "shard"]
+        gathers = len(whole) + (plan.vocab and cfg.has_lm_head)
+        B, S = tokens.shape
+        for i, rk in enumerate(ranks):
+            r = rk[k]
+            for key in ("prefill", "decode"):
+                want = lm_collectives(cfg, ShapeCase(key, S, B, key), mesh)
+                got = r["collectives"][key]
+                err = float(np.abs(r[key] - one[key]).max()
+                            / np.abs(one[key]).max())
+                print(f"[chip_smoke] placed serving {cfg.name} "
+                      f"({cfg.num_layers} of {of_layers} layers, "
+                      f"{cfg.dtype}, batch {B} x prompt {S}) rank {i} of "
+                      f"(1, 2) on {'cpu' if cpu else smi}: {key} "
+                      f"{r['step_s'][key] * 1e3:.3f} ms (host clock, first "
+                      f"call), peak device bytes "
+                      f"{r['peak_device_bytes'][key]}; max relative distance "
+                      f"from one process {err:.3e} (bar {bar:g}); "
+                      f"collectives recorded {got} / lm_collectives {want}",
+                      flush=True)
+                if not err <= bar:
+                    bad.append(f"serving {cfg.name} rank {i} {key}: "
+                               f"{err:.3e} > {bar:g}")
+                if got != want:
+                    bad.append(f"serving {cfg.name} rank {i} {key}: "
+                               f"collectives {got} are not {want}")
+                if got.count_by_op.get("all-gather", 0) != gathers:
+                    bad.append(f"serving {cfg.name} rank {i} {key}: "
+                               f"{got.count_by_op} gathers, want {gathers}: "
+                               f"the logits and {whole}")
+        print(f"[chip_smoke] placed serving {cfg.name}: weights gathered "
+              f"along 'model' (computed whole): {whole}", flush=True)
+    return bad
 
 
 # ------------------------------------------------------------ dryrun ----
@@ -2705,8 +2962,10 @@ def dryrun_phase(device, smi, cpu=False):
               f"-{dom[-1] if dom else 0:.4g} (median "
               f"{statistics.median(dom) if dom else 0:.4g}), of all cells "
               f"median {statistics.median(map(finalize.fraction, rows)):.4g}"
-              f"; deepseek-v2-236b all-gather bytes a rank by shape {ds}",
-              flush=True)
+              f"; deepseek-v2-236b all-gather bytes a rank by shape {ds}"
+              f" (decode_32k {ds.get('decode_32k', 0):,} B; with its MLA "
+              f"heads and experts gathered whole "
+              f"{DRYRUN_DEEPSEEK_DECODE_WHOLE.get(mesh, 0):,})", flush=True)
     if bare:
         raise SystemExit(f"dryrun: rows without collectives: {bare}")
     sys.path.insert(0, os.path.join(ROOT, "tests"))
@@ -2814,6 +3073,8 @@ def main() -> int:
           f"device {kind}")
     print(smi, flush=True)
     device = torch.device("cuda", 0)
+    # the main phase's slowest oracle, solved on the host meanwhile
+    oracle = start_oracle(src)
     done("device", t0)
 
     t0 = phase("build")
@@ -2917,7 +3178,7 @@ def main() -> int:
 
     t0 = phase("main")
     register_heat3d_cut()
-    cache_oracles()
+    cache_oracles(oracle)
     runs = {}
     for name, arch, flags, expected in MAIN_RUNS:
         runs[name] = run_main_path(name, arch, flags, expected)

@@ -32,13 +32,17 @@ weights before its forward over the data-parallel axes, and the weights'
 gradients reach the shards (summed over the data-parallel ranks, cut to
 the rank's shard). Where a block's shapes allow
 (:func:`~repro_torch.distributed.tensor_parallel.split_plan`: GQA / MHA
-attention, dense MLPs, the vocab), each 'model' rank keeps its 'model'
-shard and computes with it alone, the activations summed or gathered over
-the 'model' group (:mod:`repro_torch.distributed.tensor_parallel`). The
-other blocks (MLA, RG-LRU, RWKV-6, MoE) gather their weights whole along
-'model' too, and the ranks along 'model' compute them on the same batch
-rows: no expert-parallel dispatch. A serving cache holds the rank's batch
-rows and the rank's KV heads. Every collective is a c10d call, which
+attention and MLA by heads, dense MLPs, MoE layers by experts or by each
+expert's ff columns, the vocab), each 'model' rank keeps its 'model' shard
+and computes with it alone, the activations summed or gathered over the
+'model' group (:mod:`repro_torch.distributed.tensor_parallel`). The other
+blocks (RG-LRU, RWKV-6, and MLA's latent projections, the MoE router and
+whatever does not divide) gather their weights whole along 'model' too,
+and the ranks along 'model' compute them alike on the same batch rows. A
+split MoE layer moves no token between ranks: every 'model' rank holds
+all the tokens of its batch rows, routes them alike and runs its own
+experts' slots. A serving cache holds the rank's batch rows and the
+rank's KV heads (MLA's compressed cache whole). Every collective is a c10d call, which
 :func:`repro_torch.launch.roofline.record_collectives` counts and
 :func:`repro_torch.launch.analytic.lm_collectives` schedules.
 """
@@ -461,10 +465,12 @@ def distribute_model(model: torch.nn.Module, mesh, specs: dict) -> None:
     On a 'model' axis of more than one rank the parts that
     :func:`~repro_torch.distributed.tensor_parallel.split_plan` splits
     compute tensor-parallel: their parameters are gathered over the
-    data-parallel axes only, each rank keeping its 'model' shard (a
-    replicated KV head's ``wk`` and ``wv``: gathered whole, the head sliced
-    out, the whole gradient summed over 'model' before it is cut), and their
-    modules learn the 'model' group (their ``tp`` attribute). The other
+    data-parallel axes only, each rank keeping its 'model' shard (its
+    heads, FFN columns, experts or vocab rows; a replicated KV head's
+    ``wk`` and ``wv``: gathered whole, the head sliced out, the whole
+    gradient summed over 'model' before it is cut), and their modules
+    (attention, MLA, MLP, MoE, the model for the vocab) learn the 'model'
+    group (their ``tp`` attribute). The other
     parameters are gathered whole, and the ranks along 'model' compute
     those blocks alike. Under ``remat`` a layer's recomputation in backward
     runs its hooks again, so its weights are gathered twice a step."""
@@ -473,9 +479,9 @@ def distribute_model(model: torch.nn.Module, mesh, specs: dict) -> None:
     plan = split_plan(cfg, tp.size if tp is not None else 1)
     keep = tuple(d for d, n in enumerate(mesh.mesh_dim_names) if n == "model")
     if tp is not None:
-        for i in plan.attention:
+        for i in plan.attention + plan.mla:
             model.blocks[i].inner.tp = tp
-        for i in plan.mlp:
+        for i in plan.mlp + tuple(i for i, _ in plan.moe):
             model.blocks[i].mlp.tp = tp
         if plan.vocab:
             model.tp = tp
@@ -595,78 +601,101 @@ def _placed_model(rank, cfg, mesh_shape: tuple, state: Optional[dict] = None):
     return mesh, model, specs
 
 
-def _config(arch: str, smoke: bool):
-    from repro_torch.configs import get_config, get_smoke_config
-
-    return (get_smoke_config if smoke else get_config)(arch)
-
-
-def placed_forward(rank, arch: str, mesh_shape: tuple, tokens,
-                   smoke: bool = True) -> dict:
+def placed_forward(rank, cfg, mesh_shape: tuple, tokens) -> dict:
     """One rank of a forward with placed parameters, the function
-    :func:`~repro_torch.launch.mesh.spawn_ranks` runs on every rank:
-    ``arch``'s model (its smoke config with ``smoke``) from its own seeded
+    :func:`~repro_torch.launch.mesh.spawn_ranks` runs on every rank: the
+    model of ``cfg`` (a ``ModelConfig``) from its own seeded
     initialization on the rank's device, placed by :func:`param_shardings`
     on a ``DeviceMesh`` of ``mesh_shape`` over ("data", "model") and run
     once on the rank's rows of ``tokens`` (B, S) (:func:`local_batch`).
-    Returns the logits of the whole batch (numpy, f32; the ranks' rows
-    gathered after the forward), each parameter's spec and its local shard
-    shape, and the shape of each projection's output as the rank computed
-    it (``out_shapes``, by module name)."""
+    Returns the logits of
+    the whole batch (numpy, f32; the ranks' rows gathered after the
+    forward), each parameter's spec and its local shard shape, the shape
+    of each projection's output as the rank computed it (``out_shapes``,
+    by module name) and the shape of each layer's parameters as the rank
+    computed with them (``used_shapes``, by name: its 'model' shard where
+    its part splits, else whole)."""
     from repro_torch.models import forward
     from repro_torch.models.layers import Dense
 
-    mesh, model, specs = _placed_model(rank, _config(arch, smoke),
-                                       mesh_shape)
+    mesh, model, specs = _placed_model(rank, cfg, mesh_shape)
     local = {name: tuple(p.to_local().shape)
              for name, p in model.named_parameters()}
-    out_shapes = {}
+    out_shapes, used_shapes = {}, {}
 
     def record(name):
         def hook(module, args, y):
             out_shapes[name] = tuple(y.shape)
         return hook
 
+    def record_used(name):  # inside the layer: the gathered tensors
+        def hook(module, args, y):
+            for leaf, p in module.named_parameters():
+                used_shapes[f"{name}.{leaf}"] = tuple(p.shape)
+        return hook
+
     for name, mod in model.named_modules():
         if isinstance(mod, Dense):
             mod.register_forward_hook(record(name))
+        if name.startswith("blocks.") and name.count(".") == 2:
+            mod.register_forward_hook(record_used(name))
     batch = local_batch(mesh, {"tokens": tokens})
     with torch.inference_mode():
         logits, _ = forward(model, batch)
         logits = gather_batch(mesh, logits, len(tokens))
     return {"logits": logits.float().cpu().numpy(), "specs": specs,
-            "local_shapes": local, "out_shapes": out_shapes}
+            "local_shapes": local, "out_shapes": out_shapes,
+            "used_shapes": used_shapes}
 
 
-def placed_serve(rank, arch: str, mesh_shape: tuple, tokens,
-                 smoke: bool = True) -> dict:
-    """One rank of placed serving: ``arch``'s model placed as in
-    :func:`placed_forward`, a prefill of the rank's rows of ``tokens`` (B,
-    S) into a cache held for those rows alone, then one greedy decode
-    step. The cache holds the rank's KV heads where its attention splits
-    over 'model'. Returns both steps' logits of the whole batch (numpy,
-    f32; the ranks' rows gathered after each step), each step's
-    collectives and the shapes of the cache's tensors, a dict a layer."""
+def placed_serve(rank, cfg, mesh_shape: tuple, tokens) -> dict:
+    """One rank of placed serving: the model of ``cfg`` (a
+    ``ModelConfig``; a run may cut its depth) from its own seeded
+    initialization, placed as in :func:`placed_forward`, a prefill of the
+    rank's rows of ``tokens`` (B, S) into a cache held for those rows
+    alone, then one greedy decode step. The cache holds the rank's KV
+    heads where its GQA / MHA attention splits over 'model'. Returns both
+    steps' logits of the whole batch (numpy, f32; the ranks' rows gathered
+    after each step), each step's collectives, host seconds (ended by a
+    device synchronize) and peak device bytes (``None`` on the CPU), and
+    the shapes of the cache's tensors, a dict a layer."""
+    import time
+
     from repro_torch.launch.roofline import record_collectives
     from repro_torch.models import init_cache
     from repro_torch.train import make_decode_step, make_prefill_step
 
-    cfg = _config(arch, smoke)
+    dev = rank.device
+    cuda = dev.type == "cuda"
+    if cuda:  # an earlier run of the group may have left its blocks cached
+        torch.cuda.empty_cache()
     mesh, model, _ = _placed_model(rank, cfg, mesh_shape)
-    prompt = local_batch(mesh, {"tokens": tokens})["tokens"].to(rank.device)
+    prompt = local_batch(mesh, {"tokens": tokens})["tokens"].to(dev)
     B, S = prompt.shape
-    cache = init_cache(cfg, B, S + 1, rank.device,
-                       tp=axis_size(mesh, "model"))
-    out = {"collectives": {},
+    cache = init_cache(cfg, B, S + 1, dev, tp=axis_size(mesh, "model"))
+    out = {"collectives": {}, "step_s": {}, "peak_device_bytes": {},
            "cache_shapes": [{k: tuple(v.shape) for k, v in layer.items()}
                             for layer in cache]}
-    with record_collectives() as coll:
-        logits, cache = make_prefill_step(model)({"tokens": prompt}, cache)
-    out["collectives"]["prefill"] = coll
+
+    def timed(key, fn, *args):
+        if cuda:
+            torch.cuda.synchronize(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        with record_collectives() as coll:
+            res = fn(*args)
+        if cuda:
+            torch.cuda.synchronize(dev)
+        out["step_s"][key] = time.perf_counter() - t0
+        out["peak_device_bytes"][key] = (
+            torch.cuda.max_memory_allocated(dev) if cuda else None)
+        out["collectives"][key] = coll
+        return res
+
+    logits, cache = timed("prefill", make_prefill_step(model),
+                          {"tokens": prompt}, cache)
     tok = logits.argmax(-1)[:, None].to(torch.int32)
-    with record_collectives() as coll:
-        step, cache = make_decode_step(model)(tok, cache, S)
-    out["collectives"]["decode"] = coll
+    step, cache = timed("decode", make_decode_step(model), tok, cache, S)
     with torch.inference_mode():
         for key, x in (("prefill", logits), ("decode", step)):
             out[key] = gather_batch(mesh, x, len(tokens)).float().cpu().numpy()

@@ -2,10 +2,10 @@
 split, and the autograd collectives of the 'model' group (Megatron's
 pattern, in c10d calls).
 
-The reference's rules put heads, FFN hidden and vocab on 'model'
+The reference's rules put heads, FFN hidden, experts and vocab on 'model'
 (:mod:`repro_torch.distributed.sharding`), and its GSPMD computes each
-head and each FFN slice on the rank that holds it. A placed model of the
-port does the same where a block's shapes allow (:func:`split_plan`):
+head, FFN slice and expert on the rank that holds it. A placed model of
+the port does the same where a block's shapes allow (:func:`split_plan`):
 
 * attention (GQA / MHA): ``wq``, ``wk``, ``wv`` column-parallel (the
   rank's ``H/tp`` contiguous query heads and the KV heads they use), ``wo``
@@ -15,16 +15,35 @@ port does the same where a block's shapes allow (:func:`split_plan`):
   replicated on the ``tp / num_kv_heads`` ranks whose query heads use it:
   they take ``wk`` and ``wv`` whole and slice their head out, and the
   whole tensors' gradients are summed over 'model' before they are cut.
+* MLA, where ``num_heads % tp == 0``: ``wq_b``, ``wk_b``, ``wv_b``
+  column-parallel by heads, ``wo`` row-parallel and followed by one
+  all-reduce. The latent projections ``wq_a`` and ``wkv_a`` and their
+  norms stay whole, computed alike on every rank; their outputs (the
+  query latent, ``ckv``, ``krope``) enter the rank's heads through
+  :func:`copy_to_tp`, so their gradients are summed over 'model' there.
+  The compressed cache is every head's, so each rank keeps it whole.
 * a dense MLP (all four kinds): ``wi``, ``wg`` column-parallel, ``wo``
   row-parallel and followed by one all-reduce, where ``d_ff % tp == 0``.
+* a MoE layer, by the reference's rule: by experts where ``num_experts %
+  tp == 0`` (expert parallelism: the rank computes its ``E/tp``
+  contiguous experts on the slots routing gave them), else by each
+  expert's ff columns where ``e_ff % tp == 0`` (``wi``, ``wg``
+  column-parallel, ``wo`` row-parallel), else whole. The shared expert
+  splits column / row where its width divides. The router, top-k,
+  capacity and the aux loss are computed alike on every rank, and one
+  all-reduce sums the rank's partial combine and shared output. No token
+  moves between ranks: block boundaries are replicated along 'model', so
+  every rank already holds all the tokens of its batch rows. The
+  all-to-all form of expert parallelism belongs with sequence
+  parallelism (the reference's ``"sp"``), which the port does not do.
 * the vocab, where ``vocab_size % tp == 0``: the embedding looks up the
   rank's rows (zero elsewhere) and all-reduces; the head (tied or not)
   computes the rank's vocab columns and all-gathers them along V.
 
-A bias of a row-parallel projection is added once, after the sum. MLA,
-RG-LRU, RWKV-6 and the MoE router and experts stay whole: their weights are
-gathered whole along 'model' and every 'model' rank computes all of them.
-Block boundaries are replicated along 'model'.
+A bias of a row-parallel projection is added once, after the sum. RG-LRU
+and RWKV-6 stay whole: their weights are gathered whole along 'model' and
+every 'model' rank computes all of them. Block boundaries are replicated
+along 'model'.
 
 The collectives call ``torch.distributed`` through the module attribute
 when they run, so that
@@ -38,9 +57,10 @@ from typing import Optional
 
 import torch
 
-__all__ = ["TensorParallel", "SplitPlan", "attention_splits", "mlp_splits",
-           "vocab_splits", "split_plan", "local_kv_heads", "copy_to_tp",
-           "reduce_from_tp", "gather_from_tp"]
+__all__ = ["TensorParallel", "SplitPlan", "attention_splits", "mla_splits",
+           "mlp_splits", "moe_splits", "shared_expert_splits", "vocab_splits",
+           "split_plan", "local_kv_heads", "copy_to_tp", "reduce_from_tp",
+           "gather_from_tp"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,9 +82,34 @@ def attention_splits(cfg, tp: int) -> bool:
     return H % tp == 0 and (Hkv % tp == 0 or tp % Hkv == 0)
 
 
+def mla_splits(cfg, tp: int) -> bool:
+    """Whether ``cfg``'s MLA splits by heads over ``tp`` ranks."""
+    return tp > 1 and cfg.attn_kind == "mla" and cfg.num_heads % tp == 0
+
+
 def mlp_splits(cfg, tp: int) -> bool:
     """Whether ``cfg``'s dense MLPs split over ``tp`` ranks."""
     return tp > 1 and cfg.d_ff % tp == 0
+
+
+def moe_splits(cfg, tp: int) -> Optional[str]:
+    """How ``cfg``'s MoE layers split over ``tp`` ranks: ``"expert"``
+    (expert parallelism) where the experts divide ``tp``, else ``"ff"``
+    (each expert's ff columns) where their width does, else ``None``
+    (whole): the reference's rule for the expert stacks."""
+    if tp <= 1 or not cfg.is_moe:
+        return None
+    if cfg.num_experts % tp == 0:
+        return "expert"
+    return "ff" if (cfg.moe_d_ff or cfg.d_ff) % tp == 0 else None
+
+
+def shared_expert_splits(cfg, tp: int) -> bool:
+    """Whether a split MoE layer's shared expert (width ``e_ff ·
+    num_shared_experts``) splits over ``tp`` ranks too."""
+    width = (cfg.moe_d_ff or cfg.d_ff) * cfg.num_shared_experts
+    return (moe_splits(cfg, tp) is not None and width > 0
+            and width % tp == 0)
 
 
 def vocab_splits(cfg, tp: int) -> bool:
@@ -84,13 +129,18 @@ def local_kv_heads(cfg, tp: int) -> int:
 @dataclasses.dataclass(frozen=True)
 class SplitPlan:
     """Which parts of a model compute tensor-parallel on a 'model' axis:
-    the layers whose attention splits, those whose dense MLP splits, and
-    the vocab."""
+    the layers whose GQA / MHA attention splits, those whose dense MLP
+    splits, the vocab, the layers whose MLA splits by heads, and the MoE
+    layers that split with how (``(layer, "expert" | "ff")`` pairs) and
+    whether their shared expert splits too."""
 
     attention: tuple
     mlp: tuple
     vocab: bool
     kv_replicated: bool  # the split attention's KV heads: tp > num_kv_heads
+    mla: tuple = ()
+    moe: tuple = ()
+    moe_shared: bool = False
 
     def mode(self, name: str) -> str:
         """How a placed model uses the parameter ``name`` (its state-dict
@@ -106,8 +156,15 @@ class SplitPlan:
         if sub == "inner" and layer in self.attention:
             return "head" if (self.kv_replicated
                               and parts[3] in ("wk", "wv")) else "shard"
+        if sub == "inner" and layer in self.mla:  # not the latent parts
+            return ("shard" if parts[3] in ("wq_b", "wk_b", "wv_b", "wo")
+                    else "whole")
         if sub == "mlp" and layer in self.mlp:
             return "shard"
+        if sub == "mlp" and layer in dict(self.moe):  # not the router
+            if parts[3] == "shared":
+                return "shard" if self.moe_shared else "whole"
+            return "shard" if parts[3] in ("wi", "wg", "wo") else "whole"
         return "whole"
 
 
@@ -116,6 +173,7 @@ def split_plan(cfg, tp: int) -> SplitPlan:
     (a pure function of the config: nothing splits at ``tp`` 1)."""
     moe_from = cfg.first_dense_layers if cfg.is_moe else cfg.num_layers
     attn, mlp = attention_splits(cfg, tp), mlp_splits(cfg, tp)
+    mla, moe = mla_splits(cfg, tp), moe_splits(cfg, tp)
     kinds = cfg.layer_kinds
     return SplitPlan(
         attention=tuple(i for i, k in enumerate(kinds)
@@ -123,7 +181,11 @@ def split_plan(cfg, tp: int) -> SplitPlan:
         mlp=tuple(i for i, k in enumerate(kinds)
                   if mlp and k != "rwkv6" and i < moe_from),
         vocab=vocab_splits(cfg, tp),
-        kv_replicated=attn and tp > cfg.num_kv_heads)
+        kv_replicated=attn and tp > cfg.num_kv_heads,
+        mla=tuple(i for i, k in enumerate(kinds) if mla and k == "attn"),
+        moe=tuple((i, moe) for i, k in enumerate(kinds)
+                  if moe and k != "rwkv6" and i >= moe_from),
+        moe_shared=shared_expert_splits(cfg, tp))
 
 
 # ------------------------------------------------ autograd collectives ----

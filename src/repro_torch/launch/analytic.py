@@ -298,16 +298,21 @@ def lm_collectives(cfg: ModelConfig, shape: ShapeCase, mesh, tcfg=None,
     (:func:`~repro_torch.distributed.tensor_parallel.split_plan`). Such a
     part sends activations over 'model' instead, each of (rows, S, d) at
     the activation dtype (rows: the rank's batch rows, a microbatch's in
-    training): in each forward one all-reduce after each row-parallel
-    projection (a split attention's or MLP's ``wo``) and one after a split
-    embedding's lookup; a split head one all-gather of its (rows, S, V)
-    logits (S 1 in serving, which projects the last position). Serving
-    (prefill, decode): one forward. Training (``tcfg``: ``grad_accum`` k,
-    ``remat``), per microbatch: a forward, and under ``remat`` every
-    layer's gathers and forward collectives again in backward; in backward
-    one all-reduce of (rows, S, d) for each split attention, split MLP and
-    split head (the gradient of their input), and for a replicated KV
-    head's ``wk`` and ``wv`` one all-reduce of each whole tensor over
+    training) unless said otherwise: in each forward one all-reduce after
+    each row-parallel projection (a split attention's, MLA's or MLP's
+    ``wo``), one after a split MoE layer's combine (its shared expert's
+    part in the same sum) and one after a split embedding's lookup; a
+    split head one all-gather of its (rows, S, V) logits (S 1 in serving,
+    which projects the last position). Serving (prefill, decode): one
+    forward. Training (``tcfg``: ``grad_accum`` k, ``remat``), per
+    microbatch: a forward, and under ``remat`` every layer's gathers and
+    forward collectives again in backward; in backward one all-reduce of
+    (rows, S, d) for each split attention, split MLP, split MoE layer and
+    split head (the gradient of their input), for a split MoE layer also
+    one of its (rows, S, top_k) f32 gate values, for a split MLA one of
+    each latent that enters its heads (the normed query latent, or the
+    input without a query rank; ``ckv``; ``krope``), and for a replicated
+    KV head's ``wk`` and ``wv`` one all-reduce of each whole tensor over
     'model'; one all-reduce of the loss's three sums and, in every MoE
     layer and pass, one of its load-balancing sums (2E + 1 f32) over each
     data-parallel dimension; each parameter's gradient, cut to the rank's
@@ -370,7 +375,8 @@ def lm_collectives(cfg: ModelConfig, shape: ShapeCase, mesh, tcfg=None,
         S_out = S
     act = _bytes_of(cfg.dtype)
     hidden = rows * S * cfg.d_model * act
-    split = len(plan.attention) + len(plan.mlp)
+    n_mla, n_moe = len(plan.mla), len(plan.moe)
+    split = len(plan.attention) + len(plan.mlp) + n_mla + n_moe  # a wo each
     lookup = plan.vocab and not (cfg.frontend_stub and cfg.family == "audio")
     head = plan.vocab and cfg.has_lm_head
     add("all-gather", rows * S_out * cfg.vocab_size * act, k * head)
@@ -382,7 +388,12 @@ def lm_collectives(cfg: ModelConfig, shape: ShapeCase, mesh, tcfg=None,
     passes = 2 if tcfg.remat else 1
     gathers(rest, k)
     gathers(layers, k * passes)
-    add("all-reduce", hidden, k * (split * passes + lookup + split + head))
+    add("all-reduce", hidden,
+        k * (split * passes + lookup + split - n_mla + head))
+    add("all-reduce", rows * S * cfg.top_k * 4, k * n_moe)  # gate values
+    q_in = cfg.q_lora_rank or cfg.d_model  # MLA's latents
+    for width in (q_in, cfg.kv_lora_rank, cfg.qk_rope_head_dim):
+        add("all-reduce", rows * S * width * act, k * n_mla)
     for n, p in params.items():
         if plan.mode(n) == "head":
             add("all-reduce", p.numel() * p.element_size(), k)

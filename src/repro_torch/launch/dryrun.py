@@ -105,7 +105,10 @@ def placement_notes(cfg: ModelConfig, tp: int) -> dict:
     kinds = set(cfg.layer_kinds)
     split, whole = [], []
     if "attn" in kinds:
-        if cfg.attn_kind == "mla":
+        if cfg.attn_kind == "mla" and plan.mla:
+            split.append(f"MLA by heads ({cfg.num_heads} heads)")
+            whole.append("MLA's latent projections")
+        elif cfg.attn_kind == "mla":
             whole.append("MLA attention")
         else:
             heads = f"attention ({cfg.num_heads} heads, {cfg.num_kv_heads} KV)"
@@ -117,8 +120,16 @@ def placement_notes(cfg: ModelConfig, tp: int) -> dict:
     if "rwkv6" in kinds:
         whole.append("RWKV-6")
     if cfg.is_moe:
-        whole.append("the MoE router and experts (no expert-parallel "
-                     "dispatch)")
+        how = dict(plan.moe).get(cfg.first_dense_layers)
+        E = cfg.num_experts
+        if how == "expert":
+            split.append(f"MoE by experts ({E} experts, {E // tp} a rank)")
+        elif how == "ff":
+            split.append(f"MoE by each expert's ff columns ({E} experts, "
+                         f"e_ff {cfg.moe_d_ff or cfg.d_ff})")
+        if cfg.num_shared_experts:
+            (split if plan.moe_shared else whole).append("the shared expert")
+        whole.append("the MoE router" + ("" if how else " and experts"))
     if any(k != "rwkv6" for k in kinds) and (
             not cfg.is_moe or cfg.first_dense_layers):
         (split if plan.mlp else whole).append(f"dense MLP (d_ff {cfg.d_ff})")
@@ -131,6 +142,8 @@ def placement_notes(cfg: ModelConfig, tp: int) -> dict:
             f"{', '.join(whole) or 'nothing'}",
         "placement_cache": "a serving cache holds the rank's batch rows "
                            + ("and its KV heads " if plan.attention else "")
+                           + ("and every head's compressed MLA entries "
+                              if plan.mla else "")
                            + "(not sharded along seq over 'model')",
     }
 

@@ -274,6 +274,14 @@ class MLAttention(nn.Module):
     compressed entries are written and the queries attend in their space:
     ``wk_b`` absorbed into the query, ``wv_b`` applied to the context.
     Both modes scale the scores by ``1/sqrt(dn + dr)``.
+
+    With a 'model' group ``tp`` (set by
+    :func:`~repro_torch.distributed.sharding.distribute_model`) ``wq_b``,
+    ``wk_b`` and ``wv_b`` are the rank's ``H/tp`` contiguous heads and
+    ``wo`` their rows (row-parallel); ``wq_a``, ``wkv_a`` and the norms are
+    whole, and their outputs enter the rank's heads through
+    :func:`~repro_torch.distributed.tensor_parallel.copy_to_tp`. The
+    compressed cache is every head's: each rank holds it whole.
     """
 
     def __init__(self, cfg: ModelConfig, init: Init):
@@ -295,6 +303,7 @@ class MLAttention(nn.Module):
         self.wk_b = Dense(rank, H * dn, init)
         self.wv_b = Dense(rank, H * cfg.v_head_dim, init)
         self.wo = Dense(H * cfg.v_head_dim, d, init)
+        self.tp: Optional[TensorParallel] = None
 
     def forward(self, x, positions, cache: Optional[dict] = None,
                 cache_index: int = 0, window: int = 0, q_chunk: int = 512,
@@ -302,21 +311,26 @@ class MLAttention(nn.Module):
         """x: (B, S, d); positions (B, S), or (B, S, 3) under mrope.
         ``window`` is accepted for the block's uniform call and ignored, as
         the reference ignores it for MLA (its cache is no ring)."""
-        cfg = self.cfg
+        cfg, tp = self.cfg, self.tp
         B, S, _ = x.shape
         H, rank = cfg.num_heads, cfg.kv_lora_rank
+        if tp is not None:  # this rank's heads
+            H //= tp.size
         dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
         pos_1d = positions[..., 0] if positions.dim() == 3 else positions
+        # the latents are whole; each enters the rank's heads alone
         if self.wq_a is not None:
-            q = self.wq_b(rms_norm(self.wq_a(x), self.q_norm_scale,
-                                   cfg.norm_eps))
+            q = self.wq_b(copy_to_tp(rms_norm(
+                self.wq_a(x), self.q_norm_scale, cfg.norm_eps), tp))
         else:
-            q = self.wq_b(x)
+            q = self.wq_b(copy_to_tp(x, tp))
         q = q.reshape(B, S, H, dn + dr)
         q_nope, q_rope = q[..., :dn], _rope(cfg, q[..., dn:], positions)
         kv = self.wkv_a(x)
-        ckv = rms_norm(kv[..., :rank], self.kv_norm_scale, cfg.norm_eps)
-        krope = _rope(cfg, kv[..., None, rank:], positions)[:, :, 0]
+        ckv = copy_to_tp(rms_norm(kv[..., :rank], self.kv_norm_scale,
+                                  cfg.norm_eps), tp)
+        krope = copy_to_tp(_rope(cfg, kv[..., None, rank:],
+                                 positions)[:, :, 0], tp)
         wk_b = self.wk_b.w.reshape(rank, H, dn)
         wv_b = self.wv_b.w.reshape(rank, H, dv)
         args = dict(causal=cfg.causal, q_chunk=q_chunk, kv_chunk=kv_chunk,
@@ -341,4 +355,4 @@ class MLAttention(nn.Module):
                                   cache["pos"], kv_valid=cache["pos"] >= 0,
                                   **args)  # (B, S, H, rank)
             out = torch.einsum("bshr,rhd->bshd", ctx, wv_b)
-        return self.wo(out.reshape(B, S, H * dv))
+        return self.wo(out.reshape(B, S, H * dv), tp)

@@ -9,16 +9,33 @@ tokens, per batch row (a row is a group); a (token, choice) entry past its
 expert's capacity is dropped. Both dispatches drop by queue position, the
 GShard one in token order and the sort one in sorted order (the same order:
 the sort is stable). The router stays f32 whatever the parameter dtype.
+
+Placed on a 'model' axis where the layer splits
+(:func:`~repro_torch.distributed.tensor_parallel.moe_splits`), each rank
+routes all its tokens alike (the router, top-k, capacity and the aux loss
+are every rank's), then computes only its part: its ``E/tp`` experts on
+the slots routing gave them (expert parallelism), or every expert's
+``e_ff/tp`` ff columns; the shared expert its columns. The partial combine
+and shared output are summed by one all-reduce. The ranks along 'model'
+hold the same tokens, so no token moves: this is what GSPMD makes of the
+reference's dispatch sharding when the tokens are replicated along
+'model'. The all-to-all dispatch belongs with sequence parallelism (the
+reference's ``"sp"``), which the port does not do.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.distributed.actsharding import dp_active, dp_sum, shard_act
+from repro_torch.distributed.tensor_parallel import (TensorParallel,
+                                                     copy_to_tp,
+                                                     moe_splits,
+                                                     reduce_from_tp,
+                                                     shared_expert_splits)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import MLP, Init
 
@@ -36,7 +53,13 @@ class MoE(nn.Module):
     ``wo`` (E, e_ff, d), the f32 ``router`` (d, E) and, with
     ``num_shared_experts``, one dense SwiGLU ``shared`` of width
     ``e_ff · num_shared_experts`` that every token runs. ``forward`` returns
-    ``(y, aux_loss)``."""
+    ``(y, aux_loss)``.
+
+    With a 'model' group ``tp`` (set by
+    :func:`~repro_torch.distributed.sharding.distribute_model`) the expert
+    stacks are the rank's: its ``E/tp`` experts, or every expert's ff
+    columns; ``shared`` its columns where its width divides (it then runs
+    without a group of its own: its partial joins the layer's one sum)."""
 
     def __init__(self, cfg: ModelConfig, init: Init):
         super().__init__()
@@ -49,6 +72,16 @@ class MoE(nn.Module):
         self.wo = init.normal((E, e_ff, d), e_ff ** -0.5)
         self.shared = (MLP(d, e_ff * cfg.num_shared_experts, "swiglu", init)
                        if cfg.num_shared_experts else None)
+        self.tp: Optional[TensorParallel] = None
+
+    def _held(self) -> Tuple[int, int]:
+        """The experts ``[lo, hi)`` whose slots this rank computes: its
+        ``E/tp`` under expert parallelism, else all of them."""
+        E, tp = self.cfg.num_experts, self.tp
+        if tp is None or moe_splits(self.cfg, tp.size) != "expert":
+            return 0, E
+        n = E // tp.size
+        return tp.rank * n, (tp.rank + 1) * n
 
     def _experts(self, xe):
         """The SwiGLU of every expert on its slots: (B, E, C, d), experts
@@ -70,9 +103,20 @@ class MoE(nn.Module):
         gate_vals = gate_vals / torch.clamp_min(
             gate_vals.sum(-1, keepdim=True), 1e-9)
         dispatch = self._sorted if cfg.moe_impl == "sort" else self._gshard
-        y = dispatch(x, gate_vals, gate_idx, capacity)
+        tp = self.tp
+        # only what enters the rank's partial sum crosses into 'model': the
+        # router's x does not, or its gradient would be summed tp times
+        xs, gates = copy_to_tp(x, tp), copy_to_tp(gate_vals, tp)
+        y = dispatch(xs, gates, gate_idx, capacity)
+        whole = None
         if self.shared is not None:
-            y = y + self.shared(x)
+            if tp is None or shared_expert_splits(cfg, tp.size):
+                y = y + self.shared(xs)
+            else:
+                whole = self.shared(x)
+        y = reduce_from_tp(y, tp)
+        if whole is not None:
+            y = y + whole
         return y, self._aux_loss(probs, gate_idx)
 
     def _aux_loss(self, probs, gate_idx):
@@ -102,7 +146,8 @@ class MoE(nn.Module):
         # past capacity: an all-zero slot one-hot, the entry dropped
         slots = torch.arange(capacity, device=x.device)
         pos_oh = (pos[..., None] == slots).to(x.dtype)  # (B, S, k, C)
-        exp_oh = onehot.to(x.dtype)
+        lo, hi = self._held()
+        exp_oh = onehot[..., lo:hi].to(x.dtype)  # the rank's experts
         dispatch = torch.einsum("bske,bskc->bsec", exp_oh, pos_oh)
         combine = torch.einsum("bsk,bske,bskc->bsec", gate_vals.to(x.dtype),
                                exp_oh, pos_oh)
@@ -116,11 +161,13 @@ class MoE(nn.Module):
         """Sort and gather, each batch row a group: the (token, choice)
         entries sorted stably by expert, an expert's queue position its
         rank among them, entries at or past capacity sent to the overflow
-        slot E·C (zeroed, then scaled by 0). The outputs return to token
-        order through the inverse permutation and sum over the k choices:
-        no scatter-add, so no atomics."""
+        slot (zeroed, then scaled by 0), as are the entries of experts
+        another rank holds under expert parallelism. The outputs return to
+        token order through the inverse permutation and sum over the k
+        choices: no scatter-add, so no atomics."""
         B, S, d = x.shape
         E, k, C = self.cfg.num_experts, self.cfg.top_k, capacity
+        lo, hi = self._held()
         dev = x.device
         flat_e = gate_idx.reshape(B, S * k)
         order = torch.argsort(flat_e, dim=-1, stable=True)
@@ -131,15 +178,16 @@ class MoE(nn.Module):
             e_sorted, torch.arange(E, device=dev).expand(B, E).contiguous(),
             side="left")
         pos = torch.arange(S * k, device=dev) - start.gather(1, e_sorted)
-        keep = pos < C
-        dest = torch.where(keep, e_sorted * C + pos, E * C)
+        keep = (pos < C) & (e_sorted >= lo) & (e_sorted < hi)
+        held = hi - lo  # the experts whose slots this rank holds
+        dest = torch.where(keep, (e_sorted - lo) * C + pos, held * C)
         rows = torch.arange(B, device=dev)[:, None]
-        buf = torch.zeros((B, E * C + 1, d), dtype=x.dtype, device=dev)
+        buf = torch.zeros((B, held * C + 1, d), dtype=x.dtype, device=dev)
         # kept entries have distinct slots; the overflow slot only takes
         # zeros and is cut off
         buf[rows, dest] = x[rows, tok_sorted] * keep[..., None].to(x.dtype)
-        ye = self._experts(buf[:, :-1].reshape(B, E, C, d))
-        ye = torch.cat([ye.reshape(B, E * C, d),
+        ye = self._experts(buf[:, :-1].reshape(B, held, C, d))
+        ye = torch.cat([ye.reshape(B, held * C, d),
                         ye.new_zeros((B, 1, d))], dim=1)
         contrib = ye[rows, dest] * (gate_sorted * keep)[..., None].to(ye.dtype)
         inverse = torch.argsort(order, dim=-1)

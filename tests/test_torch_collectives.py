@@ -61,7 +61,7 @@ def lm_ranks():
         0, cfg.vocab_size, (BATCH, SEQ)).astype(np.int32)
     batch = synthetic_batch(cfg, BATCH, SEQ, seed=17)
     return tokens, _spawn([
-        (placed_serve, (ARCH, MESH, tokens)),
+        (placed_serve, (cfg, MESH, tokens)),
         (placed_train_step, (cfg, MESH, [batch], _train_config(), None,
                              False))], MESH[0] * MESH[1])
 

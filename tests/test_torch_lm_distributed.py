@@ -247,25 +247,36 @@ def test_elastic_plan_is_the_reference_s(total, per_pod, surviving):
 # ------------------------------------------------------- placed forward ----
 @pytest.mark.cuda
 def test_placed_forward_on_gloo_ranks_sharing_the_card():
-    """Two gloo ranks on the one card hold granite-3-8b's smoke model as
-    DTensors on a (data=1, model=2) mesh: each rank's logits within 1e-6
-    of one process's forward on the card."""
+    """Two gloo ranks on the one card hold the smoke models of granite-3-8b
+    (its heads, FFN and vocab split), deepseek-v2-236b (MLA by heads, 8
+    experts 4 a rank, the shared expert by columns) and grok-1-314b (4
+    experts 2 a rank) as DTensors on a (data=1, model=2) mesh, f32: each
+    rank's logits within 1e-6 of one process's forward on the card."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from repro_torch.configs import get_smoke_config
     from repro_torch.distributed.sharding import placed_forward
-    from repro_torch.launch.mesh import spawn_ranks
+    from repro_torch.launch.mesh import run_each, spawn_ranks
     from repro_torch.models import LanguageModel, forward
 
-    cfg = get_smoke_config("granite-3-8b")
-    tokens = np.random.default_rng(0).integers(
-        0, cfg.vocab_size, (2, 8)).astype(np.int32)
-    ranks = spawn_ranks(placed_forward, 2, backend="gloo", device="cuda",
-                        args=("granite-3-8b", (1, 2), tokens))
-    model = LanguageModel(cfg, device="cuda")
-    with torch.inference_mode():
-        want = forward(model, {"tokens": torch.as_tensor(
-            tokens, device="cuda")})[0].float().cpu().numpy()
-    for r in ranks:
-        assert np.abs(r["logits"] - want).max() <= 1e-6 * np.abs(want).max()
-        assert r["local_shapes"]["blocks.0.inner.wq.w"] == (64, 32)
+    archs = ("granite-3-8b", "deepseek-v2-236b", "grok-1-314b")
+    tokens = {arch: np.random.default_rng(0).integers(
+        0, get_smoke_config(arch).vocab_size, (2, 8)).astype(np.int32)
+        for arch in archs}
+    ranks = spawn_ranks(run_each, 2, backend="gloo", device="cuda", args=(
+        [(placed_forward, (get_smoke_config(arch), (1, 2), tokens[arch]))
+         for arch in archs],))
+    for i, arch in enumerate(archs):
+        cfg = get_smoke_config(arch)
+        model = LanguageModel(cfg, device="cuda")
+        with torch.inference_mode():
+            want = forward(model, {"tokens": torch.as_tensor(
+                tokens[arch], device="cuda")})[0].float().cpu().numpy()
+        for r in (rk[i] for rk in ranks):
+            err = np.abs(r["logits"] - want).max() / np.abs(want).max()
+            assert err <= 1e-6, (arch, err)
+    granite, deepseek, grok = (ranks[0][i] for i in range(3))
+    assert granite["local_shapes"]["blocks.0.inner.wq.w"] == (64, 32)
+    assert deepseek["used_shapes"]["blocks.1.inner.wk_b.w"] == (16, 32)
+    assert deepseek["used_shapes"]["blocks.1.mlp.wi"] == (4, 64, 32)
+    assert grok["used_shapes"]["blocks.0.mlp.wi"] == (2, 64, 64)

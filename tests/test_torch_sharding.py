@@ -210,7 +210,7 @@ def test_placed_forward_over_gloo_ranks(mesh_shape):
     ranks = meshlib.spawn_ranks(sharding.placed_forward,
                                 mesh_shape[0] * mesh_shape[1],
                                 backend="gloo", device="cpu",
-                                args=("granite-3-8b", mesh_shape, tokens))
+                                args=(cfg, mesh_shape, tokens))
     model = LanguageModel(cfg, device="cpu")
     with torch.inference_mode():
         want = forward(model, {"tokens": torch.as_tensor(tokens)})[0].numpy()

@@ -59,29 +59,110 @@ def test_which_blocks_split():
     assert plan.attention == () and plan.mlp == tuple(range(qwen.num_layers))
     assert split_plan(qwen, 8).attention == tuple(range(qwen.num_layers))
 
+    assert split_plan(get_config("rwkv6-1.6b"), 16).mlp == ()
+
+
+def test_mla_and_moe_split_on_the_production_axis():
+    """deepseek-v2-236b at 16: MLA by heads in all 60 layers (128 heads, 8
+    a rank), its 160 experts by expert in the 59 MoE layers (10 a rank),
+    the shared expert (width 3,072) by columns; the latent projections,
+    their norms and the router whole. grok-1-314b: its 8 experts by expert
+    at 8 and 2, by each expert's ff columns at 16 (the reference's
+    fallback)."""
     ds = get_config("deepseek-v2-236b")  # MLA, MoE past layer 0
     plan = split_plan(ds, 16)
     assert plan.attention == () and plan.mlp == (0,)
-    assert plan.mode("blocks.1.mlp.wi") == "whole"
-    assert split_plan(get_config("rwkv6-1.6b"), 16).mlp == ()
+    assert plan.mla == tuple(range(60))
+    assert plan.moe == tuple((i, "expert") for i in range(1, 60))
+    assert plan.moe_shared
+    for name in ("inner.wq_b.w", "inner.wk_b.w", "inner.wv_b.w",
+                 "inner.wo.w", "mlp.wi", "mlp.wg", "mlp.wo",
+                 "mlp.shared.wi.w", "mlp.shared.wg.w", "mlp.shared.wo.w"):
+        assert plan.mode(f"blocks.1.{name}") == "shard", name
+    for name in ("inner.wq_a.w", "inner.q_norm_scale", "inner.wkv_a.w",
+                 "inner.kv_norm_scale", "mlp.router", "norm1.scale"):
+        assert plan.mode(f"blocks.1.{name}") == "whole", name
+    assert plan.mode("blocks.0.mlp.wi.w") == "shard"  # the dense layer
+    assert split_plan(ds, 7).mla == () and split_plan(ds, 7).moe == ()
+
+    grok = get_config("grok-1-314b")  # 8 experts, e_ff 32,768
+    for tp, how in ((2, "expert"), (8, "expert"), (16, "ff")):
+        plan = split_plan(grok, tp)
+        assert plan.moe == tuple((i, how) for i in range(64)), tp
+        assert plan.mlp == () and not plan.moe_shared
+        assert plan.mode("blocks.5.mlp.wo") == "shard"
+        assert plan.mode("blocks.5.mlp.router") == "whole"
+    three = dataclasses.replace(get_smoke_config("grok-1-314b"),
+                                num_experts=3)
+    assert split_plan(three, 2).moe == ((0, "ff"), (1, "ff"))
+    narrow = dataclasses.replace(get_smoke_config("deepseek-v2-236b"),
+                                 moe_d_ff=33, num_shared_experts=1)
+    plan = split_plan(narrow, 2)  # 8 experts split, a shared width of 33
+    assert plan.moe == ((1, "expert"), (2, "expert"))
+    assert not plan.moe_shared
+    assert plan.mode("blocks.1.mlp.shared.wi.w") == "whole"
+    odd = dataclasses.replace(three, moe_d_ff=33)  # nothing divides
+    assert split_plan(odd, 2).moe == ()
+    assert split_plan(odd, 2).mode("blocks.0.mlp.wi") == "whole"
+
+
+def _model_dim(cfg, tp, name):
+    """The dimension of ``name`` whose 'model' cut is the rank's slice:
+    an expert stack's expert dim (by experts) or ff dim (by ff columns),
+    a row-parallel ``wo``'s and the embedding's rows, else the output."""
+    if name.endswith(("mlp.wi", "mlp.wg", "mlp.wo")):  # (E, d, ff) stacks
+        if dict(split_plan(cfg, tp).moe)[int(name.split(".")[1])] == \
+                "expert":
+            return 0
+        return 1 if name.endswith("wo") else 2
+    return 0 if name == "embed" or name.endswith(".wo.w") else -1
+
+
+def _unit(cfg, name):
+    """The width of the contiguous block one head, expert or column owns
+    along ``name``'s 'model' dimension."""
+    if ".inner." in name and cfg.attn_kind == "mla":
+        dn, dr = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+        return {"wq_b": dn + dr, "wk_b": dn, "wv_b": cfg.v_head_dim,
+                "wo": cfg.v_head_dim}[name.split(".")[3]]
+    if ".inner." in name:
+        return cfg.head_dim
+    return 1  # an expert of a stack, an FFN column, a vocab row
 
 
 @pytest.mark.parametrize("arch", LM_ARCHS)
 def test_split_parts_are_sharded_on_model(arch):
     """On both production meshes every part that splits has its weights
     cut along 'model' where its rank's slice lies: column-parallel on the
-    output, row-parallel and the embedding on the input rows."""
+    output (heads major: MLA's ``wq_b`` H·(dn+dr), ``wk_b`` H·dn, ``wv_b``
+    H·dv), row-parallel and the embedding on the input rows, an expert
+    stack on its experts or, in the fallback, each expert's ff columns.
+    The contiguous shard a rank keeps holds exactly its own heads (or
+    experts, or columns): those of ``[r·n/tp, (r+1)·n/tp)``."""
     cfg = get_config(arch)
     meta = dict(LanguageModel(cfg, device="meta").named_parameters())
     for multi_pod in (False, True):
         mesh = make_production_mesh(multi_pod=multi_pod)
+        tp = mesh.shape["model"]
         specs = sharding.param_shardings(mesh, meta)
-        plan = split_plan(cfg, mesh.shape["model"])
+        plan = split_plan(cfg, tp)
         for name, p in meta.items():
             if plan.mode(name) != "shard" or p.dim() < 2:
                 continue
-            row = name == "embed" or name.endswith(".wo.w")
-            assert specs[name][0 if row else -1] == "model", name
+            dim = _model_dim(cfg, tp, name) % p.dim()
+            assert specs[name][dim] == "model", name
+            # each index along the dim labelled by the head it belongs to
+            n = p.shape[dim] // _unit(cfg, name)
+            label = torch.arange(n).repeat_interleave(_unit(cfg, name))
+            for r in (0, tp - 1):
+                spec = tuple(a if a == "model" else None
+                             for a in specs[name])
+                full = label.reshape([-1 if i == dim else 1
+                                      for i in range(p.dim())]).expand(
+                    [p.shape[i] if i == dim else 1 for i in range(p.dim())])
+                mine = sharding.shard_of(full, mesh, spec, {"model": r})
+                assert torch.equal(mine.flatten().unique(), torch.arange(
+                    r * n // tp, (r + 1) * n // tp)), (name, r)
         for i in plan.attention:
             for w in ("wk", "wv"):
                 spec = specs[f"blocks.{i}.inner.{w}.w"]
@@ -165,6 +246,42 @@ def test_schedule_on_model_ranks():
     assert got.bytes_by_op == {"all-reduce": 4 * 4 * 4096 * 4}
 
 
+def test_schedule_of_mla_and_experts_on_model_ranks():
+    """deepseek-v2-236b at full width, 2 layers (the dense layer 0, then
+    MLA + MoE), f32, remat, (data=1, model=2), global batch 4 x 512. Per
+    step: all-reduces of (4, 512, 5120) f32, 4 forward (two MLA ``wo``,
+    the dense MLP's, the MoE combine) twice with the recomputation, the
+    lookup's, and 5 in backward (the dense MLP's, the MoE's and the head's
+    input; the two MLA layers' go through their latents); in backward the
+    MoE's (4, 512, 6) f32 gate values and each MLA layer's query latent
+    (1,536), ckv (512) and krope (64); the norm's 4 B. All-gathers: the
+    split head's logits, and in each pass the weights computed whole that
+    the specs cut along 'model' (``wq_a``, ``wkv_a``, the router), but no
+    MLA head weight and no expert."""
+    from repro_torch.launch.analytic import lm_collectives
+    from repro_torch.launch.shapes import ShapeCase
+    from repro_torch.train import TrainConfig
+
+    cfg = dataclasses.replace(get_config("deepseek-v2-236b"), num_layers=2,
+                              dtype="float32", param_dtype="float32")
+    mesh = MeshShape({"data": 1, "model": 2})
+    got = lm_collectives(cfg, ShapeCase("placed", 512, 4, "train"), mesh,
+                         TrainConfig(remat=True))
+    act = 4 * 512 * 5120 * 4
+    latents = 4 * 512 * (1536 + 512 + 64) * 4
+    assert got.count_by_op["all-reduce"] == 4 * 2 + 1 + 3 + 1 + 3 * 2 + 1
+    assert got.bytes_by_op["all-reduce"] == (
+        12 * act + 4 * 512 * 6 * 4 + 2 * latents + 4) == 537_968_644
+    logits = 4 * 512 * 102400 * 4
+    whole = 2 * (5120 * 1536 + 5120 * 576) * 4 + 5120 * 160 * 4
+    assert got.count_by_op["all-gather"] == 1 + 2 * (2 * 2 + 1)
+    assert got.bytes_by_op["all-gather"] == logits + 2 * whole == \
+        1_018_429_440
+    got = lm_collectives(cfg, ShapeCase("decode", 512, 4, "decode"), mesh)
+    assert got.bytes_by_op == {"all-reduce": 5 * 4 * 5120 * 4,
+                               "all-gather": 4 * 102400 * 4 + whole}
+
+
 def test_placement_notes_name_what_stays_whole():
     from repro_torch.launch.dryrun import placement_notes
 
@@ -173,7 +290,14 @@ def test_placement_notes_name_what_stays_whole():
     assert "attention" in split and "MLP" in split
     assert "vocab 49155" in whole
     ds = placement_notes(get_config("deepseek-v2-236b"), 16)
-    _, whole = ds["placement_model_axis"].split("; ")
-    assert "MLA attention" in whole and "MoE" in whole
+    split, whole = ds["placement_model_axis"].split("; ")
+    assert "MLA by heads" in split and "MoE by experts" in split
+    assert "10 a rank" in split and "shared expert" in split
+    assert "latent projections" in whole and "router" in whole
+    assert "experts" not in whole
     assert "KV heads" not in ds["placement_cache"]
+    assert "compressed MLA" in ds["placement_cache"]
     assert "KV heads" in granite["placement_cache"]
+    split, _ = placement_notes(get_config("grok-1-314b"),
+                               16)["placement_model_axis"].split("; ")
+    assert "ff columns" in split

@@ -283,20 +283,31 @@ Phases (each prints its seconds; any failure exits non-zero):
                 each step (``record_collectives``) beside
                 ``analytic.lm_collectives`` for the cell; fails unless they
                 are equal, bytes and counts by operation, and if the
-                (1, 2) run gathers anything (but a split head's logits,
-                which granite's vocab does not make). In the same group,
+                (1, 2) run gathers anything but a split head's logits
+                (which granite's vocab does not make), the weights the
+                plan computes whole (recurrentgemma's replicated ``wk``
+                and ``wv``) and each split RG-LRU's conv output. Two more
+                (1, 2) runs: recurrentgemma-2b at 3 of 26 layers (one
+                ``(rglru, rglru, attn)`` period: RG-LRU by width) and
+                rwkv6-1.6b at 2 of 24 (RWKV-6 by heads). In the same group,
                 PLACED_SERVE: placed serving (``placed_serve``: a prefill
                 of 4 x 512 tokens and one decode step, bf16, full width)
                 on (1, 2) of deepseek-v2-236b at 2 of 60 layers (MLA by
                 heads, 80 of 160 experts a rank, the shared expert by
-                columns) and grok-1-314b at 1 of 64 (4 of 8 experts a
-                rank), each step's logits held to one process's on the
-                card (run before the ranks, from the same seeded weights)
+                columns), grok-1-314b at 1 of 64 (4 of 8 experts a
+                rank), recurrentgemma-2b at 5 of 26 (RG-LRU 1,280 of
+                2,560 channels a rank) and rwkv6-1.6b at 12 of 24 (16 of
+                32 heads a rank), each step's logits held to one
+                process's on the card (run before the ranks, from the
+                same seeded weights)
                 within the run's bar, its collectives to
                 ``lm_collectives``, its all-gathers to the split head's
-                logits and the weights the plan computes whole (MLA's
-                latent projections, the router): no split head weight or
-                expert. Then PLACED_FORWARD, the ``cuda`` case of
+                logits, each split RG-LRU's conv output and the weights
+                the plan computes whole (MLA's latent projections, the
+                router, a replicated KV head's ``wk`` and ``wv``): no
+                split head weight, expert, RG-LRU channel or RWKV-6 head.
+                Each run prints the parameters a rank holds and those it
+                computes with. Then PLACED_FORWARD, the ``cuda`` case of
                 ``tests/test_torch_lm_distributed.py``: the smoke models'
                 f32 forwards on (1, 2) within PLACED_FORWARD_TOL of one
                 process's.
@@ -307,7 +318,9 @@ Phases (each prints its seconds; any failure exits non-zero):
                 (the reference's ``feti_cell_counts``, exactly), and every
                 row to carry its collective schedule (a finite
                 ``collective_s`` at ``HW["net_bw"]``; the totals by mesh
-                are printed). Then
+                are printed, and the decode_32k all-gather bytes a rank of
+                deepseek-v2-236b, rwkv6-1.6b and recurrentgemma-2b beside
+                the schedule's before their parts split). Then
                 DRYRUN_RUNS at ``--devices 1 --run`` on the card at full
                 width: feti-heat-2d x assembly (S 64, n 4225, bs 128, f32:
                 the block Cholesky, then B1 f32 and B2 f32 through
@@ -652,6 +665,12 @@ DRYRUN_RUNS = (("feti-heat-2d", "assembly"), ("feti-heat-3d", "dirichlet"),
 # before they split), printed beside the schedule's figure
 DRYRUN_DEEPSEEK_DECODE_WHOLE = {"16x16": 498_566_594_560,
                                 "2x16x16": 498_565_775_360}
+# the same of rwkv6-1.6b and recurrentgemma-2b with their RWKV-6 and
+# RG-LRU blocks gathered whole along 'model'
+DRYRUN_RECURRENT_DECODE_WHOLE = {
+    "rwkv6-1.6b": {"16x16": 2_815_426_560, "2x16x16": 2_814_902_272},
+    "recurrentgemma-2b": {"16x16": 1_776_189_440,
+                          "2x16x16": 1_774_141_440}}
 DRYRUN_LAUNCHES = {arch: {"stepped_trsm": {"f32": 1},
                           "stepped_syrk": {"f32": 1}}
                    for arch in ("feti-heat-2d", "feti-heat-3d")}
@@ -659,13 +678,28 @@ DRYRUN_LAUNCHES = {arch: {"stepped_trsm": {"f32": 1},
 # seq, steps; f32, remat, lr TRAIN_CHECK_LR. (2, 1): FSDP and data
 # parallelism; (1, 2): tensor parallelism over 'model' (granite's
 # attention and MLPs split, its vocab of 49,155 stays whole, so nothing is
-# gathered). The bars are the accumulation check's (a placed step sums
+# gathered); recurrentgemma-2b at one (rglru, rglru, attn) period (RG-LRU
+# by width; its one KV head replicated) and rwkv6-1.6b at 2 layers (RWKV-6
+# by heads). The bars are the accumulation check's (a placed step sums
 # its gradients over the ranks in another order): losses, gradient norms
 # and parameters within PLACED_TOL (relative), the shard gradients within
-# PLACED_GRAD_TOL (relative L2)
+# PLACED_GRAD_TOL (relative L2). The final parameters of recurrentgemma
+# and rwkv6 are held to PLACED_PARAM_TOL instead: their zero-initialized
+# tensors (RG-LRU's conv_b, RWKV-6's u, the layernorm biases) hold at most
+# ~3 lr after three steps, so an element whose gradient sits at f32's
+# rounding level moves a visible fraction of that maximum, as
+# TRAIN_CHECK_LR's note says. On the card (NVIDIA H100 80GB HBM3, 700.00
+# W; tests/torch_placed_drift.py --layers 3 / 2 --seq 512 --device cuda
+# --train --remat) the split's parameters lie 3.427e-3 (recurrentgemma,
+# conv_b) and 3.062e-3 (rwkv6, u) from one process's, while one process's
+# own f32 parameters lie 5.779e-3 and 3.628e-3 from the same weights at
+# f64 and the split's 6.359e-3 and 3.710e-3: twice the distance measured
 PLACED_RUNS = (("granite-3-8b", 2, (2, 1), 4, 512, 3),
-               ("granite-3-8b", 2, (1, 2), 4, 512, 3))
+               ("granite-3-8b", 2, (1, 2), 4, 512, 3),
+               ("recurrentgemma-2b", 3, (1, 2), 4, 512, 3),
+               ("rwkv6-1.6b", 2, (1, 2), 4, 512, 3))
 PLACED_TOL, PLACED_GRAD_TOL = TRAIN_ACCUM_TOL, TRAIN_GRADS_TOL
+PLACED_PARAM_TOL = {"recurrentgemma-2b": 6.9e-3, "rwkv6-1.6b": 6.2e-3}
 # placed serving in the same group of ranks, on (data=1, model=2), at full
 # width and bf16, the model's own seeded initialization: arch, layers,
 # global batch, prompt, the bar on the prefill's and the decode step's
@@ -676,11 +710,20 @@ PLACED_TOL, PLACED_GRAD_TOL = TRAIN_ACCUM_TOL, TRAIN_GRADS_TOL
 # the card (NVIDIA H100 80GB HBM3, 700 W; the larger of prefill and
 # decode), at most the lm phase's bf16 bar of 5e-2
 PLACED_SERVE = (("deepseek-v2-236b", 2, 4, 512, 2.1e-2),  # 1.008e-2
-                ("grok-1-314b", 1, 4, 512, 1.9e-2))  # measured 9.259e-3
+                ("grok-1-314b", 1, 4, 512, 1.9e-2),  # measured 9.259e-3
+                # RG-LRU by width, RWKV-6 by heads, at the depth whose
+                # distance doubled stays within the lm phase's bars (5e-2,
+                # 0.19): at full depth they measured 4.497e-2 / 5.016e-2
+                # (prefill / decode, 26 layers) and 1.557e-1 / 1.420e-1
+                # (24), and at 3 and 6 layers recurrentgemma's decode step
+                # took another greedy token than one process's
+                ("recurrentgemma-2b", 5, 4, 512, 3.9e-2),  # 1.923e-2
+                ("rwkv6-1.6b", 12, 4, 512, 0.13))  # measured 6.332e-2
 # the `cuda` case of tests/test_torch_lm_distributed.py in the same group:
 # these smoke models' f32 forwards on (1, 2) within PLACED_FORWARD_TOL of
 # one process's on the card
-PLACED_FORWARD = ("granite-3-8b", "deepseek-v2-236b", "grok-1-314b")
+PLACED_FORWARD = ("granite-3-8b", "deepseek-v2-236b", "grok-1-314b",
+                  "recurrentgemma-2b", "rwkv6-1.6b")
 PLACED_FORWARD_TOL = 1e-6
 # each mixed-precision run's bar on its PCPG iterations summed over the
 # defect-correction outers (a multi-RHS run: its most iterated column): the
@@ -2675,16 +2718,13 @@ def placed_phase(device, smi, cpu=False):
 
     from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.data import synthetic_batch
-    from repro_torch.distributed.sharding import (local_shape,
-                                                  param_shardings,
-                                                  placed_forward,
+    from repro_torch.distributed.sharding import (placed_forward,
                                                   placed_serve,
                                                   placed_train_step)
     from repro_torch.distributed.tensor_parallel import vocab_splits
     from repro_torch.launch.analytic import lm_collectives
     from repro_torch.launch.mesh import MeshShape, run_each, spawn_ranks
     from repro_torch.launch.shapes import ShapeCase
-    from repro_torch.models import LanguageModel
 
     runs, calls = [], []
     for arch, layers, mesh, batch, seq, steps in PLACED_RUNS:
@@ -2698,14 +2738,10 @@ def placed_phase(device, smi, cpu=False):
         want = lm_collectives(cfg, ShapeCase("placed", seq, batch, "train"),
                               MeshShape({"data": mesh[0], "model": mesh[1]}),
                               tcfg)
-        shape = MeshShape({"data": mesh[0], "model": mesh[1]})
-        meta = dict(LanguageModel(cfg, device="meta").named_parameters())
-        specs = param_shardings(shape, meta)
-        held = sum(math.prod(local_shape(shape, specs[n], tuple(p.shape)))
-                   for n, p in meta.items())
+        held, used, total = placed_parameters(cfg, mesh)
         print(f"[chip_smoke] placed {cfg.name} on {mesh}: "
-              f"{held:,} of {sum(p.numel() for p in meta.values()):,} "
-              f"parameters a rank", flush=True)
+              f"{held:,} of {total:,} parameters a rank, computing with "
+              f"{used:,}", flush=True)
         runs.append((cfg, full, mesh, batch, seq, want))
         calls.append((placed_train_step, (cfg, mesh, batches, tcfg)))
     world = {m[0] * m[1] for _, _, m, *_ in PLACED_RUNS}
@@ -2723,6 +2759,9 @@ def placed_phase(device, smi, cpu=False):
     wall = time.perf_counter() - t0
     bad = []
     for j, (cfg, full, mesh, batch, seq, want) in enumerate(runs):
+        whole, lru = model_axis_gathers(cfg, mesh[1])
+        bar = PLACED_PARAM_TOL.get(full.name.removesuffix("-smoke"),
+                                   PLACED_TOL)
         for i, r in enumerate(rk[j] for rk in ranks):
             d = r["distances"]
             print(f"[chip_smoke] placed {cfg.name} (layers {cfg.num_layers} "
@@ -2734,8 +2773,8 @@ def placed_phase(device, smi, cpu=False):
                   f"{r['check_s']:.3f} s; step ms "
                   f"{[round(t * 1e3, 3) for t in r['step_s']]}; peak device "
                   f"bytes a step {r['peak_device_bytes']}; against one "
-                  f"process (bars {PLACED_TOL:g}, gradients "
-                  f"{PLACED_GRAD_TOL:g}): {d}; losses "
+                  f"process (bars {PLACED_TOL:g}, parameters {bar:g}, "
+                  f"gradients {PLACED_GRAD_TOL:g}): {d}; losses "
                   f"{[m['loss'] for m in r['metrics']]}, gradient norms "
                   f"{[m['grad_norm'] for m in r['metrics']]}", flush=True)
             for step, got in enumerate(r["collectives"]):
@@ -2745,14 +2784,18 @@ def placed_phase(device, smi, cpu=False):
                 if got != want:
                     bad.append(f"{mesh} rank {i} step {step}: collectives "
                                f"{got} are not the schedule {want}")
-                # (1, model): no weight is gathered; only a split head's
-                # logits are (the smoke vocab divides, granite's does not)
-                heads = vocab_splits(cfg, mesh[1])
+                # (1, model): no split weight is gathered; a split head's
+                # logits are (the smoke vocab divides, granite's does not),
+                # in each pass (remat: two) the weights computed whole and
+                # each split RG-LRU's conv output
+                gathers = vocab_splits(cfg, mesh[1]) + 2 * (len(whole) + lru)
                 if mesh[0] == 1 and got.count_by_op.get("all-gather",
-                                                        0) != heads:
+                                                        0) != gathers:
                     bad.append(f"{mesh} rank {i} step {step}: a "
-                               f"tensor-parallel step gathered {got}")
-            if (d["metrics"][0] > PLACED_TOL or d["params"][0] > PLACED_TOL
+                               f"tensor-parallel step gathered {got}, "
+                               f"want {gathers}: the logits, {lru} RG-LRU "
+                               f"outputs and {whole} a pass")
+            if (d["metrics"][0] > PLACED_TOL or d["params"][0] > bar
                     or d["grads"][0] > PLACED_GRAD_TOL):
                 bad.append(f"{mesh} rank {i}: {d}")
     j = len(runs)
@@ -2774,6 +2817,56 @@ def placed_phase(device, smi, cpu=False):
     if bad:
         raise SystemExit(f"placed: {bad}")
     return [[rk[j] for rk in ranks] for j in range(len(runs))]
+
+
+def model_axis_gathers(cfg, tp):
+    """What one forward of ``cfg`` placed on (1, ``tp``) all-gathers along
+    'model' besides a split head's logits: the weights the split plan
+    computes whole although their specs cut them there (names), and the
+    number of split RG-LRU layers (each gathers its conv output)."""
+    from repro_torch.distributed.sharding import param_shardings
+    from repro_torch.distributed.tensor_parallel import split_plan
+    from repro_torch.launch.mesh import MeshShape
+    from repro_torch.models import LanguageModel
+
+    meta = dict(LanguageModel(cfg, device="meta").named_parameters())
+    specs = param_shardings(MeshShape({"data": 1, "model": tp}), meta)
+    plan = split_plan(cfg, tp)
+    return ([n for n, spec in specs.items()
+             if "model" in spec and plan.mode(n) != "shard"],
+            len(plan.rglru))
+
+
+def placed_parameters(cfg, mesh):
+    """``(held, used, total)``: the parameters one rank of ``cfg`` placed
+    on the (data, model) ``mesh`` holds (its shards), those it computes
+    with (its 'model' shard of a split part's weights, its channels or KV
+    head of a narrowed one, every other tensor whole) and the model's."""
+    from repro_torch.distributed.sharding import local_shape, param_shardings
+    from repro_torch.distributed.tensor_parallel import split_plan
+    from repro_torch.launch.mesh import MeshShape
+    from repro_torch.models import LanguageModel
+
+    shape = MeshShape({"data": mesh[0], "model": mesh[1]})
+    meta = dict(LanguageModel(cfg, device="meta").named_parameters())
+    specs = param_shardings(shape, meta)
+    plan = split_plan(cfg, mesh[1])
+    held = used = 0
+    for n, p in meta.items():
+        held += math.prod(local_shape(shape, specs[n], tuple(p.shape)))
+        mode = plan.mode(n)
+        if mode == "shard":
+            model_only = tuple(a if a == "model" else None
+                               for a in specs[n])
+            used += math.prod(local_shape(shape, model_only,
+                                          tuple(p.shape)))
+        elif mode == "channels":
+            used += p.numel() // mesh[1]
+        elif mode == "head":
+            used += p.numel() // p.shape[-1] * cfg.head_dim
+        else:
+            used += p.numel()
+    return held, used, sum(p.numel() for p in meta.values())
 
 
 def serve_one_process(cfg, tokens, device):
@@ -2865,26 +2958,26 @@ def check_placed_serving(serving, ranks, smi, cpu):
     """Each placed serving run's ranks against one process: the prefill's
     and the decode step's logits (max relative, over the largest), the
     collectives (``lm_collectives``, exactly) and the all-gathers (the
-    split head's logits and the weights the plan computes whole that the
-    specs cut along 'model', nothing else). Returns the failures."""
+    split head's logits, each split RG-LRU's conv output and the weights
+    the plan computes whole that the specs cut along 'model', nothing
+    else). Returns the failures."""
     import numpy as np
 
-    from repro_torch.distributed.sharding import param_shardings
-    from repro_torch.distributed.tensor_parallel import split_plan
+    from repro_torch.distributed.tensor_parallel import vocab_splits
     from repro_torch.launch.analytic import lm_collectives
     from repro_torch.launch.mesh import MeshShape
     from repro_torch.launch.shapes import ShapeCase
-    from repro_torch.models import LanguageModel
 
     mesh = MeshShape({"data": 1, "model": 2})
     bad = []
     for k, (cfg, tokens, one, bar, of_layers) in enumerate(serving):
-        meta = dict(LanguageModel(cfg, device="meta").named_parameters())
-        specs = param_shardings(mesh, meta)
-        plan = split_plan(cfg, 2)
-        whole = [n for n, spec in specs.items()
-                 if "model" in spec and plan.mode(n) != "shard"]
-        gathers = len(whole) + (plan.vocab and cfg.has_lm_head)
+        whole, lru = model_axis_gathers(cfg, 2)
+        gathers = len(whole) + lru + (vocab_splits(cfg, 2)
+                                      and cfg.has_lm_head)
+        held, used, total = placed_parameters(cfg, (1, 2))
+        print(f"[chip_smoke] placed serving {cfg.name} on (1, 2): "
+              f"{held:,} of {total:,} parameters a rank, computing with "
+              f"{used:,}", flush=True)
         B, S = tokens.shape
         for i, rk in enumerate(ranks):
             r = rk[k]
@@ -2912,7 +3005,8 @@ def check_placed_serving(serving, ranks, smi, cpu):
                 if got.count_by_op.get("all-gather", 0) != gathers:
                     bad.append(f"serving {cfg.name} rank {i} {key}: "
                                f"{got.count_by_op} gathers, want {gathers}: "
-                               f"the logits and {whole}")
+                               f"the logits, {lru} RG-LRU outputs and "
+                               f"{whole}")
         print(f"[chip_smoke] placed serving {cfg.name}: weights gathered "
               f"along 'model' (computed whole): {whole}", flush=True)
     return bad
@@ -2966,6 +3060,14 @@ def dryrun_phase(device, smi, cpu=False):
               f" (decode_32k {ds.get('decode_32k', 0):,} B; with its MLA "
               f"heads and experts gathered whole "
               f"{DRYRUN_DEEPSEEK_DECODE_WHOLE.get(mesh, 0):,})", flush=True)
+        for arch, old in DRYRUN_RECURRENT_DECODE_WHOLE.items():
+            got = [r["collectives"]["bytes"].get("all-gather", 0)
+                   for r in rows
+                   if r["arch"] == arch and r["shape"] == "decode_32k"]
+            print(f"[chip_smoke] dryrun {mesh} {arch} decode_32k all-gather "
+                  f"bytes a rank {got[0] if got else None:,} (with its "
+                  f"recurrent blocks gathered whole {old[mesh]:,})",
+                  flush=True)
     if bare:
         raise SystemExit(f"dryrun: rows without collectives: {bare}")
     sys.path.insert(0, os.path.join(ROOT, "tests"))

@@ -33,16 +33,18 @@ gradients reach the shards (summed over the data-parallel ranks, cut to
 the rank's shard). Where a block's shapes allow
 (:func:`~repro_torch.distributed.tensor_parallel.split_plan`: GQA / MHA
 attention and MLA by heads, dense MLPs, MoE layers by experts or by each
-expert's ff columns, the vocab), each 'model' rank keeps its 'model' shard
-and computes with it alone, the activations summed or gathered over the
-'model' group (:mod:`repro_torch.distributed.tensor_parallel`). The other
-blocks (RG-LRU, RWKV-6, and MLA's latent projections, the MoE router and
-whatever does not divide) gather their weights whole along 'model' too,
-and the ranks along 'model' compute them alike on the same batch rows. A
-split MoE layer moves no token between ranks: every 'model' rank holds
-all the tokens of its batch rows, routes them alike and runs its own
-experts' slots. A serving cache holds the rank's batch rows and the
-rank's KV heads (MLA's compressed cache whole). Every collective is a c10d call, which
+expert's ff columns, RG-LRU by width, RWKV-6 by heads, the vocab), each
+'model' rank keeps its 'model' shard and computes with it alone, the
+activations summed or gathered over the 'model' group
+(:mod:`repro_torch.distributed.tensor_parallel`). The other parts (MLA's
+latent projections, the MoE router and whatever does not divide) gather
+their weights whole along 'model' too, and the ranks along 'model'
+compute them alike on the same batch rows. A split MoE layer moves no
+token between ranks: every 'model' rank holds all the tokens of its
+batch rows, routes them alike and runs its own experts' slots. A serving
+cache holds the rank's batch rows, the rank's KV heads (MLA's compressed
+cache whole), its RG-LRU channels and its RWKV-6 heads. Every collective
+is a c10d call, which
 :func:`repro_torch.launch.roofline.record_collectives` counts and
 :func:`repro_torch.launch.analytic.lm_collectives` schedules.
 """
@@ -233,7 +235,13 @@ def cache_shardings(mesh, cache: list, min_seq_to_shard: int = 0) -> list:
 
     ``min_seq_to_shard``: sequence axes shorter than this replicate over
     'model' instead — seq-sharding a 2048-slot ring cache only buys
-    per-step gathers."""
+    per-step gathers.
+
+    This is the reference's rule, which the dry-run's residency reads: it
+    cuts axis 1, so RG-LRU's ``conv`` (B, cw-1, w), whose axis 1 is 3,
+    stays whole on 'model'. The placed serving cache
+    (``models.init_cache(tp=)``) holds the rank's channels of ``h`` and
+    ``conv`` and the rank's heads of ``S`` where those blocks split."""
     dp = _dp_axes(mesh)
 
     def spec(leaf, x):
@@ -466,11 +474,14 @@ def distribute_model(model: torch.nn.Module, mesh, specs: dict) -> None:
     :func:`~repro_torch.distributed.tensor_parallel.split_plan` splits
     compute tensor-parallel: their parameters are gathered over the
     data-parallel axes only, each rank keeping its 'model' shard (its
-    heads, FFN columns, experts or vocab rows; a replicated KV head's
-    ``wk`` and ``wv``: gathered whole, the head sliced out, the whole
-    gradient summed over 'model' before it is cut), and their modules
-    (attention, MLA, MLP, MoE, the model for the vocab) learn the 'model'
-    group (their ``tp`` attribute). The other
+    heads, FFN columns, experts, RG-LRU channels, RWKV-6 heads or vocab
+    rows; a replicated KV head's ``wk`` and ``wv``, and the per-channel
+    parameters of a split RG-LRU or RWKV-6: gathered whole, the rank's
+    head or channels sliced out, the whole gradient summed over 'model'
+    before it is cut; RWKV-6's mixes and ``w_lora_a``: gathered whole,
+    their gradient summed over 'model'), and their modules (attention,
+    MLA, RG-LRU, RWKV-6, MLP, MoE, the model for the vocab) learn the
+    'model' group (their ``tp`` attribute). The other
     parameters are gathered whole, and the ranks along 'model' compute
     those blocks alike. Under ``remat`` a layer's recomputation in backward
     runs its hooks again, so its weights are gathered twice a step."""
@@ -479,7 +490,7 @@ def distribute_model(model: torch.nn.Module, mesh, specs: dict) -> None:
     plan = split_plan(cfg, tp.size if tp is not None else 1)
     keep = tuple(d for d, n in enumerate(mesh.mesh_dim_names) if n == "model")
     if tp is not None:
-        for i in plan.attention + plan.mla:
+        for i in plan.attention + plan.mla + plan.rglru + plan.rwkv:
             model.blocks[i].inner.tp = tp
         for i in plan.mlp + tuple(i for i, _ in plan.moe):
             model.blocks[i].mlp.tp = tp
@@ -495,6 +506,11 @@ def distribute_model(model: torch.nn.Module, mesh, specs: dict) -> None:
         whole = gathered(param)
         if mode == "head":
             return copy_to_tp(whole, tp).narrow(-1, head, hd)
+        if mode == "channels":  # the rank's channels of the last dim
+            w = whole.shape[-1] // tp.size
+            return copy_to_tp(whole, tp).narrow(-1, tp.rank * w, w)
+        if mode == "summed":
+            return copy_to_tp(whole, tp)
         return whole
 
     placed = {}
@@ -654,11 +670,12 @@ def placed_serve(rank, cfg, mesh_shape: tuple, tokens) -> dict:
     initialization, placed as in :func:`placed_forward`, a prefill of the
     rank's rows of ``tokens`` (B, S) into a cache held for those rows
     alone, then one greedy decode step. The cache holds the rank's KV
-    heads where its GQA / MHA attention splits over 'model'. Returns both
-    steps' logits of the whole batch (numpy, f32; the ranks' rows gathered
-    after each step), each step's collectives, host seconds (ended by a
-    device synchronize) and peak device bytes (``None`` on the CPU), and
-    the shapes of the cache's tensors, a dict a layer."""
+    heads where its GQA / MHA attention splits over 'model', and the
+    rank's RG-LRU channels and RWKV-6 heads where those blocks split.
+    Returns both steps' logits of the whole batch (numpy, f32; the ranks'
+    rows gathered after each step), each step's collectives, host seconds
+    (ended by a device synchronize) and peak device bytes (``None`` on the
+    CPU), and the shapes of the cache's tensors, a dict a layer."""
     import time
 
     from repro_torch.launch.roofline import record_collectives

@@ -39,11 +39,37 @@ the port does the same where a block's shapes allow (:func:`split_plan`):
 * the vocab, where ``vocab_size % tp == 0``: the embedding looks up the
   rank's rows (zero elsewhere) and all-reduces; the head (tied or not)
   computes the rank's vocab columns and all-gathers them along V.
+* RG-LRU, where ``lru_width % tp == 0``, by width: ``w_in`` and
+  ``w_gate_in`` column-parallel (the rank's ``w/tp`` contiguous
+  channels), the causal conv, the decay, the drive, the scan and the gate
+  on those channels, ``w_out`` row-parallel and followed by one
+  all-reduce. ``wa`` and ``wx`` are full ``(w, w)`` matrices: the conv's
+  output ``u`` is all-gathered along the width, and the rank computes its
+  columns of both gates from the whole of it; the gathered ``u``'s
+  gradient is summed over 'model' before the rank's slice is cut.
+* RWKV-6, where its heads (``d_model / rwkv_head_dim``) and ``d_ff``
+  divide ``tp``, by heads: ``wr``, ``wk``, ``wv``, ``wg`` column-parallel
+  (the rank's ``H/tp`` contiguous heads and their channels), the WKV
+  recurrence on those heads with the rank's state, ``wo`` row-parallel
+  and followed by one all-reduce; the channel mix's ``cm_k``
+  column-parallel and ``cm_v`` row-parallel, and ``cm_r``, whose 'model'
+  shard is its input rows, row-parallel on the rank's slice of its input:
+  two all-reduces, before the sigmoid gate meets the value.
 
-A bias of a row-parallel projection is added once, after the sum. RG-LRU
-and RWKV-6 stay whole: their weights are gathered whole along 'model' and
-every 'model' rank computes all of them. Block boundaries are replicated
-along 'model'.
+The per-channel parameters of those two blocks that the reference keeps
+whole (RG-LRU's ``conv_w``, ``conv_b``, ``lam``; RWKV-6's ``w0``, ``u``,
+``w_lora_b``) are gathered whole and narrowed to the rank's channels
+along their last dimension (:meth:`SplitPlan.mode` ``"channels"``);
+RWKV-6's token-shift mixes and ``w_lora_a``, which every rank uses alike
+inside the split block, are gathered whole (``"summed"``). Both enter
+through :func:`copy_to_tp`, so their gradients, each rank's taken through
+its own channels only, are summed over 'model', as a replicated KV head's
+``wk`` and ``wv`` are (``"head"``).
+
+A bias of a row-parallel projection is added once, after the sum. What
+does not divide stays whole: its weights are gathered whole along 'model'
+and every 'model' rank computes it. Block boundaries are replicated along
+'model'.
 
 The collectives call ``torch.distributed`` through the module attribute
 when they run, so that
@@ -59,8 +85,8 @@ import torch
 
 __all__ = ["TensorParallel", "SplitPlan", "attention_splits", "mla_splits",
            "mlp_splits", "moe_splits", "shared_expert_splits", "vocab_splits",
-           "split_plan", "local_kv_heads", "copy_to_tp", "reduce_from_tp",
-           "gather_from_tp"]
+           "rglru_splits", "rwkv_splits", "split_plan", "local_kv_heads",
+           "copy_to_tp", "reduce_from_tp", "gather_from_tp"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -117,6 +143,21 @@ def vocab_splits(cfg, tp: int) -> bool:
     return tp > 1 and cfg.vocab_size % tp == 0
 
 
+def rglru_splits(cfg, tp: int) -> bool:
+    """Whether ``cfg``'s RG-LRU blocks split by width over ``tp`` ranks
+    (the spec cuts ``w_in``, ``w_gate_in``, ``wa``, ``wx`` and ``w_out``
+    along ``lru_width`` exactly then)."""
+    return tp > 1 and "rglru" in cfg.layer_kinds and cfg.lru_width % tp == 0
+
+
+def rwkv_splits(cfg, tp: int) -> bool:
+    """Whether ``cfg``'s RWKV-6 blocks split by heads over ``tp`` ranks:
+    the heads and the channel mix's ``d_ff`` both divide."""
+    if tp <= 1 or "rwkv6" not in cfg.layer_kinds:
+        return False
+    return (cfg.d_model // cfg.rwkv_head_dim) % tp == 0 and cfg.d_ff % tp == 0
+
+
 def local_kv_heads(cfg, tp: int) -> int:
     """The KV heads a rank of a ``tp``-wide 'model' axis holds: all of them
     where the attention stays whole, else ``num_kv_heads / tp`` or the one
@@ -141,12 +182,24 @@ class SplitPlan:
     mla: tuple = ()
     moe: tuple = ()
     moe_shared: bool = False
+    rglru: tuple = ()
+    rwkv: tuple = ()
+
+    RGLRU_SHARD = ("w_in", "w_gate_in", "wa", "wx", "w_out")
+    RGLRU_CHANNELS = ("conv_w", "conv_b", "lam")
+    RWKV_SHARD = ("wr", "wk", "wv", "wg", "wo", "cm_k", "cm_v", "cm_r")
+    RWKV_CHANNELS = ("w0", "u", "w_lora_b")
+    RWKV_SUMMED = ("mix_r", "mix_k", "mix_v", "mix_w", "cm_mix", "w_lora_a")
 
     def mode(self, name: str) -> str:
         """How a placed model uses the parameter ``name`` (its state-dict
         name): ``"shard"`` (its 'model' shard, gathered over the
         data-parallel axes only), ``"head"`` (gathered whole, the rank's KV
-        head sliced out) or ``"whole"`` (gathered whole)."""
+        head sliced out), ``"channels"`` (gathered whole, the rank's
+        channels of its last dimension sliced out), ``"summed"`` (gathered
+        whole and used alike by every rank inside a split block) or
+        ``"whole"`` (gathered whole). The gradients of the ``"head"``,
+        ``"channels"`` and ``"summed"`` tensors are summed over 'model'."""
         if name in ("embed", "lm_head"):
             return "shard" if self.vocab else "whole"
         parts = name.split(".")
@@ -165,6 +218,14 @@ class SplitPlan:
             if parts[3] == "shared":
                 return "shard" if self.moe_shared else "whole"
             return "shard" if parts[3] in ("wi", "wg", "wo") else "whole"
+        if sub == "inner" and layer in self.rglru:
+            return ("shard" if parts[3] in self.RGLRU_SHARD else
+                    "channels" if parts[3] in self.RGLRU_CHANNELS else
+                    "whole")
+        if sub == "inner" and layer in self.rwkv:
+            return ("shard" if parts[3] in self.RWKV_SHARD else
+                    "channels" if parts[3] in self.RWKV_CHANNELS else
+                    "summed" if parts[3] in self.RWKV_SUMMED else "whole")
         return "whole"
 
 
@@ -174,6 +235,7 @@ def split_plan(cfg, tp: int) -> SplitPlan:
     moe_from = cfg.first_dense_layers if cfg.is_moe else cfg.num_layers
     attn, mlp = attention_splits(cfg, tp), mlp_splits(cfg, tp)
     mla, moe = mla_splits(cfg, tp), moe_splits(cfg, tp)
+    rglru, rwkv = rglru_splits(cfg, tp), rwkv_splits(cfg, tp)
     kinds = cfg.layer_kinds
     return SplitPlan(
         attention=tuple(i for i, k in enumerate(kinds)
@@ -185,7 +247,9 @@ def split_plan(cfg, tp: int) -> SplitPlan:
         mla=tuple(i for i, k in enumerate(kinds) if mla and k == "attn"),
         moe=tuple((i, moe) for i, k in enumerate(kinds)
                   if moe and k != "rwkv6" and i >= moe_from),
-        moe_shared=shared_expert_splits(cfg, tp))
+        moe_shared=shared_expert_splits(cfg, tp),
+        rglru=tuple(i for i, k in enumerate(kinds) if rglru and k == "rglru"),
+        rwkv=tuple(i for i, k in enumerate(kinds) if rwkv and k == "rwkv6"))
 
 
 # ------------------------------------------------ autograd collectives ----

@@ -299,21 +299,29 @@ def lm_collectives(cfg: ModelConfig, shape: ShapeCase, mesh, tcfg=None,
     part sends activations over 'model' instead, each of (rows, S, d) at
     the activation dtype (rows: the rank's batch rows, a microbatch's in
     training) unless said otherwise: in each forward one all-reduce after
-    each row-parallel projection (a split attention's, MLA's or MLP's
-    ``wo``), one after a split MoE layer's combine (its shared expert's
-    part in the same sum) and one after a split embedding's lookup; a
-    split head one all-gather of its (rows, S, V) logits (S 1 in serving,
-    which projects the last position). Serving (prefill, decode): one
-    forward. Training (``tcfg``: ``grad_accum`` k, ``remat``), per
-    microbatch: a forward, and under ``remat`` every layer's gathers and
-    forward collectives again in backward; in backward one all-reduce of
-    (rows, S, d) for each split attention, split MLP, split MoE layer and
-    split head (the gradient of their input), for a split MoE layer also
-    one of its (rows, S, top_k) f32 gate values, for a split MLA one of
-    each latent that enters its heads (the normed query latent, or the
-    input without a query rank; ``ckv``; ``krope``), and for a replicated
-    KV head's ``wk`` and ``wv`` one all-reduce of each whole tensor over
-    'model'; one all-reduce of the loss's three sums and, in every MoE
+    each row-parallel projection (a split attention's, MLA's, MLP's or
+    RWKV-6 time mix's ``wo``, a split RG-LRU's ``w_out``, a split RWKV-6
+    channel mix's ``cm_r`` and ``cm_v``: two), one after a split MoE
+    layer's combine (its shared expert's part in the same sum) and one
+    after a split embedding's lookup; a split RG-LRU one all-gather of its
+    conv output (rows, S, lru_width); a split head one all-gather of its
+    (rows, S, V) logits (S 1 in serving, which projects the last
+    position). Serving (prefill, decode): one forward. Training (``tcfg``:
+    ``grad_accum`` k, ``remat``), per microbatch: a forward, and under
+    ``remat`` every layer's gathers and forward collectives again in
+    backward; in backward one all-reduce of (rows, S, d) for each split
+    attention, split MLP, split MoE layer, split RG-LRU, split head and
+    each of a split RWKV-6's time and channel mix (the gradient of their
+    input), for a split RG-LRU also one of the gathered conv output's
+    gradient (rows, S, lru_width), for a split MoE layer one of its (rows,
+    S, top_k) f32 gate values, for a split MLA one of each latent that
+    enters its heads (the normed query latent, or the input without a
+    query rank; ``ckv``; ``krope``), and one all-reduce over 'model' of
+    each whole tensor a split part uses whole or narrows (a replicated KV
+    head's ``wk`` and ``wv``; RG-LRU's ``conv_w``, ``conv_b``, ``lam``;
+    RWKV-6's ``w0``, ``u``, ``w_lora_b``, its five mixes and ``w_lora_a``:
+    ``SplitPlan.mode`` "head", "channels" or "summed"); one all-reduce of
+    the loss's three sums and, in every MoE
     layer and pass, one of its load-balancing sums (2E + 1 f32) over each
     data-parallel dimension; each parameter's gradient, cut to the rank's
     'model' shard, all-reduced over each data-parallel dimension. Per step,
@@ -375,27 +383,36 @@ def lm_collectives(cfg: ModelConfig, shape: ShapeCase, mesh, tcfg=None,
         S_out = S
     act = _bytes_of(cfg.dtype)
     hidden = rows * S * cfg.d_model * act
+    lru = rows * S * cfg.lru_width * act  # a split RG-LRU's conv output
     n_mla, n_moe = len(plan.mla), len(plan.moe)
-    split = len(plan.attention) + len(plan.mlp) + n_mla + n_moe  # a wo each
+    n_rglru, n_rwkv = len(plan.rglru), len(plan.rwkv)
+    # (rows, S, d) all-reduces: each forward's row-parallel sums, each
+    # backward's input gradients
+    fwd = (len(plan.attention) + len(plan.mlp) + n_mla + n_moe + n_rglru
+           + 3 * n_rwkv)
     lookup = plan.vocab and not (cfg.frontend_stub and cfg.family == "audio")
     head = plan.vocab and cfg.has_lm_head
+    bwd = (len(plan.attention) + len(plan.mlp) + n_moe + n_rglru
+           + 2 * n_rwkv + head)
     add("all-gather", rows * S_out * cfg.vocab_size * act, k * head)
 
     if serving:
         gathers(rest + layers, 1)
-        add("all-reduce", hidden, split + lookup)
+        add("all-gather", lru, n_rglru)
+        add("all-reduce", hidden, fwd + lookup)
         return stats
     passes = 2 if tcfg.remat else 1
     gathers(rest, k)
     gathers(layers, k * passes)
-    add("all-reduce", hidden,
-        k * (split * passes + lookup + split - n_mla + head))
+    add("all-gather", lru, k * passes * n_rglru)
+    add("all-reduce", hidden, k * (fwd * passes + lookup + bwd))
+    add("all-reduce", lru, k * n_rglru)
     add("all-reduce", rows * S * cfg.top_k * 4, k * n_moe)  # gate values
     q_in = cfg.q_lora_rank or cfg.d_model  # MLA's latents
     for width in (q_in, cfg.kv_lora_rank, cfg.qk_rope_head_dim):
         add("all-reduce", rows * S * width * act, k * n_mla)
     for n, p in params.items():
-        if plan.mode(n) == "head":
+        if plan.mode(n) in ("head", "channels", "summed"):
             add("all-reduce", p.numel() * p.element_size(), k)
     moe_layers = sum(n.endswith(".mlp.router") for n in params)
     add("all-reduce", 3 * 4, k * len(dp))

@@ -116,9 +116,19 @@ def placement_notes(cfg: ModelConfig, tp: int) -> dict:
                 heads + (", KV heads replicated" if plan.kv_replicated
                          else ""))
     if "rglru" in kinds:
-        whole.append("RG-LRU")
+        w = cfg.lru_width
+        if plan.rglru:
+            split.append(f"RG-LRU by width ({w}, {w // tp} a rank)")
+        else:
+            whole.append(f"RG-LRU (width {w})")
     if "rwkv6" in kinds:
-        whole.append("RWKV-6")
+        H = cfg.d_model // cfg.rwkv_head_dim
+        if plan.rwkv:
+            split.append(f"RWKV-6 by heads ({H} heads, {H // tp} a rank) "
+                         f"and its channel mix by d_ff ({cfg.d_ff}, "
+                         f"{cfg.d_ff // tp} a rank)")
+        else:
+            whole.append(f"RWKV-6 ({H} heads, d_ff {cfg.d_ff})")
     if cfg.is_moe:
         how = dict(plan.moe).get(cfg.first_dense_layers)
         E = cfg.num_experts
@@ -144,6 +154,10 @@ def placement_notes(cfg: ModelConfig, tp: int) -> dict:
                            + ("and its KV heads " if plan.attention else "")
                            + ("and every head's compressed MLA entries "
                               if plan.mla else "")
+                           + ("and its RG-LRU channels of h and conv "
+                              if plan.rglru else "")
+                           + ("and its RWKV-6 heads of S "
+                              if plan.rwkv else "")
                            + "(not sharded along seq over 'model')",
     }
 

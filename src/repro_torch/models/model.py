@@ -175,7 +175,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     and reads back at f32. MLA layers keep the compressed ``ckv`` and
     ``krope`` (no ring). ``tp``: the cache of one rank of a placed model
     on a 'model' axis of that many ranks, whose split attention holds only
-    the rank's KV heads."""
+    the rank's KV heads, a split RG-LRU the rank's channels of ``h`` and
+    ``conv`` and a split RWKV-6 the rank's heads of ``S``."""
     check_ported(cfg)
     dev = resolve_device(device)
     dtype = DTYPES[cfg.cache_dtype or cfg.dtype]

@@ -12,6 +12,14 @@ f32 by a log-depth (Hillis–Steele) scan over time: ceil(log2 S) steps of
 whole-sequence products, where the reference runs ``associative_scan``;
 both are exact evaluations of the same recurrence and differ by rounding.
 Decode carries ``(h, conv window)`` per layer, updated in place.
+
+With a 'model' group ``tp`` (set by
+:func:`~repro_torch.distributed.sharding.distribute_model`) the block
+computes the rank's ``w/tp`` contiguous channels: ``w_in`` and
+``w_gate_in`` give them, the conv, the decay, the scan and the gate run on
+them, ``u`` is all-gathered along the width for the rank's columns of the
+full ``wa`` and ``wx``, and ``w_out`` is row-parallel. Its state holds the
+rank's channels.
 """
 from __future__ import annotations
 
@@ -22,6 +30,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.distributed.tensor_parallel import (TensorParallel,
+                                                     copy_to_tp,
+                                                     gather_from_tp,
+                                                     rglru_splits)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import Dense, Init, gelu
 
@@ -30,8 +42,12 @@ __all__ = ["C_EXP", "RGLRU", "init_rglru_state"]
 C_EXP = 8.0
 
 
-def init_rglru_state(cfg: ModelConfig, batch: int, dtype, device) -> dict:
-    w = cfg.lru_width
+def init_rglru_state(cfg: ModelConfig, batch: int, dtype, device,
+                     tp: int = 1) -> dict:
+    """Zero ``h`` (B, w) f32 and conv window (B, cw-1, w); ``tp``: the
+    state of one rank of a 'model' axis of that many ranks, ``w/tp`` of
+    the channels where the block splits."""
+    w = cfg.lru_width // (tp if rglru_splits(cfg, tp) else 1)
     return {
         "h": torch.zeros((batch, w), dtype=torch.float32, device=device),
         "conv": torch.zeros((batch, cfg.conv_width - 1, w), dtype=dtype,
@@ -66,6 +82,7 @@ class RGLRU(nn.Module):
     def __init__(self, cfg: ModelConfig, init: Init):
         super().__init__()
         self.cfg = cfg
+        self.tp: Optional[TensorParallel] = None
         d, w = cfg.d_model, cfg.lru_width
         self.w_in = Dense(d, w, init)  # recurrent branch input
         self.w_gate_in = Dense(d, w, init)  # gelu gate branch
@@ -81,18 +98,23 @@ class RGLRU(nn.Module):
     def forward(self, x, state: Optional[dict] = None):
         """x: (B, S, d), already normed. ``state`` (updated in place) or
         None for fresh zeros, discarded."""
-        B = x.shape[0]
-        st = state or init_rglru_state(self.cfg, B, x.dtype, x.device)
+        B, tp = x.shape[0], self.tp
+        st = state or init_rglru_state(self.cfg, B, x.dtype, x.device,
+                                       tp.size if tp is not None else 1)
+        x = copy_to_tp(x, tp)
         gate = gelu(self.w_gate_in(x))
         u, conv_carry = _causal_conv(self.w_in(x), self.conv_w, self.conv_b,
                                      st["conv"])
-        r = torch.sigmoid(self.wa(u).float())
-        i = torch.sigmoid(self.wx(u).float())
+        # every channel of u for the rank's gate columns; its gradient
+        # summed over 'model' before the rank's slice is cut
+        u_all = copy_to_tp(gather_from_tp(u, tp), tp)
+        r = torch.sigmoid(self.wa(u_all).float())
+        i = torch.sigmoid(self.wx(u_all).float())
         a = torch.exp(C_EXP * r * F.logsigmoid(self.lam.float()))
         drive = torch.sqrt(torch.clamp(1.0 - a.square(), 1e-12, 1.0)) * (
             i * u.float())
         h = _lru_scan(a, drive, st["h"])
-        y = self.w_out(h.to(x.dtype) * gate)
+        y = self.w_out(h.to(x.dtype) * gate, tp)
         if state is not None:
             state["h"].copy_(h[:, -1])
             state["conv"].copy_(conv_carry)

@@ -12,6 +12,16 @@ divisor of S): within a chunk by masked products on decay-rescaled r and
 k, across chunks through the carried (B, H, D, D) f32 state. Decode keeps
 that state and the two token-shift rows (time mix, channel mix) per
 layer, updated in place.
+
+With a 'model' group ``tp`` (set by
+:func:`~repro_torch.distributed.sharding.distribute_model`) the block
+computes the rank's ``H/tp`` contiguous heads: ``wr``, ``wk``, ``wv``,
+``wg`` and the decay's channels (``w0``, ``u``, ``w_lora_b``) give them,
+the recurrence runs on them with the rank's state, and ``wo`` is
+row-parallel. The channel mix takes the rank's ``d_ff/tp`` columns of
+``cm_k`` and rows of ``cm_v``, and its rows of ``cm_r`` on its slice of
+the mixed input: two row-parallel products, each summed over 'model'.
+The token shifts stay whole.
 """
 from __future__ import annotations
 
@@ -22,6 +32,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.distributed.actsharding import shard_act
+from repro_torch.distributed.tensor_parallel import (TensorParallel,
+                                                     copy_to_tp, rwkv_splits)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import Dense, Init
 
@@ -30,10 +42,15 @@ __all__ = ["LORA_RANK", "RWKV6", "init_rwkv_state"]
 LORA_RANK = 32
 
 
-def init_rwkv_state(cfg: ModelConfig, batch: int, dtype, device) -> dict:
+def init_rwkv_state(cfg: ModelConfig, batch: int, dtype, device,
+                    tp: int = 1) -> dict:
+    """Zero WKV state ``S`` (B, H, D, D) f32 and token-shift rows (B, d);
+    ``tp``: the state of one rank of a 'model' axis of that many ranks,
+    ``H/tp`` heads of ``S`` where the block splits."""
     d, hd = cfg.d_model, cfg.rwkv_head_dim
+    H = d // hd // (tp if rwkv_splits(cfg, tp) else 1)
     return {
-        "S": torch.zeros((batch, d // hd, hd, hd), dtype=torch.float32,
+        "S": torch.zeros((batch, H, hd, hd), dtype=torch.float32,
                          device=device),
         "shift_tm": torch.zeros((batch, d), dtype=dtype, device=device),
         "shift_cm": torch.zeros((batch, d), dtype=dtype, device=device),
@@ -96,6 +113,7 @@ class RWKV6(nn.Module):
     def __init__(self, cfg: ModelConfig, init: Init):
         super().__init__()
         self.cfg = cfg
+        self.tp: Optional[TensorParallel] = None
         d = cfg.d_model
         self.wr = Dense(d, d, init)
         self.wk = Dense(d, d, init)
@@ -122,9 +140,11 @@ class RWKV6(nn.Module):
         """Time mix. x: (B, S, d), already normed; ``state`` updated in
         place (its ``shift_cm`` left to :meth:`channel_mix`), or None."""
         B, S, d = x.shape
+        tp, n = self.tp, self.tp.size if self.tp is not None else 1
         hd = self.cfg.rwkv_head_dim
-        H = d // hd
-        st = state or init_rwkv_state(self.cfg, B, x.dtype, x.device)
+        H = d // hd // n  # the rank's heads
+        st = state or init_rwkv_state(self.cfg, B, x.dtype, x.device, n)
+        x = copy_to_tp(x, tp)
         prev = _token_shift(x, st["shift_tm"].to(x.dtype))
 
         def mix(m):
@@ -139,7 +159,7 @@ class RWKV6(nn.Module):
         w = torch.exp(-torch.exp(w_log)).reshape(B, S, H, hd)
         u = self.u.float().reshape(H, hd)
         out, s_fin = _wkv_chunked(r, k, v, w, u, chunk, st["S"])
-        y = self.wo(out.reshape(B, S, d) * F.silu(g))
+        y = self.wo(out.reshape(B, S, H * hd) * F.silu(g), tp)
         if state is not None:
             state["S"].copy_(s_fin)
             state["shift_tm"].copy_(x[:, -1])
@@ -147,13 +167,19 @@ class RWKV6(nn.Module):
 
     def channel_mix(self, x, state: Optional[dict] = None):
         """Squared-ReLU channel mix with token shift."""
+        tp = self.tp
+        x = copy_to_tp(x, tp)
         prev = (_token_shift(x, state["shift_cm"].to(x.dtype))
                 if state is not None else
                 _token_shift(x, torch.zeros_like(x[:, 0])))
         m = self.cm_mix
         xk = x * m + prev * (1 - m)
         kk = torch.relu(self.cm_k(xk)).square()
-        y = torch.sigmoid(self.cm_r(xk)) * self.cm_v(kk)
+        xr = xk
+        if tp is not None:  # cm_r's rows: the rank's slice of its input
+            w = xk.shape[-1] // tp.size
+            xr = xk.narrow(-1, tp.rank * w, w)
+        y = torch.sigmoid(self.cm_r(xr, tp)) * self.cm_v(kk, tp)
         if state is not None:
             state["shift_cm"].copy_(x[:, -1])
         return y

@@ -115,8 +115,12 @@ def init_layer_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
     if kind == "attn":
         return init_kv_cache(cfg, batch, max_len, dtype, device,
                              window=cfg.local_window, tp=tp)
+    # the recurrent states hold the rank's heads / channels where the
+    # block splits over 'model' (the placed serving cache); the dry-run's
+    # residency (sharding.cache_shardings) keeps the reference's rule,
+    # which leaves ``conv`` whole on 'model' (its axis 1 is cw - 1)
     if kind == "rwkv6":
-        return init_rwkv_state(cfg, batch, dtype, device)
+        return init_rwkv_state(cfg, batch, dtype, device, tp)
     if kind == "rglru":
-        return init_rglru_state(cfg, batch, dtype, device)
+        return init_rglru_state(cfg, batch, dtype, device, tp)
     raise ValueError(kind)

@@ -249,8 +249,9 @@ def test_elastic_plan_is_the_reference_s(total, per_pod, surviving):
 def test_placed_forward_on_gloo_ranks_sharing_the_card():
     """Two gloo ranks on the one card hold the smoke models of granite-3-8b
     (its heads, FFN and vocab split), deepseek-v2-236b (MLA by heads, 8
-    experts 4 a rank, the shared expert by columns) and grok-1-314b (4
-    experts 2 a rank) as DTensors on a (data=1, model=2) mesh, f32: each
+    experts 4 a rank, the shared expert by columns), grok-1-314b (4
+    experts 2 a rank), recurrentgemma-2b (RG-LRU by width) and rwkv6-1.6b
+    (RWKV-6 by heads) as DTensors on a (data=1, model=2) mesh, f32: each
     rank's logits within 1e-6 of one process's forward on the card."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
@@ -259,7 +260,8 @@ def test_placed_forward_on_gloo_ranks_sharing_the_card():
     from repro_torch.launch.mesh import run_each, spawn_ranks
     from repro_torch.models import LanguageModel, forward
 
-    archs = ("granite-3-8b", "deepseek-v2-236b", "grok-1-314b")
+    archs = ("granite-3-8b", "deepseek-v2-236b", "grok-1-314b",
+             "recurrentgemma-2b", "rwkv6-1.6b")
     tokens = {arch: np.random.default_rng(0).integers(
         0, get_smoke_config(arch).vocab_size, (2, 8)).astype(np.int32)
         for arch in archs}
@@ -275,8 +277,12 @@ def test_placed_forward_on_gloo_ranks_sharing_the_card():
         for r in (rk[i] for rk in ranks):
             err = np.abs(r["logits"] - want).max() / np.abs(want).max()
             assert err <= 1e-6, (arch, err)
-    granite, deepseek, grok = (ranks[0][i] for i in range(3))
+    granite, deepseek, grok, rg, rwkv = (ranks[0][i] for i in range(5))
     assert granite["local_shapes"]["blocks.0.inner.wq.w"] == (64, 32)
     assert deepseek["used_shapes"]["blocks.1.inner.wk_b.w"] == (16, 32)
     assert deepseek["used_shapes"]["blocks.1.mlp.wi"] == (4, 64, 32)
     assert grok["used_shapes"]["blocks.0.mlp.wi"] == (2, 64, 64)
+    assert rg["used_shapes"]["blocks.0.inner.wa.w"] == (64, 32)
+    assert rg["used_shapes"]["blocks.0.inner.lam"] == (32,)
+    assert rwkv["used_shapes"]["blocks.0.inner.wr.w"] == (64, 32)
+    assert rwkv["used_shapes"]["blocks.0.inner.cm_r.w"] == (32, 64)

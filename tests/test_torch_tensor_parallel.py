@@ -51,7 +51,7 @@ def test_which_blocks_split():
     assert plan.mlp == tuple(range(rg.num_layers))
     assert plan.mode(f"blocks.{attn[0]}.inner.wk.w") == "head"
     assert plan.mode(f"blocks.{attn[0]}.inner.wq.w") == "shard"
-    assert plan.mode("blocks.0.inner.w_in.w") == "whole"  # RG-LRU
+    assert plan.mode("blocks.0.inner.w_in.w") == "shard"  # RG-LRU
     assert split_plan(rg, 4).attention == ()  # 10 heads do not divide 4
 
     qwen = get_config("qwen1.5-32b")  # 40 heads
@@ -109,18 +109,27 @@ def test_mla_and_moe_split_on_the_production_axis():
 def _model_dim(cfg, tp, name):
     """The dimension of ``name`` whose 'model' cut is the rank's slice:
     an expert stack's expert dim (by experts) or ff dim (by ff columns),
-    a row-parallel ``wo``'s and the embedding's rows, else the output."""
+    a row-parallel ``wo``'s, ``w_out``'s, ``cm_v``'s and ``cm_r``'s and
+    the embedding's rows, else the output."""
     if name.endswith(("mlp.wi", "mlp.wg", "mlp.wo")):  # (E, d, ff) stacks
         if dict(split_plan(cfg, tp).moe)[int(name.split(".")[1])] == \
                 "expert":
             return 0
         return 1 if name.endswith("wo") else 2
-    return 0 if name == "embed" or name.endswith(".wo.w") else -1
+    rows = (".wo.w", ".w_out.w", ".cm_v.w", ".cm_r.w")
+    return 0 if name == "embed" or name.endswith(rows) else -1
 
 
 def _unit(cfg, name):
     """The width of the contiguous block one head, expert or column owns
     along ``name``'s 'model' dimension."""
+    parts = name.split(".")
+    kind = cfg.layer_kinds[int(parts[1])] if parts[0] == "blocks" else None
+    if ".inner." in name and kind == "rwkv6":  # heads; the channel mix's
+        return (cfg.rwkv_head_dim if parts[3] in ("wr", "wk", "wv", "wg",
+                                                  "wo") else 1)
+    if ".inner." in name and kind == "rglru":  # channels
+        return 1
     if ".inner." in name and cfg.attn_kind == "mla":
         dn, dr = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
         return {"wq_b": dn + dr, "wk_b": dn, "wv_b": cfg.v_head_dim,
@@ -200,18 +209,31 @@ def test_unplaced_models_see_no_group():
 
 
 def test_head_sharded_cache():
-    """``init_cache(tp=)``: a split attention's KV heads a rank, the rest
-    as at ``tp`` 1."""
+    """``init_cache(tp=)``: a split attention's KV heads a rank, a split
+    RG-LRU's channels of ``h`` and ``conv``, a split RWKV-6's heads of
+    ``S``, the rest as at ``tp`` 1."""
     cfg = get_smoke_config("granite-3-8b")  # 2 KV heads
     one, two = (init_cache(cfg, 2, 8, "cpu", tp=t) for t in (1, 2))
     for a, b in zip(one, two):
         assert a["k"].shape[2] == 2 and b["k"].shape[2] == 1
         assert a["pos"].shape == b["pos"].shape
     rg = get_smoke_config("recurrentgemma-2b")  # 1 KV head: replicated
-    for a, b in zip(init_cache(rg, 2, 8, "cpu"),
-                    init_cache(rg, 2, 8, "cpu", tp=2)):
-        assert {k: v.shape for k, v in a.items()} == {
-            k: v.shape for k, v in b.items()}
+    for a, b, kind in zip(init_cache(rg, 2, 8, "cpu"),
+                          init_cache(rg, 2, 8, "cpu", tp=2), rg.layer_kinds):
+        if kind == "attn":
+            assert {k: v.shape for k, v in a.items()} == {
+                k: v.shape for k, v in b.items()}
+        else:  # RG-LRU by width: the rank's channels
+            assert b["h"].shape == (2, rg.lru_width // 2)
+            assert b["conv"].shape == (2, rg.conv_width - 1,
+                                       rg.lru_width // 2)
+            assert a["h"].shape == (2, rg.lru_width)
+    rwkv = get_smoke_config("rwkv6-1.6b")  # 4 heads of 16
+    for a, b in zip(init_cache(rwkv, 2, 8, "cpu"),
+                    init_cache(rwkv, 2, 8, "cpu", tp=2)):
+        assert a["S"].shape == (2, 4, 16, 16)
+        assert b["S"].shape == (2, 2, 16, 16)
+        assert a["shift_tm"].shape == b["shift_cm"].shape == (2, 64)
     ds = get_smoke_config("deepseek-v2-236b")  # MLA: whole
     assert [{k: v.shape for k, v in a.items()}
             for a in init_cache(ds, 2, 8, "cpu", tp=2)] == [
@@ -301,3 +323,162 @@ def test_placement_notes_name_what_stays_whole():
     split, _ = placement_notes(get_config("grok-1-314b"),
                                16)["placement_model_axis"].split("; ")
     assert "ff columns" in split
+
+
+RGLRU_PARAMS = {"w_in.w": "shard", "w_gate_in.w": "shard", "wa.w": "shard",
+                "wx.w": "shard", "w_out.w": "shard", "conv_w": "channels",
+                "conv_b": "channels", "lam": "channels"}
+RWKV_PARAMS = {"wr.w": "shard", "wk.w": "shard", "wv.w": "shard",
+               "wg.w": "shard", "wo.w": "shard", "cm_k.w": "shard",
+               "cm_v.w": "shard", "cm_r.w": "shard", "w0": "channels",
+               "u": "channels", "w_lora_b.w": "channels", "mix_r": "summed",
+               "mix_k": "summed", "mix_v": "summed", "mix_w": "summed",
+               "cm_mix": "summed", "w_lora_a.w": "summed"}
+
+
+@pytest.mark.parametrize("tp", [2, 16])
+def test_recurrent_blocks_split(tp):
+    """recurrentgemma-2b's RG-LRU layers by width (2,560 channels) and
+    rwkv6-1.6b's RWKV-6 layers by heads (32 heads, d_ff 7,168) at 2 and
+    16: every parameter of the block in its mode, and each agrees with the
+    production spec: a ``"shard"`` weight is cut along 'model' on the
+    dimension the rank computes with, the ``"channels"`` and ``"summed"``
+    ones are not cut along it (gathered whole, then narrowed or used
+    alike)."""
+    mesh = MeshShape({"data": 1, "model": tp})
+    for arch, table, kind in (("recurrentgemma-2b", RGLRU_PARAMS, "rglru"),
+                              ("rwkv6-1.6b", RWKV_PARAMS, "rwkv6")):
+        cfg = get_config(arch)
+        plan = split_plan(cfg, tp)
+        mine = tuple(i for i, k in enumerate(cfg.layer_kinds) if k == kind)
+        assert (plan.rglru if kind == "rglru" else plan.rwkv) == mine
+        meta = dict(LanguageModel(cfg, device="meta").named_parameters())
+        specs = sharding.param_shardings(mesh, meta)
+        names = {n.split(".", 3)[3] for n in meta
+                 if n.startswith(f"blocks.{mine[0]}.inner.")}
+        assert names == set(table), arch
+        for layer in mine:
+            for leaf, mode in table.items():
+                name = f"blocks.{layer}.inner.{leaf}"
+                assert plan.mode(name) == mode, (arch, name)
+                cut = "model" in specs[name]
+                assert cut == (mode == "shard"), (arch, name, specs[name])
+                if mode == "shard":
+                    dim = _model_dim(cfg, tp, name) % meta[name].dim()
+                    assert specs[name][dim] == "model", name
+        norm = f"blocks.{mine[0]}.norm1.scale"
+        assert plan.mode(norm) == "whole"
+    rwkv = split_plan(get_config("rwkv6-1.6b"), tp)
+    assert rwkv.mlp == () and rwkv.attention == () and rwkv.vocab
+
+
+def test_recurrent_blocks_stay_whole_where_they_do_not_divide():
+    """An RG-LRU width of 66 at 4 ranks (it splits at 2), RWKV-6 with 3
+    heads at 2, and RWKV-6 whose d_ff of 65 does not divide 2: the block
+    stays whole, every parameter of it ``"whole"``, its state whole."""
+    from repro_torch.distributed.tensor_parallel import (rglru_splits,
+                                                         rwkv_splits)
+
+    rg = dataclasses.replace(get_smoke_config("recurrentgemma-2b"),
+                             lru_width=66)
+    assert rglru_splits(rg, 2) and not rglru_splits(rg, 4)
+    assert split_plan(rg, 4).rglru == () and split_plan(rg, 2).rglru == (0,
+                                                                         1)
+    for leaf in RGLRU_PARAMS:
+        assert split_plan(rg, 4).mode(f"blocks.0.inner.{leaf}") == "whole"
+    assert init_cache(rg, 2, 8, "cpu", tp=4)[0]["h"].shape == (2, 66)
+    three = dataclasses.replace(get_smoke_config("rwkv6-1.6b"), d_model=48)
+    odd = dataclasses.replace(get_smoke_config("rwkv6-1.6b"), d_ff=65)
+    for cfg in (three, odd):
+        assert not rwkv_splits(cfg, 2) and split_plan(cfg, 2).rwkv == ()
+        for leaf in RWKV_PARAMS:
+            assert split_plan(cfg, 2).mode(f"blocks.1.inner.{leaf}") == \
+                "whole"
+    assert init_cache(three, 2, 8, "cpu", tp=2)[0]["S"].shape == (
+        2, 3, 16, 16)
+    assert rwkv_splits(get_smoke_config("rwkv6-1.6b"), 4)
+    assert not rglru_splits(get_smoke_config("rwkv6-1.6b"), 2)
+    assert not rwkv_splits(get_smoke_config("granite-3-8b"), 2)
+
+
+def test_schedule_of_recurrent_layers_on_model_ranks():
+    """The smoke models at f32, remat, (data=1, model=2), global batch 4 x
+    16, worked out by hand (rows 4, d 64, lru_width 64, an activation
+    (4, 16, 64) f32 of 16,384 B, the logits (4, 16, 128) of 32,768 B).
+
+    recurrentgemma-2b (rglru, rglru, attn; one KV head, replicated): its
+    all-gathers are the logits, ``wk`` and ``wv`` (64, 16) gathered whole
+    in each of the two passes, and each RG-LRU's conv output in each
+    pass: 1 + 4 + 4. Its all-reduces of an activation: each pass the
+    attention's, three MLPs' and two RG-LRUs' row-parallel sums (6), the
+    lookup's, and in backward the input gradients of the attention, the
+    three MLPs, the two RG-LRUs and the head (7): 12 + 1 + 7; the two
+    gathered conv outputs' gradients; ``wk`` and ``wv`` whole (4,096 B
+    each); each RG-LRU's ``conv_w`` (4, 64), ``conv_b`` and ``lam`` (64)
+    whole; the norm's 4 B.
+
+    rwkv6-1.6b (2 layers, 4 heads, d_ff 128): the logits alone are
+    gathered. Each layer sends three activation all-reduces a pass (the
+    time mix's ``wo``, the channel mix's ``cm_r`` and ``cm_v``) and two in
+    backward (each mix's input): 12 + the lookup's 1 + 4 + the head's 1;
+    its ``w0``, ``u`` (64), ``w_lora_b`` (32, 64), four mixes and
+    ``cm_mix`` (64) and ``w_lora_a`` (64, 32) whole in backward; the
+    norm's 4 B. Serving sends one forward's of each."""
+    from repro_torch.launch.analytic import lm_collectives
+    from repro_torch.launch.shapes import ShapeCase
+    from repro_torch.train import TrainConfig
+
+    mesh = MeshShape({"data": 1, "model": 2})
+    train = ShapeCase("placed", 16, 4, "train")
+    act, logits = 4 * 16 * 64 * 4, 4 * 16 * 128 * 4
+    assert act == 16_384
+
+    rg = get_smoke_config("recurrentgemma-2b")
+    got = lm_collectives(rg, train, mesh, TrainConfig(remat=True))
+    kv = 64 * 16 * 4
+    per_lru = (4 * 64 + 64 + 64) * 4
+    assert got.count_by_op == {"all-gather": 1 + 4 + 4,
+                               "all-reduce": 20 + 2 + 2 + 6 + 1}
+    assert got.bytes_by_op == {
+        "all-gather": logits + 4 * kv + 4 * act,
+        "all-reduce": 20 * act + 2 * act + 2 * kv + 2 * per_lru + 4}
+    assert got.bytes_by_op == {"all-gather": 114_688,
+                               "all-reduce": 371_716}
+    decode = lm_collectives(rg, ShapeCase("decode", 16, 4, "decode"), mesh)
+    assert decode.bytes_by_op == {"all-gather": 4 * 128 * 4 + 2 * kv
+                                  + 2 * 4 * 64 * 4,
+                                  "all-reduce": 7 * 4 * 64 * 4}
+
+    rwkv = get_smoke_config("rwkv6-1.6b")
+    got = lm_collectives(rwkv, train, mesh, TrainConfig(remat=True))
+    whole = ((64 + 64 + 32 * 64) + (5 * 64 + 64 * 32)) * 4
+    assert got.count_by_op == {"all-gather": 1,
+                               "all-reduce": 18 + 2 * 9 + 1}
+    assert got.bytes_by_op == {"all-gather": logits,
+                               "all-reduce": 18 * act + 2 * whole + 4}
+    assert got.bytes_by_op["all-reduce"] == 331_268
+    prefill = lm_collectives(rwkv, ShapeCase("prefill", 16, 4, "prefill"),
+                             mesh)
+    assert prefill.bytes_by_op == {"all-gather": 4 * 128 * 4,
+                                   "all-reduce": 7 * act}
+
+
+def test_placement_notes_name_the_recurrent_splits():
+    from repro_torch.launch.dryrun import placement_notes
+
+    rg = placement_notes(get_config("recurrentgemma-2b"), 16)
+    split, whole = rg["placement_model_axis"].split("; ")
+    assert "RG-LRU by width (2560, 160 a rank)" in split
+    assert "RG-LRU" not in whole and "attention" in whole
+    assert "RG-LRU channels" in rg["placement_cache"]
+    rwkv = placement_notes(get_config("rwkv6-1.6b"), 16)
+    split, whole = rwkv["placement_model_axis"].split("; ")
+    assert "RWKV-6 by heads (32 heads, 2 a rank)" in split
+    assert "448 a rank" in split and "RWKV-6" not in whole
+    assert "RWKV-6 heads" in rwkv["placement_cache"]
+    split, whole = placement_notes(get_config("rwkv6-1.6b"),
+                                   3)["placement_model_axis"].split("; ")
+    assert "RWKV-6" in whole and "RWKV-6" not in split
+    _, whole = placement_notes(get_config("recurrentgemma-2b"),
+                               3)["placement_model_axis"].split("; ")
+    assert "RG-LRU (width 2560)" in whole

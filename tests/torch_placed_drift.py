@@ -4,14 +4,29 @@ one process's own f32 logits lie from the same weights at f64: the bar of
 plain f32 rounding shows too, not a fault of the split.
 
     PYTHONPATH=src python tests/torch_placed_drift.py [--arch deepseek-v2-236b ...]
+        [--mesh DATA MODEL] [--train [--grad-accum K] [--remat]]
+        [--layers N --seq S --device cuda]
 
 For each arch's smoke model (default: deepseek-v2-236b, grok-1-314b,
 granite-3-8b) on the serving case's tokens (4 x 16, seed 5) it runs
-``placed_serve`` on two gloo ranks of a (data=1, model=2) mesh on the CPU,
-and one process's prefill and decode step at f32 and at f64 (the f32
-weights widened; the MoE router stays f32). It prints the max relative
+``placed_serve`` on gloo ranks of a (data, model) mesh (default (1, 2)) on
+the CPU, and one process's prefill and decode step at f32 and at f64 (the
+f32 weights widened; the MoE router stays f32). It prints the max relative
 distance (over the largest logit) of the placed logits from one process's,
 and of each from the f64 ones.
+
+``--train``: the training cases instead (f32, lr 1e-7, three steps on
+``synthetic_batch(cfg, 4, 16, seed=17, step=i)``, as the test runs them):
+``placed_train_step`` on the ranks against one process at f32, and one
+process at f64 from the same weights widened. It prints the worst
+parameter tensor's distance (max relative over the largest, the test's
+measure) of the placed shards from one process's, of one process's from
+f64's, and of the placed shards from f64's, each with its tensor.
+
+``--layers N``: the full-width config cut to N layers in place of the
+smoke one (with ``--seq``, the training batches' length); ``--device
+cuda``: the ranks share the card (gloo) and one process runs there, TF32
+off (``chip_smoke.py``'s placed phase at full width, f32).
 """
 from __future__ import annotations
 
@@ -45,6 +60,74 @@ def dist(a, b):
     return float(np.abs(a - b).max() / np.abs(b).max())
 
 
+def train_one_process(cfg, batches, tcfg, device="cpu"):
+    """One process's parameters after ``batches`` from the model's own
+    seeded initialization (at f64: the f32 draws widened), in f64, on the
+    host."""
+    import torch
+
+    from repro_torch.models import LanguageModel
+    from repro_torch.train import adamw_init, make_train_step
+
+    model = LanguageModel(cfg, device=device)
+    step = make_train_step(cfg, tcfg)
+    opt = adamw_init(dict(model.named_parameters()), tcfg.optimizer)
+    for b in batches:
+        model, opt, _ = step(model, opt, {k: torch.as_tensor(v)
+                                          for k, v in b.items()})
+    out = {n: p.detach().double().cpu() for n, p in model.named_parameters()}
+    del model, opt, step
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def train_drift(cfgs, mesh, grad_accum, remat, seq=SEQ, device="cpu"):
+    import torch
+
+    from repro_torch.data import synthetic_batch
+    from repro_torch.distributed.sharding import placed_train_step, shard_of
+    from repro_torch.launch.mesh import MeshShape, run_each, spawn_ranks
+    from repro_torch.train import OptimizerConfig, TrainConfig
+
+    tcfg = TrainConfig(optimizer=OptimizerConfig(
+        learning_rate=1e-7, warmup_steps=1, total_steps=3), remat=remat,
+        grad_accum=grad_accum)
+    cfgs = [dataclasses.replace(c, dtype="float32", param_dtype="float32")
+            for c in cfgs]
+    batches = [[synthetic_batch(c, BATCH, seq, seed=17, step=i)
+                for i in range(3)] for c in cfgs]
+    ranks = spawn_ranks(run_each, mesh[0] * mesh[1], backend="gloo",
+                        device=device, args=(
+        [(placed_train_step, (c, mesh, b, tcfg, None, True, True))
+         for c, b in zip(cfgs, batches)],))
+    shape = MeshShape({"data": mesh[0], "model": mesh[1]})
+
+    def worst(got, want):
+        return max((float((got[n] - want[n]).abs().max()
+                          / want[n].abs().max().clamp_min(1e-30)), n)
+                   for n in want)
+
+    for i, (cfg, b) in enumerate(zip(cfgs, batches)):
+        f32 = train_one_process(cfg, b, tcfg, device)
+        f64 = train_one_process(dataclasses.replace(
+            cfg, dtype="float64", param_dtype="float64"), b, tcfg, device)
+        r = ranks[0][i]
+        placed = {n: torch.from_numpy(v).double()
+                  for n, v in r["params"].items()}
+
+        def cut(full):
+            return {n: shard_of(p, shape, r["specs"][n], r["coords"])
+                    for n, p in full.items()}
+
+        print(f"{cfg.name} ({cfg.num_layers} layers, seq {seq}, on "
+              f"{device}) train {mesh} grad_accum {grad_accum} remat "
+              f"{remat}: parameters, worst tensor: placed from one process "
+              f"{r['distances']['params']}; one process f32 from f64 "
+              f"{worst(f32, f64)}; placed from f64 "
+              f"{worst(placed, cut(f64))}")
+
+
 def main(argv=None):
     import torch
 
@@ -55,21 +138,41 @@ def main(argv=None):
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", nargs="+", default=list(ARCHS))
+    ap.add_argument("--mesh", nargs=2, type=int, default=(1, 2))
+    ap.add_argument("--train", action="store_true")
+    ap.add_argument("--grad-accum", type=int, default=1)
+    ap.add_argument("--remat", action="store_true")
+    ap.add_argument("--layers", type=int, default=None)
+    ap.add_argument("--seq", type=int, default=SEQ)
+    ap.add_argument("--device", default="cpu")
     args = ap.parse_args(argv)
-    cfgs = [get_smoke_config(a) for a in args.arch]
+    mesh = tuple(args.mesh)
+    if args.layers is None:
+        cfgs = [get_smoke_config(a) for a in args.arch]
+    else:
+        from repro_torch.configs import get_config
+
+        cfgs = [dataclasses.replace(get_config(a), num_layers=args.layers)
+                for a in args.arch]
+    os.environ.setdefault("OMP_NUM_THREADS", "1")
+    layers.DTYPES.setdefault("float64", torch.float64)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if args.train:
+        train_drift(cfgs, mesh, args.grad_accum, args.remat, args.seq,
+                    args.device)
+        return
     tokens = [np.random.default_rng(5).integers(
         0, cfg.vocab_size, (BATCH, SEQ)).astype(np.int32) for cfg in cfgs]
-    os.environ.setdefault("OMP_NUM_THREADS", "1")
-    ranks = spawn_ranks(run_each, 2, backend="gloo", device="cpu", args=(
-        [(placed_serve, (cfg, (1, 2), t)) for cfg, t in zip(cfgs, tokens)],))
-    layers.DTYPES.setdefault("float64", torch.float64)
+    ranks = spawn_ranks(run_each, mesh[0] * mesh[1], backend="gloo",
+                        device="cpu", args=(
+        [(placed_serve, (cfg, mesh, t)) for cfg, t in zip(cfgs, tokens)],))
     for i, (cfg, t) in enumerate(zip(cfgs, tokens)):
         f32 = one_process(cfg, t)
         f64 = one_process(dataclasses.replace(
             cfg, dtype="float64", param_dtype="float64"), t)
         for key in ("prefill", "decode"):
             placed = ranks[0][i][key].astype(np.float64)
-            print(f"{cfg.name} {key}: placed (1, 2) from one process "
+            print(f"{cfg.name} {key}: placed {mesh} from one process "
                   f"{dist(placed, f32[key]):.3e}; one process f32 from f64 "
                   f"{dist(f32[key], f64[key]):.3e}; placed from f64 "
                   f"{dist(placed, f64[key]):.3e}")

@@ -272,8 +272,14 @@ Phases (each prints its seconds; any failure exits non-zero):
                 weights gathered before its forward and again in its
                 recomputation, the gradients summed over the ranks and cut
                 to the shards) and on a (data=1, model=2) one (tensor
-                parallelism: each rank computes its half of the heads and
-                of the FFN, the activations all-reduced over 'model').
+                and sequence parallelism: each rank computes its half of
+                the heads and of the FFN and holds half the positions
+                between blocks, each part's input all-gathered along the
+                sequence and its sum reduce-scattered back; granite's
+                vocab, which does not divide, looked up and projected
+                whole by every rank on every position), and on (1, 2) again
+                at 4 x 511, which does not divide 'model': the path
+                without sequence parallelism (all-reduces).
                 Each rank first runs one process's three steps on the
                 whole batches from the same weights and holds its losses,
                 gradient norms and final parameter shards (PLACED_TOL) and
@@ -281,15 +287,17 @@ Phases (each prints its seconds; any failure exits non-zero):
                 L2) to their slices of that run. Prints each rank's step
                 ms, peak device bytes and the c10d collectives it recorded
                 each step (``record_collectives``) beside
-                ``analytic.lm_collectives`` for the cell; fails unless they
-                are equal, bytes and counts by operation, and if the
-                (1, 2) run gathers anything but a split head's logits
-                (which granite's vocab does not make), the weights the
-                plan computes whole (recurrentgemma's replicated ``wk``
-                and ``wv``) and each split RG-LRU's conv output. Two more
-                (1, 2) runs: recurrentgemma-2b at 3 of 26 layers (one
-                ``(rglru, rglru, attn)`` period: RG-LRU by width) and
-                rwkv6-1.6b at 2 of 24 (RWKV-6 by heads). In the same group,
+                ``analytic.lm_collectives`` for the cell, its reduce-scatters
+                and peak beside PLACED_BEFORE_SP's; fails unless they are
+                equal, bytes and counts by operation, and if a (1, 2) run
+                gathers anything but the residual stream along the
+                sequence (rows, S, d), the weights the plan computes whole
+                (recurrentgemma's replicated ``wk`` and ``wv``) and each
+                split RG-LRU's conv output: no logits (the split vocab's
+                loss is vocab-parallel). Two more (1, 2) runs:
+                recurrentgemma-2b at 3 of 26 layers (one ``(rglru, rglru,
+                attn)`` period: RG-LRU by width) and rwkv6-1.6b at 2 of 24
+                (RWKV-6 by heads). In the same group,
                 PLACED_SERVE: placed serving (``placed_serve``: a prefill
                 of 4 x 512 tokens and one decode step, bf16, full width)
                 on (1, 2) of deepseek-v2-236b at 2 of 60 layers (MLA by
@@ -302,15 +310,20 @@ Phases (each prints its seconds; any failure exits non-zero):
                 same seeded weights)
                 within the run's bar, its collectives to
                 ``lm_collectives``, its all-gathers to the split head's
-                logits, each split RG-LRU's conv output and the weights
-                the plan computes whole (MLA's latent projections, the
-                router, a replicated KV head's ``wk`` and ``wv``): no
-                split head weight, expert, RG-LRU channel or RWKV-6 head.
-                Each run prints the parameters a rank holds and those it
-                computes with. Then PLACED_FORWARD, the ``cuda`` case of
-                ``tests/test_torch_lm_distributed.py``: the smoke models'
+                last-position logits, each split RG-LRU's conv output and
+                the weights the plan computes whole (MLA's latent
+                projections, the router, a replicated KV head's ``wk`` and
+                ``wv``), and in the sequence-parallel prefill each layer's
+                two part inputs and each rank's last position: no split
+                head weight, expert, RG-LRU channel or RWKV-6 head. Each
+                run prints the parameters a rank holds and those it
+                computes with, and its peaks beside
+                PLACED_SERVE_BEFORE_SP's. Then PLACED_FORWARD, the
+                ``cuda`` case of ``tests/test_torch_lm_distributed.py``:
+                the smoke models'
                 f32 forwards on (1, 2) within PLACED_FORWARD_TOL of one
-                process's.
+                process's, sequence-parallel (each layer's input the
+                rank's half of the positions).
  12. dryrun   — ``repro_torch.launch.dryrun --arch all --shape all`` on the
                 reference's two meshes (16x16, 2x16x16; host arithmetic)
                 into a temporary file: prints the census and holds every
@@ -320,7 +333,9 @@ Phases (each prints its seconds; any failure exits non-zero):
                 ``collective_s`` at ``HW["net_bw"]``; the totals by mesh
                 are printed, and the decode_32k all-gather bytes a rank of
                 deepseek-v2-236b, rwkv6-1.6b and recurrentgemma-2b beside
-                the schedule's before their parts split). Then
+                the schedule's before their parts split, and each LM
+                row's train_4k and prefill_32k collective bytes a rank
+                beside DRYRUN_BEFORE_SP's). Then
                 DRYRUN_RUNS at ``--devices 1 --run`` on the card at full
                 width: feti-heat-2d x assembly (S 64, n 4225, bs 128, f32:
                 the block Cholesky, then B1 f32 and B2 f32 through
@@ -671,6 +686,36 @@ DRYRUN_RECURRENT_DECODE_WHOLE = {
     "rwkv6-1.6b": {"16x16": 2_815_426_560, "2x16x16": 2_814_902_272},
     "recurrentgemma-2b": {"16x16": 1_776_189_440,
                           "2x16x16": 1_774_141_440}}
+# the LM rows' collective bytes a rank (all operations) of train_4k and
+# prefill_32k on each mesh in the schedule before sequence parallelism
+# and the vocab-parallel loss (the port at 5322958), printed beside the
+# schedule's
+DRYRUN_BEFORE_SP = {
+    "16x16": {
+        "deepseek-v2-236b": (962_786_148_140, 112_154_624_000),
+        "granite-3-8b": (134_656_745_496, 45_019_586_560),
+        "grok-1-314b": (1_314_675_396_712, 145_056_333_824),
+        "hubert-xlarge": (48_678_087_708, 16_226_672_640),
+        "mistral-large-123b": (1_331_273_334_888, 304_833_757_184),
+        "nemotron-4-340b": (2_704_560_914_536, 519_772_807_168),
+        "qwen1.5-32b": (189_975_103_512, 61_444_540_416),
+        "qwen2-vl-2b": (38_395_283_480, 6_340_421_120),
+        "recurrentgemma-2b": (98_102_871_060, 21_732_761_600),
+        "rwkv6-1.6b": (61_238_616_084, 19_793_182_720),
+    },
+    "2x16x16": {
+        "deepseek-v2-236b": (1_082_191_871_564, 71_553_556_480),
+        "granite-3-8b": (71_631_724_580, 23_544_750_080),
+        "grok-1-314b": (1_467_243_372_744, 93_113_810_944),
+        "hubert-xlarge": (24_640_092_200, 8_173_608_960),
+        "mistral-large-123b": (1_024_956_170_440, 162_294_464_512),
+        "nemotron-4-340b": (2_330_662_076_616, 286_636_101_632),
+        "qwen1.5-32b": (119_314_714_660, 39_633_855_488),
+        "qwen2-vl-2b": (19_974_090_788, 3_420_881_664),
+        "recurrentgemma-2b": (50_147_072_032, 11_162_603_520),
+        "rwkv6-1.6b": (31_109_922_848, 9_995_157_504),
+    },
+}
 DRYRUN_LAUNCHES = {arch: {"stepped_trsm": {"f32": 1},
                           "stepped_syrk": {"f32": 1}}
                    for arch in ("feti-heat-2d", "feti-heat-3d")}
@@ -696,9 +741,20 @@ DRYRUN_LAUNCHES = {arch: {"stepped_trsm": {"f32": 1},
 # f64 and the split's 6.359e-3 and 3.710e-3: twice the distance measured
 PLACED_RUNS = (("granite-3-8b", 2, (2, 1), 4, 512, 3),
                ("granite-3-8b", 2, (1, 2), 4, 512, 3),
+               ("granite-3-8b", 2, (1, 2), 4, 511, 3),  # no SP at 511
                ("recurrentgemma-2b", 3, (1, 2), 4, 512, 3),
                ("rwkv6-1.6b", 2, (1, 2), 4, 512, 3))
 PLACED_TOL, PLACED_GRAD_TOL = TRAIN_ACCUM_TOL, TRAIN_GRADS_TOL
+# the 4 x 512 PLACED_RUNS entries' collective bytes a rank a step and peak
+# device bytes a rank before sequence parallelism and the vocab-parallel
+# loss: the port at 5322958, its schedule, and its placed phase on NVIDIA
+# H100 80GB HBM3, 700.00 W with the earlier runs' garbage collected before
+# each run (PERF.md §5), printed beside this run's
+PLACED_BEFORE_SP = {("granite-3-8b", (2, 1)): (6_392_299_536, 7_399_307_264),
+                    ("granite-3-8b", (1, 2)): (402_653_188, 8_355_587_072),
+                    ("recurrentgemma-2b", (1, 2)): (2_658_263_044,
+                                                    16_156_037_120),
+                    ("rwkv6-1.6b", (1, 2)): (840_024_068, 5_120_829_440)}
 PLACED_PARAM_TOL = {"recurrentgemma-2b": 6.9e-3, "rwkv6-1.6b": 6.2e-3}
 # placed serving in the same group of ranks, on (data=1, model=2), at full
 # width and bf16, the model's own seeded initialization: arch, layers,
@@ -719,6 +775,15 @@ PLACED_SERVE = (("deepseek-v2-236b", 2, 4, 512, 2.1e-2),  # 1.008e-2
                 # took another greedy token than one process's
                 ("recurrentgemma-2b", 5, 4, 512, 3.9e-2),  # 1.923e-2
                 ("rwkv6-1.6b", 12, 4, 512, 0.13))  # measured 6.332e-2
+# PLACED_SERVE's peak device bytes a rank (prefill, decode) before
+# sequence parallelism (the port at 5322958 on the same card, garbage
+# collected before each run, as PLACED_BEFORE_SP), printed beside this
+# run's
+PLACED_SERVE_BEFORE_SP = {"deepseek-v2-236b": (7_420_365_824, 5_469_224_448),
+                          "grok-1-314b": (7_412_400_128, 6_607_908_864),
+                          "recurrentgemma-2b": (1_298_183_680,
+                                                1_172_562_432),
+                          "rwkv6-1.6b": (1_137_633_280, 1_010_473_472)}
 # the `cuda` case of tests/test_torch_lm_distributed.py in the same group:
 # these smoke models' f32 forwards on (1, 2) within PLACED_FORWARD_TOL of
 # one process's on the card
@@ -2721,7 +2786,6 @@ def placed_phase(device, smi, cpu=False):
     from repro_torch.distributed.sharding import (placed_forward,
                                                   placed_serve,
                                                   placed_train_step)
-    from repro_torch.distributed.tensor_parallel import vocab_splits
     from repro_torch.launch.analytic import lm_collectives
     from repro_torch.launch.mesh import MeshShape, run_each, spawn_ranks
     from repro_torch.launch.shapes import ShapeCase
@@ -2731,7 +2795,7 @@ def placed_phase(device, smi, cpu=False):
         full = (get_smoke_config if cpu else get_config)(arch)
         cfg = dataclasses.replace(full, num_layers=layers, dtype="float32",
                                   param_dtype="float32")
-        seq = 16 if cpu else seq
+        seq = 16 - seq % 2 if cpu else seq
         tcfg = train_config(steps, "float32", remat=True, lr=TRAIN_CHECK_LR)
         batches = [synthetic_batch(cfg, batch, seq, seed=17, step=i)
                    for i in range(steps)]
@@ -2759,7 +2823,9 @@ def placed_phase(device, smi, cpu=False):
     wall = time.perf_counter() - t0
     bad = []
     for j, (cfg, full, mesh, batch, seq, want) in enumerate(runs):
-        whole, lru = model_axis_gathers(cfg, mesh[1])
+        whole, lru, whole_bytes = model_axis_gathers(cfg, mesh[1])
+        before = (PLACED_BEFORE_SP.get((full.name, mesh), (None, None))
+                  if seq % 2 == 0 else ("not measured",) * 2)
         bar = PLACED_PARAM_TOL.get(full.name.removesuffix("-smoke"),
                                    PLACED_TOL)
         for i, r in enumerate(rk[j] for rk in ranks):
@@ -2777,6 +2843,16 @@ def placed_phase(device, smi, cpu=False):
                   f"gradients {PLACED_GRAD_TOL:g}): {d}; losses "
                   f"{[m['loss'] for m in r['metrics']]}, gradient norms "
                   f"{[m['grad_norm'] for m in r['metrics']]}", flush=True)
+            rs = (want.count_by_op.get("reduce-scatter", 0),
+                  want.bytes_by_op.get("reduce-scatter", 0))
+            peak = max(p or 0 for p in r["peak_device_bytes"])
+            print(f"[chip_smoke] placed {cfg.name} on {mesh} rank {i}: "
+                  f"reduce-scatters a step {rs[0]} ({rs[1]:,} B) of "
+                  f"{want.total_bytes:,} B collectives (lm_collectives; "
+                  f"before sequence parallelism {before[0]} B); peak "
+                  f"device bytes {peak:,} (before {before[1]}; held on "
+                  f"entry {r['held_on_entry']}); layer inputs "
+                  f"{r['block_inputs'][0]}", flush=True)
             for step, got in enumerate(r["collectives"]):
                 print(f"[chip_smoke] placed {mesh} rank {i} step {step} "
                       f"collectives recorded {got} / lm_collectives {want}",
@@ -2784,17 +2860,26 @@ def placed_phase(device, smi, cpu=False):
                 if got != want:
                     bad.append(f"{mesh} rank {i} step {step}: collectives "
                                f"{got} are not the schedule {want}")
-                # (1, model): no split weight is gathered; a split head's
-                # logits are (the smoke vocab divides, granite's does not),
-                # in each pass (remat: two) the weights computed whole and
-                # each split RG-LRU's conv output
-                gathers = vocab_splits(cfg, mesh[1]) + 2 * (len(whole) + lru)
-                if mesh[0] == 1 and got.count_by_op.get("all-gather",
-                                                        0) != gathers:
+                # (1, model), sequence-parallel: no split weight and no
+                # logits are gathered; in each pass (remat: two) the
+                # weights computed whole and each split RG-LRU's conv
+                # output; the rest (rows, S, d) along the sequence
+                hidden = batch // mesh[0] * seq * cfg.d_model * 4
+                lru_b = batch // mesh[0] * seq * cfg.lru_width * 4
+                n_seq = got.count_by_op.get("all-gather", 0) - 2 * (
+                    len(whole) + lru)
+                if mesh[0] == 1 and (n_seq < 0 or got.bytes_by_op.get(
+                        "all-gather", 0) != n_seq * hidden + 2 * (
+                        whole_bytes + lru * lru_b)):
                     bad.append(f"{mesh} rank {i} step {step}: a "
-                               f"tensor-parallel step gathered {got}, "
-                               f"want {gathers}: the logits, {lru} RG-LRU "
+                               f"tensor-parallel step gathered {got}: "
+                               f"want the sequence's, {lru} RG-LRU "
                                f"outputs and {whole} a pass")
+            want_in = (batch // mesh[0],
+                       seq if seq % mesh[1] else seq // mesh[1], cfg.d_model)
+            if r["block_inputs"] != [want_in] * cfg.num_layers:
+                bad.append(f"{mesh} rank {i}: layer inputs "
+                           f"{r['block_inputs']}, want {want_in}")
             if (d["metrics"][0] > PLACED_TOL or d["params"][0] > bar
                     or d["grads"][0] > PLACED_GRAD_TOL):
                 bad.append(f"{mesh} rank {i}: {d}")
@@ -2821,9 +2906,10 @@ def placed_phase(device, smi, cpu=False):
 
 def model_axis_gathers(cfg, tp):
     """What one forward of ``cfg`` placed on (1, ``tp``) all-gathers along
-    'model' besides a split head's logits: the weights the split plan
-    computes whole although their specs cut them there (names), and the
-    number of split RG-LRU layers (each gathers its conv output)."""
+    'model' besides the residual stream and a split head's logits: the
+    weights the split plan computes whole although their specs cut them
+    there (names), the number of split RG-LRU layers (each gathers its
+    conv output) and those weights' bytes."""
     from repro_torch.distributed.sharding import param_shardings
     from repro_torch.distributed.tensor_parallel import split_plan
     from repro_torch.launch.mesh import MeshShape
@@ -2832,9 +2918,10 @@ def model_axis_gathers(cfg, tp):
     meta = dict(LanguageModel(cfg, device="meta").named_parameters())
     specs = param_shardings(MeshShape({"data": 1, "model": tp}), meta)
     plan = split_plan(cfg, tp)
-    return ([n for n, spec in specs.items()
-             if "model" in spec and plan.mode(n) != "shard"],
-            len(plan.rglru))
+    whole = [n for n, spec in specs.items()
+             if "model" in spec and plan.mode(n) != "shard"]
+    return (whole, len(plan.rglru),
+            sum(meta[n].numel() * meta[n].element_size() for n in whole))
 
 
 def placed_parameters(cfg, mesh):
@@ -2971,9 +3058,10 @@ def check_placed_serving(serving, ranks, smi, cpu):
     mesh = MeshShape({"data": 1, "model": 2})
     bad = []
     for k, (cfg, tokens, one, bar, of_layers) in enumerate(serving):
-        whole, lru = model_axis_gathers(cfg, 2)
+        whole, lru, _ = model_axis_gathers(cfg, 2)
         gathers = len(whole) + lru + (vocab_splits(cfg, 2)
                                       and cfg.has_lm_head)
+        before = PLACED_SERVE_BEFORE_SP.get(cfg.name, (None, None))
         held, used, total = placed_parameters(cfg, (1, 2))
         print(f"[chip_smoke] placed serving {cfg.name} on (1, 2): "
               f"{held:,} of {total:,} parameters a rank, computing with "
@@ -2981,7 +3069,17 @@ def check_placed_serving(serving, ranks, smi, cpu):
         B, S = tokens.shape
         for i, rk in enumerate(ranks):
             r = rk[k]
+            print(f"[chip_smoke] placed serving {cfg.name} rank {i}: peak "
+                  f"device bytes prefill "
+                  f"{r['peak_device_bytes']['prefill']}, decode "
+                  f"{r['peak_device_bytes']['decode']} (before sequence "
+                  f"parallelism {before[0]}, {before[1]}; held on entry "
+                  f"{r['held_on_entry']})", flush=True)
             for key in ("prefill", "decode"):
+                # a sequence-parallel prefill also gathers each layer's
+                # two part inputs and each rank's last position
+                sp = key == "prefill" and S % 2 == 0
+                n = gathers + sp * (2 * cfg.num_layers + 1)
                 want = lm_collectives(cfg, ShapeCase(key, S, B, key), mesh)
                 got = r["collectives"][key]
                 err = float(np.abs(r[key] - one[key]).max()
@@ -3002,11 +3100,11 @@ def check_placed_serving(serving, ranks, smi, cpu):
                 if got != want:
                     bad.append(f"serving {cfg.name} rank {i} {key}: "
                                f"collectives {got} are not {want}")
-                if got.count_by_op.get("all-gather", 0) != gathers:
+                if got.count_by_op.get("all-gather", 0) != n:
                     bad.append(f"serving {cfg.name} rank {i} {key}: "
-                               f"{got.count_by_op} gathers, want {gathers}: "
-                               f"the logits, {lru} RG-LRU outputs and "
-                               f"{whole}")
+                               f"{got.count_by_op} gathers, want {n}: "
+                               f"the logits, {lru} RG-LRU outputs, "
+                               f"{whole} and the sequence's")
         print(f"[chip_smoke] placed serving {cfg.name}: weights gathered "
               f"along 'model' (computed whole): {whole}", flush=True)
     return bad
@@ -3060,6 +3158,15 @@ def dryrun_phase(device, smi, cpu=False):
               f" (decode_32k {ds.get('decode_32k', 0):,} B; with its MLA "
               f"heads and experts gathered whole "
               f"{DRYRUN_DEEPSEEK_DECODE_WHOLE.get(mesh, 0):,})", flush=True)
+        for r in sorted(rows, key=lambda r: (r["arch"], r["shape"])):
+            old = DRYRUN_BEFORE_SP.get(mesh, {}).get(r["arch"])
+            if old and r["shape"] in ("train_4k", "prefill_32k"):
+                print(f"[chip_smoke] dryrun {mesh} {r['arch']} {r['shape']} "
+                      f"collective bytes a rank "
+                      f"{sum(r['collectives']['bytes'].values()):,} "
+                      f"{r['collectives']['bytes']} (before sequence "
+                      f"parallelism {old[r['shape'] == 'prefill_32k']:,})",
+                      flush=True)
         for arch, old in DRYRUN_RECURRENT_DECODE_WHOLE.items():
             got = [r["collectives"]["bytes"].get("all-gather", 0)
                    for r in rows

@@ -17,8 +17,11 @@ that does not divide degrades to replication rather than erroring.
 mesh (the loss's numerators and denominator, the MoE load-balancing
 means), which GSPMD does for the reference. Outside one it returns its
 argument itself, so one process's arithmetic is unchanged bit for bit.
-:func:`recompute_contexts` carries both contexts into a ``remat`` block's
-recomputation, which runs in backward, outside the step's ``with``.
+:func:`recompute_contexts` carries both contexts, and the sequence-parallel
+group of the forward
+(:func:`~repro_torch.distributed.tensor_parallel.sequence_parallel`), into
+a ``remat`` block's recomputation, which runs in backward, outside the
+step's ``with``.
 """
 from __future__ import annotations
 
@@ -27,6 +30,7 @@ import contextvars
 
 import torch
 
+from repro_torch.distributed import tensor_parallel
 from repro_torch.distributed.sharding import (axis_size, dp_all_reduce,
                                               mesh_axes, placements)
 
@@ -137,15 +141,17 @@ def dp_active() -> bool:
 
 def recompute_contexts():
     """``context_fn`` of ``torch.utils.checkpoint``: the recomputation in
-    backward runs under the activation constraints and the data-parallel
-    group that were active when the forward ran."""
-    state = (_ACTIVE.get(), _DP.get())
+    backward runs under the activation constraints, the data-parallel
+    group and the sequence-parallel group that were active when the
+    forward ran."""
+    state = (_ACTIVE.get(), _DP.get(), tensor_parallel.sp_group())
 
     @contextlib.contextmanager
     def restored():
         tokens = (_ACTIVE.set(state[0]), _DP.set(state[1]))
         try:
-            yield
+            with tensor_parallel.sequence_parallel(state[2]):
+                yield
         finally:
             _DP.reset(tokens[1])
             _ACTIVE.reset(tokens[0])

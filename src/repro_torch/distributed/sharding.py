@@ -41,7 +41,11 @@ latent projections, the MoE router and whatever does not divide) gather
 their weights whole along 'model' too, and the ranks along 'model'
 compute them alike on the same batch rows. A split MoE layer moves no
 token between ranks: every 'model' rank holds all the tokens of its
-batch rows, routes them alike and runs its own experts' slots. A serving
+batch rows, routes them alike and runs its own experts' slots. A forward
+whose length divides the 'model' axis (training, prefill) runs
+sequence-parallel: between blocks each 'model' rank holds its positions of
+the residual stream, and the parameters it uses whole get their gradients
+summed over 'model'. A serving
 cache holds the rank's batch rows, the rank's KV heads (MLA's compressed
 cache whole), its RG-LRU channels and its RWKV-6 heads. Every collective
 is a c10d call, which
@@ -55,7 +59,8 @@ from typing import Optional
 import torch
 
 from repro_torch.distributed.tensor_parallel import (TensorParallel,
-                                                     copy_to_tp, split_plan)
+                                                     copy_to_tp, sp_group,
+                                                     split_plan)
 
 __all__ = [
     "batch_spec",
@@ -409,8 +414,8 @@ class _Gather(torch.autograd.Function):
     shard gradient: cut along the gathered 'model' (non-data-parallel)
     shards, where the ranks took the same batch rows; summed over the
     data-parallel ranks, which took others; then cut along the
-    data-parallel shards. gloo has no reduce-scatter, so the sum is an
-    all-reduce before the cut."""
+    data-parallel shards. The sum is an all-reduce before the cut (a
+    reduce-scatter would send less)."""
 
     @staticmethod
     def forward(ctx, x, mesh, pl, keep):
@@ -483,12 +488,22 @@ def distribute_model(model: torch.nn.Module, mesh, specs: dict) -> None:
     MLA, RG-LRU, RWKV-6, MLP, MoE, the model for the vocab) learn the
     'model' group (their ``tp`` attribute). The other
     parameters are gathered whole, and the ranks along 'model' compute
-    those blocks alike. Under ``remat`` a layer's recomputation in backward
-    runs its hooks again, so its weights are gathered twice a step."""
+    those blocks alike. The model learns the 'model' group as its ``sp``
+    too: a forward whose length divides it runs sequence-parallel, and
+    there each rank differentiates the parameters it gathers whole, and a
+    row-parallel projection's bias (which no spec cuts on 'model'), through
+    its own positions, so their gradients are summed over 'model' too (the
+    model's own final norm by the forward's batch; a layer's by the
+    forward it runs in). An unsplit vocab's embedding and head are not:
+    every rank looks up and projects every position, so each holds the
+    whole gradient. Under ``remat`` a layer's
+    recomputation in backward runs its hooks again, so its weights are
+    gathered twice a step."""
     tp = tensor_parallel(mesh)
     cfg = model.cfg
     plan = split_plan(cfg, tp.size if tp is not None else 1)
     keep = tuple(d for d, n in enumerate(mesh.mesh_dim_names) if n == "model")
+    model.sp = tp
     if tp is not None:
         for i in plan.attention + plan.mla + plan.rglru + plan.rwkv:
             model.blocks[i].inner.tp = tp
@@ -500,9 +515,11 @@ def distribute_model(model: torch.nn.Module, mesh, specs: dict) -> None:
         hd = cfg.head_dim
         head = tp.rank // (tp.size // cfg.num_kv_heads) * hd
 
-    def use(param, mode):
-        if mode == "shard":
-            return gathered(param, keep)
+    def use(param, mode, sp, on_model):
+        if mode == "shard":  # a row-parallel bias (not cut on 'model') is
+            # added on the rank's positions under sequence parallelism
+            shard = gathered(param, keep)
+            return shard if on_model else copy_to_tp(shard, sp)
         whole = gathered(param)
         if mode == "head":
             return copy_to_tp(whole, tp).narrow(-1, head, hd)
@@ -511,7 +528,9 @@ def distribute_model(model: torch.nn.Module, mesh, specs: dict) -> None:
             return copy_to_tp(whole, tp).narrow(-1, tp.rank * w, w)
         if mode == "summed":
             return copy_to_tp(whole, tp)
-        return whole
+        if mode == "vocab":  # an unsplit vocab, on every position
+            return whole
+        return copy_to_tp(whole, sp)  # summed under sequence parallelism
 
     placed = {}
     for name, p in list(model.named_parameters()):
@@ -520,7 +539,12 @@ def distribute_model(model: torch.nn.Module, mesh, specs: dict) -> None:
         param = torch.nn.Parameter(place(p.detach(), mesh, specs[name]),
                                    requires_grad=p.requires_grad)
         mod._parameters[leaf] = param
-        placed[name] = (mod, leaf, param, plan.mode(name))
+        on_model = any(a == "model" or (isinstance(a, tuple) and "model" in a)
+                       for a in specs[name])
+        mode = plan.mode(name)
+        if name in ("embed", "lm_head") and mode == "whole":
+            mode = "vocab"
+        placed[name] = (mod, leaf, param, mode, on_model)
 
     units = []  # (layer, its parameters' names)
     for prefix, child in model.named_children():
@@ -532,19 +556,24 @@ def distribute_model(model: torch.nn.Module, mesh, specs: dict) -> None:
     units.append((model, [n for n in placed if n not in in_layers]))
 
     def hooks(entries):
-        def gather(module, args):
-            for mod, leaf, param, mode in entries:
-                mod._parameters[leaf] = use(param, mode)
+        def gather(module, args, kwargs):
+            # a layer runs inside the model's forward; the model's own
+            # parameters are gathered before it, for the forward's batch
+            sp = (model.sequence_parallel_group(
+                args[0] if args else kwargs["batch"])
+                if module is model else sp_group())
+            for mod, leaf, param, mode, on_model in entries:
+                mod._parameters[leaf] = use(param, mode, sp, on_model)
 
         def reshard(module, args, out):
-            for mod, leaf, param, _ in entries:
+            for mod, leaf, param, *_ in entries:
                 mod._parameters[leaf] = param
 
         return gather, reshard
 
     for unit, names in units:
         gather, reshard = hooks([placed[n] for n in names])
-        unit.register_forward_pre_hook(gather)
+        unit.register_forward_pre_hook(gather, with_kwargs=True)
         unit.register_forward_hook(reshard)
 
 
@@ -630,7 +659,9 @@ def placed_forward(rank, cfg, mesh_shape: tuple, tokens) -> dict:
     of each projection's output as the rank computed it (``out_shapes``,
     by module name) and the shape of each layer's parameters as the rank
     computed with them (``used_shapes``, by name: its 'model' shard where
-    its part splits, else whole)."""
+    its part splits, else whole) and the shape of each layer's input
+    (``block_inputs``, a list: the rank's positions under sequence
+    parallelism)."""
     from repro_torch.models import forward
     from repro_torch.models.layers import Dense
 
@@ -638,6 +669,7 @@ def placed_forward(rank, cfg, mesh_shape: tuple, tokens) -> dict:
     local = {name: tuple(p.to_local().shape)
              for name, p in model.named_parameters()}
     out_shapes, used_shapes = {}, {}
+    block_inputs = _record_block_inputs(model)
 
     def record(name):
         def hook(module, args, y):
@@ -661,7 +693,23 @@ def placed_forward(rank, cfg, mesh_shape: tuple, tokens) -> dict:
         logits = gather_batch(mesh, logits, len(tokens))
     return {"logits": logits.float().cpu().numpy(), "specs": specs,
             "local_shapes": local, "out_shapes": out_shapes,
-            "used_shapes": used_shapes}
+            "used_shapes": used_shapes, "block_inputs": block_inputs}
+
+
+def _record_block_inputs(model) -> list:
+    """A list that fills with the shape of each layer's input in its first
+    forward (a forward pre-hook a layer)."""
+    shapes = [None] * len(model.blocks)
+
+    def record(i):
+        def hook(module, args):
+            if shapes[i] is None:
+                shapes[i] = tuple(args[0].shape)
+        return hook
+
+    for i, block in enumerate(model.blocks):
+        block.register_forward_pre_hook(record(i))
+    return shapes
 
 
 def placed_serve(rank, cfg, mesh_shape: tuple, tokens) -> dict:
@@ -675,7 +723,8 @@ def placed_serve(rank, cfg, mesh_shape: tuple, tokens) -> dict:
     Returns both steps' logits of the whole batch (numpy, f32; the ranks'
     rows gathered after each step), each step's collectives, host seconds
     (ended by a device synchronize) and peak device bytes (``None`` on the
-    CPU), and the shapes of the cache's tensors, a dict a layer."""
+    CPU), the bytes held on entry (:func:`_held_on_entry`), and the shapes
+    of the cache's tensors, a dict a layer."""
     import time
 
     from repro_torch.launch.roofline import record_collectives
@@ -684,13 +733,13 @@ def placed_serve(rank, cfg, mesh_shape: tuple, tokens) -> dict:
 
     dev = rank.device
     cuda = dev.type == "cuda"
-    if cuda:  # an earlier run of the group may have left its blocks cached
-        torch.cuda.empty_cache()
+    held = _held_on_entry(dev)  # an earlier run of the group's leftovers
     mesh, model, _ = _placed_model(rank, cfg, mesh_shape)
     prompt = local_batch(mesh, {"tokens": tokens})["tokens"].to(dev)
     B, S = prompt.shape
     cache = init_cache(cfg, B, S + 1, dev, tp=axis_size(mesh, "model"))
     out = {"collectives": {}, "step_s": {}, "peak_device_bytes": {},
+           "held_on_entry": held,
            "cache_shapes": [{k: tuple(v.shape) for k, v in layer.items()}
                             for layer in cache]}
 
@@ -719,6 +768,19 @@ def placed_serve(rank, cfg, mesh_shape: tuple, tokens) -> dict:
     return out
 
 
+def _held_on_entry(dev) -> Optional[int]:
+    """The device bytes still allocated when a run of a group starts, after
+    the garbage of the earlier runs is collected and the cached blocks
+    freed (``None`` on the CPU): the floor under the run's peaks."""
+    if dev.type != "cuda":
+        return None
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_allocated(dev)
+
+
 def _rel(got: torch.Tensor, want: torch.Tensor) -> float:
     """max|got - want| / max|want|, in f64."""
     got, want = got.double(), want.double()
@@ -744,7 +806,9 @@ def placed_train_step(rank, cfg, mesh_shape: tuple, batches: list, tcfg,
     Returns each step's metrics (floats), collectives
     (:func:`~repro_torch.launch.roofline.record_collectives`), host
     seconds (ended by a device synchronize) and peak device bytes (CUDA;
-    ``None`` on the CPU), the rank's coordinate, the specs and the host
+    ``None`` on the CPU), the bytes held on entry (:func:`_held_on_entry`),
+    the shape of each layer's input in the first forward
+    (``block_inputs``), the rank's coordinate, the specs and the host
     seconds of the set-up, the one-process run and the gradient checks. With
     ``check``: first one process's steps on the whole batches from the
     same weights (``make_train_step`` without a mesh; the rank's slices of
@@ -769,8 +833,10 @@ def placed_train_step(rank, cfg, mesh_shape: tuple, batches: list, tcfg,
         if cuda:
             torch.cuda.synchronize(dev)
 
+    held_on_entry = _held_on_entry(dev)
     t0 = time.perf_counter()
     mesh, model, specs = _placed_model(rank, cfg, mesh_shape, state)
+    block_inputs = _record_block_inputs(model)
     sync()
     setup_s = time.perf_counter() - t0
     want = {"grads": [], "metrics": []}
@@ -829,7 +895,9 @@ def placed_train_step(rank, cfg, mesh_shape: tuple, batches: list, tcfg,
         del grads
         check_s += time.perf_counter() - t1
     out = {"metrics": metrics, "collectives": colls, "step_s": times,
-           "peak_device_bytes": peaks, "coords": coordinate(mesh),
+           "peak_device_bytes": peaks, "held_on_entry": held_on_entry,
+           "block_inputs": block_inputs,
+           "coords": coordinate(mesh),
            "specs": specs, "setup_s": setup_s, "reference_s": reference_s,
            "check_s": check_s}
     if keep:

@@ -32,13 +32,14 @@ the port does the same where a block's shapes allow (:func:`split_plan`):
   splits column / row where its width divides. The router, top-k,
   capacity and the aux loss are computed alike on every rank, and one
   all-reduce sums the rank's partial combine and shared output. No token
-  moves between ranks: block boundaries are replicated along 'model', so
-  every rank already holds all the tokens of its batch rows. The
-  all-to-all form of expert parallelism belongs with sequence
-  parallelism (the reference's ``"sp"``), which the port does not do.
+  moves between ranks: every rank holds all the tokens of its batch rows
+  (the block input replicated along 'model', or gathered under sequence
+  parallelism). The all-to-all form of expert parallelism is not ported.
 * the vocab, where ``vocab_size % tp == 0``: the embedding looks up the
-  rank's rows (zero elsewhere) and all-reduces; the head (tied or not)
-  computes the rank's vocab columns and all-gathers them along V.
+  rank's rows (zero elsewhere) and all-reduces (reduce-scatters under
+  SP); the head (tied or not) computes the rank's vocab columns and
+  all-gathers them along V, but not in training, whose vocab-parallel
+  cross-entropy (``train.train_step.loss_fn``) takes the rank's columns.
 * RG-LRU, where ``lru_width % tp == 0``, by width: ``w_in`` and
   ``w_gate_in`` column-parallel (the rank's ``w/tp`` contiguous
   channels), the causal conv, the decay, the drive, the scan and the gate
@@ -68,8 +69,40 @@ its own channels only, are summed over 'model', as a replicated KV head's
 
 A bias of a row-parallel projection is added once, after the sum. What
 does not divide stays whole: its weights are gathered whole along 'model'
-and every 'model' rank computes it. Block boundaries are replicated along
-'model'.
+and every 'model' rank computes it.
+
+Sequence parallelism (Megatron-SP, the reference's ``"sp"``: its blocks
+constrain their input to ``("dp", "sp", None)``). Inside a placed model
+whose 'model' group has more than one rank, a forward whose length S
+divides the group (training and prefill; not decode at S = 1, nor an odd
+prompt, which run the path above) holds the residual stream between
+blocks as the rank's ``S/tp`` contiguous positions
+(:func:`sequence_parallel`, set by the model's forward). What SP shards:
+the residual stream and its adds, the block norms, the final norm and
+the embedding's output. What it does not: inside a block the sequence is
+whole, and the head takes every position (the final norm's output
+all-gathered: :func:`gather_from_sp` into a split vocab's columns, else
+:func:`gather_from_tp`, every rank projecting every position and its
+gradient narrowed to the positions). Each block part
+all-gathers its normed input along S (:func:`gather_from_sp`, whose
+backward reduce-scatters the partial input gradients, so the part takes
+its input without :func:`copy_to_tp`: :func:`enter_tp`); a split part's
+row-parallel sum is a reduce-scatter to the rank's positions
+(:func:`sum_over_tp`, :func:`reduce_scatter_to_sp`), where it is an
+all-reduce without SP; a part that stays whole computes on the gathered
+input and keeps its output's rank positions (:func:`sp_shard`). Chunked
+attention, the caches, the RG-LRU conv and scan, the RWKV-6 token shifts
+and WKV chunks and the MoE dispatch see every position. Each rank then
+differentiates the parameters it uses whole (the norm scales, a whole
+part's weights, MLA's latent projections, the router) and a row-parallel
+projection's bias (added after the reduce-scatter)
+through its own positions only, so under SP their gradients are summed
+over 'model' as the ``"summed"`` ones are
+(:func:`~repro_torch.distributed.sharding.distribute_model`).
+:func:`scatter_to_sp` cuts a replicated input (an unsplit vocab's
+lookup, made whole on every rank, and the frontend stubs' embeddings) to
+the rank's positions; its backward all-gathers the gradient, so that each
+rank holds an unsplit embedding's whole gradient and nothing sums it.
 
 The collectives call ``torch.distributed`` through the module attribute
 when they run, so that
@@ -78,6 +111,8 @@ use no DTensor functional collectives (see ``sharding._all_gather``).
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import dataclasses
 from typing import Optional
 
@@ -86,7 +121,15 @@ import torch
 __all__ = ["TensorParallel", "SplitPlan", "attention_splits", "mla_splits",
            "mlp_splits", "moe_splits", "shared_expert_splits", "vocab_splits",
            "rglru_splits", "rwkv_splits", "split_plan", "local_kv_heads",
-           "copy_to_tp", "reduce_from_tp", "gather_from_tp"]
+           "copy_to_tp", "reduce_from_tp", "gather_from_tp",
+           "sequence_parallel", "sp_group", "scatter_to_sp",
+           "gather_from_sp", "reduce_scatter_to_sp", "sum_over_tp",
+           "enter_tp", "sp_shard"]
+
+# the 'model' group of the innermost sequence-parallel forward, None
+# outside one
+_SP: contextvars.ContextVar = contextvars.ContextVar(
+    "repro_torch_sequence_parallel", default=None)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -325,3 +368,136 @@ def gather_from_tp(x: torch.Tensor, tp: Optional[TensorParallel],
     """The 'model' ranks' ``x`` concatenated along ``dim`` (``x`` itself
     without ``tp``)."""
     return x if tp is None else _GatherFromTP.apply(x, tp, dim % x.dim())
+
+
+# ------------------------------------------------ sequence parallelism ----
+@contextlib.contextmanager
+def sequence_parallel(tp: Optional[TensorParallel]):
+    """Within, the blocks run sequence-parallel over the 'model' group
+    ``tp`` (``None``: they do not)."""
+    token = _SP.set(tp)
+    try:
+        yield
+    finally:
+        _SP.reset(token)
+
+
+def sp_group() -> Optional[TensorParallel]:
+    """The 'model' group of the sequence-parallel forward running, else
+    ``None``."""
+    return _SP.get()
+
+
+def _positions(x: torch.Tensor, tp: TensorParallel) -> torch.Tensor:
+    """The rank's ``S/tp`` contiguous positions of ``x`` (dim 1)."""
+    n = x.shape[1] // tp.size
+    return x.narrow(1, tp.rank * n, n)
+
+
+def _gather_seq(x: torch.Tensor, tp: TensorParallel) -> torch.Tensor:
+    import torch.distributed as dist
+
+    parts = [torch.empty_like(x) for _ in range(tp.size)]
+    dist.all_gather(parts, x.contiguous(), group=tp.group)
+    return torch.cat(parts, dim=1)
+
+
+def _reduce_scatter_seq(x: torch.Tensor, tp: TensorParallel) -> torch.Tensor:
+    """``x`` summed over the 'model' group, the rank's positions kept: one
+    c10d reduce-scatter (gloo runs it on CPU and CUDA tensors)."""
+    import torch.distributed as dist
+
+    parts = [p.contiguous() for p in x.chunk(tp.size, dim=1)]
+    out = torch.empty_like(parts[tp.rank])
+    dist.reduce_scatter(out, parts, op=dist.ReduceOp.SUM, group=tp.group)
+    return out
+
+
+class _ScatterToSP(torch.autograd.Function):
+    """The rank's positions of a replicated tensor forward; the ranks'
+    gradients all-gathered along S in backward."""
+
+    @staticmethod
+    def forward(ctx, x, tp):
+        ctx.tp = tp
+        return _positions(x, tp).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather_seq(g, ctx.tp), None
+
+
+class _GatherFromSP(torch.autograd.Function):
+    """The ranks' positions all-gathered along S forward (a block part's
+    input); the partial gradients summed and scattered back to the
+    positions (reduce-scatter) in backward."""
+
+    @staticmethod
+    def forward(ctx, x, tp):
+        ctx.tp = tp
+        return _gather_seq(x, tp)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduce_scatter_seq(g, ctx.tp), None
+
+
+class _ReduceScatterToSP(torch.autograd.Function):
+    """The partial sums of a row-parallel part summed over 'model' and cut
+    to the rank's positions forward (reduce-scatter); the positions'
+    gradients all-gathered along S in backward."""
+
+    @staticmethod
+    def forward(ctx, x, tp):
+        ctx.tp = tp
+        return _reduce_scatter_seq(x, tp)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather_seq(g, ctx.tp), None
+
+
+def scatter_to_sp(x: torch.Tensor, tp: Optional[TensorParallel]):
+    """The rank's positions of the replicated ``x`` (``x`` itself without
+    ``tp``)."""
+    return x if tp is None else _ScatterToSP.apply(x, tp)
+
+
+def gather_from_sp(x: torch.Tensor, tp: Optional[TensorParallel]):
+    """Every position of the sequence-parallel ``x`` (``x`` itself without
+    ``tp``)."""
+    return x if tp is None else _GatherFromSP.apply(x, tp)
+
+
+def reduce_scatter_to_sp(x: torch.Tensor, tp: Optional[TensorParallel]):
+    """``x`` summed over 'model', the rank's positions (``x`` itself
+    without ``tp``)."""
+    return x if tp is None else _ReduceScatterToSP.apply(x, tp)
+
+
+def sum_over_tp(x: torch.Tensor, tp: Optional[TensorParallel]):
+    """A split part's partial result summed over its 'model' group: the
+    rank's positions of the sum in a sequence-parallel forward
+    (:func:`reduce_scatter_to_sp`), else the whole sum
+    (:func:`reduce_from_tp`)."""
+    if tp is None:
+        return x
+    return (reduce_scatter_to_sp(x, tp) if sp_group() is not None
+            else reduce_from_tp(x, tp))
+
+
+def enter_tp(x: torch.Tensor, tp: Optional[TensorParallel]):
+    """A block part's input into its tensor-parallel computation:
+    :func:`copy_to_tp`, except in a sequence-parallel forward, where the
+    input was gathered by :func:`gather_from_sp`, whose backward sums the
+    ranks' partial gradients already."""
+    return x if sp_group() is not None else copy_to_tp(x, tp)
+
+
+def sp_shard(x: torch.Tensor, tp: Optional[TensorParallel]):
+    """The rank's positions of ``x`` (``x`` itself without ``tp``): of the
+    tokens, labels and masks, or of a part's output that every rank
+    computed whole. A plain narrow: the positions' gradient reaches the
+    whole output, and the part's parameters and input take only their
+    share of it, summed over 'model' later."""
+    return x if tp is None else _positions(x, tp)

@@ -298,31 +298,57 @@ def lm_collectives(cfg: ModelConfig, shape: ShapeCase, mesh, tcfg=None,
     (:func:`~repro_torch.distributed.tensor_parallel.split_plan`). Such a
     part sends activations over 'model' instead, each of (rows, S, d) at
     the activation dtype (rows: the rank's batch rows, a microbatch's in
-    training) unless said otherwise: in each forward one all-reduce after
-    each row-parallel projection (a split attention's, MLA's, MLP's or
-    RWKV-6 time mix's ``wo``, a split RG-LRU's ``w_out``, a split RWKV-6
-    channel mix's ``cm_r`` and ``cm_v``: two), one after a split MoE
-    layer's combine (its shared expert's part in the same sum) and one
-    after a split embedding's lookup; a split RG-LRU one all-gather of its
-    conv output (rows, S, lru_width); a split head one all-gather of its
-    (rows, S, V) logits (S 1 in serving, which projects the last
-    position). Serving (prefill, decode): one forward. Training (``tcfg``:
-    ``grad_accum`` k, ``remat``), per microbatch: a forward, and under
+    training; a "shard": (rows, S/tp, d)) unless said otherwise.
+
+    A forward whose length S divides a 'model' axis of more than one rank
+    (training, prefill; decode's S is 1) is sequence-parallel (SP). Its
+    forward sends, in every layer, two all-gathers (each block part's
+    normed input along S), and one reduce-scatter to a shard after each
+    row-parallel projection (a split attention's, MLA's, MLP's or RWKV-6
+    time mix's ``wo``, a split RG-LRU's ``w_out``, a split RWKV-6 channel
+    mix's ``cm_r`` and ``cm_v``: two), after a split MoE layer's combine
+    (its shared expert's part in the same sum) and after a split
+    embedding's lookup; a split RG-LRU one all-gather of its conv output
+    (rows, S, lru_width). Prefill: one all-gather of each rank's last
+    position (rows, tp, d), then a split head's (rows, 1, V) logits
+    all-gathered along V. Training: one all-gather of the final norm's
+    output into the head (computed whole by every rank where the vocab
+    does not split); no logits are gathered. Its backward, per
+    microbatch: one reduce-scatter to a shard for each of the block parts'
+    all-gathers of the input (two a layer) and for a split head's, one
+    all-gather for each reduce-scatter and for the lookup (whole where the
+    vocab does not split, then cut to the rank's positions), a split
+    RG-LRU's conv output gradient all-reduced, and one all-reduce over
+    'model' of the gradient of every parameter used whole
+    (``SplitPlan.mode`` "whole": the norm scales, the final norm, whatever
+    does not divide, MLA's latent projections and norms, the router; not
+    an unsplit embedding or head, whose gradient each rank holds whole)
+    and of each row-parallel projection's bias (added on the rank's
+    positions), besides those of "head", "channels" and "summed".
+
+    Without SP (decode, an S that does not divide, a 'model' axis of
+    one): one all-reduce of (rows, S, d) in each forward where SP has a
+    reduce-scatter, and no all-gather of the input; serving's split head
+    one all-gather of its (rows, 1, V) logits (the last position); in
+    backward one all-reduce of (rows, S, d) for each split attention,
+    split MLP, split MoE layer, split RG-LRU, split head and each of a
+    split RWKV-6's time and channel mix (the gradient of their input), for
+    a split RG-LRU also one of the gathered conv output's gradient (rows,
+    S, lru_width), for a split MoE layer one of its (rows, S, top_k) f32
+    gate values, for a split MLA one of each latent that enters its heads
+    (the normed query latent, or the input without a query rank; ``ckv``;
+    ``krope``), and one all-reduce over 'model' of each whole tensor a
+    split part uses whole or narrows (``SplitPlan.mode`` "head",
+    "channels" or "summed").
+
+    Serving (prefill, decode): one forward. Training (``tcfg``:
+    ``grad_accum`` k, ``remat``), per microbatch: a forward, under
     ``remat`` every layer's gathers and forward collectives again in
-    backward; in backward one all-reduce of (rows, S, d) for each split
-    attention, split MLP, split MoE layer, split RG-LRU, split head and
-    each of a split RWKV-6's time and channel mix (the gradient of their
-    input), for a split RG-LRU also one of the gathered conv output's
-    gradient (rows, S, lru_width), for a split MoE layer one of its (rows,
-    S, top_k) f32 gate values, for a split MLA one of each latent that
-    enters its heads (the normed query latent, or the input without a
-    query rank; ``ckv``; ``krope``), and one all-reduce over 'model' of
-    each whole tensor a split part uses whole or narrows (a replicated KV
-    head's ``wk`` and ``wv``; RG-LRU's ``conv_w``, ``conv_b``, ``lam``;
-    RWKV-6's ``w0``, ``u``, ``w_lora_b``, its five mixes and ``w_lora_a``:
-    ``SplitPlan.mode`` "head", "channels" or "summed"); one all-reduce of
-    the loss's three sums and, in every MoE
-    layer and pass, one of its load-balancing sums (2E + 1 f32) over each
+    backward, and the backward above. The loss: with a split vocab (the
+    vocab-parallel cross-entropy) one all-reduce (MAX) of a (rows, S) f32
+    max and one of the (2, rows, S) f32 exp-sums and gold logits over
+    'model'; then one all-reduce of the three sums and, in every MoE layer
+    and pass, one of its load-balancing sums (2E + 1 f32) over each
     data-parallel dimension; each parameter's gradient, cut to the rank's
     'model' shard, all-reduced over each data-parallel dimension. Per step,
     the gradient norm: one all-reduce of a partial sum per set of sharding
@@ -377,42 +403,64 @@ def lm_collectives(cfg: ModelConfig, shape: ShapeCase, mesh, tcfg=None,
     k = 1 if serving else tcfg.grad_accum
     if serving:
         rows = B // dpn if B % dpn == 0 else B
-        S, S_out = (shape.seq_len if shape.kind == "prefill" else 1), 1
+        S = shape.seq_len if shape.kind == "prefill" else 1
     else:
         rows, S = B // (k * dpn), shape.seq_len
-        S_out = S
+    sp = tp > 1 and S % tp == 0
     act = _bytes_of(cfg.dtype)
     hidden = rows * S * cfg.d_model * act
+    shard = hidden // tp
     lru = rows * S * cfg.lru_width * act  # a split RG-LRU's conv output
     n_mla, n_moe = len(plan.mla), len(plan.moe)
     n_rglru, n_rwkv = len(plan.rglru), len(plan.rwkv)
-    # (rows, S, d) all-reduces: each forward's row-parallel sums, each
-    # backward's input gradients
+    # each forward's row-parallel sums
     fwd = (len(plan.attention) + len(plan.mlp) + n_mla + n_moe + n_rglru
            + 3 * n_rwkv)
-    lookup = plan.vocab and not (cfg.frontend_stub and cfg.family == "audio")
+    audio = cfg.frontend_stub and cfg.family == "audio"  # no lookup
+    lookup = plan.vocab and not audio
     head = plan.vocab and cfg.has_lm_head
+    # without SP, each backward's input gradients
     bwd = (len(plan.attention) + len(plan.mlp) + n_moe + n_rglru
            + 2 * n_rwkv + head)
-    add("all-gather", rows * S_out * cfg.vocab_size * act, k * head)
+    n_layers = cfg.num_layers
 
     if serving:
         gathers(rest + layers, 1)
         add("all-gather", lru, n_rglru)
-        add("all-reduce", hidden, fwd + lookup)
+        if sp:
+            add("all-gather", hidden, 2 * n_layers)
+            add("reduce-scatter", shard, fwd + lookup)
+            add("all-gather", rows * tp * cfg.d_model * act)  # last position
+        else:
+            add("all-reduce", hidden, fwd + lookup)
+        add("all-gather", rows * cfg.vocab_size * act, head)
         return stats
     passes = 2 if tcfg.remat else 1
     gathers(rest, k)
     gathers(layers, k * passes)
     add("all-gather", lru, k * passes * n_rglru)
-    add("all-reduce", hidden, k * (fwd * passes + lookup + bwd))
+    if sp:  # the head's input gathered once; the lookup's gradient
+        add("all-gather", hidden, k * (2 * n_layers * passes + 1))
+        add("reduce-scatter", shard, k * (fwd * passes + lookup))
+        add("reduce-scatter", shard, k * (2 * n_layers + head))
+        add("all-gather", hidden, k * (fwd + (not audio)))
+    else:
+        add("all-reduce", hidden, k * (fwd * passes + lookup + bwd))
+        add("all-reduce", rows * S * cfg.top_k * 4, k * n_moe)  # gates
+        q_in = cfg.q_lora_rank or cfg.d_model  # MLA's latents
+        for width in (q_in, cfg.kv_lora_rank, cfg.qk_rope_head_dim):
+            add("all-reduce", rows * S * width * act, k * n_mla)
     add("all-reduce", lru, k * n_rglru)
-    add("all-reduce", rows * S * cfg.top_k * 4, k * n_moe)  # gate values
-    q_in = cfg.q_lora_rank or cfg.d_model  # MLA's latents
-    for width in (q_in, cfg.kv_lora_rank, cfg.qk_rope_head_dim):
-        add("all-reduce", rows * S * width * act, k * n_mla)
+    if head:  # the vocab-parallel cross-entropy
+        add("all-reduce", rows * S * 4, k)
+        add("all-reduce", 2 * rows * S * 4, k)
+    summed = ("head", "channels", "summed") + (("whole",) if sp else ())
     for n, p in params.items():
-        if plan.mode(n) in ("head", "channels", "summed"):
+        unused = (n == "embed" and audio and not cfg.tie_embeddings
+                  or n in ("embed", "lm_head") and not plan.vocab)
+        row_bias = plan.mode(n) == "shard" and not any(
+            d in model_dims for d, _ in cuts[n])
+        if (plan.mode(n) in summed or sp and row_bias) and not unused:
             add("all-reduce", p.numel() * p.element_size(), k)
     moe_layers = sum(n.endswith(".mlp.router") for n in params)
     add("all-reduce", 3 * 4, k * len(dp))

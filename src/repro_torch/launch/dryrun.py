@@ -100,7 +100,8 @@ def placement_notes(cfg: ModelConfig, tp: int) -> dict:
     """What the placed LM steps behind an LM row's collectives compute
     tensor-parallel over a 'model' axis of ``tp`` ranks
     (:func:`~repro_torch.distributed.tensor_parallel.split_plan`), what
-    they still gather whole along it, and the serving cache they hold."""
+    they still gather whole along it, the serving cache they hold, and
+    where they run sequence-parallel and how training takes its loss."""
     plan = split_plan(cfg, tp)
     kinds = set(cfg.layer_kinds)
     split, whole = [], []
@@ -159,7 +160,22 @@ def placement_notes(cfg: ModelConfig, tp: int) -> dict:
                            + ("and its RWKV-6 heads of S "
                               if plan.rwkv else "")
                            + "(not sharded along seq over 'model')",
+        "placement_sequence": _sequence_note(cfg, tp, plan),
     }
+
+
+def _sequence_note(cfg: ModelConfig, tp: int, plan) -> str:
+    if tp <= 1:
+        return "no sequence parallelism: one 'model' rank"
+    loss = (f"vocab-parallel loss (the rank's {cfg.vocab_size // tp} of "
+            f"{cfg.vocab_size} vocab columns, no logits gathered)"
+            if plan.vocab else
+            f"vocab {cfg.vocab_size} whole: looked up and projected on "
+            f"every position by every rank")
+    return (f"sequence on 'model' in train and prefill where S divides "
+            f"{tp} (S/{tp} positions a rank between blocks: each block "
+            f"part all-gathers its normed input and reduce-scatters its "
+            f"sum; decode at S = 1 all-reduces); {loss}")
 
 
 def _train_settings(cfg: ModelConfig, opt: bool = False) -> TrainConfig:

@@ -24,7 +24,7 @@ from torch import nn
 
 from repro_torch.distributed.actsharding import shard_act
 from repro_torch.distributed.tensor_parallel import (TensorParallel,
-                                                     copy_to_tp,
+                                                     enter_tp,
                                                      local_kv_heads)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (Dense, Init, apply_mrope, apply_rope,
@@ -230,7 +230,7 @@ class Attention(nn.Module):
         B, S, _ = x.shape
         H, Hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
         if self.tp is not None:  # this rank's heads
-            x = copy_to_tp(x, self.tp)
+            x = enter_tp(x, self.tp)
             H, Hkv = H // self.tp.size, local_kv_heads(cfg, self.tp.size)
         pos_1d = positions[..., 0] if positions.dim() == 3 else positions
         ring = window > 0 and cache is not None
@@ -318,19 +318,21 @@ class MLAttention(nn.Module):
             H //= tp.size
         dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
         pos_1d = positions[..., 0] if positions.dim() == 3 else positions
-        # the latents are whole; each enters the rank's heads alone
+        # the latents are whole; each enters the rank's heads alone (under
+        # sequence parallelism as partial gradients, the latent weights'
+        # summed over 'model' with the other whole parameters)
         if self.wq_a is not None:
-            q = self.wq_b(copy_to_tp(rms_norm(
+            q = self.wq_b(enter_tp(rms_norm(
                 self.wq_a(x), self.q_norm_scale, cfg.norm_eps), tp))
         else:
-            q = self.wq_b(copy_to_tp(x, tp))
+            q = self.wq_b(enter_tp(x, tp))
         q = q.reshape(B, S, H, dn + dr)
         q_nope, q_rope = q[..., :dn], _rope(cfg, q[..., dn:], positions)
         kv = self.wkv_a(x)
-        ckv = copy_to_tp(rms_norm(kv[..., :rank], self.kv_norm_scale,
-                                  cfg.norm_eps), tp)
-        krope = copy_to_tp(_rope(cfg, kv[..., None, rank:],
-                                 positions)[:, :, 0], tp)
+        ckv = enter_tp(rms_norm(kv[..., :rank], self.kv_norm_scale,
+                                cfg.norm_eps), tp)
+        krope = enter_tp(_rope(cfg, kv[..., None, rank:],
+                               positions)[:, :, 0], tp)
         wk_b = self.wk_b.w.reshape(rank, H, dn)
         wv_b = self.wv_b.w.reshape(rank, H, dv)
         args = dict(causal=cfg.causal, q_chunk=q_chunk, kv_chunk=kv_chunk,

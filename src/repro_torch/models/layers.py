@@ -20,8 +20,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.distributed.tensor_parallel import (TensorParallel,
-                                                     copy_to_tp,
-                                                     reduce_from_tp)
+                                                     enter_tp, sum_over_tp)
 
 __all__ = [
     "DTYPES",
@@ -111,7 +110,8 @@ class Norm(nn.Module):
 class Dense(nn.Module):
     """``x @ w (+ b)`` with ``w`` of shape (d_in, d_out); row-parallel with
     a 'model' group ``tp`` (its products summed over the group before the
-    bias)."""
+    bias, the sum reduce-scattered to the rank's positions under sequence
+    parallelism)."""
 
     def __init__(self, d_in: int, d_out: int, init: Init, bias: bool = False,
                  scale: float | None = None):
@@ -121,7 +121,7 @@ class Dense(nn.Module):
         self.b = init.full((d_out,), 0.0) if bias else None
 
     def forward(self, x, tp: Optional[TensorParallel] = None):
-        y = reduce_from_tp(x @ self.w, tp)
+        y = sum_over_tp(x @ self.w, tp)
         return y + self.b if self.b is not None else y
 
 
@@ -150,7 +150,7 @@ class MLP(nn.Module):
         self.wo = Dense(d_ff, d_model, init, bias)
 
     def forward(self, x):
-        x = copy_to_tp(x, self.tp)
+        x = enter_tp(x, self.tp)
         if self.kind == "swiglu":
             h = F.silu(self.wg(x)) * self.wi(x)
         elif self.kind == "geglu":

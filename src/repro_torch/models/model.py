@@ -14,7 +14,17 @@ returned. ``remat=True`` recomputes each block in the backward pass
 cache. Placed with a 'model' group ``tp`` where the vocab divides it
 (:func:`~repro_torch.distributed.sharding.distribute_model`), the
 embedding and the head hold the rank's vocab rows: the lookup is summed
-over the group and the head's logits are gathered along V.
+over the group and the head's logits are gathered along V
+(``gather_logits=False``: the rank's columns, for the vocab-parallel
+loss). Placed on a 'model' group ``sp`` of more than one rank, a forward
+whose length divides it runs sequence-parallel
+(:mod:`repro_torch.distributed.tensor_parallel`): the embedding gives the
+rank's positions (a split lookup reduce-scattered, an unsplit one looked
+up whole and cut to them), the blocks carry them, and the final norm runs
+on them; the head takes them gathered along S (a split vocab's partial
+gradients reduce-scattered back, an unsplit one computed alike by every
+rank on every position, its gradient narrowed), and the prefill's last
+position comes from the rank that holds it.
 """
 from __future__ import annotations
 
@@ -29,15 +39,19 @@ from repro_torch.device import resolve_device
 from repro_torch.distributed.actsharding import recompute_contexts
 from repro_torch.distributed.tensor_parallel import (TensorParallel,
                                                      copy_to_tp,
+                                                     gather_from_sp,
                                                      gather_from_tp,
-                                                     reduce_from_tp)
+                                                     scatter_to_sp,
+                                                     sequence_parallel,
+                                                     sp_group, sp_shard,
+                                                     sum_over_tp)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import DTYPES, Init, Norm
 from repro_torch.models.transformer import (Block, StackLayout,
                                             check_ported, init_layer_cache)
 
 __all__ = ["LanguageModel", "forward", "init_cache", "default_positions",
-           "embed_inputs"]
+           "embed_inputs", "sequence_length"]
 
 
 class LanguageModel(nn.Module):
@@ -67,16 +81,28 @@ class LanguageModel(nn.Module):
                                     cfg.d_model ** -0.5)
                         if cfg.has_lm_head and not cfg.tie_embeddings
                         else None)
-        self.tp: Optional[TensorParallel] = None
+        self.tp: Optional[TensorParallel] = None  # the vocab's
+        self.sp: Optional[TensorParallel] = None  # the sequence's
 
     @property
     def device(self) -> torch.device:
         return self.embed.device
 
+    def sequence_parallel_group(self, batch: dict
+                                ) -> Optional[TensorParallel]:
+        """The 'model' group over which a forward of ``batch`` runs
+        sequence-parallel (a placed model's, where the length divides it;
+        the reference's ``_axis_ok`` guard), else ``None``."""
+        sp = self.sp
+        if sp is None or sequence_length(self.cfg, batch) % sp.size:
+            return None
+        return sp
+
     def forward(self, batch: dict, cache: Optional[list] = None,
                 cache_index: int = 0, positions=None,
                 attn_args: Optional[dict] = None, last_only: bool = False,
-                with_aux: bool = False, remat: bool = False):
+                with_aux: bool = False, remat: bool = False,
+                gather_logits: bool = True):
         """Returns (logits (B, S, V), cache), with ``with_aux`` also the
         MoE layers' summed auxiliary loss (an f32 scalar; 0 without MoE).
         ``batch`` holds ``tokens`` (B, S) and optionally ``features``,
@@ -84,10 +110,20 @@ class LanguageModel(nn.Module):
         ``cache_index`` is the slot of the first new token (a Python int).
         ``last_only`` projects only the last position through the head
         (the prefill path). ``remat`` keeps only each block's input for
-        backward and recomputes the block there (no cache allowed)."""
-        cfg = self.cfg
+        backward and recomputes the block there (no cache allowed).
+        ``gather_logits=False`` (placed training's loss): a split vocab's
+        logits as the rank computed them, its vocab columns."""
+        sp = self.sequence_parallel_group(batch)
+        with sequence_parallel(sp):
+            return self._forward(batch, cache, cache_index, positions,
+                                 attn_args, last_only, with_aux, remat,
+                                 gather_logits)
+
+    def _forward(self, batch, cache, cache_index, positions, attn_args,
+                 last_only, with_aux, remat, gather_logits):
+        cfg, sp = self.cfg, sp_group()
         h = embed_inputs(self, batch)
-        B, S = h.shape[:2]
+        B, S = h.shape[0], sequence_length(cfg, batch)
         if positions is None:
             positions = batch.get("positions")
         if positions is None:
@@ -111,18 +147,29 @@ class LanguageModel(nn.Module):
                              cache_index, attn_args)
             if a is not None:
                 aux = a if aux is None else aux + a
-        if last_only:
+        if last_only:  # under SP the last rank's last position
             h = h[:, -1:, :]
+            if sp is not None:
+                h = gather_from_tp(h, sp, dim=1)[:, -1:, :]
+                sp = None
         h = self.final_norm(h)
+        split_head = cfg.has_lm_head and self.tp is not None
+        if sp is not None:  # every position: a split head's partial
+            # gradients summed back to the positions, else each rank's
+            # gradient of the same loss narrowed to them
+            h = (gather_from_sp(h, sp) if split_head
+                 else gather_from_tp(h, sp, dim=1))
+        elif split_head:
+            h = copy_to_tp(h, self.tp)
         if not cfg.has_lm_head:
             out = h
         else:
-            h = copy_to_tp(h, self.tp)
             if cfg.tie_embeddings:
                 out = torch.einsum("bsd,vd->bsv", h, self.embed)
             else:
                 out = h @ self.lm_head
-            out = gather_from_tp(out, self.tp)
+            if gather_logits:
+                out = gather_from_tp(out, self.tp)
         if not with_aux:
             return out, cache
         if aux is None:
@@ -137,31 +184,40 @@ def forward(model: LanguageModel, batch: dict, cache: Optional[list] = None,
     return model(batch, cache, cache_index, **kwargs)
 
 
+def sequence_length(cfg: ModelConfig, batch: dict) -> int:
+    """The length of the sequences in ``batch`` (its features' under the
+    audio frontend stub, else its tokens')."""
+    if cfg.frontend_stub and "features" in batch:
+        return batch["features"].shape[1]
+    return batch["tokens"].shape[1]
+
+
 def embed_inputs(model: LanguageModel, batch: dict) -> torch.Tensor:
     """Token embedding at the activation dtype, with the frontend stubs:
     ``features`` (B, S, d) replace the tokens (audio), ``vision_embeds``
-    (B, S, d) replace them where ``vision_mask`` (B, S) is set (VLM)."""
+    (B, S, d) replace them where ``vision_mask`` (B, S) is set (VLM).
+    In a sequence-parallel forward: the rank's positions."""
     cfg = model.cfg
     dtype = DTYPES[cfg.dtype]
     dev = model.device
+    sp = sp_group()
     if cfg.frontend_stub and "features" in batch:
-        h = batch["features"].to(device=dev, dtype=dtype)
+        h = scatter_to_sp(batch["features"].to(device=dev, dtype=dtype), sp)
     else:
         # F.embedding: its backward sums each row's gradients in a fixed
         # order (an index's accumulating scatter does not on the CPU)
         tokens, tp = batch["tokens"].to(dev), model.tp
-        if tp is None:
-            h = F.embedding(tokens, model.embed).to(dtype)
+        if tp is None:  # under SP looked up whole, cut to the positions
+            h = scatter_to_sp(F.embedding(tokens, model.embed).to(dtype), sp)
         else:  # the rank's vocab rows, zero elsewhere, summed over 'model'
             lo = tp.rank * model.embed.shape[0]
             mine = (tokens >= lo) & (tokens < lo + model.embed.shape[0])
             h = F.embedding(torch.where(mine, tokens - lo, 0), model.embed)
-            h = reduce_from_tp(torch.where(mine[..., None], h, 0).to(dtype),
-                               tp)
+            h = sum_over_tp(torch.where(mine[..., None], h, 0).to(dtype), tp)
     if "vision_embeds" in batch:
-        mask = batch["vision_mask"].to(dev)[..., None]
-        h = torch.where(mask, batch["vision_embeds"].to(device=dev,
-                                                        dtype=dtype), h)
+        mask = sp_shard(batch["vision_mask"].to(dev), sp)[..., None]
+        h = torch.where(mask, scatter_to_sp(batch["vision_embeds"].to(
+            device=dev, dtype=dtype), sp), h)
     return h
 
 

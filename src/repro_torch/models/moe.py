@@ -16,11 +16,12 @@ routes all its tokens alike (the router, top-k, capacity and the aux loss
 are every rank's), then computes only its part: its ``E/tp`` experts on
 the slots routing gave them (expert parallelism), or every expert's
 ``e_ff/tp`` ff columns; the shared expert its columns. The partial combine
-and shared output are summed by one all-reduce. The ranks along 'model'
-hold the same tokens, so no token moves: this is what GSPMD makes of the
-reference's dispatch sharding when the tokens are replicated along
-'model'. The all-to-all dispatch belongs with sequence parallelism (the
-reference's ``"sp"``), which the port does not do.
+and shared output are summed by one all-reduce (a reduce-scatter to the
+rank's positions under sequence parallelism, whose block hands the layer
+every position). The ranks along 'model' hold the same tokens, so no
+token moves: this is what GSPMD makes of the reference's dispatch
+sharding when the tokens are replicated along 'model'. The all-to-all
+dispatch is not ported.
 """
 from __future__ import annotations
 
@@ -32,14 +33,29 @@ from torch import nn
 
 from repro_torch.distributed.actsharding import dp_active, dp_sum, shard_act
 from repro_torch.distributed.tensor_parallel import (TensorParallel,
-                                                     copy_to_tp,
-                                                     moe_splits,
-                                                     reduce_from_tp,
-                                                     shared_expert_splits)
+                                                     enter_tp, moe_splits,
+                                                     shared_expert_splits,
+                                                     sp_group, sp_shard,
+                                                     sum_over_tp)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import MLP, Init
 
 __all__ = ["MoE", "moe_capacity"]
+
+
+class _ShareGrad(torch.autograd.Function):
+    """Identity forward; the gradient divided by ``n`` in backward (a
+    value every one of ``n`` ranks computes alike, whose gradients the
+    ranks sum)."""
+
+    @staticmethod
+    def forward(ctx, x, n):
+        ctx.n = n
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g / ctx.n, None
 
 
 def moe_capacity(cfg: ModelConfig, S: int) -> int:
@@ -106,15 +122,15 @@ class MoE(nn.Module):
         tp = self.tp
         # only what enters the rank's partial sum crosses into 'model': the
         # router's x does not, or its gradient would be summed tp times
-        xs, gates = copy_to_tp(x, tp), copy_to_tp(gate_vals, tp)
+        xs, gates = enter_tp(x, tp), enter_tp(gate_vals, tp)
         y = dispatch(xs, gates, gate_idx, capacity)
         whole = None
         if self.shared is not None:
             if tp is None or shared_expert_splits(cfg, tp.size):
                 y = y + self.shared(xs)
-            else:
-                whole = self.shared(x)
-        y = reduce_from_tp(y, tp)
+            else:  # every rank's, its positions kept under SP
+                whole = sp_shard(self.shared(x), sp_group())
+        y = sum_over_tp(y, tp)
         if whole is not None:
             y = y + whole
         return y, self._aux_loss(probs, gate_idx)
@@ -124,7 +140,11 @@ class MoE(nn.Module):
         f_e the share of first choices, p_e the mean probability, both over
         the global batch: in a placed training step (``dp_active``) the
         rank's sums and token count are summed over the data-parallel
-        ranks, with gradient, before the product."""
+        ranks, with gradient, before the product. Under sequence
+        parallelism every 'model' rank computes it alike from every
+        position, while its other gradients reach the router and the
+        input as the rank's share, summed over 'model' later: the loss's
+        gradient is shared out the same way (1/tp a rank)."""
         E = self.cfg.num_experts
         first = F.one_hot(gate_idx[..., 0], E).float()
         if dp_active():
@@ -134,7 +154,9 @@ class MoE(nn.Module):
         else:
             frac_tokens = first.mean((0, 1))
             frac_probs = probs.mean((0, 1))
-        return E * (frac_tokens * frac_probs).sum() * self.cfg.router_aux_coef
+        aux = E * (frac_tokens * frac_probs).sum() * self.cfg.router_aux_coef
+        sp = sp_group()
+        return aux if sp is None else _ShareGrad.apply(aux, sp.size)
 
     def _gshard(self, x, gate_vals, gate_idx, capacity):
         B, S, _ = x.shape

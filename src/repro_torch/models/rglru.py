@@ -31,7 +31,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.distributed.tensor_parallel import (TensorParallel,
-                                                     copy_to_tp,
+                                                     copy_to_tp, enter_tp,
                                                      gather_from_tp,
                                                      rglru_splits)
 from repro_torch.models.config import ModelConfig
@@ -101,7 +101,7 @@ class RGLRU(nn.Module):
         B, tp = x.shape[0], self.tp
         st = state or init_rglru_state(self.cfg, B, x.dtype, x.device,
                                        tp.size if tp is not None else 1)
-        x = copy_to_tp(x, tp)
+        x = enter_tp(x, tp)
         gate = gelu(self.w_gate_in(x))
         u, conv_carry = _causal_conv(self.w_in(x), self.conv_w, self.conv_b,
                                      st["conv"])

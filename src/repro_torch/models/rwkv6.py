@@ -20,8 +20,10 @@ computes the rank's ``H/tp`` contiguous heads: ``wr``, ``wk``, ``wv``,
 the recurrence runs on them with the rank's state, and ``wo`` is
 row-parallel. The channel mix takes the rank's ``d_ff/tp`` columns of
 ``cm_k`` and rows of ``cm_v``, and its rows of ``cm_r`` on its slice of
-the mixed input: two row-parallel products, each summed over 'model'.
-The token shifts stay whole.
+the mixed input: two row-parallel products, each summed over 'model'
+(reduce-scattered to the rank's positions under sequence parallelism,
+where the sigmoid gate meets the value on those positions). The token
+shifts stay whole.
 """
 from __future__ import annotations
 
@@ -33,7 +35,7 @@ from torch import nn
 
 from repro_torch.distributed.actsharding import shard_act
 from repro_torch.distributed.tensor_parallel import (TensorParallel,
-                                                     copy_to_tp, rwkv_splits)
+                                                     enter_tp, rwkv_splits)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import Dense, Init
 
@@ -144,7 +146,7 @@ class RWKV6(nn.Module):
         hd = self.cfg.rwkv_head_dim
         H = d // hd // n  # the rank's heads
         st = state or init_rwkv_state(self.cfg, B, x.dtype, x.device, n)
-        x = copy_to_tp(x, tp)
+        x = enter_tp(x, tp)
         prev = _token_shift(x, st["shift_tm"].to(x.dtype))
 
         def mix(m):
@@ -168,7 +170,7 @@ class RWKV6(nn.Module):
     def channel_mix(self, x, state: Optional[dict] = None):
         """Squared-ReLU channel mix with token shift."""
         tp = self.tp
-        x = copy_to_tp(x, tp)
+        x = enter_tp(x, tp)
         prev = (_token_shift(x, state["shift_cm"].to(x.dtype))
                 if state is not None else
                 _token_shift(x, torch.zeros_like(x[:, 0])))

@@ -17,6 +17,8 @@ from typing import Optional, Tuple
 
 from torch import nn
 
+from repro_torch.distributed.tensor_parallel import (gather_from_sp,
+                                                     sp_group, sp_shard)
 from repro_torch.models.attention import (Attention, MLAttention,
                                           init_kv_cache)
 from repro_torch.models.config import ModelConfig
@@ -69,7 +71,15 @@ class StackLayout:
 class Block(nn.Module):
     """Pre-norm residual block: ``x + inner(norm1(x))``, then
     ``x + mlp(norm2(x))`` (an RWKV-6 layer's own channel mix in place of
-    the MLP; with ``use_moe`` a :class:`~repro_torch.models.moe.MoE`)."""
+    the MLP; with ``use_moe`` a :class:`~repro_torch.models.moe.MoE`).
+
+    In a sequence-parallel forward
+    (:func:`~repro_torch.distributed.tensor_parallel.sequence_parallel`)
+    ``x`` is the rank's ``(rows, S/tp, d)`` positions: the norms and the
+    residual adds run on them, each normed input is all-gathered along S
+    for its part, a split part reduce-scatters its sum back to the
+    positions, and a part that stays whole keeps its output's rank
+    positions."""
 
     def __init__(self, cfg: ModelConfig, kind: str, init: Init,
                  use_moe: bool = False):
@@ -92,22 +102,29 @@ class Block(nn.Module):
                 attn_args: dict):
         """Returns ``(x, aux)``: the MoE layer's auxiliary loss, ``None``
         without one."""
-        h = self.norm1(x)
+        sp = sp_group()
+        h = gather_from_sp(self.norm1(x), sp)
         if self.kind == "attn":
             y = self.inner(h, positions, cache, cache_index,
                            window=self.cfg.local_window, **attn_args)
         else:
             y = self.inner(h, cache)
-        x = x + y
-        h = self.norm2(x)
+        x = x + self._positions(y, self.inner, sp)
+        h = gather_from_sp(self.norm2(x), sp)
         aux = None
         if self.kind == "rwkv6":
-            y = self.inner.channel_mix(h, cache)
+            y, part = self.inner.channel_mix(h, cache), self.inner
         elif isinstance(self.mlp, MoE):
-            y, aux = self.mlp(h)
+            (y, aux), part = self.mlp(h), self.mlp
         else:
-            y = self.mlp(h)
-        return x + y, aux
+            y, part = self.mlp(h), self.mlp
+        return x + self._positions(y, part, sp), aux
+
+    @staticmethod
+    def _positions(y, part, sp):
+        """A part's output on the residual stream's positions: a split
+        part's (its ``tp`` set) reduce-scattered them itself."""
+        return y if part.tp is not None else sp_shard(y, sp)
 
 
 def init_layer_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,

@@ -22,12 +22,15 @@ from repro_torch.distributed.actsharding import (data_parallel, dp_active,
                                                  dp_sum)
 from repro_torch.distributed.sharding import (is_placed, local_tensor,
                                               placed_like)
+from repro_torch.distributed.tensor_parallel import (TensorParallel,
+                                                     reduce_from_tp)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import DTYPES
 from repro_torch.models.model import LanguageModel
 from repro_torch.train.optimizer import OptimizerConfig, adamw_update
 
-__all__ = ["TrainConfig", "loss_fn", "make_train_step", "trainable"]
+__all__ = ["TrainConfig", "loss_fn", "make_train_step", "trainable",
+           "cross_entropy", "vocab_parallel_lse"]
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
@@ -40,31 +43,75 @@ class TrainConfig:
     attn_args: Optional[dict] = None  # chunk sizes / skip_masked_blocks
 
 
+def vocab_parallel_lse(logits: torch.Tensor, labels: torch.Tensor,
+                       tp: TensorParallel):
+    """``(lse, gold)`` of logits whose last axis holds the rank's
+    contiguous vocab columns (the rank's part of the whole logits): the
+    per-token log-sum-exp over the whole vocab and the label's logit, each
+    (rows, S) f32 on every 'model' rank. The per-token max over the rank's
+    columns is all-reduced with MAX (it takes no gradient); the sums of
+    ``exp(logit - max)`` over the rank's columns and the gold logit (from
+    the rank whose columns hold the label, zero elsewhere) are summed over
+    'model' in one all-reduce (:func:`reduce_from_tp`), so that each rank's
+    gradient reaches its own columns alone: their softmax and the label's
+    one-hot."""
+    import torch.distributed as dist
+
+    m = logits.detach().amax(-1).contiguous()
+    dist.all_reduce(m, op=dist.ReduceOp.MAX, group=tp.group)
+    sumexp = torch.exp(logits - m[..., None]).sum(-1)
+    n = logits.shape[-1]
+    local = labels - tp.rank * n
+    mine = (local >= 0) & (local < n)
+    gold = logits.gather(-1, torch.where(mine, local, 0)[..., None])[..., 0]
+    sumexp, gold = reduce_from_tp(
+        torch.stack([sumexp, torch.where(mine, gold, 0.0)]), tp).unbind()
+    return m + torch.log(sumexp), gold
+
+
 def loss_fn(model: LanguageModel, batch: dict, tcfg: TrainConfig):
     """Mean CE over the unmasked tokens (+ z-loss + MoE aux) of one forward
     without a cache. Returns ``(total, {"ce", "z_loss", "moe_aux"})``.
     Inside :func:`~repro_torch.distributed.actsharding.data_parallel` the
     numerators and the token count are summed over the data-parallel ranks
     first (one all-reduce): the global batch's mean, not a mean of the
-    ranks' means."""
+    ranks' means. A placed model with a split vocab keeps the rank's
+    columns of the logits (``gather_logits=False``), whose log-sum-exp and
+    gold logit :func:`vocab_parallel_lse` sums over 'model' (the
+    vocab-parallel cross-entropy)."""
     logits, _, aux = model(batch, remat=tcfg.remat,
-                           attn_args=tcfg.attn_args, with_aux=True)
+                           attn_args=tcfg.attn_args, with_aux=True,
+                           gather_logits=False)
     dev = logits.device
     labels = batch["labels"].to(dev, torch.int64)
     mask = batch.get("loss_mask")
     mask = (torch.ones(labels.shape, dtype=torch.float32, device=dev)
             if mask is None else mask.to(dev, torch.float32))
-    logits = logits.float()
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = logits.gather(-1, labels[..., None])[..., 0]
-    nll, zsq, count = ((lse - gold) * mask).sum(), (lse.square() * mask).sum(), \
-        mask.sum()
-    if dp_active():  # a placed step: the global batch's sums
-        nll, zsq, count = dp_sum(torch.stack([nll, zsq, count])).unbind()
-    denom = torch.clamp_min(count, 1.0)
-    ce = nll / denom
-    zl = tcfg.z_loss_coef * zsq / denom
+    vocab = model.tp if model.cfg.has_lm_head else None
+    ce, zl = cross_entropy(logits, labels, mask, tcfg.z_loss_coef, vocab)
     return ce + zl + aux, {"ce": ce, "z_loss": zl, "moe_aux": aux}
+
+
+def cross_entropy(logits, labels, mask, z_loss_coef: float,
+                  vocab: Optional[TensorParallel] = None):
+    """``(ce, z_loss)``: the mean CE of ``logits`` (rows, S, V) over the
+    tokens ``mask`` keeps, and ``z_loss_coef`` times the mean squared
+    log-sum-exp. ``vocab``: the logits hold the rank's vocab columns of
+    that 'model' group (:func:`vocab_parallel_lse`). Inside
+    ``data_parallel`` the sums are summed over the data-parallel ranks."""
+    logits = logits.float()
+    if vocab is None:
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = logits.gather(-1, labels[..., None])[..., 0]
+    else:
+        lse, gold = vocab_parallel_lse(logits, labels, vocab)
+    sums = torch.stack([((lse - gold) * mask).sum(),
+                        (lse.square() * mask).sum(), mask.sum()])
+    if dp_active():  # a placed step: the global batch's sums
+        sums = dp_sum(sums)
+    nll, zsq, count = sums.unbind()
+    denom = torch.clamp_min(count, 1.0)
+    return nll / denom, z_loss_coef * zsq / denom
 
 
 def trainable(model: LanguageModel) -> dict:

@@ -4,7 +4,8 @@ collective columns and Dirichlet executor.
 Held exactly, bytes and counts by operation: ``record_collectives()``
 around a placed prefill, a placed decode step and a placed train step of
 granite-3-8b's smoke model on (data=2, model=2) gloo ranks on the CPU
-against ``lm_collectives`` for the cell; and around one sharded
+against ``lm_collectives`` for the cell (the prefill and the train step
+sequence-parallel, with reduce-scatters); and around one sharded
 ``solve_iter`` and one ``solve_iter_multi`` application on two ranks
 (smoke feti-heat-2d, f32) against ``feti_collectives``. The placed
 serving logits within 1e-6 of one process's (relative to the largest),
@@ -78,7 +79,11 @@ def test_placed_lm_steps_send_the_schedule(lm_ranks):
                                  mesh, _train_config())
             for kind in ("prefill", "decode", "train")}
     assert want["prefill"].count_by_op["all-gather"] > 0
-    assert set(want["train"].count_by_op) == {"all-gather", "all-reduce"}
+    # train and prefill sequence-parallel (SEQ divides 'model'), decode not
+    assert set(want["train"].count_by_op) == {"all-gather", "all-reduce",
+                                              "reduce-scatter"}
+    assert "reduce-scatter" in want["prefill"].count_by_op
+    assert "reduce-scatter" not in want["decode"].count_by_op
     _, ranks = lm_ranks
     for serve, train in ranks:
         assert serve["collectives"]["prefill"] == want["prefill"]

@@ -251,8 +251,10 @@ def test_placed_forward_on_gloo_ranks_sharing_the_card():
     (its heads, FFN and vocab split), deepseek-v2-236b (MLA by heads, 8
     experts 4 a rank, the shared expert by columns), grok-1-314b (4
     experts 2 a rank), recurrentgemma-2b (RG-LRU by width) and rwkv6-1.6b
-    (RWKV-6 by heads) as DTensors on a (data=1, model=2) mesh, f32: each
-    rank's logits within 1e-6 of one process's forward on the card."""
+    (RWKV-6 by heads) as DTensors on a (data=1, model=2) mesh, f32,
+    sequence-parallel (each layer takes the rank's 4 of the 8 positions):
+    each rank's logits within 1e-6 of one process's forward on the
+    card."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from repro_torch.configs import get_smoke_config
@@ -277,6 +279,8 @@ def test_placed_forward_on_gloo_ranks_sharing_the_card():
         for r in (rk[i] for rk in ranks):
             err = np.abs(r["logits"] - want).max() / np.abs(want).max()
             assert err <= 1e-6, (arch, err)
+            assert r["block_inputs"] == [(2, 4, cfg.d_model)] * len(
+                cfg.layer_kinds), arch
     granite, deepseek, grok, rg, rwkv = (ranks[0][i] for i in range(5))
     assert granite["local_shapes"]["blocks.0.inner.wq.w"] == (64, 32)
     assert deepseek["used_shapes"]["blocks.1.inner.wk_b.w"] == (16, 32)

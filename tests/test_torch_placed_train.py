@@ -20,8 +20,9 @@ expert); (1, 2), tensor parallelism alone, for recurrentgemma-2b with
 grad_accum 2 and remat (its one KV head replicated, its RG-LRU blocks by
 width, its MLPs and vocab split), rwkv6-1.6b with grad_accum 2 and remat
 (its RWKV-6 blocks by heads), grok-1-314b (its 4 experts 2 a rank), grok
-with 3 experts (the ff fallback: every expert's ff columns split) and
-deepseek under ``moe_impl="sort"``. Runs from the reference's weights
+with 3 experts (the ff fallback: every expert's ff columns split),
+deepseek under ``moe_impl="sort"`` and hubert-xlarge (features in place of
+tokens, biased MLPs). Runs from the reference's weights
 (``interop.train_state_from_reference``) meet the reference's own
 ``make_train_step`` on the same batches: granite on (2, 1) and (1, 2),
 deepseek, rwkv6-1.6b and recurrentgemma-2b on (1, 2). Placed serving on
@@ -30,6 +31,18 @@ compressed cache whole; RG-LRU's channels and RWKV-6's heads a rank)
 meets one process for granite, recurrentgemma, rwkv6, deepseek and grok;
 placed forwards on (2, 2) compute with the widths the split rule gives,
 and placed serving there holds the recurrent states' split widths.
+
+Every step and forward above whose length (SEQ 16) divides the 'model'
+axis runs sequence-parallel: each layer takes the rank's (rows, SEQ/tp, d)
+positions, and a split vocab's loss is the vocab-parallel cross-entropy
+(no logits gathered). A prompt of SEQ - 1 and each decode step (S = 1)
+run without it, and equal one process too, as do training steps of
+granite and deepseek at SEQ - 1 on (1, 2) (``ODD_SEQ``); granite with a
+vocab of 129, which does not divide 'model', looks up and projects it
+whole on every rank. The vocab-parallel
+cross-entropy alone (``tests/torch_vocab_parallel_ce.py``, two ranks)
+meets the gathered one within 1e-6, labels on both sides of the ranks'
+boundary and masked tokens included.
 
 The training launcher on two ranks (``launch.train.rank_main``): four
 steps with a checkpoint every two, and a resume from the step-2
@@ -43,12 +56,16 @@ ranks run one torch thread each."""
 import dataclasses
 import math
 import os
+import pathlib
 import shutil
+import sys
 
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+
+sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent))
 
 pytestmark = pytest.mark.torch_port
 
@@ -79,7 +96,20 @@ CASES = {
                                     {"num_experts": 3}),
     "deepseek-v2-236b sort (1,2)": ("deepseek-v2-236b", (1, 2), 1, False,
                                     {"moe_impl": "sort"}),
+    # the audio frontend's features cut to the rank's positions, and the
+    # MLPs' row-parallel bias added on them
+    "hubert-xlarge (1,2)": ("hubert-xlarge", (1, 2), 1, False),
+    # a vocab that does not divide 'model': looked up and projected whole
+    # by every rank, on every position
+    "granite-3-8b vocab 129 (1,2)": ("granite-3-8b", (1, 2), 1, False,
+                                     {"vocab_size": 129}),
+    # SEQ - 1 (ODD_SEQ): the path without sequence parallelism (copy_to_tp's
+    # input-gradient all-reduces; deepseek's gates and MLA latents)
+    "granite-3-8b (1,2) seq 15": ("granite-3-8b", (1, 2), 1, False),
+    "deepseek-v2-236b (1,2) seq 15": ("deepseek-v2-236b", (1, 2), 1, False),
 }
+# the cases whose sequences are SEQ - 1 long, which does not divide 'model'
+ODD_SEQ = ("granite-3-8b (1,2) seq 15", "deepseek-v2-236b (1,2) seq 15")
 # mesh -> its runs from the reference's weights: (case, arch)
 REFERENCE = {
     (2, 1): [("granite-3-8b (2,1) from the reference's weights",
@@ -116,6 +146,10 @@ FORWARD = {"granite-3-8b": ("granite-3-8b", {}),
            # RG-LRU by width (and one replicated KV head), RWKV-6 by heads
            "recurrentgemma-2b": ("recurrentgemma-2b", {}),
            "rwkv6-1.6b": ("rwkv6-1.6b", {})}
+# the row-parallel projections, whose sums are reduce-scattered to the
+# rank's positions
+ROW_PARALLEL = ("inner.wo", "inner.w_out", "inner.cm_r", "inner.cm_v",
+                "mlp.wo")
 # FORWARD entries also served on (2, 2), whose caches hold split states,
 # arch -> the bar on its logits against one process (max relative).
 # recurrentgemma's decode lies 1.050e-6 from one process's on (2, 2),
@@ -123,6 +157,10 @@ FORWARD = {"granite-3-8b": ("granite-3-8b", {}),
 # split's 7.893e-7 (tests/torch_placed_drift.py --arch recurrentgemma-2b
 # --mesh 2 2): the split rounds no worse than one process does
 RECURRENT = {"recurrentgemma-2b": 2e-6, "rwkv6-1.6b": SERVE_TOL}
+# placed serving on (1, 2) of a prompt of SEQ - 1, which does not divide
+# the 'model' axis: the path without sequence parallelism
+ODD_PROMPT = ("granite-3-8b", "rwkv6-1.6b")
+CE_TOL = 1e-6  # the vocab-parallel cross-entropy against the gathered one
 LAUNCH = ["--arch", "granite-3-8b", "--smoke", "--batch", "4", "--seq", "16",
           "--steps", "4", "--ckpt-every", "2", "--log-every", "4"]
 
@@ -142,11 +180,16 @@ def _train_config(grad_accum=1, remat=False):
         remat=remat, grad_accum=grad_accum)
 
 
-def _batches(cfg):
+def _batches(cfg, seq=SEQ):
     from repro_torch.data import synthetic_batch
 
-    return [synthetic_batch(cfg, BATCH, SEQ, seed=17, step=i)
+    return [synthetic_batch(cfg, BATCH, seq, seed=17, step=i)
             for i in range(STEPS)]
+
+
+def _seq(case):
+    """The sequence length of ``case``'s batches."""
+    return SEQ - 1 if case in ODD_SEQ else SEQ
 
 
 @pytest.fixture(scope="module")
@@ -214,11 +257,25 @@ def _spawn(calls, n):
                            args=(calls,), timeout=300)
 
 
-def _serve_tokens(arch):
+def _serve_tokens(arch, seq=SEQ):
     from repro_torch.configs import get_smoke_config
 
     return np.random.default_rng(5).integers(
-        0, get_smoke_config(arch).vocab_size, (BATCH, SEQ)).astype(np.int32)
+        0, get_smoke_config(arch).vocab_size, (BATCH, SEQ)).astype(
+            np.int32)[:, :seq]
+
+
+def _ce_inputs():
+    """Logits (4, 16, 128) f32, labels with ``V/2 - 1`` and ``V/2`` (the
+    two ranks' boundary) among them, and a mask that drops some tokens."""
+    rng = np.random.default_rng(11)
+    V = 128
+    logits = (rng.standard_normal((BATCH, SEQ, V)) * 3).astype(np.float32)
+    labels = rng.integers(0, V, (BATCH, SEQ))
+    labels[0, :4] = [V // 2 - 1, V // 2, 0, V - 1]
+    mask = (rng.random((BATCH, SEQ)) > 0.25).astype(np.float32)
+    mask[0, :2] = 1.0
+    return logits, labels, mask
 
 
 def _case_calls(mesh, reference):
@@ -232,7 +289,8 @@ def _case_calls(mesh, reference):
         cfg = _case_config(name)
         _, _, accum, remat, *_ = CASES[name]
         calls.append((placed_train_step, (
-            cfg, mesh, _batches(cfg), _train_config(accum, remat))))
+            cfg, mesh, _batches(cfg, _seq(name)),
+            _train_config(accum, remat))))
     for name, arch in REFERENCE.get(mesh, ()):
         cfg = _config(arch)
         calls.append((placed_train_step, (
@@ -260,6 +318,7 @@ def runs(tmp_path_factory, reference):
     from repro_torch.configs import get_smoke_config
     from repro_torch.distributed.sharding import placed_forward, placed_serve
     from repro_torch.launch.train import rank_main, restore_onto
+    from torch_vocab_parallel_ce import placed_cross_entropy
 
     tmp = tmp_path_factory.mktemp("placed")
     straight, resumed = str(tmp / "straight"), str(tmp / "resumed")
@@ -291,14 +350,23 @@ def runs(tmp_path_factory, reference):
     names, calls = _case_calls((1, 2), reference)
     calls += [(placed_serve, (get_smoke_config(arch), (1, 2),
                               _serve_tokens(arch))) for arch in SERVE]
+    calls += [(placed_serve, (get_smoke_config(arch), (1, 2),
+                              _serve_tokens(arch, SEQ - 1)))
+              for arch in ODD_PROMPT]
+    calls.append((placed_cross_entropy, _ce_inputs()))
     results = _spawn([
         (rank_main, (LAUNCH + ["--ckpt-dir", resumed, "--resume"],)),
         (restore_onto, (straight, "granite-3-8b", (1, 2)))] + calls, 2)
     out["restore"] = [r[:2] for r in results]
     for i, name in enumerate(names):
         out[name] = [r[2 + i] for r in results]
-    out["serve"] = {arch: [r[2 + len(names) + i] for r in results]
+    j = 2 + len(names)
+    out["serve"] = {arch: [r[j + i] for r in results]
                     for i, arch in enumerate(SERVE)}
+    j += len(SERVE)
+    out["odd_prompt"] = {arch: [r[j + i] for r in results]
+                         for i, arch in enumerate(ODD_PROMPT)}
+    out["cross_entropy"] = [r[-1] for r in results]
     return out
 
 
@@ -316,6 +384,14 @@ def test_placed_steps_equal_one_process(runs, case):
         assert all(np.isfinite(m["loss"]) for m in r["metrics"])
     # every rank reports the same global metrics
     assert all(r["metrics"] == ranks[0]["metrics"] for r in ranks)
+    # each layer's input: the rank's microbatch rows, and under sequence
+    # parallelism (the 'model' axis of 2 divides SEQ) its SEQ/2 positions;
+    # at SEQ - 1 every position
+    cfg, seq = _case_config(case), _seq(case)
+    rows = BATCH // (mesh[0] * CASES[case][2])
+    want = (rows, seq if seq % mesh[1] else seq // mesh[1], cfg.d_model)
+    for r in ranks:
+        assert r["block_inputs"] == [want] * cfg.num_layers, case
     if "deepseek" in case and CASES[case][2] == 1:  # parts: no accumulation
         assert ranks[0]["metrics"][0]["moe_aux"] > 0
 
@@ -361,11 +437,14 @@ def _gathered_along_model(cfg, tp):
 
 
 def _tensor_parallel_schedule(ranks, arch):
-    """Each (1, 2) step from the reference's weights sends the schedule,
-    whose all-gathers are the split head's logits, each split RG-LRU's
-    conv output and the weights the plan keeps whole: no split head, FFN
-    slice, expert, RG-LRU channel or RWKV-6 head is gathered. Returns the
-    weights gathered whole."""
+    """Each (1, 2) step from the reference's weights sends the schedule.
+    It is sequence-parallel (SEQ divides 2), so without remat its
+    (BATCH, SEQ, d) all-gathers (each block part's input and the split
+    head's, and in backward each reduce-scatter's gradient) are as many as
+    its reduce-scatters to (BATCH, SEQ/2, d); its other all-gathers are
+    each split RG-LRU's conv output and the weights the plan keeps whole.
+    No logits are gathered, and no split head, FFN slice, expert, RG-LRU
+    channel or RWKV-6 head. Returns the weights gathered whole."""
     from repro_torch.launch.analytic import lm_collectives
     from repro_torch.launch.mesh import MeshShape
     from repro_torch.launch.shapes import ShapeCase
@@ -377,10 +456,12 @@ def _tensor_parallel_schedule(ranks, arch):
                           MeshShape({"data": 1, "model": 2}),
                           _train_config())
     whole = _gathered_along_model(cfg, 2)
-    logits = BATCH * SEQ * cfg.vocab_size * 4
+    hidden = BATCH * SEQ * cfg.d_model * 4
     lru = len(split_plan(cfg, 2).rglru)  # each one's conv output
-    assert want.count_by_op["all-gather"] == 1 + len(whole) + lru
-    assert want.bytes_by_op["all-gather"] == logits + sum(
+    seq = want.count_by_op["reduce-scatter"]
+    assert want.bytes_by_op["reduce-scatter"] == seq * hidden // 2
+    assert want.count_by_op["all-gather"] == seq + len(whole) + lru
+    assert want.bytes_by_op["all-gather"] == seq * hidden + sum(
         math.prod(p.shape) * 4 for n, p in _meta(cfg).items()
         if n in whole) + lru * BATCH * SEQ * cfg.lru_width * 4
     for r in ranks:
@@ -403,9 +484,10 @@ def test_placed_step_meets_the_reference(runs, reference):
 
 def test_tensor_parallel_step_meets_the_reference(runs, reference):
     """The (1, 2) granite steps from the reference's weights, each rank
-    computing its half of the heads, of the FFN and of the vocab, against
-    the reference's own steps; each step sends the schedule, in which no
-    weight is gathered: the one all-gather is the split head's logits."""
+    computing its half of the heads, of the FFN and of the vocab and
+    holding half the positions between blocks, against the reference's
+    own steps; each step sends the schedule, in which no weight and no
+    logit is gathered: its all-gathers are the sequence's."""
     name, arch = REFERENCE[(1, 2)][0]
     _meets_the_reference(runs[name], reference[arch], (1, 2))
     assert _tensor_parallel_schedule(runs[name], arch) == []
@@ -548,11 +630,16 @@ def test_split_ranks_compute_with_their_shards(runs):
                                        "mlp.shared.wo.w": (w, d)})
                     wants = out
                 for name, width in wants.items():
+                    # a row-parallel sum: reduce-scattered to the rank's
+                    # positions (sequence parallelism)
+                    seq = SEQ // 2 if name.endswith(ROW_PARALLEL) else SEQ
                     assert r["out_shapes"][f"blocks.{layer}.{name}"] == (
-                        rows, SEQ, width), (entry, name)
+                        rows, seq, width), (entry, name)
                 for name, shape in shapes.items():
                     assert r["used_shapes"][f"blocks.{layer}.{name}"] == \
                         shape, (entry, layer, name)
+            assert r["block_inputs"] == [(rows, SEQ // 2, d)] * len(
+                cfg.layer_kinds), entry
             err = np.abs(r["logits"] - logits).max() / np.abs(logits).max()
             assert err <= SERVE[arch], (entry, err)
     for arch, bar in RECURRENT.items():
@@ -566,21 +653,22 @@ def test_split_ranks_compute_with_their_shards(runs):
             _check_recurrent_cache(cfg, r["cache_shapes"], rows)
 
 
-def _serve_one_process(cfg, arch):
+def _serve_one_process(cfg, arch, seq=SEQ):
     """One process's prefill and decode logits of ``cfg`` on ``arch``'s
-    serving tokens (numpy), and its cache's shapes (a dict a layer)."""
+    serving tokens (numpy; the first ``seq`` of each row), and its cache's
+    shapes (a dict a layer)."""
     from repro_torch.models import LanguageModel, init_cache
     from repro_torch.train import make_decode_step, make_prefill_step
 
-    tokens = _serve_tokens(arch)
+    tokens = _serve_tokens(arch, seq)
     model = LanguageModel(cfg, device="cpu")
-    cache = init_cache(cfg, BATCH, SEQ + 1, "cpu")
+    cache = init_cache(cfg, BATCH, seq + 1, "cpu")
     whole = [{k: tuple(v.shape) for k, v in layer.items()}
              for layer in cache]
     prefill, _ = make_prefill_step(model)(
         {"tokens": torch.as_tensor(tokens)}, cache)
     tok = prefill.argmax(-1)[:, None].to(torch.int32)
-    decode, _ = make_decode_step(model)(tok, cache, SEQ)
+    decode, _ = make_decode_step(model)(tok, cache, seq)
     return {"prefill": prefill.numpy(), "decode": decode.numpy()}, whole
 
 
@@ -624,6 +712,10 @@ def test_placed_serving_on_model_ranks_is_one_process(runs):
                 assert err <= bar, (arch, key, err)
                 assert r["collectives"][key] == lm_collectives(
                     cfg, ShapeCase(key, SEQ, BATCH, key), mesh)
+            # prefill sequence-parallel (SEQ divides 2), decode (S = 1) not
+            assert "reduce-scatter" in r["collectives"]["prefill"].count_by_op
+            assert "reduce-scatter" not in \
+                r["collectives"]["decode"].count_by_op
             for layer, one, kind in zip(r["cache_shapes"], whole,
                                         cfg.layer_kinds):
                 if cfg.attn_kind == "mla":
@@ -631,6 +723,61 @@ def test_placed_serving_on_model_ranks_is_one_process(runs):
                 elif kind == "attn":
                     assert layer["k"][2] == layer["v"][2] == heads, arch
             _check_recurrent_cache(cfg, r["cache_shapes"], BATCH)
+
+
+def test_odd_prompt_and_decode_run_without_sequence_parallelism(runs):
+    """Placed serving on (1, 2) of a prompt of SEQ - 1, which does not
+    divide the 'model' axis: granite's and rwkv6's prefill and decode
+    steps send the schedule of the path without sequence parallelism (an
+    all-reduce after each row-parallel sum, no reduce-scatter and no
+    sequence gather) and meet one process within the serving bar."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.analytic import lm_collectives
+    from repro_torch.launch.mesh import MeshShape
+    from repro_torch.launch.shapes import ShapeCase
+
+    mesh = MeshShape({"data": 1, "model": 2})
+    for arch in ODD_PROMPT:
+        cfg = get_smoke_config(arch)
+        want, _ = _serve_one_process(cfg, arch, SEQ - 1)
+        for r in runs["odd_prompt"][arch]:
+            for key in ("prefill", "decode"):
+                sched = lm_collectives(cfg, ShapeCase(key, SEQ - 1, BATCH,
+                                                      key), mesh)
+                assert r["collectives"][key] == sched, (arch, key)
+                assert "reduce-scatter" not in sched.count_by_op
+                assert sched.count_by_op["all-reduce"] > 0
+                err = (np.abs(r[key] - want[key]).max()
+                       / np.abs(want[key]).max())
+                assert err <= SERVE[arch], (arch, key, err)
+
+
+def test_vocab_parallel_cross_entropy_is_the_gathered_one(runs):
+    """Two ranks, each with half the vocab columns of (4, 16, 128) f32
+    logits (labels at V/2 - 1 and V/2 among them, a quarter of the tokens
+    masked): the CE, the z-loss (coefficient 1e-4) and each rank's
+    columns of the gradient of their sum within CE_TOL (relative, over
+    the largest) of ``cross_entropy`` on the whole logits; one MAX
+    all-reduce of the (4, 16) f32 max and one of the (2, 4, 16) sums."""
+    from repro_torch.train.train_step import cross_entropy
+
+    logits, labels, mask = _ce_inputs()
+    whole = torch.from_numpy(logits).requires_grad_(True)
+    ce, zl = cross_entropy(whole, torch.from_numpy(labels),
+                           torch.from_numpy(mask), 1e-4)
+    grad, = torch.autograd.grad(ce + zl, whole)
+    ce, zl = float(ce.detach()), float(zl.detach())
+    n = logits.shape[-1] // 2
+    assert zl > 0 and (mask == 0).any()
+    for i, r in enumerate(runs["cross_entropy"]):
+        assert abs(r["ce"] - ce) <= CE_TOL * abs(ce)
+        assert abs(r["z_loss"] - zl) <= CE_TOL * abs(zl)
+        want = grad[..., i * n:(i + 1) * n].numpy()
+        err = np.abs(r["grad"] - want).max() / np.abs(want).max()
+        assert err <= CE_TOL, (i, err)
+        rows = BATCH * SEQ * 4
+        assert r["collectives"].bytes_by_op == {"all-reduce": 3 * rows}
+        assert r["collectives"].count_by_op == {"all-reduce": 2}
 
 
 def test_collectives_recorded_equal_the_schedule(runs):
@@ -642,12 +789,79 @@ def test_collectives_recorded_equal_the_schedule(runs):
 
     for case, (_, mesh, accum, remat, *_) in CASES.items():
         want = lm_collectives(
-            _case_config(case), ShapeCase("placed", SEQ, BATCH, "train"),
+            _case_config(case), ShapeCase("placed", _seq(case), BATCH,
+                                          "train"),
             MeshShape({"data": mesh[0], "model": mesh[1]}),
             _train_config(accum, remat))
         for r in runs[case]:
             for got in r["collectives"]:
                 assert got == want, (case, got, want)
+
+
+def test_odd_length_steps_run_without_sequence_parallelism(runs):
+    """The (1, 2) steps at SEQ - 1 send the schedule of the path without
+    sequence parallelism: no reduce-scatter; an all-reduce after each
+    row-parallel sum and of each split part's input gradient (an MLA
+    layer's as its latents (rows, S, q_lora_rank / kv_lora_rank /
+    qk_rope_head_dim)), deepseek's gate values (rows, S, top_k) f32, the
+    loss's and the gradient norm's, and nothing else; no logits
+    gathered (the vocab-parallel loss); nothing gathered but the weights
+    the plan computes whole."""
+    from repro_torch.distributed.tensor_parallel import split_plan
+    from repro_torch.launch.analytic import lm_collectives
+    from repro_torch.launch.mesh import MeshShape
+    from repro_torch.launch.shapes import ShapeCase
+
+    mesh = MeshShape({"data": 1, "model": 2})
+    for case in ODD_SEQ:
+        cfg = _case_config(case)
+        want = lm_collectives(cfg, ShapeCase("placed", SEQ - 1, BATCH,
+                                             "train"), mesh, _train_config())
+        assert "reduce-scatter" not in want.count_by_op, case
+        whole = _gathered_along_model(cfg, 2)
+        assert want.bytes_by_op.get("all-gather", 0) == sum(
+            math.prod(p.shape) * 4 for n, p in _meta(cfg).items()
+            if n in whole), case
+        plan, tokens = split_plan(cfg, 2), BATCH * (SEQ - 1)
+        # forward: each layer's two parts and the lookup; backward: the
+        # parts' and the head's input gradients, an MLA layer's through
+        # its latents instead
+        n = 2 * (2 * cfg.num_layers + 1) - len(plan.mla)
+        gates = len(plan.moe) * tokens * cfg.top_k * 4
+        latents = len(plan.mla) * tokens * 4 * (
+            (cfg.q_lora_rank or cfg.d_model) + cfg.kv_lora_rank
+            + cfg.qk_rope_head_dim)
+        assert ("deepseek" in case) == (gates > 0 and latents > 0)
+        loss = 3 * tokens * 4  # the vocab-parallel max and sums
+        assert want.bytes_by_op["all-reduce"] == (
+            n * tokens * cfg.d_model * 4 + gates + latents + loss + 4), case
+        for r in runs[case]:
+            assert r["collectives"] == [want] * STEPS, case
+
+
+def test_unsplit_vocab_is_used_whole_on_every_rank(runs):
+    """granite with a vocab of 129 on (1, 2), sequence-parallel: every rank
+    looks the tokens up whole and projects every position (the final
+    norm's output all-gathered once), so no rank sums the embedding's
+    gradient over 'model' and the loss's sums are not summed there either:
+    its all-reduces are the five norm scales and the gradient norm's."""
+    from repro_torch.launch.analytic import lm_collectives
+    from repro_torch.launch.mesh import MeshShape
+    from repro_torch.launch.shapes import ShapeCase
+
+    case = "granite-3-8b vocab 129 (1,2)"
+    cfg = _case_config(case)
+    want = lm_collectives(cfg, ShapeCase("placed", SEQ, BATCH, "train"),
+                          MeshShape({"data": 1, "model": 2}),
+                          _train_config())
+    act = BATCH * SEQ * cfg.d_model * 4
+    assert want.count_by_op == {"all-gather": 10, "reduce-scatter": 8,
+                                "all-reduce": 6}
+    assert want.bytes_by_op == {"all-gather": 10 * act,
+                                "reduce-scatter": 8 * act // 2,
+                                "all-reduce": 5 * cfg.d_model * 4 + 4}
+    for r in runs[case]:
+        assert r["collectives"] == [want] * STEPS
 
 
 def test_placed_resume_equals_uninterrupted(runs):

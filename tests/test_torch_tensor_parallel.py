@@ -243,10 +243,19 @@ def test_head_sharded_cache():
 
 def test_schedule_on_model_ranks():
     """granite-3-8b at full width, 2 layers, f32, remat, (data=1,
-    model=2), global batch 4 x 512: no weight is gathered (the vocab of
-    49,155 stays whole, and nothing is cut along 'data'); each layer
-    all-reduces (4, 512, 4096) f32 twice forward, twice again in the
-    recomputation and twice in backward; the norm adds its 4 B."""
+    model=2), global batch 4 x 512, sequence-parallel (512 divides 2): no
+    weight is gathered (the tied vocab of 49,155 stays whole, and nothing
+    is cut along 'data'). Each layer all-gathers its two parts' inputs,
+    (4, 512, 4096) f32, and reduce-scatters its attention's and MLP's sums
+    to (4, 256, 4096), in the forward and again in the recomputation; in
+    backward each part's gather's gradient is reduce-scattered and each
+    reduce-scatter's all-gathered. The unsplit embedding is looked up
+    whole and projected on every position by every rank: the final norm's
+    output is all-gathered into the head (its gradient narrowed), and the
+    lookup's gradient all-gathered in backward, so that each rank holds
+    the embedding's whole gradient and nothing sums it. All-reduces: the
+    five norm scales' gradients and the norm's 4 B. Decode (S = 1) keeps
+    the all-reduces: four (4, 1, 4096), one a split part."""
     from repro_torch.launch.analytic import lm_collectives
     from repro_torch.launch.shapes import ShapeCase
     from repro_torch.train import TrainConfig
@@ -256,30 +265,45 @@ def test_schedule_on_model_ranks():
     mesh = MeshShape({"data": 1, "model": 2})
     got = lm_collectives(cfg, ShapeCase("placed", 512, 4, "train"), mesh,
                          TrainConfig(remat=True))
-    act = 4 * 512 * 4096 * 4
+    act, shard = 4 * 512 * 4096 * 4, 4 * 256 * 4096 * 4
     assert act == 33_554_432
-    assert got.count_by_op == {"all-reduce": 13}
-    assert got.bytes_by_op == {"all-reduce": 12 * act + 4}
-    # without remat the recomputation's four go; serving: one forward
+    norm = 4096 * 4
+    summed = 5 * norm + 4
+    assert got.count_by_op == {"all-gather": 14, "reduce-scatter": 12,
+                               "all-reduce": 6}
+    assert got.bytes_by_op == {"all-gather": 14 * act,
+                               "reduce-scatter": 12 * shard,
+                               "all-reduce": summed}
+    assert summed == 81_924
+    # without remat the recomputation's four and four go; serving: one
+    # forward, and prefill's last position from each rank
     got = lm_collectives(cfg, ShapeCase("placed", 512, 4, "train"), mesh,
                          TrainConfig(remat=False))
-    assert got.bytes_by_op == {"all-reduce": 8 * act + 4}
+    assert got.bytes_by_op == {"all-gather": 10 * act,
+                               "reduce-scatter": 8 * shard,
+                               "all-reduce": summed}
+    got = lm_collectives(cfg, ShapeCase("prefill", 512, 4, "prefill"), mesh)
+    assert got.bytes_by_op == {"all-gather": 4 * act + 4 * 2 * 4096 * 4,
+                               "reduce-scatter": 4 * shard}
     got = lm_collectives(cfg, ShapeCase("decode", 512, 4, "decode"), mesh)
     assert got.bytes_by_op == {"all-reduce": 4 * 4 * 4096 * 4}
 
 
 def test_schedule_of_mla_and_experts_on_model_ranks():
     """deepseek-v2-236b at full width, 2 layers (the dense layer 0, then
-    MLA + MoE), f32, remat, (data=1, model=2), global batch 4 x 512. Per
-    step: all-reduces of (4, 512, 5120) f32, 4 forward (two MLA ``wo``,
-    the dense MLP's, the MoE combine) twice with the recomputation, the
-    lookup's, and 5 in backward (the dense MLP's, the MoE's and the head's
-    input; the two MLA layers' go through their latents); in backward the
-    MoE's (4, 512, 6) f32 gate values and each MLA layer's query latent
-    (1,536), ckv (512) and krope (64); the norm's 4 B. All-gathers: the
-    split head's logits, and in each pass the weights computed whole that
-    the specs cut along 'model' (``wq_a``, ``wkv_a``, the router), but no
-    MLA head weight and no expert."""
+    MLA + MoE), f32, remat, (data=1, model=2), global batch 4 x 512,
+    sequence-parallel. Per step, (4, 512, 5120) f32 all-gathers: the four
+    part inputs in each pass and the split head's input (9), one in
+    backward for each of the forward's reduce-scatters (5); reduce-scatters
+    to (4, 256, 5120): the two MLA ``wo``, the dense MLP's and the MoE
+    combine in each pass and the lookup's (9), and in backward each
+    gather's (5). In each pass the weights computed whole that the specs
+    cut along 'model' (``wq_a``, ``wkv_a``, the router) are gathered, but
+    no MLA head weight and no expert. All-reduces: the vocab-parallel
+    loss's (4, 512) f32 max and (2, 4, 512) f32 sums; the gradients of
+    the parameters used whole (the five norm scales, each MLA layer's
+    ``wq_a``, ``wkv_a`` and latent norms, the router), no latent and no
+    gate value any more; the norm's 4 B. Decode keeps its path."""
     from repro_torch.launch.analytic import lm_collectives
     from repro_torch.launch.shapes import ShapeCase
     from repro_torch.train import TrainConfig
@@ -289,19 +313,26 @@ def test_schedule_of_mla_and_experts_on_model_ranks():
     mesh = MeshShape({"data": 1, "model": 2})
     got = lm_collectives(cfg, ShapeCase("placed", 512, 4, "train"), mesh,
                          TrainConfig(remat=True))
-    act = 4 * 512 * 5120 * 4
-    latents = 4 * 512 * (1536 + 512 + 64) * 4
-    assert got.count_by_op["all-reduce"] == 4 * 2 + 1 + 3 + 1 + 3 * 2 + 1
-    assert got.bytes_by_op["all-reduce"] == (
-        12 * act + 4 * 512 * 6 * 4 + 2 * latents + 4) == 537_968_644
-    logits = 4 * 512 * 102400 * 4
-    whole = 2 * (5120 * 1536 + 5120 * 576) * 4 + 5120 * 160 * 4
-    assert got.count_by_op["all-gather"] == 1 + 2 * (2 * 2 + 1)
-    assert got.bytes_by_op["all-gather"] == logits + 2 * whole == \
-        1_018_429_440
+    act, shard = 4 * 512 * 5120 * 4, 4 * 256 * 5120 * 4
+    latent_w = (5120 * 1536 + 5120 * 576) * 4
+    whole = 2 * latent_w + 5120 * 160 * 4  # gathered in each pass
+    used = (5 * 5120 + 2 * (1536 + 512)) * 4 + whole  # gradients summed
+    loss = 4 * 512 * 4 + 2 * 4 * 512 * 4
+    assert got.count_by_op == {"all-gather": 14 + 2 * 5,
+                               "reduce-scatter": 14,
+                               "all-reduce": 2 + 14 + 1}
+    assert got.bytes_by_op == {"all-gather": 14 * act + 2 * whole,
+                               "reduce-scatter": 14 * shard,
+                               "all-reduce": loss + used + 4}
+    assert got.bytes_by_op["all-reduce"] == 89_927_684
+    logits = 4 * 102400 * 4
+    got = lm_collectives(cfg, ShapeCase("prefill", 512, 4, "prefill"), mesh)
+    assert got.bytes_by_op == {
+        "all-gather": 4 * act + 4 * 2 * 5120 * 4 + logits + whole,
+        "reduce-scatter": 5 * shard}
     got = lm_collectives(cfg, ShapeCase("decode", 512, 4, "decode"), mesh)
     assert got.bytes_by_op == {"all-reduce": 5 * 4 * 5120 * 4,
-                               "all-gather": 4 * 102400 * 4 + whole}
+                               "all-gather": logits + whole}
 
 
 def test_placement_notes_name_what_stays_whole():
@@ -323,6 +354,25 @@ def test_placement_notes_name_what_stays_whole():
     split, _ = placement_notes(get_config("grok-1-314b"),
                                16)["placement_model_axis"].split("; ")
     assert "ff columns" in split
+
+
+def test_placement_notes_name_sequence_parallelism():
+    """Every LM row on 16 names sequence on 'model'; the vocab-parallel
+    loss where the vocab splits (deepseek's 102,400: 6,400 a rank), every
+    position on every rank where it does not (granite's 49,155)."""
+    from repro_torch.launch.dryrun import placement_notes
+
+    ds = placement_notes(get_config("deepseek-v2-236b"), 16)
+    assert "sequence on 'model'" in ds["placement_sequence"]
+    assert "vocab-parallel loss (the rank's 6400 of 102400" in \
+        ds["placement_sequence"]
+    granite = placement_notes(get_config("granite-3-8b"), 16)
+    assert "sequence on 'model'" in granite["placement_sequence"]
+    assert "vocab-parallel" not in granite["placement_sequence"]
+    assert "vocab 49155 whole" in granite["placement_sequence"]
+    assert "every position" in granite["placement_sequence"]
+    one = placement_notes(get_config("granite-3-8b"), 1)
+    assert "no sequence parallelism" in one["placement_sequence"]
 
 
 RGLRU_PARAMS = {"w_in.w": "shard", "w_gate_in.w": "shard", "wa.w": "shard",
@@ -403,47 +453,61 @@ def test_recurrent_blocks_stay_whole_where_they_do_not_divide():
 
 def test_schedule_of_recurrent_layers_on_model_ranks():
     """The smoke models at f32, remat, (data=1, model=2), global batch 4 x
-    16, worked out by hand (rows 4, d 64, lru_width 64, an activation
-    (4, 16, 64) f32 of 16,384 B, the logits (4, 16, 128) of 32,768 B).
+    16, sequence-parallel, worked out by hand (rows 4, d 64, lru_width 64,
+    an activation (4, 16, 64) f32 of 16,384 B, its shard (4, 8, 64) of
+    8,192 B, the vocab of 128 split).
 
     recurrentgemma-2b (rglru, rglru, attn; one KV head, replicated): its
-    all-gathers are the logits, ``wk`` and ``wv`` (64, 16) gathered whole
-    in each of the two passes, and each RG-LRU's conv output in each
-    pass: 1 + 4 + 4. Its all-reduces of an activation: each pass the
-    attention's, three MLPs' and two RG-LRUs' row-parallel sums (6), the
-    lookup's, and in backward the input gradients of the attention, the
-    three MLPs, the two RG-LRUs and the head (7): 12 + 1 + 7; the two
-    gathered conv outputs' gradients; ``wk`` and ``wv`` whole (4,096 B
-    each); each RG-LRU's ``conv_w`` (4, 64), ``conv_b`` and ``lam`` (64)
-    whole; the norm's 4 B.
+    all-gathers are the three layers' two part inputs in each of the two
+    passes and the head's input (13), one in backward for each forward
+    reduce-scatter (7), ``wk`` and ``wv`` (64, 16) gathered whole in each
+    pass (4) and each RG-LRU's conv output in each pass (4). Its
+    reduce-scatters: in each pass the attention's, three MLPs' and two
+    RG-LRUs' sums (6), the lookup's, and in backward each of the 7 input
+    gathers' gradients. All-reduces: the two gathered conv outputs'
+    gradients, the loss's (4, 16) max and (2, 4, 16) sums, ``wk`` and
+    ``wv`` whole (4,096 B each), each RG-LRU's ``conv_w`` (4, 64),
+    ``conv_b`` and ``lam`` (64), the six norm scales and the final norm
+    (64), the norm's 4 B.
 
-    rwkv6-1.6b (2 layers, 4 heads, d_ff 128): the logits alone are
-    gathered. Each layer sends three activation all-reduces a pass (the
-    time mix's ``wo``, the channel mix's ``cm_r`` and ``cm_v``) and two in
-    backward (each mix's input): 12 + the lookup's 1 + 4 + the head's 1;
-    its ``w0``, ``u`` (64), ``w_lora_b`` (32, 64), four mixes and
-    ``cm_mix`` (64) and ``w_lora_a`` (64, 32) whole in backward; the
-    norm's 4 B. Serving sends one forward's of each."""
+    rwkv6-1.6b (2 layers, 4 heads, d_ff 128, layernorm): all-gathers of
+    the two layers' two part inputs in each pass and the head's input
+    (9) and one for each forward reduce-scatter (7); reduce-scatters: each
+    layer's ``wo``, ``cm_r`` and ``cm_v`` in each pass (12), the lookup's,
+    and the 5 gathers' gradients. All-reduces: the loss's two; its ``w0``,
+    ``u`` (64), ``w_lora_b`` (32, 64), four mixes and ``cm_mix`` (64) and
+    ``w_lora_a`` (64, 32) whole; the five norms' scales and biases (10 x
+    64); the norm's 4 B. Prefill sends one forward's, the rank's last
+    position and the logits; decode (S = 1) keeps the all-reduces."""
     from repro_torch.launch.analytic import lm_collectives
     from repro_torch.launch.shapes import ShapeCase
     from repro_torch.train import TrainConfig
 
     mesh = MeshShape({"data": 1, "model": 2})
     train = ShapeCase("placed", 16, 4, "train")
-    act, logits = 4 * 16 * 64 * 4, 4 * 16 * 128 * 4
+    act, shard, logits = 4 * 16 * 64 * 4, 4 * 8 * 64 * 4, 4 * 16 * 128 * 4
     assert act == 16_384
+    loss, norm, last = 4 * 16 * 4 * 3, 64 * 4, 4 * 2 * 64 * 4
 
     rg = get_smoke_config("recurrentgemma-2b")
     got = lm_collectives(rg, train, mesh, TrainConfig(remat=True))
     kv = 64 * 16 * 4
     per_lru = (4 * 64 + 64 + 64) * 4
-    assert got.count_by_op == {"all-gather": 1 + 4 + 4,
-                               "all-reduce": 20 + 2 + 2 + 6 + 1}
+    assert got.count_by_op == {"all-gather": 13 + 7 + 4 + 4,
+                               "reduce-scatter": 13 + 7,
+                               "all-reduce": 2 + 2 + 2 + 6 + 7 + 1}
     assert got.bytes_by_op == {
-        "all-gather": logits + 4 * kv + 4 * act,
-        "all-reduce": 20 * act + 2 * act + 2 * kv + 2 * per_lru + 4}
-    assert got.bytes_by_op == {"all-gather": 114_688,
-                               "all-reduce": 371_716}
+        "all-gather": 20 * act + 4 * kv + 4 * act,
+        "reduce-scatter": 20 * shard,
+        "all-reduce": 2 * act + loss + 2 * kv + 2 * per_lru + 7 * norm + 4}
+    assert got.bytes_by_op == {"all-gather": 409_600,
+                               "reduce-scatter": 163_840,
+                               "all-reduce": 46_596}
+    prefill = lm_collectives(rg, ShapeCase("prefill", 16, 4, "prefill"),
+                             mesh)
+    assert prefill.bytes_by_op == {
+        "all-gather": 6 * act + last + 4 * 128 * 4 + 2 * kv + 2 * act,
+        "reduce-scatter": 7 * shard}
     decode = lm_collectives(rg, ShapeCase("decode", 16, 4, "decode"), mesh)
     assert decode.bytes_by_op == {"all-gather": 4 * 128 * 4 + 2 * kv
                                   + 2 * 4 * 64 * 4,
@@ -452,15 +516,68 @@ def test_schedule_of_recurrent_layers_on_model_ranks():
     rwkv = get_smoke_config("rwkv6-1.6b")
     got = lm_collectives(rwkv, train, mesh, TrainConfig(remat=True))
     whole = ((64 + 64 + 32 * 64) + (5 * 64 + 64 * 32)) * 4
-    assert got.count_by_op == {"all-gather": 1,
-                               "all-reduce": 18 + 2 * 9 + 1}
-    assert got.bytes_by_op == {"all-gather": logits,
-                               "all-reduce": 18 * act + 2 * whole + 4}
-    assert got.bytes_by_op["all-reduce"] == 331_268
+    assert got.count_by_op == {"all-gather": 9 + 7,
+                               "reduce-scatter": 13 + 5,
+                               "all-reduce": 2 + 2 * 9 + 10 + 1}
+    assert got.bytes_by_op == {"all-gather": 16 * act,
+                               "reduce-scatter": 18 * shard,
+                               "all-reduce": loss + 2 * whole + 10 * norm
+                               + 4}
+    assert got.bytes_by_op["all-reduce"] == 39_684
+    assert logits == 32_768  # gathered by no training step
     prefill = lm_collectives(rwkv, ShapeCase("prefill", 16, 4, "prefill"),
                              mesh)
-    assert prefill.bytes_by_op == {"all-gather": 4 * 128 * 4,
-                                   "all-reduce": 7 * act}
+    assert prefill.bytes_by_op == {"all-gather": 4 * act + last
+                                   + 4 * 128 * 4,
+                                   "reduce-scatter": 7 * shard}
+    odd = lm_collectives(rwkv, ShapeCase("prefill", 15, 4, "prefill"), mesh)
+    assert odd.bytes_by_op == {"all-gather": 4 * 128 * 4,
+                               "all-reduce": 7 * 4 * 15 * 64 * 4}
+
+
+def test_schedule_of_granite_smoke_on_model_ranks():
+    """granite-3-8b's smoke model (2 layers, d 64, a tied vocab of 128,
+    split) at f32, no remat, (data=1, model=2), global batch 4 x 16, by
+    hand: all-gathers of (4, 16, 64) f32, the four part inputs and the
+    head's input, then in backward one for each of the attention's and
+    MLP's reduce-scatters and the lookup's (5); reduce-scatters to (4, 8,
+    64): those five, and in backward each gather's gradient (5). No
+    logits. All-reduces: the loss's max (4, 16) and sums (2, 4, 16), the
+    five norm scales (64), the norm's 4 B. With grad_accum 2 each
+    microbatch sends its own at half the rows; a prompt of 15 runs
+    without SP (one all-reduce a split part and the lookup), and so does a
+    training step at 15: an all-reduce after each of the four parts and
+    the lookup, one of each part's and the head's input gradient, the
+    loss's max and sums at (4, 15), and the norm's 4 B; nothing
+    gathered."""
+    from repro_torch.launch.analytic import lm_collectives
+    from repro_torch.launch.shapes import ShapeCase
+    from repro_torch.train import TrainConfig
+
+    cfg = get_smoke_config("granite-3-8b")
+    mesh = MeshShape({"data": 1, "model": 2})
+    act, shard = 4 * 16 * 64 * 4, 4 * 8 * 64 * 4
+    got = lm_collectives(cfg, ShapeCase("placed", 16, 4, "train"), mesh,
+                         TrainConfig(remat=False))
+    loss = 4 * 16 * 4 * 3
+    assert got.count_by_op == {"all-gather": 10, "reduce-scatter": 10,
+                               "all-reduce": 8}
+    assert got.bytes_by_op == {"all-gather": 10 * act,
+                               "reduce-scatter": 10 * shard,
+                               "all-reduce": loss + 5 * 64 * 4 + 4}
+    two = lm_collectives(cfg, ShapeCase("placed", 16, 4, "train"), mesh,
+                         TrainConfig(remat=False, grad_accum=2))
+    assert two.count_by_op == {"all-gather": 20, "reduce-scatter": 20,
+                               "all-reduce": 15}
+    assert two.bytes_by_op["all-gather"] == 10 * act
+    odd = lm_collectives(cfg, ShapeCase("prefill", 15, 4, "prefill"), mesh)
+    assert odd.bytes_by_op == {"all-gather": 4 * 128 * 4,
+                               "all-reduce": 5 * 4 * 15 * 64 * 4}
+    odd = lm_collectives(cfg, ShapeCase("placed", 15, 4, "train"), mesh,
+                         TrainConfig(remat=False))
+    assert odd.count_by_op == {"all-reduce": 13}
+    assert odd.bytes_by_op == {"all-reduce": 10 * 4 * 15 * 64 * 4
+                               + 3 * 4 * 15 * 4 + 4}
 
 
 def test_placement_notes_name_the_recurrent_splits():

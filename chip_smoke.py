@@ -313,12 +313,17 @@ Phases (each prints its seconds; any failure exits non-zero):
                 last-position logits, each split RG-LRU's conv output and
                 the weights the plan computes whole (MLA's latent
                 projections, the router, a replicated KV head's ``wk`` and
-                ``wv``), and in the sequence-parallel prefill each layer's
-                two part inputs and each rank's last position: no split
-                head weight, expert, RG-LRU channel or RWKV-6 head. Each
-                run prints the parameters a rank holds and those it
-                computes with, and its peaks beside
-                PLACED_SERVE_BEFORE_SP's. Then PLACED_FORWARD, the
+                ``wv``), in the sequence-parallel prefill each layer's
+                two part inputs and each rank's last position, and in
+                decode each slot group's queries: no split head weight,
+                expert, RG-LRU channel, RWKV-6 head or cache. The cache
+                holds S + 1 slots rounded up to 2 (514): deepseek's MLA
+                cache and recurrentgemma's ring (its KV head replicated)
+                half the slots a rank, decode merging the two halves'
+                partial softmaxes. Each run prints the parameters a rank
+                holds and those it computes with, its attention cache's
+                bytes a rank beside the whole cache's, and its peaks
+                beside PLACED_SERVE_BEFORE_SP's. Then PLACED_FORWARD, the
                 ``cuda`` case of ``tests/test_torch_lm_distributed.py``:
                 the smoke models'
                 f32 forwards on (1, 2) within PLACED_FORWARD_TOL of one
@@ -3050,10 +3055,14 @@ def check_placed_serving(serving, ranks, smi, cpu):
     else). Returns the failures."""
     import numpy as np
 
-    from repro_torch.distributed.tensor_parallel import vocab_splits
+    from repro_torch.distributed.sharding import (cache_shardings,
+                                                  local_shape)
+    from repro_torch.distributed.tensor_parallel import (split_plan,
+                                                         vocab_splits)
     from repro_torch.launch.analytic import lm_collectives
     from repro_torch.launch.mesh import MeshShape
     from repro_torch.launch.shapes import ShapeCase
+    from repro_torch.models import init_cache
 
     mesh = MeshShape({"data": 1, "model": 2})
     bad = []
@@ -3061,6 +3070,10 @@ def check_placed_serving(serving, ranks, smi, cpu):
         whole, lru, _ = model_axis_gathers(cfg, 2)
         gathers = len(whole) + lru + (vocab_splits(cfg, 2)
                                       and cfg.has_lm_head)
+        plan = split_plan(cfg, 2)
+        # decode: each slot group whose ranks hold other query heads
+        # gathers its queries, one all-gather an attention layer
+        queries = len(plan.slots) if plan.attention or plan.mla else 0
         before = PLACED_SERVE_BEFORE_SP.get(cfg.name, (None, None))
         held, used, total = placed_parameters(cfg, (1, 2))
         print(f"[chip_smoke] placed serving {cfg.name} on (1, 2): "
@@ -3069,18 +3082,44 @@ def check_placed_serving(serving, ranks, smi, cpu):
         B, S = tokens.shape
         for i, rk in enumerate(ranks):
             r = rk[k]
-            print(f"[chip_smoke] placed serving {cfg.name} rank {i}: peak "
-                  f"device bytes prefill "
+            # the whole cache, and the reference's share of its K / V
+            # (or ckv / krope) a rank, which the dry-run prices
+            cache = init_cache(cfg, B, r["cache_len"], "meta")
+            specs = cache_shardings(mesh, cache)
+            cache_bytes = share = held = 0
+            for li, kind in enumerate(cfg.layer_kinds):
+                for leaf, x in cache[li].items() if kind == "attn" else ():
+                    cache_bytes += x.numel() * x.element_size()
+                    if leaf != "pos":
+                        share += math.prod(local_shape(
+                            mesh, specs[li][leaf], tuple(x.shape))) \
+                            * x.element_size()
+                        held += math.prod(r["cache_shapes"][li][leaf]) \
+                            * x.element_size()
+            print(f"[chip_smoke] placed serving {cfg.name} rank {i}: "
+                  f"attention cache of {r['cache_len']} slots "
+                  f"{r['attention_cache_bytes']:,} B a rank (positions "
+                  f"included; K / V or ckv / krope {held:,} B, the "
+                  f"reference's share {share:,} B), the whole cache "
+                  f"{cache_bytes:,} B (slot groups of {plan.slot_group}: "
+                  f"{len(plan.slots)} layers); peak device bytes prefill "
                   f"{r['peak_device_bytes']['prefill']}, decode "
                   f"{r['peak_device_bytes']['decode']} (before sequence "
                   f"parallelism {before[0]}, {before[1]}; held on entry "
                   f"{r['held_on_entry']})", flush=True)
+            if held != share:
+                bad.append(f"serving {cfg.name} rank {i}: attention cache "
+                           f"{held} B a rank, not the reference's share "
+                           f"{share}")
             for key in ("prefill", "decode"):
                 # a sequence-parallel prefill also gathers each layer's
                 # two part inputs and each rank's last position
                 sp = key == "prefill" and S % 2 == 0
-                n = gathers + sp * (2 * cfg.num_layers + 1)
-                want = lm_collectives(cfg, ShapeCase(key, S, B, key), mesh)
+                n = gathers + sp * (2 * cfg.num_layers + 1) + (
+                    key == "decode") * queries
+                want = lm_collectives(cfg, ShapeCase(
+                    key, S if key == "prefill" else r["cache_len"], B, key),
+                    mesh)
                 got = r["collectives"][key]
                 err = float(np.abs(r[key] - one[key]).max()
                             / np.abs(one[key]).max())
@@ -3104,7 +3143,8 @@ def check_placed_serving(serving, ranks, smi, cpu):
                     bad.append(f"serving {cfg.name} rank {i} {key}: "
                                f"{got.count_by_op} gathers, want {n}: "
                                f"the logits, {lru} RG-LRU outputs, "
-                               f"{whole} and the sequence's")
+                               f"{whole}, the sequence's and the slot "
+                               f"groups' queries")
         print(f"[chip_smoke] placed serving {cfg.name}: weights gathered "
               f"along 'model' (computed whole): {whole}", flush=True)
     return bad

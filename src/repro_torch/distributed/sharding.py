@@ -46,8 +46,11 @@ whose length divides the 'model' axis (training, prefill) runs
 sequence-parallel: between blocks each 'model' rank holds its positions of
 the residual stream, and the parameters it uses whole get their gradients
 summed over 'model'. A serving
-cache holds the rank's batch rows, the rank's KV heads (MLA's compressed
-cache whole), its RG-LRU channels and its RWKV-6 heads. Every collective
+cache holds the rank's batch rows, the rank's KV heads, its block of the
+slots where its attention's slot group has more than one rank (MLA's
+compressed cache, an attention that does not split, replicated KV heads:
+the reference's ``cache_shardings``, decode merging the ranks' partial
+softmaxes), its RG-LRU channels and its RWKV-6 heads. Every collective
 is a c10d call, which
 :func:`repro_torch.launch.roofline.record_collectives` counts and
 :func:`repro_torch.launch.analytic.lm_collectives` schedules.
@@ -83,6 +86,7 @@ __all__ = [
     "gathered",
     "full_tensor",
     "tensor_parallel",
+    "slot_group",
     "distribute_model",
     "local_batch",
     "gather_batch",
@@ -465,6 +469,29 @@ def tensor_parallel(mesh) -> Optional[TensorParallel]:
                           mesh.get_coordinate()[d])
 
 
+def slot_group(mesh, tp: Optional[TensorParallel],
+               g: int) -> Optional[TensorParallel]:
+    """This rank's slot group of ``g`` consecutive 'model' ranks on the
+    ``DeviceMesh`` ``mesh`` (``tp`` its 'model' group): the 'model' group
+    itself where ``g`` is its size, else a c10d group of its own. Every
+    rank creates every such group, in the same order (``new_group``).
+    ``None`` where ``g`` is 1."""
+    if tp is None or g <= 1:
+        return None
+    if g == tp.size:
+        return tp
+    import torch.distributed as dist
+
+    d = list(mesh.mesh_dim_names).index("model")
+    mine = None
+    for ranks in mesh.mesh.movedim(d, -1).reshape(-1, tp.size).tolist():
+        for first in range(0, tp.size, g):
+            group = dist.new_group(ranks[first:first + g])
+            if dist.get_rank() in ranks[first:first + g]:
+                mine = group
+    return TensorParallel(mine, g, dist.get_rank(mine))
+
+
 def distribute_model(model: torch.nn.Module, mesh, specs: dict) -> None:
     """Place every parameter of the ``LanguageModel`` ``model`` (in place)
     as a DTensor on the ``DeviceMesh`` ``mesh`` by its spec in ``specs``
@@ -488,9 +515,11 @@ def distribute_model(model: torch.nn.Module, mesh, specs: dict) -> None:
     MLA, RG-LRU, RWKV-6, MLP, MoE, the model for the vocab) learn the
     'model' group (their ``tp`` attribute). The other
     parameters are gathered whole, and the ranks along 'model' compute
-    those blocks alike. The model learns the 'model' group as its ``sp``
-    too: a forward whose length divides it runs sequence-parallel, and
-    there each rank differentiates the parameters it gathers whole, and a
+    those blocks alike. Each attention layer whose slot group has more
+    than one rank learns it (its ``slots``: :func:`slot_group`). The
+    model learns the 'model' group as its ``sp`` too: a forward whose
+    length divides it runs sequence-parallel, and there each rank
+    differentiates the parameters it gathers whole, and a
     row-parallel projection's bias (which no spec cuts on 'model'), through
     its own positions, so their gradients are summed over 'model' too (the
     model's own final norm by the forward's batch; a layer's by the
@@ -511,6 +540,9 @@ def distribute_model(model: torch.nn.Module, mesh, specs: dict) -> None:
             model.blocks[i].mlp.tp = tp
         if plan.vocab:
             model.tp = tp
+    slots = slot_group(mesh, tp, plan.slot_group)
+    for i in plan.slots:
+        model.blocks[i].inner.slots = slots
     if plan.kv_replicated:  # the one KV head this rank's query heads use
         hd = cfg.head_dim
         head = tp.rank // (tp.size // cfg.num_kv_heads) * hd
@@ -712,36 +744,55 @@ def _record_block_inputs(model) -> list:
     return shapes
 
 
-def placed_serve(rank, cfg, mesh_shape: tuple, tokens) -> dict:
+def placed_serve(rank, cfg, mesh_shape: tuple, tokens,
+                 state: Optional[dict] = None, cache_len: Optional[int] = None,
+                 more: tuple = (), keep_cache: bool = False) -> dict:
     """One rank of placed serving: the model of ``cfg`` (a
     ``ModelConfig``; a run may cut its depth) from its own seeded
-    initialization, placed as in :func:`placed_forward`, a prefill of the
-    rank's rows of ``tokens`` (B, S) into a cache held for those rows
-    alone, then one greedy decode step. The cache holds the rank's KV
-    heads where its GQA / MHA attention splits over 'model', and the
-    rank's RG-LRU channels and RWKV-6 heads where those blocks split.
+    initialization (or ``state``: numpy arrays by state-dict name), placed
+    as in :func:`placed_forward`, a prefill of the rank's rows of
+    ``tokens`` (B, S) into a cache held for those rows alone, then one
+    greedy decode step at slot S and one at each slot of ``more``, each
+    fed the step before's token. The cache holds ``cache_len`` slots
+    (default: S + 1 rounded up to a multiple of the 'model' axis, so that
+    the slots split): the rank's KV heads where its GQA / MHA attention
+    splits over 'model', the rank's block of the slots where the
+    attention's slot group has more than one rank, and the rank's RG-LRU
+    channels and RWKV-6 heads where those blocks split.
     Returns both steps' logits of the whole batch (numpy, f32; the ranks'
-    rows gathered after each step), each step's collectives, host seconds
-    (ended by a device synchronize) and peak device bytes (``None`` on the
-    CPU), the bytes held on entry (:func:`_held_on_entry`), and the shapes
-    of the cache's tensors, a dict a layer."""
+    rows gathered after each step; ``more``: a list), each step's
+    collectives, host seconds (ended by a device synchronize) and peak
+    device bytes (``None`` on the CPU), the bytes held on entry
+    (:func:`_held_on_entry`), the cache's length, the shapes of its
+    tensors (a dict a layer), the bytes of its attention layers' tensors
+    (``attention_cache_bytes``) and, with ``keep_cache``, the tensors
+    (numpy, floats at f32) and each layer's first slot (``cache_first``)
+    at the end."""
     import time
 
     from repro_torch.launch.roofline import record_collectives
     from repro_torch.models import init_cache
+    from repro_torch.models.attention import CacheBlock
     from repro_torch.train import make_decode_step, make_prefill_step
 
     dev = rank.device
     cuda = dev.type == "cuda"
     held = _held_on_entry(dev)  # an earlier run of the group's leftovers
-    mesh, model, _ = _placed_model(rank, cfg, mesh_shape)
+    mesh, model, _ = _placed_model(rank, cfg, mesh_shape, state)
     prompt = local_batch(mesh, {"tokens": tokens})["tokens"].to(dev)
     B, S = prompt.shape
-    cache = init_cache(cfg, B, S + 1, dev, tp=axis_size(mesh, "model"))
+    tp = axis_size(mesh, "model")
+    cache_len = cache_len or -(-(S + 1) // tp) * tp
+    cache = init_cache(cfg, B, cache_len, dev, tp=tp,
+                       rank=coordinate(mesh)["model"])
     out = {"collectives": {}, "step_s": {}, "peak_device_bytes": {},
-           "held_on_entry": held,
+           "held_on_entry": held, "cache_len": cache_len,
            "cache_shapes": [{k: tuple(v.shape) for k, v in layer.items()}
-                            for layer in cache]}
+                            for layer in cache],
+           "attention_cache_bytes": sum(
+               v.numel() * v.element_size()
+               for layer, kind in zip(cache, cfg.layer_kinds)
+               if kind == "attn" for v in layer.values())}
 
     def timed(key, fn, *args):
         if cuda:
@@ -760,11 +811,26 @@ def placed_serve(rank, cfg, mesh_shape: tuple, tokens) -> dict:
 
     logits, cache = timed("prefill", make_prefill_step(model),
                           {"tokens": prompt}, cache)
-    tok = logits.argmax(-1)[:, None].to(torch.int32)
-    step, cache = timed("decode", make_decode_step(model), tok, cache, S)
+    decode = make_decode_step(model)
+    steps = [logits]
+    for i, index in enumerate((S,) + tuple(more)):
+        tok = steps[-1].argmax(-1)[:, None].to(torch.int32)
+        step, cache = timed("decode" if i == 0 else ("more", i - 1), decode,
+                            tok, cache, index)
+        steps.append(step)
     with torch.inference_mode():
-        for key, x in (("prefill", logits), ("decode", step)):
-            out[key] = gather_batch(mesh, x, len(tokens)).float().cpu().numpy()
+        steps = [gather_batch(mesh, x, len(tokens)).float().cpu().numpy()
+                 for x in steps]
+    out["prefill"], out["decode"], out["more"] = steps[0], steps[1], steps[2:]
+    for key in ("collectives", "step_s", "peak_device_bytes"):
+        out[key]["more"] = [out[key].pop(("more", i))
+                            for i in range(len(more))]
+    if keep_cache:
+        out["cache"] = [{k: (v.float() if v.is_floating_point() else v)
+                         .cpu().numpy() for k, v in layer.items()}
+                        for layer in cache]
+        out["cache_first"] = [layer.first if isinstance(layer, CacheBlock)
+                              else 0 for layer in cache]
     return out
 
 

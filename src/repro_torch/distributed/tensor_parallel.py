@@ -21,7 +21,7 @@ the port does the same where a block's shapes allow (:func:`split_plan`):
   norms stay whole, computed alike on every rank; their outputs (the
   query latent, ``ckv``, ``krope``) enter the rank's heads through
   :func:`copy_to_tp`, so their gradients are summed over 'model' there.
-  The compressed cache is every head's, so each rank keeps it whole.
+  The compressed cache is every head's: its slots split (below).
 * a dense MLP (all four kinds): ``wi``, ``wg`` column-parallel, ``wo``
   row-parallel and followed by one all-reduce, where ``d_ff % tp == 0``.
 * a MoE layer, by the reference's rule: by experts where ``num_experts %
@@ -70,6 +70,33 @@ its own channels only, are summed over 'model', as a replicated KV head's
 A bias of a row-parallel projection is added once, after the sum. What
 does not divide stays whole: its weights are gathered whole along 'model'
 and every 'model' rank computes it.
+
+The serving cache along its slots (the reference's ``cache_shardings``:
+a KV cache's slot axis on 'model', flash-decoding). The **slot group** of
+an attention layer is the set of 'model' ranks that compute the same
+cache entries; its size ``g`` (:func:`slot_group_size`) is ``tp`` for
+MLA, whose ``ckv`` and ``krope`` every rank computes whole, ``tp`` for a
+GQA / MHA attention that does not split, ``tp / num_kv_heads`` where the
+split attention replicates its KV heads (consecutive ranks, since a
+rank's query heads are contiguous), and 1 otherwise. A rank holds its KV
+heads and the contiguous block ``[j·size/g, (j+1)·size/g)`` of the slots
+(:func:`slot_block`), ``j`` its index in the group: ``_fit``'s
+contiguous split of axis 1. Where ``size % g != 0`` the layer's cache
+stays whole on the group, as ``_fit`` replicates a dimension that does
+not divide. A ring cache follows the same rule (a slot is still ``index
+mod size``, written by its owner alone). Where the queries attend the
+cache (decode, a prefill at ``cache_index > 0``), each rank attends its
+own slots and the group merges the partial softmaxes
+(:func:`combine_over_slots`): where the group's ranks hold other query
+heads, they all-gather their queries along heads first
+(:func:`gather_heads`), all-reduce the partial maxima and reduce-scatter
+the rescaled numerators and denominators back to each rank's heads;
+where every rank holds every head (the attention whole), both are
+all-reduces. The messages are the size of the queries and of the
+output, never the size of the cache. A prefill into a fresh cache
+(``cache_index`` 0) needs none: every rank of the group holds the
+prompt's entries (the input is replicated, or gathered along S), so it
+attends them in context and writes its own slots.
 
 Sequence parallelism (Megatron-SP, the reference's ``"sp"``: its blocks
 constrain their input to ``("dp", "sp", None)``). Inside a placed model
@@ -124,7 +151,8 @@ __all__ = ["TensorParallel", "SplitPlan", "attention_splits", "mla_splits",
            "copy_to_tp", "reduce_from_tp", "gather_from_tp",
            "sequence_parallel", "sp_group", "scatter_to_sp",
            "gather_from_sp", "reduce_scatter_to_sp", "sum_over_tp",
-           "enter_tp", "sp_shard"]
+           "enter_tp", "sp_shard", "slot_group_size", "slot_block",
+           "gather_heads", "combine_over_slots", "merge_slot_partials"]
 
 # the 'model' group of the innermost sequence-parallel forward, None
 # outside one
@@ -210,13 +238,38 @@ def local_kv_heads(cfg, tp: int) -> int:
     return max(cfg.num_kv_heads // tp, 1)
 
 
+def slot_group_size(cfg, tp: int) -> int:
+    """The size ``g`` of the slot group of ``cfg``'s attention layers on a
+    'model' axis of ``tp`` ranks: the ranks that compute the same cache
+    entries (``tp`` for MLA and for an attention that does not split,
+    ``tp / num_kv_heads`` for replicated KV heads, else 1)."""
+    if tp <= 1 or "attn" not in cfg.layer_kinds:
+        return 1
+    if cfg.attn_kind == "mla" or not attention_splits(cfg, tp):
+        return tp
+    return max(tp // cfg.num_kv_heads, 1)
+
+
+def slot_block(size: int, g: int, rank: int) -> tuple:
+    """``(first, n)``: the block ``[first, first + n)`` of a cache's
+    ``size`` slots that the 'model' rank ``rank`` holds in its slot group
+    of ``g`` consecutive ranks (its index there ``rank % g``); all of them
+    where ``size`` does not divide ``g``."""
+    if g <= 1 or size % g:
+        return 0, size
+    n = size // g
+    return rank % g * n, n
+
+
 @dataclasses.dataclass(frozen=True)
 class SplitPlan:
     """Which parts of a model compute tensor-parallel on a 'model' axis:
     the layers whose GQA / MHA attention splits, those whose dense MLP
     splits, the vocab, the layers whose MLA splits by heads, and the MoE
     layers that split with how (``(layer, "expert" | "ff")`` pairs) and
-    whether their shared expert splits too."""
+    whether their shared expert splits too; the attention layers whose
+    slot group has more than one rank (``slots``) and its size
+    (``slot_group``)."""
 
     attention: tuple
     mlp: tuple
@@ -227,6 +280,8 @@ class SplitPlan:
     moe_shared: bool = False
     rglru: tuple = ()
     rwkv: tuple = ()
+    slots: tuple = ()
+    slot_group: int = 1
 
     RGLRU_SHARD = ("w_in", "w_gate_in", "wa", "wx", "w_out")
     RGLRU_CHANNELS = ("conv_w", "conv_b", "lam")
@@ -280,6 +335,7 @@ def split_plan(cfg, tp: int) -> SplitPlan:
     mla, moe = mla_splits(cfg, tp), moe_splits(cfg, tp)
     rglru, rwkv = rglru_splits(cfg, tp), rwkv_splits(cfg, tp)
     kinds = cfg.layer_kinds
+    g = slot_group_size(cfg, tp)
     return SplitPlan(
         attention=tuple(i for i, k in enumerate(kinds)
                         if attn and k == "attn"),
@@ -292,7 +348,9 @@ def split_plan(cfg, tp: int) -> SplitPlan:
                   if moe and k != "rwkv6" and i >= moe_from),
         moe_shared=shared_expert_splits(cfg, tp),
         rglru=tuple(i for i, k in enumerate(kinds) if rglru and k == "rglru"),
-        rwkv=tuple(i for i, k in enumerate(kinds) if rwkv and k == "rwkv6"))
+        rwkv=tuple(i for i, k in enumerate(kinds) if rwkv and k == "rwkv6"),
+        slots=tuple(i for i, k in enumerate(kinds) if g > 1 and k == "attn"),
+        slot_group=g)
 
 
 # ------------------------------------------------ autograd collectives ----
@@ -368,6 +426,73 @@ def gather_from_tp(x: torch.Tensor, tp: Optional[TensorParallel],
     """The 'model' ranks' ``x`` concatenated along ``dim`` (``x`` itself
     without ``tp``)."""
     return x if tp is None else _GatherFromTP.apply(x, tp, dim % x.dim())
+
+
+# ------------------------------------------- the flash-decoding combine ----
+@torch.inference_mode()
+def gather_heads(x: torch.Tensor, slots: TensorParallel) -> torch.Tensor:
+    """The slot group's queries (B, S, H, D) concatenated along heads (dim
+    2), in the group's rank order: one all-gather (serving only)."""
+    import torch.distributed as dist
+
+    parts = [torch.empty_like(x) for _ in range(slots.size)]
+    dist.all_gather(parts, x.contiguous(), group=slots.group)
+    return torch.cat(parts, dim=2)
+
+
+def _rescaled(acc, m, l, m_max) -> torch.Tensor:
+    """A rank's f32 partial numerator (B, S, H, Dv) and sum (B, S, H)
+    rescaled from its own max ``m`` to the group's ``m_max``, packed as
+    (B, S, H, Dv + 1) f64. A block with no valid slot (``m`` at
+    ``NEG_INF``) gets weight 0: ``exp(-1e30 - m_max)`` is 0, never NaN.
+    f64, since the merge adds roundings that one process's softmax does
+    not have: rescaled and summed at f32, recurrentgemma-2b's smoke decode
+    on (1, 2) lay 1.050e-6 from one process's (relative, over the
+    largest), at f64 9.802e-7, as with its cache whole on each rank
+    (``tests/torch_placed_drift.py --arch recurrentgemma-2b``)."""
+    w = torch.exp(m.double() - m_max.double())
+    return torch.cat([acc.double() * w[..., None],
+                      (l.double() * w)[..., None]], dim=-1)
+
+
+def _divided(packed: torch.Tensor) -> torch.Tensor:
+    """The attention output (f64) of a packed numerator and sum."""
+    return packed[..., :-1] / torch.clamp_min(packed[..., -1:], 1e-30)
+
+
+def merge_slot_partials(parts) -> torch.Tensor:
+    """The attention output (f64) of the partial softmaxes ``parts`` (a
+    list of ``(acc, m, l)`` from ``flash_attention(partial=True)``, one a
+    slot block), with no process group: what :func:`combine_over_slots`
+    computes over a group's ranks, in one process."""
+    m_max = torch.stack([m for _, m, _ in parts]).amax(0)
+    return _divided(sum(_rescaled(a, m, l, m_max) for a, m, l in parts))
+
+
+@torch.inference_mode()
+def combine_over_slots(acc, m, l, slots: TensorParallel,
+                       scatter: bool) -> torch.Tensor:
+    """The attention output (f64) of this rank's partial softmax over its
+    slot block merged with the slot group's: the f32 maxima all-reduced
+    (MAX), then the rescaled f64 numerators and sums summed,
+    reduce-scattered along
+    heads to the rank's own heads (``scatter``: the queries were gathered
+    by :func:`gather_heads`) or all-reduced (every rank holds every
+    head). Serving only: no backward."""
+    import torch.distributed as dist
+
+    m_max = m.clone(memory_format=torch.contiguous_format)
+    dist.all_reduce(m_max, op=dist.ReduceOp.MAX, group=slots.group)
+    packed = _rescaled(acc, m, l, m_max)
+    if scatter:
+        parts = [p.contiguous() for p in packed.chunk(slots.size, dim=2)]
+        packed = torch.empty_like(parts[slots.rank])
+        dist.reduce_scatter(packed, parts, op=dist.ReduceOp.SUM,
+                            group=slots.group)
+    else:
+        packed = packed.contiguous()
+        dist.all_reduce(packed, op=dist.ReduceOp.SUM, group=slots.group)
+    return _divided(packed)
 
 
 # ------------------------------------------------ sequence parallelism ----

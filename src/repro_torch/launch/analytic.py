@@ -19,6 +19,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
+from typing import Optional
 
 from repro_torch.launch.shapes import ShapeCase
 from repro_torch.models.config import ModelConfig
@@ -283,7 +284,8 @@ def _param_meta(cfg: ModelConfig) -> dict:
 
 
 def lm_collectives(cfg: ModelConfig, shape: ShapeCase, mesh, tcfg=None,
-                   opt: bool = False):
+                   opt: bool = False, cache_len: Optional[int] = None,
+                   cache_index: int = 0):
     """The c10d collectives one rank of the port's placed step of ``cfg``
     at ``shape`` issues on ``mesh`` (a ``MeshShape`` or ``DeviceMesh``
     with axes among pod / data / model), as a
@@ -340,6 +342,24 @@ def lm_collectives(cfg: ModelConfig, shape: ShapeCase, mesh, tcfg=None,
     ``krope``), and one all-reduce over 'model' of each whole tensor a
     split part uses whole or narrows (``SplitPlan.mode`` "head",
     "channels" or "summed").
+
+    Serving's cache along its slots
+    (:mod:`repro_torch.distributed.tensor_parallel`): where an attention
+    layer's slot group has g > 1 ranks and its cache's slots (``cache_len``,
+    default a decode's ``seq_len`` or a prefill's ``cache_index + S``; a
+    ring's ``min(window, cache_len)``) divide g, a step whose queries
+    attend the cache (decode; a prefill at ``cache_index > 0``, not a
+    ring's prefill of S > 1, which attends in context) merges the group's
+    partial softmaxes in each such layer: where the group's ranks hold
+    other query heads (MLA by heads, replicated KV heads), one all-gather
+    of the group's queries (rows, S, g·H/tp, Dq) at the activation dtype
+    (Dq: head_dim, or MLA's kv_lora_rank + qk_rope_head_dim), one
+    all-reduce (MAX) of their (rows, S, g·H/tp) f32 maxima and one
+    reduce-scatter to the rank's (rows, S, H/tp, Dv + 1) f64 numerators
+    and sums (Dv: head_dim, or kv_lora_rank); where every rank holds every
+    head (an attention that does not split), two all-reduces, of (rows,
+    S, H) f32 and (rows, S, H, Dv + 1) f64. A prefill into a fresh cache
+    sends none of these.
 
     Serving (prefill, decode): one forward. Training (``tcfg``:
     ``grad_accum`` k, ``remat``), per microbatch: a forward, under
@@ -434,6 +454,28 @@ def lm_collectives(cfg: ModelConfig, shape: ShapeCase, mesh, tcfg=None,
         else:
             add("all-reduce", hidden, fwd + lookup)
         add("all-gather", rows * cfg.vocab_size * act, head)
+        if cache_len is None:
+            cache_len = (shape.seq_len if shape.kind == "decode"
+                         else cache_index + S)
+        size = min(cfg.local_window, cache_len) if cfg.local_window \
+            else cache_len
+        g = plan.slot_group
+        merges = (shape.kind == "decode" or cache_index > 0 and not (
+            cfg.local_window and S > 1))
+        if g > 1 and size % g == 0 and merges:
+            mla = cfg.attn_kind == "mla"
+            dq = cfg.kv_lora_rank + cfg.qk_rope_head_dim if mla \
+                else cfg.head_dim
+            dv = cfg.kv_lora_rank if mla else cfg.head_dim
+            n = len(plan.slots)
+            if plan.mla or plan.attention:  # the rank's H/tp query heads
+                heads = cfg.num_heads // tp
+                add("all-gather", rows * S * g * heads * dq * act, n)
+                add("all-reduce", rows * S * g * heads * 4, n)
+                add("reduce-scatter", rows * S * heads * (dv + 1) * 8, n)
+            else:
+                add("all-reduce", rows * S * cfg.num_heads * 4, n)
+                add("all-reduce", rows * S * cfg.num_heads * (dv + 1) * 8, n)
         return stats
     passes = 2 if tcfg.remat else 1
     gathers(rest, k)

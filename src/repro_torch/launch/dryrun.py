@@ -151,17 +151,34 @@ def placement_notes(cfg: ModelConfig, tp: int) -> dict:
             f"{', '.join(split) or 'nothing'}; gathered whole along "
             f"'model' and computed alike on its ranks: "
             f"{', '.join(whole) or 'nothing'}",
-        "placement_cache": "a serving cache holds the rank's batch rows "
-                           + ("and its KV heads " if plan.attention else "")
-                           + ("and every head's compressed MLA entries "
-                              if plan.mla else "")
-                           + ("and its RG-LRU channels of h and conv "
+        "placement_cache": "a serving cache holds the rank's batch rows"
+                           + (", its KV heads" if plan.attention else "")
+                           + (", its RG-LRU channels of h and conv"
                               if plan.rglru else "")
-                           + ("and its RWKV-6 heads of S "
+                           + (", its RWKV-6 heads of S"
                               if plan.rwkv else "")
-                           + "(not sharded along seq over 'model')",
+                           + _slots_note(cfg, plan),
         "placement_sequence": _sequence_note(cfg, tp, plan),
     }
+
+
+def _slots_note(cfg: ModelConfig, plan) -> str:
+    """The attention cache along its slots: each layer's slot group."""
+    if "attn" not in cfg.layer_kinds:
+        return ""
+    g = plan.slot_group
+    if g == 1:
+        return ("; every slot of its attention layers (slot groups of one "
+                "rank: each rank computes its own KV heads' entries)")
+    who = ("every head's compressed MLA entries, which every rank computes"
+           if cfg.attn_kind == "mla" else
+           f"a KV head replicated on {g} ranks" if plan.kv_replicated else
+           "the whole attention's KV heads, which every rank computes")
+    return (f"; along its slots over 'model', the reference's "
+            f"cache_shardings: each attention layer's slot group of {g} "
+            f"ranks ({who}) holds 1/{g} of the slots a rank, decode "
+            f"merging the group's partial softmaxes (flash-decoding); a "
+            f"cache whose slots do not divide {g} stays whole")
 
 
 def _sequence_note(cfg: ModelConfig, tp: int, plan) -> str:

@@ -13,6 +13,13 @@ MLA caches the compressed ``ckv`` and the shared ``krope`` of each token
 (576 values for deepseek-v2) and attends in that space with the key and
 value up-projections absorbed into the query and the output; without a
 cache it expands K and V per head.
+
+A placed rank's cache may hold a block of the slots alone
+(:class:`CacheBlock`, the rule in
+:mod:`repro_torch.distributed.tensor_parallel`): the module's slot group
+(``slots``) then merges the ranks' partial softmaxes wherever the queries
+attend the cache, and a prefill into a fresh cache attends the prompt in
+context.
 """
 from __future__ import annotations
 
@@ -24,14 +31,17 @@ from torch import nn
 
 from repro_torch.distributed.actsharding import shard_act
 from repro_torch.distributed.tensor_parallel import (TensorParallel,
-                                                     enter_tp,
-                                                     local_kv_heads)
+                                                     combine_over_slots,
+                                                     enter_tp, gather_heads,
+                                                     local_kv_heads,
+                                                     slot_block,
+                                                     slot_group_size)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (Dense, Init, apply_mrope, apply_rope,
                                       rms_norm)
 
 __all__ = ["NEG_INF", "flash_attention", "Attention", "MLAttention",
-           "init_kv_cache"]
+           "CacheBlock", "init_kv_cache"]
 
 # Not -inf: a wholly masked KV chunk (empty cache slots, pos = -1) then
 # gives exp(0) terms that a later live chunk's correction wipes, where -inf
@@ -61,7 +71,8 @@ def flash_attention(
     kv_chunk: int = 512,
     scale: Optional[float] = None,
     skip_masked_blocks: bool = False,
-) -> torch.Tensor:
+    partial: bool = False,
+):
     """Memory-efficient attention with a running softmax over KV chunks.
 
     ``scale`` multiplies the queries (default ``1/sqrt(D)``; MLA passes
@@ -71,6 +82,12 @@ def flash_attention(
     chunk stops at the last KV chunk that can hold one of its keys. Returns
     (B, Sq, Hq, Dv) in ``q``'s dtype. K and V may be stored at any dtype
     (a float8 cache included): each chunk is read at f32.
+
+    ``partial``: the softmax's state instead, before the division and the
+    cast: ``(acc, m, l)``, the f32 numerator (B, Sq, Hq, Dv), the running
+    max and the sum (B, Sq, Hq), for a merge with other KV blocks'
+    (:func:`~repro_torch.distributed.tensor_parallel.combine_over_slots`).
+    Where no key was valid, ``m`` stays at ``NEG_INF``.
     """
     B, Sq, Hq, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
@@ -123,38 +140,64 @@ def flash_attention(
             acc = acc * corr[..., None] + torch.einsum(
                 "bhgqk,bhkd->bhgqd", p, vb)
             m = m_new
+        if partial:
+            outs.append((acc.reshape(B, Hq, cq, Dv).transpose(1, 2),
+                         m.reshape(B, Hq, cq).transpose(1, 2),
+                         l.reshape(B, Hq, cq).transpose(1, 2)))
+            continue
         out = acc / torch.clamp_min(l, 1e-30)[..., None]
         outs.append(out.reshape(B, Hq, cq, Dv).transpose(1, 2))
+    if partial:
+        return tuple(torch.cat(x, dim=1) for x in zip(*outs))
     out = torch.cat(outs, dim=1) if nq > 1 else outs[0]
     return out.to(q.dtype)
 
 
 # ------------------------------------------------------------------ cache ----
+class CacheBlock(dict):
+    """An attention layer's cache (its tensors by name) that holds the
+    block ``[first, first + n)`` of the layer's ``size`` slots alone, n
+    its tensors' axis 1: a placed rank's share along the slots."""
+
+    def __init__(self, tensors: dict, first: int, size: int):
+        super().__init__(tensors)
+        self.first, self.size = first, size
+
+
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
-                  device, window: int = 0, tp: int = 1) -> dict:
+                  device, window: int = 0, tp: int = 1,
+                  rank: int = 0) -> dict:
     """One layer's cache: K and V of (batch, size, Hkv, hd) and the position
     of each slot (-1: empty). A local-attention layer keeps a ring buffer of
     ``size = min(window, max_len)`` slots. MLA keeps the compressed ``ckv``
     (batch, size, kv_lora_rank) and ``krope`` (batch, size, rope dim).
-    ``tp``: a rank of a 'model' axis of that many ranks, whose split
-    attention holds only its own KV heads
-    (:func:`~repro_torch.distributed.tensor_parallel.local_kv_heads`)."""
+    ``tp``, ``rank``: the rank at ``rank`` of a 'model' axis of ``tp``
+    ranks, whose split attention holds only its own KV heads
+    (:func:`~repro_torch.distributed.tensor_parallel.local_kv_heads`) and
+    whose slot group holds its block of the slots alone (a
+    :class:`CacheBlock`; the whole ``size`` where it does not divide)."""
     size = min(window, max_len) if window else max_len
+    first, n = slot_block(size, slot_group_size(cfg, tp), rank)
     if cfg.attn_kind == "mla":
-        return {
-            "ckv": torch.zeros((batch, size, cfg.kv_lora_rank), dtype=dtype,
+        out = {
+            "ckv": torch.zeros((batch, n, cfg.kv_lora_rank), dtype=dtype,
                                device=device),
-            "krope": torch.zeros((batch, size, cfg.qk_rope_head_dim),
+            "krope": torch.zeros((batch, n, cfg.qk_rope_head_dim),
                                  dtype=dtype, device=device),
-            "pos": torch.full((batch, size), -1, dtype=torch.int32,
-                              device=device),
         }
-    shape = (batch, size, local_kv_heads(cfg, tp), cfg.head_dim)
-    return {
-        "k": torch.zeros(shape, dtype=dtype, device=device),
-        "v": torch.zeros(shape, dtype=dtype, device=device),
-        "pos": torch.full((batch, size), -1, dtype=torch.int32, device=device),
-    }
+    else:
+        shape = (batch, n, local_kv_heads(cfg, tp), cfg.head_dim)
+        out = {"k": torch.zeros(shape, dtype=dtype, device=device),
+               "v": torch.zeros(shape, dtype=dtype, device=device)}
+    out["pos"] = torch.full((batch, n), -1, dtype=torch.int32, device=device)
+    return out if n == size else CacheBlock(out, first, size)
+
+
+def _size(cache: dict) -> int:
+    """The layer's slots, the whole of them where the cache holds a
+    block."""
+    return (cache.size if isinstance(cache, CacheBlock)
+            else cache["pos"].shape[1])
 
 
 def _store(dst: torch.Tensor, slots: torch.Tensor, val: torch.Tensor) -> None:
@@ -171,17 +214,41 @@ def _cache_write(cache: dict, names, values, positions, index: int,
                  ring: bool) -> None:
     """Write S new entries of each cache entry in ``names`` (``values`` in
     the same order) and their positions at slot ``index`` on (modulo the
-    size if ``ring``), in place."""
-    S, size = values[0].shape[1], cache[names[0]].shape[1]
+    size if ``ring``), in place. A :class:`CacheBlock` takes those that
+    land in its block alone."""
+    S, size = values[0].shape[1], _size(cache)
     slots = torch.arange(index, index + S, device=positions.device)
     if ring:
         slots = slots % size
     elif index + S > size:
         raise IndexError(f"cache of {size} slots cannot take entries "
                          f"{index}..{index + S - 1}")
+    positions = positions[:, :S]
+    if isinstance(cache, CacheBlock):  # the entries of the rank's slots
+        n = cache["pos"].shape[1]
+        mine = ((slots >= cache.first) & (slots < cache.first + n)).cpu()
+        keep = torch.nonzero(mine).flatten().to(positions.device)
+        slots = slots[keep] - cache.first
+        values = [val.index_select(1, keep) for val in values]
+        positions = positions.index_select(1, keep)
     for name, val in zip(names, values):
         _store(cache[name], slots, val)
-    cache["pos"][:, slots] = positions[:, :S].to(torch.int32)
+    cache["pos"][:, slots] = positions.to(torch.int32)
+
+
+def _attend_slots(q, k, v, q_pos, cache: CacheBlock, slots: TensorParallel,
+                  heads_split: bool, **kwargs) -> torch.Tensor:
+    """The queries ``q`` attend the slot group's cache through the rank's
+    block (K ``k``, V ``v``, positions ``cache["pos"]``): the group's
+    queries all-gathered along heads where its ranks hold other heads
+    (``heads_split``), the rank's partial softmax, then the group's merge
+    to the rank's heads, cast to ``q``'s dtype."""
+    qg = gather_heads(q, slots) if heads_split else q
+    acc, m, l = flash_attention(qg, k, v, q_pos, cache["pos"],
+                                kv_valid=cache["pos"] >= 0, partial=True,
+                                **kwargs)
+    return combine_over_slots(acc, m, l, slots,
+                              scatter=heads_split).to(q.dtype)
 
 
 # ------------------------------------------------------------- the blocks ----
@@ -201,7 +268,9 @@ class Attention(nn.Module):
     :func:`~repro_torch.distributed.sharding.distribute_model`) the weights
     are the rank's: ``wq`` its ``H/tp`` contiguous query heads, ``wk`` and
     ``wv`` the KV heads those use, ``wo`` their rows (row-parallel), and the
-    cache holds those KV heads."""
+    cache holds those KV heads. With a slot group ``slots`` (set there
+    too) a cache that holds the rank's block of the slots is attended
+    through the group's merge."""
 
     def __init__(self, cfg: ModelConfig, init: Init):
         super().__init__()
@@ -215,6 +284,7 @@ class Attention(nn.Module):
         self.wv = Dense(d, cfg.num_kv_heads * hd, init, cfg.qkv_bias)
         self.wo = Dense(cfg.num_heads * hd, d, init)
         self.tp: Optional[TensorParallel] = None
+        self.slots: Optional[TensorParallel] = None
 
     def forward(self, x, positions, cache: Optional[dict] = None,
                 cache_index: int = 0, window: int = 0, q_chunk: int = 512,
@@ -224,7 +294,11 @@ class Attention(nn.Module):
         Without a cache: self-attention over ``x``. A ring-buffer cache and
         S > 1 (prefill): attend over ``x`` in context, then keep its last
         ``window`` tokens. Otherwise: write the S entries at
-        ``cache_index`` and attend over the cache's valid slots.
+        ``cache_index`` and attend over the cache's valid slots. A
+        :class:`CacheBlock` at ``cache_index`` 0 attends the entries in
+        context, rounded to the cache's dtype as the cache would hold
+        them, and keeps those of its slots; at a later index the group
+        merges the ranks' blocks.
         """
         cfg = self.cfg
         B, S, _ = x.shape
@@ -249,10 +323,20 @@ class Attention(nn.Module):
             if cache is not None:
                 # tokens early in the prefix would be overwritten before
                 # their window expires: persist only the last W
-                wl = min(cache["k"].shape[1], S)
+                wl = min(_size(cache), S)
                 _cache_write(cache, ("k", "v"), (k[:, S - wl:], v[:, S - wl:]),
                              pos_1d[:, S - wl:], cache_index + S - wl,
                              ring=True)
+        elif isinstance(cache, CacheBlock) and cache_index == 0:
+            dt = cache["k"].dtype
+            out = flash_attention(q, k.to(dt), v.to(dt), pos_1d, pos_1d,
+                                  causal=cfg.causal, window=window, **chunks)
+            _cache_write(cache, ("k", "v"), (k, v), pos_1d, cache_index, ring)
+        elif isinstance(cache, CacheBlock):
+            _cache_write(cache, ("k", "v"), (k, v), pos_1d, cache_index, ring)
+            out = _attend_slots(q, cache["k"], cache["v"], pos_1d, cache,
+                                self.slots, self.tp is not None,
+                                causal=cfg.causal, window=window, **chunks)
         else:
             _cache_write(cache, ("k", "v"), (k, v), pos_1d, cache_index, ring)
             out = flash_attention(q, cache["k"], cache["v"], pos_1d,
@@ -281,7 +365,10 @@ class MLAttention(nn.Module):
     ``wo`` their rows (row-parallel); ``wq_a``, ``wkv_a`` and the norms are
     whole, and their outputs enter the rank's heads through
     :func:`~repro_torch.distributed.tensor_parallel.copy_to_tp`. The
-    compressed cache is every head's: each rank holds it whole.
+    compressed cache is every head's: every 'model' rank computes it
+    whole, so its slot group (``slots``) is the axis and each rank holds
+    its block of the slots (a :class:`CacheBlock`), attended as
+    :class:`Attention` attends one.
     """
 
     def __init__(self, cfg: ModelConfig, init: Init):
@@ -304,6 +391,7 @@ class MLAttention(nn.Module):
         self.wv_b = Dense(rank, H * cfg.v_head_dim, init)
         self.wo = Dense(H * cfg.v_head_dim, d, init)
         self.tp: Optional[TensorParallel] = None
+        self.slots: Optional[TensorParallel] = None
 
     def forward(self, x, positions, cache: Optional[dict] = None,
                 cache_index: int = 0, window: int = 0, q_chunk: int = 512,
@@ -347,14 +435,25 @@ class MLAttention(nn.Module):
                                   skip_masked_blocks=skip_masked_blocks,
                                   **args)
         else:
-            _cache_write(cache, ("ckv", "krope"), (ckv, krope), pos_1d,
-                         cache_index, ring=False)
             q_abs = torch.einsum("bshd,rhd->bshr", q_nope, wk_b)
             q_eff = torch.cat([q_abs, q_rope], dim=-1)  # (B, S, H, rank+dr)
-            kv_eff = torch.cat([cache["ckv"], cache["krope"]], dim=-1)
-            ctx = flash_attention(q_eff, kv_eff[:, :, None, :],
-                                  cache["ckv"][:, :, None, :], pos_1d,
-                                  cache["pos"], kv_valid=cache["pos"] >= 0,
-                                  **args)  # (B, S, H, rank)
+            block = isinstance(cache, CacheBlock)
+            if block and cache_index == 0:  # the prompt's entries, rounded
+                ckv_c = ckv.to(cache["ckv"].dtype)
+                kv_eff = torch.cat([ckv_c, krope.to(cache["krope"].dtype)],
+                                   dim=-1)
+                ctx = flash_attention(q_eff, kv_eff[:, :, None, :],
+                                      ckv_c[:, :, None, :], pos_1d, pos_1d,
+                                      **args)
+            _cache_write(cache, ("ckv", "krope"), (ckv, krope), pos_1d,
+                         cache_index, ring=False)
+            if not (block and cache_index == 0):
+                kv_eff = torch.cat([cache["ckv"], cache["krope"]], dim=-1)
+                kv = (kv_eff[:, :, None, :], cache["ckv"][:, :, None, :])
+                ctx = (_attend_slots(q_eff, *kv, pos_1d, cache, self.slots,
+                                     tp is not None, **args) if block
+                       else flash_attention(q_eff, *kv, pos_1d, cache["pos"],
+                                            kv_valid=cache["pos"] >= 0,
+                                            **args))  # (B, S, H, rank)
             out = torch.einsum("bshr,rhd->bshd", ctx, wv_b)
         return self.wo(out.reshape(B, S, H * dv), tp)

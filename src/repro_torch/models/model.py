@@ -223,20 +223,24 @@ def embed_inputs(model: LanguageModel, batch: dict) -> torch.Tensor:
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device: Union[str, torch.device, None] = None,
-               tp: int = 1) -> list:
+               tp: int = 1, rank: int = 0) -> list:
     """One cache dict per layer, at ``cfg.cache_dtype`` (default: the
     activation dtype): K/V and slot positions for attention (a ring buffer
     of the window under local attention), ``(h, conv)`` for RG-LRU,
     ``(S, shift_tm, shift_cm)`` for RWKV-6. A float8 cache rounds on write
     and reads back at f32. MLA layers keep the compressed ``ckv`` and
-    ``krope`` (no ring). ``tp``: the cache of one rank of a placed model
-    on a 'model' axis of that many ranks, whose split attention holds only
-    the rank's KV heads, a split RG-LRU the rank's channels of ``h`` and
+    ``krope`` (no ring). ``tp``, ``rank``: the cache of the rank at
+    ``rank`` of a placed model on a 'model' axis of ``tp`` ranks, whose
+    split attention holds only the rank's KV heads, whose attention layers
+    hold the rank's block of the slots where their slot group has more
+    than one rank
+    (:func:`~repro_torch.distributed.tensor_parallel.slot_block`; a
+    ``CacheBlock``), a split RG-LRU the rank's channels of ``h`` and
     ``conv`` and a split RWKV-6 the rank's heads of ``S``."""
     check_ported(cfg)
     dev = resolve_device(device)
     dtype = DTYPES[cfg.cache_dtype or cfg.dtype]
-    return [init_layer_cache(cfg, kind, batch, max_len, dtype, dev, tp)
+    return [init_layer_cache(cfg, kind, batch, max_len, dtype, dev, tp, rank)
             for kind in cfg.layer_kinds]
 
 

@@ -128,10 +128,13 @@ class Block(nn.Module):
 
 
 def init_layer_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
-                     dtype, device, tp: int = 1) -> dict:
+                     dtype, device, tp: int = 1, rank: int = 0) -> dict:
+    """One layer's serving cache; ``tp``, ``rank``: that of the rank at
+    ``rank`` of a 'model' axis of ``tp`` ranks (an attention layer's KV
+    heads and its block of the slots)."""
     if kind == "attn":
         return init_kv_cache(cfg, batch, max_len, dtype, device,
-                             window=cfg.local_window, tp=tp)
+                             window=cfg.local_window, tp=tp, rank=rank)
     # the recurrent states hold the rank's heads / channels where the
     # block splits over 'model' (the placed serving cache); the dry-run's
     # residency (sharding.cache_shardings) keeps the reference's rule,

@@ -26,11 +26,27 @@ tokens, biased MLPs). Runs from the reference's weights
 (``interop.train_state_from_reference``) meet the reference's own
 ``make_train_step`` on the same batches: granite on (2, 1) and (1, 2),
 deepseek, rwkv6-1.6b and recurrentgemma-2b on (1, 2). Placed serving on
-(1, 2) (a prefill and a decode step with the head-sharded cache; MLA's
-compressed cache whole; RG-LRU's channels and RWKV-6's heads a rank)
-meets one process for granite, recurrentgemma, rwkv6, deepseek and grok;
-placed forwards on (2, 2) compute with the widths the split rule gives,
-and placed serving there holds the recurrent states' split widths.
+(1, 2) (a prefill and a decode step with the head-sharded cache; RG-LRU's
+channels and RWKV-6's heads a rank) meets one process for granite,
+recurrentgemma, rwkv6, deepseek and grok; placed forwards on (2, 2)
+compute with the widths the split rule gives, and placed serving there
+holds the recurrent states' split widths.
+
+The serving cache along its slots (``SLOTS``): deepseek's compressed MLA
+cache and recurrentgemma's ring (its one KV head replicated) hold half
+their slots a rank on (1, 2), in a cache of 40 slots whose second block
+the prompt leaves empty, and a second decode step (at 24) lands in the
+other block; granite with 3 heads (``WHOLE``: its attention does not
+split) holds half the slots of every head; granite on (1, 4) (its 2 KV
+heads each replicated on two ranks) half the slots of its head. Each
+meets one process at its serving bar, each rank's cache is its block of
+one process's, and its steps send the schedule. From the reference's
+weights, deepseek and recurrentgemma placed on (1, 2) meet the
+reference's own prefill and decode steps (``SERVE_REFERENCE``). A prompt
+prefilled in two chunks (the second at ``cache_index`` 10,
+``tests/torch_placed_chunked_prefill.py``) meets one process too: the
+second chunk's queries merge deepseek's blocks, while recurrentgemma's
+ring attends its chunk in context.
 
 Every step and forward above whose length (SEQ 16) divides the 'model'
 axis runs sequence-parallel: each layer takes the rank's (rows, SEQ/tp, d)
@@ -133,6 +149,41 @@ SERVE_TOL = 1e-6
 SERVE = {"granite-3-8b": SERVE_TOL, "recurrentgemma-2b": SERVE_TOL,
          "deepseek-v2-236b": 2e-6, "grok-1-314b": SERVE_TOL,
          "rwkv6-1.6b": SERVE_TOL}
+# SERVE's runs whose attention cache splits along its slots on (1, 2),
+# arch -> (cache length, the slots of the decode steps after the first):
+# a cache of 40 (blocks of 20) leaves the second block without a valid
+# slot until the step at 24; recurrentgemma's ring of 16 (blocks of 8)
+# takes the first step in its first block, the one at 24 in its second
+SLOTS = {"deepseek-v2-236b": (40, (24,)), "recurrentgemma-2b": (40, (24,))}
+# the bar of recurrentgemma's step at 24 against one process: it lies
+# 1.231e-6 from one process's, while one process's own f32 step lies
+# 1.042e-6 from f64 and the placed one 1.028e-6
+# (tests/torch_placed_drift.py --arch recurrentgemma-2b --cache-len 40
+# --more 24), and 1.10e-6 with its cache whole on each rank: twice the
+# distance measured
+MORE_TOL = {"recurrentgemma-2b": 2.5e-6}
+# an attention that does not split (3 heads on 2 ranks): a slot group of
+# both ranks, each holding every head's half of the slots
+WHOLE = ("granite-3-8b", {"num_heads": 3, "num_kv_heads": 1})
+# placed serving on (1, 4) in the 4-rank group: granite's 2 KV heads each
+# replicated on two ranks, a slot group of two
+WIDE = "granite-3-8b"
+# placed serving on (1, 2) from the reference's weights, against the
+# reference's own prefill and decode steps (max relative)
+SERVE_REFERENCE = ("deepseek-v2-236b", "recurrentgemma-2b")
+REF_SERVE_TOL = 1e-5
+# a prompt prefilled in two chunks on (1, 2), the second (SEQ - SPLIT
+# tokens, sequence-parallel) at cache_index SPLIT in a cache of CHUNKED
+# slots: deepseek's queries attend the cache (the two blocks merged),
+# recurrentgemma's ring prefill attends its chunk in context
+CHUNKED, SPLIT = 40, 10
+# the bar of recurrentgemma's second chunk against one process: it lies
+# 1.378e-6 from one process's, while one process's own f32 logits lie
+# 1.626e-6 from f64 and the placed ones 1.037e-6
+# (tests/torch_placed_drift.py --arch recurrentgemma-2b --split 10): twice
+# the distance measured; it merges no slot block (its ring attends the
+# chunk in context), so the distance is the split RG-LRU's and MLP's
+CHUNK_TOL = {"recurrentgemma-2b": 2.8e-6}
 # placed forwards on (2, 2) whose split widths are checked: grok's 4
 # experts (2 a rank) and 3 (the ff fallback), deepseek's MLA and experts
 FORWARD = {"granite-3-8b": ("granite-3-8b", {}),
@@ -232,6 +283,28 @@ def reference():
         out["params"] = port(cfg, params, opt)
         return out
 
+    def serve(rcfg, params, arch):
+        """The reference's prefill of ``arch``'s serving tokens and its
+        greedy decode steps at SEQ and at SLOTS' slots (jit, CPU), each
+        step's logits (numpy)."""
+        import jax.numpy as jnp
+
+        from repro.models import init_cache as ref_init_cache
+        from repro.train import make_decode_step as ref_decode_step
+        from repro.train import make_prefill_step as ref_prefill_step
+
+        cache_len, more = SLOTS[arch]
+        logits, cache = jax.jit(ref_prefill_step(rcfg))(
+            params, {"tokens": jnp.asarray(_serve_tokens(arch))},
+            ref_init_cache(rcfg, BATCH, cache_len))
+        decode, out = jax.jit(ref_decode_step(rcfg)), [logits]
+        for index in (SEQ,) + more:
+            tok = out[-1].argmax(-1)[:, None].astype(jnp.int32)
+            logits, cache = decode(params, tok, cache,
+                                   jnp.asarray(index, jnp.int32))
+            out.append(logits)
+        return [np.asarray(x) for x in out]
+
     runs = {}
     with ThreadPoolExecutor(1) as pool:
         archs = dict.fromkeys(a for runs in REFERENCE.values()
@@ -245,6 +318,8 @@ def reference():
             runs[arch] = {"state": port(cfg, params, opt),
                           "steps": pool.submit(steps, cfg, rcfg, params,
                                                opt)}
+            if arch in SERVE_REFERENCE:
+                runs[arch]["serve"] = pool.submit(serve, rcfg, params, arch)
         yield runs
 
 
@@ -312,12 +387,15 @@ def runs(tmp_path_factory, reference):
     checkpoints, the elastic restore's ranks, placed forwards on (2, 2)
     (``forward``: {FORWARD entry: [each rank's placed_forward result]};
     ``forward_serve``: {RECURRENT arch: [each rank's placed_serve
-    result]})
-    and placed serving on (1, 2) (``serve``: {arch: [each rank's
-    placed_serve result]})."""
+    result]}), placed serving on (1, 4) (``wide_serve``: [each rank's
+    placed_serve result]) and placed serving on (1, 2) (``serve``: {arch:
+    [each rank's placed_serve result]}; ``whole_serve``: WHOLE's;
+    ``reference_serve``: {SERVE_REFERENCE arch: the runs from the
+    reference's weights})."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.distributed.sharding import placed_forward, placed_serve
     from repro_torch.launch.train import rank_main, restore_onto
+    from torch_placed_chunked_prefill import placed_chunked_prefill
     from torch_vocab_parallel_ce import placed_cross_entropy
 
     tmp = tmp_path_factory.mktemp("placed")
@@ -334,6 +412,9 @@ def runs(tmp_path_factory, reference):
             calls += [(placed_serve, (get_smoke_config(arch), mesh,
                                       _serve_tokens(arch)))
                       for arch in RECURRENT]
+            calls.append((placed_serve, (get_smoke_config(WIDE), (1, 4),
+                                         _serve_tokens(WIDE), None, None,
+                                         (), True)))
         results = _spawn(calls, world)
         for i, name in enumerate(names):
             out[name] = [r[i] for r in results]
@@ -344,15 +425,27 @@ def runs(tmp_path_factory, reference):
             j += len(FORWARD)
             out["forward_serve"] = {arch: [r[j + i] for r in results]
                                     for i, arch in enumerate(RECURRENT)}
+            out["wide_serve"] = [r[-1] for r in results]
     os.makedirs(resumed)
     shutil.copytree(os.path.join(straight, "step_000000000002"),
                     os.path.join(resumed, "step_000000000002"))
     names, calls = _case_calls((1, 2), reference)
     calls += [(placed_serve, (get_smoke_config(arch), (1, 2),
-                              _serve_tokens(arch))) for arch in SERVE]
+                              _serve_tokens(arch), None,
+                              *SLOTS.get(arch, (None, ())), True))
+              for arch in SERVE]
     calls += [(placed_serve, (get_smoke_config(arch), (1, 2),
                               _serve_tokens(arch, SEQ - 1)))
               for arch in ODD_PROMPT]
+    calls.append((placed_serve, (_whole_config(), (1, 2),
+                                 _serve_tokens(WHOLE[0]), None, None, (),
+                                 True)))
+    calls += [(placed_serve, (_config(arch), (1, 2), _serve_tokens(arch),
+                              reference[arch]["state"], *SLOTS[arch]))
+              for arch in SERVE_REFERENCE]
+    calls += [(placed_chunked_prefill, (get_smoke_config(arch), (1, 2),
+                                        _serve_tokens(arch), SPLIT, CHUNKED))
+              for arch in SLOTS]
     calls.append((placed_cross_entropy, _ce_inputs()))
     results = _spawn([
         (rank_main, (LAUNCH + ["--ckpt-dir", resumed, "--resume"],)),
@@ -366,8 +459,21 @@ def runs(tmp_path_factory, reference):
     j += len(SERVE)
     out["odd_prompt"] = {arch: [r[j + i] for r in results]
                          for i, arch in enumerate(ODD_PROMPT)}
+    j += len(ODD_PROMPT)
+    out["whole_serve"] = [r[j] for r in results]
+    out["reference_serve"] = {arch: [r[j + 1 + i] for r in results]
+                              for i, arch in enumerate(SERVE_REFERENCE)}
+    j += 1 + len(SERVE_REFERENCE)
+    out["chunked"] = {arch: [r[j + i] for r in results]
+                      for i, arch in enumerate(SLOTS)}
     out["cross_entropy"] = [r[-1] for r in results]
     return out
+
+
+def _whole_config():
+    from repro_torch.configs import get_smoke_config
+
+    return dataclasses.replace(get_smoke_config(WHOLE[0]), **WHOLE[1])
 
 
 @pytest.mark.parametrize("case", list(CASES))
@@ -653,23 +759,71 @@ def test_split_ranks_compute_with_their_shards(runs):
             _check_recurrent_cache(cfg, r["cache_shapes"], rows)
 
 
-def _serve_one_process(cfg, arch, seq=SEQ):
+def _serve_one_process(cfg, arch, seq=SEQ, cache_len=None, more=()):
     """One process's prefill and decode logits of ``cfg`` on ``arch``'s
-    serving tokens (numpy; the first ``seq`` of each row), and its cache's
-    shapes (a dict a layer)."""
+    serving tokens (numpy; the first ``seq`` of each row; ``more``: a
+    list, one a further decode step at each of its slots), in a cache of
+    ``cache_len`` slots (default ``seq + 1``), and the cache at the end."""
     from repro_torch.models import LanguageModel, init_cache
     from repro_torch.train import make_decode_step, make_prefill_step
 
     tokens = _serve_tokens(arch, seq)
     model = LanguageModel(cfg, device="cpu")
-    cache = init_cache(cfg, BATCH, seq + 1, "cpu")
-    whole = [{k: tuple(v.shape) for k, v in layer.items()}
-             for layer in cache]
+    cache = init_cache(cfg, BATCH, cache_len or seq + 1, "cpu")
     prefill, _ = make_prefill_step(model)(
         {"tokens": torch.as_tensor(tokens)}, cache)
-    tok = prefill.argmax(-1)[:, None].to(torch.int32)
-    decode, _ = make_decode_step(model)(tok, cache, seq)
-    return {"prefill": prefill.numpy(), "decode": decode.numpy()}, whole
+    steps = [prefill]
+    for index in (seq,) + tuple(more):
+        tok = steps[-1].argmax(-1)[:, None].to(torch.int32)
+        steps.append(make_decode_step(model)(tok, cache, index)[0])
+    steps = [x.numpy() for x in steps]
+    return ({"prefill": steps[0], "decode": steps[1], "more": steps[2:]},
+            cache)
+
+
+def _rel(got, want):
+    return float(np.abs(got - want).max() / np.abs(want).max())
+
+
+def _check_cache_blocks(cfg, r, whole, tp, rank, bar):
+    """A placed rank's cache (``placed_serve(keep_cache=True)``) on a
+    'model' axis of ``tp``: each attention layer holds its block of the
+    slots (``size / g`` of them where they divide its slot group, at
+    ``j·size/g``) of the rank's KV heads, its tensors within ``bar`` of
+    that block of one process's cache ``whole`` (max relative), its
+    positions exactly; its shapes are ``cache_shapes``'."""
+    from repro_torch.distributed.tensor_parallel import (attention_splits,
+                                                         local_kv_heads,
+                                                         slot_block,
+                                                         slot_group_size)
+
+    g = slot_group_size(cfg, tp)
+    heads = slice(None)
+    if cfg.attn_kind == "gqa" and attention_splits(cfg, tp):
+        h = local_kv_heads(cfg, tp)
+        first = (rank * h if cfg.num_kv_heads >= tp
+                 else rank // (tp // cfg.num_kv_heads))
+        heads = slice(first, first + h)
+    for li, kind in enumerate(cfg.layer_kinds):
+        if kind != "attn":
+            continue
+        size = whole[li]["pos"].shape[1]
+        first, n = slot_block(size, g, rank)
+        assert r["cache_first"][li] == first, (cfg.name, rank, li)
+        got = r["cache"][li]
+        assert r["cache_shapes"][li] == {k: v.shape
+                                         for k, v in got.items()}
+        for leaf, x in whole[li].items():
+            want = x[:, first:first + n]
+            if leaf in ("k", "v"):
+                want = want[:, :, heads]
+            want = want.float().numpy() if leaf != "pos" else want.numpy()
+            assert got[leaf].shape == want.shape, (cfg.name, rank, leaf)
+            if leaf == "pos":
+                assert np.array_equal(got[leaf], want), (cfg.name, rank)
+            else:
+                assert _rel(got[leaf], want) <= bar, (cfg.name, rank, leaf)
+    return g
 
 
 def _check_recurrent_cache(cfg, shapes, rows):
@@ -687,42 +841,156 @@ def _check_recurrent_cache(cfg, shapes, rows):
                              "shift_cm": (rows, cfg.d_model)}, layer
 
 
-def test_placed_serving_on_model_ranks_is_one_process(runs):
-    """Placed serving on (1, 2): a prefill and a decode step with the
-    head-sharded cache (granite's two KV heads one a rank, grok's too;
-    recurrentgemma's one KV head replicated, its RG-LRU states half the
-    channels; rwkv6's WKV states half the heads; deepseek's compressed MLA
-    cache whole on each rank) within its bar of one process, each step's
-    collectives the schedule's."""
-    from repro_torch.configs import get_smoke_config
+def _serves_one_process(cfg, arch, ranks, mesh_shape, bar,
+                        cache_len=None, more=()):
+    """Each rank of a placed serving run (``keep_cache``) against one
+    process in a cache of the same length: every step's logits within
+    ``bar`` (``MORE_TOL``'s for the steps after the first decode), every
+    step's collectives the schedule's (a decode's for the cache's
+    length), each rank's cache its block of one process's. Returns the
+    slot group's size and the decode schedule."""
     from repro_torch.launch.analytic import lm_collectives
     from repro_torch.launch.mesh import MeshShape
     from repro_torch.launch.shapes import ShapeCase
 
-    mesh = MeshShape({"data": 1, "model": 2})
+    tp = mesh_shape[1]
+    cache_len = cache_len or -(-(SEQ + 1) // tp) * tp
+    want, whole = _serve_one_process(cfg, arch, cache_len=cache_len,
+                                     more=more)
+    mesh = MeshShape({"data": mesh_shape[0], "model": tp})
+    sched = {"prefill": lm_collectives(cfg, ShapeCase("prefill", SEQ, BATCH,
+                                                      "prefill"), mesh),
+             "decode": lm_collectives(cfg, ShapeCase("decode", cache_len,
+                                                     BATCH, "decode"), mesh)}
+    for rank, r in enumerate(ranks):
+        assert r["cache_len"] == cache_len
+        for key in ("prefill", "decode"):
+            assert r[key].shape == want[key].shape
+            assert _rel(r[key], want[key]) <= bar, (arch, key)
+            assert r["collectives"][key] == sched[key], (arch, key)
+        assert len(r["more"]) == len(more)
+        for got, w, coll in zip(r["more"], want["more"],
+                                r["collectives"]["more"]):
+            assert _rel(got, w) <= MORE_TOL.get(arch, bar), arch
+            assert coll == sched["decode"], arch
+        g = _check_cache_blocks(cfg, r, whole, tp, rank % tp, bar)
+    return g, sched["decode"]
+
+
+def test_placed_serving_on_model_ranks_is_one_process(runs):
+    """Placed serving on (1, 2): a prefill and a decode step with the
+    head-sharded cache (granite's two KV heads one a rank, grok's too;
+    recurrentgemma's one KV head replicated, its RG-LRU states half the
+    channels; rwkv6's WKV states half the heads) within its bar of one
+    process, each step's collectives the schedule's. deepseek's compressed
+    MLA cache and recurrentgemma's ring hold half their slots a rank
+    (``SLOTS``: 40 slots, the second block empty through the first
+    decode step, the step at 24 in it), each rank's block that of one
+    process's cache, and decode merges the two blocks: its queries
+    gathered, one reduce-scatter an attention layer."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.distributed.tensor_parallel import split_plan
+
     for arch, bar in SERVE.items():
         cfg = get_smoke_config(arch)
-        want, whole = _serve_one_process(cfg, arch)
+        ranks = runs["serve"][arch]
+        g, decode = _serves_one_process(cfg, arch, ranks, (1, 2), bar,
+                                        *SLOTS.get(arch, (None, ())))
+        assert g == (2 if arch in SLOTS else 1), arch
         heads = cfg.num_kv_heads // 2 or 1
-        for r in runs["serve"][arch]:
-            for key in ("prefill", "decode"):
-                assert r[key].shape == want[key].shape
-                err = (np.abs(r[key] - want[key]).max()
-                       / np.abs(want[key]).max())
-                assert err <= bar, (arch, key, err)
-                assert r["collectives"][key] == lm_collectives(
-                    cfg, ShapeCase(key, SEQ, BATCH, key), mesh)
-            # prefill sequence-parallel (SEQ divides 2), decode (S = 1) not
+        for r in ranks:
+            # prefill sequence-parallel (SEQ divides 2), decode (S = 1)
+            # not: its reduce-scatters are the slot groups' merges
             assert "reduce-scatter" in r["collectives"]["prefill"].count_by_op
-            assert "reduce-scatter" not in \
-                r["collectives"]["decode"].count_by_op
-            for layer, one, kind in zip(r["cache_shapes"], whole,
-                                        cfg.layer_kinds):
-                if cfg.attn_kind == "mla":
-                    assert layer == one, arch
-                elif kind == "attn":
+            assert decode.count_by_op.get("reduce-scatter", 0) == len(
+                split_plan(cfg, 2).slots), arch
+            for layer, kind in zip(r["cache_shapes"], cfg.layer_kinds):
+                if cfg.attn_kind == "gqa" and kind == "attn":
                     assert layer["k"][2] == layer["v"][2] == heads, arch
             _check_recurrent_cache(cfg, r["cache_shapes"], BATCH)
+        if arch == "deepseek-v2-236b":  # the prompt and the first step
+            # in rank 0's block: rank 1's held no valid slot until the
+            # step at 24
+            pos = ranks[1]["cache"][-1]["pos"]
+            assert sorted(set(pos[pos >= 0].tolist())) == [24]
+
+
+def test_slot_groups_of_a_whole_attention_and_of_four_ranks(runs):
+    """granite with 3 heads on (1, 2): its attention does not split, so
+    both ranks compute every head's entries and each holds half the slots
+    (a slot group of two, the merge two all-reduces); granite on (1, 4):
+    its 2 KV heads each replicated on two ranks (slot groups {0, 1} and
+    {2, 3}, c10d groups of their own), each rank half the slots of its
+    head. Both meet one process at the serving bar, each rank's cache its
+    block of one process's, each step's collectives the schedule's."""
+    cfg = _whole_config()
+    g, decode = _serves_one_process(cfg, WHOLE[0], runs["whole_serve"],
+                                    (1, 2), SERVE_TOL)
+    assert g == 2 and "reduce-scatter" not in decode.count_by_op
+    assert runs["whole_serve"][0]["cache_shapes"][0]["k"] == (
+        BATCH, 9, 1, cfg.head_dim)
+    wide = runs["wide_serve"]
+    assert len(wide) == 4
+    from repro_torch.configs import get_smoke_config
+
+    g, decode = _serves_one_process(get_smoke_config(WIDE), WIDE, wide,
+                                    (1, 4), SERVE_TOL)
+    assert g == 2 and decode.count_by_op["reduce-scatter"] == 2
+    assert [r["cache_first"] for r in wide] == [[0, 0], [10, 10]] * 2
+
+
+def test_prefill_into_a_filled_cache_merges_the_blocks(runs):
+    """A prompt prefilled in two chunks on (1, 2), the second at
+    cache_index SPLIT: each chunk's last logits within the serving bar of
+    one process's (recurrentgemma's second chunk within CHUNK_TOL), and
+    the second chunk's collectives the schedule's
+    (``lm_collectives(..., cache_len=, cache_index=)``): deepseek's MLA
+    layers merge their two slot blocks for SEQ - SPLIT queries (one
+    reduce-scatter a layer); recurrentgemma's ring attends the chunk in
+    context and merges nothing."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.analytic import lm_collectives
+    from repro_torch.launch.mesh import MeshShape
+    from repro_torch.launch.shapes import ShapeCase
+    from repro_torch.models import LanguageModel, init_cache
+
+    mesh = MeshShape({"data": 1, "model": 2})
+    for arch in SLOTS:
+        cfg = get_smoke_config(arch)
+        tokens = torch.as_tensor(_serve_tokens(arch))
+        model = LanguageModel(cfg, device="cpu")
+        cache = init_cache(cfg, BATCH, CHUNKED, "cpu")
+        with torch.inference_mode():
+            want = [model({"tokens": t}, cache, i, last_only=True)[0][
+                :, -1].numpy() for t, i in ((tokens[:, :SPLIT], 0),
+                                            (tokens[:, SPLIT:], SPLIT))]
+        shape = ShapeCase("prefill", SEQ - SPLIT, BATCH, "prefill")
+        sched = lm_collectives(cfg, shape, mesh, cache_len=CHUNKED,
+                               cache_index=SPLIT)
+        fresh = lm_collectives(cfg, shape, mesh)  # at cache_index 0
+        merges = (sched.count_by_op["reduce-scatter"]
+                  - fresh.count_by_op["reduce-scatter"])
+        assert merges == (cfg.num_layers if arch == "deepseek-v2-236b"
+                          else 0), arch
+        for r in runs["chunked"][arch]:
+            assert _rel(r["first"], want[0]) <= SERVE[arch], arch
+            assert _rel(r["second"], want[1]) <= CHUNK_TOL.get(
+                arch, SERVE[arch]), arch
+            assert r["collectives"] == sched, arch
+
+
+def test_placed_serving_meets_the_reference(runs, reference):
+    """deepseek and recurrentgemma from the reference's weights
+    (``interop.lm_params_from_reference``), placed on (1, 2) with their
+    caches half the slots a rank: the prefill and both decode steps
+    within REF_SERVE_TOL of the reference's own (jit, CPU)."""
+    for arch in SERVE_REFERENCE:
+        want = reference[arch]["serve"].result()
+        for r in runs["reference_serve"][arch]:
+            got = [r["prefill"], r["decode"]] + r["more"]
+            assert len(got) == len(want) == 3
+            for i, (a, b) in enumerate(zip(got, want)):
+                assert _rel(a, b) <= REF_SERVE_TOL, (arch, i)
 
 
 def test_odd_prompt_and_decode_run_without_sequence_parallelism(runs):
@@ -741,6 +1009,7 @@ def test_odd_prompt_and_decode_run_without_sequence_parallelism(runs):
         cfg = get_smoke_config(arch)
         want, _ = _serve_one_process(cfg, arch, SEQ - 1)
         for r in runs["odd_prompt"][arch]:
+            assert r["cache_len"] == SEQ  # SEQ - 1 + 1, a multiple of 2
             for key in ("prefill", "decode"):
                 sched = lm_collectives(cfg, ShapeCase(key, SEQ - 1, BATCH,
                                                       key), mesh)

@@ -211,7 +211,10 @@ def test_unplaced_models_see_no_group():
 def test_head_sharded_cache():
     """``init_cache(tp=)``: a split attention's KV heads a rank, a split
     RG-LRU's channels of ``h`` and ``conv``, a split RWKV-6's heads of
-    ``S``, the rest as at ``tp`` 1."""
+    ``S``, the attention's block of the slots where its slot group has
+    more than one rank (a replicated KV head, MLA: half of them at 2;
+    ``tests/test_torch_slot_sharded_cache.py``), the rest as at ``tp``
+    1."""
     cfg = get_smoke_config("granite-3-8b")  # 2 KV heads
     one, two = (init_cache(cfg, 2, 8, "cpu", tp=t) for t in (1, 2))
     for a, b in zip(one, two):
@@ -220,8 +223,9 @@ def test_head_sharded_cache():
     rg = get_smoke_config("recurrentgemma-2b")  # 1 KV head: replicated
     for a, b, kind in zip(init_cache(rg, 2, 8, "cpu"),
                           init_cache(rg, 2, 8, "cpu", tp=2), rg.layer_kinds):
-        if kind == "attn":
-            assert {k: v.shape for k, v in a.items()} == {
+        if kind == "attn":  # its one KV head, half the slots
+            assert {k: v.shape[:1] + (v.shape[1] // 2,) + v.shape[2:]
+                    for k, v in a.items()} == {
                 k: v.shape for k, v in b.items()}
         else:  # RG-LRU by width: the rank's channels
             assert b["h"].shape == (2, rg.lru_width // 2)
@@ -234,10 +238,10 @@ def test_head_sharded_cache():
         assert a["S"].shape == (2, 4, 16, 16)
         assert b["S"].shape == (2, 2, 16, 16)
         assert a["shift_tm"].shape == b["shift_cm"].shape == (2, 64)
-    ds = get_smoke_config("deepseek-v2-236b")  # MLA: whole
+    ds = get_smoke_config("deepseek-v2-236b")  # MLA: half the slots
     assert [{k: v.shape for k, v in a.items()}
             for a in init_cache(ds, 2, 8, "cpu", tp=2)] == [
-        {k: v.shape for k, v in a.items()}
+        {k: v.shape[:1] + (4,) + v.shape[2:] for k, v in a.items()}
         for a in init_cache(ds, 2, 8, "cpu")]
 
 
@@ -303,7 +307,11 @@ def test_schedule_of_mla_and_experts_on_model_ranks():
     loss's (4, 512) f32 max and (2, 4, 512) f32 sums; the gradients of
     the parameters used whole (the five norm scales, each MLA layer's
     ``wq_a``, ``wkv_a`` and latent norms, the router), no latent and no
-    gate value any more; the norm's 4 B. Decode keeps its path."""
+    gate value any more; the norm's 4 B. Decode keeps its path, and each
+    MLA layer merges its slot group's (both ranks') partial softmaxes: the
+    (4, 1, 128, 576) f32 absorbed queries all-gathered, their f32 maxima
+    all-reduced, the rank's (4, 1, 64, 513) f64 numerators and sums
+    reduce-scattered."""
     from repro_torch.launch.analytic import lm_collectives
     from repro_torch.launch.shapes import ShapeCase
     from repro_torch.train import TrainConfig
@@ -331,8 +339,13 @@ def test_schedule_of_mla_and_experts_on_model_ranks():
         "all-gather": 4 * act + 4 * 2 * 5120 * 4 + logits + whole,
         "reduce-scatter": 5 * shard}
     got = lm_collectives(cfg, ShapeCase("decode", 512, 4, "decode"), mesh)
-    assert got.bytes_by_op == {"all-reduce": 5 * 4 * 5120 * 4,
-                               "all-gather": logits + whole}
+    merge = {"all-gather": 4 * 128 * 576 * 4, "all-reduce": 4 * 128 * 4,
+             "reduce-scatter": 4 * 64 * 513 * 8}
+    assert got.bytes_by_op == {
+        "all-reduce": 5 * 4 * 5120 * 4 + 2 * merge["all-reduce"],
+        "all-gather": logits + whole + 2 * merge["all-gather"],
+        "reduce-scatter": 2 * merge["reduce-scatter"]}
+    assert got.count_by_op["reduce-scatter"] == 2
 
 
 def test_placement_notes_name_what_stays_whole():
@@ -508,10 +521,16 @@ def test_schedule_of_recurrent_layers_on_model_ranks():
     assert prefill.bytes_by_op == {
         "all-gather": 6 * act + last + 4 * 128 * 4 + 2 * kv + 2 * act,
         "reduce-scatter": 7 * shard}
+    # decode: the attention layer (its one KV head replicated, a slot
+    # group of both ranks) merges the ranks' halves of its 16 slots: the
+    # group's 4 query heads (4, 1, 4, 16) gathered, their maxima
+    # all-reduced, the rank's (4, 1, 2, 17) f64 numerators and sums
+    # reduce-scattered
     decode = lm_collectives(rg, ShapeCase("decode", 16, 4, "decode"), mesh)
     assert decode.bytes_by_op == {"all-gather": 4 * 128 * 4 + 2 * kv
-                                  + 2 * 4 * 64 * 4,
-                                  "all-reduce": 7 * 4 * 64 * 4}
+                                  + 2 * 4 * 64 * 4 + 4 * 4 * 16 * 4,
+                                  "all-reduce": 7 * 4 * 64 * 4 + 4 * 4 * 4,
+                                  "reduce-scatter": 4 * 2 * 17 * 8}
 
     rwkv = get_smoke_config("rwkv6-1.6b")
     got = lm_collectives(rwkv, train, mesh, TrainConfig(remat=True))

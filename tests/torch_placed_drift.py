@@ -4,7 +4,8 @@ one process's own f32 logits lie from the same weights at f64: the bar of
 plain f32 rounding shows too, not a fault of the split.
 
     PYTHONPATH=src python tests/torch_placed_drift.py [--arch deepseek-v2-236b ...]
-        [--mesh DATA MODEL] [--train [--grad-accum K] [--remat]]
+        [--mesh DATA MODEL] [--cache-len L --more INDEX ...]
+        [--split N] [--train [--grad-accum K] [--remat]]
         [--layers N --seq S --device cuda]
 
 For each arch's smoke model (default: deepseek-v2-236b, grok-1-314b,
@@ -13,7 +14,13 @@ granite-3-8b) on the serving case's tokens (4 x 16, seed 5) it runs
 the CPU, and one process's prefill and decode step at f32 and at f64 (the
 f32 weights widened; the MoE router stays f32). It prints the max relative
 distance (over the largest logit) of the placed logits from one process's,
-and of each from the f64 ones.
+and of each from the f64 ones. ``--cache-len L``: every cache holds L
+slots (default: ``placed_serve``'s, S + 1 rounded up to a multiple of the
+'model' axis); ``--more``: a further greedy decode step at each slot
+given, each fed the step before's token. ``--split N``: the prompt
+prefilled in two chunks instead, the second at ``cache_index`` N
+(``tests/torch_placed_chunked_prefill.py``), each chunk's last logits
+(the cache of ``--cache-len`` slots, default 40).
 
 ``--train``: the training cases instead (f32, lr 1e-7, three steps on
 ``synthetic_batch(cfg, 4, 16, seed=17, step=i)``, as the test runs them):
@@ -40,20 +47,63 @@ ARCHS = ("deepseek-v2-236b", "grok-1-314b", "granite-3-8b")
 BATCH, SEQ = 4, 16
 
 
-def one_process(cfg, tokens):
+def one_process(cfg, tokens, cache_len=SEQ + 1, more=()):
     import torch
 
     from repro_torch.models import LanguageModel, init_cache
     from repro_torch.train import make_decode_step, make_prefill_step
 
     model = LanguageModel(cfg, device="cpu")
-    cache = init_cache(cfg, BATCH, SEQ + 1, "cpu")
-    prefill, _ = make_prefill_step(model)(
+    cache = init_cache(cfg, BATCH, cache_len, "cpu")
+    steps, _ = make_prefill_step(model)(
         {"tokens": torch.as_tensor(tokens)}, cache)
-    tok = prefill.argmax(-1)[:, None].to(torch.int32)
-    decode, _ = make_decode_step(model)(tok, cache, SEQ)
-    return {"prefill": prefill.double().numpy(),
-            "decode": decode.double().numpy()}
+    steps = [steps]
+    for index in (SEQ,) + tuple(more):
+        tok = steps[-1].argmax(-1)[:, None].to(torch.int32)
+        steps.append(make_decode_step(model)(tok, cache, index)[0])
+    steps = [x.double().numpy() for x in steps]
+    return {"prefill": steps[0], "decode": steps[1], "more": steps[2:]}
+
+
+def chunked_one_process(cfg, tokens, split, cache_len):
+    import torch
+
+    from repro_torch.models import LanguageModel, init_cache
+
+    model = LanguageModel(cfg, device="cpu")
+    cache = init_cache(cfg, BATCH, cache_len, "cpu")
+    tokens = torch.as_tensor(tokens)
+    with torch.inference_mode():
+        return [model({"tokens": t}, cache, i, last_only=True)[0][:, -1]
+                .double().numpy()
+                for t, i in ((tokens[:, :split], 0), (tokens[:, split:],
+                                                      split))]
+
+
+def chunked_drift(cfgs, tokens, mesh, split, cache_len):
+    import sys
+
+    from repro_torch.launch.mesh import run_each, spawn_ranks
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from torch_placed_chunked_prefill import placed_chunked_prefill
+
+    ranks = spawn_ranks(run_each, mesh[0] * mesh[1], backend="gloo",
+                        device="cpu", args=(
+        [(placed_chunked_prefill, (cfg, mesh, t, split, cache_len))
+         for cfg, t in zip(cfgs, tokens)],))
+    for i, (cfg, t) in enumerate(zip(cfgs, tokens)):
+        f32 = chunked_one_process(cfg, t, split, cache_len)
+        f64 = chunked_one_process(dataclasses.replace(
+            cfg, dtype="float64", param_dtype="float64"), t, split,
+            cache_len)
+        for j, key in enumerate(("first", "second")):
+            placed = ranks[0][i][key].astype(np.float64)
+            print(f"{cfg.name} {key} chunk (split {split}, {cache_len} "
+                  f"slots): placed {mesh} from one process "
+                  f"{dist(placed, f32[j]):.3e}; one process f32 from f64 "
+                  f"{dist(f32[j], f64[j]):.3e}; placed from f64 "
+                  f"{dist(placed, f64[j]):.3e}")
 
 
 def dist(a, b):
@@ -139,6 +189,9 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", nargs="+", default=list(ARCHS))
     ap.add_argument("--mesh", nargs=2, type=int, default=(1, 2))
+    ap.add_argument("--cache-len", type=int, default=None)
+    ap.add_argument("--more", nargs="*", type=int, default=[])
+    ap.add_argument("--split", type=int, default=None)
     ap.add_argument("--train", action="store_true")
     ap.add_argument("--grad-accum", type=int, default=1)
     ap.add_argument("--remat", action="store_true")
@@ -163,19 +216,30 @@ def main(argv=None):
         return
     tokens = [np.random.default_rng(5).integers(
         0, cfg.vocab_size, (BATCH, SEQ)).astype(np.int32) for cfg in cfgs]
+    if args.split is not None:
+        chunked_drift(cfgs, tokens, mesh, args.split, args.cache_len or 40)
+        return
     ranks = spawn_ranks(run_each, mesh[0] * mesh[1], backend="gloo",
                         device="cpu", args=(
-        [(placed_serve, (cfg, mesh, t)) for cfg, t in zip(cfgs, tokens)],))
+        [(placed_serve, (cfg, mesh, t, None, args.cache_len,
+                          tuple(args.more)))
+         for cfg, t in zip(cfgs, tokens)],))
     for i, (cfg, t) in enumerate(zip(cfgs, tokens)):
-        f32 = one_process(cfg, t)
+        r = ranks[0][i]
+        cut = (r["cache_len"], tuple(args.more))
+        f32 = one_process(cfg, t, *cut)
         f64 = one_process(dataclasses.replace(
-            cfg, dtype="float64", param_dtype="float64"), t)
-        for key in ("prefill", "decode"):
-            placed = ranks[0][i][key].astype(np.float64)
-            print(f"{cfg.name} {key}: placed {mesh} from one process "
-                  f"{dist(placed, f32[key]):.3e}; one process f32 from f64 "
-                  f"{dist(f32[key], f64[key]):.3e}; placed from f64 "
-                  f"{dist(placed, f64[key]):.3e}")
+            cfg, dtype="float64", param_dtype="float64"), t, *cut)
+        keys = [("prefill", lambda x: x["prefill"]),
+                ("decode", lambda x: x["decode"])] + [
+            (f"decode at {index}", lambda x, j=j: x["more"][j])
+            for j, index in enumerate(args.more)]
+        for key, of in keys:
+            placed = of(r).astype(np.float64)
+            print(f"{cfg.name} {key} ({r['cache_len']} slots): placed "
+                  f"{mesh} from one process {dist(placed, of(f32)):.3e}; "
+                  f"one process f32 from f64 {dist(of(f32), of(f64)):.3e}; "
+                  f"placed from f64 {dist(placed, of(f64)):.3e}")
 
 
 if __name__ == "__main__":

@@ -861,11 +861,19 @@ def row_kc(dtype):
     return 16 if dtype == "f64" else 32
 
 
+def cluster_instance(passes):
+    """(library, mangled-name substring) of the packed f32 TRSM's own core
+    above bs 16 (csrc/stepped_trsm_cluster.cuh), 32-deep chunks, in
+    ``passes`` passes."""
+    return ("stepped_trsm", f"stepped_trsm_cluster_kernelIfLi32ELi{passes}E")
+
+
 # (library, a substring of the mangled kernel name) of each kernel: the
 # row-split core's one-pass instances with its deepest chunks, which every
-# bs the full-size main paths use, and the stepped SYRK's one instance a
-# dtype
+# bs the full-size main paths use (the packed f32 TRSM: its cluster core),
+# and the stepped SYRK's one instance a dtype
 INSTANCES = {**core_instances(row_kc, 1),
+             "stepped_trsm_packed_f32": cluster_instance(1),
              "stepped_syrk": ("stepped_syrk", "stepped_syrk_kernelIdE"),
              "stepped_syrk_f32": ("stepped_syrk", "stepped_syrk_kernelIfE")}
 # the small-block instances (the panel core on the dense factor, the
@@ -873,7 +881,8 @@ INSTANCES = {**core_instances(row_kc, 1),
 # configurations' bs = 8)
 SMALL_INSTANCES = core_instances(lambda dtype: 0, 1)
 # the two-pass instances (128 < bs <= 256: the large-block phase)
-WIDE_INSTANCES = core_instances(row_kc, 2)
+WIDE_INSTANCES = {**core_instances(row_kc, 2),
+                  "stepped_trsm_packed_f32": cluster_instance(2)}
 # the libraries whose SASS must run on the FP64 tensor cores
 DMMA_LIBS = ("stepped_syrk", "stepped_trsm_syrk")
 # the libraries whose f32 products must run 3xTF32 on the tensor cores
@@ -1082,6 +1091,54 @@ def _packed_walk(x, word=8):
     return x["S"] * flops, word * x["S"] * len(walked) * bs * bs
 
 
+def chunk_bytes(x, cluster, word=4):
+    """(factor, Linv, Y) bytes the packed TRSM's column tiles copy from L2
+    into shared memory on this run's data, as ``_packed_walk`` walks it:
+    each 32-column tile takes its stripe's rows from the start, for every
+    stored slot right of the start a box of min(bs, 128) rows by bs and the
+    slot's Y rows a pass (two passes above bs 128), and the row's Linv block
+    (above bs 128: 128 x 128, then 128 x bs); a cluster of ``cluster`` tiles
+    copies each factor and Linv box once, each tile its own Y."""
+    from repro_torch.kernels._launch import TILE
+
+    index, bs, bm = x["packed"].index, x["bs"], x["bm"]
+    passes = -(-bs // 128)
+    box = min(bs, 128) * bs * passes
+    linv = bs * bs if passes == 1 else 128 * 128 + 128 * bs
+    factor = linv_n = slots = 0
+    for t in range(-(-x["m_pad"] // TILE)):
+        start = min(int(x["starts_np"][t * TILE // bm]), index.nb)
+        for k in range(start, index.nb):
+            walked = sum(1 for j, _ in index.row_slots(k) if j >= start)
+            factor += walked * box
+            slots += walked
+            linv_n += linv
+    S = x["S"]
+    return (word * S * factor // cluster, word * S * linv_n // cluster,
+            word * S * slots * bs * TILE * passes)
+
+
+def cluster_check(build, bs, bm):
+    """The packed f32 TRSM's cluster at (bs, bm): the column tiles its C
+    launcher puts in one cluster, and the clusters of it the card holds at
+    once."""
+    import ctypes
+
+    lib = build.load("stepped_trsm")
+    lib.stepped_trsm_cluster_tiles.argtypes = [ctypes.c_int]
+    lib.stepped_trsm_cluster_tiles.restype = ctypes.c_int
+    fn = lib.stepped_trsm_cluster_resident
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    c = lib.stepped_trsm_cluster_tiles(bm)
+    n = ctypes.c_int(0)
+    err = fn(bs, c, ctypes.byref(n))
+    if err or n.value < 1:
+        raise SystemExit(f"no cluster of {c} fits at bs {bs}: CUDA error "
+                         f"{err}")
+    return c, n.value
+
+
 def ptxas_report(build, built, instances=INSTANCES):
     """{kernel: {registers, spill_stores, spill_loads, static_smem,
     ptxas_cached}} of each of ``instances`` from the nvcc logs (``-Xptxas
@@ -1133,7 +1190,8 @@ def hmma_counts(build):
     counts, forms = {}, set()
     for lib in TF32_LIBS:
         for name, code in sass_functions(build, lib).items():
-            if re.search(r"stepped_(trsm|syrk|trsm_syrk)_kernelIf", name):
+            if re.search(r"stepped_(trsm|syrk|trsm_syrk|trsm_cluster)"
+                         r"_kernelIf", name):
                 counts[f"{lib}:{name}"] = len(
                     re.findall(r"\bHMMA\.1688\.F32\.TF32\b", code))
                 forms.update(re.findall(r"\bHMMA\.\S+", code))
@@ -1397,6 +1455,18 @@ def check_kernels(x, names, dtype, label, ptxas=None, plain_reps=REPS):
             bound_share=b["bound_ms"] / ms, unfused_pair_ms=pair_ms,
             syrk_items=syrk_items.get(name), bs=bs, bm=bm,
             **(ptxas or {}).get(key, {})))
+        if key == "stepped_trsm_packed_f32" and bs > 16:
+            from repro_torch.kernels import build as kbuild
+
+            c, resident = cluster_check(kbuild, bs, bm)
+            tile_f, tile_l, ybytes = chunk_bytes(x, 1)
+            clu_f, clu_l, _ = chunk_bytes(x, c)
+            rows[-1].update(cluster=c, resident_clusters=resident)
+            print(f"[chip_smoke] {label} {key}: clusters of {c} column tiles "
+                  f"({resident} resident); chunk bytes reckoned from the "
+                  f"slot walk, not counted: factor {clu_f:,} B + Linv "
+                  f"{clu_l:,} B (a tile each: {tile_f:,} + {tile_l:,}), Y "
+                  f"{ybytes:,} B", flush=True)
         routes = ", ".join(f"{r} {t:.3f} ms" for r, t in b["ops_ms"].items())
         print(f"[chip_smoke] {label} {key}: {ms:.3f} ms (plain "
               f"{plain_ms:.3f}, library {library_ms:.3f}, bound "
@@ -3355,8 +3425,8 @@ def main() -> int:
     hmma, forms = hmma_counts(build)
     print(f"[chip_smoke] TF32 HMMA instructions in the SASS of the f32 "
           f"instances: {hmma} (HMMA forms there: {forms})", flush=True)
-    for key in ("stepped_trsm_f32", "stepped_syrk_f32",
-                "stepped_trsm_syrk_f32"):
+    for key in ("stepped_trsm_f32", "stepped_trsm_packed_f32",
+                "stepped_syrk_f32", "stepped_trsm_syrk_f32"):
         lib, tag = INSTANCES[key]
         if not any(tag in name for name in hmma
                    if name.startswith(lib + ":")):

@@ -10,7 +10,11 @@
 //   * stepped_trsm_packed_f64, stepped_trsm_packed_f32:
 //     repro/kernels/stepped_trsm.py::stepped_trsm_packed_pallas (body
 //     _trsm_packed_kernel), the same TRSM against a packed factor whose
-//     inner loop walks only the stored blocks of each row.
+//     inner loop walks only the stored blocks of each row. At f32 and bs >
+//     16 that entry launches its own core, stepped_trsm_cluster.cuh (the
+//     column tiles of a stripe as one cluster, sharing each factor and Linv
+//     chunk by TMA multicast); every other instance is the row, panel or
+//     k-split core below.
 //
 // What bounds them (f64): the card's least time for the work is the f64
 // operations (dense: SteppedMeta.flops_trsm_rhs_split() per subdomain,
@@ -59,10 +63,12 @@
 //     place of FFMA, left its time where it was (PERF.md), while chunks 32
 //     deep instead of 16 (half the barriers and ring round trips a row)
 //     took a fifth off, and a 2-stage ring, three blocks a SM, a further
-//     eighth at feti-heat-3d's Dirichlet stage. What remains is the
-//     traffic of the chunks: each 32-column tile copies its rows' whole
-//     factor panel from L2 (12 GB at feti-heat-2d, 30 GB at the Dirichlet
-//     stage), so more columns a block is the next lever.
+//     eighth at feti-heat-3d's Dirichlet stage. Each 32-column tile copies
+//     its rows' whole factor panel from L2 (12 GB at feti-heat-2d, 30 GB at
+//     the Dirichlet stage). The packed f32 TRSM's own core
+//     (stepped_trsm_cluster.cuh) shares those copies between the tiles of
+//     a stripe, and measured that they are not what bounds the f32 core
+//     (PERF.md §6); the dense one still copies them a tile at a time.
 //   * Small blocks (bs <= 16; the smoke configurations' bs = 8): the panel
 //     core on the dense factor takes 64 rows (64 / bs factor rows) a pass,
 //     16 a warp: every warp works, and Y, which each factor row would
@@ -95,6 +101,7 @@
 // bs or bm.
 
 #include "stepped_trsm.cuh"
+#include "stepped_trsm_cluster.cuh"
 
 namespace {
 
@@ -133,11 +140,25 @@ int launch(Factor fac, const void* Linv, const void* B,
   if (bs % MIN_BS || bs > MAX_BS || bs < MIN_BS || bm % MIN_BS || bm < 1 ||
       n % bs || m % bm)
     return (int)cudaErrorInvalidValue;
-  return with_core<T>(bs, [&](auto kc, auto passes) {
-    return launch_kc<T, decltype(kc)::value, decltype(passes)::value>(
-        fac, (const T*)Linv, (const T*)B, (const int*)start_block, (T*)Y, S,
-        n, m, bs, bm, (cudaStream_t)stream);
-  });
+  if constexpr (std::is_same<T, float>::value && !Factor::contiguous) {
+    // the packed f32 TRSM: its cluster core above SMALL_MAX_BS
+    // (stepped_trsm_cluster.cuh), the k-split core at and below it
+    if (bs > SMALL_MAX_BS)
+      return trsm_cluster::launch(fac.values, fac.rowptr, fac.colidx,
+                                  fac.n_blocks, (const float*)Linv,
+                                  (const float*)B, (const int*)start_block,
+                                  (float*)Y, S, n, m, bs, bm,
+                                  (cudaStream_t)stream);
+    return launch_kc<T, SMALL, 1>(fac, (const T*)Linv, (const T*)B,
+                                  (const int*)start_block, (T*)Y, S, n, m, bs,
+                                  bm, (cudaStream_t)stream);
+  } else {
+    return with_core<T>(bs, [&](auto kc, auto passes) {
+      return launch_kc<T, decltype(kc)::value, decltype(passes)::value>(
+          fac, (const T*)Linv, (const T*)B, (const int*)start_block, (T*)Y, S,
+          n, m, bs, bm, (cudaStream_t)stream);
+    });
+  }
 }
 
 }  // namespace
@@ -161,3 +182,19 @@ int launch(Factor fac, const void* Linv, const void* B,
 
 STEPPED_TRSM_ENTRY(double, f64)
 STEPPED_TRSM_ENTRY(float, f32)
+
+// the column tiles a cluster of stepped_trsm_packed_f32 takes at bm (bs >
+// SMALL_MAX_BS): kernels/_launch.py::cluster_tiles is held to it
+extern "C" int stepped_trsm_cluster_tiles(int bm) {
+  return trsm_cluster::cluster_tiles(bm);
+}
+
+// *clusters: how many clusters of `cluster` blocks of that kernel's
+// instance for bs (> SMALL_MAX_BS) the current card holds at once
+extern "C" int stepped_trsm_cluster_resident(int bs, int cluster,
+                                             int* clusters) {
+  if (bs % MIN_BS || bs <= SMALL_MAX_BS || bs > MAX_BS || cluster < 1 ||
+      cluster > trsm_cluster::MAX_CLUSTER)
+    return (int)cudaErrorInvalidValue;
+  return trsm_cluster::resident(bs, cluster, clusters);
+}

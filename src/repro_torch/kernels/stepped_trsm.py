@@ -191,8 +191,12 @@ def stepped_trsm_packed_kernel(Linv: torch.Tensor, values: torch.Tensor,
       start_block: (m // bm,) int first factor block of each stripe.
 
     CUDA tensors launch the kernel of their dtype (same dtypes and tile
-    limits as :func:`stepped_trsm_kernel`); CPU tensors run the plain
-    version. ``stepped_trsm_packed_kernel.launches`` counts launches,
+    limits as :func:`stepped_trsm_kernel`); at f32 and bs > 16 it runs the
+    column tiles of a stripe as one thread-block cluster (as many as the
+    C launcher's ``stepped_trsm_cluster_tiles(bm)``) that loads each
+    factor and Linv chunk once, and a launch the card refuses (no such
+    cluster fits) raises. CPU tensors run the plain version.
+    ``stepped_trsm_packed_kernel.launches`` counts launches,
     ``.launches_by_dtype`` them per dtype.
     """
     dev = check_packed_operands(Linv, values, rowptr, colidx, B, start_block,

@@ -464,14 +464,155 @@ def test_cuda_f32_kernels_match_plain(n, m, bs, bm, S, empty):
         assert torch.all(F[:, i * bm:(i + 1) * bm, (i + 1) * bm:] == 0)
 
 
-# n, m, bs, bm: the small-block core (bs 8, 16) and the row-split core's 8-
-# and 16-deep chunks (bs 24, 40, 128)
+def _block_sparse_lower(nb, bs, S, rng, empty_row):
+    """(S, nb bs, nb bs) lower factors on a random block mask shared by all
+    S, a third of the blocks below the diagonal, block row ``empty_row``
+    with none; diagonal blocks lower triangular with 1 + U(0, 1) on their
+    diagonal. Returns the factors and the (nb, nb) mask."""
+    n = nb * bs
+    mask = np.tril(rng.random((nb, nb)) < 0.35, -1)
+    mask[empty_row] = False
+    mask |= np.eye(nb, dtype=bool)
+    L = np.zeros((S, n, n))
+    for k, j in zip(*np.nonzero(mask)):
+        blk = rng.standard_normal((S, bs, bs)) * (0.3 / np.sqrt(bs))
+        if k == j:
+            blk = np.tril(blk, -1) + np.eye(bs) * (1 + rng.random((S, 1, bs)))
+        L[:, k * bs:(k + 1) * bs, j * bs:(j + 1) * bs] = blk
+    return L, mask
+
+
+# n, m, bs, bm, S, empty columns of the packed f32 TRSM's cluster core:
+# clusters of 1 (bm 24), 2 (64) and 4 (128) column tiles, and two clusters
+# of 4 a stripe (256); chunks 8 (bs 24, 40, 200), 16 (bs 48) and 32 (bs
+# 128, 256) deep, one pass or two
+CLUSTER_CASES = [
+    (216, 100, 24, 24, 2, 0),  # m 100 -> 120: the last 32-column tile ragged
+    (400, 200, 40, 64, 3, 64),  # the last stripe all empty: start = nb
+    (288, 130, 48, 128, 2, 128),  # 16-deep chunks, the last stripe empty
+    (640, 258, 128, 128, 256, 0),  # many times the resident clusters
+    (600, 300, 200, 256, 2, 0),  # two passes, the second of 72 rows
+    (768, 258, 256, 256, 2, 0),  # two full passes
+]
+# the column tiles a cluster takes at each bm of CLUSTER_CASES
+CLUSTER_TILES = {24: 1, 64: 2, 128: 4, 256: 4}
+
+
+@pytest.mark.parametrize("n,m,bs,bm,S,empty", CLUSTER_CASES)
+def test_plain_packed_trsm_at_cluster_shapes_matches_reference(n, m, bs, bm,
+                                                               S, empty):
+    """The packed TRSM's CPU path at the cluster core's shapes (a ragged
+    last tile, an empty last stripe, a block row with no slot left of its
+    diagonal, one pass or two) against the reference's Pallas kernel in
+    interpret mode on the same f64 operands (TOL), on the first two
+    subdomains of each case: the plain version that
+    test_cuda_f32_packed_trsm_clusters holds the cluster core to is itself
+    held to the reference at those shapes."""
+    jnp, _, _ = _reference_ops()
+    from repro.kernels.stepped_trsm import stepped_trsm_packed_pallas
+
+    from repro_torch.kernels import stepped_trsm_packed_kernel
+    from repro_torch.sparse import PackedBlockIndex, pack_factor
+
+    S = min(S, 2)
+    rng = np.random.default_rng(n + bs)
+    nb = n // bs
+    L, mask = _block_sparse_lower(nb, bs, S, rng, empty_row=nb // 2)
+    Bt = _feti_like_bt(n, m, rng, empty)
+    meta = build_stepped_meta(Bt != 0, block_size=bs, rhs_block_size=bm)
+    m_pad = -(-m // bm) * bm
+    B = ops._pad_to(torch.from_numpy(
+        np.broadcast_to(Bt[:, meta.perm], (S, n, m)).copy()), n, m_pad)
+    starts_np = ops._start_blocks(meta, bm, bs, m_pad, n).astype(np.int32)
+    L64 = torch.from_numpy(L)
+    packed = pack_factor(L64, PackedBlockIndex.from_mask(mask, n, bs))
+    rowptr = np.asarray(packed.index.rowptr, np.int32)
+    cols = np.asarray(packed.index.cols, np.int32)
+    Linv = ops.invert_diag_blocks(L64, bs)
+    before = stepped_trsm_packed_kernel.launches
+    got = stepped_trsm_packed_kernel(
+        Linv, packed.values, torch.from_numpy(rowptr), torch.from_numpy(cols),
+        B, torch.from_numpy(starts_np), bs, bm)
+    assert stepped_trsm_packed_kernel.launches == before  # CPU: plain version
+    for s in range(S):
+        want = stepped_trsm_packed_pallas(
+            jnp.asarray(Linv[s].numpy()), jnp.asarray(packed.values[s].numpy()),
+            jnp.asarray(rowptr), jnp.asarray(cols), jnp.asarray(B[s].numpy()),
+            jnp.asarray(starts_np), bs=bs, bm=bm, interpret=True)
+        _close(got[s].numpy(), np.asarray(want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,m,bs,bm,S,empty", CLUSTER_CASES)
+def test_cuda_f32_packed_trsm_clusters(n, m, bs, bm, S, empty):
+    """The packed f32 TRSM's cluster core against its plain version (1e-4)
+    and the f64 kernel on the same f32 operands (1e-5) on a block-sparse
+    factor with a block row that stores nothing left of its diagonal (no
+    slot right of any start above it): rows above each stripe's start
+    exactly zero, one f32 launch counted, and the C launcher's cluster size
+    the one stated for bm."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import ctypes
+
+    from repro_torch.kernels import (
+        build,
+        stepped_trsm_packed_kernel,
+        stepped_trsm_packed_plain,
+    )
+    from repro_torch.sparse import PackedBlockIndex, pack_factor
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(n + bs)
+    nb = n // bs
+    L, mask = _block_sparse_lower(nb, bs, S, rng, empty_row=nb // 2)
+    Bt = _feti_like_bt(n, m, rng, empty)
+    meta = build_stepped_meta(Bt != 0, block_size=bs, rhs_block_size=bm)
+    dev = torch.device("cuda")
+    m_pad = -(-m // bm) * bm
+    L32 = torch.from_numpy(L).float().to(dev)
+    B = ops._pad_to(torch.from_numpy(
+        np.broadcast_to(Bt[:, meta.perm], (S, n, m)).copy()).float().to(dev),
+        n, m_pad)
+    starts_np = ops._start_blocks(meta, bm, bs, m_pad, n)
+    if empty >= bm:
+        assert starts_np[-1] == nb
+    starts = torch.as_tensor(starts_np, device=dev)
+    packed = pack_factor(L32, PackedBlockIndex.from_mask(mask, n, bs))
+    pops = (ops.invert_diag_blocks(L32, bs), packed.values,
+            torch.as_tensor(packed.index.rowptr, device=dev),
+            torch.as_tensor(packed.index.cols, device=dev))
+    fn = build.load("stepped_trsm").stepped_trsm_cluster_tiles
+    fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
+    assert fn(bm) == CLUSTER_TILES[bm]
+    before = dict(stepped_trsm_packed_kernel.launches_by_dtype)
+    got = stepped_trsm_packed_kernel(*pops, B, starts, bs, bm)
+    torch.cuda.synchronize()
+    assert stepped_trsm_packed_kernel.launches_by_dtype == {
+        "f64": before["f64"], "f32": before["f32"] + 1}
+    assert got.dtype == torch.float32 and torch.isfinite(got).all()
+    want = stepped_trsm_packed_plain(*pops, B, starts, bs, bm)
+    wide = [t.double() if t.is_floating_point() else t for t in pops]
+    twin = stepped_trsm_packed_kernel(*wide, B.double(), starts, bs, bm)
+    for ref, tol in ((want, F32_TOL), (twin, F64_GAP)):
+        scale = ref.abs().max().item()
+        assert (got.double() - ref.double()).abs().max().item() <= tol * scale
+    for c, st in enumerate(starts_np.tolist()):
+        assert torch.all(got[:, :st * bs, c * bm:(c + 1) * bm] == 0)
+
+
+# n, m, bs, bm: the small-block core (bs 8, 16), the row-split core's 8-
+# and 16-deep chunks (bs 24, 40, 128), and the packed f32 TRSM's clusters
+# of 2 (bm 64) and 4 (bm 128; bm 256: two a stripe), in one pass and in two
 F32_ACCURACY_CASES = [
     (200, 90, 8, 8),
     (250, 75, 16, 16),
     (130, 44, 24, 8),
     (300, 100, 40, 24),
     (520, 258, 128, 128),
+    (400, 200, 40, 64),
+    (600, 300, 200, 256),
+    (520, 258, 256, 256),
 ]
 F64_GAP = 1e-5  # f32 kernel vs the f64 kernel on the same f32 operands
 

@@ -50,8 +50,8 @@ def test_port_imports_neither_jax_nor_reference():
     # the kernels are real sources, shipped beside the package
     assert sorted(p.name for p in (PORT / "kernels" / "csrc").glob("*.cu*")) == [
         "dmma_f64.cuh", "stepped_syrk.cu", "stepped_syrk.cuh",
-        "stepped_trsm.cu", "stepped_trsm.cuh", "stepped_trsm_syrk.cu",
-        "tf32x3_f32.cuh"]
+        "stepped_trsm.cu", "stepped_trsm.cuh", "stepped_trsm_cluster.cuh",
+        "stepped_trsm_syrk.cu", "tf32x3_f32.cuh"]
 
 
 def test_entry_points_require_cuda_unless_cpu(monkeypatch):

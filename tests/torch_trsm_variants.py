@@ -2,7 +2,18 @@
 
     python3 tests/torch_trsm_variants.py [--levers row_ring3,panel_kc32,...]
         [--kernels B1,B2,...] [--sources NAME=DIR,...] [--orders rows,ready]
-        [--phases bs128,bs16] [--f64] [--dirichlet]
+        [--phases bs128,bs16,bs256] [--f64] [--dirichlet]
+
+e.g. B3 f32 against its parent's device code, steps (a) and (b) of its
+cluster core (``cluster1``: one block a cluster; "base": the stripe's
+tiles as one cluster) at every phase, in one call:
+
+    git archive <parent> src/repro_torch/kernels/csrc | tar -x -C build/parent
+    python3 tests/torch_trsm_variants.py --kernels B3 --levers cluster1 \
+        --sources parent=build/parent/src/repro_torch/kernels/csrc --dirichlet
+
+(``--levers cluster_count,cluster1_count`` also counts, on the card, the
+factor, Linv and Y bytes that steps (b) and (a) copy in one launch.)
 
 Each lever is a set of substitutions in the sources of
 ``src/repro_torch/kernels/csrc`` (a constant, a launch bound, a loop's
@@ -14,9 +25,10 @@ libraries at once through ``repro_torch.kernels.build`` and prints each
 instance's registers and spills. ``--sources`` adds whole source trees as
 variants (a copy of ``csrc/`` from another commit, unpacked with ``git
 archive``: its kernels keep the same C interface). Then, on feti-heat-2d's
-full-size factor (``chip_smoke.kernel_inputs``) at bs = 128 (f32) and at
-bs = bm = 16 (``chip_smoke.reblocked_inputs``; f32 and f64; ``--f64``
-adds f64 at every phase; ``--phases`` picks some), it runs the stepped
+full-size factor (``chip_smoke.kernel_inputs``) at bs = 128 (f32), at
+bs = bm = 16 (``chip_smoke.reblocked_inputs``; f32 and f64) and, with
+``--phases bs256``, at bs = bm = 256 (f32; ``--f64`` adds f64 at every
+phase; ``--phases`` picks some), it runs the stepped
 TRSM (B1), the stepped SYRK (B2, on the plain TRSM's Y), the packed TRSM
 (B3) and both fused kernels (B4, B5) of every variant ("base": the
 sources as they are; ``--kernels`` picks some) through the port's own
@@ -58,10 +70,47 @@ K8_LOOP = """  static_assert(MI % 2 == 0 && KDEPTH % 8 == 0, "m16n8k8 tiles");
 #pragma unroll 1
   for (int k = 0; k < KDEPTH; k += 8) {
     uint32_t a_hi"""
+CLUSTER_MAX = "constexpr int MAX_CLUSTER = 4;"
+CLUSTER_POLICY = "cudaClusterSchedulingPolicyLoadBalancing;"
+CLUSTER_RING = "constexpr int RING = (PASSES == 1 ? 2 : 3) * (MAX_KC / KC);"
+CLUSTER_K8 = """#pragma unroll 1
+  for (int k = 0; k < KC; k += 8) {"""
 SYRK_KC = "constexpr int SYRK_KC = sizeof(T) == 4 && TM == 128 ? 32 : 16;"
+# counters in the cluster core of the bytes its factor and Linv boxes bring
+# from global memory (once a load, however many blocks a multicast
+# reaches) and of the Y bytes each block copies, read and zeroed by
+# stepped_trsm_cluster_counted
+CLUSTER_COUNT = [
+    ("constexpr int ENCODE_FAILED = 10000;",
+     "constexpr int ENCODE_FAILED = 10000;\n"
+     "__device__ unsigned long long counted_bytes[3];  // factor, Linv, Y"),
+    ("""          tma_load(smem_u32(As + st * A_ST), map, x, y, ring.full(st),
+                   cluster);
+""", """          tma_load(smem_u32(As + st * A_ST), map, x, y, ring.full(st),
+                   cluster);
+          atomicAdd(&counted_bytes[Yj ? 0 : 1], (unsigned long long)tx);
+"""),
+    ("""      if (lane == 0) {
+        mbar_expect_tx(ring.full(st), tx);""",
+     """      if (lane == 0) {
+        if (Yj)
+          atomicAdd(&counted_bytes[2],
+                    (unsigned long long)(KC * width * sizeof(float)));
+        mbar_expect_tx(ring.full(st), tx);"""),
+    ('extern "C" int stepped_trsm_cluster_tiles(int bm) {',
+     """extern "C" int stepped_trsm_cluster_counted(unsigned long long* out) {
+  const unsigned long long zero[3] = {0, 0, 0};
+  cudaError_t err = cudaMemcpyFromSymbol(out, trsm_cluster::counted_bytes,
+                                         sizeof zero);
+  if (err == cudaSuccess)
+    err = cudaMemcpyToSymbol(trsm_cluster::counted_bytes, zero, sizeof zero);
+  return (int)err;
+}
+
+extern "C" int stepped_trsm_cluster_tiles(int bm) {""")]
 # chip_smoke's label of each phase (F32_SYRK_TWIN_TOL's keys)
 PHASES = {"bs128": "heat-2d dual", "bs16": "heat-2d dual bs=16",
-          "dirichlet": "heat-3d dirichlet"}
+          "bs256": "heat-2d dual bs=256", "dirichlet": "heat-3d dirichlet"}
 # the f32 SYRK tile split once a chunk, at staging, into TF32 hi and lo
 # panels (hi over the f32 values, lo in a buffer after the ring), the
 # products reading the split values; f64 unchanged
@@ -216,10 +265,55 @@ LEVERS = {
                 "__launch_bounds__(THREADS, 3)")],
     # the panel and k-split cores' rings 2 deep
     "small_ring2": [("constexpr int STAGES = 3;", "constexpr int STAGES = 2;")],
+    # the packed f32 TRSM's cluster core with one block a cluster: its TMA
+    # ring and producer warp alone, every tile loading its own chunks (step
+    # (a) of its design; "base" is step (b))
+    "cluster1": [(CLUSTER_MAX, CLUSTER_MAX.replace("4", "1"))],
+    # clusters of at most two and eight blocks
+    "cluster2": [(CLUSTER_MAX, CLUSTER_MAX.replace("4", "2"))],
+    "cluster8": [(CLUSTER_MAX, CLUSTER_MAX.replace("4", "8"))],
+    # steps (b) and (a) counting the bytes their chunks copy (printed
+    # beside chip_smoke.chunk_bytes' reckoning of them)
+    "cluster_count": CLUSTER_COUNT,
+    "cluster1_count": [(CLUSTER_MAX, CLUSTER_MAX.replace("4", "1")),
+                       *CLUSTER_COUNT],
+    # clusters whose blocks share nothing: each loads its own boxes and
+    # waits for no other block (what the cluster launch costs without the
+    # multicast and its waits)
+    "cluster_no_share": [
+        ("        if (lane < cluster) mbar_arrive_remote(ring.empty(st), lane);\n",
+         ""),
+        ("        if (q % cluster == rank) {\n"
+         "          if (q >= RG) mbar_wait(ring.empty(st), parity);",
+         "        {"),
+        ("ring.full(st),\n                   cluster);",
+         "ring.full(st),\n                   1);")],
+    # the other cluster scheduling preferences
+    "cluster_spread": [(CLUSTER_POLICY, "cudaClusterSchedulingPolicySpread;")],
+    "cluster_default": [(CLUSTER_POLICY,
+                         "cudaClusterSchedulingPolicyDefault;")],
+    # the one-pass ring twice as deep (two blocks a SM)
+    "cluster_ring4": [(CLUSTER_RING, CLUSTER_RING.replace("? 2 : 3", "? 4 : 3"))],
+    # chunks at most 16 deep
+    "cluster_kc16": [("constexpr int MAX_KC = 32;",
+                      "constexpr int MAX_KC = 16;")],
+    # its k8 steps unrolled by two
+    "cluster_unroll2": [(CLUSTER_K8, CLUSTER_K8.replace("unroll 1",
+                                                        "unroll 2"))],
+    # timing only (TIMING_ONLY): the cluster core's consumers skip their
+    # products, which leaves the ring's copies and barriers; its producer
+    # takes no hand-over of Y, which leaves the rows' dependence out
+    "cluster_no_mma": [("          if (active)\n            mma_chunk<KC, true>",
+                        "          if (n < 0)\n            mma_chunk<KC, true>"),
+                       ("if (active && c * KC < pr0 + wr0 + WROWS)",
+                        "if (n < 0)")],
+    "cluster_no_wait": [("          need(j);\n", ""),
+                        ("      need(k - 1);\n", "")],
 }
 
 
-TIMING_ONLY = ("fused_no_syrk", "fused_no_wait")
+TIMING_ONLY = ("fused_no_syrk", "fused_no_wait", "cluster_no_mma",
+               "cluster_no_wait")
 ORDERS = ("rows", "ready")
 
 
@@ -265,7 +359,12 @@ def ready_first(xx, index=None):
     return np.concatenate([base[:n_trsm], perm + n_trsm]).astype(np.int32)
 
 
-def build(levers, sources=None):
+# the library each kernel is built in
+KERNEL_LIBS = {"B1": "stepped_trsm", "B2": "stepped_syrk", "B3": "stepped_trsm",
+               "B4": "stepped_trsm_syrk", "B5": "stepped_trsm_syrk"}
+
+
+def build(levers, sources=None, libs=LIBS):
     """The sources of each lever (``build/trsm_variants/<lever>``; "base"
     the port's own) and of each named tree in ``sources``, their libraries
     built all at once; returns
@@ -298,31 +397,95 @@ def build(levers, sources=None):
     # threads into the same path
     claimed, jobs = set(), []
     for d in dirs.values():
-        libs = [lib for lib in LIBS
+        todo = [lib for lib in libs
                 if kbuild._library_path(lib, d) not in claimed]
-        claimed.update(kbuild._library_path(lib, d) for lib in libs)
-        jobs.append((d, libs))
+        claimed.update(kbuild._library_path(lib, d) for lib in todo)
+        jobs.append((d, todo))
     with ThreadPoolExecutor(len(jobs)) as pool:
         list(pool.map(lambda job: kbuild.build(job[1], csrc=job[0]), jobs))
     regs = {}
     for lever, d in dirs.items():
-        for lib in LIBS:
+        for lib in libs:
             log = kbuild._library_path(lib, d).with_suffix(".log").read_text()
             for block in re.split(r"Compiling entry function", log)[1:]:
                 name = block.split("'")[1]
-                m = re.search(
-                    r"(\w+_kernel)I([fd])Li(\d+)EN7stepped\d+(\w+?)I", name)
+                # <T, KC, PASSES[, Factor]>: the cluster core has no
+                # factor accessor
+                m = re.search(r"([a-z_]+_kernel)I([fd])Li(\d+)ELi(\d+)E"
+                              r"(?:N7stepped\d+(\w+?)I)?", name)
                 syrk = re.search(r"(stepped_syrk_kernel)I([fd])E", name)
                 used = re.search(r"Used (\d+) registers", block)
                 spills = re.findall(r"(\d+) bytes spill stores", block)
                 key = ((lever, m.group(1), m.group(2), int(m.group(3)),
-                        m.group(4)) if m else
+                        f"{m.group(5) or 'PackedFactor'} x{m.group(4)}")
+                       if m else
                        (lever, syrk.group(1), syrk.group(2), 0, "-") if syrk
                        else None)
                 if key and used:
                     regs[key] = (int(used.group(1)),
                                  sum(int(b) for b in spills))
     return dirs, regs
+
+
+def resident_clusters(dirs, bs=128):
+    """Print, for each variant whose library has it, the clusters of 1, 2,
+    4 and 8 blocks of the packed f32 TRSM's instance for ``bs`` that the
+    card holds at once, and the blocks that makes."""
+    import ctypes
+
+    from repro_torch.kernels import build as kbuild
+
+    for v, d in dirs.items():
+        with kbuild.sources(d):
+            fn = getattr(kbuild.load("stepped_trsm"),
+                         "stepped_trsm_cluster_resident", None)
+        if fn is None:
+            continue
+        fn.argtypes = [ctypes.c_int, ctypes.c_int,
+                       ctypes.POINTER(ctypes.c_int)]
+        fn.restype = ctypes.c_int
+        cells = []
+        for c in (1, 2, 4, 8):
+            n = ctypes.c_int(0)
+            err = fn(bs, c, ctypes.byref(n))
+            cells.append(f"{c}: {n.value} ({c * n.value} blocks)" if not err
+                         else f"{c}: CUDA error {err}")
+        print(f"{v}: resident clusters at bs {bs}: " + ", ".join(cells),
+              flush=True)
+
+
+def counted_chunks(xx, run):
+    """The bytes the packed f32 TRSM's cluster core copies in one ``run``
+    as a counting lever's counters count them, beside
+    ``chip_smoke.chunk_bytes``' reckoning from the slot walk; None where the
+    current build has no counters."""
+    import ctypes
+
+    import torch
+
+    import chip_smoke as cs
+    from repro_torch.kernels import build as kbuild
+
+    lib = kbuild.load("stepped_trsm")
+    read = getattr(lib, "stepped_trsm_cluster_counted", None)
+    if read is None:
+        return None
+    read.argtypes = [ctypes.POINTER(ctypes.c_ulonglong)]
+    read.restype = ctypes.c_int
+    lib.stepped_trsm_cluster_tiles.argtypes = [ctypes.c_int]
+    lib.stepped_trsm_cluster_tiles.restype = ctypes.c_int
+    got = (ctypes.c_ulonglong * 3)()
+    torch.cuda.synchronize()
+    err = read(got)  # zeroes the counters
+    run()
+    torch.cuda.synchronize()
+    err = err or read(got)
+    if err:
+        raise SystemExit(f"the cluster core's counters: CUDA error {err}")
+    c = lib.stepped_trsm_cluster_tiles(xx["bm"])
+    f, li, y = cs.chunk_bytes(xx, c)
+    return (f"counted factor {got[0]:,} B, Linv {got[1]:,} B, Y {got[2]:,} "
+            f"B; reckoned for clusters of {c}: {f:,}, {li:,}, {y:,}")
 
 
 def time_phase(label, xx, dtypes, dirs, kernels=KERNELS, orders=("rows",)):
@@ -415,6 +578,10 @@ def time_phase(label, xx, dtypes, dirs, kernels=KERNELS, orders=("rows",)):
                                  + (f" > its bar {bars[name]:g}"
                                     if terr > bars[name] else ""))
                     cells.append(cell + ")")
+                    if name == "B3" and f32 and bs > 16:
+                        counted = counted_chunks(xx, run)
+                        if counted:
+                            cells.append(f"B3 chunks: {counted}")
             tag = v if len(orders) == 1 else f"{v} order={o}"
             print(f"{label} {suf} {tag}: " + "; ".join(cells), flush=True)
     return bad
@@ -434,7 +601,8 @@ def main(argv=None) -> int:
                         f"SYRK items to time ({', '.join(ORDERS)})")
     p.add_argument("--phases", default="bs128,bs16",
                    help="comma-separated phases: bs128 (f32; --f64 adds "
-                        "f64), bs16 (f32 and f64)")
+                        "f64), bs16 (f32 and f64), bs256 (f32; --f64 adds "
+                        "f64)")
     p.add_argument("--f64", action="store_true",
                    help="also f64 at bs = 128 and the Dirichlet stage")
     p.add_argument("--dirichlet", action="store_true",
@@ -469,9 +637,12 @@ def main(argv=None) -> int:
     sources = dict(item.split("=", 1) for item in args.sources.split(",")
                    if item)
     dirs, regs = build(levers, {name: os.path.abspath(d)
-                                for name, d in sources.items()})
+                                for name, d in sources.items()},
+                       sorted({KERNEL_LIBS[k] for k in kernels}))
     for key, (r, spill) in sorted(regs.items()):
         print(f"ptxas {key}: {r} registers, {spill} B spill stores")
+    if "B3" in kernels:
+        resident_clusters(dirs)
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
     bad = []
@@ -479,6 +650,10 @@ def main(argv=None) -> int:
     wide = (torch.float32, torch.float64) if args.f64 else (torch.float32,)
     if "bs128" in phases:
         bad += time_phase("bs128", x, wide, dirs, kernels, orders)
+    if "bs256" in phases:
+        x256 = cs.reblocked_inputs(x, dev, cs.WIDE_BS)
+        bad += time_phase("bs256", x256, wide, dirs, kernels, orders)
+        del x256
     if "bs16" in phases:
         x16 = cs.reblocked_inputs(x, dev, cs.SMALL_BS)
         del x
